@@ -1,0 +1,185 @@
+"""append_backward: symbolic reverse-mode autodiff over the Program IR.
+
+Reference: python/paddle/fluid/backward.py:1023 (append_backward), which
+asks C++ per-op GradOpDescMakers for hand-written grad ops and inserts
+sum ops for gradient aggregation.
+
+As in the JAX package, grad ops are synthesized: for forward op `foo`,
+op `foo_grad` takes the same primal inputs plus 'GRAD::<out_slot>'
+cotangent slots, and its lowering differentiates foo's lowering
+(ops/registry.py grad_op_def, by torch.autograd here).  A var consumed
+by N ops gets an explicit `sum` op.  The program this builds serializes
+like the JAX package's: the same grad op types, @GRAD names and roles.
+By default the executor does not run the grad ops one by one: it takes
+one autograd pass over the forward region (executor._wpg_partition).
+
+Control-flow backward (while / conditional_block) and recompute
+checkpoints are not ported yet.
+"""
+
+from collections import defaultdict
+
+from . import framework, unique_name
+from .framework import grad_var_name
+
+
+def _is_float_dtype(dtype):
+    return str(dtype) in ('float16', 'bfloat16', 'float32', 'float64')
+
+
+def _creates_grad(var):
+    return _is_float_dtype(var.dtype) and not var.stop_gradient
+
+
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None, checkpoints=None):
+    """Append the backward of `loss` to its program; returns
+    [(param, grad_var), ...] for the trainable parameters."""
+    if checkpoints:
+        raise NotImplementedError('recompute checkpoints are not ported '
+                                  'yet')
+    program = loss.block.program
+    block = program.global_block()
+    no_grad_set = set(no_grad_set or [])
+    # the whole-program-grad executor must treat these names as
+    # constants exactly like this pruning pass does
+    program._backward_no_grad_names = set(getattr(
+        program, '_backward_no_grad_names', ())) | no_grad_set
+    with program._role_guard('backward'):
+        return _append_backward_impl(loss, program, block, parameter_list,
+                                     no_grad_set)
+
+
+def _append_backward_impl(loss, program, block, parameter_list,
+                          no_grad_set):
+    loss_idx = None
+    for i in range(len(block.ops) - 1, -1, -1):
+        if loss.name in block.ops[i].output_arg_names:
+            loss_idx = i
+            break
+    if loss_idx is None:
+        raise ValueError('loss %s is not produced in this program'
+                         % loss.name)
+
+    # contributions: var name -> list of grad var names
+    contribs = defaultdict(list)
+
+    # seed d(loss) = 1
+    loss_grad = block.create_var(
+        name=grad_var_name(loss.name), shape=loss.shape, dtype=loss.dtype,
+        persistable=False)
+    block.append_op(
+        'fill_constant', outputs={'Out': loss_grad},
+        attrs={'shape': list(loss.shape), 'dtype': loss.dtype,
+               'value': 1.0})
+    contribs[loss.name].append(loss_grad.name)
+
+    def resolve_grad(name):
+        """Collapse accumulated contributions into <name>@GRAD."""
+        lst = contribs.get(name)
+        if not lst:
+            return None
+        target = grad_var_name(name)
+        if len(lst) == 1:
+            return lst[0]
+        if not block.has_var(target):
+            src = block._find_var_recursive(name)
+            tv = block.create_var(name=target,
+                                  shape=src.shape if src else (),
+                                  dtype=src.dtype if src else 'float32')
+            tv.stop_gradient = True
+        block.append_op('sum', inputs={'X': list(lst)},
+                        outputs={'Out': target}, infer_shape=False)
+        contribs[name] = [target]
+        return target
+
+    for op in reversed(block.ops[:loss_idx + 1]):
+        if op.type in ('while', 'conditional_block'):
+            raise NotImplementedError('the backward of %s is not ported '
+                                      'yet' % op.type)
+        _op_backward(block, op, contribs, resolve_grad, no_grad_set)
+
+    # resolve every accumulated grad and publish the name map so callers
+    # can find grads of arbitrary vars
+    grad_map = {}
+    for name in list(contribs.keys()):
+        g = resolve_grad(name)
+        if g is not None:
+            grad_map[name] = g
+    if not hasattr(program, '_grad_name_map'):
+        program._grad_name_map = {}
+    program._grad_name_map.update(grad_map)
+
+    params_grads = []
+    wanted = None
+    if parameter_list is not None:
+        wanted = set(p.name if isinstance(p, framework.Variable) else p
+                     for p in parameter_list)
+    for p in block.all_parameters():
+        if not p.trainable or p.name in no_grad_set:
+            continue
+        if wanted is not None and p.name not in wanted:
+            continue
+        g = resolve_grad(p.name)
+        if g is None:
+            continue
+        params_grads.append((p, block._find_var_recursive(g)))
+    return params_grads
+
+
+def _op_backward(block, op, contribs, resolve_grad, no_grad_set):
+    from ..ops import registry
+    if op.type in registry.HOST_OPS:
+        return False
+    # gather available output grads
+    grad_in = {}
+    for slot, names in op.outputs.items():
+        if not any(contribs.get(n) for n in names):
+            continue
+        row = []
+        for n in names:
+            g = resolve_grad(n)
+            if g is None:
+                # sibling output without grad: a zeros placeholder keeps
+                # positional alignment within the slot
+                v = block._find_var_recursive(n)
+                z = block.create_var(
+                    name=unique_name.generate(n + '@ZERO'),
+                    shape=v.shape, dtype=v.dtype)
+                block.append_op('fill_zeros_like', inputs={'X': n},
+                                outputs={'Out': z})
+                g = z.name
+            row.append(g)
+        grad_in['GRAD::' + slot] = row
+    if not grad_in:
+        return False
+
+    # does any input need a gradient?
+    if not any(v is not None and _creates_grad(v) and n not in no_grad_set
+               for n, v in ((n, block._find_var_recursive(n))
+                            for n in op.input_arg_names)):
+        return False
+
+    grad_inputs = {slot: list(names) for slot, names in op.inputs.items()}
+    grad_inputs.update(grad_in)
+    grad_outputs = {}
+    for slot, names in op.inputs.items():
+        row = []
+        for n in names:
+            v = block._find_var_recursive(n)
+            gname = unique_name.generate(grad_var_name(n))
+            gv = block.create_var(name=gname,
+                                  shape=v.shape if v else (),
+                                  dtype=v.dtype if v else 'float32')
+            gv.stop_gradient = True
+            row.append(gname)
+            if v is not None and _creates_grad(v) and n not in no_grad_set:
+                contribs[n].append(gname)
+        grad_outputs['GRAD::' + slot] = row
+    attrs = dict(op.attrs)
+    # the grad op inherits the forward op's attrs (incl. __op_seed__, so
+    # dropout regenerates the same mask) but NOT its role
+    attrs['__op_role__'] = 'backward'
+    block.append_op(op.type + '_grad', inputs=grad_inputs,
+                    outputs=grad_outputs, attrs=attrs, infer_shape=False)
+    return True

@@ -15,6 +15,12 @@ _DEFAULTS = {
     # Directory the CUDA kernels are compiled into; '' means
     # <checkout>/build/torch_kernels.
     'FLAGS_torch_kernel_build_dir': '',
+    # Group each contiguous run of same-hyperparameter adam/adamw ops
+    # into one multi-tensor update (the JAX package's
+    # FLAGS_pallas_opt_fuse), when the run holds at least this many
+    # tensors (FLAGS_pallas_opt_min_tensors).
+    'FLAGS_torch_opt_fuse': True,
+    'FLAGS_torch_opt_min_tensors': 2,
 }
 
 _flags = {}

@@ -76,6 +76,10 @@ class Parameter(Variable):
         self.do_model_average = kwargs.get('do_model_average', None)
 
 
+def grad_var_name(name):
+    return name + "@GRAD"
+
+
 def _op_is_stochastic(op_type):
     """dropout, or any lowering registered stochastic=True (draws
     randomness without a declared is_test attr) — clone(for_test)
@@ -301,6 +305,17 @@ class Program(object):
         self._op_seed_counter = [0]
         self._seed_base = np.random.randint(0, 2 ** 31 - 1)
         self._current_role = 'forward'
+
+    @contextlib.contextmanager
+    def _role_guard(self, role):
+        """Stamp the ops appended inside with `role` ('backward' /
+        'optimize'); clone(for_test=True) prunes them."""
+        prev = self._current_role
+        self._current_role = role
+        try:
+            yield
+        finally:
+            self._current_role = prev
 
     def _bump_version(self):
         self._version += 1

@@ -1,11 +1,11 @@
-"""Neural-net layers: the subset the BERT encoder builds.
+"""Neural-net layers: the subset BERT pretraining builds.
 Reference: python/paddle/fluid/layers/nn.py.
 
 Each layer appends IR ops via LayerHelper exactly like the reference
 (e.g. fc at layers/nn.py:207) and the JAX package, so both packages
-build the same Program.  ``dropout``, ``softmax``, ``matmul`` and
-``transpose`` build their ops, but this slice has no lowering for them:
-a program holding one raises NotImplementedError in the executor.
+build the same Program.  ``softmax``, ``matmul`` and ``transpose``
+build their ops, but the port has no lowering for them yet: a program
+holding one raises NotImplementedError in the executor.
 """
 
 import numpy as np
@@ -13,7 +13,8 @@ import numpy as np
 from ..layer_helper import LayerHelper
 
 __all__ = ['fc', 'embedding', 'layer_norm', 'dropout', 'softmax', 'matmul',
-           'elementwise_add', 'reshape', 'unsqueeze', 'transpose', 'split']
+           'elementwise_add', 'reshape', 'unsqueeze', 'transpose', 'split',
+           'softmax_with_cross_entropy', 'mean', 'slice']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -181,3 +182,36 @@ def split(input, num_or_sections, dim=-1, name=None):
     helper.append_op('split', inputs={'X': input}, outputs={'Out': outs},
                      attrs={'axis': dim, 'num': num, 'sections': sections})
     return outs
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    helper = LayerHelper('softmax_with_cross_entropy')
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op('softmax_with_cross_entropy',
+                     inputs={'Logits': logits, 'Label': label},
+                     outputs={'Softmax': softmax_out, 'Loss': loss},
+                     attrs={'soft_label': soft_label,
+                            'ignore_index': ignore_index, 'axis': axis})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper('mean', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op('mean', inputs={'X': x}, outputs={'Out': out})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper('slice')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('slice', inputs={'Input': input},
+                     outputs={'Out': out},
+                     attrs={'axes': list(axes), 'starts': list(starts),
+                            'ends': list(ends), 'decrease_axis': []})
+    return out

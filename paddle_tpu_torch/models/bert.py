@@ -1,12 +1,15 @@
-"""BERT encoder (BASELINE.json config 2), built with the port's fluid
-layers into the same Program the JAX package builds (models/bert.py).
+"""BERT encoder and pretraining heads (BASELINE.json config 2), built
+with the port's fluid layers into the same Programs the JAX package
+builds (models/bert.py).
 
-Reference workload: fused_attention + layer_norm on the reference's
-multihead_matmul fused op (operators/fused/multihead_matmul_op.*).  At
-seq >= flash_min_len the attention chain is ONE fused_multihead_attention
-op, which runs the hand-written flash-attention kernel on the GPU.  The
-naive matmul/softmax chain below flash_min_len builds, but this slice
-has no lowering for its ops (the executor raises NotImplementedError).
+Reference workload: fused_attention + layer_norm + adam on the
+reference's multihead_matmul fused op (operators/fused/
+multihead_matmul_op.*).  At seq >= flash_min_len the attention chain is
+ONE fused_multihead_attention op, which runs the hand-written
+flash-attention kernels on the GPU (forward, in-kernel attention
+dropout, backward).  The naive matmul/softmax chain below flash_min_len
+builds, but the port has no lowering for its ops yet (the executor
+raises NotImplementedError).
 """
 
 import numpy as np
@@ -166,3 +169,50 @@ def encoder_batch(cfg, batch, seq_len, rng, pad_to=None):
         mask[:, pad_to:] = 0.0
     return {'src_ids': src, 'pos_ids': pos, 'sent_ids': sent,
             'input_mask': mask}
+
+
+def build_pretrain(cfg=None, seq_len=128, is_test=False):
+    """Masked-LM + next-sentence pretraining heads (the reference BERT
+    pretraining workload) -> (feeds, encoder output, loss)."""
+    cfg = cfg or BASE
+    src = layers.data('src_ids', shape=[seq_len], dtype='int64')
+    pos = layers.data('pos_ids', shape=[seq_len], dtype='int64')
+    sent = layers.data('sent_ids', shape=[seq_len], dtype='int64')
+    mask = layers.data('input_mask', shape=[seq_len], dtype='float32')
+    mlm_label = layers.data('mlm_label', shape=[seq_len], dtype='int64')
+    nsp_label = layers.data('nsp_label', shape=[1], dtype='int64')
+
+    enc = bert_encoder(src, pos, sent, mask, cfg, is_test)
+    # MLM head over all positions (dense path; gather of masked positions
+    # is a host-side optimization)
+    mlm_logits = layers.fc(enc, size=cfg.vocab_size, num_flatten_dims=2)
+    mlm_loss = layers.softmax_with_cross_entropy(
+        mlm_logits, layers.unsqueeze(mlm_label, [2]), ignore_index=-1)
+    mlm_loss = layers.mean(mlm_loss)
+    # NSP head on [CLS] (position 0)
+    cls = layers.slice(enc, axes=[1], starts=[0], ends=[1])
+    cls = layers.reshape(cls, [0, cfg.hidden])
+    nsp_logits = layers.fc(cls, size=2)
+    nsp_loss = layers.mean(
+        layers.softmax_with_cross_entropy(nsp_logits, nsp_label))
+    loss = layers.elementwise_add(mlm_loss, nsp_loss)
+    feeds = {'src_ids': src, 'pos_ids': pos, 'sent_ids': sent,
+             'input_mask': mask, 'mlm_label': mlm_label,
+             'nsp_label': nsp_label}
+    return feeds, enc, loss
+
+
+def synthetic_batch(cfg, batch, seq_len, rng):
+    """A pretraining batch: random tokens, positions 0..T-1, sentence 0,
+    no padding, ~15% of positions labelled for the MLM loss (-1
+    elsewhere) and a random NSP label."""
+    src = rng.randint(0, cfg.vocab_size, (batch, seq_len)).astype('int64')
+    pos = np.tile(np.arange(seq_len), (batch, 1)).astype('int64')
+    sent = np.zeros((batch, seq_len), 'int64')
+    mask = np.ones((batch, seq_len), 'float32')
+    mlm = np.where(rng.rand(batch, seq_len) < 0.15,
+                   rng.randint(0, cfg.vocab_size, (batch, seq_len)),
+                   -1).astype('int64')
+    nsp = rng.randint(0, 2, (batch, 1)).astype('int64')
+    return {'src_ids': src, 'pos_ids': pos, 'sent_ids': sent,
+            'input_mask': mask, 'mlm_label': mlm, 'nsp_label': nsp}

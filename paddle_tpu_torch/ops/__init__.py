@@ -8,3 +8,4 @@ from . import math_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import activation_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
+from . import optimizer_ops  # noqa: F401

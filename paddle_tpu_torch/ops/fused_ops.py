@@ -13,10 +13,11 @@ def fused_multihead_attention(ctx, ins, attrs):
     """Q,K,V: [B, T, H, D] (+ optional KeyBias [B, T] additive score
     bias, e.g. a padding mask) -> Out [B, T, H, D].
 
-    attrs['dropout_rate'] > 0 asks for attention-probability dropout,
-    which only a training program uses; it is skipped in test mode
-    (clone(for_test) stamps is_test), and otherwise raises in the
-    kernel wrapper until the training slice brings it."""
+    attrs['dropout_rate'] > 0 applies attention-probability dropout
+    inside the kernels, with the counter-hash mask keyed on
+    ctx.dropout_seed(attrs) (op seed and step), so the backward and any
+    replay regenerate it; skipped in test mode (clone(for_test) stamps
+    is_test), like the dropout op."""
     from .kernels.flash_attention import flash_attention
     q = ins['Q'][0]
     k = ins['K'][0]

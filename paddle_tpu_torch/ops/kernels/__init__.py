@@ -5,3 +5,4 @@ Nothing is compiled at import: a kernel builds at its first launch."""
 from . import common  # noqa: F401
 from . import embedding  # noqa: F401
 from . import flash_attention  # noqa: F401
+from . import fused_optimizer  # noqa: F401

@@ -12,8 +12,10 @@ its plain twin on the card.
 
 Build: ``nvcc -O3 -gencode=arch=compute_90a,code=sm_90a`` compiles each
 ``csrc/<name>.cu`` into ``<build dir>/<name>-<source hash>.so``, a
-library with a plain C interface loaded through ctypes.  The kernels
-build at first use; ``build()`` starts every missing build at once.
+library with a plain C interface loaded through ctypes; a source may
+add flags of its own (``SOURCE_FLAGS``), and the hash covers the shared
+``csrc/*.cuh`` headers.  The kernels build at first use; ``build()``
+starts every missing build at once.
 """
 
 import ctypes
@@ -32,6 +34,9 @@ _CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 NVCC_FLAGS = ('-O3', '-gencode=arch=compute_90a,code=sm_90a', '-std=c++17',
               '-shared', '-Xcompiler', '-fPIC')
+# flags of one source on top of NVCC_FLAGS: the fused optimizer rounds
+# every operation as its plain version's separate kernels do
+SOURCE_FLAGS = {'fused_adam.cu': ('--fmad=false',)}
 
 # kernel registry: name -> descriptor (source, plain version, TPU kernel
 # it replaces, op types it serves, launch count).  Populated by each
@@ -119,10 +124,17 @@ def _nvcc():
                        'are built from ops/kernels/csrc at first use')
 
 
+def _flags(source):
+    return list(NVCC_FLAGS) + list(SOURCE_FLAGS.get(source, ()))
+
+
 def _lib_path(source):
     src = os.path.join(CSRC_DIR, source)
-    with open(src, 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(' '.join(_flags(source)).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith('.cuh'))
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, 'rb') as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return src, os.path.join(build_dir(), '%s-%s.so'
                              % (stem, digest.hexdigest()[:12]))
@@ -142,7 +154,7 @@ def build(sources=None):
             if os.path.exists(lib):
                 continue
             tmp = '%s.tmp-%d' % (lib, os.getpid())
-            cmd = [_nvcc()] + list(NVCC_FLAGS) + ['-o', tmp, src]
+            cmd = [_nvcc()] + _flags(source) + ['-o', tmp, src]
             procs.append((source, lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         failed = []

@@ -30,13 +30,19 @@
 // f32 or bf16 (converted to f32 on the way into shared memory); O is
 // written in the input dtype, lse in f32.  Q/K/V/O are addressed by
 // their [B, T, H, D] strides, so the split Q/K/V views of a fused QKV
-// projection are read in place.  Dropout is not in this kernel: it
-// belongs to the training slice.  wgmma/TMA come in a later version.
+// projection are read in place.  Attention dropout (training) runs in
+// the kernel, as in the JAX kernel: the normalizer sums the un-dropped
+// probabilities and only the V-weighting is masked, each element's keep
+// bit drawn from the uint32 counter hash at its global (head, query,
+// key) position (dropout_hash.cuh), so the backward kernel regenerates
+// the same mask.  wgmma/TMA come in a later version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -69,6 +75,10 @@ struct Params {
   long long o_sb, o_st, o_sh;
   float scale;
   int causal;
+  int dropout;          // 1: mask the V-weighting with the keep bits
+  uint32_t seed;        // dropout seed
+  uint32_t threshold;   // keep when (hash >> 8) < threshold (24-bit)
+  float inv_keep;       // 1 / (1 - rate), rounded to f32
 };
 
 template <int D>
@@ -194,6 +204,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[r][c] *= corr;
     }
+    if (p.dropout) {
+      // after the normalizer took the un-dropped values: only the
+      // V-weighting sees the mask
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint32_t qpos = (uint32_t)(q0 + ty * 4 + r);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t kpos = (uint32_t)(k0 + tx + 8 * j);
+          s[r][j] = dropout_keep(p.seed, (uint32_t)bh, qpos, kpos,
+                                 p.threshold)
+                        ? s[r][j] * p.inv_keep
+                        : 0.f;
+        }
+      }
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<float4*>(ps + (tx + 8 * j) * kLd + ty * 4) =
@@ -269,13 +295,16 @@ cudaError_t launch_d(const Params& p, long long bh, int d,
 // q, k, v, o: [B, T, H, D] addressed by `strides` (12 element strides:
 // q's b, t, h, then k's, v's and o's; the d stride is 1).  key_bias:
 // [B, T] f32 contiguous or null.  lse: [B*H, T] f32 contiguous.
-// dtype: 0 = f32, 1 = bf16.  D: 32, 64 or 128.  Returns the CUDA error
-// of the launch (0 on success).
+// dtype: 0 = f32, 1 = bf16.  D: 32, 64 or 128.  dropout: 0, or 1 with
+// the uint32 seed, the 24-bit keep threshold and 1 / (1 - rate).
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const float* key_bias,
                                    void* o, float* lse, int batch, int heads,
                                    int t_len, int d, int dtype, int causal,
                                    float scale, const long long* strides,
+                                   int dropout, uint32_t seed,
+                                   uint32_t threshold, float inv_keep,
                                    void* stream) {
   if (batch <= 0 || heads <= 0 || t_len <= 0) return 0;
   Params p;
@@ -289,6 +318,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.o_sb = strides[9]; p.o_st = strides[10]; p.o_sh = strides[11];
   p.scale = scale;
   p.causal = causal;
+  p.dropout = dropout;
+  p.seed = seed;
+  p.threshold = threshold;
+  p.inv_keep = inv_keep;
   const long long bh = (long long)batch * heads;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return (int)launch_d<float>(p, bh, d, s);

@@ -1,12 +1,17 @@
-"""Flash attention forward: the hand-written CUDA kernel
-(csrc/flash_attention_fwd.cu) and its plain PyTorch version.
+"""Flash attention, forward and backward: the hand-written CUDA kernels
+(csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu) and their
+plain PyTorch versions, joined by a ``torch.autograd.Function``.
 
 Public layout as in the JAX package: q, k, v [B, T, H, D], an optional
 additive key bias [B, T] (a padding mask as 0 / -10000), -> O
 [B, T, H, D] (and lse [B, H, T] from ``flash_attention_with_lse``).
-Forward only: the backward kernels and in-kernel attention dropout come
-with the training slice, so ``dropout_rate > 0`` raises.  There is no
-sequence-length floor: every call on CUDA tensors launches the kernel.
+``dropout_rate > 0`` drops attention probabilities after the softmax
+(training): each element's keep bit comes from a counter hash of the
+uint32 ``dropout_seed`` and the element's (head, query, key) position,
+the JAX package's ``_dropout_keep``, so the forward kernel, the backward
+kernel and the plain version draw the same mask bit for bit.  There is
+no sequence-length floor: every call on CUDA tensors launches the
+kernels.
 """
 
 import ctypes
@@ -16,43 +21,125 @@ import torch
 
 from . import common
 
-SOURCE = 'flash_attention_fwd.cu'
+FWD_SOURCE = 'flash_attention_fwd.cu'
+BWD_SOURCE = 'flash_attention_bwd.cu'
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 common.register_kernel(
     'flash_attention',
-    source=SOURCE,
+    source=FWD_SOURCE,
     plain='ops.kernels.flash_attention.flash_attention_plain '
-          '(einsum, bias, mask, softmax, einsum in f32)',
+          '(einsum, bias, mask, softmax, dropout mask, einsum in f32)',
     replaces='paddle_tpu/ops/pallas/flash_attention.py:121 '
              '_flash_fwd_kernel',
     doc='64-row Q tile per block, 64-key K/V tiles in shared memory, '
-        'online softmax in f32 registers',
+        'online softmax in f32 registers, in-kernel dropout hash',
     op_types=('fused_multihead_attention',))
 
+common.register_kernel(
+    'flash_attention_bwd',
+    source=BWD_SOURCE,
+    plain='ops.kernels.flash_attention.flash_attention_bwd_plain '
+          '(autograd of flash_attention_plain)',
+    replaces='paddle_tpu/ops/pallas/flash_attention.py:361 '
+             '_flash_bwd_fused_kernel (and :200 + :273, the two-pass '
+             'dq / dkv kernels)',
+    doc='delta pass, then a dK/dV kernel over 64-key tiles and a dQ '
+        'kernel over 64-query tiles; no atomics',
+    op_types=('fused_multihead_attention_grad',))
 
-def flash_attention_plain(q, k, v, causal=False, key_bias=None):
-    """(O [B, T, H, D] in q's dtype, lse [B, H, T] f32), computed in f32.
+_M32 = 0xFFFFFFFF
+
+
+def keep_threshold(rate):
+    """24-bit integer threshold of the keep probability 1 - rate (the
+    JAX package's ``_keep_threshold``)."""
+    return int(round((1.0 - float(rate)) * (1 << 24)))
+
+
+def _mul32(a, c):
+    """(a * c) mod 2**32 for an int64 tensor a in [0, 2**32) and a
+    constant c < 2**32, in 16-bit halves so no product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_keep_plain(seed, b, h, tq, tk, rate, device=None):
+    """[b, h, tq, tk] bool keep mask: the counter hash of the kernels
+    (csrc/dropout_hash.cuh) at head g = b*H + h, query and key
+    positions, in int64 arithmetic reduced mod 2**32."""
+    def ar(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+
+    g = (ar(b)[:, None] * h + ar(h)[None, :])[:, :, None, None]
+    qpos = ar(tq)[None, None, :, None]
+    kpos = ar(tk)[None, None, None, :]
+    x = (_mul32(qpos, 0x9E3779B1) ^ _mul32(kpos, 0x85EBCA77) ^
+         _mul32(g, 0xC2B2AE3D) ^ (int(seed) & _M32))
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return (x >> 8) < keep_threshold(rate)
+
+
+def flash_attention_plain(q, k, v, causal=False, key_bias=None,
+                          dropout_rate=0.0, dropout_seed=None):
+    """(O [B, T, H, D] in q's dtype, lse [B, H, T] f32), computed in f32;
+    differentiable by autograd.
 
     Rows whose keys are all masked follow the JAX kernel's rule
-    (m_safe = 0, l_safe = max(l, 1e-20)): O = 0, lse = log(1e-20)."""
-    d = q.shape[-1]
+    (m_safe = 0, l_safe = max(l, 1e-20)): O = 0, lse = log(1e-20).
+    With dropout the normalizer and lse use the un-dropped
+    probabilities; only the V-weighting is masked and scaled."""
+    b, t, h, d = q.shape
     s = torch.einsum('bthd,bshd->bhts', q.float(), k.float()) * (
         1.0 / (d ** 0.5))
     if key_bias is not None:
         s = s + key_bias.float()[:, None, None, :]
     if causal:
-        t = q.shape[1]
         keep = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, float('-inf'))
-    m = s.amax(dim=-1, keepdim=True)
+    # the max only stabilizes: O and lse do not depend on it
+    m = s.amax(dim=-1, keepdim=True).detach()
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
-    o = torch.einsum('bhts,bshd->bthd', p / l_safe, v.float())
+    pn = p / l_safe
+    if dropout_rate:
+        keep = dropout_keep_plain(dropout_seed, b, h, t, t, dropout_rate,
+                                  q.device)
+        pn = torch.where(keep, pn * (1.0 / (1.0 - dropout_rate)), 0.0)
+    o = torch.einsum('bhts,bshd->bthd', pn, v.float())
     lse = (m_safe + torch.log(l_safe)).squeeze(-1)
     return o.to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(q, k, v, key_bias, do, dlse, causal=False,
+                              dropout_rate=0.0, dropout_seed=None,
+                              bias_grad=False):
+    """The backward's plain version: autograd of flash_attention_plain
+    (the same mask) for the cotangents do of O and dlse of lse (either
+    may be None) -> (dq, dk, dv, dbias [B, T] f32 or None)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        bias = key_bias
+        if bias_grad:
+            bias = key_bias.detach().float().requires_grad_()
+            leaves.append(bias)
+        o, lse = flash_attention_plain(leaves[0], leaves[1], leaves[2],
+                                       causal, bias, dropout_rate,
+                                       dropout_seed)
+        outs, cts = [o], [torch.zeros_like(o) if do is None else do]
+        if dlse is not None:
+            outs.append(lse)
+            cts.append(dlse.float())
+        grads = torch.autograd.grad(outs, leaves, cts, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, leaves)]
+    return tuple(grads[:3]) + ((grads[3] if bias_grad else None),)
 
 
 def _check(q, k, v, key_bias):
@@ -77,54 +164,161 @@ def _check(q, k, v, key_bias):
                             tuple(key_bias.shape)))
 
 
-def flash_attention_kernel(q, k, v, causal=False, key_bias=None):
-    """The CUDA kernel on tensors of one CUDA device:
+def _dropout_args(rate, seed):
+    """(flag, seed, threshold, 1 / (1 - rate)) for the C launchers."""
+    if not rate:
+        return 0, 0, 0, 1.0
+    if seed is None:
+        raise ValueError('dropout_rate > 0 needs a dropout_seed')
+    return 1, int(seed) & _M32, keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _strides(*tensors):
+    out = []
+    for x in tensors:
+        out += [x.stride(0), x.stride(1), x.stride(2)]
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+def flash_attention_kernel(q, k, v, causal=False, key_bias=None,
+                           dropout_rate=0.0, dropout_seed=None):
+    """The forward CUDA kernel on tensors of one CUDA device:
     (O [B, T, H, D] in q's dtype, lse [B, H, T] f32)."""
     _check(q, k, v, key_bias)
+    drop, seed, threshold, inv_keep = _dropout_args(dropout_rate,
+                                                    dropout_seed)
     b, t, h, d = q.shape
     dev = q.device
     if key_bias is not None:
         key_bias = key_bias.to(torch.float32).contiguous()
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=dev)
-    strides = []
-    for x in (q, k, v, o):
-        strides += [x.stride(0), x.stride(1), x.stride(2)]
-    lib = common.library(SOURCE)
+    lib = common.library(FWD_SOURCE)
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if key_bias is None else key_bias.data_ptr(),
                  o.data_ptr(), lse.data_ptr(), b, h, t, d,
                  _DTYPE_CODES[q.dtype], int(bool(causal)),
-                 1.0 / math.sqrt(d), (ctypes.c_longlong * 12)(*strides),
-                 common.stream_ptr(dev))
+                 1.0 / math.sqrt(d), _strides(q, k, v, o), drop, seed,
+                 threshold, inv_keep, common.stream_ptr(dev))
     common.check_launch('flash_attention', lib, err)
     return o, lse.view(b, h, t)
 
 
-def _flash(q, k, v, causal, key_bias, dropout_rate):
-    if dropout_rate:
-        raise NotImplementedError(
-            'attention dropout (dropout_rate=%r) belongs to training, '
-            'which this port does not run yet' % (dropout_rate,))
-    if common.use_kernel(q, k, v, key_bias):
-        return flash_attention_kernel(q, k, v, causal, key_bias)
-    return flash_attention_plain(q, k, v, causal, key_bias)
+def flash_attention_bwd_kernel(q, k, v, key_bias, o, lse, do, dlse,
+                               causal=False, dropout_rate=0.0,
+                               dropout_seed=None, bias_grad=False):
+    """The backward CUDA kernels on tensors of one CUDA device: the
+    cotangents of q, k, v (each [B, T, H, D] in q's dtype) and, with
+    bias_grad, of key_bias ([B, T] f32, summed over heads), from the
+    forward's O and lse [B, H, T] and the cotangents do of O and dlse
+    of lse (None: zero)."""
+    _check(q, k, v, key_bias)
+    drop, seed, threshold, inv_keep = _dropout_args(dropout_rate,
+                                                    dropout_seed)
+    b, t, h, d = q.shape
+    dev = q.device
+    if do is None:
+        do = torch.zeros_like(o)
+    for name, x in (('o', o), ('do', do)):
+        if tuple(x.shape) != tuple(q.shape) or x.dtype != q.dtype:
+            raise ValueError('%s must be [B, T, H, D] %s like q, got %s %s'
+                             % (name, q.dtype, tuple(x.shape), x.dtype))
+    o = o if o.stride(-1) == 1 else o.contiguous()
+    do = do if do.stride(-1) == 1 else do.contiguous()
+    if key_bias is not None:
+        key_bias = key_bias.to(torch.float32).contiguous()
+    lse = lse.to(torch.float32).reshape(b * h, t).contiguous()
+    if dlse is not None:
+        dlse = dlse.to(torch.float32).reshape(b * h, t).contiguous()
+    dq, dk, dv = [torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
+                  for _ in range(3)]
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=dev)
+    dbias_bh = (torch.empty((b * h, t), dtype=torch.float32, device=dev)
+                if bias_grad and key_bias is not None else None)
+    lib = common.library(BWD_SOURCE)
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), ptr(key_bias), lse.data_ptr(), ptr(dlse),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), ptr(dbias_bh), b, h, t, d,
+                 _DTYPE_CODES[q.dtype], int(bool(causal)),
+                 1.0 / math.sqrt(d), _strides(q, k, v, o, do, dq, dk, dv),
+                 drop, seed, threshold, inv_keep, common.stream_ptr(dev))
+    common.check_launch('flash_attention_bwd', lib, err)
+    dbias = None if dbias_bh is None else dbias_bh.view(b, h, t).sum(1)
+    return dq, dk, dv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(O, lse) with the flash backward: the CUDA kernels for CUDA
+    tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, causal, rate, seed):
+        if common.use_kernel(q, k, v, key_bias):
+            o, lse = flash_attention_kernel(q, k, v, causal, key_bias,
+                                            rate, seed)
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal, key_bias, rate,
+                                           seed)
+        ctx.save_for_backward(q, k, v, key_bias, o, lse)
+        ctx.causal, ctx.rate, ctx.seed = causal, rate, seed
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, key_bias, o, lse = ctx.saved_tensors
+        bias_grad = key_bias is not None and ctx.needs_input_grad[3]
+        if do is None and dlse is None:
+            return (None,) * 7
+        if common.use_kernel(q, k, v, key_bias):
+            dq, dk, dv, dbias = flash_attention_bwd_kernel(
+                q, k, v, key_bias, o, lse, do, dlse, ctx.causal, ctx.rate,
+                ctx.seed, bias_grad)
+        else:
+            dq, dk, dv, dbias = flash_attention_bwd_plain(
+                q, k, v, key_bias, do, dlse, ctx.causal, ctx.rate,
+                ctx.seed, bias_grad)
+        if dbias is not None:
+            dbias = dbias.to(key_bias.dtype)
+        return dq, dk, dv, dbias, None, None, None
+
+
+def _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed):
+    rate = float(dropout_rate or 0.0)
+    if rate and dropout_seed is None:
+        raise ValueError('dropout_rate > 0 needs a dropout_seed')
+    o, lse = _FlashAttention.apply(q, k, v, key_bias, bool(causal), rate,
+                                   dropout_seed)
+    return o, lse
 
 
 def flash_attention(q, k, v, causal=False, key_bias=None, dropout_rate=0.0,
                     dropout_seed=None):
     """q, k, v: [B, T, H, D]; key_bias: optional [B, T] additive score
-    bias -> [B, T, H, D]."""
-    return _flash(q, k, v, causal, key_bias, dropout_rate)[0]
+    bias -> [B, T, H, D].  dropout_rate > 0 needs a uint32
+    dropout_seed."""
+    return _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed)[0]
 
 
 def flash_attention_with_lse(q, k, v, causal=False, key_bias=None,
                              dropout_rate=0.0, dropout_seed=None):
     """Like flash_attention but also returns the per-row log-sum-exp
-    [B, H, T] (f32), the merge state for blockwise/ring composition."""
-    return _flash(q, k, v, causal, key_bias, dropout_rate)
+    [B, H, T] (f32, of the un-dropped probabilities), the merge state
+    for blockwise/ring composition; both outputs are differentiable."""
+    return _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed)

@@ -62,3 +62,19 @@ def _bcast(x, y, axis):
 def elementwise_add(ctx, ins, attrs):
     x, y = _bcast(ins['X'][0], ins['Y'][0], attrs.get('axis', -1))
     return {'Out': [x + y]}
+
+
+@register('mean')
+def mean(ctx, ins, attrs):
+    return {'Out': [_x(ins).mean()]}
+
+
+@register('sum')
+def sum_op(ctx, ins, attrs):
+    """Add N tensors in order (gradient aggregation). Reference
+    operators/sum_op."""
+    xs = ins['X']
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {'Out': [out]}

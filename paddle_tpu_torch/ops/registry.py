@@ -1,14 +1,16 @@
-"""Operator registry: op type -> PyTorch lowering rule (forward only).
+"""Operator registry: op type -> PyTorch lowering rule.
 
 Reference design: REGISTER_OPERATOR / REGISTER_OP_*_KERNEL macros
-(framework/op_registry.h:223,265,268) + OpInfoMap (framework/op_info.h:124).
+(framework/op_registry.h:223,265,268) + OpInfoMap (framework/op_info.h:124)
++ per-op GradOpDescMaker (framework/grad_op_desc_maker.h:39).
 
 An op is ONE function on tensors
     fn(ctx, ins: {slot: [Tensor,...]}, attrs: dict) -> {slot: [Tensor,...]}
 that the eager executor calls.  Graph-build-time shape/dtype inference
 runs the same function on meta tensors (``infer_shapes``), so the IR
-never drifts from the lowerings.  Gradient ops come with the training
-slice.
+never drifts from the lowerings.  The grad op ``<type>_grad`` is
+synthesized from the forward lowering by torch.autograd
+(``grad_op_def``), with the JAX package's slot convention.
 """
 
 import torch
@@ -47,11 +49,13 @@ class LowerCtx(object):
 
 
 class OpDef(object):
-    __slots__ = ("type", "fn", "stochastic")
+    __slots__ = ("type", "fn", "no_grad_out_slots", "stochastic")
 
-    def __init__(self, type, fn, stochastic=False):
+    def __init__(self, type, fn, no_grad_out_slots=(), stochastic=False):
         self.type = type
         self.fn = fn
+        # output slots that carry no gradient (dropout's Mask)
+        self.no_grad_out_slots = tuple(no_grad_out_slots)
         # draws randomness without a declared is_test attr: clone
         # (for_test=True) stamps is_test on these so eval is
         # deterministic (framework.Program.clone)
@@ -66,11 +70,12 @@ _REGISTRY = {}
 HOST_OPS = set()
 
 
-def register(type, stochastic=False):
+def register(type, no_grad_out_slots=(), stochastic=False):
     """Decorator: register `fn(ctx, ins, attrs) -> outs` as op `type`."""
 
     def deco(fn):
-        _REGISTRY[type] = OpDef(type, fn, stochastic=stochastic)
+        _REGISTRY[type] = OpDef(type, fn, no_grad_out_slots,
+                                stochastic=stochastic)
         return fn
 
     return deco
@@ -88,12 +93,16 @@ def register_host(type):
 
 
 def is_registered(type):
-    return type in _REGISTRY
+    return type in _REGISTRY or (
+        type.endswith("_grad") and type[:-5] in _REGISTRY)
 
 
 def get(type):
     if type in _REGISTRY:
         return _REGISTRY[type]
+    if type.endswith("_grad") and type[:-5] in _REGISTRY:
+        d = _REGISTRY[type] = grad_op_def(_REGISTRY[type[:-5]])
+        return d
     raise NotImplementedError(
         "operator '%s' has no lowering in paddle_tpu_torch yet (this "
         "slice lowers: %s)" % (type, ', '.join(registered_ops())))
@@ -101,6 +110,59 @@ def get(type):
 
 def registered_ops():
     return sorted(_REGISTRY.keys())
+
+
+# ---------------------------------------------------------------------------
+# Generic gradient synthesis
+# ---------------------------------------------------------------------------
+
+
+def grad_op_def(fwd):
+    """The grad OpDef of a forward OpDef, by torch.autograd over the
+    forward lowering.
+
+    Grad-op calling convention (the JAX package's, after the
+    reference's GradOpDescMaker, framework/grad_op_desc_maker.h:39):
+      inputs : every forward input slot (primal values) +
+               'GRAD::<out_slot>' for each available output gradient
+      outputs: 'GRAD::<in_slot>' for every forward input, zeros where
+               an input gets no gradient.
+    The forward is replayed with the same context (op seed and step),
+    so a stochastic op draws the same mask; a forward that runs its own
+    autograd.Function (flash attention, the embedding gather) takes
+    that Function's backward kernels."""
+
+    def fn(ctx, ins, attrs):
+        primal_slots = sorted(s for s in ins if not s.startswith("GRAD::"))
+        with torch.enable_grad():
+            primals = {s: [v.detach().requires_grad_()
+                           if v.is_floating_point() else v
+                           for v in ins[s]] for s in primal_slots}
+            outs = fwd.run(ctx, primals, attrs)
+            ys, cts = [], []
+            for s, vs in outs.items():
+                g_in = ins.get("GRAD::" + s)
+                if s in fwd.no_grad_out_slots or g_in is None:
+                    continue
+                for v, g in zip(vs, g_in):
+                    if g is not None and v.requires_grad:
+                        ys.append(v)
+                        cts.append(g.to(v.dtype))
+            xs = [v for s in primal_slots for v in primals[s]
+                  if v.requires_grad]
+            grads = (torch.autograd.grad(ys, xs, cts, allow_unused=True)
+                     if ys and xs else [None] * len(xs))
+        by_id = {id(x): g for x, g in zip(xs, grads)}
+        result = {}
+        for s in primal_slots:
+            row = []
+            for v in primals[s]:
+                g = by_id.get(id(v))
+                row.append(torch.zeros_like(v).detach() if g is None else g)
+            result["GRAD::" + s] = row
+        return result
+
+    return OpDef(fwd.type + "_grad", fn)
 
 
 # ---------------------------------------------------------------------------

@@ -133,3 +133,25 @@ def lookup_table(ctx, ins, attrs):
     if ids.ndim > 1 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     return lookup_table_v2(ctx, {'W': ins['W'], 'Ids': [ids]}, attrs)
+
+
+@register('slice')
+def slice_op(ctx, ins, attrs):
+    """Reference operators/slice_op.cc: a view of x cut along `axes`;
+    negative starts/ends count from the end."""
+    x = ins['Input'][0]
+    idx = [slice(None)] * x.ndim
+    for ax, st, en in zip(attrs['axes'], attrs['starts'], attrs['ends']):
+        dim = x.shape[ax]
+        st = max(st + dim, 0) if st < 0 else min(st, dim)
+        en = max(en + dim, 0) if en < 0 else min(en, dim)
+        idx[ax] = slice(st, en)
+    out = x[tuple(idx)]
+    for ax in sorted(attrs.get('decrease_axis', []), reverse=True):
+        out = out.squeeze(ax)
+    return {'Out': [out]}
+
+
+@register('fill_zeros_like')
+def fill_zeros_like(ctx, ins, attrs):
+    return {'Out': [torch.zeros_like(_x(ins))]}

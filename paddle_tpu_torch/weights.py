@@ -1,19 +1,43 @@
-"""Parameters as numpy arrays in and out of a scope.
+"""Parameters and optimizer state as numpy arrays in and out of a scope.
 
 ``load_numpy_params`` puts {name: ndarray} (for example the JAX
 package's startup values, or a checkpoint read with numpy) into a scope
 as tensors on a place's device; ``dump_numpy_params`` is its inverse.
-Together they start two programs from the same weights.
+Together they start two programs from the same state.  For a training
+program that state is every persistable variable its startup program
+sets: the parameters, the MLM/NSP heads' included, the learning rate,
+the beta powers and the zero moments (``startup_names``); passing the
+program makes ``load_numpy_params`` check that each of them is given,
+with its declared shape.
 """
 
 import numpy as np
 import torch
 
-from .fluid import core
+from .fluid import core, io
 
 
-def load_numpy_params(scope, params, place):
-    """Set each params[name] in `scope` as a tensor on `place`."""
+def startup_names(startup_program):
+    """Names of the persistable variables `startup_program` sets (it
+    declares exactly those)."""
+    return sorted(v.name for v in io._persistable_vars(startup_program))
+
+
+def load_numpy_params(scope, params, place, program=None):
+    """Set each params[name] in `scope` as a tensor on `place`.  With
+    `program` (a startup program), every variable it sets must be in
+    `params` with the shape it declares."""
+    if program is not None:
+        block = program.global_block()
+        for name in startup_names(program):
+            if name not in params:
+                raise KeyError('no value for %r, which the startup program '
+                               'sets' % name)
+            want = tuple(block._find_var_recursive(name).shape)
+            got = tuple(np.shape(params[name]))
+            if want != got:
+                raise ValueError('%r has shape %s, the program declares %s'
+                                 % (name, got, want))
     device = place.torch_device()
     for name, arr in params.items():
         # a copy: the caller's array (possibly read-only) stays its own

@@ -17,7 +17,7 @@ setup(
                                       'Makefile', '*.cc', '*.h'],
         'paddle_tpu.train.demo': ['*.cc'],
         # the port's CUDA kernels build from these sources at first use
-        'paddle_tpu_torch.ops.kernels': ['csrc/*.cu'],
+        'paddle_tpu_torch.ops.kernels': ['csrc/*.cu', 'csrc/*.cuh'],
     },
     install_requires=['numpy', 'jax'],
     python_requires='>=3.9',

@@ -76,5 +76,5 @@ def test_flash_attention_public_entry_launches_on_cuda(dev):
     assert common.launches('flash_attention') == before + 1
     torch.testing.assert_close(o, fa_k.flash_attention_plain(q, k, v)[0],
                                atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError, match='dropout'):
-        fa_k.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=1)
+    with pytest.raises(ValueError, match='needs a dropout_seed'):
+        fa_k.flash_attention(q, k, v, dropout_rate=0.1)

@@ -76,9 +76,13 @@ def test_gather_kernel_rejects_bad_inputs():
 
 def test_kernel_registry_and_report():
     info = common.kernels()
-    assert set(info) == {'embedding_lookup', 'flash_attention'}
+    assert set(info) == {'embedding_lookup', 'embedding_scatter_add',
+                         'flash_attention', 'flash_attention_bwd',
+                         'fused_adam'}
     assert info['embedding_lookup']['op_types'] == ('lookup_table',
                                                     'lookup_table_v2')
+    assert info['embedding_scatter_add']['replaces'].startswith(
+        'paddle_tpu/ops/pallas/embedding.py:65')
     assert info['flash_attention']['replaces'].startswith(
         'paddle_tpu/ops/pallas/flash_attention.py:121')
     saved = {k: common.launches(k) for k in info}

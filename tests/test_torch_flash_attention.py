@@ -94,13 +94,16 @@ def test_flash_attention_reads_strided_views():
 
 
 def test_flash_attention_dropout_raises():
+    """Attention dropout needs the seed its mask is keyed on (the
+    dropout branch itself: tests/test_torch_flash_dropout.py)."""
     q, k, v, _ = _inputs(0, None)
     tq, tk, tv = _torch(q, k, v)
-    with pytest.raises(NotImplementedError, match='dropout'):
-        tfa.flash_attention(tq, tk, tv, dropout_rate=0.1, dropout_seed=3)
-    with pytest.raises(NotImplementedError, match='dropout'):
-        tfa.flash_attention_with_lse(tq, tk, tv, dropout_rate=0.1,
-                                     dropout_seed=3)
+    with pytest.raises(ValueError, match='dropout_rate > 0 needs a '
+                                         'dropout_seed'):
+        tfa.flash_attention(tq, tk, tv, dropout_rate=0.1)
+    with pytest.raises(ValueError, match='dropout_rate > 0 needs a '
+                                         'dropout_seed'):
+        tfa.flash_attention_with_lse(tq, tk, tv, dropout_rate=0.1)
 
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take():

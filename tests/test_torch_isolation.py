@@ -51,10 +51,14 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert res['bad'] == []
     assert res['main']
     for name in ('paddle_tpu_torch.fluid.executor',
+                 'paddle_tpu_torch.fluid.backward',
+                 'paddle_tpu_torch.fluid.optimizer',
                  'paddle_tpu_torch.inference.predictor',
                  'paddle_tpu_torch.models.bert',
+                 'paddle_tpu_torch.ops.optimizer_ops',
                  'paddle_tpu_torch.ops.kernels.flash_attention',
                  'paddle_tpu_torch.ops.kernels.embedding',
+                 'paddle_tpu_torch.ops.kernels.fused_optimizer',
                  'paddle_tpu_torch.weights'):
         assert name in res['imported']
 
