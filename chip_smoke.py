@@ -30,6 +30,16 @@ Phases, each of which fails the run (non-zero exit) on error:
        (~132M f32 elements) and an AdamW run: parameters and moments
        bitwise (the library is built with --fmad=false, so it rounds
        every operation as the plain version's separate kernels do);
+       fused_lamb over the same 153 tensors plus a zero-gradient tensor
+       without decay and a [1] tensor: moments bitwise, parameters to
+       rtol 2e-6 / atol 3e-7 (the trust ratio's norms are summed in
+       another order), and a second launch from the same state gives
+       the same parameters bit for bit (fixed-order sums, no atomics);
+       embedding_update (the sparse Adagrad rows) through the
+       fused_emb_update op on the 1000001 x 16 table with 106,496
+       uniform ids, on the 1000 x 16 table with the same ids (~106
+       visits a row) and on a 1000001 x 1 table, padding_idx and
+       out-of-range ids included (bitwise);
   4. serving: BERT-base (12 layers, hidden 768, seq 512, random weights
      from --seed) built with the port's layers, saved with
      save_inference_model, loaded by create_paddle_predictor on
@@ -46,23 +56,46 @@ Phases, each of which fails the run (non-zero exit) on error:
      (with dropout) 12 times, flash_attention_bwd 12, embedding_lookup
      3, embedding_scatter_add 3 and fused_adam once; the loss is finite
      and falls from step 1 to step 3, and at step 3 it is below the loss
-     the same 3 steps give with the parameters held (learning rate 0:
-     the same dropout masks, so the difference is what the updates
-     learned).  Step 1 again from the same state
+     the same 3 steps give with the parameters held (each step from the
+     starting state: the same dropout masks, so the difference is what
+     the updates learned).  Step 1 again from the same state
      with the plain versions gives the same loss (rel. 1e-4) and
      gradients, first moments and parameters within the limits printed;
      peak device memory is printed;
-  6. timings: each kernel, its plain version and the PyTorch library
+  6. LAMB pretraining: the same model with
+     lr = linear_lr_warmup(polynomial_decay(4e-5, 1000, 0.0), 2, 0.0,
+     4e-5) and fluid.optimizer.Lamb(lr, lamb_weight_decay
+     0.01, epsilon 1e-6, grad_clip=GradientClipByGlobalNorm(1.0)), 3
+     steps of batch 8: each step launches flash_attention 12 times,
+     flash_attention_bwd 12, embedding_lookup 3, embedding_scatter_add
+     3, fused_lamb once (one run over all 153 parameters) and fused_adam
+     never; the rate of each step is printed; the loss checks of phase
+     5; step 1 (rate 0) against the plain path as in phase 5;
+  7. Wide&Deep CTR training: models.wide_deep.build at BASE widths with
+     the hashed Criteo feature space (sparse_feature_dim 1000001:
+     embedding 16, 26 sparse and 13 dense fields, hidden 400-400-400)
+     and fluid.optimizer.Adagrad(1e-3, epsilon 1e-6), 3 steps of batch
+     4096 (106,496 ids a step): each step launches embedding_lookup 2
+     times and embedding_update 2 (the deep and the wide table's rows)
+     and nothing else; the loss falls below the held run's; step 1
+     again with the plain versions gives the same loss and state bit
+     for bit (the same PyTorch ops around kernels that are bitwise
+     their plain versions);
+  8. timings: each kernel, its plain version and the PyTorch library
      call at the main path's shapes (device time of CUDA-graph replays,
      L2 flushed before each call; a plain version that syncs with the
      host is timed with CUDA events around single calls instead), the
      least time the card could take (bound), K6b also on the 2-row
-     sentence table, the request latency per batch size and the median
-     training step.  The library call for the flash backward is SDPA's
-     memory-efficient backward op on its own forward's saved outputs.
+     sentence table, K7 also on the 1000 x 16 and the 1000001 x 1
+     tables, the request latency per batch size and the median step of
+     each training path.  The library call for the flash backward is
+     SDPA's memory-efficient backward op on its own forward's saved
+     outputs; for the row update, torch.optim.Adagrad's step on a
+     sparse gradient; PyTorch has no LAMB (null).
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  --profile adds a torch.profiler
-breakdown of one request of each batch size and of one training step.
+breakdown of one request of each batch size and of one step of each
+training path.
 """
 
 import argparse
@@ -83,6 +116,7 @@ from paddle_tpu_torch import weights
 from paddle_tpu_torch.fluid import flags
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.models import bert
+from paddle_tpu_torch.models import wide_deep
 from paddle_tpu_torch.ops.kernels import common
 from paddle_tpu_torch.ops.kernels import embedding as emb_k
 from paddle_tpu_torch.ops.kernels import flash_attention as fa_k
@@ -107,6 +141,22 @@ FA_TOL = 1e-4
 BWD_TOL = 1e-4
 SLICE_TOL = 1e-3
 EPSILON = 1e-6  # BERT's Adam epsilon (Devlin et al. 2019)
+# LAMB pretraining (You et al. 2019) with BERT's schedule and clip
+# (Devlin et al. 2019): a linear warmup from 0 over LAMB_WARMUP steps
+# into a polynomial decay, the global gradient norm clipped at 1.0.
+# The warmup is cut to 2 steps so that 3 steps show the updates, and
+# the peak is set for batch 8 (measured on the H100, PERF.md).
+LAMB_PEAK = 4e-5
+LAMB_WARMUP = 2
+LAMB_DECAY_STEPS = 1000
+LAMB_DECAY = 0.01
+CLIP_NORM = 1.0
+# Wide&Deep CTR: the hashed Criteo feature space of PaddlePaddle's
+# CTR-DNN example, BASE's other widths; the JAX package's Adagrad
+# epsilon
+WD_ROWS = 1000001
+WD_BATCH = 4096
+WD_LR = 1e-3
 # step 1 of the kernel path against the plain path (see check_plain_step)
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3
@@ -386,19 +436,6 @@ def check_scatter(gen, dev):
     return 0.0
 
 
-def pretrain_program(seed):
-    """(cfg, main, startup, feeds, loss) of BERT-base pretraining with
-    Adam."""
-    cfg = bert.BASE
-    main, startup = fluid.Program(), fluid.Program()
-    main.random_seed = startup.random_seed = seed + 1
-    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        feeds, _, loss = bert.build_pretrain(cfg, seq_len=SEQ)
-        fluid.optimizer.Adam(learning_rate=LR,
-                             epsilon=EPSILON).minimize(loss)
-    return cfg, main, startup, feeds, loss
-
-
 def adam_inputs(shapes, gen, dev):
     lr = torch.full((1,), LR, device=dev)
     b1p = torch.full((1,), 0.9 ** 3, device=dev)
@@ -439,6 +476,106 @@ def check_adam(gen, dev, shapes):
                                          % (kind, slot, max_abs(got, w)))
         log('  fused_adam %-5s %3d tensors, %d elements: bitwise equal'
             % (kind, len(subset), sum(int(np.prod(s)) for s in subset)))
+    return 0.0
+
+
+def lamb_inputs(shapes, gen, dev):
+    """adam_inputs over `shapes` with per-tensor beta powers (LAMB keeps
+    one pair a parameter), then a tensor with a zero gradient and zero
+    moments and a [1] tensor."""
+    ins = adam_inputs(list(shapes) + [(4096,), (1,)], gen, dev)
+    for slot in ('Beta1Pow', 'Beta2Pow'):
+        ins[slot] = [x.clone() for x in ins[slot]]
+    for slot in ('Grad', 'Moment1', 'Moment2'):
+        ins[slot][-2].zero_()
+    return ins
+
+
+def check_lamb(gen, dev, shapes):
+    """K5 over BERT-base's parameter set: moments bitwise, parameters to
+    rtol 2e-6 / atol 3e-7, the same parameters bit for bit from a second
+    launch on the same state.  The zero-gradient tensor runs without
+    decay (its own run), so its r is 0: trust 1 and a zero step."""
+    attrs = {'beta1': 0.9, 'beta2': 0.999, 'epsilon': EPSILON,
+             'weight_decay': LAMB_DECAY}
+    ins = lamb_inputs(shapes, gen, dev)
+    worst = 0.0
+    for lo, hi, run_attrs in ((0, len(shapes) + 2, attrs),
+                              (len(shapes), len(shapes) + 1,
+                               dict(attrs, weight_decay=0.0))):
+        part = {k: v[lo:hi] for k, v in ins.items()}
+        want = opt_k.apply_plain('lamb', None, part, run_attrs)
+        outs = []
+        for _ in range(2):
+            got = {k: [x.clone() for x in v] for k, v in part.items()}
+            opt_k.apply_kernel('lamb', got, run_attrs)
+            outs.append(got)
+        torch.cuda.synchronize()
+        for slot, out in (('Moment1', 'Moment1Out'),
+                          ('Moment2', 'Moment2Out')):
+            for a, b in zip(outs[0][slot], want[out]):
+                if not torch.equal(a, b):
+                    raise AssertionError('fused_lamb %s is not bitwise equal '
+                                         'to the per-tensor lowering: '
+                                         'max|diff| %g' % (slot,
+                                                           max_abs(a, b)))
+        for a, b, c in zip(outs[0]['Param'], want['ParamOut'],
+                           outs[1]['Param']):
+            worst = max(worst, max_abs(a, b))
+            if not torch.allclose(a, b, rtol=2e-6, atol=3e-7):
+                raise AssertionError('fused_lamb parameters differ from the '
+                                     'per-tensor lowering: max|diff| %g'
+                                     % max_abs(a, b))
+            if not torch.equal(a, c):
+                raise AssertionError('fused_lamb gave other parameters on a '
+                                     'second launch from the same state')
+    if not torch.equal(outs[0]['Param'][0], part['Param'][0]):
+        raise AssertionError('fused_lamb moved a tensor whose r is 0')
+    log('  fused_lamb  %3d tensors, %d elements (+ a zero-gradient and a '
+        '[1] tensor): moments bitwise, parameters max|diff| %.3e (rtol '
+        '2e-6, atol 3e-7), bitwise from launch to launch'
+        % (len(shapes), sum(int(np.prod(s)) for s in shapes), worst))
+    return worst
+
+
+def check_emb_update(gen, dev):
+    """K7 through the fused_emb_update op against the op's plain path
+    (FLAGS_torch_kernels_plain), bitwise: padding rows zeroed, ids
+    clipped, untouched rows left alone."""
+    n = WD_BATCH * wide_deep.BASE.num_sparse_fields
+    ids = torch.randint(0, WD_ROWS, (WD_BATCH, 26), generator=gen,
+                        device=dev)
+    ids[0, :6] = torch.tensor([5, 5, -3, WD_ROWS, 10 ** 9, 17], device=dev)
+    for rows, d, pad in ((WD_ROWS, 16, 17), (1000, 16, 0), (WD_ROWS, 1, 5)):
+        ins = {'Param': [torch.randn(rows, d, generator=gen, device=dev)],
+               'Moment': [torch.rand(rows, d, generator=gen, device=dev)],
+               'Ids': [ids if rows == WD_ROWS else ids % rows],
+               'Grad': [torch.randn(WD_BATCH, 26, d, generator=gen,
+                                    device=dev)],
+               'LearningRate': [torch.full((1,), 0.05, device=dev)]}
+        attrs = {'epsilon': 1e-6, 'padding_idx': pad}
+        start = [ins['Param'][0].clone(), ins['Moment'][0].clone()]
+        flags.set_flags({'FLAGS_torch_kernels_plain': True})
+        try:
+            want = emb_k.apply_update(None, ins, attrs)
+        finally:
+            flags.set_flags({'FLAGS_torch_kernels_plain': False})
+        got = emb_k.apply_update(None, ins, attrs)  # in place
+        torch.cuda.synchronize()
+        for slot, a, b in zip(('ParamOut', 'MomentOut'),
+                              (got['ParamOut'][0], got['MomentOut'][0]),
+                              (want['ParamOut'][0], want['MomentOut'][0])):
+            if not torch.equal(a, b):
+                raise AssertionError('embedding_update %s on %d x %d is not '
+                                     'bitwise equal to its plain version: '
+                                     'max|diff| %g' % (slot, rows, d,
+                                                       max_abs(a, b)))
+        if not (torch.equal(got['ParamOut'][0][pad], start[0][pad]) and
+                torch.equal(got['MomentOut'][0][pad], start[1][pad])):
+            raise AssertionError('embedding_update moved the padding row')
+        touched = int(torch.unique(ins['Ids'][0].clamp(0, rows - 1)).numel())
+        log('  embedding_update %7d x %2d, %d ids (%d rows touched): '
+            'bitwise equal' % (rows, d, n, touched))
     return 0.0
 
 
@@ -542,42 +679,92 @@ def profile_requests(pred, requests):
     log(events.table(sort_by='self_cuda_time_total', row_limit=15))
 
 
-# ------------------------------------------------------------ phase 5
-def snapshot(scope, names):
-    return {n: scope.find_var(n).detach().clone() for n in names}
-
-
-def train(prog, seed):
-    """BERT-base pretraining steps on CUDAPlace(0); returns what the
-    timings need."""
-    cfg, main, startup, feeds, loss = prog
+# ------------------------------------------------------- phases 5-7
+def pretrain_program(seed, optimizer):
+    """BERT-base pretraining with Adam ('adam', phase 5) or with LAMB,
+    the warmup over a polynomial decay and the global-norm clip
+    ('lamb', phase 6): the path dict that train() runs."""
+    cfg = bert.BASE
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = bert.build_pretrain(cfg, seq_len=SEQ)
+        if optimizer == 'adam':
+            lr = None
+            fluid.optimizer.Adam(learning_rate=LR,
+                                 epsilon=EPSILON).minimize(loss)
+        else:
+            lr = fluid.layers.linear_lr_warmup(
+                fluid.layers.polynomial_decay(LAMB_PEAK, LAMB_DECAY_STEPS,
+                                              0.0),
+                LAMB_WARMUP, 0.0, LAMB_PEAK)
+            fluid.optimizer.Lamb(
+                lr, lamb_weight_decay=LAMB_DECAY, epsilon=EPSILON,
+                grad_clip=fluid.clip.GradientClipByGlobalNorm(CLIP_NORM)
+            ).minimize(loss)
     n_attn = sum(op.type == 'fused_multihead_attention'
                  for op in main.global_block().ops)
-    n_adam = sum(op.type == 'adam' for op in main.global_block().ops)
-    params = main.all_parameters()
-    log('  BERT-base pretraining program: %d ops (%d adam), %d parameters '
-        '(%d elements)' % (len(main.global_block().ops), n_adam,
-                           len(params),
-                           sum(int(np.prod(p.shape)) for p in params)))
-    batch = bert.synthetic_batch(cfg, TRAIN_BATCH, SEQ,
-                                 np.random.RandomState(seed))
-    state_names = weights.startup_names(startup)
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    scope = fluid.Scope()
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'flash_attention': n_attn,
                      'flash_attention_bwd': n_attn,
                      'embedding_lookup': 3, 'embedding_scatter_add': 3,
-                     'fused_adam': 1})
+                     'fused_' + optimizer: 1})
     # gradients fetched beside the loss on step 1, held against the
     # plain path
-    grad_map = main._grad_name_map
     probe = ['embedding_0.w_0', 'fc_0.w_0', 'fc_0.w_1', 'layer_norm_0.w_0']
-    probe += [p.name for p in params if p.shape == (cfg.hidden,
-                                                    cfg.vocab_size)]
-    fetch = [loss.name] + [grad_map[p] for p in probe]
+    probe += [p.name for p in main.all_parameters()
+              if p.shape == (cfg.hidden, cfg.vocab_size)]
+    return {'name': 'BERT-base %s' % optimizer.upper(), 'main': main,
+            'startup': startup, 'loss': loss, 'lr': lr,
+            'batch': bert.synthetic_batch(cfg, TRAIN_BATCH, SEQ,
+                                          np.random.RandomState(seed)),
+            'expected': expected, 'probe': probe, 'tokens': TRAIN_BATCH * SEQ,
+            'bitwise': False}
+
+
+def wide_deep_program(seed):
+    """Wide&Deep CTR at BASE widths over the hashed Criteo feature space
+    with Adagrad (phase 7): the path dict that train() runs."""
+    cfg = wide_deep.WideDeepConfig(sparse_feature_dim=WD_ROWS)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = wide_deep.build(cfg)
+        fluid.optimizer.Adagrad(WD_LR, epsilon=1e-6).minimize(loss)
+    n_update = sum(op.type == 'fused_emb_update'
+                   for op in main.global_block().ops)
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update({'embedding_lookup': 2, 'embedding_update': n_update})
+    return {'name': 'Wide&Deep Adagrad', 'main': main, 'startup': startup,
+            'loss': loss, 'lr': None,
+            'batch': wide_deep.synthetic_batch(cfg, WD_BATCH,
+                                               np.random.RandomState(seed)),
+            'expected': expected, 'probe': [],
+            'tokens': WD_BATCH * cfg.num_sparse_fields, 'bitwise': True}
+
+
+def snapshot(scope, names):
+    return {n: scope.find_var(n).detach().clone() for n in names}
+
+
+def train(path):
+    """TRAIN_STEPS steps of a training path on CUDAPlace(0), each step's
+    launches checked; the loss checks and the step-1 check against the
+    plain path.  Returns what the timings need."""
+    main, startup, loss = path['main'], path['startup'], path['loss']
+    n_opt = sum(op.type in ('adam', 'lamb', 'adagrad', 'fused_emb_update')
+                for op in main.global_block().ops)
+    params = main.all_parameters()
+    log('  %s program: %d ops (%d update ops), %d parameters (%d elements)'
+        % (path['name'], len(main.global_block().ops), n_opt, len(params),
+           sum(int(np.prod(p.shape)) for p in params)))
+    state_names = weights.startup_names(startup)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    fetch = [loss.name] + ([path['lr'].name] if path['lr'] else [])
+    grad_fetch = [main._grad_name_map[p] for p in path['probe']]
     launches = {k: 0 for k in common.KERNELS}
-    losses, secs = [], []
+    losses, rates, secs = [], [], []
     with fluid.scope_guard(scope):
         exe.run(startup)
         start = snapshot(scope, state_names)
@@ -586,26 +773,29 @@ def train(prog, seed):
         for step in range(TRAIN_STEPS):
             t0 = time.perf_counter()
             out, counts = counted(lambda: exe.run(
-                main, feed=batch, fetch_list=fetch if step == 0 else [loss],
+                main, feed=path['batch'],
+                fetch_list=fetch + (grad_fetch if step == 0 else []),
                 return_numpy=False))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             losses.append(float(out[0]))
+            rates.append(float(out[1]) if path['lr'] else None)
             if step == 0:
-                grads = [g.clone() for g in out[1:]]
+                grads = [g.clone() for g in out[len(fetch):]]
                 after1 = snapshot(scope, state_names)
             for k, c in counts.items():
                 launches[k] += c
-            log('  step %d: loss %.6f, %.1f ms, launches %s'
-                % (step + 1, losses[-1], secs[-1] * 1e3,
-                   {k: c for k, c in counts.items() if c}))
-            if counts != expected:
+            log('  step %d: loss %.6f%s, %.1f ms, launches %s'
+                % (step + 1, losses[-1],
+                   ', lr %.4g' % rates[-1] if path['lr'] else '',
+                   secs[-1] * 1e3, {k: c for k, c in counts.items() if c}))
+            if counts != path['expected']:
                 raise AssertionError('step %d launched %s, expected %s'
-                                     % (step + 1, counts, expected))
+                                     % (step + 1, counts, path['expected']))
         peak = torch.cuda.max_memory_allocated()
     log('  peak device memory over the %d steps: %.2f GiB'
         % (TRAIN_STEPS, peak / 2 ** 30))
-    held = held_losses(main, startup, batch, loss, start)
+    held = held_losses(path, start)
     log('  losses %s; with the parameters held %s'
         % (['%.6f' % x for x in losses], ['%.6f' % x for x in held]))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
@@ -614,58 +804,78 @@ def train(prog, seed):
         raise AssertionError('loss %s (held %s): not finite, not falling '
                              'from step 1 to step %d, or not below the '
                              'held run' % (losses, held, TRAIN_STEPS))
-    check_plain_step(main, startup, batch, fetch, start, after1, losses[0],
-                     grads, probe)
-    return {'main': main, 'exe': exe, 'scope': scope, 'batch': batch,
-            'loss': loss, 'launches': launches, 'peak': peak}
+    check_plain_step(path, fetch + grad_fetch, start, after1, losses[0],
+                     grads, rates[0] if path['lr'] else LR)
+    return {'path': path, 'exe': exe, 'scope': scope, 'launches': launches,
+            'peak': peak, 'rates': rates}
 
 
-def held_losses(main, startup, batch, loss, start):
-    """The losses of TRAIN_STEPS steps from `start` with the learning
-    rate set to 0: the same step numbers, hence the same dropout masks,
-    and parameters that do not move."""
+def held_losses(path, start):
+    """The losses of TRAIN_STEPS steps that each start from `start`: the
+    same step numbers, hence the same dropout masks, and parameters that
+    do not move."""
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    losses = []
     with fluid.scope_guard(scope):
-        without_counting(lambda: exe.run(startup))
-        for n, v in start.items():
-            scope.set_var(n, torch.zeros_like(v) if n.startswith(
-                'learning_rate') else v.clone())
-        return [float(without_counting(lambda: exe.run(
-            main, feed=batch, fetch_list=[loss]))[0])
-            for _ in range(TRAIN_STEPS)]
+        without_counting(lambda: exe.run(path['startup']))
+        for _ in range(TRAIN_STEPS):
+            for n, v in start.items():
+                scope.set_var(n, v.clone())
+            losses.append(float(without_counting(lambda: exe.run(
+                path['main'], feed=path['batch'],
+                fetch_list=[path['loss']]))[0]))
+    return losses
 
 
-def check_plain_step(main, startup, batch, fetch, start, after1, loss1,
-                     grads, probe):
+def check_plain_step(path, fetch, start, after1, loss1, grads, lr1):
     """Step 1 again from the same state (a startup run, so the step
     counter matches, then the kernel path's starting values), with every
-    kernel's plain version.  The hidden dropout draws from the same
-    generator (program seed, op seed, step) and the attention mask from
-    the same hash, so both paths compute the same function in another
-    summation order: the loss agrees to LOSS_RTOL, the probed gradients
-    and every first moment ((1 - beta1) * gradient after one step) to
-    GRAD_TOL of their largest magnitude.  A first Adam step moves a
-    parameter by lr * g / (|g| + epsilon), which changes by at most
-    lr / epsilon times a change of g, so each parameter must agree
-    within (lr / epsilon) * max|d moment1| / (1 - beta1), with 5% and
-    1e-7 of slack for rounding."""
+    kernel's plain version.
+
+    A path with `bitwise` (Wide&Deep) runs the same PyTorch ops around
+    kernels that are bitwise their plain versions: the loss and the
+    whole state after the step must be bit for bit the kernel path's.
+
+    On the BERT paths the hidden dropout draws from the same generator
+    (program seed, op seed, step) and the attention mask from the same
+    hash, so both paths compute the same function in another summation
+    order: the loss agrees to LOSS_RTOL, the probed gradients and every
+    first moment ((1 - beta1) * gradient after one step) to GRAD_TOL of
+    their largest magnitude.  A first Adam step at rate lr1 moves a
+    parameter by lr1 * g / (|g| + epsilon), which changes by at most
+    lr1 / epsilon times a change of g, so each parameter must agree
+    within (lr1 / epsilon) * max|d moment1| / (1 - beta1), with 5% and
+    1e-7 of slack for rounding; LAMB's first step runs at the warmup's
+    rate 0, so its parameters must stay within the 1e-7."""
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     flags.set_flags({'FLAGS_torch_kernels_plain': True})
     try:
         with fluid.scope_guard(scope):
-            without_counting(lambda: exe.run(startup))
+            without_counting(lambda: exe.run(path['startup']))
             for n, v in start.items():
                 scope.set_var(n, v.clone())
             out = without_counting(lambda: exe.run(
-                main, feed=batch, fetch_list=fetch, return_numpy=False))
+                path['main'], feed=path['batch'], fetch_list=fetch,
+                return_numpy=False))
             torch.cuda.synchronize()
             got = snapshot(scope, list(start))
     finally:
         flags.set_flags({'FLAGS_torch_kernels_plain': False})
+    if path['bitwise']:
+        differ = [n for n in start if not torch.equal(after1[n], got[n])]
+        log('  step 1 vs the plain path: loss %s, state %s' % (
+            'equal' if float(out[0]) == loss1 else 'differs',
+            'bitwise equal (%d variables)' % len(start) if not differ
+            else 'differs in %s' % differ))
+        if float(out[0]) != loss1 or differ:
+            raise AssertionError('the training step is not bitwise its '
+                                 'plain path')
+        return
     loss_err = abs(float(out[0]) - loss1) / abs(loss1)
+    n_fixed = len(fetch) - len(grads)
     grad_err = max(max_abs(a, b) / b.abs().max().item()
-                   for a, b in zip(grads, out[1:]))
+                   for a, b in zip(grads, out[n_fixed:]))
     moment_err, param_ratio = 0.0, 0.0
     for n in start:
         if '_moment1_' not in n:
@@ -674,12 +884,13 @@ def check_plain_step(main, startup, batch, fetch, start, after1, loss1,
         moment_err = max(moment_err,
                          dm / max(got[n].abs().max().item(), 1e-30))
         p = n.split('_moment1_')[0]
-        limit = LR / EPSILON * dm / (1 - 0.9) * 1.05 + 1e-7
+        limit = lr1 / EPSILON * dm / (1 - 0.9) * 1.05 + 1e-7
         param_ratio = max(param_ratio, max_abs(after1[p], got[p]) / limit)
     log('  step 1 vs the plain path: loss rel %.2e (limit %g), gradients '
         'of %s rel %.2e, first moments rel %.2e (limit %g), parameters at '
-        '%.2f of their bound' % (loss_err, LOSS_RTOL, probe, grad_err,
-                                 moment_err, GRAD_TOL, param_ratio))
+        '%.2f of their bound' % (loss_err, LOSS_RTOL, path['probe'],
+                                 grad_err, moment_err, GRAD_TOL,
+                                 param_ratio))
     if not (loss_err <= LOSS_RTOL and grad_err <= GRAD_TOL and
             moment_err <= GRAD_TOL and param_ratio <= 1.0):
         raise AssertionError('the training step disagrees with its plain '
@@ -689,29 +900,31 @@ def check_plain_step(main, startup, batch, fetch, start, after1, loss1,
 def train_step_ms(run):
     """Median host-clock time of exe.run (the loss fetched to numpy, so
     it ends after the step's last kernel) over TIMED_STEPS steps."""
+    path = run['path']
     secs = []
     with fluid.scope_guard(run['scope']):
         for _ in range(TIMED_STEPS):
             t0 = time.perf_counter()
-            run['exe'].run(run['main'], feed=run['batch'],
-                           fetch_list=[run['loss']])
+            run['exe'].run(path['main'], feed=path['batch'],
+                           fetch_list=[path['loss']])
             secs.append(time.perf_counter() - t0)
     med = statistics.median(secs) * 1e3
-    log('  train step (batch %d, seq %d): median %.2f ms over %d steps %s, '
-        '%.0f tokens/s' % (TRAIN_BATCH, SEQ, med, TIMED_STEPS,
-                           ['%.2f' % (x * 1e3) for x in secs],
-                           TRAIN_BATCH * SEQ / med * 1e3))
+    log('  %s step: median %.2f ms over %d steps %s, %.0f %s/s' % (
+        path['name'], med, TIMED_STEPS, ['%.2f' % (x * 1e3) for x in secs],
+        path['tokens'] / med * 1e3,
+        'ids' if path['bitwise'] else 'tokens'))
     return med
 
 
 def profile_train(run):
+    path = run['path']
     with fluid.scope_guard(run['scope']):
-        events = profile_run('train step', lambda: run['exe'].run(
-            run['main'], feed=run['batch'], fetch_list=[run['loss']]))
+        events = profile_run('%s step' % path['name'], lambda: run['exe'].run(
+            path['main'], feed=path['batch'], fetch_list=[path['loss']]))
     log(events.table(sort_by='self_cuda_time_total', row_limit=25))
 
 
-# ------------------------------------------------------------ phase 6
+# ------------------------------------------------------------ phase 8
 def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -742,8 +955,8 @@ def sdpa_bwd_call(q, k, v, mask, do):
         [True, True, True, False])
 
 
-def time_kernels(timer, gen, dev, req, train_batch, launches, max_err,
-                 adam_shapes):
+def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
+                 max_err, adam_shapes):
     b, t, h, d = 8, SEQ, 12, 64
     seed = 4242
     q, k, v = qkv_views(gen, b, t, h, d, dev)
@@ -768,14 +981,40 @@ def time_kernels(timer, gen, dev, req, train_batch, launches, max_err,
         p.grad = x.clone()
     lib_adam = torch.optim.Adam(lib_params, lr=LR, eps=EPSILON, fused=True,
                                 capturable=True)
+    lamb_attrs = {'beta1': 0.9, 'beta2': 0.999, 'epsilon': EPSILON,
+                  'weight_decay': LAMB_DECAY}
+    lamb_ins = lamb_inputs(adam_shapes, gen, dev)
+    lamb_ins = {k: v[:len(adam_shapes)] for k, v in lamb_ins.items()}
+    lamb_table, lamb_blocks = opt_k.device_table(lamb_ins, opt_k.LAMB_SOURCE)
+    # the deep table's update: the main path's ids, its [V, 16] table
+    wd_ids = torch.from_numpy(wd_batch['sparse_input']).to(dev).reshape(-1)
+    n_wd = wd_ids.numel()
+    rows_wd = {}
+    for rows, width in ((WD_ROWS, 16), (1000, 16), (WD_ROWS, 1)):
+        ids_r = wd_ids % rows
+        touched = int(torch.unique(ids_r).numel())
+        rows_wd[(rows, width)] = dict(
+            ids=ids_r, w=torch.randn(rows, width, generator=gen, device=dev),
+            m=torch.rand(rows, width, generator=gen, device=dev),
+            g=torch.randn(n_wd, width, generator=gen, device=dev),
+            touched=touched,
+            bound=bound(n_wd * (8 + width * 4) + touched * width * 16, 0))
+    lr_wd = torch.full((1,), WD_LR, device=dev)
+    deep = rows_wd[(WD_ROWS, 16)]
+    lib_emb = torch.nn.Parameter(deep['w'].clone())
+    lib_emb.grad = torch.sparse_coo_tensor(deep['ids'][None], deep['g'],
+                                           deep['w'].shape,
+                                           check_invariants=True)
+    lib_adagrad = torch.optim.Adagrad([lib_emb], lr=WD_LR, eps=1e-6)
     # name, kernel, plain, library, bound, whether a CUDA graph can
-    # hold the plain version (the others have no host sync)
+    # hold the plain version and the library call (the others have no
+    # host sync)
     calls = [
         ('flash_attention',
          lambda: fa_k.flash_attention_kernel(q, k, v, False, bias),
          lambda: fa_k.flash_attention_plain(q, k, v, False, bias),
          lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-         bound(fa_bytes, fa_flops), True),
+         bound(fa_bytes, fa_flops), True, True),
         ('flash_attention[dropout]',
          lambda: fa_k.flash_attention_kernel(q, k, v, False, bias, RATE,
                                              seed),
@@ -783,7 +1022,7 @@ def time_kernels(timer, gen, dev, req, train_batch, launches, max_err,
                                             seed),
          lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                 dropout_p=RATE),
-         bound(fa_bytes, fa_flops), True),
+         bound(fa_bytes, fa_flops), True, True),
         # the bound counts the S recompute and the four products the
         # gradient needs from q, k, v, O, lse and dO
         ('flash_attention_bwd',
@@ -793,31 +1032,46 @@ def time_kernels(timer, gen, dev, req, train_batch, launches, max_err,
                                                 False, RATE, seed),
          sdpa_bwd_call(q, k, v, mask, do),
          bound(4 * (8 * b * t * h * d + b * t + b * h * t),
-               10 * b * h * t * t * d), False),
+               10 * b * h * t * t * d), False, True),
         # the ids are in range here: F.embedding does not clip
         ('embedding_lookup',
          lambda: emb_k.gather_kernel(w, ids),
          lambda: emb_k.gather_plain(w, ids),
          lambda: F.embedding(ids, w),
-         bound(2 * n * 768 * 4 + n * 8, 0), True),
+         bound(2 * n * 768 * 4 + n * 8, 0), True, True),
         ('embedding_scatter_add',
          lambda: emb_k.scatter_add_kernel(30522, src, g),
          lambda: emb_k.scatter_add_plain(30522, src, g),
          lambda: torch.zeros(30522, 768, device=dev).index_add_(0, src, g),
-         bound(src.numel() * (768 * 4 + 8) + 30522 * 768 * 4, 0), False),
+         bound(src.numel() * (768 * 4 + 8) + 30522 * 768 * 4, 0), False,
+         True),
         ('fused_adam',
          lambda: opt_k.launch('adam', table, blocks, adam_attrs),
          lambda: opt_k.apply_plain('adam', None, ins, adam_attrs),
          lib_adam.step,
-         bound(28 * n_adam + 12 * len(adam_shapes), 0), True),
+         bound(28 * n_adam + 12 * len(adam_shapes), 0), True, True),
+        # moments pass 24 bytes an element, apply pass 16; no PyTorch
+        # call computes LAMB
+        ('fused_lamb',
+         lambda: opt_k.launch_lamb(lamb_table, lamb_blocks, lamb_attrs),
+         lambda: opt_k.apply_plain('lamb', None, lamb_ins, lamb_attrs),
+         None, bound(40 * n_adam + 12 * len(adam_shapes), 0), True, True),
+        # ids, gradient rows, the touched rows of w and m read and written
+        ('embedding_update',
+         lambda: emb_k.update_kernel(deep['w'], deep['m'], deep['ids'],
+                                     deep['g'], lr_wd, 1e-6),
+         lambda: emb_k.update_plain(deep['w'], deep['m'], deep['ids'],
+                                    deep['g'], lr_wd, 1e-6),
+         lib_adagrad.step, deep['bound'], False, False),
     ]
     rows = []
-    for name, kernel, plain, library, bnd, graph in calls:
+    for name, kernel, plain, library, bnd, graph, lib_graph in calls:
         base = name.split('[')[0]
         info = common.KERNELS[base]
         ms = timer.ms(kernel)
         plain_ms = timer.ms(plain, graph=graph)
-        library_ms = timer.ms(library)
+        library_ms = None if library is None else \
+            timer.ms(library, graph=lib_graph)
         row = {'name': name, 'route': 'cuda',
                'source': 'paddle_tpu_torch/ops/kernels/csrc/' +
                          info['source'],
@@ -829,9 +1083,11 @@ def time_kernels(timer, gen, dev, req, train_batch, launches, max_err,
                'library_ms': library_ms}
         rows.append(row)
         log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms%s  library '
-            '%.4f ms  bound %.4f ms (%s)' % (
+            '%s  bound %.4f ms (%s)' % (
                 name, ms, plain_ms, '' if graph else ' (events)',
-                library_ms, row['bound_ms'], row['bound_by']))
+                'none' if library_ms is None else '%.4f ms%s' % (
+                    library_ms, '' if lib_graph else ' (events)'),
+                row['bound_ms'], row['bound_by']))
     # the step's other scatter: BERT's 2-row sentence table, every id on
     # row 0, one run of 4096 rows
     zeros = torch.zeros_like(src)
@@ -843,6 +1099,20 @@ def time_kernels(timer, gen, dev, req, train_batch, launches, max_err,
                 0, zeros, g)),
             bound(src.numel() * (768 * 4 + 8) + 2 * 768 * 4, 0)['bound_ms'],
             src.numel()))
+    # the row update on BASE's 1000-row table (~106 visits a row) and on
+    # the wide part's D = 1 table
+    for key in ((1000, 16), (WD_ROWS, 1)):
+        r = rows_wd[key]
+        log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms (events)  '
+            'bound %.4f ms (%d x %d table, %d ids, %d rows touched)' % (
+                'embedding_update', timer.ms(
+                    lambda: emb_k.update_kernel(r['w'], r['m'], r['ids'],
+                                                r['g'], lr_wd, 1e-6)),
+                timer.ms(lambda: emb_k.update_plain(
+                    r['w'], r['m'], r['ids'], r['g'], lr_wd, 1e-6),
+                    graph=False),
+                r['bound']['bound_ms'], key[0], key[1], n_wd,
+                r['touched']))
     return rows
 
 
@@ -890,9 +1160,11 @@ def main(argv=None):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    prog = pretrain_program(args.seed)
+    paths = [pretrain_program(args.seed, 'adam'),
+             pretrain_program(args.seed, 'lamb'),
+             wide_deep_program(args.seed)]
     adam_shapes = [tuple(p.shape) for p in sorted(
-        prog[1].all_parameters(), key=lambda p: p.name)]
+        paths[0]['main'].all_parameters(), key=lambda p: p.name)]
     log('[3] kernel parity on the card')
     max_err = {
         'flash_attention': without_counting(lambda: check_flash(gen, dev)),
@@ -906,7 +1178,12 @@ def main(argv=None):
             lambda: check_scatter(gen, dev)),
         'fused_adam': without_counting(
             lambda: check_adam(gen, dev, adam_shapes)),
+        'fused_lamb': without_counting(
+            lambda: check_lamb(gen, dev, adam_shapes)),
+        'embedding_update': without_counting(
+            lambda: check_emb_update(gen, dev)),
     }
+    torch.cuda.empty_cache()
 
     log('[4] BERT-base serving through create_paddle_predictor')
     os.makedirs(os.path.join(ROOT, 'build', 'chip_smoke'), exist_ok=True)
@@ -922,33 +1199,36 @@ def main(argv=None):
     log('  launches on the 3 requests: %s'
         % {k: c for k, c in serve_launches.items() if c})
 
-    log('[5] BERT-base pretraining steps on CUDAPlace(0)')
-    run = train(prog, args.seed)
-    train_launches = run['launches']
-    log('  launches on the %d steps: %s' % (
-        TRAIN_STEPS, {k: c for k, c in train_launches.items() if c}))
+    runs = []
+    for phase, path in zip((5, 6, 7), paths):
+        log('[%d] %s training steps on CUDAPlace(0)' % (phase, path['name']))
+        runs.append(train(path))
+        log('  launches on the %d steps: %s' % (
+            TRAIN_STEPS, {k: c for k, c in runs[-1]['launches'].items()
+                          if c}))
+    train_launches = {k: sum(r['launches'][k] for r in runs)
+                      for k in common.KERNELS}
     # serving runs flash_attention without dropout, training with it
-    launches = {
+    launches = dict(train_launches)
+    launches.update({
         'flash_attention': serve_launches['flash_attention'],
         'flash_attention[dropout]': train_launches['flash_attention'],
-        'flash_attention_bwd': train_launches['flash_attention_bwd'],
         'embedding_lookup': (serve_launches['embedding_lookup'] +
-                             train_launches['embedding_lookup']),
-        'embedding_scatter_add': train_launches['embedding_scatter_add'],
-        'fused_adam': train_launches['fused_adam'],
-    }
+                             train_launches['embedding_lookup'])})
 
-    log('[6] timings at the main path\'s shapes (%s | %s)' % (
+    log('[8] timings at the main path\'s shapes (%s | %s)' % (
         torch.cuda.get_device_name(0), card))
     timer = Timer(dev)
     rows = without_counting(lambda: time_kernels(
-        timer, gen, dev, requests[-1], run['batch'], launches, max_err,
-        adam_shapes))
+        timer, gen, dev, requests[-1], paths[0]['batch'], paths[2]['batch'],
+        launches, max_err, adam_shapes))
     without_counting(lambda: request_latency(pred, requests))
-    without_counting(lambda: train_step_ms(run))
+    for run in runs:
+        without_counting(lambda: train_step_ms(run))
     if args.profile:
         without_counting(lambda: profile_requests(pred, requests))
-        without_counting(lambda: profile_train(run))
+        for run in runs:
+            without_counting(lambda: profile_train(run))
     log('  whole run %.1f s' % (time.perf_counter() - t_start))
     log('card: %s' % card_line())
     print(json.dumps({'kernels': rows}))

@@ -1,8 +1,9 @@
 """fluid API of the PyTorch port (reference: python/paddle/fluid/__init__.py).
 
-The static-graph path: Program IR, layers, append_backward, the Adam
-optimizers, the eager Executor (inference and training steps) and
-inference-model io.
+The static-graph path: Program IR, layers (with the learning-rate
+schedules), append_backward, gradient clipping, regularizers, the
+Adam, LAMB and Adagrad optimizers, the eager Executor (inference and
+training steps) and inference-model io.
 """
 
 from . import core  # noqa: F401  (before framework: ops import it)
@@ -13,6 +14,8 @@ from . import layers  # noqa: F401
 from . import io  # noqa: F401
 from . import backward  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import clip  # noqa: F401
+from . import regularizer  # noqa: F401
 from .core import (CPUPlace, CUDAPlace, LoDTensor, Scope,  # noqa: F401
                    global_scope, scope_guard)
 from .executor import Executor  # noqa: F401

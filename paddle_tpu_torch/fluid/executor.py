@@ -22,7 +22,7 @@ last reader.  What a run records depends on the program:
 - any other program (a startup program) runs under ``torch.no_grad()``,
   so the parameters it creates can enter autograd later.
 
-A contiguous run of same-hyperparameter adam/adamw ops runs as one
+A contiguous run of same-hyperparameter adam/adamw/lamb ops runs as one
 multi-tensor update (``_fused_opt_run``), which on CUDA updates the
 parameters and moments in place.  The step counter advances once per
 run, before the ops, as in the JAX executor, so dropout masks keyed on
@@ -62,8 +62,9 @@ def _role(op):
     return op.attrs.get('__op_role__', 'forward')
 
 
-# optimizer types the multi-tensor kernel batches -> their fused op
-_FUSABLE_OPT = {'adam': 'fused_adam', 'adamw': 'fused_adamw'}
+# optimizer types the multi-tensor kernels batch -> their fused op
+_FUSABLE_OPT = {'adam': 'fused_adam', 'adamw': 'fused_adamw',
+                'lamb': 'fused_lamb'}
 
 
 def _opt_group_key(op):
@@ -71,9 +72,11 @@ def _opt_group_key(op):
     powers stay per-op inputs.  (JAX: fluid/executor.py:391.)"""
     a = op.attrs
     key = (op.type, a.get('beta1', 0.9), a.get('beta2', 0.999),
-           a.get('epsilon', 1e-8))
+           a.get('epsilon', 1e-6 if op.type == 'lamb' else 1e-8))
     if op.type == 'adamw':
         key += (a.get('coeff', 0.01),)
+    elif op.type == 'lamb':
+        key += (a.get('weight_decay', 0.01),)
     return key
 
 

@@ -21,6 +21,10 @@ _DEFAULTS = {
     # tensors (FLAGS_pallas_opt_min_tensors).
     'FLAGS_torch_opt_fuse': True,
     'FLAGS_torch_opt_min_tensors': 2,
+    # AdagradOptimizer rewrites each embedding table's lookup grad +
+    # adagrad pair into one fused_emb_update over the looked-up rows
+    # (the JAX package does so under FLAGS_pallas_embedding)
+    'FLAGS_torch_emb_update': True,
 }
 
 _flags = {}

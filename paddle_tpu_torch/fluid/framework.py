@@ -238,6 +238,10 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def _remove_op(self, index):
+        del self.ops[index]
+        self.program._bump_version()
+
     def _infer_op_shapes(self, op):
         """Set output var shapes/dtypes by running the lowering on meta
         tensors."""

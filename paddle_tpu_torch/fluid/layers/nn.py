@@ -1,5 +1,5 @@
-"""Neural-net layers: the subset BERT pretraining builds.
-Reference: python/paddle/fluid/layers/nn.py.
+"""Neural-net layers: the subset BERT pretraining, the CTR models and
+gradient clipping build.  Reference: python/paddle/fluid/layers/nn.py.
 
 Each layer appends IR ops via LayerHelper exactly like the reference
 (e.g. fc at layers/nn.py:207) and the JAX package, so both packages
@@ -13,8 +13,11 @@ import numpy as np
 from ..layer_helper import LayerHelper
 
 __all__ = ['fc', 'embedding', 'layer_norm', 'dropout', 'softmax', 'matmul',
-           'elementwise_add', 'reshape', 'unsqueeze', 'transpose', 'split',
-           'softmax_with_cross_entropy', 'mean', 'slice']
+           'elementwise_add', 'elementwise_sub', 'elementwise_mul',
+           'elementwise_div', 'elementwise_min', 'elementwise_max',
+           'reduce_sum', 'reshape', 'unsqueeze', 'transpose',
+           'split', 'softmax_with_cross_entropy',
+           'sigmoid_cross_entropy_with_logits', 'mean', 'slice']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -141,6 +144,40 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise('elementwise_add', x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_sub', x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_mul', x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_div', x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_min', x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_max', x, y, axis, act, name)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper('reduce_sum', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        dim, reduce_all = [0], True
+    else:
+        dim = [dim] if isinstance(dim, int) else list(dim)
+        reduce_all = False
+    helper.append_op('reduce_sum', inputs={'X': input}, outputs={'Out': out},
+                     attrs={'dim': dim, 'keep_dim': keep_dim,
+                            'reduce_all': reduce_all})
+    return out
+
+
 def reshape(x, shape, actual_shape=None, act=None, inplace=False,
             name=None):
     helper = LayerHelper('reshape2', name=name)
@@ -198,6 +235,18 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None, normalize=False):
+    helper = LayerHelper('sigmoid_cross_entropy_with_logits', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op('sigmoid_cross_entropy_with_logits',
+                     inputs={'X': x, 'Label': label},
+                     outputs={'Out': out},
+                     attrs={'ignore_index': ignore_index,
+                            'normalize': normalize})
+    return out
 
 
 def mean(x, name=None):

@@ -1,8 +1,30 @@
-"""Activation op lowerings. Reference: operators/activation_op.cc|.cu|.h."""
+"""Activation and other unary op lowerings: the BERT and CTR models',
+the learning-rate schedules' and the regularizers'.
+Reference: operators/activation_op.cc|.cu|.h."""
 
+import torch
 import torch.nn.functional as F
 
 from .registry import register
+
+
+def _unary(name, fn):
+    @register(name)
+    def op(ctx, ins, attrs, _fn=fn):
+        return {'Out': [_fn(ins['X'][0])]}
+    return op
+
+
+# the JAX package's choices (ops/activation_ops.py): relu's gradient is
+# 0 at 0, reciprocal is 1 / x
+_unary('relu', torch.relu)
+_unary('sigmoid', torch.sigmoid)
+_unary('sqrt', torch.sqrt)
+_unary('floor', torch.floor)
+_unary('cos', torch.cos)
+_unary('exp', torch.exp)
+_unary('reciprocal', lambda x: 1.0 / x)
+_unary('sign', torch.sign)
 
 
 @register('gelu')
@@ -11,3 +33,8 @@ def gelu(ctx, ins, attrs):
     # as the JAX package defaults (approximate=False)
     approximate = 'tanh' if attrs.get('approximate', False) else 'none'
     return {'Out': [F.gelu(ins['X'][0], approximate=approximate)]}
+
+
+@register('pow')
+def pow_op(ctx, ins, attrs):
+    return {'Out': [torch.pow(ins['X'][0], attrs.get('factor', 1.0))]}

@@ -1,10 +1,8 @@
-"""Embedding row gather and its backward, the sorted scatter-add: the
-hand-written CUDA kernels (csrc/embedding_gather.cu,
-csrc/embedding_scatter.cu), their plain PyTorch versions, and the
-``torch.autograd.Function`` that joins them.
-
-The fused sparse Adagrad update (the JAX package's ``_update_kernel``)
-is not ported yet.
+"""Embedding row gather, its backward (the sorted scatter-add) and the
+sparse Adagrad row update: the hand-written CUDA kernels
+(csrc/embedding_gather.cu, csrc/embedding_scatter.cu,
+csrc/embedding_update.cu), their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins the first two.
 """
 
 import ctypes
@@ -15,6 +13,7 @@ from . import common
 
 SOURCE = 'embedding_gather.cu'
 SCATTER_SOURCE = 'embedding_scatter.cu'
+UPDATE_SOURCE = 'embedding_update.cu'
 
 common.register_kernel(
     'embedding_lookup',
@@ -33,6 +32,17 @@ common.register_kernel(
     doc='one block per (run of equal sorted ids, 256 columns), the run '
         'summed in sorted order; no atomics',
     op_types=('lookup_table_grad', 'lookup_table_v2_grad'))
+
+common.register_kernel(
+    'embedding_update',
+    source=UPDATE_SOURCE,
+    plain='ops.kernels.embedding.update_plain (stable sort, each run of '
+          'equal ids summed left to right, Adagrad on those rows)',
+    replaces='paddle_tpu/ops/pallas/embedding.py:165 _update_kernel',
+    doc='a group of lanes per run of equal sorted ids, the run summed in '
+        'sorted order, Adagrad applied once per touched row in place; no '
+        'atomics',
+    op_types=('fused_emb_update',))
 
 
 def gather_plain(w, ids):
@@ -75,10 +85,10 @@ def _sorted(nrows, ids):
     return torch.sort(ids, stable=True)
 
 
-def scatter_add_plain(nrows, ids, g):
-    """[nrows, D] zeros with g's rows summed at ids (clipped into
-    [0, nrows-1]): the rows of each id added in sorted (stable) order,
-    left to right, so duplicates sum as in the kernel, bitwise."""
+def _run_sums(nrows, ids, g):
+    """(distinct ids, their summed rows) of g's rows at ids clipped into
+    [0, nrows-1]: the rows of each id added in sorted (stable) order,
+    left to right, as the kernels sum them."""
     sids, order = _sorted(nrows, ids)
     sg = g.index_select(0, order)
     uniq, counts = torch.unique_consecutive(sids, return_counts=True)
@@ -87,6 +97,14 @@ def scatter_add_plain(nrows, ids, g):
     for r in range(1, int(counts.max()) if counts.numel() else 0):
         live = (counts > r).nonzero().squeeze(1)
         acc[live] = acc[live] + sg.index_select(0, starts[live] + r)
+    return uniq, acc
+
+
+def scatter_add_plain(nrows, ids, g):
+    """[nrows, D] zeros with g's rows summed at ids (clipped into
+    [0, nrows-1]), duplicates in sorted order as in the kernel,
+    bitwise."""
+    uniq, acc = _run_sums(nrows, ids, g)
     out = torch.zeros((nrows, g.shape[1]), dtype=g.dtype, device=g.device)
     out[uniq] = acc
     return out
@@ -160,3 +178,88 @@ def embedding_lookup(w, ids, padding_idx=-1):
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0)
     return out
+
+
+# ------------------------------------------------- sparse Adagrad rows
+
+def update_plain(w, mom, ids, g, lr, epsilon):
+    """(w_out, m_out), new tensors: Adagrad over the rows of w [V, D]
+    and mom [V, D] that ids [n] (clipped into [0, V-1]) name, with
+    g [n, D]'s rows of each id summed in sorted order first
+    (m += acc^2; w -= lr * acc / (sqrt(m) + epsilon)); every other row
+    copied unchanged.  Bitwise what update_kernel writes in place."""
+    uniq, acc = _run_sums(w.shape[0], ids, g)
+    m_new = mom.index_select(0, uniq) + acc * acc
+    w_new = w.index_select(0, uniq) - lr.reshape(()) * acc / (
+        torch.sqrt(m_new) + epsilon)
+    w_out, m_out = w.clone(), mom.clone()
+    w_out[uniq] = w_new
+    m_out[uniq] = m_new
+    return w_out, m_out
+
+
+def update_kernel(w, mom, ids, g, lr, epsilon):
+    """The CUDA kernel: update_plain's function on one CUDA device,
+    written into w and mom in place (untouched rows are not read).
+    w, mom [V, D] f32 contiguous, ids [n] integer, g [n, D] f32, lr one
+    f32.  The stable sort runs before the kernel."""
+    if w.dim() != 2 or mom.shape != w.shape or g.dim() != 2 or \
+            g.shape[1] != w.shape[1] or ids.numel() != g.shape[0]:
+        raise ValueError('update_kernel takes w and mom [V, D], ids [n] and '
+                         'g [n, D], got %s, %s, %s and %s'
+                         % (tuple(w.shape), tuple(mom.shape),
+                            tuple(ids.shape), tuple(g.shape)))
+    for name, x in (('w', w), ('mom', mom), ('g', g), ('lr', lr)):
+        if x.dtype != torch.float32 or x.device != w.device:
+            raise TypeError('the embedding update kernel takes f32 tensors '
+                            'on one device; %s has %s on %s'
+                            % (name, x.dtype, x.device))
+    if not (w.is_contiguous() and mom.is_contiguous()):
+        raise ValueError('the embedding update kernel updates contiguous '
+                         'tables in place')
+    if lr.numel() != 1 or ids.device != w.device:
+        raise ValueError('lr must hold one value and ids lie on %s'
+                         % w.device)
+    sids, order = _sorted(w.shape[0], ids)
+    g = g.contiguous()
+    lib = common.library(UPDATE_SOURCE)
+    fn = lib.embedding_adagrad_update
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(w.device):
+        err = fn(sids.data_ptr(), order.data_ptr(), g.data_ptr(),
+                 lr.data_ptr(), w.data_ptr(), mom.data_ptr(), g.shape[0],
+                 g.shape[1], float(epsilon), common.stream_ptr(w.device))
+    common.check_launch('embedding_update', lib, err)
+    return w, mom
+
+
+def apply_update(ctx, ins, attrs):
+    """The fused_emb_update lowering: Param [V, D], Moment [V, D], Ids
+    [...], Grad ids.shape + [D], LearningRate -> ParamOut, MomentOut.
+    As in the JAX package (ops/pallas/embedding.py apply_update), ids of
+    a v1 lookup_table ([..., 1]) are aligned to Grad's leading dims and
+    the gradient rows of padding_idx are zeroed first (the padding row
+    then takes a zero step).  On CUDA tensors the kernel updates Param
+    and Moment in place; on the CPU the plain version returns new
+    tensors."""
+    w = ins['Param'][0]
+    mom = ins['Moment'][0]
+    ids = ins['Ids'][0]
+    g = ins['Grad'][0]
+    epsilon = attrs.get('epsilon', 1e-6)
+    padding_idx = attrs.get('padding_idx', -1)
+    d = w.shape[1]
+    if tuple(ids.shape) != tuple(g.shape[:-1]):
+        ids = ids.reshape(g.shape[:-1])
+    if padding_idx is not None and padding_idx >= 0:
+        g = g.masked_fill((ids == padding_idx).unsqueeze(-1), 0)
+    flat_ids = ids.reshape(-1)
+    flat_g = g.reshape(-1, d).to(w.dtype)
+    lr = ins['LearningRate'][0]
+    if common.use_kernel(w, mom, flat_ids, flat_g):
+        w_out, m_out = update_kernel(w, mom, flat_ids, flat_g, lr, epsilon)
+    else:
+        w_out, m_out = update_plain(w, mom, flat_ids, flat_g, lr, epsilon)
+    return {'ParamOut': [w_out], 'MomentOut': [m_out]}

@@ -1,18 +1,23 @@
-"""Multi-tensor Adam / AdamW: the hand-written CUDA kernel
-(csrc/fused_adam.cu) and its plain PyTorch version.
+"""Multi-tensor Adam / AdamW and LAMB: the hand-written CUDA kernels
+(csrc/fused_adam.cu, csrc/fused_lamb.cu) and their plain PyTorch
+version.
 
 The executor's run grouping (fluid/executor.py ``_fused_opt_run``)
-hands a contiguous run of same-hyperparameter adam or adamw ops to the
-``fused_adam`` / ``fused_adamw`` op: every input slot carries the run's
-tensors aligned by index.  On CUDA tensors one kernel launch updates
-every parameter and both moments in place (the outputs are the input
-tensors); the plain version is the per-tensor adam lowering in run
-order, the ungrouped program.  Per-tensor learning rates and beta
-powers are read on the device, so tensors with different schedules
-still fuse; beta1, beta2, epsilon and the AdamW decay are the run's.
+hands a contiguous run of same-hyperparameter adam, adamw or lamb ops
+to the ``fused_adam`` / ``fused_adamw`` / ``fused_lamb`` op: every
+input slot carries the run's tensors aligned by index.  On CUDA tensors
+the run's kernel updates every parameter and both moments in place (the
+outputs are the input tensors); the plain version is the per-tensor
+lowering in run order, the ungrouped program.  Per-tensor learning
+rates and beta powers are read on the device, so tensors with different
+schedules still fuse; beta1, beta2, epsilon, the AdamW decay and the
+LAMB weight decay are the run's.  LAMB's per-tensor trust ratio
+||p|| / ||r|| is summed from per-block partials in a fixed order, so it
+is the same on every run.
 """
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -31,10 +36,29 @@ common.register_kernel(
     op_types=('fused_adam', 'fused_adamw'))
 
 
+LAMB_SOURCE = 'fused_lamb.cu'
+
+common.register_kernel(
+    'fused_lamb',
+    source=LAMB_SOURCE,
+    plain='ops.optimizer_ops.lamb per tensor, in run order',
+    replaces='paddle_tpu/ops/pallas/fused_optimizer.py:118 _lamb1_kernel '
+             '+ :139 _lamb2_kernel',
+    doc='three kernels over the device table: moments and per-block '
+        'partial norms, per-tensor trust by a fixed-order warp sum, the '
+        'parameter update; in place',
+    op_types=('fused_lamb',))
+
+
 def _hyper(kind, attrs):
+    """(beta1, beta2, epsilon, decay): the AdamW coeff or the LAMB
+    weight_decay, 0 for Adam."""
+    decay = {'adam': 0.0,
+             'adamw': float(attrs.get('coeff', 0.01)),
+             'lamb': float(attrs.get('weight_decay', 0.01))}[kind]
     return (float(attrs.get('beta1', 0.9)), float(attrs.get('beta2', 0.999)),
-            float(attrs.get('epsilon', 1e-8)),
-            float(attrs.get('coeff', 0.01)) if kind == 'adamw' else 0.0)
+            float(attrs.get('epsilon', 1e-6 if kind == 'lamb' else 1e-8)),
+            decay)
 
 
 def pow_outputs(ins, attrs):
@@ -55,9 +79,11 @@ def pow_outputs(ins, attrs):
 
 
 def apply_plain(kind, ctx, ins, attrs):
-    """The per-tensor adam / adamw lowerings looped in run order."""
+    """The per-tensor adam / adamw / lamb lowerings looped in run
+    order."""
     from .. import optimizer_ops
-    fn = {'adam': optimizer_ops.adam, 'adamw': optimizer_ops.adamw}[kind]
+    fn = {'adam': optimizer_ops.adam, 'adamw': optimizer_ops.adamw,
+          'lamb': optimizer_ops.lamb}[kind]
     outs = {}
     for i in range(len(ins['Param'])):
         one = {slot: [vals[i]] for slot, vals in ins.items() if vals}
@@ -73,36 +99,38 @@ def _check(ins):
                  'Beta1Pow', 'Beta2Pow'):
         xs = ins[slot]
         if len(xs) != n:
-            raise ValueError('fused adam: slot %s holds %d tensors, Param '
-                             '%d' % (slot, len(xs), n))
+            raise ValueError('fused optimizer: slot %s holds %d tensors, '
+                             'Param %d' % (slot, len(xs), n))
         for x in xs:
             if x.dtype != torch.float32 or x.device != dev:
-                raise TypeError('the fused adam kernel takes f32 tensors on '
-                                'one device; %s has %s on %s'
+                raise TypeError('the fused optimizer kernels take f32 '
+                                'tensors on one device; %s has %s on %s'
                                 % (slot, x.dtype, x.device))
             if not x.is_contiguous():
-                raise ValueError('fused adam: %s tensor is not contiguous'
-                                 % slot)
+                raise ValueError('fused optimizer: %s tensor is not '
+                                 'contiguous' % slot)
     for i in range(n):
         numel = ins['Param'][i].numel()
         for slot in ('Grad', 'Moment1', 'Moment2'):
             if ins[slot][i].numel() != numel:
-                raise ValueError('fused adam: tensor %d of %s has %d '
+                raise ValueError('fused optimizer: tensor %d of %s has %d '
                                  'elements, its Param %d'
                                  % (i, slot, ins[slot][i].numel(), numel))
         for slot in ('LearningRate', 'Beta1Pow', 'Beta2Pow'):
             if ins[slot][i].numel() != 1:
-                raise ValueError('fused adam: %s must hold one value' % slot)
+                raise ValueError('fused optimizer: %s must hold one value'
+                                 % slot)
 
 
-def device_table(ins):
-    """(table, blocks): the kernel's [n, 10] int64 table of the run's
-    tensor pointers and sizes, on the run's device, and the number of
-    blocks one launch takes."""
+def device_table(ins, source=SOURCE):
+    """(table, blocks): the [n, 10] int64 table of the run's tensor
+    pointers and sizes that the kernels of `source` read, on the run's
+    device, and the number of blocks one pass over the run takes."""
     _check(ins)
-    lib = common.library(SOURCE)
-    lib.fused_adam_chunk.restype = ctypes.c_longlong
-    chunk = int(lib.fused_adam_chunk())
+    lib = common.library(source)
+    chunk_fn = getattr(lib, os.path.splitext(source)[0] + '_chunk')
+    chunk_fn.restype = ctypes.c_longlong
+    chunk = int(chunk_fn())
     n = len(ins['Param'])
     table = np.zeros((n, 10), dtype=np.int64)
     first = 0
@@ -121,8 +149,8 @@ def device_table(ins):
 
 
 def launch(kind, table, blocks, attrs):
-    """One launch of the CUDA kernel over a device_table: updates the
-    tensors it points at in place."""
+    """One launch of the Adam / AdamW kernel over a device_table:
+    updates the tensors it points at in place."""
     beta1, beta2, epsilon, coeff = _hyper(kind, attrs)
     lib = common.library(SOURCE)
     fn = lib.fused_adam_update
@@ -137,21 +165,46 @@ def launch(kind, table, blocks, attrs):
     common.check_launch('fused_adam', lib, err)
 
 
+def launch_lamb(table, blocks, attrs):
+    """One LAMB update over a device_table of fused_lamb.cu (its three
+    kernels on the stream): parameters and moments in place."""
+    beta1, beta2, epsilon, decay = _hyper('lamb', attrs)
+    dev = table.device
+    # per-block partial sums of p^2 and r^2, per-tensor trust ratios
+    partial = torch.empty((blocks, 2), dtype=torch.float32, device=dev)
+    trust = torch.empty((table.shape[0],), dtype=torch.float32, device=dev)
+    lib = common.library(LAMB_SOURCE)
+    fn = lib.fused_lamb_update
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + [
+        ctypes.c_float] * 6 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(table.data_ptr(), table.shape[0], blocks, beta1, beta2,
+                 1.0 - beta1, 1.0 - beta2, epsilon, decay,
+                 partial.data_ptr(), trust.data_ptr(),
+                 common.stream_ptr(dev))
+    common.check_launch('fused_lamb', lib, err)
+
+
 def apply_kernel(kind, ins, attrs):
     """The CUDA kernel over the run: Param, Moment1 and Moment2 are
     updated in place and returned as ParamOut, Moment1Out, Moment2Out
     (the same tensors)."""
-    table, blocks = device_table(ins)
-    launch(kind, table, blocks, attrs)
+    if kind == 'lamb':
+        table, blocks = device_table(ins, LAMB_SOURCE)
+        launch_lamb(table, blocks, attrs)
+    else:
+        table, blocks = device_table(ins)
+        launch(kind, table, blocks, attrs)
     return {'ParamOut': list(ins['Param']),
             'Moment1Out': list(ins['Moment1']),
             'Moment2Out': list(ins['Moment2'])}
 
 
 def apply(kind, ctx, ins, attrs):
-    """Multi-tensor ``kind`` in {'adam', 'adamw'} over the aligned
-    slots of ``ins``; returns the per-op output slots, each with one
-    entry per tensor, Beta1PowOut / Beta2PowOut included."""
+    """Multi-tensor ``kind`` in {'adam', 'adamw', 'lamb'} over the
+    aligned slots of ``ins``; returns the per-op output slots, each
+    with one entry per tensor, Beta1PowOut / Beta2PowOut included."""
     flat = [x for slot in ('Param', 'Grad', 'Moment1', 'Moment2')
             for x in ins[slot]]
     if common.use_kernel(*flat):

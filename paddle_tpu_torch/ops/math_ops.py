@@ -1,7 +1,9 @@
-"""Dense math and elementwise (+paddle axis broadcast) lowerings.
+"""Dense math, elementwise (+paddle axis broadcast), comparison,
+reduction and clipping lowerings.
 
-Reference kernels: paddle/fluid/operators/{mul,scale}_op.*,
-operators/elementwise/.  The products go to torch.matmul (cuBLAS in
+Reference kernels: paddle/fluid/operators/{mul,scale,sum,clip}_op.*,
+operators/elementwise/, operators/controlflow/compare_op.*,
+operators/reduce_ops/.  The products go to torch.matmul (cuBLAS in
 full float32 unless the caller enables TF32), as the JAX package left
 them to XLA.
 """
@@ -58,10 +60,65 @@ def _bcast(x, y, axis):
     return x, y.reshape(yshape)
 
 
-@register('elementwise_add')
-def elementwise_add(ctx, ins, attrs):
-    x, y = _bcast(ins['X'][0], ins['Y'][0], attrs.get('axis', -1))
-    return {'Out': [x + y]}
+def _ew(name, fn, no_grad_out_slots=()):
+    @register(name, no_grad_out_slots=no_grad_out_slots)
+    def op(ctx, ins, attrs, _fn=fn):
+        x, y = _bcast(ins['X'][0], ins['Y'][0], attrs.get('axis', -1))
+        return {'Out': [_fn(x, y)]}
+    return op
+
+
+# torch.minimum / maximum split the gradient evenly at ties, as the
+# JAX package's jnp.minimum / maximum do
+_ew('elementwise_add', lambda x, y: x + y)
+_ew('elementwise_sub', lambda x, y: x - y)
+_ew('elementwise_mul', lambda x, y: x * y)
+_ew('elementwise_div', lambda x, y: x / y)
+_ew('elementwise_min', torch.minimum)
+_ew('elementwise_max', torch.maximum)
+
+# comparisons (the learning-rate schedules'): a bool Out that carries
+# no gradient
+_ew('less_than', torch.lt, ('Out',))
+_ew('greater_equal', torch.ge, ('Out',))
+
+
+@register('reduce_sum')
+def reduce_sum(ctx, ins, attrs):
+    x = _x(ins)
+    dims = tuple(range(x.ndim)) if attrs.get('reduce_all', False) else \
+        tuple(a % x.ndim for a in attrs.get('dim', [0]))
+    return {'Out': [torch.sum(x, dim=dims,
+                              keepdim=attrs.get('keep_dim', False))]}
+
+
+def _scalar(v, like):
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
+
+
+@register('clip')
+def clip(ctx, ins, attrs):
+    """jnp.clip's definition, maximum then minimum (so a gradient at a
+    bound splits as the JAX package's does)."""
+    x = _x(ins)
+    return {'Out': [torch.minimum(torch.maximum(x, _scalar(attrs['min'], x)),
+                                  _scalar(attrs['max'], x))]}
+
+
+@register('clip_by_norm')
+def clip_by_norm(ctx, ins, attrs):
+    """x scaled by min(max_norm / ||x||, 1), ||x|| floored at 1e-12."""
+    x = _x(ins)
+    norm = torch.sqrt(torch.sum(x * x))
+    scale = torch.minimum(
+        attrs['max_norm'] / torch.maximum(norm, _scalar(1e-12, norm)),
+        _scalar(1.0, norm))
+    return {'Out': [x * scale]}
+
+
+@register('squared_l2_norm')
+def squared_l2_norm(ctx, ins, attrs):
+    return {'Out': [torch.sum(_x(ins).float() ** 2).reshape(1)]}
 
 
 @register('mean')

@@ -1,6 +1,7 @@
 """Normalization, dropout and loss lowerings.
 
-Reference: operators/{layer_norm,dropout,softmax_with_cross_entropy}_op.*
+Reference: operators/{layer_norm,dropout,softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits}_op.*
 """
 
 import numpy as np
@@ -76,3 +77,20 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
     softmax = torch.exp(lf - lse)
     return {'Softmax': [softmax.to(logits.dtype)],
             'Loss': [loss.to(logits.dtype)]}
+
+
+@register('sigmoid_cross_entropy_with_logits')
+def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
+    """The stable form max(x, 0) - x * label + log1p(exp(-|x|)), 0
+    where the label equals ignore_index; with `normalize`, divided by
+    the count of the other labels (at least 1)."""
+    x = ins['X'][0]
+    label = ins['Label'][0]
+    ignore_index = attrs.get('ignore_index', -100)
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label +
+            torch.log1p(torch.exp(-torch.abs(x))))
+    mask = label != ignore_index
+    loss = torch.where(mask, loss, torch.zeros_like(loss))
+    if attrs.get('normalize', False):
+        loss = loss / torch.clamp(torch.sum(mask.to(x.dtype)), min=1.0)
+    return {'Out': [loss]}

@@ -1,7 +1,8 @@
 """Tensor creation / manipulation op lowerings, and feed/fetch.
 
 Reference kernels: paddle/fluid/operators/{fill_constant,gaussian_random,
-uniform_random,reshape,split,unsqueeze,lookup_table_v2}_op.cc|.cu,
+uniform_random,reshape,split,concat,cast,unsqueeze,lookup_table_v2}_op.cc|.cu,
+operators/{fill_any_like,increment}_op.cc,
 operators/controlflow/{feed,fetch}_op.cc.
 """
 
@@ -155,3 +156,24 @@ def slice_op(ctx, ins, attrs):
 @register('fill_zeros_like')
 def fill_zeros_like(ctx, ins, attrs):
     return {'Out': [torch.zeros_like(_x(ins))]}
+
+
+@register('fill_any_like')
+def fill_any_like(ctx, ins, attrs):
+    return {'Out': [torch.full_like(_x(ins), attrs.get('value', 0.0))]}
+
+
+@register('cast')
+def cast(ctx, ins, attrs):
+    return {'Out': [_x(ins).to(core.convert_dtype(attrs['out_dtype']))]}
+
+
+@register('concat')
+def concat(ctx, ins, attrs):
+    return {'Out': [torch.cat(ins['X'], dim=attrs.get('axis', 0))]}
+
+
+@register('increment')
+def increment(ctx, ins, attrs):
+    """The learning-rate schedules' step counter: X + step."""
+    return {'Out': [_x(ins) + attrs.get('step', 1.0)]}

@@ -174,4 +174,5 @@ def test_small_training_step_launches_every_kernel(dev):
     assert np.isfinite(out)
     assert {k: common.launches(k) for k in common.KERNELS} == {
         'flash_attention': 2, 'flash_attention_bwd': 2,
-        'embedding_lookup': 3, 'embedding_scatter_add': 3, 'fused_adam': 1}
+        'embedding_lookup': 3, 'embedding_scatter_add': 3, 'fused_adam': 1,
+        'embedding_update': 0, 'fused_lamb': 0}

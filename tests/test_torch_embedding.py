@@ -77,8 +77,8 @@ def test_gather_kernel_rejects_bad_inputs():
 def test_kernel_registry_and_report():
     info = common.kernels()
     assert set(info) == {'embedding_lookup', 'embedding_scatter_add',
-                         'flash_attention', 'flash_attention_bwd',
-                         'fused_adam'}
+                         'embedding_update', 'flash_attention',
+                         'flash_attention_bwd', 'fused_adam', 'fused_lamb'}
     assert info['embedding_lookup']['op_types'] == ('lookup_table',
                                                     'lookup_table_v2')
     assert info['embedding_scatter_add']['replaces'].startswith(

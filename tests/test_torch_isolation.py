@@ -53,6 +53,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     for name in ('paddle_tpu_torch.fluid.executor',
                  'paddle_tpu_torch.fluid.backward',
                  'paddle_tpu_torch.fluid.optimizer',
+                 'paddle_tpu_torch.fluid.clip',
+                 'paddle_tpu_torch.fluid.regularizer',
+                 'paddle_tpu_torch.fluid.layers.tensor',
+                 'paddle_tpu_torch.fluid.layers.learning_rate_scheduler',
+                 'paddle_tpu_torch.models.wide_deep',
                  'paddle_tpu_torch.inference.predictor',
                  'paddle_tpu_torch.models.bert',
                  'paddle_tpu_torch.ops.optimizer_ops',
