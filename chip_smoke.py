@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
 
+(``--dp-worker`` is the mode in which phase 9 runs this script on each
+data-parallel rank through the port's launcher; it is not for callers.)
+
 The Programs' random seed is N + 1 (fluid reads 0 as unseeded), so a
 run's weights, batches and dropout masks are a function of N.
 
@@ -40,6 +43,12 @@ Phases, each of which fails the run (non-zero exit) on error:
        uniform ids, on the 1000 x 16 table with the same ids (~106
        visits a row) and on a 1000001 x 1 table, padding_idx and
        out-of-range ids included (bitwise);
+       quant_quantize and quant_reduce (K8) at the shapes 2-rank
+       BERT-base training gives them: the 30522 x 768 table gradient
+       (quantize [91566, 256], reduce [2, 45783, 256]), a 768 x 3072
+       gradient ([9216, 256], [2, 4608, 256]), the fused bucket of the
+       101 small gradients (124,418 elements padded to 124,928) and
+       block 64 on an unaligned size (bitwise);
   4. serving: BERT-base (12 layers, hidden 768, seq 512, random weights
      from --seed) built with the port's layers, saved with
      save_inference_model, loaded by create_paddle_predictor on
@@ -82,7 +91,8 @@ Phases, each of which fails the run (non-zero exit) on error:
      for bit (the same PyTorch ops around kernels that are bitwise
      their plain versions);
   8. timings: each kernel, its plain version and the PyTorch library
-     call at the main path's shapes (device time of CUDA-graph replays,
+     call at the main path's shapes (K8 at the table gradient's; its
+     768 x 3072 shape beside it) (device time of CUDA-graph replays,
      L2 flushed before each call; a plain version that syncs with the
      host is timed with CUDA events around single calls instead), the
      least time the card could take (bound), K6b also on the 2-row
@@ -91,16 +101,38 @@ Phases, each of which fails the run (non-zero exit) on error:
      each training path.  The library call for the flash backward is
      SDPA's memory-efficient backward op on its own forward's saved
      outputs; for the row update, torch.optim.Adagrad's step on a
-     sparse gradient; PyTorch has no LAMB (null).
+     sparse gradient; PyTorch has no LAMB and no block-scaled int8
+     quantize (null; phase 9 times the dense collective on the same
+     payload as K8's collective-level yardstick);
+  9. data-parallel training: this script again on 2 ranks through
+     ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2``
+     (one card a rank over NCCL where the machine has two cards or
+     more, else both ranks on card 0 over gloo, the wire staged through
+     host memory).  Each rank builds phase 5's program, rewrites it with
+     GradAllReduce over the 2 endpoints with FLAGS_comms_quantize on
+     and trains 3 steps of batch 8 on data from --seed + rank.  Each
+     step must launch K8's quantize and reduce once for every planned
+     collective the transpiled program holds whose arm is 'quant' (53
+     at BERT-base), and the other kernels as in phase 5; after every
+     step the ranks' parameters are bitwise equal; the loss at step 3
+     is below the held run's; step 1's all-reduced gradients of the
+     quantized arm lie within the quantization bound of the dense
+     arm's (per block, sum_r s_r / 2 + s_red / 2); one quantized
+     all-reduce of the table gradient is bitwise its plain path's.
+     Each rank's step medians with the arm on and off, its peak device
+     memory and the collective times (quantized, flat dense, the
+     planner's dense rs_ag) of the table gradient are printed; a rank
+     that fails fails the phase.
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  --profile adds a torch.profiler
-breakdown of one request of each batch size and of one step of each
-training path.
+breakdown of one request of each batch size, of one step of each
+training path and of one data-parallel step of each arm.
 """
 
 import argparse
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -109,6 +141,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 import paddle_tpu_torch.fluid as fluid
@@ -121,6 +154,7 @@ from paddle_tpu_torch.ops.kernels import common
 from paddle_tpu_torch.ops.kernels import embedding as emb_k
 from paddle_tpu_torch.ops.kernels import flash_attention as fa_k
 from paddle_tpu_torch.ops.kernels import fused_optimizer as opt_k
+from paddle_tpu_torch.ops.kernels import quant_collective as qc_k
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEQ = 512
@@ -160,6 +194,11 @@ WD_LR = 1e-3
 # step 1 of the kernel path against the plain path (see check_plain_step)
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3
+# data-parallel training (phase 9): ranks, K8's block, the time limit
+DP_RANKS = 2
+QUANT_BLOCK = 256
+DP_TIMEOUT_S = 600
+TABLE_NUMEL = 30522 * 768
 
 
 def log(*args):
@@ -579,6 +618,50 @@ def check_emb_update(gen, dev):
     return 0.0
 
 
+def quant_rows(x, n, block):
+    """x flat, zero-padded to n chunks of whole blocks: [n * cb, block],
+    the layout quant_allreduce quantizes."""
+    chunk = -(-x.numel() // n)
+    chunk = -(-chunk // block) * block
+    return F.pad(x, (0, chunk * n - x.numel())).reshape(-1, block)
+
+
+def check_quant(gen, dev):
+    """K8's quantize and reduce at the 2-rank data-parallel shapes, each
+    against its plain version, bitwise."""
+    for name, numel, block in (('table 30522x768', TABLE_NUMEL, 256),
+                               ('768x3072', 768 * 3072, 256),
+                               ('fused bucket', 124418, 256),
+                               ('block 64 unaligned', 1000003, 64)):
+        n = DP_RANKS
+        shards = []
+        for _ in range(n):
+            x = torch.randn(numel, generator=gen, device=dev) * 1e-3
+            x[:2 * block] = 0.0
+            x[-block:] *= 1e4
+            rows = quant_rows(x, n, block)
+            q, sc = qc_k.quantize_kernel(rows)
+            pq, ps = qc_k.quantize_plain(rows)
+            torch.cuda.synchronize()
+            if not (torch.equal(q, pq) and torch.equal(sc, ps)):
+                raise AssertionError('quant_quantize (%s) is not bitwise '
+                                     'equal to its plain version' % name)
+            shards.append((q, sc))
+        cb = rows.shape[0] // n
+        qt = torch.stack([q.reshape(n, cb, block)[0] for q, _ in shards])
+        st = torch.stack([sc.reshape(n, cb, 1)[0] for _, sc in shards])
+        qr, sr = qc_k.reduce_kernel(qt, st)
+        pqr, psr = qc_k.dequant_reduce_requant_plain(qt, st)
+        torch.cuda.synchronize()
+        if not (torch.equal(qr, pqr) and torch.equal(sr, psr)):
+            raise AssertionError('quant_reduce (%s) is not bitwise equal to '
+                                 'its plain version' % name)
+        log('  quant_collective %-18s %d elements: quantize %s, reduce %s: '
+            'bitwise equal' % (name, numel, list(rows.shape),
+                               list(qt.shape)))
+    return 0.0
+
+
 # ------------------------------------------------------------ phase 4
 def build_model(model_dir, seed):
     cfg = bert.BASE
@@ -810,11 +893,12 @@ def train(path):
             'peak': peak, 'rates': rates}
 
 
-def held_losses(path, start):
+def held_losses(path, start, place=None):
     """The losses of TRAIN_STEPS steps that each start from `start`: the
     same step numbers, hence the same dropout masks, and parameters that
     do not move."""
-    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe = fluid.Executor(place or fluid.CUDAPlace(0))
+    scope = fluid.Scope()
     losses = []
     with fluid.scope_guard(scope):
         without_counting(lambda: exe.run(path['startup']))
@@ -1006,6 +1090,22 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                                            deep['w'].shape,
                                            check_invariants=True)
     lib_adagrad = torch.optim.Adagrad([lib_emb], lr=WD_LR, eps=1e-6)
+    # K8 at the table gradient's shapes on 2 ranks: the quantize of the
+    # padded payload, the reduce of one chunk's 2 shards
+    quant = {}
+    for numel in (TABLE_NUMEL, 768 * 3072):
+        rows = quant_rows(torch.randn(numel, generator=gen, device=dev) *
+                          1e-3, DP_RANKS, QUANT_BLOCK)
+        codes, scales = qc_k.quantize_kernel(rows)
+        cb = rows.shape[0] // DP_RANKS
+        nbytes = rows.numel() * (1 + 4 / QUANT_BLOCK)
+        quant[numel] = dict(
+            rows=rows, qt=codes.reshape(DP_RANKS, cb, QUANT_BLOCK),
+            st=scales.reshape(DP_RANKS, cb, 1),
+            # f32 in, int8 and scales out; n shards in, one chunk out
+            qbound=bound(rows.numel() * 4 + nbytes, 0),
+            rbound=bound(nbytes + nbytes / DP_RANKS, 0))
+    tab = quant[TABLE_NUMEL]
     # name, kernel, plain, library, bound, whether a CUDA graph can
     # hold the plain version and the library call (the others have no
     # host sync)
@@ -1063,6 +1163,16 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          lambda: emb_k.update_plain(deep['w'], deep['m'], deep['ids'],
                                     deep['g'], lr_wd, 1e-6),
          lib_adagrad.step, deep['bound'], False, False),
+        # no PyTorch call computes the block absmax scale and the +-127
+        # rounding; phase 9 times the dense collective instead
+        ('quant_quantize',
+         lambda: qc_k.quantize_kernel(tab['rows']),
+         lambda: qc_k.quantize_plain(tab['rows']),
+         None, tab['qbound'], True, True),
+        ('quant_reduce',
+         lambda: qc_k.reduce_kernel(tab['qt'], tab['st']),
+         lambda: qc_k.dequant_reduce_requant_plain(tab['qt'], tab['st']),
+         None, tab['rbound'], True, True),
     ]
     rows = []
     for name, kernel, plain, library, bnd, graph, lib_graph in calls:
@@ -1076,7 +1186,7 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                'source': 'paddle_tpu_torch/ops/kernels/csrc/' +
                          info['source'],
                'replaces': info['replaces'].split(' ')[0],
-               'launches': launches[name],
+               'launches': launches.get(name),
                'max_abs_err': max_err[name],
                'ms': ms, 'plain_ms': plain_ms,
                'bound_ms': bnd['bound_ms'], 'bound_by': bnd['bound_by'],
@@ -1099,6 +1209,21 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                 0, zeros, g)),
             bound(src.numel() * (768 * 4 + 8) + 2 * 768 * 4, 0)['bound_ms'],
             src.numel()))
+    # K8 at a 768 x 3072 gradient's shapes
+    w3 = quant[768 * 3072]
+    log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms  bound %.4f ms '
+        '(768 x 3072 gradient, [%d, %d])' % (
+            'quant_quantize', timer.ms(lambda: qc_k.quantize_kernel(
+                w3['rows'])), timer.ms(lambda: qc_k.quantize_plain(
+                    w3['rows'])), w3['qbound']['bound_ms'],
+            *w3['rows'].shape))
+    log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms  bound %.4f ms '
+        '(768 x 3072 gradient, [%d, %d, %d])' % (
+            'quant_reduce', timer.ms(lambda: qc_k.reduce_kernel(
+                w3['qt'], w3['st'])),
+            timer.ms(lambda: qc_k.dequant_reduce_requant_plain(
+                w3['qt'], w3['st'])), w3['rbound']['bound_ms'],
+            *w3['qt'].shape))
     # the row update on BASE's 1000-row table (~106 visits a row) and on
     # the wide part's D = 1 table
     for key in ((1000, 16), (WD_ROWS, 1)):
@@ -1131,15 +1256,287 @@ def request_latency(pred, requests, runs=5):
             ['%.2f' % (x * 1e3) for x in secs]))
 
 
+# ------------------------------------------------------------ phase 9
+def free_port():
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(('127.0.0.1', 0))
+        return sk.getsockname()[1]
+
+
+def data_parallel(seed, profile):
+    """Phase 9: this script on DP_RANKS ranks through the port's
+    launcher; the ranks' results.  A rank that fails (or the time limit)
+    fails the phase: the launcher then stops every rank."""
+    out_dir = tempfile.mkdtemp(dir=os.path.join(ROOT, 'build', 'chip_smoke'))
+    cmd = [sys.executable, '-m', 'paddle_tpu_torch.distributed.launch',
+           '--nproc_per_node', str(DP_RANKS), '--started_port',
+           str(free_port()), os.path.join(ROOT, 'chip_smoke.py'),
+           '--dp-worker', '--dp-out', out_dir, '--seed', str(seed)] + \
+        (['--profile'] if profile else [])
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=ROOT, timeout=DP_TIMEOUT_S).returncode
+    if rc != 0:
+        raise AssertionError('the data-parallel ranks failed (launcher exit '
+                             '%d)' % rc)
+    results = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, 'rank%d.json' % r)) as f:
+            results.append(json.load(f))
+    log('  %d ranks on cards %s over %s, %.1f s' % (
+        DP_RANKS, [res['card'] for res in results], results[0]['backend'],
+        time.perf_counter() - t0))
+    for res in results:
+        log('  rank %d: losses %s, held %s; step median quantized %.2f ms '
+            '(its collectives alone %.2f), dense %.2f ms (%.2f); peak %.2f '
+            'GiB; quant bound used %.3f; table-gradient all-reduce '
+            'quantized %.2f ms, flat dense %.2f ms, rs_ag %.2f ms' % (
+                res['rank'], ['%.6f' % x for x in res['losses']],
+                ['%.6f' % x for x in res['held']], res['step_ms']['quant'],
+                res['step_collectives_ms']['quant'], res['step_ms']['dense'],
+                res['step_collectives_ms']['dense'], res['peak'] / 2 ** 30,
+                res['bound_ratio'], res['collective_ms']['quant'],
+                res['collective_ms']['dense'], res['collective_ms']['rs_ag']))
+    return results
+
+
+def params_in_sync(scope, names, group, dev):
+    """Whether every rank's parameters are bitwise rank 0's."""
+    from paddle_tpu_torch.distributed import wire
+    flat = torch.cat([scope.find_var(n).reshape(-1) for n in names])
+    same = torch.equal(flat, wire.broadcast(flat, group, 0))
+    ok = wire.all_reduce(torch.tensor([float(same)], device=dev), group,
+                         op=dist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+def collective_ms(fn, group, runs=5):
+    """Median wall time of fn() on every rank, the ranks released
+    together."""
+    secs = []
+    for _ in range(runs):
+        dist.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs) * 1e3
+
+
+def dp_worker(args):
+    """One rank of phase 9 (see the module docstring); raises on any
+    failed check, so the launcher stops the job."""
+    from paddle_tpu_torch.distributed import init_distributed, local_card
+    from paddle_tpu_torch.distributed import wire
+    from paddle_tpu_torch.fluid import comms, comms_plan
+    from paddle_tpu_torch.fluid.transpiler import GradAllReduce
+    from paddle_tpu_torch.ops import collective_ops
+    card = local_card()
+    place = fluid.CUDAPlace(card)
+    dev = place.torch_device()
+    torch.cuda.set_device(dev)
+    group = init_distributed(place)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def say(fmt, *a):
+        log('  [rank %d] ' % rank + fmt % a)
+
+    flags.set_flags({'FLAGS_comms_quantize': True})
+    path = pretrain_program(args.seed, 'adam')
+    batch = path['batch'] = bert.synthetic_batch(
+        bert.BASE, TRAIN_BATCH, SEQ, np.random.RandomState(args.seed + rank))
+    main, startup, loss = path['main'], path['startup'], path['loss']
+    GradAllReduce().transpile(startup, main, rank,
+                              os.environ['PADDLE_TRAINER_ENDPOINTS'].split(
+                                  ','),
+                              os.environ['PADDLE_CURRENT_ENDPOINT'])
+    block = main.global_block()
+    colls = [op.input('X') for op in block.ops if op.attrs.get('plan') and
+             op.type in ('c_allreduce_sum', 'c_allreduce_fused')]
+    arms = [comms_plan.decide(
+        4.0 * sum(int(np.prod(block.var(g).shape)) for g in names), 4,
+        n)['arm'] for names in colls]
+    n_quant = arms.count('quant')
+    expected = dict(path['expected'], quant_quantize=n_quant,
+                    quant_reduce=n_quant)
+    say('%d ops, %d planned collectives (%d quantized, %d fused), backend '
+        '%s, card %d', len(block.ops), len(colls), n_quant,
+        sum(len(x) > 1 for x in colls), dist.get_backend(group), card)
+    grads = [g for names in colls for g in names]
+    params = sorted(p.name for p in main.all_parameters())
+    state_names = weights.startup_names(startup)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    losses, secs = [], []
+    launches = {k: 0 for k in common.KERNELS}
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        start = snapshot(scope, state_names)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        comms.reset()
+        for step in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: exe.run(
+                main, feed=batch,
+                fetch_list=[loss] + (grads if step == 0 else []),
+                return_numpy=False))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(out[0]))
+            for k, c in counts.items():
+                launches[k] += c
+            if step == 0:
+                quant_avg = dict(zip(grads, out[1:]))
+            in_sync = without_counting(
+                lambda: params_in_sync(scope, params, group, dev))
+            say('step %d: loss %.6f, %.1f ms, launches %s, ranks in sync %s',
+                step + 1, losses[-1], secs[-1] * 1e3,
+                {k: c for k, c in counts.items() if c}, in_sync)
+            if counts != expected:
+                raise AssertionError('step %d launched %s, expected %s'
+                                     % (step + 1, counts, expected))
+            if not in_sync:
+                raise AssertionError('the ranks\' parameters differ after '
+                                     'step %d' % (step + 1))
+        peak = torch.cuda.max_memory_allocated(dev)
+        if comms.arm_counts() != {'quant': TRAIN_STEPS * n_quant,
+                                  'dense': 0, 'rs_ag': 0}:
+            raise AssertionError('arms run: %s' % comms.arm_counts())
+    held = without_counting(lambda: held_losses(path, start, place))
+    say('losses %s; with the parameters held %s',
+        ['%.6f' % x for x in losses], ['%.6f' % x for x in held])
+    if not (all(np.isfinite(losses)) and losses[-1] < held[-1]):
+        raise AssertionError('loss %s not finite or not below the held run '
+                             '%s' % (losses, held))
+
+    def step1(prog, prog_startup, quantize):
+        """The gradients `grads` of step 1 of `prog` from `start`, on a
+        scope of its own."""
+        flags.set_flags({'FLAGS_comms_quantize': quantize})
+        try:
+            ex, sc = fluid.Executor(place), fluid.Scope()
+            with fluid.scope_guard(sc):
+                ex.run(prog_startup)
+                for name, v in start.items():
+                    sc.set_var(name, v.clone())
+                got = ex.run(prog, feed=batch, fetch_list=grads,
+                             return_numpy=False)
+            return dict(zip(grads, got))
+        finally:
+            flags.set_flags({'FLAGS_comms_quantize': True})
+
+    dense_avg = without_counting(lambda: step1(main, startup, False))
+    # each rank's own gradients: the program before the rewrite
+    before = pretrain_program(args.seed, 'adam')
+    local = without_counting(lambda: step1(before['main'],
+                                           before['startup'], True))
+    del before
+    ratio = 0.0
+    for names in colls:
+        rows = [quant_rows(torch.cat([src[g].reshape(-1) for g in names]),
+                           n, QUANT_BLOCK) for src in (local, quant_avg,
+                                                       dense_avg)]
+        s_sum = wire.all_reduce(rows[0].abs().amax(1) / 127.0, group)
+        q_sum, d_sum = rows[1] * n, rows[2] * n
+        bound_b = s_sum / 2 + q_sum.abs().amax(1) / 127.0 / 2 + \
+            2e-6 * d_sum.abs().amax(1) + 1e-30
+        err_b = (q_sum - d_sum).abs().amax(1)
+        ratio = max(ratio, (err_b / bound_b).max().item())
+    say('step 1 quantized vs dense all-reduced gradients: at most %.3f of '
+        'the quantization bound', ratio)
+    if not ratio <= 1.0:
+        raise AssertionError('the quantized arm is off the dense arm by more '
+                             'than its bound (%.3f)' % ratio)
+    table = max(grads, key=lambda g: local[g].numel())
+    x = local[table]
+    got = without_counting(lambda: qc_k.quant_allreduce(x, group, n,
+                                                        QUANT_BLOCK))
+    flags.set_flags({'FLAGS_torch_kernels_plain': True})
+    try:
+        want = without_counting(lambda: qc_k.quant_allreduce(
+            x, group, n, QUANT_BLOCK))
+    finally:
+        flags.set_flags({'FLAGS_torch_kernels_plain': False})
+    if not torch.equal(got, want):
+        raise AssertionError('the quantized all-reduce of %s is not bitwise '
+                             'its plain path' % table)
+    say('quantized all-reduce of %s %s: bitwise its plain path', table,
+        list(x.shape))
+    # a step's planned collectives alone, on this rank's gradients
+    payloads = [torch.cat([local[g].reshape(-1) for g in names])
+                for names in colls]
+    del local, quant_avg, dense_avg, got, want, start
+    torch.cuda.empty_cache()
+
+    step_ms = {}
+    with fluid.scope_guard(scope):
+        for arm in ('quant', 'dense'):
+            flags.set_flags({'FLAGS_comms_quantize': arm == 'quant'})
+            ts = []
+            for _ in range(TIMED_STEPS):
+                t0 = time.perf_counter()
+                without_counting(lambda: exe.run(main, feed=batch,
+                                                 fetch_list=[loss]))
+                ts.append(time.perf_counter() - t0)
+            step_ms[arm] = statistics.median(ts) * 1e3
+            say('%s arm: step median %.2f ms over %d steps %s', arm,
+                step_ms[arm], TIMED_STEPS, ['%.1f' % (t * 1e3) for t in ts])
+            if args.profile:
+                events = without_counting(lambda: profile_run(
+                    'rank %d %s arm step' % (rank, arm), lambda: exe.run(
+                        main, feed=batch, fetch_list=[loss])))
+                if rank == 0:
+                    log(events.table(sort_by='self_cpu_time_total',
+                                     row_limit=12))
+    step_coll = {}
+    for arm in ('quant', 'dense'):
+        flags.set_flags({'FLAGS_comms_quantize': arm == 'quant'})
+        step_coll[arm] = collective_ms(lambda: without_counting(lambda: [
+            collective_ops._planned_allreduce(p, group, n, {'plan': True})
+            for p in payloads]), group)
+    say('the %d planned collectives of a step alone: quantized %.2f ms, '
+        'dense %.2f ms', len(payloads), step_coll['quant'],
+        step_coll['dense'])
+    flags.set_flags({'FLAGS_comms_quantize': True})
+    coll = {
+        'quant': collective_ms(lambda: without_counting(
+            lambda: qc_k.quant_allreduce(x, group, n, QUANT_BLOCK)), group),
+        'dense': collective_ms(lambda: wire.all_reduce(x, group), group),
+        'rs_ag': collective_ms(lambda: collective_ops._rs_ag_allreduce(
+            x, group, n), group)}
+    say('all-reduce of %s (%.1f MB f32): quantized %.2f ms, flat dense %.2f '
+        'ms, rs_ag %.2f ms', table, x.numel() * 4 / 1e6, coll['quant'],
+        coll['dense'], coll['rs_ag'])
+    res = {'rank': rank, 'card': card, 'backend': dist.get_backend(group),
+           'losses': losses, 'held': held, 'step_ms': step_ms, 'peak': peak,
+           'bound_ratio': ratio, 'collective_ms': coll,
+           'step_collectives_ms': step_coll,
+           'n_collectives': len(colls), 'n_quant': n_quant,
+           'launches': launches,
+           'card_line': card_line()}
+    with open(os.path.join(args.dp_out, 'rank%d.json' % rank), 'w') as f:
+        json.dump(res, f)
+    dist.barrier(group=group)
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--profile', action='store_true')
+    ap.add_argument('--dp-worker', action='store_true',
+                    help=argparse.SUPPRESS)
+    ap.add_argument('--dp-out', help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false (torch %s)'
               % torch.__version__, file=sys.stderr)
         return 1
+    if args.dp_worker:
+        return dp_worker(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
@@ -1182,6 +1579,8 @@ def main(argv=None):
             lambda: check_lamb(gen, dev, adam_shapes)),
         'embedding_update': without_counting(
             lambda: check_emb_update(gen, dev)),
+        'quant_quantize': without_counting(lambda: check_quant(gen, dev)),
+        'quant_reduce': 0.0,
     }
     torch.cuda.empty_cache()
 
@@ -1229,6 +1628,15 @@ def main(argv=None):
         without_counting(lambda: profile_requests(pred, requests))
         for run in runs:
             without_counting(lambda: profile_train(run))
+    del pred, runs, timer
+    torch.cuda.empty_cache()
+
+    log('[9] data-parallel BERT-base training, %d ranks (%s | %s)' % (
+        DP_RANKS, torch.cuda.get_device_name(0), card))
+    dp = data_parallel(args.seed, args.profile)
+    for row in rows:
+        if row['name'] in ('quant_quantize', 'quant_reduce'):
+            row['launches'] = dp[0]['launches'][row['name']]
     log('  whole run %.1f s' % (time.perf_counter() - t_start))
     log('card: %s' % card_line())
     print(json.dumps({'kernels': rows}))

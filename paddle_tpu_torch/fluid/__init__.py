@@ -3,7 +3,8 @@
 The static-graph path: Program IR, layers (with the learning-rate
 schedules), append_backward, gradient clipping, regularizers, the
 Adam, LAMB and Adagrad optimizers, the eager Executor (inference and
-training steps) and inference-model io.
+training steps), inference-model io, and collective data parallelism
+(the transpilers, the collective fleet, the comms planner).
 """
 
 from . import core  # noqa: F401  (before framework: ops import it)
@@ -16,6 +17,10 @@ from . import backward  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import clip  # noqa: F401
 from . import regularizer  # noqa: F401
+from . import comms  # noqa: F401
+from . import comms_plan  # noqa: F401
+from . import transpiler  # noqa: F401
+from . import incubate  # noqa: F401
 from .core import (CPUPlace, CUDAPlace, LoDTensor, Scope,  # noqa: F401
                    global_scope, scope_guard)
 from .executor import Executor  # noqa: F401

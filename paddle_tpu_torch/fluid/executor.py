@@ -22,6 +22,15 @@ last reader.  What a run records depends on the program:
 - any other program (a startup program) runs under ``torch.no_grad()``,
   so the parameters it creates can enter autograd later.
 
+A program the collective transpiler marked (``_collective_dp``:
+GradAllReduce, the fleet CollectiveOptimizer, DistributeTranspiler in
+nccl2 mode) runs the same way on the rank's card, with the rank's
+process group in every op's lowering context: its c_allreduce ops sit
+between the gradients and the optimizer (the whole-program grad's
+``post`` region) and reduce over the group.  Each rank feeds its own
+shard of the batch and keeps its own step counter, so the dropout
+masks are keyed alike on every rank.
+
 A contiguous run of same-hyperparameter adam/adamw/lamb ops runs as one
 multi-tensor update (``_fused_opt_run``), which on CUDA updates the
 parameters and moments in place.  The step counter advances once per
@@ -32,6 +41,7 @@ compilation of the JAX executor come with later slices.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import core
 from . import framework
@@ -56,6 +66,16 @@ def _drop_plan(ops, keep):
         if n not in keep:
             drops[i].append(n)
     return drops
+
+
+def _program_group(program):
+    """The world group for a program the collective transpiler marked,
+    when this process has joined one; None otherwise."""
+    if not getattr(program, '_collective_dp', False):
+        return None
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD
+    return None
 
 
 def _role(op):
@@ -177,6 +197,7 @@ class Executor(object):
         self.place = place if place is not None else core.CUDAPlace(0)
         self.device = self.place.torch_device()
         self._step = 0
+        self._group = None
 
     def _to_device(self, value):
         value = core.as_array(value)
@@ -212,6 +233,7 @@ class Executor(object):
                        for v in (fetch_list or [])]
         block = program.global_block()
         self._step += 1
+        self._group = _program_group(program)
         ops = [op for op in block.ops if op.type not in registry.HOST_OPS]
         env = {name: self._to_device(value) for name, value in feed.items()}
         keep = set(fetch_names)
@@ -242,7 +264,7 @@ class Executor(object):
     def _ctx(self, op, program):
         return registry.LowerCtx(
             self._step, op.attrs.get('__op_seed__', 0), device=self.device,
-            random_seed=program.random_seed)
+            random_seed=program.random_seed, group=self._group)
 
     def _write(self, block, names, vals, env, scope):
         for n, val in zip(names, vals):

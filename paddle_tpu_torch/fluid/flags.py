@@ -25,6 +25,27 @@ _DEFAULTS = {
     # adagrad pair into one fused_emb_update over the looked-up rows
     # (the JAX package does so under FLAGS_pallas_embedding)
     'FLAGS_torch_emb_update': True,
+    # The collective planner (fluid/comms_plan.py), with the JAX
+    # package's defaults.  FLAGS_comms_plan: GradAllReduce buckets the
+    # gradients and inserts one planned collective per bucket (off: the
+    # v1.6 one c_allreduce_sum per gradient).
+    'FLAGS_comms_plan': True,
+    # the quantized arm (block-scaled int8, K8) for payloads of at least
+    # FLAGS_comms_quantize_min_bytes, in blocks of FLAGS_comms_quant_block
+    'FLAGS_comms_quantize': False,
+    'FLAGS_comms_quantize_min_bytes': 65536,
+    'FLAGS_comms_quant_block': 256,
+    # fused-bucket byte target (0: no fusion) and the per-gradient size
+    # from which a gradient reduces alone
+    'FLAGS_comms_bucket_bytes': 4 << 20,
+    'FLAGS_comms_fuse_grad_max_bytes': 64 << 10,
+    # dense payloads of at least this many bytes reduce as
+    # reduce-scatter + all-gather
+    'FLAGS_comms_rs_ag_min_bytes': 8 << 20,
+    # the cost model and the HBM budget are not ported: setting either
+    # raises (fluid/comms_plan.py)
+    'FLAGS_comms_model_path': '',
+    'FLAGS_comms_hbm_budget_bytes': 0,
 }
 
 _flags = {}

@@ -238,6 +238,12 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
+        op = self.append_op(type, inputs, outputs, attrs)
+        self.ops.remove(op)
+        self.ops.insert(index, op)
+        return op
+
     def _remove_op(self, index):
         del self.ops[index]
         self.program._bump_version()

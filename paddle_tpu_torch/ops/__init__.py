@@ -9,3 +9,4 @@ from . import nn_ops  # noqa: F401
 from . import activation_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import collective_ops  # noqa: F401

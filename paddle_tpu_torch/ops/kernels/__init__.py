@@ -6,3 +6,4 @@ from . import common  # noqa: F401
 from . import embedding  # noqa: F401
 from . import flash_attention  # noqa: F401
 from . import fused_optimizer  # noqa: F401
+from . import quant_collective  # noqa: F401

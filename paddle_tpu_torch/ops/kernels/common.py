@@ -34,11 +34,12 @@ _CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 NVCC_FLAGS = ('-O3', '-gencode=arch=compute_90a,code=sm_90a', '-std=c++17',
               '-shared', '-Xcompiler', '-fPIC')
-# flags of one source on top of NVCC_FLAGS: the optimizer kernels round
-# every operation as their plain versions' separate kernels do
+# flags of one source on top of NVCC_FLAGS: the optimizer kernels and
+# K8 round every operation as their plain versions' separate kernels do
 SOURCE_FLAGS = {'fused_adam.cu': ('--fmad=false',),
                 'fused_lamb.cu': ('--fmad=false',),
-                'embedding_update.cu': ('--fmad=false',)}
+                'embedding_update.cu': ('--fmad=false',),
+                'quant_collective.cu': ('--fmad=false',)}
 
 # kernel registry: name -> descriptor (source, plain version, TPU kernel
 # it replaces, op types it serves, launch count).  Populated by each

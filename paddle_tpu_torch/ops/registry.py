@@ -17,8 +17,10 @@ import torch
 
 
 class LowerCtx(object):
-    """Per-op lowering context: the device new tensors go to, and a
-    deterministic per-(op, step) random generator.
+    """Per-op lowering context: the device new tensors go to, a
+    deterministic per-(op, step) random generator, and the process
+    group ring 0 of the collective ops reduces over (None: no group,
+    every collective is the identity).
 
     Random draws come from an explicit ``torch.Generator`` seeded from
     the program's ``random_seed``, the op's seed and the step; they do
@@ -26,8 +28,9 @@ class LowerCtx(object):
     """
 
     def __init__(self, step, op_seed=0, prefer_test=False, device=None,
-                 random_seed=0):
+                 random_seed=0, group=None):
         self.step = step
+        self.group = group
         self.op_seed = int(op_seed)
         self.prefer_test = prefer_test
         self.device = torch.device(device or 'cpu')

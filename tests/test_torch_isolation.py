@@ -64,7 +64,20 @@ def test_import_loads_neither_jax_nor_the_jax_package():
                  'paddle_tpu_torch.ops.kernels.flash_attention',
                  'paddle_tpu_torch.ops.kernels.embedding',
                  'paddle_tpu_torch.ops.kernels.fused_optimizer',
-                 'paddle_tpu_torch.weights'):
+                 'paddle_tpu_torch.weights',
+                 'paddle_tpu_torch.distributed',
+                 'paddle_tpu_torch.distributed.launch',
+                 'paddle_tpu_torch.distributed.wire',
+                 'paddle_tpu_torch.fluid.transpiler',
+                 'paddle_tpu_torch.fluid.transpiler.collective',
+                 'paddle_tpu_torch.fluid.incubate',
+                 'paddle_tpu_torch.fluid.incubate.fleet.base.role_maker',
+                 'paddle_tpu_torch.fluid.incubate.fleet.base.fleet_base',
+                 'paddle_tpu_torch.fluid.incubate.fleet.collective',
+                 'paddle_tpu_torch.fluid.comms',
+                 'paddle_tpu_torch.fluid.comms_plan',
+                 'paddle_tpu_torch.ops.collective_ops',
+                 'paddle_tpu_torch.ops.kernels.quant_collective'):
         assert name in res['imported']
 
 
