@@ -22,13 +22,18 @@ Phases, each of which fails the run (non-zero exit) on error:
        at a ragged T=300 (O and lse, atol 1e-4), and its keep mask
        read back from the kernel bitwise against the plain hash;
        flash_attention_bwd (dQ, dK, dV, and the key-bias cotangent in
-       two cases) against autograd of the plain forward with the same
-       mask, max|diff| <= 1e-4 * max(1, max|plain|);
+       six cases; D = 32, 64 and 128, ragged T, causal, dropout, bf16,
+       fully masked rows) against autograd of the plain forward with the
+       same mask, max|diff| <= 1e-4 * max(1, max|plain|) (bf16: bitwise
+       the f32 path on the same values rounded to bf16, and within 2e-2
+       of the plain), and a second launch from the same inputs bitwise
+       the first;
        embedding_lookup on a 30522 x 768 table with 4096 ids,
        duplicates and out-of-range ids included (bitwise);
        embedding_scatter_add on the 30522 x 768, 512 x 768 and 2 x 768
        tables with 4096 ids each, all of them on row 0 of the 2-row
-       table (bitwise);
+       table, a run of 1500 starting at sorted position 37, D = 16, 100
+       and 1, one id, and 12,288 int32 ids (bitwise);
        fused_adam over the 153 parameters of BERT-base pretraining
        (~132M f32 elements) and an AdamW run: parameters and moments
        bitwise (the library is built with --fmad=false, so it rounds
@@ -95,10 +100,13 @@ Phases, each of which fails the run (non-zero exit) on error:
      768 x 3072 shape beside it) (device time of CUDA-graph replays,
      L2 flushed before each call; a plain version that syncs with the
      host is timed with CUDA events around single calls instead), the
-     least time the card could take (bound), K6b also on the 2-row
-     sentence table, K7 also on the 1000 x 16 and the 1000001 x 1
-     tables, the request latency per batch size and the median step of
-     each training path.  The library call for the flash backward is
+     least time the card could take (bound; for K1 and K2 with their
+     products as f32-accurate 3xTF32 products on the tensor cores, the
+     f32-pipe bound beside it), K6b also on the 2-row sentence table (a
+     row of its own) and split into its sort, its zeroing and its
+     passes on both tables, K7 also on the 1000 x 16 and the 1000001 x
+     1 tables, the request latency per batch size and the median step
+     of each training path.  The library call for the flash backward is
      SDPA's memory-efficient backward op on its own forward's saved
      outputs; for the row update, torch.optim.Adagrad's step on a
      sparse gradient; PyTorch has no LAMB and no block-scaled int8
@@ -168,11 +176,14 @@ TIMED_STEPS = 5
 LR = 1e-6
 RATE = 0.1
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, f32 FLOP/s outside
-# the tensor cores (the kernels compute in full f32)
+# the tensor cores, TF32 FLOP/s on them (an f32-accurate product costs
+# three TF32 products: the 3xTF32 split)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 FA_TOL = 1e-4
 BWD_TOL = 1e-4
+FA_BF16_TOL = 2e-2  # tests/test_torch_cuda_flash_attention.py's bf16 limit
 SLICE_TOL = 1e-3
 EPSILON = 1e-6  # BERT's Adam epsilon (Devlin et al. 2019)
 # LAMB pretraining (You et al. 2019) with BERT's schedule and clip
@@ -386,42 +397,78 @@ def check_flash_dropout(gen, dev):
 
 
 def check_flash_bwd(gen, dev):
-    cases = [('B8 H12 T512 D64 dropout', 8, 512, 12, 64, False, RATE, False),
+    """K2 against autograd of the plain forward, max|diff| <= 1e-4 *
+    max(1, max|plain|) for dQ, dK, dV and the bias cotangent, and a second
+    launch from the same inputs bitwise the first.  bf16 (whose O reaches
+    the backward rounded, while autograd of the plain forward differs
+    through the unrounded O): bitwise the f32 kernel on the same values
+    with its gradients rounded to bf16 (the bf16 path only converts at
+    load and store), and within K1's bf16 limit, 2e-2 * max(1,
+    max|plain|), of the plain backward in f32.  'masked': batch 0's keys
+    all -inf (fully masked rows, whose gradients are 0)."""
+    cases = [('B8 H12 T512 D64 dropout', 8, 512, 12, 64, False, RATE, False,
+              None),
              ('ragged B2 H4 T300 D64 dropout dbias+dlse', 2, 300, 4, 64,
-              False, RATE, True),
+              False, RATE, True, None),
              ('causal B2 H4 T200 D128 dbias', 2, 200, 4, 128, True, 0.0,
-              True),
-             ('B1 H2 T64 D32', 1, 64, 2, 32, False, 0.0, False)]
+              True, None),
+             ('B1 H2 T64 D32', 1, 64, 2, 32, False, 0.0, False, None),
+             ('B2 H4 T512 D128 dropout dbias+dlse', 2, 512, 4, 128, False,
+              RATE, True, None),
+             ('ragged B2 H3 T300 D32 dropout dbias+dlse', 2, 300, 3, 32,
+              False, RATE, True, None),
+             ('bf16 ragged B2 H4 T300 D64 dropout dbias', 2, 300, 4, 64,
+              False, RATE, True, 'bf16'),
+             ('masked B2 H4 T200 D64 dbias+dlse', 2, 200, 4, 64, False, 0.0,
+              True, 'masked')]
     worst = 0.0
-    for name, b, t, h, d, causal, rate, with_grads in cases:
+    for name, b, t, h, d, causal, rate, with_grads, kind in cases:
         seed = 77 + t
-        q, k, v = qkv_views(gen, b, t, h, d, dev)
+        dtype = torch.bfloat16 if kind == 'bf16' else torch.float32
+        q, k, v = [x.to(dtype) for x in qkv_views(gen, b, t, h, d, dev)]
         bias = padding_bias(gen, b, t, dev)
-        do = torch.randn(b, t, h, d, generator=gen, device=dev)
+        if kind == 'masked':
+            bias[0] = float('-inf')
+        do = torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
         dlse = (torch.randn(b, h, t, generator=gen, device=dev)
                 if with_grads else None)
         o, lse = fa_k.flash_attention_kernel(q, k, v, causal, bias, rate,
                                              seed)
-        got = fa_k.flash_attention_bwd_kernel(q, k, v, bias, o, lse, do,
-                                              dlse, causal, rate, seed,
-                                              bias_grad=with_grads)
-        want = fa_k.flash_attention_bwd_plain(q, k, v, bias, do, dlse,
-                                              causal, rate, seed,
-                                              bias_grad=with_grads)
+        got, again = [fa_k.flash_attention_bwd_kernel(
+            q, k, v, bias, o, lse, do, dlse, causal, rate, seed,
+            bias_grad=with_grads) for _ in range(2)]
+        want = fa_k.flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), bias, do.float(), dlse, causal,
+            rate, seed, bias_grad=with_grads)
+        f32 = None
+        if kind == 'bf16':
+            f32 = fa_k.flash_attention_bwd_kernel(
+                q.float(), k.float(), v.float(), bias, o.float(), lse,
+                do.float(), dlse, causal, rate, seed, bias_grad=with_grads)
         torch.cuda.synchronize()
         errs = []
-        for label, g, w in zip(('dQ', 'dK', 'dV', 'dbias'), got, want):
+        for i, (label, g, w, g2) in enumerate(zip(
+                ('dQ', 'dK', 'dV', 'dbias'), got, want, again)):
             if w is None:
                 continue
-            err = max_abs(g, w)
-            e = err / max(1.0, w.abs().max().item())
+            if not torch.equal(g, g2):
+                raise AssertionError('flash_attention_bwd %s: a second launch '
+                                     'gave another %s' % (name, label))
+            if f32 is not None and not torch.equal(g, f32[i].to(g.dtype)):
+                raise AssertionError('flash_attention_bwd %s: %s is not the '
+                                     'f32 path rounded' % (name, label))
+            tol = BWD_TOL if f32 is None else FA_BF16_TOL
+            e = max_abs(g, w) / max(1.0, w.abs().max().item())
             errs.append('%s %.2e' % (label, e))
-            if not e <= BWD_TOL:
+            if not e <= tol:
                 raise AssertionError('flash_attention_bwd %s: %s differs '
                                      'from the plain backward by %g'
                                      % (name, label, e))
-            worst = max(worst, err)
-        log('  flash_attention_bwd %-40s %s' % (name, ', '.join(errs)))
+            if kind is None:
+                worst = max(worst, max_abs(g, w))
+        log('  flash_attention_bwd %-42s %s; 2nd launch bitwise%s'
+            % (name, ', '.join(errs), '' if f32 is None else
+               '; bitwise the f32 path rounded to bf16'))
     return worst
 
 
@@ -452,26 +499,48 @@ def check_embedding(gen, dev):
 
 
 def check_scatter(gen, dev):
+    """K6b bitwise against its plain version: BERT's three tables at the
+    main path's 4096 ids (word with duplicates and out-of-range ids,
+    positions, the 2-row sentence table with every id on row 0), a run
+    of 1500 that starts mid-chunk (sorted position 37 onward) over many
+    128-row stages, D = 16, 100 and 1 with long and short runs, one id,
+    and 12,288 int32 ids (past the kernel's one-block sort: torch.sort)."""
     n, d = TRAIN_BATCH * SEQ, 768
-    for rows, ids in (
-            (30522, torch.randint(0, 30522, (n,), generator=gen,
-                                  device=dev)),
-            (SEQ, torch.arange(SEQ, device=dev).repeat(TRAIN_BATCH)),
-            (2, torch.zeros(n, dtype=torch.int64, device=dev))):
-        if rows == 30522:
-            ids[:8] = torch.tensor([7, 7, 7, 30521, -1, -500, 30522, 7],
-                                   device=dev)
-        g = torch.randn(n, d, generator=gen, device=dev)
+    word = torch.randint(0, 30522, (n,), generator=gen, device=dev)
+    word[:8] = torch.tensor([7, 7, 7, 30521, -1, -500, 30522, 7], device=dev)
+    mid = torch.randint(0, 7, (3000,), generator=gen, device=dev)
+    mid[37:1537] = 7
+    mid[1537:] = torch.randint(8, 50, (1463,), generator=gen, device=dev)
+
+    def skewed(rows, m):
+        ids = torch.randint(0, rows, (m,), generator=gen, device=dev)
+        ids[5:900] = 3
+        return ids
+
+    cases = [('30522 x 768', 30522, word, d),
+             ('512 x 768 positions', SEQ,
+              torch.arange(SEQ, device=dev).repeat(TRAIN_BATCH), d),
+             ('2 x 768 sentence', 2, torch.zeros(n, dtype=torch.int64,
+                                                 device=dev), d),
+             ('50 x 768, run of 1500 from sorted position 37', 50, mid, d),
+             ('40 x 16 skewed', 40, skewed(40, 2000), 16),
+             ('40 x 100 skewed', 40, skewed(40, 2000), 100),
+             ('41 x 1 skewed', 41, skewed(41, 2000), 1),
+             ('10 x 768, one id', 10, torch.tensor([4], device=dev), d),
+             ('1000 x 64, 12288 int32 ids', 1000, torch.randint(
+                 -5, 1005, (12288,), generator=gen, device=dev).to(
+                     torch.int32), 64)]
+    for name, rows, ids, width in cases:
+        g = torch.randn(ids.numel(), width, generator=gen, device=dev)
         got = emb_k.scatter_add_kernel(rows, ids, g)
         want = emb_k.scatter_add_plain(rows, ids, g)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError('embedding_scatter_add on %d rows is not '
-                                 'bitwise equal to its plain version '
-                                 '(max|diff| %g)' % (rows, max_abs(got,
-                                                                   want)))
-        log('  embedding_scatter_add %5d x %d, %d ids: bitwise equal'
-            % (rows, d, n))
+            raise AssertionError('embedding_scatter_add %s is not bitwise '
+                                 'equal to its plain version (max|diff| %g)'
+                                 % (name, max_abs(got, want)))
+        log('  embedding_scatter_add %-46s %5d ids: bitwise equal'
+            % (name, ids.numel()))
     return 0.0
 
 
@@ -1009,11 +1078,19 @@ def profile_train(run):
 
 
 # ------------------------------------------------------------ phase 8
-def bound(nbytes, flops):
+def bound(nbytes, flops, tensor_cores=False):
+    """The least time for `nbytes` of HBM traffic and `flops` of f32
+    work: on the f32 pipe, or (tensor_cores) as f32-accurate products on
+    the tensor cores, three TF32 products each, with the f32-pipe figure
+    kept under bound_f32_ms."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return {'bound_ms': max(t_bytes, t_ops),
-            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+    t_f32 = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3 if tensor_cores else t_f32
+    out = {'bound_ms': max(t_bytes, t_ops),
+           'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+    if tensor_cores:
+        out['bound_f32_ms'] = max(t_bytes, t_f32)
+    return out
 
 
 def sdpa_bwd_call(q, k, v, mask, do):
@@ -1039,6 +1116,22 @@ def sdpa_bwd_call(q, k, v, mask, do):
         [True, True, True, False])
 
 
+def scatter_split(timer, rows, ids, g):
+    """K6b's parts on one input, each timed alone (cold L2): the sort of
+    the clipped ids; the zeroing of the output, which the kernel does in
+    the sort's launch on other SMs (timed as that launch); the run and
+    long-run passes (with the zeroing of their 4-byte run count)."""
+    runs = emb_k._runs_scratch(g.shape[0], g.device)
+    out = torch.empty(rows, g.shape[1], device=g.device)
+    keys, order, _ = emb_k._scatter_sort(rows, ids, runs)
+    return {'sort_ms': timer.ms(lambda: emb_k._scatter_sort(rows, ids,
+                                                            runs)),
+            'sort_and_zero_ms': timer.ms(lambda: emb_k._scatter_sort(
+                rows, ids, runs, out)),
+            'kernel_ms': timer.ms(lambda: emb_k._scatter_sum(
+                keys, order, g, out, runs, False, True))}
+
+
 def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                  max_err, adam_shapes):
     b, t, h, d = 8, SEQ, 12, 64
@@ -1055,6 +1148,7 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
     ids = torch.from_numpy(req['src_ids']).to(dev).reshape(-1)
     n = ids.numel()
     src = torch.from_numpy(train_batch['src_ids']).to(dev).reshape(-1)
+    zeros = torch.zeros_like(src)
     g = torch.randn(src.numel(), 768, generator=gen, device=dev)
     ins = adam_inputs(adam_shapes, gen, dev)
     adam_attrs = {'beta1': 0.9, 'beta2': 0.999, 'epsilon': EPSILON}
@@ -1114,7 +1208,7 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          lambda: fa_k.flash_attention_kernel(q, k, v, False, bias),
          lambda: fa_k.flash_attention_plain(q, k, v, False, bias),
          lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-         bound(fa_bytes, fa_flops), True, True),
+         bound(fa_bytes, fa_flops, True), True, True),
         ('flash_attention[dropout]',
          lambda: fa_k.flash_attention_kernel(q, k, v, False, bias, RATE,
                                              seed),
@@ -1122,7 +1216,7 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                                             seed),
          lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                 dropout_p=RATE),
-         bound(fa_bytes, fa_flops), True, True),
+         bound(fa_bytes, fa_flops, True), True, True),
         # the bound counts the S recompute and the four products the
         # gradient needs from q, k, v, O, lse and dO
         ('flash_attention_bwd',
@@ -1132,7 +1226,7 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                                                 False, RATE, seed),
          sdpa_bwd_call(q, k, v, mask, do),
          bound(4 * (8 * b * t * h * d + b * t + b * h * t),
-               10 * b * h * t * t * d), False, True),
+               10 * b * h * t * t * d, True), False, True),
         # the ids are in range here: F.embedding does not clip
         ('embedding_lookup',
          lambda: emb_k.gather_kernel(w, ids),
@@ -1145,6 +1239,13 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          lambda: torch.zeros(30522, 768, device=dev).index_add_(0, src, g),
          bound(src.numel() * (768 * 4 + 8) + 30522 * 768 * 4, 0), False,
          True),
+        # the step's other scatter: BERT's 2-row sentence table, every id
+        # on row 0, one run of 4096 rows
+        ('embedding_scatter_add[2-row]',
+         lambda: emb_k.scatter_add_kernel(2, zeros, g),
+         lambda: emb_k.scatter_add_plain(2, zeros, g),
+         lambda: torch.zeros(2, 768, device=dev).index_add_(0, zeros, g),
+         bound(src.numel() * (768 * 4 + 8) + 2 * 768 * 4, 0), False, True),
         ('fused_adam',
          lambda: opt_k.launch('adam', table, blocks, adam_attrs),
          lambda: opt_k.apply_plain('adam', None, ins, adam_attrs),
@@ -1186,29 +1287,31 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                'source': 'paddle_tpu_torch/ops/kernels/csrc/' +
                          info['source'],
                'replaces': info['replaces'].split(' ')[0],
-               'launches': launches.get(name),
-               'max_abs_err': max_err[name],
+               'launches': launches.get(name, launches.get(base)),
+               'max_abs_err': max_err.get(name, max_err.get(base)),
                'ms': ms, 'plain_ms': plain_ms,
                'bound_ms': bnd['bound_ms'], 'bound_by': bnd['bound_by'],
                'library_ms': library_ms}
+        if 'bound_f32_ms' in bnd:
+            row['bound_f32_ms'] = bnd['bound_f32_ms']
         rows.append(row)
-        log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms%s  library '
-            '%s  bound %.4f ms (%s)' % (
+        log('  %-28s cold L2: kernel %.4f ms  plain %.4f ms%s  library '
+            '%s  bound %.4f ms (%s)%s' % (
                 name, ms, plain_ms, '' if graph else ' (events)',
                 'none' if library_ms is None else '%.4f ms%s' % (
                     library_ms, '' if lib_graph else ' (events)'),
-                row['bound_ms'], row['bound_by']))
-    # the step's other scatter: BERT's 2-row sentence table, every id on
-    # row 0, one run of 4096 rows
-    zeros = torch.zeros_like(src)
-    log('  %-24s cold L2: kernel %.4f ms  library %.4f ms  bound %.4f ms '
-        '(2 x 768 table, one run of %d ids)' % (
-            'embedding_scatter_add', timer.ms(
-                lambda: emb_k.scatter_add_kernel(2, zeros, g)),
-            timer.ms(lambda: torch.zeros(2, 768, device=dev).index_add_(
-                0, zeros, g)),
-            bound(src.numel() * (768 * 4 + 8) + 2 * 768 * 4, 0)['bound_ms'],
-            src.numel()))
+                row['bound_ms'], row['bound_by'],
+                '' if 'bound_f32_ms' not in bnd else
+                ', tensor cores; %.4f ms on the f32 pipe'
+                % bnd['bound_f32_ms']))
+    # K6b's parts: the sort, the zeroing (in the sort's launch) and the
+    # run and long-run passes
+    for rows_k, ids_k in ((30522, src), (2, zeros)):
+        split = scatter_split(timer, rows_k, ids_k, g)
+        log('  %-24s cold L2 split, %d x 768 table: sort %.4f ms, sort with '
+            'the zeroing (one launch) %.4f ms, run and long-run passes '
+            '%.4f ms' % ('embedding_scatter_add', rows_k, split['sort_ms'],
+                         split['sort_and_zero_ms'], split['kernel_ms']))
     # K8 at a 768 x 3072 gradient's shapes
     w3 = quant[768 * 3072]
     log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms  bound %.4f ms '

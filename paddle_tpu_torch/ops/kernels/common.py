@@ -189,15 +189,17 @@ def library(source):
     return lib
 
 
-def check_launch(name, lib, err):
+def check_launch(name, lib, err, count=True):
     """Raise if the C launcher in `lib` returned a CUDA error; count
-    the launch otherwise."""
+    the launch otherwise (unless `count` is false: a launcher that is
+    one step of a kernel's launch)."""
     if err != 0:
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         raise RuntimeError('%s kernel launch failed: CUDA error %d (%s)' % (
             name, err, lib.cuda_error_string(err).decode()))
-    count_launch(name)
+    if count:
+        count_launch(name)
 
 
 def stream_ptr(device):

@@ -12,34 +12,58 @@
 // (`_flash_bwd` :602, pallas_calls :657, :705), whose schedule it takes.
 //
 // Bound on the H100 at BERT-base pretraining (B=8, H=12, T=512, D=64,
-// f32): operations.  The gradient needs four T x T x D products per
-// head (S, dP, dV, dK for dK/dV; dQ on top: five, 10*B*H*T^2*D = 16.1
-// GFLOP in all with the recomputed S and dP of the dQ pass, 8 with the
-// fused one-pass schedule), against some 90 MB of tensors; the bound
-// counts the 4 products a one-pass schedule needs.
+// f32): operations.  The gradient needs five T x T x D products per
+// head (S, dP, dV, dK, dQ): 10*B*H*T^2*D = 16.1 GFLOP, against some 90
+// MB of tensors (the two-pass schedule below computes S and dP twice,
+// seven products).  f32-accurate products on the tensor cores cost
+// three TF32 products each: 48 GFLOP at 495 TFLOP/s, 0.098 ms; on the
+// f32 FMA pipe (67 TFLOP/s) 0.24 ms.
 //
 // Design.  The TPU kernel walks one head per grid step and carries dQ
 // in VMEM; on Hopper that gives 96 blocks for 132 SMs, and dQ summed
 // across key tiles in parallel would need float atomics.  So the work
-// is split as in the JAX package's two-pass scheme, with no atomics:
+// is split as in the JAX package's two-pass scheme, with no atomics
+// (the result is the same bit for bit from launch to launch):
 //   1. delta = rowsum(dO * O) - g_lse (one warp per row);
-//   2. dK/dV: one block of 128 threads per (batch*head, 64-key tile)
-//      streams 64-query tiles of Q, dO, lse and delta through shared
-//      memory; for its 4 keys x 8 queries a thread recomputes
-//      p = exp(s - lse), takes dP = dO V^T, applies the dropout mask to
-//      both (the same hash as the forward), ds = p * (dP - delta), and
-//      accumulates dV += p_dropped^T dO, dK += ds^T Q and the bias
-//      cotangent (the column sum of ds) in f32 registers;
-//   3. dQ: one block per (batch*head, 64-query tile) streams 64-key tiles
-//      of K, V and the bias and accumulates dQ += ds K.
-// Scores and products use f32 FMAs (no TF32).  Q/K/V/O/dO and the
-// outputs are addressed by their [B, T, H, D] strides, so the split
-// Q/K/V views of the fused projection need no copy; ragged T is masked
-// in the kernels (keys past T score -inf, rows past T are zero); rows
-// whose keys are all masked follow the JAX rule through the forward's
-// lse (p = 0, so their gradients are 0).  The bias cotangent comes out
-// per (batch*head, key); the wrapper sums it over heads, as the JAX
-// launcher does.  wgmma/TMA come in a later version.
+//   2. dK/dV: a block of 4 warps per (batch*head, 64-key tile), each
+//      warp 16 keys, streams tiles of Q, dO, lse and delta;
+//   3. dQ: a block of 4 warps per (batch*head, 64-query tile), each
+//      warp 16 queries, streams tiles of K, V and the bias.
+// Products run on the tensor cores: mma.sync m16n8k8 TF32 with f32
+// accumulation and the 3xTF32 split of every operand, x = big + small
+// with big = tf32(x) and small = x - big, each product a_big b_big +
+// a_big b_small + a_small b_big, which keeps f32-grade accuracy (one
+// TF32 product alone loses ~3 decimal digits).  S^T and dP^T (dK/dV
+// pass) or S and dP (dQ pass) are computed into mma accumulators,
+// turned into P / dS element by element in registers (each element's
+// (query, key) read off its place in the fragment, so the dropout keep
+// bit is the forward's), and fed straight back as the A operand of the
+// next product: an accumulator's columns 2t, 2t+1 are taken as the A
+// fragment's k indices t, t+4, and the B operand is read with the same
+// permutation, so P and dS never go through shared memory.  The
+// streamed tiles, 32 rows each, arrive through a two-stage cp.async
+// ring (16-byte copies straight into shared memory; rows past T
+// zero-filled), the next tile's copies in flight while the current one
+// is computed.  Tile rows are padded by 16 bytes, so the fragment reads
+// (row g, column t and row 2t, column g patterns) hit 32 distinct
+// banks.  At D = 64 a block takes 70 KB of shared memory and 168
+// registers a thread, so three blocks (12 warps) share an SM; at D =
+// 128, 133 KB, one.  (Measured on the H100: 64-row streamed tiles, two
+// blocks an SM, ran slower.)  bf16 inputs are copied as bf16 and
+// converted when the fragments are read, so a bf16 launch computes
+// exactly what an f32 launch on the same values does.  Q/K/V/dO and
+// the outputs are addressed by their [B, T, H, D] strides, so the
+// split Q/K/V views of the fused projection need no copy; ragged T is
+// masked in the kernels (keys or queries past T give p = 0); rows whose
+// keys are all masked follow the JAX rule through the forward's lse
+// (p = 0, so their gradients are 0).  The bias cotangent comes out per
+// (batch*head, key), summed over queries in a fixed order; the wrapper
+// sums it over heads, as the JAX launcher does.
+//
+// What holds it back (0.51 ms at BERT-base against a 0.098 ms bound):
+// every operand is split and read from shared memory by each warp that
+// uses it, some six instructions an mma, and mma.sync does not reach
+// the tensor cores' wgmma rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,17 +74,20 @@
 
 namespace {
 
-constexpr int kTile = 64;      // queries per Q tile, keys per K tile
-constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
-constexpr int kLd = 68;        // row stride of the tiles read as float4
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;  // fixed-tile rows: 16 a warp
+constexpr int kTile = 32;           // streamed rows a tile
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 struct Strides {
@@ -96,6 +123,145 @@ __device__ __forceinline__ long long row_off(const Strides& s, int b,
   return (long long)b * s.b + (long long)t * s.t + (long long)h * s.h;
 }
 
+// ------------------------------------------------------ async copies
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <typename Elt, int D>
+struct TileShape {
+  static constexpr int kLd = D + 16 / (int)sizeof(Elt);  // padded row
+  static constexpr int kPerRow = D * (int)sizeof(Elt) / 16;  // copies
+};
+
+// rows r0 .. r0 + R - 1 of a [B, T, H, D] tensor at (b, h) into a
+// [R][kLd] tile; rows past T are zero-filled
+template <typename Elt, int D, int R>
+__device__ __forceinline__ void copy_rows(Elt* dst, const void* base,
+                                          const Strides& s, int b, int h,
+                                          int r0, int t_len, int tid) {
+  using Sh = TileShape<Elt, D>;
+  const Elt* src = (const Elt*)base;
+  constexpr int kEl = 16 / (int)sizeof(Elt);
+#pragma unroll
+  for (int i = tid; i < R * Sh::kPerRow; i += kThreads) {
+    const int r = i / Sh::kPerRow, c = i - r * Sh::kPerRow;
+    const int row = r0 + r;
+    const bool ok = row < t_len;
+    cp_async16(dst + r * Sh::kLd + c * kEl,
+               ok ? src + row_off(s, b, row, h) + c * kEl : src, ok);
+  }
+}
+
+// x[r0 .. r0 + R - 1] of one [T] row into dst; past T zero-filled
+template <int R>
+__device__ __forceinline__ void copy_vec(float* dst, const float* x, int r0,
+                                         int t_len, int tid) {
+  for (int i = tid; i < R; i += kThreads) {
+    const bool ok = r0 + i < t_len;
+    cp_async4(dst + i, ok ? x + r0 + i : x, ok);
+  }
+}
+
+// ------------------------------------------------- 3xTF32 mma.sync
+
+// x = big + small: big is x with its 13 low bits cleared (TF32, rounded
+// toward zero) and small = x - big, exact in f32, which the tensor core
+// reads truncated to TF32 in turn.  Two operations an operand; the
+// products' error stays near 2^-20 of their size, f32-grade.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+struct FragA {  // 16 x 8, split
+  uint32_t big[4], small[4];
+};
+struct FragB {  // 8 x 8, split
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  FragA f;
+  split_tf32(a0, f.big[0], f.small[0]);
+  split_tf32(a1, f.big[1], f.small[1]);
+  split_tf32(a2, f.big[2], f.small[2]);
+  split_tf32(a3, f.big[3], f.small[3]);
+  return f;
+}
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split_tf32(b0, f.big[0], f.small[0]);
+  split_tf32(b1, f.big[1], f.small[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in f32 accuracy: the two small cross terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
+// A fragment of rows r .. r + 15, columns c .. c + 7 of a [.][ld] tile
+template <typename Elt>
+__device__ __forceinline__ FragA tile_a(const Elt* t, int ld, int r, int c,
+                                        int g, int t4) {
+  const Elt* p = t + (r + g) * ld + c + t4;
+  return frag_a(load_f(p), load_f(p + 8 * ld), load_f(p + 4),
+                load_f(p + 8 * ld + 4));
+}
+// B fragment (k = column, n = row) of rows n .. n + 7, columns k .. k + 7
+// of a [.][ld] tile: the transposed rows, for products with a tile^T
+template <typename Elt>
+__device__ __forceinline__ FragB tile_bt(const Elt* t, int ld, int n, int k,
+                                         int g, int t4) {
+  const Elt* p = t + (n + g) * ld + k + t4;
+  return frag_b(load_f(p), load_f(p + 4));
+}
+// B fragment (k = row, n = column) of rows k .. k + 7, columns n .. n + 7,
+// the k index t read from row 2t and t + 4 from row 2t + 1 (the order an
+// accumulator turned into an A fragment has)
+template <typename Elt>
+__device__ __forceinline__ FragB tile_b_perm(const Elt* t, int ld, int k,
+                                             int n, int g, int t4) {
+  const Elt* p = t + (k + 2 * t4) * ld + n + g;
+  return frag_b(load_f(p), load_f(p + ld));
+}
+// an accumulator (16 x 8: columns 2t, 2t + 1) as an A fragment
+__device__ __forceinline__ FragA acc_a(const float (&c)[4]) {
+  return frag_a(c[0], c[2], c[1], c[3]);
+}
+
 // 1. delta[bh, t] = sum_d dO * O - g_lse, one warp per (bh, t) row
 template <typename Elt>
 __global__ void flash_bwd_delta(const Params p, int d, long long rows) {
@@ -114,340 +280,288 @@ __global__ void flash_bwd_delta(const Params p, int d, long long rows) {
   if (lane == 0) p.delta[row] = acc - (p.glse ? p.glse[row] : 0.f);
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // K^T, V^T [D][kLd]; Q, dO [64][D+1]; P^T, dS^T [64][kLd]; lse,
-  // delta, bias [64]
-  return (size_t)(2 * D * kLd + 2 * kTile * (D + 1) + 2 * kTile * kLd +
-                  3 * kTile) * sizeof(float);
+template <typename Elt, int D>
+constexpr size_t smem_bytes() {
+  // two fixed [kRows][kLd] tiles, two streamed [2][kTile][kLd] rings,
+  // two [2][kTile] f32 rings, one [kRows] f32 row (the dK/dV pass: K, V;
+  // Q, dO; lse, delta; bias -- the dQ pass: Q, dO; K, V; bias; unused)
+  return (size_t)(2 * kRows + 4 * kTile) * TileShape<Elt, D>::kLd *
+             sizeof(Elt) +
+         (size_t)(4 * kTile + kRows) * sizeof(float);
 }
 
-// 2. dK, dV (and the bias cotangent) for one (batch*head, key tile)
+// 2. dK, dV (and the bias cotangent) for one (batch*head, 64-key tile)
 template <typename Elt, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv(const Params p) {
-  constexpr int kCols = D / 8;
-  constexpr int kLdr = D + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                  // [D][kLd]   K tile, transposed
-  float* vt = kt + D * kLd;          // [D][kLd]   V tile, transposed
-  float* qr = vt + D * kLd;          // [64][D+1]  Q tile
-  float* dor = qr + kTile * kLdr;    // [64][D+1]  dO tile
-  float* pt = dor + kTile * kLdr;    // [64 q][kLd] dropped P, by query
-  float* dst = pt + kTile * kLd;     // [64 q][kLd] dS, by query
-  float* lse_s = dst + kTile * kLd;  // [64]
-  float* delta_s = lse_s + kTile;    // [64]
-  float* bias_s = delta_s + kTile;   // [64] per key, -inf past T
+__global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 3)
+    flash_bwd_dkv(const Params p) {
+  using Sh = TileShape<Elt, D>;
+  constexpr int kLd = Sh::kLd;
+  constexpr int kD8 = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elt* ks = (Elt*)smem_raw;        // [kRows][kLd] this block's keys
+  Elt* vs = ks + kRows * kLd;      // [kRows][kLd]
+  Elt* qs = vs + kRows * kLd;       // [2][kTile][kLd] query tiles
+  Elt* dos = qs + 2 * kTile * kLd;  // [2][kTile][kLd]
+  float* lse_s = (float*)(dos + 2 * kTile * kLd);  // [2][kTile]
+  float* delta_s = lse_s + 2 * kTile;              // [2][kTile]
+  float* bias_s = delta_s + 2 * kTile;             // [kRows]
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;  // keys ty*4 .. ty*4+3
-  const int tx = tid & 7;   // queries / output columns tx + 8*j
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.tiles;
-  const int k0 = (blockIdx.x - bh * p.tiles) * kTile;
+  const int k0 = (blockIdx.x - bh * p.tiles) * kRows;
   const int b = bh / p.heads, h = bh - b * p.heads;
   const int t_len = p.t_len;
+  const float* lse_row = p.lse + (long long)bh * t_len;
+  const float* delta_row = p.delta + (long long)bh * t_len;
 
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int n = i / D, d = i - n * D;
-    const int key = k0 + n;
-    float kv = 0.f, vv = 0.f;
-    if (key < t_len) {
-      kv = load_f((const Elt*)p.k + row_off(p.sk, b, key, h) + d);
-      vv = load_f((const Elt*)p.v + row_off(p.sv, b, key, h) + d);
-    }
-    kt[d * kLd + n] = kv;
-    vt[d * kLd + n] = vv;
-  }
-  if (tid < kTile) {
+  copy_rows<Elt, D, kRows>(ks, p.k, p.sk, b, h, k0, t_len, tid);
+  copy_rows<Elt, D, kRows>(vs, p.v, p.sv, b, h, k0, t_len, tid);
+  if (tid < kRows) {
     const int key = k0 + tid;
-    bias_s[tid] = key < t_len
-                      ? (p.bias ? p.bias[(long long)b * t_len + key] : 0.f)
-                      : -INFINITY;
+    bias_s[tid] = (p.bias && key < t_len)
+                      ? p.bias[(long long)b * t_len + key] : 0.f;
   }
-
-  float dk[4][kCols], dv[4][kCols], db[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    db[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) dk[r][c] = dv[r][c] = 0.f;
-  }
-
   const int n_tiles = (t_len + kTile - 1) / kTile;
   // causal: queries before this key tile see none of its keys
   const int first = p.causal ? k0 / kTile : 0;
-  for (int tile = first; tile < n_tiles; ++tile) {
+  auto issue = [&](int tile, int stage) {
     const int q0 = tile * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kTile * D; i += kThreads) {
-      const int m = i / D, d = i - m * D;
-      const int row = q0 + m;
-      float qv = 0.f, dov = 0.f;
-      if (row < t_len) {
-        qv = load_f((const Elt*)p.q + row_off(p.sq, b, row, h) + d);
-        dov = load_f((const Elt*)p.dout + row_off(p.sdo, b, row, h) + d);
-      }
-      qr[m * kLdr + d] = qv;
-      dor[m * kLdr + d] = dov;
-    }
-    if (tid < kTile) {
-      const int row = q0 + tid;
-      const long long off = (long long)bh * t_len + row;
-      // rows past T: lse = +inf makes their p exactly 0
-      lse_s[tid] = row < t_len ? p.lse[off] : INFINITY;
-      delta_s[tid] = row < t_len ? p.delta[off] : 0.f;
-    }
-    __syncthreads();
+    copy_rows<Elt, D, kTile>(qs + stage * kTile * kLd, p.q, p.sq, b, h, q0,
+                             t_len, tid);
+    copy_rows<Elt, D, kTile>(dos + stage * kTile * kLd, p.dout, p.sdo, b, h,
+                             q0, t_len, tid);
+    copy_vec<kTile>(lse_s + stage * kTile, lse_row, q0, t_len, tid);
+    copy_vec<kTile>(delta_s + stage * kTile, delta_row, q0, t_len, tid);
+  };
+  issue(first, 0);
+  cp_commit();
 
-    // S^T and dP^T for this thread's 4 keys x 8 queries
-    float s[4][8], dp[4][8];
+  const int kr = warp * 16;  // this warp's keys in the tile
+  float dk[kD8][4], dv[kD8][4], db[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+  for (int i = 0; i < kD8; ++i) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[r][j] = dp[r][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+  }
+
+  for (int tile = first; tile < n_tiles; ++tile) {
+    const int stage = (tile - first) & 1;
+    if (tile + 1 < n_tiles) issue(tile + 1, stage ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const Elt* qt = qs + stage * kTile * kLd;
+    const Elt* dot = dos + stage * kTile * kLd;
+    const float* lse_t = lse_s + stage * kTile;
+    const float* delta_t = delta_s + stage * kTile;
+    const int q0 = tile * kTile;
+    // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 queries
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
     }
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 kv = *reinterpret_cast<const float4*>(kt + d * kLd + ty * 4);
-      const float4 vv = *reinterpret_cast<const float4*>(vt + d * kLd + ty * 4);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float qv = qr[(tx + 8 * j) * kLdr + d];
-        const float dov = dor[(tx + 8 * j) * kLdr + d];
-        s[0][j] = fmaf(kv.x, qv, s[0][j]);
-        s[1][j] = fmaf(kv.y, qv, s[1][j]);
-        s[2][j] = fmaf(kv.z, qv, s[2][j]);
-        s[3][j] = fmaf(kv.w, qv, s[3][j]);
-        dp[0][j] = fmaf(vv.x, dov, dp[0][j]);
-        dp[1][j] = fmaf(vv.y, dov, dp[1][j]);
-        dp[2][j] = fmaf(vv.z, dov, dp[2][j]);
-        dp[3][j] = fmaf(vv.w, dov, dp[3][j]);
+    for (int kk = 0; kk < kD8; ++kk) {
+      const FragA ka = tile_a(ks, kLd, kr, kk * 8, g, t4);
+      const FragA va = tile_a(vs, kLd, kr, kk * 8, g, t4);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        mma3(st[n], ka, tile_bt(qt, kLd, n * 8, kk * 8, g, t4));
+        mma3(dpt[n], va, tile_bt(dot, kLd, n * 8, kk * 8, g, t4));
       }
     }
+    // P (dropped) and dS in place, element by element
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int key = k0 + ty * 4 + r;
+    for (int n = 0; n < 4; ++n) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int m = tx + 8 * j;
-        const int qpos = q0 + m;
-        float x = s[r][j] * p.scale + bias_s[ty * 4 + r];
-        if (p.causal && qpos < key) x = -INFINITY;
-        const float pr = isfinite(x) ? expf(x - lse_s[m]) : 0.f;
-        float pu = pr, dpu = dp[r][j];
+      for (int e = 0; e < 4; ++e) {
+        const int kl = kr + g + (e >> 1) * 8;
+        const int key = k0 + kl;
+        const int qi = n * 8 + 2 * t4 + (e & 1);
+        const int qpos = q0 + qi;
+        float x = st[n][e] * p.scale + bias_s[kl];
+        const bool live = qpos < t_len && key < t_len &&
+                          !(p.causal && qpos < key);
+        const float pr = live && isfinite(x) ? __expf(x - lse_t[qi]) : 0.f;
+        float pu = pr, dpu = dpt[n][e];
         if (p.dropout) {
-          const bool keep = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qpos,
-                                         (uint32_t)key, p.threshold);
+          const bool keep = dropout_keep(p.seed, (uint32_t)bh,
+                                         (uint32_t)qpos, (uint32_t)key,
+                                         p.threshold);
           pu = keep ? pr * p.inv_keep : 0.f;
           dpu = keep ? dpu * p.inv_keep : 0.f;
         }
-        const float ds = pr * (dpu - delta_s[m]);
-        db[r] += ds;
-        s[r][j] = pu;
-        dp[r][j] = ds;
+        const float ds = pr * (dpu - delta_t[qi]);
+        db[e >> 1] += ds;
+        st[n][e] = pu;
+        dpt[n][e] = ds;
       }
     }
+    // dV += P^T dO, dK += dS^T Q over the tile's 32 queries
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int m = tx + 8 * j;
-      *reinterpret_cast<float4*>(pt + m * kLd + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      *reinterpret_cast<float4*>(dst + m * kLd + ty * 4) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
-    }
-    __syncthreads();
-
-    // dV += P_dropped^T dO, dK += dS^T Q over the 64 queries
-#pragma unroll 2
-    for (int m = 0; m < kTile; ++m) {
-      const float4 pv = *reinterpret_cast<const float4*>(pt + m * kLd + ty * 4);
-      const float4 sv = *reinterpret_cast<const float4*>(dst + m * kLd + ty * 4);
+    for (int n = 0; n < 4; ++n) {
+      const FragA pa = acc_a(st[n]);
+      const FragA sa = acc_a(dpt[n]);
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float dov = dor[m * kLdr + tx + 8 * c];
-        const float qv = qr[m * kLdr + tx + 8 * c];
-        dv[0][c] = fmaf(pv.x, dov, dv[0][c]);
-        dv[1][c] = fmaf(pv.y, dov, dv[1][c]);
-        dv[2][c] = fmaf(pv.z, dov, dv[2][c]);
-        dv[3][c] = fmaf(pv.w, dov, dv[3][c]);
-        dk[0][c] = fmaf(sv.x, qv, dk[0][c]);
-        dk[1][c] = fmaf(sv.y, qv, dk[1][c]);
-        dk[2][c] = fmaf(sv.z, qv, dk[2][c]);
-        dk[3][c] = fmaf(sv.w, qv, dk[3][c]);
+      for (int dt = 0; dt < kD8; ++dt) {
+        mma3(dv[dt], pa, tile_b_perm(dot, kLd, n * 8, dt * 8, g, t4));
+        mma3(dk[dt], sa, tile_b_perm(qt, kLd, n * 8, dt * 8, g, t4));
       }
     }
+    __syncthreads();  // this stage is read before the next issue fills it
   }
+  cp_wait<0>();
 
+  // the bias cotangent of a key sums ds over all queries: the 4 lanes of
+  // a quad hold disjoint query sets
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    // the bias cotangent of a key sums ds over all queries: the 8 lanes
-    // of a row group hold disjoint query sets
-    float x = db[r];
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    x += __shfl_xor_sync(0xffffffffu, x, 2);
-    x += __shfl_xor_sync(0xffffffffu, x, 4);
-    const int key = k0 + ty * 4 + r;
+  for (int r = 0; r < 2; ++r) {
+    db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
+    db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + kr + g + 8 * r;
     if (key >= t_len) continue;
     Elt* dkg = (Elt*)p.dk + row_off(p.sdk, b, key, h);
     Elt* dvg = (Elt*)p.dv + row_off(p.sdv, b, key, h);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      store_f(dkg + tx + 8 * c, dk[r][c] * p.scale);
-      store_f(dvg + tx + 8 * c, dv[r][c]);
+    for (int dt = 0; dt < kD8; ++dt) {
+      const int col = dt * 8 + 2 * t4;
+      store2(dkg + col, dk[dt][2 * r] * p.scale, dk[dt][2 * r + 1] * p.scale);
+      store2(dvg + col, dv[dt][2 * r], dv[dt][2 * r + 1]);
     }
-    if (p.dbias && tx == 0) p.dbias[(long long)bh * t_len + key] = x;
+    if (p.dbias && t4 == 0) p.dbias[(long long)bh * t_len + key] = db[r];
   }
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Q^T, dO^T [D][kLd]; K, V [64][D+1]; dS [64 keys][kLd]; bias [64]
-  return (size_t)(2 * D * kLd + 2 * kTile * (D + 1) + kTile * kLd + kTile) *
-         sizeof(float);
-}
-
-// 3. dQ for one (batch*head, query tile)
+// 3. dQ for one (batch*head, 64-query tile)
 template <typename Elt, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq(const Params p) {
-  constexpr int kCols = D / 8;
-  constexpr int kLdr = D + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                 // [D][kLd]   Q tile, transposed
-  float* dot = qt + D * kLd;        // [D][kLd]   dO tile, transposed
-  float* kr = dot + D * kLd;        // [64][D+1]  K tile
-  float* vr = kr + kTile * kLdr;    // [64][D+1]  V tile
-  float* dst = vr + kTile * kLdr;   // [64 k][kLd] dS, by key
-  float* bias_s = dst + kTile * kLd;  // [64] per key, -inf past T
+__global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 3)
+    flash_bwd_dq(const Params p) {
+  using Sh = TileShape<Elt, D>;
+  constexpr int kLd = Sh::kLd;
+  constexpr int kD8 = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elt* qs = (Elt*)smem_raw;        // [kRows][kLd] this block's queries
+  Elt* dos = qs + kRows * kLd;     // [kRows][kLd]
+  Elt* ks = dos + kRows * kLd;      // [2][kTile][kLd] key tiles
+  Elt* vs = ks + 2 * kTile * kLd;   // [2][kTile][kLd]
+  float* bias_s = (float*)(vs + 2 * kTile * kLd);  // [2][kTile]
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;  // queries ty*4 .. ty*4+3
-  const int tx = tid & 7;   // keys / output columns tx + 8*j
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.tiles;
-  const int q0 = (blockIdx.x - bh * p.tiles) * kTile;
+  const int q0 = (blockIdx.x - bh * p.tiles) * kRows;
   const int b = bh / p.heads, h = bh - b * p.heads;
   const int t_len = p.t_len;
+  const float* bias_row = p.bias ? p.bias + (long long)b * t_len : nullptr;
 
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int m = i / D, d = i - m * D;
-    const int row = q0 + m;
-    float qv = 0.f, dov = 0.f;
-    if (row < t_len) {
-      qv = load_f((const Elt*)p.q + row_off(p.sq, b, row, h) + d);
-      dov = load_f((const Elt*)p.dout + row_off(p.sdo, b, row, h) + d);
-    }
-    qt[d * kLd + m] = qv;
-    dot[d * kLd + m] = dov;
-  }
-  float lse[4], delta[4];
+  copy_rows<Elt, D, kRows>(qs, p.q, p.sq, b, h, q0, t_len, tid);
+  copy_rows<Elt, D, kRows>(dos, p.dout, p.sdo, b, h, q0, t_len, tid);
+  const int qr = warp * 16;  // this warp's queries in the tile
+  float lse[2], delta[2];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + qr + g + 8 * r;
     const long long off = (long long)bh * t_len + row;
-    lse[r] = row < t_len ? p.lse[off] : INFINITY;
+    lse[r] = row < t_len ? p.lse[off] : 0.f;
     delta[r] = row < t_len ? p.delta[off] : 0.f;
   }
+  int n_tiles = (t_len + kTile - 1) / kTile;
+  // causal: keys after this query tile are masked for all of it
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kTile + 1);
+  auto issue = [&](int tile, int stage) {
+    const int k0 = tile * kTile;
+    copy_rows<Elt, D, kTile>(ks + stage * kTile * kLd, p.k, p.sk, b, h, k0,
+                             t_len, tid);
+    copy_rows<Elt, D, kTile>(vs + stage * kTile * kLd, p.v, p.sv, b, h, k0,
+                             t_len, tid);
+    if (bias_row)
+      copy_vec<kTile>(bias_s + stage * kTile, bias_row, k0, t_len, tid);
+  };
+  issue(0, 0);
+  cp_commit();
 
-  float dq[4][kCols];
+  float dq[kD8][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int i = 0; i < kD8; ++i) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dq[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
   }
 
-  int n_tiles = (t_len + kTile - 1) / kTile;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + 2 * kTile - 1) / kTile);
   for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    if (tile + 1 < n_tiles) issue(tile + 1, stage ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const Elt* kt = ks + stage * kTile * kLd;
+    const Elt* vt = vs + stage * kTile * kLd;
+    const float* bias_t = bias_s + stage * kTile;
     const int k0 = tile * kTile;
-    __syncthreads();
-    for (int i = tid; i < kTile * D; i += kThreads) {
-      const int n = i / D, d = i - n * D;
-      const int key = k0 + n;
-      float kv = 0.f, vv = 0.f;
-      if (key < t_len) {
-        kv = load_f((const Elt*)p.k + row_off(p.sk, b, key, h) + d);
-        vv = load_f((const Elt*)p.v + row_off(p.sv, b, key, h) + d);
-      }
-      kr[n * kLdr + d] = kv;
-      vr[n * kLdr + d] = vv;
-    }
-    if (tid < kTile) {
-      const int key = k0 + tid;
-      bias_s[tid] = key < t_len
-                        ? (p.bias ? p.bias[(long long)b * t_len + key] : 0.f)
-                        : -INFINITY;
-    }
-    __syncthreads();
-
-    float s[4][8], dp[4][8];
+    // S = Q K^T and dP = dO V^T for 16 queries x 32 keys
+    float s[4][4], dp[4][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int n = 0; n < 4; ++n) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[r][j] = dp[r][j] = 0.f;
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
     }
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(qt + d * kLd + ty * 4);
-      const float4 dov = *reinterpret_cast<const float4*>(dot + d * kLd + ty * 4);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float kv = kr[(tx + 8 * j) * kLdr + d];
-        const float vv = vr[(tx + 8 * j) * kLdr + d];
-        s[0][j] = fmaf(qv.x, kv, s[0][j]);
-        s[1][j] = fmaf(qv.y, kv, s[1][j]);
-        s[2][j] = fmaf(qv.z, kv, s[2][j]);
-        s[3][j] = fmaf(qv.w, kv, s[3][j]);
-        dp[0][j] = fmaf(dov.x, vv, dp[0][j]);
-        dp[1][j] = fmaf(dov.y, vv, dp[1][j]);
-        dp[2][j] = fmaf(dov.z, vv, dp[2][j]);
-        dp[3][j] = fmaf(dov.w, vv, dp[3][j]);
+    for (int kk = 0; kk < kD8; ++kk) {
+      const FragA qa = tile_a(qs, kLd, qr, kk * 8, g, t4);
+      const FragA da = tile_a(dos, kLd, qr, kk * 8, g, t4);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        mma3(s[n], qa, tile_bt(kt, kLd, n * 8, kk * 8, g, t4));
+        mma3(dp[n], da, tile_bt(vt, kLd, n * 8, kk * 8, g, t4));
       }
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + ty * 4 + r;
+    for (int n = 0; n < 4; ++n) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = tx + 8 * j;
-        const int key = k0 + n;
-        float x = s[r][j] * p.scale + bias_s[n];
-        if (p.causal && qpos < key) x = -INFINITY;
-        const float pr = isfinite(x) ? expf(x - lse[r]) : 0.f;
-        float dpu = dp[r][j];
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int qpos = q0 + qr + g + 8 * r;
+        const int kl = n * 8 + 2 * t4 + (e & 1);
+        const int key = k0 + kl;
+        float x = s[n][e] * p.scale + (bias_row ? bias_t[kl] : 0.f);
+        const bool live = qpos < t_len && key < t_len &&
+                          !(p.causal && qpos < key);
+        const float pr = live && isfinite(x) ? __expf(x - lse[r]) : 0.f;
+        float dpu = dp[n][e];
         if (p.dropout)
           dpu = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qpos,
                              (uint32_t)key, p.threshold)
                     ? dpu * p.inv_keep
                     : 0.f;
-        s[r][j] = pr * (dpu - delta[r]);
+        s[n][e] = pr * (dpu - delta[r]);
       }
     }
+    // dQ += dS K over the tile's 32 keys
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float4*>(dst + (tx + 8 * j) * kLd + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    // dQ += dS K over the 64 keys
-#pragma unroll 4
-    for (int n = 0; n < kTile; ++n) {
-      const float4 sv = *reinterpret_cast<const float4*>(dst + n * kLd + ty * 4);
+    for (int n = 0; n < 4; ++n) {
+      const FragA sa = acc_a(s[n]);
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float kv = kr[n * kLdr + tx + 8 * c];
-        dq[0][c] = fmaf(sv.x, kv, dq[0][c]);
-        dq[1][c] = fmaf(sv.y, kv, dq[1][c]);
-        dq[2][c] = fmaf(sv.z, kv, dq[2][c]);
-        dq[3][c] = fmaf(sv.w, kv, dq[3][c]);
-      }
+      for (int dt = 0; dt < kD8; ++dt)
+        mma3(dq[dt], sa, tile_b_perm(kt, kLd, n * 8, dt * 8, g, t4));
     }
+    __syncthreads();  // this stage is read before the next issue fills it
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + qr + g + 8 * r;
     if (row >= t_len) continue;
     Elt* dqg = (Elt*)p.dq + row_off(p.sdq, b, row, h);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) store_f(dqg + tx + 8 * c, dq[r][c] * p.scale);
+    for (int dt = 0; dt < kD8; ++dt)
+      store2(dqg + dt * 8 + 2 * t4, dq[dt][2 * r] * p.scale,
+             dq[dt][2 * r + 1] * p.scale);
   }
 }
 
@@ -473,11 +587,10 @@ template <typename Elt, int D>
 cudaError_t launch(const Params& p, long long bh, cudaStream_t stream) {
   static bool dkv_configured[64] = {};
   static bool dq_configured[64] = {};
-  const size_t dkv_smem = dkv_smem_bytes<D>();
-  const size_t dq_smem = dq_smem_bytes<D>();
-  cudaError_t e = configure(flash_bwd_dkv<Elt, D>, dkv_smem, dkv_configured);
+  const size_t smem = smem_bytes<Elt, D>();
+  cudaError_t e = configure(flash_bwd_dkv<Elt, D>, smem, dkv_configured);
   if (e != cudaSuccess) return e;
-  e = configure(flash_bwd_dq<Elt, D>, dq_smem, dq_configured);
+  e = configure(flash_bwd_dq<Elt, D>, smem, dq_configured);
   if (e != cudaSuccess) return e;
   const long long rows = bh * p.t_len;
   const long long blocks = bh * p.tiles;
@@ -487,10 +600,10 @@ cudaError_t launch(const Params& p, long long bh, cudaStream_t stream) {
       p, D, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv<Elt, D><<<(unsigned)blocks, kThreads, dkv_smem, stream>>>(p);
+  flash_bwd_dkv<Elt, D><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq<Elt, D><<<(unsigned)blocks, kThreads, dq_smem, stream>>>(p);
+  flash_bwd_dq<Elt, D><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -513,16 +626,24 @@ Strides strides_at(const long long* s, int i) {
   return r;
 }
 
+// every row the kernels copy with 16-byte cp.async starts on 16 bytes
+bool copy_aligned(const void* x, const Strides& s, int elt_bytes) {
+  const long long step = 16 / elt_bytes;
+  return ((uintptr_t)x % 16) == 0 && s.b % step == 0 && s.t % step == 0 &&
+         s.h % step == 0;
+}
+
 }  // namespace
 
 // q, k, v, o, dout, dq, dk, dv: [B, T, H, D] addressed by `strides` (24
-// element strides: b, t, h of each in that order; the d stride is 1).
-// key_bias: [B, T] f32 contiguous or null.  lse, glse (or null), delta
-// (scratch), dbias (or null): [B*H, T] f32 contiguous.  dtype: 0 = f32,
-// 1 = bf16.  D: 32, 64 or 128.  dropout: 0, or 1 with the forward's
-// seed, 24-bit keep threshold and 1 / (1 - rate).  Launches the delta,
-// dK/dV and dQ kernels in that order on `stream`; returns the first
-// CUDA error (0 on success).
+// element strides: b, t, h of each in that order; the d stride is 1);
+// q, k, v and dout start on 16 bytes and their rows on 16-byte
+// multiples.  key_bias: [B, T] f32 contiguous or null.  lse, glse (or
+// null), delta (scratch), dbias (or null): [B*H, T] f32 contiguous.
+// dtype: 0 = f32, 1 = bf16.  D: 32, 64 or 128.  dropout: 0, or 1 with
+// the forward's seed, 24-bit keep threshold and 1 / (1 - rate).
+// Launches the delta, dK/dV and dQ kernels in that order on `stream`;
+// returns the first CUDA error (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* key_bias, const float* lse,
@@ -545,13 +666,17 @@ extern "C" int flash_attention_bwd(
   p.sdv = strides_at(strides, 7);
   p.heads = heads;
   p.t_len = t_len;
-  p.tiles = (t_len + kTile - 1) / kTile;
+  p.tiles = (t_len + kRows - 1) / kRows;
   p.scale = scale;
   p.causal = causal;
   p.dropout = dropout;
   p.seed = seed;
   p.threshold = threshold;
   p.inv_keep = inv_keep;
+  const int elt = dtype == 0 ? 4 : 2;
+  if (!copy_aligned(q, p.sq, elt) || !copy_aligned(k, p.sk, elt) ||
+      !copy_aligned(v, p.sv, elt) || !copy_aligned(dout, p.sdo, elt))
+    return (int)cudaErrorMisalignedAddress;
   const long long bh = (long long)batch * heads;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return (int)launch_d<float>(p, bh, d, s);

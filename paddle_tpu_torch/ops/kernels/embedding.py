@@ -29,8 +29,11 @@ common.register_kernel(
     plain='ops.kernels.embedding.scatter_add_plain (stable sort, then '
           'each run of equal ids summed left to right)',
     replaces='paddle_tpu/ops/pallas/embedding.py:65 _scatter_kernel',
-    doc='one block per (run of equal sorted ids, 256 columns), the run '
-        'summed in sorted order; no atomics',
+    doc='one-block radix sort of the clipped ids in shared memory while '
+        'the same launch zeroes the table; a warp a run of up to 32 rows '
+        'summed in sorted order; longer runs over 32-column slices on many '
+        'SMs, eight warps a slice copying through a cp.async ring for one '
+        'adding; no float atomics',
     op_types=('lookup_table_grad', 'lookup_table_v2_grad'))
 
 common.register_kernel(
@@ -110,11 +113,73 @@ def scatter_add_plain(nrows, ids, g):
     return out
 
 
+SORT_MAX = 8192  # ids the kernel's one-block sort takes
+
+
+def _runs_scratch(n, device):
+    """The kernel's int32 scratch for its list of runs longer than 32."""
+    return torch.empty(1 + 3 * (n // 33 + 1), dtype=torch.int32,
+                       device=device)
+
+
+def _scatter_sort(nrows, ids, runs, out=None):
+    """(keys, order, zeroed): ids clipped into [0, nrows-1] and stably
+    sorted, and the position of each sorted id, each [n] int32 on ids'
+    device.  Up to SORT_MAX ids the kernel's own one-block radix sort,
+    which also zeroes runs[0] and (on other SMs, in the same launch) out
+    when it is given and a whole number of 16-byte vectors: zeroed is
+    then True.  Beyond that torch.sort."""
+    n = ids.numel()
+    if out is not None and out.numel() % 4:
+        out = None  # the sum pass zeroes it
+    if n > SORT_MAX:
+        keys, order = torch.sort(ids.reshape(-1).to(torch.int64).clamp(
+            0, nrows - 1).to(torch.int32), stable=True)
+        return keys, order.to(torch.int32), False
+    if ids.dtype not in (torch.int64, torch.int32):
+        ids = ids.to(torch.int64)
+    ids = ids.reshape(-1).contiguous()
+    ko = torch.empty((2, n), dtype=torch.int32, device=ids.device)
+    lib = common.library(SCATTER_SOURCE)
+    fn = lib.embedding_scatter_sort
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(ids.device):
+        err = fn(ids.data_ptr(), ids.element_size(), n, nrows,
+                 ko[0].data_ptr(), ko[1].data_ptr(), runs.data_ptr(),
+                 None if out is None else out.data_ptr(),
+                 0 if out is None else out.numel() * out.element_size(),
+                 common.stream_ptr(ids.device))
+    common.check_launch('embedding_scatter_add', lib, err, count=False)
+    return ko[0], ko[1], out is not None
+
+
+def _scatter_sum(keys, order, g, out, runs, zero_out, zero_runs):
+    """The run pass and the long-run pass: out [nrows, D] (zeroed first
+    with zero_out) takes the summed rows from the sorted keys / order
+    and g [n, D] (contiguous)."""
+    lib = common.library(SCATTER_SOURCE)
+    fn = lib.embedding_scatter_sum
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(g.device):
+        err = fn(keys.data_ptr(), order.data_ptr(), g.data_ptr(),
+                 out.data_ptr(), g.shape[0], g.shape[1], out.shape[0],
+                 runs.data_ptr(), int(bool(zero_out)), int(bool(zero_runs)),
+                 common.stream_ptr(g.device))
+    common.check_launch('embedding_scatter_add', lib, err)
+    return out
+
+
 def scatter_add_kernel(nrows, ids, g):
     """The CUDA kernel: ids [n] (any integer type) and g [n, D] f32 on
     one CUDA device -> [nrows, D] f32, bitwise equal to
-    scatter_add_plain.  The stable sort runs before the kernel, as in
-    the JAX package."""
+    scatter_add_plain.  The kernel sorts the clipped ids itself (up to
+    SORT_MAX of them) while other SMs zero the output, then writes the
+    rows the ids touch."""
     if g.dim() != 2 or ids.numel() != g.shape[0]:
         raise ValueError('scatter_add_kernel takes ids [n] and g [n, D], '
                          'got %s and %s' % (tuple(ids.shape),
@@ -124,20 +189,17 @@ def scatter_add_kernel(nrows, ids, g):
                         % g.dtype)
     if ids.device != g.device:
         raise ValueError('ids on %s, g on %s' % (ids.device, g.device))
-    sids, order = _sorted(nrows, ids)
+    if not 0 < nrows < 2 ** 31:
+        raise ValueError('the scatter-add kernel takes 1 to 2**31 - 1 rows, '
+                         'got %d' % nrows)
     g = g.contiguous()
-    out = torch.zeros((nrows, g.shape[1]), dtype=g.dtype, device=g.device)
-    lib = common.library(SCATTER_SOURCE)
-    fn = lib.embedding_scatter_add
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(g.device):
-        err = fn(sids.data_ptr(), order.data_ptr(), g.data_ptr(),
-                 out.data_ptr(), g.shape[0], g.shape[1],
-                 common.stream_ptr(g.device))
-    common.check_launch('embedding_scatter_add', lib, err)
-    return out
+    if g.shape[0] == 0:
+        return torch.zeros((nrows, g.shape[1]), dtype=g.dtype,
+                           device=g.device)
+    runs = _runs_scratch(g.shape[0], g.device)
+    out = torch.empty((nrows, g.shape[1]), dtype=g.dtype, device=g.device)
+    keys, order, zeroed = _scatter_sort(nrows, ids, runs, out)
+    return _scatter_sum(keys, order, g, out, runs, not zeroed, not zeroed)
 
 
 def scatter_add(nrows, ids, g):

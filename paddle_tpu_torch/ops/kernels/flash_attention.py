@@ -46,7 +46,9 @@ common.register_kernel(
              '_flash_bwd_fused_kernel (and :200 + :273, the two-pass '
              'dq / dkv kernels)',
     doc='delta pass, then a dK/dV kernel over 64-key tiles and a dQ '
-        'kernel over 64-query tiles; no atomics',
+        'kernel over 64-query tiles, their products on the tensor cores '
+        '(mma.sync TF32, 3xTF32 split for f32 accuracy), streamed tiles '
+        'through a two-stage cp.async ring; no atomics',
     op_types=('fused_multihead_attention_grad',))
 
 _M32 = 0xFFFFFFFF
@@ -173,6 +175,16 @@ def _dropout_args(rate, seed):
     return 1, int(seed) & _M32, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
+def _copy_aligned(x):
+    """x, or an aligned copy of it when a row of it that the backward
+    kernel copies with 16-byte cp.async would not start on 16 bytes."""
+    step = 16 // x.element_size()
+    if x.data_ptr() % 16 == 0 and all(st % step == 0
+                                      for st in x.stride()[:3]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _strides(*tensors):
     out = []
     for x in tensors:
@@ -230,7 +242,8 @@ def flash_attention_bwd_kernel(q, k, v, key_bias, o, lse, do, dlse,
             raise ValueError('%s must be [B, T, H, D] %s like q, got %s %s'
                              % (name, q.dtype, tuple(x.shape), x.dtype))
     o = o if o.stride(-1) == 1 else o.contiguous()
-    do = do if do.stride(-1) == 1 else do.contiguous()
+    do = _copy_aligned(do if do.stride(-1) == 1 else do.contiguous())
+    q, k, v = [_copy_aligned(x) for x in (q, k, v)]
     if key_bias is not None:
         key_bias = key_bias.to(torch.float32).contiguous()
     lse = lse.to(torch.float32).reshape(b * h, t).contiguous()
