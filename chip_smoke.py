@@ -16,11 +16,18 @@ Phases, each of which fails the run (non-zero exit) on error:
   3. kernel parity on the card, each kernel against its plain PyTorch
      version on the same inputs (TF32 off):
        flash_attention at the BERT-base shape B=8 H=12 T=512 D=64 f32
-       with a 0/-10000 padding bias, a ragged T=200 case and a causal
-       case (O and lse, atol 1e-4: f32 sums over up to 512 keys in
-       another order); with attention dropout 0.1 at B=8 H=12 T=512 and
-       at a ragged T=300 (O and lse, atol 1e-4), and its keep mask
-       read back from the kernel bitwise against the plain hash;
+       with a 0/-10000 padding bias, a ragged T=200 case, a causal
+       case, D = 32 and 128, one query (T=1) and one key past a tile
+       (T=65) (O and lse, atol 1e-4: f32-accurate 3xTF32 products and
+       sums over up to 512 keys in another order), bf16 at D = 32, 64
+       and 128 (O bitwise the kernel's f32 output on the same values
+       rounded to bf16, lse bitwise the f32 launch's and within 1e-4
+       of the plain); with attention dropout 0.1 at B=8 H=12 T=512 and
+       at a ragged T=300 with D = 32, 64 and 128, and with fully masked
+       rows (O exactly 0, lse log(1e-20)) (O and lse, atol 1e-4), and
+       its keep mask read back from the kernel bitwise against the
+       plain hash at the first two shapes; every case launched twice,
+       the second launch bitwise the first;
        flash_attention_bwd (dQ, dK, dV, and the key-bias cotangent in
        six cases; D = 32, 64 and 128, ragged T, causal, dropout, bf16,
        fully masked rows) against autograd of the plain forward with the
@@ -102,7 +109,8 @@ Phases, each of which fails the run (non-zero exit) on error:
      host is timed with CUDA events around single calls instead), the
      least time the card could take (bound; for K1 and K2 with their
      products as f32-accurate 3xTF32 products on the tensor cores, the
-     f32-pipe bound beside it), K6b also on the 2-row sentence table (a
+     f32-pipe bound beside it; K1's rows also print the scalar-FMA
+     K1's time before its redesign), K6b also on the 2-row sentence table (a
      row of its own) and split into its sort, its zeroing and its
      passes on both tables, K7 also on the 1000 x 16 and the 1000001 x
      1 tables, the request latency per batch size and the median step
@@ -139,6 +147,7 @@ training path and of one data-parallel step of each arm.
 
 import argparse
 import json
+import math
 import os
 import socket
 import statistics
@@ -182,6 +191,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 FA_TOL = 1e-4
+# K1's times before its tensor-core redesign, when both products ran as
+# scalar f32 FMAs (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel
+# table), printed beside the K1 rows of phase 8
+K1_SCALAR_MS = {'flash_attention': 0.4120, 'flash_attention[dropout]': 0.4141}
 BWD_TOL = 1e-4
 FA_BF16_TOL = 2e-2  # tests/test_torch_cuda_flash_attention.py's bf16 limit
 SLICE_TOL = 1e-3
@@ -330,25 +343,63 @@ def padding_bias(gen, b, t, dev):
     return torch.where(keep, 0.0, -10000.0).float()
 
 
+def flash_twice(q, k, v, causal, bias, rate=0.0, seed=None):
+    """K1's (O, lse), launched twice from the same inputs: the second
+    launch must give the first's bits."""
+    o, lse = fa_k.flash_attention_kernel(q, k, v, causal, bias, rate, seed)
+    o2, lse2 = fa_k.flash_attention_kernel(q, k, v, causal, bias, rate,
+                                           seed)
+    torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError('flash_attention: a second launch from the '
+                             'same inputs gave other bits')
+    return o, lse
+
+
 def check_flash(gen, dev):
-    cases = [('serving B8 H12 T512 D64', 8, 512, 12, 64, False, True),
-             ('ragged B2 H4 T200 D64', 2, 200, 4, 64, False, True),
-             ('causal ragged B2 H4 T300 D128', 2, 300, 4, 128, True, True),
-             ('no bias B1 H2 T64 D32', 1, 64, 2, 32, False, False)]
+    """K1 without dropout against its plain version: O and lse within
+    FA_TOL, and a second launch bitwise the first.  bf16: O bitwise the
+    kernel's own f32 output on the same values upcast, rounded to bf16
+    (the bf16 path only converts at load and store), lse bitwise the
+    f32 launch's and within FA_TOL of the plain version."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [('serving B8 H12 T512 D64', 8, 512, 12, 64, False, True, f32),
+             ('ragged B2 H4 T200 D64', 2, 200, 4, 64, False, True, f32),
+             ('causal ragged B2 H4 T300 D128', 2, 300, 4, 128, True, True,
+              f32),
+             ('no bias B1 H2 T64 D32', 1, 64, 2, 32, False, False, f32),
+             ('one query B2 H4 T1 D64', 2, 1, 4, 64, False, True, f32),
+             ('a key past a tile B2 H4 T65 D64', 2, 65, 4, 64, False, True,
+              f32),
+             ('bf16 ragged B2 H4 T300 D32', 2, 300, 4, 32, False, True,
+              bf16),
+             ('bf16 B2 H4 T512 D64', 2, 512, 4, 64, False, True, bf16),
+             ('bf16 causal ragged B2 H4 T300 D128', 2, 300, 4, 128, True,
+              True, bf16)]
     worst = 0.0
-    for name, b, t, h, d, causal, with_bias in cases:
-        q, k, v = qkv_views(gen, b, t, h, d, dev)
+    for name, b, t, h, d, causal, with_bias, dtype in cases:
+        q, k, v = [x.to(dtype) for x in qkv_views(gen, b, t, h, d, dev)]
         bias = padding_bias(gen, b, t, dev) if with_bias else None
-        o, lse = fa_k.flash_attention_kernel(q, k, v, causal, bias)
+        o, lse = flash_twice(q, k, v, causal, bias)
         po, plse = fa_k.flash_attention_plain(q, k, v, causal, bias)
-        torch.cuda.synchronize()
+        note = ''
+        if dtype == bf16:
+            fo, flse = fa_k.flash_attention_kernel(
+                q.float(), k.float(), v.float(), causal, bias)
+            torch.cuda.synchronize()
+            if not (torch.equal(o, fo.to(bf16)) and torch.equal(lse, flse)):
+                raise AssertionError('flash_attention %s: not the f32 path '
+                                     'rounded' % name)
+            note = '; bitwise the f32 path rounded'
         eo, el = max_abs(o, po), max_abs(lse, plse)
-        log('  flash_attention %-30s max|dO| %.3e max|dlse| %.3e'
-            % (name, eo, el))
-        if not (eo <= FA_TOL and el <= FA_TOL):
+        log('  flash_attention %-36s max|dO| %.3e%s max|dlse| %.3e (limit '
+            '%g); 2nd launch bitwise%s'
+            % (name, eo, ' (bf16 O, held bitwise)' if dtype == bf16 else '',
+               el, FA_TOL, note))
+        if not (el <= FA_TOL and (dtype == bf16 or eo <= FA_TOL)):
             raise AssertionError('flash_attention %s disagrees with its '
                                  'plain version' % name)
-        worst = max(worst, eo, el)
+        worst = max(worst, el, 0.0 if dtype == bf16 else eo)
     return worst
 
 
@@ -371,25 +422,47 @@ def kernel_keep_mask(b, h, t, seed, dev):
 
 
 def check_flash_dropout(gen, dev):
+    """K1 with attention dropout against its plain version (the same
+    hash): O and lse within FA_TOL, a second launch bitwise the first,
+    and at the first two shapes the keep mask read back from the kernel
+    bitwise the plain hash.  'masked': batch 0's keys all -inf, whose
+    rows give O = 0 exactly and lse = log(1e-20)."""
     seed = 0x9E3779B9 ^ 12345
     worst = 0.0
-    for name, b, t, h in (('B8 H12 T512 D64', 8, 512, 12),
-                          ('ragged B2 H4 T300 D64', 2, 300, 4)):
-        q, k, v = qkv_views(gen, b, t, h, 64, dev)
+    for name, b, t, h, d, readback, masked in (
+            ('B8 H12 T512 D64', 8, 512, 12, 64, True, False),
+            ('ragged B2 H4 T300 D64', 2, 300, 4, 64, True, False),
+            ('ragged B2 H4 T300 D32', 2, 300, 4, 32, False, False),
+            ('ragged B2 H4 T300 D128', 2, 300, 4, 128, False, False),
+            ('masked B2 H4 T200 D64', 2, 200, 4, 64, False, True)):
+        q, k, v = qkv_views(gen, b, t, h, d, dev)
         bias = padding_bias(gen, b, t, dev)
-        o, lse = fa_k.flash_attention_kernel(q, k, v, False, bias, RATE,
-                                             seed)
+        if masked:
+            bias[0] = float('-inf')
+        o, lse = flash_twice(q, k, v, False, bias, RATE, seed)
         po, plse = fa_k.flash_attention_plain(q, k, v, False, bias, RATE,
                                               seed)
         eo, el = max_abs(o, po), max_abs(lse, plse)
-        keep = kernel_keep_mask(b, h, t, seed, dev)
-        want = fa_k.dropout_keep_plain(seed, b, h, t, t, RATE, dev)
-        torch.cuda.synchronize()
-        same = torch.equal(keep, want)
+        ok = eo <= FA_TOL and el <= FA_TOL
+        note = ''
+        if readback:
+            keep = kernel_keep_mask(b, h, t, seed, dev)
+            want = fa_k.dropout_keep_plain(seed, b, h, t, t, RATE, dev)
+            torch.cuda.synchronize()
+            same = torch.equal(keep, want)
+            ok = ok and same
+            note = ', keep mask bitwise %s (keep rate %.4f)' % (
+                same, keep.float().mean().item())
+        if masked:
+            zero = o[0].abs().max().item() == 0.0
+            lse_err = (lse[0] - math.log(1e-20)).abs().max().item()
+            ok = ok and zero and lse_err <= FA_TOL
+            note = ', masked rows: O exactly 0 %s, max|lse - log(1e-20)| ' \
+                   '%.3e' % (zero, lse_err)
         log('  flash_attention dropout %.1f %-22s max|dO| %.3e max|dlse| '
-            '%.3e, keep mask bitwise %s (keep rate %.4f)'
-            % (RATE, name, eo, el, same, keep.float().mean().item()))
-        if not (eo <= FA_TOL and el <= FA_TOL and same):
+            '%.3e (limit %g)%s, 2nd launch bitwise'
+            % (RATE, name, eo, el, FA_TOL, note))
+        if not ok:
             raise AssertionError('flash_attention with dropout %s disagrees '
                                  'with its plain version' % name)
         worst = max(worst, eo, el)
@@ -1303,7 +1376,9 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                 row['bound_ms'], row['bound_by'],
                 '' if 'bound_f32_ms' not in bnd else
                 ', tensor cores; %.4f ms on the f32 pipe'
-                % bnd['bound_f32_ms']))
+                % bnd['bound_f32_ms']) +
+            ('' if name not in K1_SCALAR_MS else
+             '; the scalar-FMA K1 took %.4f ms' % K1_SCALAR_MS[name]))
     # K6b's parts: the sort, the zeroing (in the sort's launch) and the
     # run and long-run passes
     for rows_k, ids_k in ((30522, src), (2, zeros)):

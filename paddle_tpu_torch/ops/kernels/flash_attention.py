@@ -33,8 +33,11 @@ common.register_kernel(
           '(einsum, bias, mask, softmax, dropout mask, einsum in f32)',
     replaces='paddle_tpu/ops/pallas/flash_attention.py:121 '
              '_flash_fwd_kernel',
-    doc='64-row Q tile per block, 64-key K/V tiles in shared memory, '
-        'online softmax in f32 registers, in-kernel dropout hash',
+    doc='a block of 4 warps per 64-row Q tile, 16 rows a warp; S = Q K^T '
+        'and O += P V on the tensor cores (mma.sync TF32, 3xTF32 split '
+        'for f32 accuracy), online softmax in the accumulators, P fed '
+        'back as the A operand with its in-kernel dropout hash; K, V and '
+        'the bias through a two-stage cp.async ring; no atomics',
     op_types=('fused_multihead_attention',))
 
 common.register_kernel(
@@ -176,8 +179,8 @@ def _dropout_args(rate, seed):
 
 
 def _copy_aligned(x):
-    """x, or an aligned copy of it when a row of it that the backward
-    kernel copies with 16-byte cp.async would not start on 16 bytes."""
+    """x, or an aligned copy of it when a row of it that the kernels
+    copy with 16-byte cp.async would not start on 16 bytes."""
     step = 16 // x.element_size()
     if x.data_ptr() % 16 == 0 and all(st % step == 0
                                       for st in x.stride()[:3]):
@@ -201,6 +204,7 @@ def flash_attention_kernel(q, k, v, causal=False, key_bias=None,
                                                     dropout_seed)
     b, t, h, d = q.shape
     dev = q.device
+    q, k, v = [_copy_aligned(x) for x in (q, k, v)]
     if key_bias is not None:
         key_bias = key_bias.to(torch.float32).contiguous()
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)

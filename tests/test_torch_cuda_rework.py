@@ -1,8 +1,9 @@
-"""The redesigned flash-attention backward (3xTF32 tensor-core products,
-cp.async tiles) and embedding scatter-add (one-block radix sort, run
-pass, long runs streamed over 32-column slices) against their plain
-PyTorch versions on the card, at the edge cases of their designs: head
-dims 32 and 128, bf16, fully masked rows, a second launch bitwise the
+"""The redesigned flash-attention forward and backward (3xTF32
+tensor-core products, cp.async tiles) and embedding scatter-add
+(one-block radix sort, run pass, long runs streamed over 32-column
+slices) against their plain PyTorch versions on the card, at the edge
+cases of their designs: head dims 32 and 128, one query, a key past a
+tile, dropout, bf16, fully masked rows, a second launch bitwise the
 first; runs longer than a 128-row stage that start mid-chunk, D = 16,
 100 and 1, one id, and more ids than the one-block sort takes.
 Marked `cuda`: every test skips where torch has no CUDA device.  Run on
@@ -12,6 +13,8 @@ a GPU machine with
 
 This file imports torch and the port only.
 """
+
+import math
 
 import pytest
 import torch
@@ -39,6 +42,48 @@ def _gen(dev, seed=0):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     return g
+
+
+@pytest.mark.parametrize('b,t,h,d,causal,rate,dtype,masked', [
+    (2, 300, 4, 32, False, RATE, torch.float32, False),
+    (2, 300, 4, 128, False, RATE, torch.float32, False),
+    (2, 1, 4, 64, False, 0.0, torch.float32, False),
+    (2, 65, 4, 64, False, RATE, torch.float32, False),
+    (2, 200, 4, 64, False, RATE, torch.float32, True),
+    (2, 300, 4, 32, False, 0.0, torch.bfloat16, False),
+    (2, 512, 4, 64, False, RATE, torch.bfloat16, False),
+    (2, 300, 4, 128, True, 0.0, torch.bfloat16, False),
+])
+def test_forward_edge_cases_match_plain(dev, b, t, h, d, causal, rate, dtype,
+                                        masked):
+    """O and lse within 1e-4 of the plain forward; a second launch is
+    bitwise the first.  bf16: O bitwise the f32 path on the same values
+    rounded to bf16, lse bitwise the f32 path's.  masked: batch 0's keys
+    all -inf, so its rows give O = 0 exactly and lse = log(1e-20)."""
+    g = _gen(dev, 5)
+    qkv = torch.randn(b, t, 3 * h * d, generator=g, device=dev).to(dtype)
+    q, k, v = [x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=2)]
+    bias = torch.where(torch.rand(b, t, generator=g, device=dev) < 0.2,
+                       -10000.0, 0.0)
+    if masked:
+        bias[0] = float('-inf')
+    before = common.launches('flash_attention')
+    (o, lse), (o2, lse2) = [fa_k.flash_attention_kernel(
+        q, k, v, causal, bias, rate, 13) for _ in range(2)]
+    assert common.launches('flash_attention') == before + 2
+    po, plse = fa_k.flash_attention_plain(q, k, v, causal, bias, rate, 13)
+    if dtype == torch.bfloat16:
+        fo, flse = fa_k.flash_attention_kernel(
+            q.float(), k.float(), v.float(), causal, bias, rate, 13)
+        assert torch.equal(o, fo.to(dtype)) and torch.equal(lse, flse)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (lse - plse).abs().max().item() <= TOL
+    if dtype == torch.float32:
+        assert (o - po).abs().max().item() <= TOL
+    if masked:
+        assert o[0].abs().max().item() == 0.0
+        assert (lse[0] - math.log(1e-20)).abs().max().item() <= TOL
 
 
 @pytest.mark.parametrize('b,t,h,d,causal,rate,dtype,masked', [

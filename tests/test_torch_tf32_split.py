@@ -13,6 +13,12 @@ cotangent to the plain f32 backward within the limit chip_smoke.py
 applies to the kernel, 1e-4 * max(1, max|plain|).  How far a single
 TF32 product (operands rounded as cvt.rna rounds) falls from the plain
 backward is printed beside it (not asserted).
+
+The forward kernel (csrc/flash_attention_fwd.cu) runs its two products
+(S = Q K^T and O += P V) the same way, with the online softmax over
+64-key tiles in f32; emulated at the same head, with and without the
+dropout mask, it holds O and lse to flash_attention_plain within K1's
+limit, 1e-4 (a single TF32 product's miss printed beside it).
 """
 
 import numpy as np
@@ -132,5 +138,56 @@ def test_three_tf32_products_hold_the_backward_to_its_limit(rate):
           '(limit %g): %s' % (rate, LIMIT, '; '.join(
               '%s %s' % (k, ['%.2e' % e for e in v]) for k, v in
               errs.items())))
+    assert max(errs['3xTF32']) <= LIMIT
+    assert max(errs['3xTF32 rna']) <= LIMIT
+
+
+def forward(mm, q, k, v, bias, keep, rate, tile=64):
+    """The forward kernel's online softmax at one head, 64-key tiles,
+    products `mm` and element-wise work in f32 -> O, lse."""
+    scale = np.float32(1.0 / np.sqrt(D))
+    m = np.full(T, -np.inf, np.float32)
+    l = np.zeros(T, np.float32)
+    o = np.zeros((T, D), np.float32)
+    for k0 in range(0, T, tile):
+        s = mm(q, k[k0:k0 + tile].T) * scale + bias[None, k0:k0 + tile]
+        m_new = np.maximum(m, s.max(1))
+        corr = np.where(np.isfinite(m), np.exp(m - m_new), np.float32(0))
+        p = np.exp(s - m_new[:, None]).astype(np.float32)
+        l = (l * corr + p.sum(1, dtype=np.float32)).astype(np.float32)
+        if rate:
+            p = np.where(keep[:, k0:k0 + tile],
+                         p * np.float32(1.0 / (1.0 - rate)), np.float32(0))
+        o = (o * corr[:, None] + mm(p, v[k0:k0 + tile])).astype(np.float32)
+        m = m_new
+    return o / l[:, None], m + np.log(l)
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+def test_three_tf32_products_hold_the_forward_to_its_limit(rate):
+    rng = np.random.RandomState(8)
+    q, k, v = [rng.randn(T, D).astype(np.float32) for _ in range(3)]
+    bias = np.where(np.arange(T) < 400, 0.0, -10000.0).astype(np.float32)
+    seed = 4321
+
+    def t(x):
+        return torch.from_numpy(x)[None, :, None, :]
+
+    o, lse = fa_k.flash_attention_plain(t(q), t(k), t(v), False,
+                                        torch.from_numpy(bias)[None], rate,
+                                        seed)
+    o, lse = o.reshape(T, D).numpy(), lse.reshape(T).numpy()
+    keep = (fa_k.dropout_keep_plain(seed, 1, 1, T, T, rate)[0, 0].numpy()
+            if rate else None)
+    errs = {}
+    for name, mm in (('3xTF32', mm3),
+                     ('3xTF32 rna', lambda a, b: mm3(a, b, tf32_rna)),
+                     ('1xTF32', mm1)):
+        got_o, got_lse = forward(mm, q, k, v, bias, keep, rate)
+        errs[name] = (float(np.max(np.abs(got_o - o))),
+                      float(np.max(np.abs(got_lse - lse))))
+    print('rate %.1f, max|err| of O, lse (limit %g): %s' % (
+        rate, LIMIT, '; '.join('%s %.2e %.2e' % (k, *v)
+                               for k, v in errs.items())))
     assert max(errs['3xTF32']) <= LIMIT
     assert max(errs['3xTF32 rna']) <= LIMIT
