@@ -45,6 +45,11 @@ Phases, each of which fails the run (non-zero exit) on error:
        (~132M f32 elements) and an AdamW run: parameters and moments
        bitwise (the library is built with --fmad=false, so it rounds
        every operation as the plain version's separate kernels do);
+       and, Adam and AdamW, views at element offsets 1, 2 and 3 (one
+       tensor's four streams at different offsets among them), sizes
+       1, 3, 5, 8191 and 8193, and a run of 200 tiny tensors, each
+       tensor with its own learning rate and beta powers, one counted
+       launch a run (bitwise);
        fused_lamb over the same 153 tensors plus a zero-gradient tensor
        without decay and a [1] tensor: moments bitwise, parameters to
        rtol 2e-6 / atol 3e-7 (the trust ratio's norms are summed in
@@ -60,7 +65,10 @@ Phases, each of which fails the run (non-zero exit) on error:
        (quantize [91566, 256], reduce [2, 45783, 256]), a 768 x 3072
        gradient ([9216, 256], [2, 4608, 256]), the fused bucket of the
        101 small gradients (124,418 elements padded to 124,928) and
-       block 64 on an unaligned size (bitwise);
+       block 64 on an unaligned size; the reduce also at blocks 8, 9,
+       200, 256, 1024 and 4096, n = 1, 2, 3 and 8, one row and 37 rows
+       with an all-zero row and a row whose absmax is its last element,
+       and shards at byte 1 of their buffer (bitwise);
   4. serving: BERT-base (12 layers, hidden 768, seq 512, random weights
      from --seed) built with the port's layers, saved with
      save_inference_model, loaded by create_paddle_predictor on
@@ -109,9 +117,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      host is timed with CUDA events around single calls instead), the
      least time the card could take (bound; for K1 and K2 with their
      products as f32-accurate 3xTF32 products on the tensor cores, the
-     f32-pipe bound beside it; K1's rows also print the scalar-FMA
-     K1's time before its redesign), K6b also on the 2-row sentence table (a
-     row of its own) and split into its sort, its zeroing and its
+     f32-pipe bound beside it; K1's, K4's and K8's reduce rows also
+     print the time before their redesign), K6b also on the 2-row
+     sentence table (a row of its own) and split into its sort, its
+     zeroing and its
      passes on both tables, K7 also on the 1000 x 16 and the 1000001 x
      1 tables, the request latency per batch size and the median step
      of each training path.  The library call for the flash backward is
@@ -191,10 +200,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 FA_TOL = 1e-4
-# K1's times before its tensor-core redesign, when both products ran as
-# scalar f32 FMAs (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel
-# table), printed beside the K1 rows of phase 8
-K1_SCALAR_MS = {'flash_attention': 0.4120, 'flash_attention[dropout]': 0.4141}
+# times before a redesign (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's
+# kernel table), printed beside the rows of phase 8: K1 when both
+# products ran as scalar f32 FMAs, K4 with scalar loads, K8's reduce
+# with a warp a row and one byte a lane
+BEFORE_MS = {'flash_attention': ('the scalar-FMA K1', 0.4120),
+             'flash_attention[dropout]': ('the scalar-FMA K1', 0.4141),
+             'fused_adam': ('the scalar-load K4', 1.4078),
+             'quant_reduce': ('the warp-a-row reduce', 0.0795)}
 BWD_TOL = 1e-4
 FA_BF16_TOL = 2e-2  # tests/test_torch_cuda_flash_attention.py's bf16 limit
 SLICE_TOL = 1e-3
@@ -657,7 +670,72 @@ def check_adam(gen, dev, shapes):
                                          % (kind, slot, max_abs(got, w)))
         log('  fused_adam %-5s %3d tensors, %d elements: bitwise equal'
             % (kind, len(subset), sum(int(np.prod(s)) for s in subset)))
+    check_adam_edges(gen, dev)
     return 0.0
+
+
+def offset_view(x, offset):
+    """x copied into a contiguous view at element `offset` of a larger
+    buffer."""
+    buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device=x.device)
+    out = buf[offset:offset + x.numel()]
+    out.copy_(x)
+    return out
+
+
+def check_adam_edges(gen, dev):
+    """K4's design edges, Adam and AdamW, each run one counted launch
+    bitwise the per-tensor lowering: views at element offsets 1, 2 and
+    3 (all four streams, and one tensor's streams at different offsets),
+    sizes 1, 3, 5, 8191 and 8193, a run of 200 tiny tensors; every
+    tensor with its own learning rate and beta powers."""
+    aligned = (0, 0, 0, 0)
+    cases = [('views at offsets 1-3', [5000, 8193, 3, 8191, 30522, 1],
+              [(1, 1, 1, 1), (2, 2, 2, 2), (3, 3, 3, 3), (1, 0, 2, 3)]),
+             ('sizes 1-8193', [1, 3, 5, 8191, 8193], [aligned]),
+             ('200 tiny tensors', [1 + (7 * i) % 40 for i in range(200)],
+              [aligned, (1, 1, 1, 1), aligned, (3, 0, 3, 3)])]
+    for kind, attrs in (('adam', {'beta1': 0.9, 'beta2': 0.999,
+                                  'epsilon': EPSILON}),
+                        ('adamw', {'beta1': 0.85, 'beta2': 0.99,
+                                   'epsilon': 1e-8, 'coeff': 0.02})):
+        for name, sizes, offsets in cases:
+            ins = {k: [] for k in ('Param', 'Grad', 'Moment1', 'Moment2',
+                                   'LearningRate', 'Beta1Pow', 'Beta2Pow')}
+            for i, n in enumerate(sizes):
+                vals = (torch.randn(n, generator=gen, device=dev),
+                        torch.randn(n, generator=gen, device=dev) * 1e-2,
+                        torch.randn(n, generator=gen, device=dev) * 1e-3,
+                        torch.rand(n, generator=gen, device=dev) * 1e-4)
+                for slot, v, o in zip(('Param', 'Grad', 'Moment1',
+                                       'Moment2'), vals,
+                                      offsets[i % len(offsets)]):
+                    ins[slot].append(offset_view(v, o))
+                ins['LearningRate'].append(torch.full(
+                    (1,), LR * (1 + i % 7), device=dev))
+                ins['Beta1Pow'].append(torch.full((1,), 0.9 ** (i + 1),
+                                                  device=dev))
+                ins['Beta2Pow'].append(torch.full((1,), 0.999 ** (i + 1),
+                                                  device=dev))
+            want = opt_k.apply_plain(kind, None, ins, attrs)
+            before = common.launches('fused_adam')
+            opt_k.apply_kernel(kind, ins, attrs)  # in place
+            torch.cuda.synchronize()
+            if common.launches('fused_adam') != before + 1:
+                raise AssertionError('fused_adam (%s) launched %d times'
+                                     % (name, common.launches('fused_adam')
+                                        - before))
+            for slot, out in (('Param', 'ParamOut'),
+                              ('Moment1', 'Moment1Out'),
+                              ('Moment2', 'Moment2Out')):
+                for got, w in zip(ins[slot], want[out]):
+                    if not torch.equal(got, w):
+                        raise AssertionError(
+                            'fused_adam (%s, %s) %s is not bitwise equal to '
+                            'the per-tensor lowering: max|diff| %g'
+                            % (kind, name, slot, max_abs(got, w)))
+            log('  fused_adam %-5s %-22s %3d tensors: bitwise equal'
+                % (kind, name, len(sizes)))
 
 
 def lamb_inputs(shapes, gen, dev):
@@ -801,7 +879,47 @@ def check_quant(gen, dev):
         log('  quant_collective %-18s %d elements: quantize %s, reduce %s: '
             'bitwise equal' % (name, numel, list(rows.shape),
                                list(qt.shape)))
+    check_reduce_edges(gen, dev)
     return 0.0
+
+
+def check_reduce_edges(gen, dev):
+    """K8's reduce at its design edges against its plain version,
+    bitwise: blocks 8, 9, 200, 256, 1024 and 4096 (vectors where rows
+    start on 16 bytes, bytes where not; a second read past 256), n = 1,
+    2, 3 and 8, one row and 37 rows with an all-zero row and a row whose
+    absmax is its last element, and shards at byte 1 of their buffer."""
+    cases = 0
+    for block in (8, 9, 200, 256, 1024, 4096):
+        for n in (1, 2, 3, 8):
+            for cb in (1, 37):
+                x = torch.randn(n * cb, block, generator=gen, device=dev) * (
+                    10.0 ** torch.randint(-3, 2, (n * cb, 1), generator=gen,
+                                          device=dev))
+                qt, st = qc_k.quantize_plain(x)
+                qt, st = qt.reshape(n, cb, block), st.reshape(n, cb, 1)
+                if cb > 2:
+                    qt[:, 1] = 0
+                    st[:, 1] = 1.0
+                    qt[:, 2] = qt[:, 2].clamp(-100, 100)
+                    qt[:, 2, -1] = 127
+                shards = [qt]
+                if block == 256:
+                    shards.append(offset_view(qt.reshape(-1), 1).view(
+                        qt.shape))
+                for q in shards:
+                    qr, sr = qc_k.reduce_kernel(q, st)
+                    pqr, psr = qc_k.dequant_reduce_requant_plain(q, st)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(qr, pqr) and torch.equal(sr, psr)):
+                        raise AssertionError(
+                            'quant_reduce [%d, %d, %d] (data at byte %d mod '
+                            '16) is not bitwise equal to its plain version'
+                            % (n, cb, block, q.data_ptr() % 16))
+                    cases += 1
+    log('  quant_reduce edges: blocks 8, 9, 200, 256, 1024, 4096 x n = 1, '
+        '2, 3, 8 x cb = 1, 37 (zero row, absmax last) and shards off 16 '
+        'bytes: %d cases bitwise equal' % cases)
 
 
 # ------------------------------------------------------------ phase 4
@@ -1377,8 +1495,8 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                 '' if 'bound_f32_ms' not in bnd else
                 ', tensor cores; %.4f ms on the f32 pipe'
                 % bnd['bound_f32_ms']) +
-            ('' if name not in K1_SCALAR_MS else
-             '; the scalar-FMA K1 took %.4f ms' % K1_SCALAR_MS[name]))
+            ('' if name not in BEFORE_MS else
+             '; %s took %.4f ms' % BEFORE_MS[name]))
     # K6b's parts: the sort, the zeroing (in the sort's launch) and the
     # run and long-run passes
     for rows_k, ids_k in ((30522, src), (2, zeros)):

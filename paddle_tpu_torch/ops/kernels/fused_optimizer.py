@@ -31,8 +31,9 @@ common.register_kernel(
     source=SOURCE,
     plain='ops.optimizer_ops.adam / adamw per tensor, in run order',
     replaces='paddle_tpu/ops/pallas/fused_optimizer.py:97 _adam_kernel',
-    doc='one launch over a device table of tensor pointers; in place, '
-        'no pack/unpack copies',
+    doc='one launch over a device table of tensor pointers, 16-byte '
+        'vectors staged in registers, scalar heads and tails of unaligned '
+        'tensors in the same launch; in place, no pack/unpack copies',
     op_types=('fused_adam', 'fused_adamw'))
 
 

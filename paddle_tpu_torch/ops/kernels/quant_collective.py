@@ -41,8 +41,9 @@ common.register_kernel(
           'ranks summed in rank order by fused multiply-adds, then '
           'quantize_plain)',
     replaces='paddle_tpu/ops/pallas/quant_collective.py:100 _reduce_kernel',
-    doc='one warp per chunk row: dequantize and sum the n shards in rank '
-        'order, requantize; the f32 sum never leaves registers',
+    doc='16 lanes per chunk row, 16-byte vectors of the first two shards '
+        'loaded before their sums: dequantize and sum the n shards in rank '
+        'order, requantize from the same registers',
     op_types=('c_allreduce_sum', 'c_allreduce_fused'))
 
 

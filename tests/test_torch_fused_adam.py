@@ -94,6 +94,57 @@ def test_fused_matches_pallas_interpret(kind, seed):
                                        err_msg='%s %s' % (kind, slot), **TOL)
 
 
+def _odd_arrays(sizes, seed):
+    """_arrays over 1-D `sizes` (the CUDA kernel's scalar heads and
+    tails, tiles past 8192), each with its own step's schedule."""
+    rng = np.random.RandomState(seed)
+    out = {k: [] for k in SLOTS}
+    for i, n in enumerate(sizes):
+        out['Param'].append(rng.randn(n).astype('float32'))
+        out['Grad'].append(rng.randn(n).astype('float32'))
+        out['Moment1'].append(rng.randn(n).astype('float32'))
+        out['Moment2'].append(np.abs(rng.randn(n)).astype('float32'))
+        out['LearningRate'].append(np.float32([0.001 * (1 + i % 7)]))
+        out['Beta1Pow'].append(np.float32([0.9 ** (i + 1)]))
+        out['Beta2Pow'].append(np.float32([0.999 ** (i + 1)]))
+    return out
+
+
+def _torch_views(arrays, offset):
+    """Each array as a contiguous view at element `offset` of a larger
+    CPU buffer, as the CUDA kernel's unaligned cases take them."""
+    out = {}
+    for k, v in arrays.items():
+        out[k] = []
+        for a in v:
+            if k in SLOTS[:4]:
+                buf = torch.zeros(a.size + 4)
+                buf[offset:offset + a.size] = torch.from_numpy(a)
+                out[k].append(buf[offset:offset + a.size])
+            else:
+                out[k].append(torch.from_numpy(a.copy()))
+    return out
+
+
+@pytest.mark.parametrize('kind', ['adam', 'adamw'])
+@pytest.mark.parametrize('sizes', [[1, 3, 5, 8191, 8193],
+                                   [1 + (7 * i) % 40 for i in range(40)]],
+                         ids=['odd-sizes', '40-tiny'])
+def test_plain_matches_pallas_interpret_at_odd_sizes(kind, sizes):
+    """Sizes that are not multiples of 4 or of the tile, and a run of
+    tiny tensors, as views at element offset 3 of their buffers."""
+    arrays = _odd_arrays(sizes, len(sizes))
+    j_set_flags({'FLAGS_pallas_force': True})
+    want = jfused.apply(kind, jregistry.LowerCtx(0), _jax(arrays),
+                        ATTRS[kind])
+    got = tfused.apply(kind, None, _torch_views(arrays, 3), ATTRS[kind])
+    for slot in OUT_SLOTS:
+        assert len(got[slot]) == len(want[slot]) == len(sizes)
+        for g, w in zip(got[slot], want[slot]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       err_msg='%s %s' % (kind, slot), **TOL)
+
+
 @pytest.mark.parametrize('kind', ['adam', 'adamw'])
 def test_per_tensor_lowering_matches_jax_dense(kind):
     arrays = _arrays(4, 5)

@@ -3,14 +3,14 @@ the CPU.
 
 - The plain quantize (``quantize_blocks`` on CPU tensors) against the
   JAX ``quantize_blocks`` in Pallas interpret mode: bitwise, at blocks
-  256, 64 and 8, with row counts that are not powers of two, all-zero
-  rows and exact halves (round half to even).
+  1024, 256, 64, 9 and 8, with row counts that are not powers of two,
+  all-zero rows and exact halves (round half to even).
 - The plain dequant-reduce-requant against the JAX one in interpret
-  mode, n = 2 and 8: bitwise.  XLA on the CPU compiles the JAX
-  package's ``absmax / 127.0`` into a multiply by the f32 reciprocal of
-  127 and its ``jnp.sum(q * s, axis=0)`` into a rank-order chain of
-  fused multiply-adds; the port computes both the same way (ROADMAP
-  Queue 3).
+  mode, n = 2, 3 and 8, blocks 9, 256 and 1024: bitwise.  XLA on the
+  CPU compiles the JAX package's ``absmax / 127.0`` into a multiply by
+  the f32 reciprocal of 127 and its ``jnp.sum(q * s, axis=0)`` into a
+  rank-order chain of fused multiply-adds; the port computes both the
+  same way (ROADMAP Queue 3).
 - The whole quantized all-reduce over 8 gloo ranks (the world group)
   and 2 (a subgroup of ranks 0 and 1), started by the port's launcher,
   against ``collective_ops._quant_allreduce(v, 'dp', N, block)`` under
@@ -105,7 +105,8 @@ def _rows(rows, block, seed):
     return x
 
 
-@pytest.mark.parametrize('rows,block', [(37, 256), (50, 64), (5, 8)])
+@pytest.mark.parametrize('rows,block', [(37, 256), (50, 64), (5, 8),
+                                        (11, 9), (6, 1024)])
 def test_quantize_plain_is_bitwise_jax(rows, block):
     x = _rows(rows, block, rows)
     jq, js = jqc.quantize_blocks(jnp.asarray(x), True)
@@ -132,6 +133,29 @@ def test_reduce_plain_is_bitwise_jax(n):
                                         torch.from_numpy(s))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize('n,block', [(3, 256), (2, 9), (3, 9), (3, 1024)])
+def test_reduce_plain_is_bitwise_jax_at_odd_shapes(n, block):
+    """Three ranks, a block whose rows do not start on 16 bytes (9) and
+    one longer than the CUDA kernel's 256-element segment (1024), with an
+    all-zero row and a row whose absmax is its last element."""
+    rs = np.random.RandomState(100 * n + block)
+    cb = 13
+    q = rs.randint(-127, 128, size=(n, cb, block)).astype('int8')
+    s = (rs.rand(n, cb, 1) *
+         rs.choice([1e-3, 1.0, 50.0], size=(n, cb, 1))).astype('float32')
+    q[:, 3] = 0
+    s[:, 3] = 1.0
+    q[:, 5] = np.clip(q[:, 5], -100, 100)
+    q[:, 5, -1] = 127
+    jq, js = jqc.dequant_reduce_requant(jnp.asarray(q), jnp.asarray(s), True)
+    tq, ts = tqc.dequant_reduce_requant(torch.from_numpy(q),
+                                        torch.from_numpy(s))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert ts[3, 0].item() == 1.0 and not tq[3].any()
+    assert tq[5, -1].item() == 127
 
 
 def test_reduce_is_a_rank_order_fma_chain():
