@@ -59,7 +59,8 @@ Phases, each of which fails the run (non-zero exit) on error:
        fused_emb_update op on the 1000001 x 16 table with 106,496
        uniform ids, on the 1000 x 16 table with the same ids (~106
        visits a row) and on a 1000001 x 1 table, padding_idx and
-       out-of-range ids included (bitwise);
+       out-of-range ids included, and on the 1000001 x 16 table with
+       one id, 8192 equal ids and 2**20 + 7 uniform ids (bitwise);
        quant_quantize and quant_reduce (K8) at the shapes 2-rank
        BERT-base training gives them: the 30522 x 768 table gradient
        (quantize [91566, 256], reduce [2, 45783, 256]), a 768 x 3072
@@ -121,14 +122,18 @@ Phases, each of which fails the run (non-zero exit) on error:
      print the time before their redesign), K6b also on the 2-row
      sentence table (a row of its own) and split into its sort, its
      zeroing and its
-     passes on both tables, K7 also on the 1000 x 16 and the 1000001 x
-     1 tables, the request latency per batch size and the median step
-     of each training path.  The library call for the flash backward is
+     passes on both tables, K7 also on the 1000001 x 1 table (a row of
+     its own), the 1000 x 16 table and a 64 x 16 table whose 8192 ids
+     all but six are 0 (one run of 8187), and split into its sort and
+     its run kernels on the three Wide&Deep tables, the request
+     latency per batch size and the median step of each training
+     path.  The library call for the flash backward is
      SDPA's memory-efficient backward op on its own forward's saved
-     outputs; for the row update, torch.optim.Adagrad's step on a
-     sparse gradient; PyTorch has no LAMB and no block-scaled int8
-     quantize (null; phase 9 times the dense collective on the same
-     payload as K8's collective-level yardstick);
+     outputs; for the row update (deep and wide tables),
+     torch.optim.Adagrad's step on a sparse gradient; PyTorch has no
+     LAMB and no block-scaled int8 quantize (null; phase 9 times the
+     dense collective on the same payload as K8's collective-level
+     yardstick);
   9. data-parallel training: this script again on 2 ranks through
      ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2``
      (one card a rank over NCCL where the machine has two cards or
@@ -148,10 +153,14 @@ Phases, each of which fails the run (non-zero exit) on error:
      memory and the collective times (quantized, flat dense, the
      planner's dense rs_ag) of the table gradient are printed; a rank
      that fails fails the phase.
-The line before the last is a JSON object {"kernels": [...]}; the last
-is {"ok": true, "device": {...}}.  --profile adds a torch.profiler
-breakdown of one request of each batch size, of one step of each
-training path and of one data-parallel step of each arm.
+The line before the last is a JSON object {"kernels": [...]}: a row
+that times one table of a kernel (embedding_scatter_add[2-row],
+embedding_update[wide]) counts the main path's launches on that table,
+its kernel's row those on the kernel's other tables, and a row with no
+launch fails the run.  The last is {"ok": true, "device": {...}}.
+--profile adds a torch.profiler breakdown of one request of each batch
+size, of one step of each training path and of one data-parallel step
+of each arm.
 """
 
 import argparse
@@ -207,7 +216,10 @@ FA_TOL = 1e-4
 BEFORE_MS = {'flash_attention': ('the scalar-FMA K1', 0.4120),
              'flash_attention[dropout]': ('the scalar-FMA K1', 0.4141),
              'fused_adam': ('the scalar-load K4', 1.4078),
-             'quant_reduce': ('the warp-a-row reduce', 0.0795)}
+             'quant_reduce': ('the warp-a-row reduce', 0.0795),
+             'embedding_update': ('K7 after torch.sort', 0.1390),
+             'embedding_update[wide]': ('K7 after torch.sort', 0.0972),
+             'embedding_update[1000-row]': ('K7 after torch.sort', 0.1126)}
 BWD_TOL = 1e-4
 FA_BF16_TOL = 2e-2  # tests/test_torch_cuda_flash_attention.py's bf16 limit
 SLICE_TOL = 1e-3
@@ -330,11 +342,44 @@ def without_counting(fn):
             common.KERNELS[k]['launches'] = n
 
 
+# rows of the kernels line that time one table of a kernel: the
+# kernel's wrapper and which of its calls are on that table
+TABLE_ROWS = {
+    'embedding_scatter_add[2-row]': ('scatter_add_kernel',
+                                     lambda nrows, ids, g: nrows == 2),
+    'embedding_update[wide]': ('update_kernel',
+                               lambda w, *rest: w.shape[1] == 1)}
+# the launches counted() saw on those tables
+TABLE_LAUNCHES = dict.fromkeys(TABLE_ROWS, 0)
+
+
+def on_table(row, kernel, pick):
+    """kernel, adding to TABLE_LAUNCHES[row] what its launch counter
+    gains in each call that pick() puts on that row's table."""
+    base = row.split('[')[0]
+
+    def call(*args):
+        before = common.launches(base)
+        out = kernel(*args)
+        if pick(*args):
+            TABLE_LAUNCHES[row] += common.launches(base) - before
+        return out
+    return call
+
+
 def counted(fn):
     """(fn(), launches per kernel during it): the counters are set to 0
-    just before and read just after."""
+    just before and read just after.  Meanwhile the launches on the
+    tables of TABLE_ROWS are added to TABLE_LAUNCHES."""
     common.reset_launches()
-    out = fn()
+    kernels = {name: getattr(emb_k, name) for name, _ in TABLE_ROWS.values()}
+    for row, (name, pick) in TABLE_ROWS.items():
+        setattr(emb_k, name, on_table(row, kernels[name], pick))
+    try:
+        out = fn()
+    finally:
+        for name, kernel in kernels.items():
+            setattr(emb_k, name, kernel)
     return out, {k: common.launches(k) for k in common.KERNELS}
 
 
@@ -835,6 +880,28 @@ def check_emb_update(gen, dev):
         touched = int(torch.unique(ins['Ids'][0].clamp(0, rows - 1)).numel())
         log('  embedding_update %7d x %2d, %d ids (%d rows touched): '
             'bitwise equal' % (rows, d, n, touched))
+    # one id, one run of 8192 (the long-run kernel) and past 2**20 ids
+    for name, ids in (('one id', torch.tensor([WD_ROWS - 1], device=dev)),
+                      ('8192 equal ids', torch.full((8192,), 4242,
+                                                    device=dev)),
+                      ('2**20 + 7 uniform ids', torch.randint(
+                          0, WD_ROWS, (2 ** 20 + 7,), generator=gen,
+                          device=dev))):
+        w = torch.randn(WD_ROWS, 16, generator=gen, device=dev)
+        m = torch.rand(WD_ROWS, 16, generator=gen, device=dev)
+        g = torch.randn(ids.numel(), 16, generator=gen, device=dev)
+        lr = torch.full((1,), 0.05, device=dev)
+        want = emb_k.update_plain(w, m, ids, g, lr, 1e-6)
+        emb_k.update_kernel(w, m, ids, g, lr, 1e-6)  # in place
+        torch.cuda.synchronize()
+        if not (torch.equal(w, want[0]) and torch.equal(m, want[1])):
+            raise AssertionError('embedding_update on %d x 16, %s, is not '
+                                 'bitwise equal to its plain version: '
+                                 'max|diff| %g' % (WD_ROWS, name, max(
+                                     max_abs(w, want[0]),
+                                     max_abs(m, want[1]))))
+        log('  embedding_update %7d x 16, %s: bitwise equal'
+            % (WD_ROWS, name))
     return 0.0
 
 
@@ -1266,6 +1333,18 @@ def profile_train(run):
         events = profile_run('%s step' % path['name'], lambda: run['exe'].run(
             path['main'], feed=path['batch'], fetch_list=[path['loss']]))
     log(events.table(sort_by='self_cuda_time_total', row_limit=25))
+    # the port's own kernels in the step (all in anonymous namespaces)
+    from torch.autograd import DeviceType
+    mark = '(anonymous namespace)::'
+    port = sorted((e for e in events if e.device_type == DeviceType.CUDA and
+                   e.key.split(mark)[0] in ('', 'void ') and mark in e.key),
+                  key=lambda e: -e.self_device_time_total)
+    for e in port:
+        log('    %-36s %9.3f us in %d launches' % (
+            e.key.split(mark)[1].split('(')[0], e.self_device_time_total,
+            e.count))
+    log('    the port\'s kernels: %.3f us of the step\'s device time'
+        % sum(e.self_device_time_total for e in port))
 
 
 # ------------------------------------------------------------ phase 8
@@ -1323,6 +1402,19 @@ def scatter_split(timer, rows, ids, g):
                 keys, order, g, out, runs, False, True))}
 
 
+def update_split(timer, rows, ids, w, m, g, lr):
+    """K7's parts on one input, each timed alone (cold L2): the sort (the
+    histogram and one launch a digit pass) and the run and long-run
+    kernels on the sorted workspace."""
+    lib = emb_k._update_lib()
+    work = emb_k._update_work(lib, ids.numel(), rows, ids.device)
+    emb_k._update_sort(lib, rows, ids, work)
+    return {'sort_ms': timer.ms(lambda: emb_k._update_sort(
+                lib, rows, ids, work)),
+            'kernel_ms': timer.ms(lambda: emb_k._update_rows(
+                lib, work, g, lr, w, m, 1e-6))}
+
+
 def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                  max_err, adam_shapes):
     b, t, h, d = 8, SEQ, 12, 64
@@ -1368,13 +1460,27 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
             g=torch.randn(n_wd, width, generator=gen, device=dev),
             touched=touched,
             bound=bound(n_wd * (8 + width * 4) + touched * width * 16, 0))
+    # the hot case: 8192 ids on a 64 x 16 table, all but six on row 0
+    hot_ids = torch.zeros(8192, dtype=torch.int64, device=dev)
+    hot_ids[:6] = torch.tensor([3, 3, -7, 64, 64 + 9, 63], device=dev)
+    rows_wd['hot'] = dict(
+        ids=hot_ids, w=torch.randn(64, 16, generator=gen, device=dev),
+        m=torch.rand(64, 16, generator=gen, device=dev),
+        g=torch.randn(8192, 16, generator=gen, device=dev), touched=3,
+        bound=bound(8192 * (8 + 16 * 4) + 3 * 16 * 16, 0))
     lr_wd = torch.full((1,), WD_LR, device=dev)
     deep = rows_wd[(WD_ROWS, 16)]
+    wide = rows_wd[(WD_ROWS, 1)]
     lib_emb = torch.nn.Parameter(deep['w'].clone())
     lib_emb.grad = torch.sparse_coo_tensor(deep['ids'][None], deep['g'],
                                            deep['w'].shape,
                                            check_invariants=True)
     lib_adagrad = torch.optim.Adagrad([lib_emb], lr=WD_LR, eps=1e-6)
+    lib_wide = torch.nn.Parameter(wide['w'].clone())
+    lib_wide.grad = torch.sparse_coo_tensor(wide['ids'][None], wide['g'],
+                                            wide['w'].shape,
+                                            check_invariants=True)
+    lib_adagrad_wide = torch.optim.Adagrad([lib_wide], lr=WD_LR, eps=1e-6)
     # K8 at the table gradient's shapes on 2 ranks: the quantize of the
     # padded payload, the reduce of one chunk's 2 shards
     quant = {}
@@ -1455,6 +1561,13 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          lambda: emb_k.update_plain(deep['w'], deep['m'], deep['ids'],
                                     deep['g'], lr_wd, 1e-6),
          lib_adagrad.step, deep['bound'], False, False),
+        # the wide part's D = 1 table over the same ids
+        ('embedding_update[wide]',
+         lambda: emb_k.update_kernel(wide['w'], wide['m'], wide['ids'],
+                                     wide['g'], lr_wd, 1e-6),
+         lambda: emb_k.update_plain(wide['w'], wide['m'], wide['ids'],
+                                    wide['g'], lr_wd, 1e-6),
+         lib_adagrad_wide.step, wide['bound'], False, False),
         # no PyTorch call computes the block absmax scale and the +-127
         # rounding; phase 9 times the dense collective instead
         ('quant_quantize',
@@ -1521,19 +1634,33 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                 w3['qt'], w3['st'])), w3['rbound']['bound_ms'],
             *w3['qt'].shape))
     # the row update on BASE's 1000-row table (~106 visits a row) and on
-    # the wide part's D = 1 table
-    for key in ((1000, 16), (WD_ROWS, 1)):
+    # the hot case (one run of 8187 rows)
+    for key, label in (((1000, 16), '1000 x 16 table'),
+                       ('hot', '64 x 16 table, one run of 8187')):
         r = rows_wd[key]
-        log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms (events)  '
-            'bound %.4f ms (%d x %d table, %d ids, %d rows touched)' % (
+        log('  %-28s cold L2: kernel %.4f ms  plain %.4f ms (events)  '
+            'bound %.4f ms (%s, %d ids, %d rows touched)' % (
                 'embedding_update', timer.ms(
                     lambda: emb_k.update_kernel(r['w'], r['m'], r['ids'],
                                                 r['g'], lr_wd, 1e-6)),
                 timer.ms(lambda: emb_k.update_plain(
                     r['w'], r['m'], r['ids'], r['g'], lr_wd, 1e-6),
                     graph=False),
-                r['bound']['bound_ms'], key[0], key[1], n_wd,
-                r['touched']))
+                r['bound']['bound_ms'], label, r['ids'].numel(),
+                r['touched']) + (
+                    '; %s took %.4f ms'
+                    % BEFORE_MS['embedding_update[1000-row]']
+                    if key == (1000, 16) else ''))
+    # K7's parts: its sort and its run kernels
+    for key in ((WD_ROWS, 16), (WD_ROWS, 1), (1000, 16), 'hot'):
+        r = rows_wd[key]
+        rows_k = 64 if key == 'hot' else key[0]
+        split = update_split(timer, rows_k, r['ids'], r['w'], r['m'],
+                             r['g'], lr_wd)
+        log('  %-24s cold L2 split, %d x %d table: sort %.4f ms, run and '
+            'long-run kernels %.4f ms' % (
+                'embedding_update', rows_k, r['w'].shape[1],
+                split['sort_ms'], split['kernel_ms']))
     return rows
 
 
@@ -1895,6 +2022,7 @@ def main(argv=None):
         % {k: c for k, c in serve_launches.items() if c})
 
     runs = []
+    TABLE_LAUNCHES.update(dict.fromkeys(TABLE_ROWS, 0))
     for phase, path in zip((5, 6, 7), paths):
         log('[%d] %s training steps on CUDAPlace(0)' % (phase, path['name']))
         runs.append(train(path))
@@ -1910,6 +2038,14 @@ def main(argv=None):
         'flash_attention[dropout]': train_launches['flash_attention'],
         'embedding_lookup': (serve_launches['embedding_lookup'] +
                              train_launches['embedding_lookup'])})
+    # a row that times one table counts the launches on that table; its
+    # kernel's row, those on the kernel's other tables
+    for row, n in TABLE_LAUNCHES.items():
+        launches[row] = n
+        launches[row.split('[')[0]] -= n
+    log('  launches by the kernels line\'s rows: %s'
+        % {k: launches[k] for k in sorted(TABLE_ROWS) + sorted(
+            {r.split('[')[0] for r in TABLE_ROWS})})
 
     log('[8] timings at the main path\'s shapes (%s | %s)' % (
         torch.cuda.get_device_name(0), card))
@@ -1933,6 +2069,9 @@ def main(argv=None):
     for row in rows:
         if row['name'] in ('quant_quantize', 'quant_reduce'):
             row['launches'] = dp[0]['launches'][row['name']]
+    idle = [row['name'] for row in rows if not row['launches']]
+    if idle:
+        raise AssertionError('no launch on the main path: %s' % idle)
     log('  whole run %.1f s' % (time.perf_counter() - t_start))
     log('card: %s' % card_line())
     print(json.dumps({'kernels': rows}))

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "embedding_common.cuh"
+
 namespace {
 
 constexpr int kSortThreads = 1024;
@@ -65,23 +67,6 @@ constexpr int kDigits = 1 << kDigitBits;
 constexpr int kHistLd = kSortWarps + 1;
 
 // --------------------------------------------------------------- sort
-
-__device__ __forceinline__ long long load_id(const void* ids, int id_bytes,
-                                             long long i) {
-  return id_bytes == 8 ? ((const long long*)ids)[i]
-                       : (long long)((const int*)ids)[i];
-}
-
-// The lanes of this warp whose 8-bit digit equals this lane's.
-__device__ __forceinline__ unsigned digit_peers(unsigned digit) {
-  unsigned peers = 0xffffffffu;
-#pragma unroll
-  for (int b = 0; b < kDigitBits; ++b) {
-    const unsigned set = __ballot_sync(0xffffffffu, (digit >> b) & 1u);
-    peers &= ((digit >> b) & 1u) ? set : ~set;
-  }
-  return peers;
-}
 
 // Sorts n <= 1024 * IPT ids (clipped into [0, nrows)) with their
 // positions: keys[i], order[i] for sorted position i.  Warp w owns the
@@ -115,11 +100,7 @@ __global__ void __launch_bounds__(kSortThreads)
   if (tid == 0) runs[0] = 0;
   for (int i = tid; i < kN; i += kSortThreads) {
     unsigned k = 0xffffffffu;  // padding sorts after every id
-    if (i < n) {
-      long long id = load_id(ids, id_bytes, i);
-      id = id < 0 ? 0 : (id >= nrows ? nrows - 1 : id);
-      k = (unsigned)id;
-    }
+    if (i < n) k = clipped_id(ids, id_bytes, i, nrows);
     key[0][i] = k;
     val[0][i] = (unsigned)i;
   }
@@ -140,7 +121,8 @@ __global__ void __launch_bounds__(kSortThreads)
     for (int r = 0; r < IPT; ++r) {
       const int i = warp * 32 * IPT + r * 32 + lane;
       dig[r] = (ks[i] >> shift) & (kDigits - 1);
-      const unsigned peers = digit_peers(dig[r]);
+      const unsigned peers =
+          digit_peers<kDigitBits>(dig[r], kDigitBits, 0xffffffffu);
       unsigned* h = hist + dig[r] * kHistLd + warp;
       const unsigned before = *h;
       rank[r] = before + __popc(peers & lt);
@@ -226,10 +208,6 @@ template <>
 __device__ __forceinline__ float4 vzero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
-__device__ __forceinline__ void vadd(float& a, float b) { a += b; }
-__device__ __forceinline__ void vadd(float4& a, const float4& b) {
-  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
-}
 
 // V = float4 (D % 4 == 0, 16-byte aligned rows) or float: a warp per
 // sorted position, lanes over a row's D / width vectors.  The warp of a
@@ -293,10 +271,6 @@ __global__ void __launch_bounds__(kRunWarps * 32)
 
 // ---------------------------------------------------- long-run pass
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_addr(bar)), "r"(count) : "memory");
@@ -352,9 +326,7 @@ __device__ __forceinline__ void issue_share(float* buf, int rows, int base,
       const int src_row = __shfl_sync(0xffffffffu, rows, j);
       const bool ok = base + j < len && c < d;
       const float* src = ok ? g + (long long)src_row * d + c : g;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                       smem_addr(buf + j * 32 + 4 * (lane & 7))),
-                   "l"(src), "r"(ok ? 16 : 0) : "memory");
+      cp_async(buf + j * 32 + 4 * (lane & 7), src, 16, ok ? 16 : 0);
     }
   } else {
     const long long c = c0 + lane;
@@ -363,9 +335,7 @@ __device__ __forceinline__ void issue_share(float* buf, int rows, int base,
       const int src_row = __shfl_sync(0xffffffffu, rows, j);
       const bool ok = base + j < len && c < d;
       const float* src = ok ? g + (long long)src_row * d + c : g;
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                       smem_addr(buf + j * 32 + lane)),
-                   "l"(src), "r"(ok ? 4 : 0) : "memory");
+      cp_async(buf + j * 32 + lane, src, 4, ok ? 4 : 0);
     }
   }
 }

@@ -42,9 +42,14 @@ common.register_kernel(
     plain='ops.kernels.embedding.update_plain (stable sort, each run of '
           'equal ids summed left to right, Adagrad on those rows)',
     replaces='paddle_tpu/ops/pallas/embedding.py:165 _update_kernel',
-    doc='a group of lanes per run of equal sorted ids, the run summed in '
-        'sorted order, Adagrad applied once per touched row in place; no '
-        'atomics',
+    doc='its own stable LSD radix sort of the clipped int32 ids with their '
+        'int32 positions over only the bits the table needs (one histogram '
+        'launch for every digit, then one onesweep pass a digit with '
+        'decoupled look-back); then one lane group per run of equal ids, '
+        'the runs compacted per tile from the flags where the id changes, '
+        'the run summed in sorted order and Adagrad applied once per '
+        'touched row in place; runs of more than 32 rows summed by a '
+        'block through a cp.async ring; no float atomics',
     op_types=('fused_emb_update',))
 
 
@@ -260,17 +265,76 @@ def update_plain(w, mom, ids, g, lr, epsilon):
     return w_out, m_out
 
 
+_UPDATE_LIB = None  # the loaded update library, its argtypes set
+
+
+def _update_lib():
+    """The update library, loaded (and built at first use) once."""
+    global _UPDATE_LIB
+    if _UPDATE_LIB is None:
+        lib = common.library(UPDATE_SOURCE)
+        lib.embedding_update_workspace.argtypes = [ctypes.c_longlong] * 2
+        lib.embedding_update_workspace.restype = ctypes.c_longlong
+        lib.embedding_update_sort.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+        lib.embedding_update_sort.restype = ctypes.c_int
+        lib.embedding_update_rows.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        lib.embedding_update_rows.restype = ctypes.c_int
+        _UPDATE_LIB = lib
+    return _UPDATE_LIB
+
+
+def _update_work(lib, n, nrows, device):
+    """The kernel's int32 workspace for n ids into an nrows-row table."""
+    words = lib.embedding_update_workspace(n, nrows)
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+def _update_sort(lib, nrows, ids, work):
+    """(keys, order): ids [n] (int64 or int32, contiguous) clipped into
+    [0, nrows-1] and stably sorted by the kernel's own radix sort, and
+    the position of each sorted id, each [n] int32 views of work."""
+    n = ids.numel()
+    with torch.cuda.device(ids.device):
+        err = lib.embedding_update_sort(
+            ids.data_ptr(), ids.element_size(), n, nrows, work.data_ptr(),
+            common.stream_ptr(ids.device))
+    common.check_launch('embedding_update', lib, err, count=False)
+    at = -(-n // 4) * 4
+    return work[:n], work[at:at + n]
+
+
+def _update_rows(lib, work, g, lr, w, mom, epsilon):
+    """The run and long-run kernels: Adagrad on the rows of w and mom
+    [V, D] (in place) from the sorted ids in work and g [n, D]
+    (contiguous)."""
+    with torch.cuda.device(w.device):
+        err = lib.embedding_update_rows(
+            work.data_ptr(), g.data_ptr(), lr.data_ptr(), w.data_ptr(),
+            mom.data_ptr(), g.shape[0], w.shape[0], w.shape[1],
+            float(epsilon), common.stream_ptr(w.device))
+    common.check_launch('embedding_update', lib, err)
+    return w, mom
+
+
 def update_kernel(w, mom, ids, g, lr, epsilon):
     """The CUDA kernel: update_plain's function on one CUDA device,
     written into w and mom in place (untouched rows are not read).
     w, mom [V, D] f32 contiguous, ids [n] integer, g [n, D] f32, lr one
-    f32.  The stable sort runs before the kernel."""
+    f32; V and n below 2**31 (the ids are sorted as int32, as the JAX
+    package casts them).  The kernel sorts the clipped ids itself."""
     if w.dim() != 2 or mom.shape != w.shape or g.dim() != 2 or \
             g.shape[1] != w.shape[1] or ids.numel() != g.shape[0]:
         raise ValueError('update_kernel takes w and mom [V, D], ids [n] and '
                          'g [n, D], got %s, %s, %s and %s'
                          % (tuple(w.shape), tuple(mom.shape),
                             tuple(ids.shape), tuple(g.shape)))
+    if w.shape[0] >= 2 ** 31 or ids.numel() >= 2 ** 31:
+        raise ValueError('the embedding update kernel sorts int32 ids: it '
+                         'takes fewer than 2**31 rows and ids, got %d and %d'
+                         % (w.shape[0], ids.numel()))
     for name, x in (('w', w), ('mom', mom), ('g', g), ('lr', lr)):
         if x.dtype != torch.float32 or x.device != w.device:
             raise TypeError('the embedding update kernel takes f32 tensors '
@@ -282,19 +346,15 @@ def update_kernel(w, mom, ids, g, lr, epsilon):
     if lr.numel() != 1 or ids.device != w.device:
         raise ValueError('lr must hold one value and ids lie on %s'
                          % w.device)
-    sids, order = _sorted(w.shape[0], ids)
+    ids = ids.reshape(-1)
+    if ids.dtype not in (torch.int64, torch.int32):
+        ids = ids.to(torch.int64)
+    ids = ids.contiguous()
     g = g.contiguous()
-    lib = common.library(UPDATE_SOURCE)
-    fn = lib.embedding_adagrad_update
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(w.device):
-        err = fn(sids.data_ptr(), order.data_ptr(), g.data_ptr(),
-                 lr.data_ptr(), w.data_ptr(), mom.data_ptr(), g.shape[0],
-                 g.shape[1], float(epsilon), common.stream_ptr(w.device))
-    common.check_launch('embedding_update', lib, err)
-    return w, mom
+    lib = _update_lib()
+    work = _update_work(lib, ids.numel(), w.shape[0], w.device)
+    _update_sort(lib, w.shape[0], ids, work)
+    return _update_rows(lib, work, g, lr, w, mom, epsilon)
 
 
 def apply_update(ctx, ins, attrs):
