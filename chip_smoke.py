@@ -42,8 +42,8 @@ Phases, each of which fails the run (non-zero exit) on error:
        table, a run of 1500 starting at sorted position 37, D = 16, 100
        and 1, one id, and 12,288 int32 ids (bitwise);
        fused_adam over the 153 parameters of BERT-base pretraining
-       (~132M f32 elements) and an AdamW run: parameters and moments
-       bitwise (the library is built with --fmad=false, so it rounds
+       (~132M f32 elements), an AdamW run and LeNet-5's 6 parameters:
+       parameters and moments bitwise (the library is built with --fmad=false, so it rounds
        every operation as the plain version's separate kernels do);
        and, Adam and AdamW, views at element offsets 1, 2 and 3 (one
        tensor's four streams at different offsets among them), sizes
@@ -119,15 +119,18 @@ Phases, each of which fails the run (non-zero exit) on error:
      least time the card could take (bound; for K1 and K2 with their
      products as f32-accurate 3xTF32 products on the tensor cores, the
      f32-pipe bound beside it; K1's, K4's and K8's reduce rows also
-     print the time before their redesign), K6b also on the 2-row
+     print the time before their redesign), K4 also at LeNet-5's 6
+     tensors (a row of its own, fused_adam[lenet]), K6b also on the 2-row
      sentence table (a row of its own) and split into its sort, its
      zeroing and its
      passes on both tables, K7 also on the 1000001 x 1 table (a row of
      its own), the 1000 x 16 table and a 64 x 16 table whose 8192 ids
      all but six are 0 (one run of 8187), and split into its sort and
-     its run kernels on the three Wide&Deep tables, the request
-     latency per batch size and the median step of each training
-     path.  The library call for the flash backward is
+     its run kernels on the three Wide&Deep tables, K6b past its
+     one-block sort (16,384 and 65,536 ids on the word table, beside
+     index_add_, bitwise its plain version), the request latency per
+     batch size and the median step of each training path, with the
+     garbage collections and allocator retries of each timed step.  The library call for the flash backward is
      SDPA's memory-efficient backward op on its own forward's saved
      outputs; for the row update (deep and wide tables),
      torch.optim.Adagrad's step on a sparse gradient; PyTorch has no
@@ -152,18 +155,43 @@ Phases, each of which fails the run (non-zero exit) on error:
      Each rank's step medians with the arm on and off, its peak device
      memory and the collective times (quantized, flat dense, the
      planner's dense rs_ag) of the table gradient are printed; a rank
-     that fails fails the phase.
+     that fails fails the phase;
+ 10. image classification on CUDAPlace(0): LeNet-5 (models.lenet, batch
+     64 of synthetic MNIST from --seed) with fluid.optimizer.Adam(1e-3)
+     and with SGD(0.01), 3 steps and 5 timed steps each: every Adam step
+     launches fused_adam once (8 in all) and every SGD step nothing; the
+     loss falls; metrics.Accuracy accumulates the fetched accuracy; step
+     1 again with the plain versions agrees (loss rel 1e-4, gradients
+     and Adam's moments or SGD's parameter changes rel 1e-3); peak
+     memory and a profiled step's device time are printed.  ResNet-50
+     (models.resnet, full depth and width, 1000 classes) at batch 128
+     of 3 x 224 x 224 f32 NCHW images from --seed with Momentum(0.1,
+     0.9) and L2Decay(1e-4): 3 steps and 5 timed, no kernel of the port
+     launched; step ms, images/s, the device time of
+     a profiled step and the peak memory are printed; every moving mean
+     and variance changes; its clone(for_test=True) at batch 32 gives
+     finite [32, 1000] logits, the same on a second run; step 1 at batch
+     4 from the same state on CUDAPlace(0) and on CPUPlace(): the f32
+     losses within rel 1e-4, and in float64 the loss and every
+     parameter, velocity and moving statistic within 1e-6 of their
+     largest (the f32 states' distances from float64 are printed).
+     SE-ResNeXt-50 (cardinality 32) at batch 32, the same optimizer, 3
+     steps: finite losses, every moving statistic updated, step ms, a
+     profiled step's device time and peak memory printed.  Convolutions
+     run in f32 on cuDNN whatever torch.backends.cudnn.allow_tf32 says.
 The line before the last is a JSON object {"kernels": [...]}: a row
 that times one table of a kernel (embedding_scatter_add[2-row],
 embedding_update[wide]) counts the main path's launches on that table,
-its kernel's row those on the kernel's other tables, and a row with no
-launch fails the run.  The last is {"ok": true, "device": {...}}.
+its kernel's row those on the kernel's other tables; fused_adam counts
+all of K4's launches (BERT-base Adam's and LeNet-5's) and
+fused_adam[lenet] LeNet-5's; a row with no launch fails the run.  The last is {"ok": true, "device": {...}}.
 --profile adds a torch.profiler breakdown of one request of each batch
-size, of one step of each training path and of one data-parallel step
-of each arm.
+size, of one step of each training path, of one data-parallel step of
+each arm and of one ResNet-50 step.
 """
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -181,9 +209,13 @@ import torch.nn.functional as F
 
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch import weights
-from paddle_tpu_torch.fluid import flags
+from paddle_tpu_torch.dataset import mnist
+from paddle_tpu_torch.fluid import core, flags, metrics
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.models import bert
+from paddle_tpu_torch.models import lenet
+from paddle_tpu_torch.models import resnet
+from paddle_tpu_torch.models import se_resnext
 from paddle_tpu_torch.models import wide_deep
 from paddle_tpu_torch.ops.kernels import common
 from paddle_tpu_torch.ops.kernels import embedding as emb_k
@@ -248,6 +280,28 @@ DP_RANKS = 2
 QUANT_BLOCK = 256
 DP_TIMEOUT_S = 600
 TABLE_NUMEL = 30522 * 768
+# image classification (phase 10): LeNet-5 at the batch and rates of the
+# reference's test_recognize_digits.py (SGD at 0.01); ResNet-50 as the
+# JAX package's bench.py trains it (batch 128, Momentum 0.1 / 0.9, uniform
+# [0, 1) images) with the reference ResNet recipe's L2Decay(1e-4);
+# SE-ResNeXt-50 (cardinality 32) at batch 32 with the same optimizer
+LENET_BATCH = 64
+LENET_LR = {'adam': 1e-3, 'sgd': 0.01}
+LENET_ADAM = {'beta1': 0.9, 'beta2': 0.999, 'epsilon': 1e-8}  # Adam(1e-3)'s
+IMAGE_CLASSES = 1000
+RESNET_BATCH = 128
+RESNET_EVAL_BATCH = 32
+RESNET_CPU_BATCH = 4
+SE_BATCH = 32
+IMAGE_LR = 0.1
+IMAGE_MOMENTUM = 0.9
+IMAGE_DECAY = 1e-4
+# ResNet-50's float64 step 1 on the card against the CPU's, relative
+# to each variable's largest magnitude (see check_card_against_cpu)
+F64_TOL = 1e-6
+# K6b past its one-block sort (SORT_MAX ids): a batch of 32 and of 128
+# at seq 512 on the word table
+SCATTER_BIG_IDS = (16384, 65536)
 
 
 def log(*args):
@@ -694,12 +748,13 @@ def adam_inputs(shapes, gen, dev):
     return ins
 
 
-def check_adam(gen, dev, shapes):
+def check_adam(gen, dev, shapes, lenet_shapes):
     for kind, attrs, subset in (
             ('adam', {'beta1': 0.9, 'beta2': 0.999, 'epsilon': EPSILON},
              shapes),
             ('adamw', {'beta1': 0.9, 'beta2': 0.999, 'epsilon': 1e-8,
-                       'coeff': 0.01}, shapes[:9])):
+                       'coeff': 0.01}, shapes[:9]),
+            ('adam', LENET_ADAM, lenet_shapes)):
         ins = adam_inputs(subset, gen, dev)
         want = opt_k.apply_plain(kind, None, ins, attrs)
         opt_k.apply_kernel(kind, ins, attrs)  # in place
@@ -1061,6 +1116,14 @@ def serve(model_dir, cfg, n_attn, n_emb, seed):
     return pred, requests, launches
 
 
+def device_ms(events):
+    """Device time of a profiled call: the sum of its CUDA events' own
+    times (ms)."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
 def profile_run(label, fn):
     """torch.profiler over one call of fn: host and device totals, the
     device-op count and the by-kernel table."""
@@ -1072,8 +1135,7 @@ def profile_run(label, fn):
         torch.cuda.synchronize()
     events = prof.key_averages()
     host = sum(e.self_cpu_time_total for e in events) / 1e3
-    dev = sum(e.self_device_time_total for e in events
-              if e.device_type == DeviceType.CUDA) / 1e3
+    dev = device_ms(events)
     n_dev = sum(e.count for e in events
                 if e.device_type == DeviceType.CUDA)
     log('  profile %s: host %.2f ms self CPU, device %.2f ms in %d '
@@ -1310,20 +1372,50 @@ def check_plain_step(path, fetch, start, after1, loss1, grads, lr1):
 
 def train_step_ms(run):
     """Median host-clock time of exe.run (the loss fetched to numpy, so
-    it ends after the step's last kernel) over TIMED_STEPS steps."""
+    it ends after the step's last kernel) over TIMED_STEPS steps.  Beside
+    each step, outside its timing: the garbage collections Python ran
+    during it and since the step before (generation, ms; from
+    gc.callbacks) and how many times the caching allocator freed its
+    cache to retry an allocation during it
+    (torch.cuda.memory_stats()['num_alloc_retries'])."""
     path = run['path']
-    secs = []
-    with fluid.scope_guard(run['scope']):
-        for _ in range(TIMED_STEPS):
-            t0 = time.perf_counter()
-            run['exe'].run(path['main'], feed=path['batch'],
-                           fetch_list=[path['loss']])
-            secs.append(time.perf_counter() - t0)
+    secs, notes = [], []
+    collections, began = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == 'start':
+            began[0] = time.perf_counter()
+        else:
+            collections.append('gen %d %.2f ms' % (
+                info['generation'], (time.perf_counter() - began[0]) * 1e3))
+    seen = 0
+    gc.callbacks.append(on_gc)
+    try:
+        with fluid.scope_guard(run['scope']):
+            for _ in range(TIMED_STEPS):
+                retries = torch.cuda.memory_stats().get('num_alloc_retries',
+                                                        0)
+                before = len(collections)
+                t0 = time.perf_counter()
+                run['exe'].run(path['main'], feed=path['batch'],
+                               fetch_list=[path['loss']])
+                secs.append(time.perf_counter() - t0)
+                after = len(collections)
+                notes.append('gc during %s, before %s; alloc retries +%d' % (
+                    collections[before:after] or 'none',
+                    collections[seen:before] or 'none',
+                    torch.cuda.memory_stats().get('num_alloc_retries', 0) -
+                    retries))
+                seen = after
+    finally:
+        gc.callbacks.remove(on_gc)
     med = statistics.median(secs) * 1e3
     log('  %s step: median %.2f ms over %d steps %s, %.0f %s/s' % (
         path['name'], med, TIMED_STEPS, ['%.2f' % (x * 1e3) for x in secs],
         path['tokens'] / med * 1e3,
         'ids' if path['bitwise'] else 'tokens'))
+    for i, note in enumerate(notes):
+        log('    timed step %d: %s' % (i + 1, note))
     return med
 
 
@@ -1416,7 +1508,7 @@ def update_split(timer, rows, ids, w, m, g, lr):
 
 
 def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
-                 max_err, adam_shapes):
+                 max_err, adam_shapes, lenet_shapes):
     b, t, h, d = 8, SEQ, 12, 64
     seed = 4242
     q, k, v = qkv_views(gen, b, t, h, d, dev)
@@ -1442,6 +1534,16 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
         p.grad = x.clone()
     lib_adam = torch.optim.Adam(lib_params, lr=LR, eps=EPSILON, fused=True,
                                 capturable=True)
+    # K4 over LeNet-5's 6 tensors, beside fused torch.optim.Adam on them
+    lenet_ins = adam_inputs(lenet_shapes, gen, dev)
+    lenet_table, lenet_blocks = opt_k.device_table(lenet_ins)
+    n_lenet = sum(x.numel() for x in lenet_ins['Param'])
+    lenet_params = [torch.nn.Parameter(x.clone())
+                    for x in lenet_ins['Param']]
+    for p, x in zip(lenet_params, lenet_ins['Grad']):
+        p.grad = x.clone()
+    lib_lenet = torch.optim.Adam(lenet_params, lr=LENET_LR['adam'],
+                                 fused=True, capturable=True)
     lamb_attrs = {'beta1': 0.9, 'beta2': 0.999, 'epsilon': EPSILON,
                   'weight_decay': LAMB_DECAY}
     lamb_ins = lamb_inputs(adam_shapes, gen, dev)
@@ -1548,6 +1650,11 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          lambda: opt_k.apply_plain('adam', None, ins, adam_attrs),
          lib_adam.step,
          bound(28 * n_adam + 12 * len(adam_shapes), 0), True, True),
+        ('fused_adam[lenet]',
+         lambda: opt_k.launch('adam', lenet_table, lenet_blocks, LENET_ADAM),
+         lambda: opt_k.apply_plain('adam', None, lenet_ins, LENET_ADAM),
+         lib_lenet.step,
+         bound(28 * n_lenet + 12 * len(lenet_shapes), 0), True, True),
         # moments pass 24 bytes an element, apply pass 16; no PyTorch
         # call computes LAMB
         ('fused_lamb',
@@ -1618,6 +1725,26 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
             'the zeroing (one launch) %.4f ms, run and long-run passes '
             '%.4f ms' % ('embedding_scatter_add', rows_k, split['sort_ms'],
                          split['sort_and_zero_ms'], split['kernel_ms']))
+    # K6b past SORT_MAX ids: torch.sort, a memset and the kernel's passes
+    for n_ids in SCATTER_BIG_IDS:
+        ids_n = torch.randint(0, 30522, (n_ids,), generator=gen, device=dev)
+        g_n = torch.randn(n_ids, 768, generator=gen, device=dev)
+        same = torch.equal(emb_k.scatter_add_kernel(30522, ids_n, g_n),
+                           emb_k.scatter_add_plain(30522, ids_n, g_n))
+        log('  %-24s cold L2, %d ids on the 30522 x 768 table: kernel %.4f '
+            'ms  plain %.4f ms (events)  index_add_ %.4f ms  bound %.4f ms; '
+            '%s its plain version' % (
+                'embedding_scatter_add', n_ids,
+                timer.ms(lambda: emb_k.scatter_add_kernel(30522, ids_n, g_n)),
+                timer.ms(lambda: emb_k.scatter_add_plain(30522, ids_n, g_n),
+                         graph=False),
+                timer.ms(lambda: torch.zeros(30522, 768, device=dev)
+                         .index_add_(0, ids_n, g_n)),
+                bound(n_ids * (768 * 4 + 8) + 30522 * 768 * 4, 0)['bound_ms'],
+                'bitwise' if same else 'NOT bitwise'))
+        if not same:
+            raise AssertionError('embedding_scatter_add at %d ids is not '
+                                 'bitwise its plain version' % n_ids)
     # K8 at a 768 x 3072 gradient's shapes
     w3 = quant[768 * 3072]
     log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms  bound %.4f ms '
@@ -1946,6 +2073,363 @@ def dp_worker(args):
     return 0
 
 
+# ----------------------------------------------------------- phase 10
+def lenet_path(seed, opt):
+    """LeNet-5 with Adam ('adam', K4 once a step) or SGD ('sgd', no
+    kernel) on one synthetic MNIST batch from `seed`."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss, acc = lenet.build()
+        if opt == 'adam':
+            fluid.optimizer.Adam(LENET_LR['adam']).minimize(loss)
+        else:
+            fluid.optimizer.SGD(LENET_LR['sgd']).minimize(loss)
+    imgs, labels = mnist._synthetic(LENET_BATCH, seed)
+    expected = {k: 0 for k in common.KERNELS}
+    if opt == 'adam':
+        expected['fused_adam'] = 1
+    return {'name': 'LeNet-5 %s' % opt.upper(), 'opt': opt, 'main': main,
+            'startup': startup, 'loss': loss, 'acc': acc,
+            'batch': {'img': imgs.reshape(-1, 1, 28, 28),
+                      'label': labels.reshape(-1, 1)},
+            'expected': expected,
+            'probe': sorted(p.name for p in main.all_parameters())}
+
+
+def train_lenet(path):
+    """TRAIN_STEPS steps, then TIMED_STEPS timed ones, of LeNet-5 on
+    CUDAPlace(0); every step's launches are counted and checked, the
+    fetched accuracy goes to metrics.Accuracy, the loss must fall, and
+    step 1 is held against the plain path."""
+    main, loss = path['main'], path['loss']
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    names = weights.startup_names(path['startup'])
+    grad_fetch = [main._grad_name_map[p] for p in path['probe']]
+    accuracy = metrics.Accuracy()
+    launches = {k: 0 for k in common.KERNELS}
+    losses, secs = [], []
+    with fluid.scope_guard(scope):
+        exe.run(path['startup'])
+        start = snapshot(scope, names)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(TRAIN_STEPS + TIMED_STEPS):
+            t0 = time.perf_counter()
+            # the loss comes back as numpy: the step has ended
+            out, counts = counted(lambda: exe.run(
+                main, feed=path['batch'],
+                fetch_list=[loss, path['acc']] +
+                (grad_fetch if step == 0 else [])))
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(out[0]))
+            accuracy.update(out[1], LENET_BATCH)
+            if step == 0:
+                grads = [torch.from_numpy(g) for g in out[2:]]
+                after1 = snapshot(scope, names)
+            for k, c in counts.items():
+                launches[k] += c
+            if counts != path['expected']:
+                raise AssertionError('%s step %d launched %s, expected %s'
+                                     % (path['name'], step + 1, counts,
+                                        path['expected']))
+        peak = torch.cuda.max_memory_allocated()
+        dev_ms = device_ms(without_counting(lambda: profile_run(
+            '%s step' % path['name'], lambda: exe.run(
+                main, feed=path['batch'], fetch_list=[loss]))))
+    med = statistics.median(secs[TRAIN_STEPS:]) * 1e3
+    log('  %s: losses %s, accuracy %.4f (metrics.Accuracy over %d '
+        'batches); step median %.3f ms over %d timed steps %s, %.0f '
+        'images/s, device %.3f ms a profiled step; peak device memory '
+        '%.3f GiB; launches %s' % (
+            path['name'], ['%.5f' % x for x in losses], accuracy.eval(),
+            len(losses), med, TIMED_STEPS,
+            ['%.3f' % (x * 1e3) for x in secs[TRAIN_STEPS:]],
+            LENET_BATCH / med * 1e3, dev_ms, peak / 2 ** 30,
+            {k: c for k, c in launches.items() if c}))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError('%s: loss %s not finite or not falling'
+                             % (path['name'], losses))
+    check_plain_lenet(path, grad_fetch, start, after1, losses[0], grads)
+    return {'launches': launches, 'step_ms': med}
+
+
+def check_plain_lenet(path, grad_fetch, start, after1, loss1, grads):
+    """Step 1 again from the same state with every kernel's plain
+    version (K4's per-tensor adam lowering): the loss within LOSS_RTOL,
+    each gradient within GRAD_TOL of its largest magnitude, and the
+    state the step writes (Adam's moments; SGD's parameter change, -lr
+    times the gradient) within GRAD_TOL of its largest.  cuDNN's
+    backward may sum in another order from run to run, so this is not
+    bitwise."""
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    flags.set_flags({'FLAGS_torch_kernels_plain': True})
+    try:
+        with fluid.scope_guard(scope):
+            without_counting(lambda: exe.run(path['startup']))
+            for n, v in start.items():
+                scope.set_var(n, v.clone())
+            out = without_counting(lambda: exe.run(
+                path['main'], feed=path['batch'],
+                fetch_list=[path['loss']] + grad_fetch))
+            got = snapshot(scope, list(start))
+    finally:
+        flags.set_flags({'FLAGS_torch_kernels_plain': False})
+    loss_err = abs(float(out[0]) - loss1) / abs(loss1)
+    grad_err = max(max_abs(a, torch.from_numpy(b)) /
+                   max(float(np.abs(b).max()), 1e-30)
+                   for a, b in zip(grads, out[1:]))
+    state_err = 0.0
+    for n in start:
+        if path['opt'] == 'adam' and '_moment' in n:
+            a, b = after1[n], got[n]
+        elif path['opt'] == 'sgd' and n in path['probe']:
+            a, b = after1[n] - start[n], got[n] - start[n]
+        else:
+            continue
+        state_err = max(state_err, max_abs(a, b) /
+                        max(b.abs().max().item(), 1e-30))
+    log('  %s step 1 vs the plain path: loss rel %.2e (limit %g), '
+        'gradients rel %.2e, %s rel %.2e (limit %g)' % (
+            path['name'], loss_err, LOSS_RTOL, grad_err,
+            'moments' if path['opt'] == 'adam' else 'parameter changes',
+            state_err, GRAD_TOL))
+    if not (loss_err <= LOSS_RTOL and grad_err <= GRAD_TOL and
+            state_err <= GRAD_TOL):
+        raise AssertionError('%s step 1 disagrees with its plain path'
+                             % path['name'])
+
+
+def image_path(seed, model, batch, dev):
+    """ResNet-50 ('resnet') or SE-ResNeXt-50 ('se_resnext', cardinality
+    32) with Momentum and L2Decay on CUDAPlace(0): the path dict, its
+    for_test clone, and a batch of uniform [0, 1) images (as the JAX
+    package's bench.py makes them) and labels from `seed`, on `dev`."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if model == 'resnet':
+            _, out, loss, acc = resnet.build(class_dim=IMAGE_CLASSES)
+        else:
+            _, out, loss, acc = se_resnext.build(class_dim=IMAGE_CLASSES)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Momentum(
+            IMAGE_LR, IMAGE_MOMENTUM,
+            regularization=fluid.regularizer.L2Decay(IMAGE_DECAY)
+        ).minimize(loss)
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.rand(batch, 3, 224, 224).astype('float32'))
+    y = torch.from_numpy(rng.randint(0, IMAGE_CLASSES, (batch, 1)))
+    stats = sorted(p.name for p in main.all_parameters()
+                   if not p.trainable)
+    return {'name': 'ResNet-50' if model == 'resnet' else 'SE-ResNeXt-50',
+            'main': main, 'startup': startup, 'test': test, 'loss': loss,
+            'out': out, 'acc': acc, 'stats': stats,
+            'batch': {'image': x.to(dev), 'label': y.to(dev)},
+            'host_batch': {'image': x, 'label': y}}
+
+
+def train_image(path, steps, timed, profile):
+    """`steps` counted steps (no kernel of the port may launch), then
+    `timed` timed ones; every moving mean and variance must change and
+    the losses stay finite.  Returns the run."""
+    main, loss = path['main'], path['loss']
+    ops = main.global_block().ops
+    params = [p for p in main.all_parameters() if p.trainable]
+    log('  %s program: %d ops (%d conv2d, %d batch_norm, %d momentum), %d '
+        'trainable parameters (%d elements), %d moving statistics' % (
+            path['name'], len(ops), sum(op.type == 'conv2d' for op in ops),
+            sum(op.type == 'batch_norm' for op in ops),
+            sum(op.type == 'momentum' for op in ops), len(params),
+            sum(int(np.prod(p.shape)) for p in params), len(path['stats'])))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    names = weights.startup_names(path['startup'])
+    none = {k: 0 for k in common.KERNELS}
+    batch = path['batch']['image'].shape[0]
+    losses, secs = [], []
+    with fluid.scope_guard(scope):
+        exe.run(path['startup'])
+        start = snapshot(scope, names)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(steps + timed):
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: exe.run(
+                main, feed=path['batch'], fetch_list=[loss, path['acc']]))
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(out[0]))
+            if counts != none:
+                raise AssertionError('%s step %d launched %s: no kernel of '
+                                     'the port is on this path'
+                                     % (path['name'], step + 1, counts))
+            if step < steps:
+                log('  step %d: loss %.5f, accuracy %.4f, %.1f ms' % (
+                    step + 1, losses[-1], float(out[1]), secs[-1] * 1e3))
+        peak = torch.cuda.max_memory_allocated()
+        moved = [n for n in path['stats']
+                 if not torch.equal(scope.find_var(n), start[n])]
+        events = without_counting(lambda: profile_run(
+            '%s step' % path['name'], lambda: exe.run(
+                main, feed=path['batch'], fetch_list=[loss])))
+        dev_ms = device_ms(events)
+        if profile:
+            log(events.table(sort_by='self_cuda_time_total', row_limit=20))
+    med = statistics.median(secs[steps:] if timed else secs) * 1e3
+    log('  %s: step %s %.2f ms%s, %.1f images/s, device %.2f ms a '
+        'profiled step; peak device memory %.2f GiB; %d of %d moving '
+        'statistics changed' % (
+            path['name'], 'median' if timed else 'median of the counted',
+            med, '' if not timed else ' over %d timed steps %s' % (
+                timed, ['%.2f' % (x * 1e3) for x in secs[steps:]]),
+            batch / med * 1e3, dev_ms, peak / 2 ** 30, len(moved),
+            len(path['stats'])))
+    if not all(np.isfinite(losses)):
+        raise AssertionError('%s: loss %s not finite'
+                             % (path['name'], losses))
+    if len(moved) != len(path['stats']):
+        raise AssertionError('%s: moving statistics not updated: %s' % (
+            path['name'], sorted(set(path['stats']) - set(moved))[:5]))
+    return {'exe': exe, 'scope': scope, 'start': start, 'step_ms': med,
+            'peak': peak, 'device_ms': dev_ms}
+
+
+def check_eval(path, run):
+    """The for_test clone at RESNET_EVAL_BATCH: finite logits of the
+    right shape, the same on a second run."""
+    feed = {k: v[:RESNET_EVAL_BATCH] for k, v in path['batch'].items()}
+    with fluid.scope_guard(run['scope']):
+        outs = [without_counting(lambda: run['exe'].run(
+            path['test'], feed=feed, fetch_list=[path['out']],
+            return_numpy=False))[0] for _ in range(2)]
+    shape = (RESNET_EVAL_BATCH, IMAGE_CLASSES)
+    ok = tuple(outs[0].shape) == shape and \
+        bool(torch.isfinite(outs[0]).all()) and torch.equal(*outs)
+    log('  %s eval clone, batch %d: logits %s, finite and the same on a '
+        'second run: %s' % (path['name'], RESNET_EVAL_BATCH,
+                            list(outs[0].shape), ok))
+    if not ok:
+        raise AssertionError('%s eval clone: logits not finite, not %s or '
+                             'not deterministic' % (path['name'], shape))
+
+
+def check_card_against_cpu(path, start):
+    """Step 1 at RESNET_CPU_BATCH from the same state and feed on
+    CUDAPlace(0) and on CPUPlace(), in f32 and in float64 (the state and
+    the images cast; the port keeps f64 in f64, cuDNN's convolutions
+    included).  In f32 the card's loss is within LOSS_RTOL of the CPU's.
+    In float64 the card computes the CPU's step: the loss and every
+    variable of the state after the step (parameters, velocities, moving
+    means and variances) within F64_TOL of their largest magnitude.  The
+    f32 state is only printed, as each device's distance from the
+    float64 step: the f32 gradients of ResNet-50 at batch 4 are not
+    pinned down (relu inputs within f32 rounding of 0 fall on either
+    side), so the CPU's own f32 velocities lie percents of their largest
+    from the float64 ones (tests/torch_image_cases.py)."""
+    feed32 = {k: v[:RESNET_CPU_BATCH].numpy()
+              for k, v in path['host_batch'].items()}
+    state32 = {n: core.to_numpy(v) for n, v in start.items()}
+    names = sorted(state32)
+    res = {}
+    for dtype in (np.float32, np.float64):
+        state = {n: v.astype(dtype) if v.dtype.kind == 'f' else v
+                 for n, v in state32.items()}
+        feed = dict(feed32, image=feed32['image'].astype(dtype))
+        for dev_name, place in (('card', fluid.CUDAPlace(0)),
+                                ('cpu', fluid.CPUPlace())):
+            exe = fluid.Executor(place)
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                without_counting(lambda: exe.run(path['startup']))
+                weights.load_numpy_params(scope, state, place)
+                t0 = time.perf_counter()
+                loss = float(without_counting(lambda: exe.run(
+                    path['main'], feed=feed, fetch_list=[path['loss']]))[0])
+                secs = time.perf_counter() - t0
+                res[dev_name, dtype] = (loss, weights.numpy_state(
+                    scope, names), secs)
+    card32, cpu32 = res['card', np.float32], res['cpu', np.float32]
+    card64, cpu64 = res['card', np.float64], res['cpu', np.float64]
+    loss32 = abs(card32[0] - cpu32[0]) / abs(cpu32[0])
+    loss64 = abs(card64[0] - cpu64[0]) / abs(cpu64[0])
+    worst64, worst32 = {}, {}
+    for n in names:
+        ref = cpu64[1][n]
+        if ref.dtype.kind != 'f':
+            continue
+        kind = ('velocity' if '_velocity_' in n else
+                'stats' if n in path['stats'] else
+                'param' if n + '_velocity_0' in cpu64[1] else None)
+        if kind is None:
+            continue
+        top = max(float(np.abs(ref).max()), 1e-30)
+        e64 = float(np.abs(card64[1][n] - ref).max()) / top
+        if e64 >= worst64.get(kind, (-1.0,))[0]:
+            worst64[kind] = (e64, n)
+        e_card = float(np.abs(card32[1][n] - ref).max()) / top
+        e_cpu = float(np.abs(cpu32[1][n] - ref).max()) / top
+        if e_card >= worst32.get(kind, (-1.0,))[0]:
+            worst32[kind] = (e_card, e_cpu, n)
+    log('  %s step 1 at batch %d from the same state: f32 loss on the card '
+        '%.6f (%.1f ms), on the CPU %.6f (%.1f ms), rel %.2e (limit %g); '
+        'float64 loss %.9f (%.1f ms) / %.9f (%.1f ms), rel %.2e (limit %g)'
+        % (path['name'], RESNET_CPU_BATCH, card32[0], card32[2] * 1e3,
+           cpu32[0], cpu32[2] * 1e3, loss32, LOSS_RTOL, card64[0],
+           card64[2] * 1e3, cpu64[0], cpu64[2] * 1e3, loss64, F64_TOL))
+    for kind in sorted(worst64):
+        e64, n64 = worst64[kind]
+        e_card, e_cpu, n32 = worst32[kind]
+        log('    %-8s float64 card vs CPU: worst %s %.2e of its largest '
+            '(limit %g); f32 from the float64 step: worst %s, card %.2e, '
+            'CPU %.2e' % (kind, n64, e64, F64_TOL, n32, e_card, e_cpu))
+    if not (loss32 <= LOSS_RTOL and loss64 <= F64_TOL and
+            max(w[0] for w in worst64.values()) <= F64_TOL):
+        raise AssertionError('%s: the card\'s step 1 disagrees with the '
+                             'CPU\'s' % path['name'])
+
+
+def image_classification(seed, dev, profile):
+    """Phase 10; returns LeNet-5 + Adam's K4 launches."""
+    lenet_launches = {}
+    for opt in ('adam', 'sgd'):
+        path = lenet_path(seed, opt)
+        log('[10] %s, batch %d, %d steps and %d timed' % (
+            path['name'], LENET_BATCH, TRAIN_STEPS, TIMED_STEPS))
+        lenet_launches[opt] = train_lenet(path)['launches']
+    want = TRAIN_STEPS + TIMED_STEPS
+    if lenet_launches['adam']['fused_adam'] != want or \
+            any(lenet_launches['sgd'].values()):
+        raise AssertionError('LeNet-5 launched %s (Adam) and %s (SGD): '
+                             'expected fused_adam %d times and nothing'
+                             % (lenet_launches['adam'],
+                                lenet_launches['sgd'], want))
+
+    path = image_path(seed, 'resnet', RESNET_BATCH, dev)
+    log('[10] %s, batch %d, 3 x 224 x 224 NCHW f32, %d classes, '
+        'Momentum(%g, %g) with L2Decay(%g)' % (
+            path['name'], RESNET_BATCH, IMAGE_CLASSES, IMAGE_LR,
+            IMAGE_MOMENTUM, IMAGE_DECAY))
+    run = train_image(path, TRAIN_STEPS, TIMED_STEPS, profile)
+    check_eval(path, run)
+    start = run['start']
+    del run
+    torch.cuda.empty_cache()
+    check_card_against_cpu(path, start)
+    del path, start
+    torch.cuda.empty_cache()
+
+    path = image_path(seed, 'se_resnext', SE_BATCH, dev)
+    log('[10] %s (cardinality 32), batch %d, Momentum(%g, %g) with '
+        'L2Decay(%g)' % (path['name'], SE_BATCH, IMAGE_LR, IMAGE_MOMENTUM,
+                         IMAGE_DECAY))
+    train_image(path, TRAIN_STEPS, 0, profile)
+    del path
+    torch.cuda.empty_cache()
+    return lenet_launches['adam']['fused_adam']
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1985,6 +2469,9 @@ def main(argv=None):
              wide_deep_program(args.seed)]
     adam_shapes = [tuple(p.shape) for p in sorted(
         paths[0]['main'].all_parameters(), key=lambda p: p.name)]
+    lenet_shapes = [tuple(p.shape) for p in sorted(
+        lenet_path(args.seed, 'adam')['main'].all_parameters(),
+        key=lambda p: p.name)]
     log('[3] kernel parity on the card')
     max_err = {
         'flash_attention': without_counting(lambda: check_flash(gen, dev)),
@@ -1997,7 +2484,7 @@ def main(argv=None):
         'embedding_scatter_add': without_counting(
             lambda: check_scatter(gen, dev)),
         'fused_adam': without_counting(
-            lambda: check_adam(gen, dev, adam_shapes)),
+            lambda: check_adam(gen, dev, adam_shapes, lenet_shapes)),
         'fused_lamb': without_counting(
             lambda: check_lamb(gen, dev, adam_shapes)),
         'embedding_update': without_counting(
@@ -2052,7 +2539,7 @@ def main(argv=None):
     timer = Timer(dev)
     rows = without_counting(lambda: time_kernels(
         timer, gen, dev, requests[-1], paths[0]['batch'], paths[2]['batch'],
-        launches, max_err, adam_shapes))
+        launches, max_err, adam_shapes, lenet_shapes))
     without_counting(lambda: request_latency(pred, requests))
     for run in runs:
         without_counting(lambda: train_step_ms(run))
@@ -2069,6 +2556,15 @@ def main(argv=None):
     for row in rows:
         if row['name'] in ('quant_quantize', 'quant_reduce'):
             row['launches'] = dp[0]['launches'][row['name']]
+
+    lenet_k4 = image_classification(args.seed, dev, args.profile)
+    # K4's row counts all its launches, LeNet-5's included; the
+    # fused_adam[lenet] row counts LeNet-5's
+    for row in rows:
+        if row['name'] == 'fused_adam':
+            row['launches'] += lenet_k4
+        elif row['name'] == 'fused_adam[lenet]':
+            row['launches'] = lenet_k4
     idle = [row['name'] for row in rows if not row['launches']]
     if idle:
         raise AssertionError('no launch on the main path: %s' % idle)

@@ -1,10 +1,11 @@
 """fluid API of the PyTorch port (reference: python/paddle/fluid/__init__.py).
 
 The static-graph path: Program IR, layers (with the learning-rate
-schedules), append_backward, gradient clipping, regularizers, the
-Adam, LAMB and Adagrad optimizers, the eager Executor (inference and
-training steps), inference-model io, and collective data parallelism
-(the transpilers, the collective fleet, the comms planner).
+schedules) and nets, append_backward, gradient clipping, regularizers,
+the SGD, Momentum, Adam, LAMB and Adagrad optimizers, the eager
+Executor (inference and training steps), host-side metrics,
+inference-model io, and collective data parallelism (the transpilers,
+the collective fleet, the comms planner).
 """
 
 from . import core  # noqa: F401  (before framework: ops import it)
@@ -12,6 +13,8 @@ from . import framework  # noqa: F401
 from . import unique_name  # noqa: F401
 from . import initializer  # noqa: F401
 from . import layers  # noqa: F401
+from . import nets  # noqa: F401
+from . import metrics  # noqa: F401
 from . import io  # noqa: F401
 from . import backward  # noqa: F401
 from . import optimizer  # noqa: F401

@@ -37,6 +37,12 @@ parameters and moments in place.  The step counter advances once per
 run, before the ops, as in the JAX executor, so dropout masks keyed on
 (op seed, step) line up with the JAX package's.  Segmenting and
 compilation of the JAX executor come with later slices.
+
+``FLAGS_check_nan_inf`` checks every floating value a step writes (op
+outputs, and the gradients of the whole-program grad) on the device
+and raises FloatingPointError naming each non-finite one (JAX:
+fluid/executor.py:2578).  ``return_numpy='async'`` returns a
+``FetchHandle`` per fetch (JAX: :267).
 """
 
 import numpy as np
@@ -190,6 +196,46 @@ def _wpg_partition(ops, program, fetch_names):
             'seed_value': seed_value, 'grads': grads, 'stop': stop}
 
 
+class FetchHandle(object):
+    """A fetch resolving asynchronously (``return_numpy='async'``): the
+    device-to-host copy is queued on the current stream, into pinned
+    host memory, when the handle is made, and nothing waits for it;
+    ``as_numpy()`` waits for that copy alone.  The copy holds the value
+    as the step left it, so a later step that updates the variable in
+    place does not reach it.  ``np.asarray(handle)`` resolves it too."""
+
+    __slots__ = ('_val', '_host', '_event', '_np')
+
+    def __init__(self, value):
+        self._val = value.detach()
+        self._np = None
+        self._event = None
+        if self._val.is_cuda:
+            self._host = torch.empty(self._val.shape, dtype=self._val.dtype,
+                                     pin_memory=True)
+            self._host.copy_(self._val, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = self._val.clone()
+
+    @property
+    def value(self):
+        """The fetched tensor on its device, unresolved."""
+        return self._val
+
+    def as_numpy(self):
+        if self._np is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._np = core.to_numpy(self._host)
+        return self._np
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.as_numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+
 class Executor(object):
     """Reference: python/paddle/fluid/executor.py:680."""
 
@@ -198,6 +244,9 @@ class Executor(object):
         self.device = self.place.torch_device()
         self._step = 0
         self._group = None
+        # (name, 0-d bool tensor) of the step's values while
+        # FLAGS_check_nan_inf is on, else None
+        self._verdicts = None
 
     def _to_device(self, value):
         value = core.as_array(value)
@@ -225,7 +274,8 @@ class Executor(object):
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         """Run the program's global block once.  return_numpy=False
-        returns the fetched device tensors."""
+        returns the fetched device tensors, 'async' a FetchHandle for
+        each."""
         program = program or framework.default_main_program()
         scope = scope or core.global_scope()
         feed = feed or {}
@@ -237,6 +287,8 @@ class Executor(object):
         ops = [op for op in block.ops if op.type not in registry.HOST_OPS]
         env = {name: self._to_device(value) for name, value in feed.items()}
         keep = set(fetch_names)
+        self._verdicts = [] if get_flag('FLAGS_check_nan_inf', False) \
+            else None
         if any(_role(op) == 'backward' for op in ops):
             plan = _wpg_partition(ops, program, fetch_names)
             if plan is None:
@@ -255,6 +307,10 @@ class Executor(object):
             with mode:
                 self._run_ops(ops, env, scope, program, keep)
         results = [self._read(n, env, scope) for n in fetch_names]
+        if self._verdicts:
+            self._raise_non_finite()
+        if return_numpy == 'async':
+            return [FetchHandle(r) for r in results]
         if return_numpy:
             return [core.to_numpy(r) for r in results]
         return [r.detach() if isinstance(r, torch.Tensor) else r
@@ -266,8 +322,32 @@ class Executor(object):
             self._step, op.attrs.get('__op_seed__', 0), device=self.device,
             random_seed=program.random_seed, group=self._group)
 
+    def _check_finite(self, name, val):
+        """Queue the on-device verdict isfinite(val).all() of a floating
+        value the step writes (FLAGS_check_nan_inf)."""
+        if self._verdicts is not None and isinstance(val, torch.Tensor) \
+                and val.is_floating_point():
+            self._verdicts.append((name, torch.isfinite(val.detach()).all()))
+
+    def _raise_non_finite(self):
+        """Reference CheckVarHasNanOrInf (framework/details/
+        nan_inf_utils.h:28), per value written: every verdict of the
+        step crosses to the host in one copy, and the error names every
+        non-finite variable, not just the first."""
+        ok = torch.stack([v for _, v in self._verdicts]).cpu().tolist()
+        bad = []
+        for (name, _), good in zip(self._verdicts, ok):
+            if not good and name not in bad:
+                bad.append(name)
+        self._verdicts = None
+        if bad:
+            raise FloatingPointError(
+                'nan/inf detected in %d var(s) [%s] (step %d)'
+                % (len(bad), ', '.join(bad), self._step))
+
     def _write(self, block, names, vals, env, scope):
         for n, val in zip(names, vals):
+            self._check_finite(n, val)
             var = block._find_var_recursive(n)
             if var is not None and var.persistable:
                 scope.set_var(n, val.detach()
@@ -376,6 +456,7 @@ class Executor(object):
         env[plan['loss']] = loss.detach()
         for g, p in plan['grads'].items():
             env[g] = by_name[p]
+            self._check_finite(g, env[g])
         if plan['seed_grad'] in keep:
             env[plan['seed_grad']] = seed
         with torch.no_grad():

@@ -25,6 +25,10 @@ _DEFAULTS = {
     # adagrad pair into one fused_emb_update over the looked-up rows
     # (the JAX package does so under FLAGS_pallas_embedding)
     'FLAGS_torch_emb_update': True,
+    # The executor checks every floating value a step writes for nan
+    # and inf on the device and raises naming each non-finite one
+    # (reference platform/flags.cc FLAGS_check_nan_inf)
+    'FLAGS_check_nan_inf': False,
     # The collective planner (fluid/comms_plan.py), with the JAX
     # package's defaults.  FLAGS_comms_plan: GradAllReduce buckets the
     # gradients and inserts one planned collective per bucket (off: the

@@ -48,6 +48,60 @@ class Variable(object):
         return "Variable(%s, shape=%s, dtype=%s)" % (
             self.name, self.shape, self.dtype)
 
+    @property
+    def grad_name(self):
+        return grad_var_name(self.name)
+
+    def astype(self, dtype):
+        from .layers import tensor
+        return tensor.cast(self, dtype)
+
+    # operators (layers/math_op_patch.py); Variables hash by identity
+    def _binary(self, other, op, reverse=False):
+        from .layers import math_op_patch
+        return math_op_patch.binary(self, other, op, reverse)
+
+    def __add__(self, o):
+        return self._binary(o, 'elementwise_add')
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, 'elementwise_sub')
+
+    def __rsub__(self, o):
+        return self._binary(o, 'elementwise_sub', reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, 'elementwise_mul')
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, 'elementwise_div')
+
+    def __rtruediv__(self, o):
+        return self._binary(o, 'elementwise_div', reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, 'elementwise_pow')
+
+    def __neg__(self):
+        from .layers import ops
+        return ops.scale(self, scale=-1.0)
+
+    def __lt__(self, o):
+        return self._binary(o, 'less_than')
+
+    def __le__(self, o):
+        return self._binary(o, 'less_equal')
+
+    def __gt__(self, o):
+        return self._binary(o, 'greater_than')
+
+    def __ge__(self, o):
+        return self._binary(o, 'greater_equal')
+
     def to_dict(self):
         return dict(name=self.name, shape=list(self.shape), dtype=self.dtype,
                     lod_level=self.lod_level, persistable=self.persistable,

@@ -1,8 +1,9 @@
-"""fluid.layers: the subset the BERT and CTR models, the learning-rate
-schedules and gradient clipping use (reference:
+"""fluid.layers: the subset the BERT, CTR and image models, the
+learning-rate schedules and gradient clipping use (reference:
 python/paddle/fluid/layers/)."""
 
 from . import nn  # noqa: F401
+from . import math_op_patch  # noqa: F401
 from . import ops  # noqa: F401
 from . import tensor  # noqa: F401
 from . import io  # noqa: F401

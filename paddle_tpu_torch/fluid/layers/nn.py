@@ -1,23 +1,28 @@
-"""Neural-net layers: the subset BERT pretraining, the CTR models and
-gradient clipping build.  Reference: python/paddle/fluid/layers/nn.py.
+"""Neural-net layers: the subset BERT pretraining, the CTR models, the
+image classifiers and gradient clipping build.  Reference:
+python/paddle/fluid/layers/nn.py.
 
 Each layer appends IR ops via LayerHelper exactly like the reference
 (e.g. fc at layers/nn.py:207) and the JAX package, so both packages
-build the same Program.  ``softmax``, ``matmul`` and ``transpose``
-build their ops, but the port has no lowering for them yet: a program
-holding one raises NotImplementedError in the executor.
+build the same Program.  ``matmul`` and ``transpose`` build their ops,
+but the port has no lowering for them yet: a program holding one
+raises NotImplementedError in the executor.
 """
 
 import numpy as np
 
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
-__all__ = ['fc', 'embedding', 'layer_norm', 'dropout', 'softmax', 'matmul',
+__all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
+           'layer_norm', 'dropout', 'softmax', 'cross_entropy', 'matmul',
            'elementwise_add', 'elementwise_sub', 'elementwise_mul',
            'elementwise_div', 'elementwise_min', 'elementwise_max',
            'reduce_sum', 'reshape', 'unsqueeze', 'transpose',
            'split', 'softmax_with_cross_entropy',
-           'sigmoid_cross_entropy_with_logits', 'mean', 'slice']
+           'sigmoid_cross_entropy_with_logits', 'mean', 'slice', 'topk',
+           'accuracy']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -69,10 +74,104 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def _pair_list(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format='NCHW'):
+    """Reference layers/nn.py conv2d: an OIHW filter initialised
+    Normal(0, sqrt(2 / fan_in)), depthwise_conv2d where groups equals
+    both channel counts, the bias over the channel axis, then act."""
+    helper = LayerHelper('conv2d', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    groups = groups or 1
+    channel_axis = 1 if data_format == 'NCHW' else 3
+    num_channels = input.shape[channel_axis]
+    filter_size = _pair_list(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * int(np.prod(filter_size))
+    w = helper.create_parameter(
+        param_attr, shape=filter_shape, dtype=input.dtype,
+        default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    depthwise = groups == num_channels and groups == num_filters and \
+        groups > 1
+    helper.append_op(
+        'depthwise_conv2d' if depthwise else 'conv2d',
+        inputs={'Input': input, 'Filter': w}, outputs={'Output': out},
+        attrs={'strides': _pair_list(stride),
+               'paddings': _pair_list(padding),
+               'dilations': _pair_list(dilation),
+               'groups': groups, 'data_format': data_format})
+    pre_act = helper.append_bias_op(out, dim_start=channel_axis,
+                                    dim_end=channel_axis + 1,
+                                    bias_attr=bias_attr)
+    return helper.append_activation(pre_act, act)
+
+
+def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None, data_format='NCHW'):
+    helper = LayerHelper('pool2d', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        'pool2d', inputs={'X': input}, outputs={'Out': out},
+        attrs={'pooling_type': pool_type, 'ksize': _pair_list(pool_size),
+               'strides': _pair_list(pool_stride),
+               'paddings': _pair_list(pool_padding),
+               'global_pooling': global_pooling, 'ceil_mode': ceil_mode,
+               'exclusive': exclusive, 'data_format': data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout='NCHW',
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Reference layers/nn.py batch_norm: scale (1) and bias (0)
+    parameters, and the moving mean (0) and variance (1) as
+    non-trainable persistable parameters that the op writes in place
+    (MeanOut / VarianceOut)."""
+    helper = LayerHelper('batch_norm', name=name)
+    dtype = input.dtype
+    channel_axis = 1 if data_layout == 'NCHW' else len(input.shape) - 1
+    c = input.shape[channel_axis]
+    scale = helper.create_parameter(param_attr, shape=[c], dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False),
+        shape=[c], dtype=dtype, default_initializer=Constant(0.0))
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False),
+        shape=[c], dtype=dtype, default_initializer=Constant(1.0))
+    variance.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype)
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    helper.append_op(
+        'batch_norm',
+        inputs={'X': input, 'Scale': scale, 'Bias': bias, 'Mean': mean,
+                'Variance': variance},
+        outputs={'Y': out, 'MeanOut': mean, 'VarianceOut': variance,
+                 'SavedMean': saved_mean, 'SavedVariance': saved_var},
+        attrs={'momentum': momentum, 'epsilon': epsilon, 'is_test': is_test,
+               'data_layout': data_layout,
+               'use_global_stats': use_global_stats})
+    return helper.append_activation(out, act)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
-    from ..initializer import Constant
     helper = LayerHelper('layer_norm', name=name)
     dtype = input.dtype
     norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
@@ -117,6 +216,17 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op('softmax', inputs={'X': input}, outputs={'Out': out},
                      attrs={'axis': axis})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper('cross_entropy')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('cross_entropy',
+                     inputs={'X': input, 'Label': label},
+                     outputs={'Y': out},
+                     attrs={'soft_label': soft_label,
+                            'ignore_index': ignore_index})
     return out
 
 
@@ -264,3 +374,33 @@ def slice(input, axes, starts, ends):
                      attrs={'axes': list(axes), 'starts': list(starts),
                             'ends': list(ends), 'decrease_axis': []})
     return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper('top_k', name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference('int64',
+                                                        stop_gradient=True)
+    helper.append_op('top_k', inputs={'X': input},
+                     outputs={'Out': values, 'Indices': indices},
+                     attrs={'k': k})
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Reference layers/metric_op.py accuracy: top_k, then the share of
+    rows whose label is among the k."""
+    helper = LayerHelper('accuracy')
+    topk_out, topk_indices = topk(input, k=k)
+    acc_out = helper.create_variable_for_type_inference('float32',
+                                                        stop_gradient=True)
+    correct = correct or helper.create_variable_for_type_inference(
+        'int32', stop_gradient=True)
+    total = total or helper.create_variable_for_type_inference(
+        'int32', stop_gradient=True)
+    helper.append_op('accuracy',
+                     inputs={'Out': topk_out, 'Indices': topk_indices,
+                             'Label': label},
+                     outputs={'Accuracy': acc_out, 'Correct': correct,
+                              'Total': total})
+    return acc_out

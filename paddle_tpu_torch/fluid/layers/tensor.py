@@ -1,12 +1,35 @@
 """Tensor layers: the subset the learning-rate schedules, gradient
-clipping and the CTR models build.  Reference:
+clipping, the CTR models and Variable's operators build.  Reference:
 python/paddle/fluid/layers/tensor.py; each appends the ops the JAX
 package's layers/tensor.py appends."""
 
+import numpy as np
+
 from .. import core
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ['cast', 'concat', 'fill_constant', 'ones_like']
+__all__ = ['assign', 'cast', 'concat', 'fill_constant', 'ones_like']
+
+
+def assign(input, output=None):
+    """A Variable copied (op assign), or a numpy value as a constant
+    (op assign_value)."""
+    helper = LayerHelper('assign')
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op('assign', inputs={'X': input},
+                         outputs={'Out': output})
+        return output
+    arr = np.asarray(input)
+    if output is None:
+        output = helper.create_variable_for_type_inference(str(arr.dtype))
+    helper.append_op('assign_value', outputs={'Out': output},
+                     attrs={'shape': list(arr.shape),
+                            'dtype': str(arr.dtype),
+                            'values': arr.flatten().tolist()})
+    return output
 
 
 def cast(x, dtype):

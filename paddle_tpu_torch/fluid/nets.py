@@ -1,0 +1,50 @@
+"""Composite networks.  Reference: python/paddle/fluid/nets.py; each
+appends the layers the JAX package's fluid/nets.py appends.
+``sequence_conv_pool`` and ``scaled_dot_product_attention`` are not
+ported: they wait for the sequence ops and the matmul chain."""
+
+from . import layers
+
+
+def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
+                         pool_stride, pool_padding=0, pool_type='max',
+                         global_pooling=False, conv_stride=1,
+                         conv_padding=0, conv_dilation=1, conv_groups=1,
+                         param_attr=None, bias_attr=None, act=None,
+                         use_cudnn=True):
+    """conv2d (with bias and act), then pool2d."""
+    conv_out = layers.conv2d(input=input, num_filters=num_filters,
+                             filter_size=filter_size, stride=conv_stride,
+                             padding=conv_padding, dilation=conv_dilation,
+                             groups=conv_groups, param_attr=param_attr,
+                             bias_attr=bias_attr, act=act)
+    return layers.pool2d(input=conv_out, pool_size=pool_size,
+                         pool_type=pool_type, pool_stride=pool_stride,
+                         pool_padding=pool_padding,
+                         global_pooling=global_pooling)
+
+
+def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
+                   conv_filter_size=3, conv_act=None, param_attr=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=1, pool_type='max', use_cudnn=True):
+    """A conv2d per entry of conv_num_filter, each optionally followed
+    by batch_norm (with the act) and dropout, then one pool2d (the VGG
+    block)."""
+    tmp = input
+    if isinstance(conv_num_filter, int):
+        conv_num_filter = [conv_num_filter]
+    for i, nf in enumerate(conv_num_filter):
+        tmp = layers.conv2d(input=tmp, num_filters=nf,
+                            filter_size=conv_filter_size,
+                            padding=conv_padding, param_attr=param_attr,
+                            act=None if conv_with_batchnorm else conv_act)
+        if conv_with_batchnorm:
+            tmp = layers.batch_norm(input=tmp, act=conv_act)
+            rate = conv_batchnorm_drop_rate
+            if isinstance(rate, (list, tuple)):
+                rate = rate[i]
+            if rate > 0:
+                tmp = layers.dropout(x=tmp, dropout_prob=rate)
+    return layers.pool2d(input=tmp, pool_size=pool_size,
+                         pool_type=pool_type, pool_stride=pool_stride)

@@ -5,8 +5,8 @@ append_backward + apply_gradients(:575); per-optimizer
 _append_optimize_op (:293).  Each optimizer adds the same ops, vars and
 startup ops as the JAX package's (fluid/optimizer.py), so the two
 training programs serialize alike.  Ported: the Optimizer base with
-gradient clipping and regularization, Adam, AdamW, LAMB and Adagrad
-(with its sparse embedding-row rewrite).
+gradient clipping and regularization, SGD, Momentum, Adam, AdamW, LAMB
+and Adagrad (with its sparse embedding-row rewrite).
 """
 
 from . import unique_name
@@ -133,6 +133,46 @@ class Optimizer(object):
                                      no_grad_set)
         optimize_ops = self.apply_gradients(params_grads)
         return optimize_ops, params_grads
+
+
+class SGDOptimizer(Optimizer):
+    type = 'sgd'
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            'sgd',
+            inputs={'Param': p, 'Grad': g,
+                    'LearningRate': self._create_param_lr(param_and_grad)},
+            outputs={'ParamOut': p}, infer_shape=False)
+
+
+class MomentumOptimizer(Optimizer):
+    """A velocity per parameter (op momentum, with or without
+    Nesterov's correction)."""
+    type = 'momentum'
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super(MomentumOptimizer, self).__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator('velocity', p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        velocity = self._get_accumulator('velocity', p)
+        return block.append_op(
+            'momentum',
+            inputs={'Param': p, 'Grad': g, 'Velocity': velocity,
+                    'LearningRate': self._create_param_lr(param_and_grad)},
+            outputs={'ParamOut': p, 'VelocityOut': velocity},
+            attrs={'mu': self._momentum,
+                   'use_nesterov': self._use_nesterov},
+            infer_shape=False)
 
 
 class AdamOptimizer(Optimizer):
@@ -329,6 +369,8 @@ class LambOptimizer(AdamOptimizer):
             infer_shape=False)
 
 
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
 AdamW = AdamWOptimizer
 Adagrad = AdagradOptimizer

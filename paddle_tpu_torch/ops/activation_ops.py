@@ -1,5 +1,5 @@
-"""Activation and other unary op lowerings: the BERT and CTR models',
-the learning-rate schedules' and the regularizers'.
+"""Activation and other unary op lowerings: the BERT, CTR and image
+models', the learning-rate schedules' and the regularizers'.
 Reference: operators/activation_op.cc|.cu|.h."""
 
 import torch
@@ -38,3 +38,12 @@ def gelu(ctx, ins, attrs):
 @register('pow')
 def pow_op(ctx, ins, attrs):
     return {'Out': [torch.pow(ins['X'][0], attrs.get('factor', 1.0))]}
+
+
+@register('softmax')
+def softmax(ctx, ins, attrs):
+    """Statistics in f32 (f64 stays f64), the output in the input
+    dtype, as the JAX package computes it."""
+    x = ins['X'][0]
+    xf = x if x.dtype == torch.float64 else x.float()
+    return {'Out': [F.softmax(xf, dim=attrs.get('axis', -1)).to(x.dtype)]}

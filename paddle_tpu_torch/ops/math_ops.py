@@ -76,10 +76,15 @@ _ew('elementwise_mul', lambda x, y: x * y)
 _ew('elementwise_div', lambda x, y: x / y)
 _ew('elementwise_min', torch.minimum)
 _ew('elementwise_max', torch.maximum)
+_ew('elementwise_pow', torch.pow)
 
-# comparisons (the learning-rate schedules'): a bool Out that carries
-# no gradient
+# comparisons (the learning-rate schedules' and Variable's operators):
+# a bool Out that carries no gradient
+_ew('equal', torch.eq, ('Out',))
+_ew('not_equal', torch.ne, ('Out',))
 _ew('less_than', torch.lt, ('Out',))
+_ew('less_equal', torch.le, ('Out',))
+_ew('greater_than', torch.gt, ('Out',))
 _ew('greater_equal', torch.ge, ('Out',))
 
 
@@ -135,3 +140,14 @@ def sum_op(ctx, ins, attrs):
     for x in xs[1:]:
         out = out + x
     return {'Out': [out]}
+
+
+@register('top_k', no_grad_out_slots=('Indices',))
+def top_k(ctx, ins, attrs):
+    """The k largest along the last axis, largest first, int64 Indices;
+    equal values keep their order (lower index first), as
+    jax.lax.top_k gives them, through a stable sort."""
+    x = _x(ins)
+    k = int(attrs.get('k', 1))
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return {'Out': [vals[..., :k]], 'Indices': [idx[..., :k]]}

@@ -1,6 +1,7 @@
 """Optimizer update op lowerings.
 
-Reference: paddle/fluid/operators/optimizers/{adam,lamb,adagrad}_op.*.
+Reference: paddle/fluid/operators/optimizers/{sgd,momentum,adam,lamb,
+adagrad}_op.*.
 An update returns new tensors for ParamOut / Moment*Out, which the
 executor writes back over the parameter and moment variables; the
 fused multi-tensor ops (ops/kernels/fused_optimizer.py) and the sparse
@@ -17,6 +18,30 @@ from .registry import register
 
 def _lr(ins):
     return ins['LearningRate'][0].reshape(())
+
+
+@register('sgd')
+def sgd(ctx, ins, attrs):
+    p = ins['Param'][0]
+    g = ins['Grad'][0]
+    return {'ParamOut': [p - _lr(ins) * g.to(p.dtype)]}
+
+
+@register('momentum')
+def momentum(ctx, ins, attrs):
+    """v = mu * v + g; p - lr * v, or with use_nesterov
+    p - (g + mu * v) * lr."""
+    p = ins['Param'][0]
+    g = ins['Grad'][0]
+    v = ins['Velocity'][0]
+    mu = attrs.get('mu', 0.9)
+    lr = _lr(ins)
+    v_out = mu * v + g
+    if attrs.get('use_nesterov', False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {'ParamOut': [p_out], 'VelocityOut': [v_out]}
 
 
 @register('adam')

@@ -163,6 +163,20 @@ def fill_any_like(ctx, ins, attrs):
     return {'Out': [torch.full_like(_x(ins), attrs.get('value', 0.0))]}
 
 
+@register('assign')
+def assign(ctx, ins, attrs):
+    return {'Out': [_x(ins)]}
+
+
+@register('assign_value')
+def assign_value(ctx, ins, attrs):
+    """A constant from the op's attrs: values (flat), shape, dtype."""
+    dtype = core.convert_dtype(attrs.get('dtype', 'float32'))
+    vals = torch.tensor(attrs['values'], dtype=dtype)
+    return {'Out': [vals.reshape(tuple(int(s) for s in attrs['shape']))
+                    .to(ctx.device)]}
+
+
 @register('cast')
 def cast(ctx, ins, attrs):
     return {'Out': [_x(ins).to(core.convert_dtype(attrs['out_dtype']))]}

@@ -8,7 +8,11 @@ program that state is every persistable variable its startup program
 sets: the parameters, the MLM/NSP heads' included, the learning rate,
 the beta powers and the zero moments (``startup_names``); passing the
 program makes ``load_numpy_params`` check that each of them is given,
-with its declared shape.
+with its declared shape.  ``numpy_state`` reads such a state out of a
+scope, the port's or the JAX package's (whose values numpy reads
+through the array protocol), so a trained state moves across too: the
+image models' parameters, moving means and variances, and momentum
+velocities.
 """
 
 import numpy as np
@@ -42,6 +46,24 @@ def load_numpy_params(scope, params, place, program=None):
     for name, arr in params.items():
         # a copy: the caller's array (possibly read-only) stays its own
         scope.set_var(name, torch.tensor(np.asarray(arr), device=device))
+
+
+def numpy_state(scope, names):
+    """{name: ndarray} of `names` in `scope` or its parents.  The scope
+    is this package's (tensors, LoDTensors) or any other whose
+    ``find_var`` returns a value numpy can read through ``__array__``
+    (the JAX package's arrays and LoDTensors), so no package but numpy
+    is needed to take the JAX package's state."""
+    out = {}
+    for name in names:
+        value = scope.find_var(name)
+        if value is None:
+            raise KeyError('%r is not set in the scope' % name)
+        value = core.as_array(value)
+        out[name] = (core.to_numpy(value)
+                     if isinstance(value, torch.Tensor)
+                     else np.array(value))
+    return out
 
 
 def dump_numpy_params(scope):

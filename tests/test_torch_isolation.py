@@ -77,7 +77,19 @@ def test_import_loads_neither_jax_nor_the_jax_package():
                  'paddle_tpu_torch.fluid.comms',
                  'paddle_tpu_torch.fluid.comms_plan',
                  'paddle_tpu_torch.ops.collective_ops',
-                 'paddle_tpu_torch.ops.kernels.quant_collective'):
+                 'paddle_tpu_torch.ops.kernels.quant_collective',
+                 'paddle_tpu_torch.ops.nn_ops',
+                 'paddle_tpu_torch.ops.math_ops',
+                 'paddle_tpu_torch.ops.activation_ops',
+                 'paddle_tpu_torch.fluid.nets',
+                 'paddle_tpu_torch.fluid.metrics',
+                 'paddle_tpu_torch.fluid.layers.nn',
+                 'paddle_tpu_torch.fluid.layers.math_op_patch',
+                 'paddle_tpu_torch.dataset',
+                 'paddle_tpu_torch.dataset.mnist',
+                 'paddle_tpu_torch.models.lenet',
+                 'paddle_tpu_torch.models.resnet',
+                 'paddle_tpu_torch.models.se_resnext'):
         assert name in res['imported']
 
 

@@ -30,5 +30,7 @@ def test_lowering_matches_jax(case):
 
 
 def test_unlowered_op_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="'softmax'"):
-        treg.get('softmax')
+    # softmax has a lowering since the image slice; matmul waits for the
+    # attention chain below seq 512
+    with pytest.raises(NotImplementedError, match="'matmul'"):
+        treg.get('matmul')
