@@ -41,6 +41,9 @@ Phases, each of which fails the run (non-zero exit) on error:
        tables with 4096 ids each, all of them on row 0 of the 2-row
        table, a run of 1500 starting at sorted position 37, D = 16, 100
        and 1, one id, and 12,288 int32 ids (bitwise);
+       embedding_lookup and embedding_scatter_add on the Transformer's
+       10,000 x 512 table at phase 11's 4096 source ids, padding ids 0
+       among them (bitwise);
        fused_adam over the 153 parameters of BERT-base pretraining
        (~132M f32 elements), an AdamW run and LeNet-5's 6 parameters:
        parameters and moments bitwise (the library is built with --fmad=false, so it rounds
@@ -128,9 +131,17 @@ Phases, each of which fails the run (non-zero exit) on error:
      all but six are 0 (one run of 8187), and split into its sort and
      its run kernels on the three Wide&Deep tables, K6b past its
      one-block sort (16,384 and 65,536 ids on the word table, beside
-     index_add_, bitwise its plain version), the request latency per
-     batch size and the median step of each training path, with the
-     garbage collections and allocator retries of each timed step.  The library call for the flash backward is
+     index_add_, bitwise its plain version), K6 and K6b on the
+     Transformer's 10,000 x 512 table at phase 11's source ids (rows of
+     their own, embedding_lookup[nmt] and embedding_scatter_add[nmt]),
+     the crossover of the naive attention chain (the port's lowerings,
+     autograd for its backward) and K1 (forward) and K1 + K2 (forward
+     and backward) on BERT-base's attention at seq 128, 256 and 512
+     with 4096 tokens each (no dropout, a padding bias; the two routes'
+     outputs within 1e-4), the request latency per batch size and the
+     median step of each training path, with the garbage collections
+     and allocator retries of each timed step.  The library call for
+     the flash backward is
      SDPA's memory-efficient backward op on its own forward's saved
      outputs; for the row update (deep and wide tables),
      torch.optim.Adagrad's step on a sparse gradient; PyTorch has no
@@ -178,10 +189,32 @@ Phases, each of which fails the run (non-zero exit) on error:
      SE-ResNeXt-50 (cardinality 32) at batch 32, the same optimizer, 3
      steps: finite losses, every moving statistic updated, step ms, a
      profiled step's device time and peak memory printed.  Convolutions
-     run in f32 on cuDNN whatever torch.backends.cudnn.allow_tf32 says.
+     run in f32 on cuDNN whatever torch.backends.cudnn.allow_tf32 says;
+ 11. the attention chain below flash_min_len on CUDAPlace(0): BERT-base
+     built by build_pretrain(BASE, 128, is_test=True), saved and served
+     through create_paddle_predictor at batches 1, 8 and 32 (buckets 1,
+     8, 32): each request launches embedding_lookup 3 times and no
+     flash kernel, the batch-8 answer within 1e-3 of the plain path;
+     BERT-base pretraining at seq 128 with Adam as in phase 5 at batch
+     32 (4096 tokens), each step launching embedding_lookup 3 times,
+     embedding_scatter_add 3 and fused_adam once, the loss checks and
+     step 1 against the plain path of phase 5; Transformer-base NMT
+     (models.transformer BASE: d_model 512, 8 heads, ffn 2048, 6 + 6
+     layers, vocabularies of 10,000, dropout 0.1, label smoothing 0.1)
+     with Adam(1e-4, epsilon 1e-6) at batch 64 of 64 x 64 ragged,
+     bucket-padded pairs, 3 steps, each launching embedding_lookup 2
+     times, embedding_scatter_add 2 and fused_adam once, with the same
+     checks, then one step of a 32 x 32 batch on the same Program (its
+     launches, a finite loss, and the loss, gradients and moments
+     against the plain path); every path's latency or step time and
+     rate, peak memory and a profiled request or step (its device time
+     and 10 largest kernels) are printed.  f32 products run without
+     TF32 whatever torch.backends.cuda.matmul.allow_tf32 says.
 The line before the last is a JSON object {"kernels": [...]}: a row
 that times one table of a kernel (embedding_scatter_add[2-row],
-embedding_update[wide]) counts the main path's launches on that table,
+embedding_update[wide], embedding_lookup[nmt],
+embedding_scatter_add[nmt]) counts the main path's launches on that
+table,
 its kernel's row those on the kernel's other tables; fused_adam counts
 all of K4's launches (BERT-base Adam's and LeNet-5's) and
 fused_adam[lenet] LeNet-5's; a row with no launch fails the run.  The last is {"ok": true, "device": {...}}.
@@ -216,7 +249,9 @@ from paddle_tpu_torch.models import bert
 from paddle_tpu_torch.models import lenet
 from paddle_tpu_torch.models import resnet
 from paddle_tpu_torch.models import se_resnext
+from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.models import wide_deep
+from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.ops.kernels import common
 from paddle_tpu_torch.ops.kernels import embedding as emb_k
 from paddle_tpu_torch.ops.kernels import flash_attention as fa_k
@@ -302,9 +337,35 @@ F64_TOL = 1e-6
 # K6b past its one-block sort (SORT_MAX ids): a batch of 32 and of 128
 # at seq 512 on the word table
 SCATTER_BIG_IDS = (16384, 65536)
+# the attention chain below flash_min_len (phase 11): BERT-base served
+# and trained at seq 128, the length of its main pretraining phase
+# (Devlin et al. 2019), training at batch 32 (4096 tokens, as the seq-512
+# path's batch 8); Transformer-base (Vaswani et al. 2017) at batch 64 of
+# 64 x 64 (4096 target tokens, the reference's token batches), then one
+# step of the 32 bucket, Adam at 1e-4 (a rate at which 3 steps show
+# through the dropout noise)
+SHORT_SEQ = 128
+SHORT_BATCHES = (1, 8, 32)
+SHORT_TRAIN_BATCH = 32
+NMT_BATCH = 64
+NMT_LEN = 64
+NMT_BUCKET = 32
+NMT_LR = 1e-4
+NMT_ROWS = 10000
+# phase 8's crossover of the naive chain and K1 + K2 on BERT-base's
+# attention: 4096 tokens at each length
+CROSSOVER_SEQS = (128, 256, 512)
+CROSSOVER_TOKENS = 4096
+
+
+START = time.perf_counter()
 
 
 def log(*args):
+    """print, flushed; a phase's first line ('[N] ...') also says when
+    it started, in seconds since the script began."""
+    if args and str(args[0]).startswith('['):
+        args = args + ('(at %.1f s)' % (time.perf_counter() - START),)
     print(*args, flush=True)
 
 
@@ -402,7 +463,12 @@ TABLE_ROWS = {
     'embedding_scatter_add[2-row]': ('scatter_add_kernel',
                                      lambda nrows, ids, g: nrows == 2),
     'embedding_update[wide]': ('update_kernel',
-                               lambda w, *rest: w.shape[1] == 1)}
+                               lambda w, *rest: w.shape[1] == 1),
+    # the Transformer's 10,000 x 512 source and target tables
+    'embedding_lookup[nmt]': ('gather_kernel',
+                              lambda w, ids: w.shape[0] == NMT_ROWS),
+    'embedding_scatter_add[nmt]': ('scatter_add_kernel',
+                                   lambda nrows, ids, g: nrows == NMT_ROWS)}
 # the launches counted() saw on those tables
 TABLE_LAUNCHES = dict.fromkeys(TABLE_ROWS, 0)
 
@@ -427,8 +493,9 @@ def counted(fn):
     tables of TABLE_ROWS are added to TABLE_LAUNCHES."""
     common.reset_launches()
     kernels = {name: getattr(emb_k, name) for name, _ in TABLE_ROWS.values()}
+    # a kernel with rows on two tables is wrapped twice
     for row, (name, pick) in TABLE_ROWS.items():
-        setattr(emb_k, name, on_table(row, kernels[name], pick))
+        setattr(emb_k, name, on_table(row, getattr(emb_k, name), pick))
     try:
         out = fn()
     finally:
@@ -726,6 +793,37 @@ def check_scatter(gen, dev):
                                  % (name, max_abs(got, want)))
         log('  embedding_scatter_add %-46s %5d ids: bitwise equal'
             % (name, ids.numel()))
+    return 0.0
+
+
+def nmt_ids(seed, length=NMT_LEN):
+    """The source ids of phase 11's Transformer batch ([NMT_BATCH,
+    length], ragged rows padded with id 0), flattened."""
+    batch = transformer.synthetic_batch(
+        transformer.BASE, NMT_BATCH, length, length,
+        np.random.RandomState(seed))
+    return torch.from_numpy(batch['src_ids']).reshape(-1)
+
+
+def check_nmt_tables(gen, dev, seed):
+    """K6 and K6b bitwise against their plain versions on the
+    Transformer's 10,000 x 512 table at the ids of phase 11's batch
+    (4096, a run of padding ids 0 among them)."""
+    ids = nmt_ids(seed).to(dev)
+    w = torch.randn(NMT_ROWS, 512, generator=gen, device=dev)
+    g = torch.randn(ids.numel(), 512, generator=gen, device=dev)
+    for name, got, want in (
+            ('embedding_lookup', emb_k.gather_kernel(w, ids),
+             emb_k.gather_plain(w, ids)),
+            ('embedding_scatter_add',
+             emb_k.scatter_add_kernel(NMT_ROWS, ids, g),
+             emb_k.scatter_add_plain(NMT_ROWS, ids, g))):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError('%s on the 10000 x 512 table is not bitwise '
+                                 'equal to its plain version' % name)
+        log('  %-22s 10000 x 512, %d ids (%d padding): bitwise equal'
+            % (name, ids.numel(), int((ids == 0).sum())))
     return 0.0
 
 
@@ -1045,15 +1143,23 @@ def check_reduce_edges(gen, dev):
 
 
 # ------------------------------------------------------------ phase 4
-def build_model(model_dir, seed):
+def build_model(model_dir, seed, seq=SEQ, pretrain=False):
+    """BERT-base's encoder at `seq` saved as an inference model: built
+    with bert_encoder, or (pretrain) by build_pretrain(BASE, seq,
+    is_test=True) with the encoder output fetched."""
     cfg = bert.BASE
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed + 1
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        feeds = bert.encoder_feeds(SEQ)
-        enc = bert.bert_encoder(feeds['src_ids'], feeds['pos_ids'],
-                                feeds['sent_ids'], feeds['input_mask'],
-                                cfg, is_test=True)
+        if pretrain:
+            feeds, enc, _ = bert.build_pretrain(cfg, seq, is_test=True)
+            feeds = {n: feeds[n] for n in ('src_ids', 'pos_ids', 'sent_ids',
+                                           'input_mask')}
+        else:
+            feeds = bert.encoder_feeds(seq)
+            enc = bert.bert_encoder(feeds['src_ids'], feeds['pos_ids'],
+                                    feeds['sent_ids'], feeds['input_mask'],
+                                    cfg, is_test=True)
     n_attn = sum(op.type == 'fused_multihead_attention'
                  for op in main.global_block().ops)
     n_emb = sum(op.type == 'lookup_table_v2'
@@ -1068,14 +1174,16 @@ def build_model(model_dir, seed):
     return cfg, n_attn, n_emb, n_params
 
 
-def serve(model_dir, cfg, n_attn, n_emb, seed):
+def serve(model_dir, cfg, n_attn, n_emb, seed, seq=SEQ, batches=BATCHES):
+    """The requests of `batches` at `seq`, each one's launches checked;
+    the batch-8 answer against the plain path."""
     config = AnalysisConfig(model_dir)
     pred = create_paddle_predictor(config)
     if pred.place != fluid.CUDAPlace(0):
         raise AssertionError('predictor is on %r' % pred.place)
     rng = np.random.RandomState(seed)
-    requests = [bert.encoder_batch(cfg, b, SEQ, rng, pad_to=SEQ - 37 * i)
-                for i, b in enumerate(BATCHES)]
+    requests = [bert.encoder_batch(cfg, b, seq, rng, pad_to=seq - 37 * i)
+                for i, b in enumerate(batches)]
     names = pred.get_input_names()
     outs, latency, per_request = [], [], []
     expected = {k: 0 for k in common.KERNELS}
@@ -1095,19 +1203,20 @@ def serve(model_dir, cfg, n_attn, n_emb, seed):
         log('  request batch %d: out %s %s, %.2f ms, launches %s'
             % (b, out.shape, out.dtype, sec * 1e3,
                {k: c for k, c in counts.items() if c}))
-        if out.shape != (b, SEQ, cfg.hidden) or not np.isfinite(out).all():
+        if out.shape != (b, seq, cfg.hidden) or not np.isfinite(out).all():
             raise AssertionError('request batch %d: bad output' % b)
         if counts != expected:
             raise AssertionError('request batch %d launched %s, expected %s'
                                  % (b, counts, expected))
     # the whole path again with the plain versions, on the card
+    i8 = batches.index(8)
     flags.set_flags({'FLAGS_torch_kernels_plain': True})
     try:
         plain = without_counting(
-            lambda: pred.run([requests[-1][n] for n in names])[0].data)
+            lambda: pred.run([requests[i8][n] for n in names])[0].data)
     finally:
         flags.set_flags({'FLAGS_torch_kernels_plain': False})
-    err = float(np.abs(plain - outs[-1]).max())
+    err = float(np.abs(plain - outs[i8]).max())
     log('  batch 8 vs the plain path on the card: max|diff| %.3e '
         '(limit %g)' % (err, SLICE_TOL))
     if not err <= SLICE_TOL:
@@ -1152,15 +1261,16 @@ def profile_requests(pred, requests):
 
 
 # ------------------------------------------------------- phases 5-7
-def pretrain_program(seed, optimizer):
-    """BERT-base pretraining with Adam ('adam', phase 5) or with LAMB,
-    the warmup over a polynomial decay and the global-norm clip
-    ('lamb', phase 6): the path dict that train() runs."""
+def pretrain_program(seed, optimizer, seq=SEQ, batch=TRAIN_BATCH):
+    """BERT-base pretraining with Adam ('adam', phase 5; phase 11 at
+    seq 128) or with LAMB, the warmup over a polynomial decay and the
+    global-norm clip ('lamb', phase 6): the path dict that train()
+    runs."""
     cfg = bert.BASE
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed + 1
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        _, _, loss = bert.build_pretrain(cfg, seq_len=SEQ)
+        _, _, loss = bert.build_pretrain(cfg, seq_len=seq)
         if optimizer == 'adam':
             lr = None
             fluid.optimizer.Adam(learning_rate=LR,
@@ -1186,12 +1296,13 @@ def pretrain_program(seed, optimizer):
     probe = ['embedding_0.w_0', 'fc_0.w_0', 'fc_0.w_1', 'layer_norm_0.w_0']
     probe += [p.name for p in main.all_parameters()
               if p.shape == (cfg.hidden, cfg.vocab_size)]
-    return {'name': 'BERT-base %s' % optimizer.upper(), 'main': main,
-            'startup': startup, 'loss': loss, 'lr': lr,
-            'batch': bert.synthetic_batch(cfg, TRAIN_BATCH, SEQ,
+    return {'name': 'BERT-base %s%s' % (
+                optimizer.upper(), '' if seq == SEQ else ' seq %d' % seq),
+            'main': main, 'startup': startup, 'loss': loss, 'lr': lr,
+            'batch': bert.synthetic_batch(cfg, batch, seq,
                                           np.random.RandomState(seed)),
-            'expected': expected, 'probe': probe, 'tokens': TRAIN_BATCH * SEQ,
-            'bitwise': False}
+            'expected': expected, 'probe': probe, 'tokens': batch * seq,
+            'rate': LR, 'bitwise': False}
 
 
 def wide_deep_program(seed):
@@ -1212,7 +1323,8 @@ def wide_deep_program(seed):
             'batch': wide_deep.synthetic_batch(cfg, WD_BATCH,
                                                np.random.RandomState(seed)),
             'expected': expected, 'probe': [],
-            'tokens': WD_BATCH * cfg.num_sparse_fields, 'bitwise': True}
+            'tokens': WD_BATCH * cfg.num_sparse_fields, 'rate': WD_LR,
+            'bitwise': True}
 
 
 def snapshot(scope, names):
@@ -1277,7 +1389,7 @@ def train(path):
                              'from step 1 to step %d, or not below the '
                              'held run' % (losses, held, TRAIN_STEPS))
     check_plain_step(path, fetch + grad_fetch, start, after1, losses[0],
-                     grads, rates[0] if path['lr'] else LR)
+                     grads, rates[0] if path['lr'] else path['rate'])
     return {'path': path, 'exe': exe, 'scope': scope, 'launches': launches,
             'peak': peak, 'rates': rates}
 
@@ -1300,10 +1412,12 @@ def held_losses(path, start, place=None):
     return losses
 
 
-def check_plain_step(path, fetch, start, after1, loss1, grads, lr1):
-    """Step 1 again from the same state (a startup run, so the step
-    counter matches, then the kernel path's starting values), with every
-    kernel's plain version.
+def check_plain_step(path, fetch, start, after1, loss1, grads, lr1,
+                     batch=None, step=1):
+    """Step 1 (or the step after executor step `step`, on `batch`) again
+    from the same state (a startup run and the kernel path's step
+    counter, then its starting values), with every kernel's plain
+    version.
 
     A path with `bitwise` (Wide&Deep) runs the same PyTorch ops around
     kernels that are bitwise their plain versions: the loss and the
@@ -1319,18 +1433,22 @@ def check_plain_step(path, fetch, start, after1, loss1, grads, lr1):
     lr1 / epsilon times a change of g, so each parameter must agree
     within (lr1 / epsilon) * max|d moment1| / (1 - beta1), with 5% and
     1e-7 of slack for rounding; LAMB's first step runs at the warmup's
-    rate 0, so its parameters must stay within the 1e-7."""
+    rate 0, so its parameters must stay within the 1e-7.  A later step
+    (lr1 None) holds the loss, the gradients and the moments alone: its
+    parameters move by ratios of moments that no bound of this kind
+    covers."""
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     flags.set_flags({'FLAGS_torch_kernels_plain': True})
     try:
         with fluid.scope_guard(scope):
             without_counting(lambda: exe.run(path['startup']))
+            exe._step = step
             for n, v in start.items():
                 scope.set_var(n, v.clone())
             out = without_counting(lambda: exe.run(
-                path['main'], feed=path['batch'], fetch_list=fetch,
-                return_numpy=False))
+                path['main'], feed=path['batch'] if batch is None else batch,
+                fetch_list=fetch, return_numpy=False))
             torch.cuda.synchronize()
             got = snapshot(scope, list(start))
     finally:
@@ -1356,14 +1474,17 @@ def check_plain_step(path, fetch, start, after1, loss1, grads, lr1):
         dm = max_abs(after1[n], got[n])
         moment_err = max(moment_err,
                          dm / max(got[n].abs().max().item(), 1e-30))
-        p = n.split('_moment1_')[0]
-        limit = lr1 / EPSILON * dm / (1 - 0.9) * 1.05 + 1e-7
-        param_ratio = max(param_ratio, max_abs(after1[p], got[p]) / limit)
-    log('  step 1 vs the plain path: loss rel %.2e (limit %g), gradients '
-        'of %s rel %.2e, first moments rel %.2e (limit %g), parameters at '
-        '%.2f of their bound' % (loss_err, LOSS_RTOL, path['probe'],
-                                 grad_err, moment_err, GRAD_TOL,
-                                 param_ratio))
+        if lr1 is not None:
+            p = n.split('_moment1_')[0]
+            limit = lr1 / EPSILON * dm / (1 - 0.9) * 1.05 + 1e-7
+            param_ratio = max(param_ratio,
+                              max_abs(after1[p], got[p]) / limit)
+    log('  step %s vs the plain path: loss rel %.2e (limit %g), gradients '
+        'of %s rel %.2e, first moments rel %.2e (limit %g), %s' % (
+            '1' if step == 1 else 'after executor step %d' % step, loss_err,
+            LOSS_RTOL, path['probe'], grad_err, moment_err, GRAD_TOL,
+            'parameters not bounded' if lr1 is None else
+            'parameters at %.2f of their bound' % param_ratio))
     if not (loss_err <= LOSS_RTOL and grad_err <= GRAD_TOL and
             moment_err <= GRAD_TOL and param_ratio <= 1.0):
         raise AssertionError('the training step disagrees with its plain '
@@ -1508,7 +1629,7 @@ def update_split(timer, rows, ids, w, m, g, lr):
 
 
 def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
-                 max_err, adam_shapes, lenet_shapes):
+                 max_err, adam_shapes, lenet_shapes, seed):
     b, t, h, d = 8, SEQ, 12, 64
     seed = 4242
     q, k, v = qkv_views(gen, b, t, h, d, dev)
@@ -1599,6 +1720,10 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
             qbound=bound(rows.numel() * 4 + nbytes, 0),
             rbound=bound(nbytes + nbytes / DP_RANKS, 0))
     tab = quant[TABLE_NUMEL]
+    # the Transformer's 10,000 x 512 tables at phase 11's source ids
+    nmt = nmt_ids(seed).to(dev)
+    w_nmt = torch.randn(NMT_ROWS, 512, generator=gen, device=dev)
+    g_nmt = torch.randn(nmt.numel(), 512, generator=gen, device=dev)
     # name, kernel, plain, library, bound, whether a CUDA graph can
     # hold the plain version and the library call (the others have no
     # host sync)
@@ -1645,6 +1770,18 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          lambda: emb_k.scatter_add_plain(2, zeros, g),
          lambda: torch.zeros(2, 768, device=dev).index_add_(0, zeros, g),
          bound(src.numel() * (768 * 4 + 8) + 2 * 768 * 4, 0), False, True),
+        ('embedding_lookup[nmt]',
+         lambda: emb_k.gather_kernel(w_nmt, nmt),
+         lambda: emb_k.gather_plain(w_nmt, nmt),
+         lambda: F.embedding(nmt, w_nmt),
+         bound(2 * nmt.numel() * 512 * 4 + nmt.numel() * 8, 0), True, True),
+        ('embedding_scatter_add[nmt]',
+         lambda: emb_k.scatter_add_kernel(NMT_ROWS, nmt, g_nmt),
+         lambda: emb_k.scatter_add_plain(NMT_ROWS, nmt, g_nmt),
+         lambda: torch.zeros(NMT_ROWS, 512, device=dev).index_add_(
+             0, nmt, g_nmt),
+         bound(nmt.numel() * (512 * 4 + 8) + NMT_ROWS * 512 * 4, 0), False,
+         True),
         ('fused_adam',
          lambda: opt_k.launch('adam', table, blocks, adam_attrs),
          lambda: opt_k.apply_plain('adam', None, ins, adam_attrs),
@@ -1804,6 +1941,75 @@ def request_latency(pred, requests, runs=5):
         log('  request latency batch %d: median %.2f ms over %d runs %s' % (
             req['src_ids'].shape[0], statistics.median(secs) * 1e3, runs,
             ['%.2f' % (x * 1e3) for x in secs]))
+
+
+def naive_attention(q, k, v, mask):
+    """The port's naive attention chain on [B, T, H, D] q, k, v and a
+    [B, 1, 1, T] key bias: the lowerings BERT runs below flash_min_len
+    (transpose2, matmul with the scale, elementwise_add, softmax,
+    matmul, transpose2, reshape2), without dropout."""
+    ctx = registry.LowerCtx(1, device=q.device)
+
+    def op(kind, ins, **attrs):
+        return registry.get(kind).run(ctx, ins, attrs)['Out'][0]
+    qh, kh, vh = [op('transpose2', {'X': [x]}, axis=[0, 2, 1, 3])
+                  for x in (q, k, v)]
+    s = op('matmul', {'X': [qh], 'Y': [kh]}, transpose_Y=True,
+           alpha=q.shape[3] ** -0.5)
+    p = op('softmax', {'X': [op('elementwise_add', {'X': [s], 'Y': [mask]},
+                                axis=-1)]}, axis=-1)
+    o = op('transpose2', {'X': [op('matmul', {'X': [p], 'Y': [vh]})]},
+           axis=[0, 2, 1, 3])
+    return op('reshape2', {'X': [o]}, shape=[0, 0, -1])
+
+
+def attention_crossover(timer, gen, dev):
+    """The naive chain against K1 (forward) and K1 + K2 (forward and
+    backward) on BERT-base's attention (12 heads, D = 64) at
+    CROSSOVER_SEQS with CROSSOVER_TOKENS tokens each, no dropout, a
+    padding bias; device times of CUDA-graph replays with L2 flushed.
+    The chain's backward is autograd's over its lowerings; the outputs
+    of both routes agree within FA_TOL."""
+    h, d = 12, 64
+    for t in CROSSOVER_SEQS:
+        b = CROSSOVER_TOKENS // t
+        qkv = torch.randn(b, t, 3 * h * d, generator=gen, device=dev)
+        q, k, v = [x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=2)]
+        leaf = qkv.clone().requires_grad_()
+        bias = padding_bias(gen, b, t, dev)
+        mask = bias[:, None, None, :]
+        do = torch.randn(b, t, h, d, generator=gen, device=dev)
+        o, _ = fa_k.flash_attention_kernel(q, k, v, False, bias)
+        with torch.no_grad():
+            err = max_abs(naive_attention(q, k, v, mask),
+                          o.reshape(b, t, h * d))
+        if not err <= FA_TOL:
+            raise AssertionError('the naive chain and K1 disagree at seq %d: '
+                                 '%g' % (t, err))
+
+        def naive_fwd():
+            with torch.no_grad():
+                naive_attention(q, k, v, mask)
+
+        def naive_fwd_bwd():
+            out = naive_attention(*[x.reshape(b, t, h, d)
+                                    for x in leaf.split(h * d, dim=2)], mask)
+            torch.autograd.grad(out, [leaf], do.reshape(b, t, h * d))
+
+        def flash_fwd_bwd():
+            o, lse = fa_k.flash_attention_kernel(q, k, v, False, bias)
+            fa_k.flash_attention_bwd_kernel(q, k, v, bias, o, lse, do, None)
+        times = {name: timer.ms(fn) for name, fn in (
+            ('naive_fwd', naive_fwd),
+            ('k1', lambda: fa_k.flash_attention_kernel(q, k, v, False,
+                                                       bias)),
+            ('naive_fwd_bwd', naive_fwd_bwd), ('k1_k2', flash_fwd_bwd))}
+        log('  attention crossover seq %d (batch %d, %d tokens): forward '
+            'naive %.4f ms, K1 %.4f ms; forward + backward naive %.4f ms, '
+            'K1 + K2 %.4f ms (naive/flash %.2f); max|naive - K1| %.1e' % (
+                t, b, b * t, times['naive_fwd'], times['k1'],
+                times['naive_fwd_bwd'], times['k1_k2'],
+                times['naive_fwd_bwd'] / times['k1_k2'], err))
 
 
 # ------------------------------------------------------------ phase 9
@@ -2430,6 +2636,111 @@ def image_classification(seed, dev, profile):
     return lenet_launches['adam']['fused_adam']
 
 
+# ----------------------------------------------------------- phase 11
+def nmt_program(seed):
+    """Transformer-base NMT training with Adam (phase 11): the path dict
+    that train() runs."""
+    cfg = transformer.BASE
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = transformer.build(cfg, src_len=NMT_LEN, tgt_len=NMT_LEN)
+        fluid.optimizer.Adam(learning_rate=NMT_LR,
+                             epsilon=EPSILON).minimize(loss)
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update({'embedding_lookup': 2, 'embedding_scatter_add': 2,
+                     'fused_adam': 1})
+    probe = ['embedding_0.w_0', 'embedding_1.w_0', 'fc_0.w_0']
+    probe += [p.name for p in main.all_parameters()
+              if p.shape == (cfg.d_model, cfg.tgt_vocab)]
+    return {'name': 'Transformer-base Adam', 'main': main,
+            'startup': startup, 'loss': loss, 'lr': None,
+            'batch': transformer.synthetic_batch(
+                cfg, NMT_BATCH, NMT_LEN, NMT_LEN,
+                np.random.RandomState(seed)),
+            'expected': expected, 'probe': probe,
+            'tokens': NMT_BATCH * NMT_LEN, 'rate': NMT_LR, 'bitwise': False}
+
+
+def bucket_step(run, seed):
+    """One step of the NMT_BUCKET bucket on the Program built for
+    NMT_LEN, on the path's executor after its steps: its launches
+    checked, the loss finite, the step against the plain path."""
+    path = run['path']
+    main = path['main']
+    batch = transformer.synthetic_batch(
+        transformer.BASE, NMT_BATCH, NMT_BUCKET, NMT_BUCKET,
+        np.random.RandomState(seed + 1))
+    names = weights.startup_names(path['startup'])
+    fetch = [path['loss'].name] + [main._grad_name_map[p]
+                                   for p in path['probe']]
+    with fluid.scope_guard(run['scope']):
+        start = snapshot(run['scope'], names)
+        step = run['exe']._step
+        t0 = time.perf_counter()
+        out, counts = counted(lambda: run['exe'].run(
+            main, feed=batch, fetch_list=fetch, return_numpy=False))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        after = snapshot(run['scope'], names)
+    loss = float(out[0])
+    log('  bucket %d step (batch %d, %d target tokens): loss %.6f, %.1f ms, '
+        'launches %s' % (NMT_BUCKET, NMT_BATCH, NMT_BATCH * NMT_BUCKET, loss,
+                         sec * 1e3, {k: c for k, c in counts.items() if c}))
+    if counts != path['expected'] or not math.isfinite(loss):
+        raise AssertionError('the bucket step launched %s (expected %s), '
+                             'loss %g' % (counts, path['expected'], loss))
+    check_plain_step(path, fetch, start, after, loss,
+                     [g.clone() for g in out[1:]], None, batch=batch,
+                     step=step)
+    return counts
+
+
+def short_attention(seed):
+    """Phase 11: BERT-base served and trained at seq 128 and
+    Transformer-base trained, all through the naive attention chain,
+    each with a profiled request or step; returns the launches of the
+    three paths."""
+    launches = {k: 0 for k in common.KERNELS}
+    log('[11] BERT-base seq %d serving through create_paddle_predictor'
+        % SHORT_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(ROOT, 'build', 'chip_smoke')) as model_dir:
+        cfg, n_attn, n_emb, _ = build_model(model_dir, seed, SHORT_SEQ,
+                                            pretrain=True)
+        if n_attn:
+            raise AssertionError('seq %d built %d fused attention ops'
+                                 % (SHORT_SEQ, n_attn))
+        pred, requests, served = serve(model_dir, cfg, 0, n_emb, seed,
+                                       SHORT_SEQ, SHORT_BATCHES)
+    for k, c in served.items():
+        launches[k] += c
+    without_counting(lambda: request_latency(pred, requests))
+    log('  peak device memory while serving: %.2f GiB'
+        % (torch.cuda.max_memory_allocated() / 2 ** 30))
+    without_counting(lambda: profile_requests(pred, requests))
+    del pred
+    torch.cuda.empty_cache()
+
+    for path in (pretrain_program(seed, 'adam', SHORT_SEQ,
+                                  SHORT_TRAIN_BATCH), nmt_program(seed)):
+        log('[11] %s training steps on CUDAPlace(0)' % path['name'])
+        run = train(path)
+        for k, c in run['launches'].items():
+            launches[k] += c
+        if path['name'].startswith('Transformer'):
+            for k, c in bucket_step(run, seed).items():
+                launches[k] += c
+        without_counting(lambda: train_step_ms(run))
+        without_counting(lambda: profile_train(run))
+        del run
+        torch.cuda.empty_cache()
+    log('  launches on phase 11\'s paths: %s'
+        % {k: c for k, c in launches.items() if c})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2491,7 +2802,10 @@ def main(argv=None):
             lambda: check_emb_update(gen, dev)),
         'quant_quantize': without_counting(lambda: check_quant(gen, dev)),
         'quant_reduce': 0.0,
+        'embedding_lookup[nmt]': without_counting(
+            lambda: check_nmt_tables(gen, dev, args.seed)),
     }
+    max_err['embedding_scatter_add[nmt]'] = max_err['embedding_lookup[nmt]']
     torch.cuda.empty_cache()
 
     log('[4] BERT-base serving through create_paddle_predictor')
@@ -2539,7 +2853,8 @@ def main(argv=None):
     timer = Timer(dev)
     rows = without_counting(lambda: time_kernels(
         timer, gen, dev, requests[-1], paths[0]['batch'], paths[2]['batch'],
-        launches, max_err, adam_shapes, lenet_shapes))
+        launches, max_err, adam_shapes, lenet_shapes, args.seed))
+    without_counting(lambda: attention_crossover(timer, gen, dev))
     without_counting(lambda: request_latency(pred, requests))
     for run in runs:
         without_counting(lambda: train_step_ms(run))
@@ -2565,6 +2880,20 @@ def main(argv=None):
             row['launches'] += lenet_k4
         elif row['name'] == 'fused_adam[lenet]':
             row['launches'] = lenet_k4
+    t0 = time.perf_counter()
+    before = dict(TABLE_LAUNCHES)
+    short = short_attention(args.seed)
+    log('  phase 11: %.1f s' % (time.perf_counter() - t0))
+    # the rows of phase 11's tables take their launches there; each
+    # kernel's own row, the launches on its other tables
+    gain = {row: TABLE_LAUNCHES[row] - before[row] for row in TABLE_ROWS}
+    for row in rows:
+        name = row['name']
+        if name in gain:
+            row['launches'] += gain[name]
+        elif name in short:
+            row['launches'] += short[name] - sum(
+                n for r, n in gain.items() if r.split('[')[0] == name)
     idle = [row['name'] for row in rows if not row['launches']]
     if idle:
         raise AssertionError('no launch on the main path: %s' % idle)

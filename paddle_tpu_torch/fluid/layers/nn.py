@@ -4,9 +4,7 @@ python/paddle/fluid/layers/nn.py.
 
 Each layer appends IR ops via LayerHelper exactly like the reference
 (e.g. fc at layers/nn.py:207) and the JAX package, so both packages
-build the same Program.  ``matmul`` and ``transpose`` build their ops,
-but the port has no lowering for them yet: a program holding one
-raises NotImplementedError in the executor.
+build the same Program.
 """
 
 import numpy as np
@@ -16,13 +14,14 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
-           'layer_norm', 'dropout', 'softmax', 'cross_entropy', 'matmul',
-           'elementwise_add', 'elementwise_sub', 'elementwise_mul',
-           'elementwise_div', 'elementwise_min', 'elementwise_max',
-           'reduce_sum', 'reshape', 'unsqueeze', 'transpose',
-           'split', 'softmax_with_cross_entropy',
+           'layer_norm', 'dropout', 'softmax', 'log_softmax',
+           'cross_entropy', 'matmul', 'elementwise_add', 'elementwise_sub',
+           'elementwise_mul', 'elementwise_div', 'elementwise_min',
+           'elementwise_max', 'reduce_sum', 'reshape', 'squeeze',
+           'unsqueeze', 'transpose', 'stack', 'split', 'expand', 'gather',
+           'softmax_with_cross_entropy',
            'sigmoid_cross_entropy_with_logits', 'mean', 'slice', 'topk',
-           'accuracy']
+           'accuracy', 'one_hot', 'label_smooth']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -219,6 +218,14 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
     return out
 
 
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper('log_softmax', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('log_softmax', inputs={'X': input},
+                     outputs={'Out': out}, attrs={'axis': axis})
+    return out
+
+
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):
     helper = LayerHelper('cross_entropy')
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -297,6 +304,14 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False,
     return helper.append_activation(out, act)
 
 
+def squeeze(input, axes, name=None):
+    helper = LayerHelper('squeeze2', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('squeeze2', inputs={'X': input}, outputs={'Out': out},
+                     attrs={'axes': list(axes)})
+    return out
+
+
 def unsqueeze(input, axes, name=None):
     helper = LayerHelper('unsqueeze2', name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -310,6 +325,15 @@ def transpose(x, perm, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op('transpose2', inputs={'X': x}, outputs={'Out': out},
                      attrs={'axis': list(perm)})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper('stack')
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op('stack', inputs={'X': list(x)}, outputs={'Y': out},
+                     attrs={'axis': axis})
     return out
 
 
@@ -329,6 +353,22 @@ def split(input, num_or_sections, dim=-1, name=None):
     helper.append_op('split', inputs={'X': input}, outputs={'Out': outs},
                      attrs={'axis': dim, 'num': num, 'sections': sections})
     return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper('expand', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op('expand', inputs={'X': x}, outputs={'Out': out},
+                     attrs={'expand_times': list(expand_times)})
+    return out
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper('gather')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('gather', inputs={'X': input, 'Index': index},
+                     outputs={'Out': out})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -404,3 +444,26 @@ def accuracy(input, label, k=1, correct=None, total=None):
                      outputs={'Accuracy': acc_out, 'Correct': correct,
                               'Total': total})
     return acc_out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    """f32 one-hot rows of `depth`; a trailing axis of size 1 on the ids
+    is dropped first (the JAX package's rule), so [B, T] ids give
+    [B, T, depth]."""
+    helper = LayerHelper('one_hot')
+    out = helper.create_variable_for_type_inference('float32')
+    helper.append_op('one_hot', inputs={'X': input}, outputs={'Out': out},
+                     attrs={'depth': depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype='float32',
+                 name=None):
+    helper = LayerHelper('label_smooth', name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {'X': label}
+    if prior_dist is not None:
+        inputs['PriorDist'] = prior_dist
+    helper.append_op('label_smooth', inputs=inputs, outputs={'Out': out},
+                     attrs={'epsilon': float(epsilon)})
+    return out

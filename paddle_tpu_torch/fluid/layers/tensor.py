@@ -1,7 +1,8 @@
 """Tensor layers: the subset the learning-rate schedules, gradient
-clipping, the CTR models and Variable's operators build.  Reference:
-python/paddle/fluid/layers/tensor.py; each appends the ops the JAX
-package's layers/tensor.py appends."""
+clipping, the CTR and NMT models and Variable's operators build.
+Reference: python/paddle/fluid/layers/tensor.py; each appends the ops
+the JAX package's layers/tensor.py (``shape``: its more_layers.py)
+appends."""
 
 import numpy as np
 
@@ -9,7 +10,8 @@ from .. import core
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ['assign', 'cast', 'concat', 'fill_constant', 'ones_like']
+__all__ = ['assign', 'cast', 'concat', 'fill_constant', 'ones_like',
+           'shape', 'range']
 
 
 def assign(input, output=None):
@@ -66,4 +68,30 @@ def ones_like(x, out=None):
         out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op('fill_any_like', inputs={'X': x},
                      outputs={'Out': out}, attrs={'value': 1.0})
+    return out
+
+
+def shape(input, name=None):
+    """The int32 vector of input's runtime shape."""
+    helper = LayerHelper('shape', name=name)
+    out = helper.create_variable_for_type_inference('int32')
+    helper.append_op('shape', inputs={'Input': input}, outputs={'Out': out},
+                     attrs={})
+    return out
+
+
+def range(start, end, step, dtype):
+    """[start, end) by step; the python scalars are also stored as the
+    op's __static__ attr, which its lowering requires."""
+    helper = LayerHelper('range')
+    s = fill_constant([1], dtype, start)
+    e = fill_constant([1], dtype, end)
+    st = fill_constant([1], dtype, step)
+    out = helper.create_variable_for_type_inference(core.dtype_name(dtype))
+    helper.append_op('range',
+                     inputs={'Start': s, 'End': e, 'Step': st},
+                     outputs={'Out': out},
+                     attrs={'__static__': [float(start), float(end),
+                                           float(step)]})
+    out.stop_gradient = True
     return out

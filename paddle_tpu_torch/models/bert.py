@@ -7,9 +7,10 @@ reference's multihead_matmul fused op (operators/fused/
 multihead_matmul_op.*).  At seq >= flash_min_len the attention chain is
 ONE fused_multihead_attention op, which runs the hand-written
 flash-attention kernels on the GPU (forward, in-kernel attention
-dropout, backward).  The naive matmul/softmax chain below flash_min_len
-builds, but the port has no lowering for its ops yet (the executor
-raises NotImplementedError).
+dropout, backward).  Below flash_min_len it is the JAX package's naive
+chain: reshape, transpose2, matmul (f32 products), the key bias
+broadcast as [B, 1, 1, T] (and a causal_mask_like bias where causal),
+softmax, attention dropout, matmul, transpose2, reshape.
 """
 
 import numpy as np
@@ -83,17 +84,16 @@ def multi_head_attention(x, attn_bias, cfg, is_test, key_bias=None,
         ctx = layers.reshape(out, [0, 0, h])
         return layers.fc(ctx, size=h, num_flatten_dims=2)
 
-    if causal:
-        raise NotImplementedError(
-            'causal attention below flash_min_len needs the naive chain '
-            'with a causal bias, which is not ported yet')
-
     def to_heads(t):
         t = layers.reshape(t, [0, 0, heads, d])
         return layers.transpose(t, [0, 2, 1, 3])
 
     q, k, v = to_heads(q), to_heads(k), to_heads(v)
     scores = layers.matmul(q, k, transpose_y=True, alpha=d ** -0.5)
+    if causal:
+        from .transformer import causal_bias
+        scores = layers.elementwise_add(
+            scores, causal_bias(x, x.shape[1] or -1))
     if attn_bias is not None:
         scores = layers.elementwise_add(scores, attn_bias)
     probs = layers.softmax(scores)

@@ -7,6 +7,7 @@ from . import tensor_ops  # noqa: F401
 from . import math_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import activation_ops  # noqa: F401
+from . import misc_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import collective_ops  # noqa: F401

@@ -47,3 +47,9 @@ def softmax(ctx, ins, attrs):
     x = ins['X'][0]
     xf = x if x.dtype == torch.float64 else x.float()
     return {'Out': [F.softmax(xf, dim=attrs.get('axis', -1)).to(x.dtype)]}
+
+
+@register('log_softmax')
+def log_softmax(ctx, ins, attrs):
+    """In the input's dtype, as jax.nn.log_softmax computes it."""
+    return {'Out': [F.log_softmax(ins['X'][0], dim=attrs.get('axis', -1))]}

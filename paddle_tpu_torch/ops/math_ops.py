@@ -1,12 +1,14 @@
 """Dense math, elementwise (+paddle axis broadcast), comparison,
 reduction and clipping lowerings.
 
-Reference kernels: paddle/fluid/operators/{mul,scale,sum,clip}_op.*,
+Reference kernels: paddle/fluid/operators/{matmul,mul,scale,sum,clip}_op.*,
 operators/elementwise/, operators/controlflow/compare_op.*,
-operators/reduce_ops/.  The products go to torch.matmul (cuBLAS in
-full float32 unless the caller enables TF32), as the JAX package left
-them to XLA.
+operators/reduce_ops/.  The products (mul, matmul, matmul_v2, bmm) go
+to torch.matmul (cuBLAS) in full f32 on the card, forward and backward,
+as the JAX package asks XLA for Precision.HIGHEST (``_product``).
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -16,6 +18,99 @@ from .registry import register
 
 def _x(ins, slot='X'):
     return ins[slot][0]
+
+
+@contextlib.contextmanager
+def _f32_products():
+    """cuBLAS without TF32, whatever torch.backends.cuda.matmul.
+    allow_tf32 says; the flag is put back after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _Matmul(torch.autograd.Function):
+    """torch.matmul of x and y (both at least 2-D, batch dims
+    broadcast) without TF32, whose backward also runs without it:
+    autograd's own matmul backward reads the global flag when it runs,
+    after the forward's context has closed.  Each gradient is summed
+    over the batch dims its operand was broadcast along."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        with _f32_products():
+            return torch.matmul(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        gx = gy = None
+        with _f32_products():
+            if ctx.needs_input_grad[0]:
+                gx = torch.matmul(g, y.transpose(-1, -2)).sum_to_size(
+                    x.shape)
+            if ctx.needs_input_grad[1]:
+                gy = torch.matmul(x.transpose(-1, -2), g).sum_to_size(
+                    y.shape)
+        return gx, gy
+
+
+def _product(x, y):
+    """torch.matmul of x and y in their promoted dtype.  Where
+    torch.backends.cuda.matmul.allow_tf32 allows TF32 for an f32
+    product on the card, it goes through _Matmul (a 1-D operand a row
+    or a column vector, dropped from the result, as torch.matmul
+    treats it), whose forward and backward turn TF32 off.  Otherwise
+    torch.matmul runs as it is: PyTorch's default keeps f32 products
+    in f32, and the custom Function's ~30 us of host time a product,
+    forward and backward, stays off the eager path."""
+    if x.dtype != y.dtype:
+        ct = torch.promote_types(x.dtype, y.dtype)
+        x, y = x.to(ct), y.to(ct)
+    if not (x.is_cuda and x.dtype == torch.float32 and
+            torch.backends.cuda.matmul.allow_tf32):
+        return torch.matmul(x, y)
+    out = _Matmul.apply(x.unsqueeze(0) if x.ndim == 1 else x,
+                        y.unsqueeze(-1) if y.ndim == 1 else y)
+    if y.ndim == 1:
+        out = out.squeeze(-1)
+    if x.ndim == 1:
+        out = out.squeeze(-2)
+    return out
+
+
+@register('matmul')
+def matmul(ctx, ins, attrs):
+    """Reference operators/matmul_op.cc: X and Y transposed in their
+    last two dims where asked (a 1-D operand is not), their product
+    with batch dims broadcast, then scaled by alpha."""
+    x, y = ins['X'][0], ins['Y'][0]
+    if attrs.get('transpose_X', False) and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get('transpose_Y', False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    out = _product(x, y)
+    alpha = attrs.get('alpha', 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {'Out': [out]}
+
+
+@register('matmul_v2')
+def matmul_v2(ctx, ins, attrs):
+    a = dict(attrs)
+    a['transpose_X'] = attrs.get('trans_x', False)
+    a['transpose_Y'] = attrs.get('trans_y', False)
+    return matmul(ctx, ins, a)
+
+
+@register('bmm')
+def bmm(ctx, ins, attrs):
+    return {'Out': [_product(ins['X'][0], ins['Y'][0])]}
 
 
 @register('mul')
@@ -29,10 +124,7 @@ def mul(ctx, ins, attrs):
     xs, ys = tuple(x.shape), tuple(y.shape)
     k = int(np.prod(xs[xn:]))
     n = int(np.prod(ys[yn:]))
-    if x.dtype != y.dtype:
-        ct = torch.promote_types(x.dtype, y.dtype)
-        x, y = x.to(ct), y.to(ct)
-    out = torch.matmul(x.reshape(-1, k), y.reshape(k, n))
+    out = _product(x.reshape(-1, k), y.reshape(k, n))
     return {'Out': [out.reshape(xs[:xn] + ys[yn:])]}
 
 

@@ -2,7 +2,7 @@
 lowerings.
 
 Reference: operators/{conv_cudnn,pool,batch_norm,layer_norm,dropout,
-softmax_with_cross_entropy,cross_entropy,
+softmax_with_cross_entropy,cross_entropy,label_smooth,
 sigmoid_cross_entropy_with_logits}_op.*, operators/metrics/accuracy_op.*.
 Convolutions go to cuDNN in full f32 (the JAX package's
 FLAGS_conv_precision 'highest' default), as the JAX package left them
@@ -313,18 +313,23 @@ def dropout(ctx, ins, attrs):
 
 @register('softmax_with_cross_entropy')
 def softmax_with_cross_entropy(ctx, ins, attrs):
-    """Hard-label softmax cross entropy along `axis` (reference
+    """Softmax cross entropy along `axis` (reference
     operators/softmax_with_cross_entropy_op.cc): Loss keeps the logits'
-    rank with a size-1 class dim and is 0 where the label equals
-    ignore_index; Softmax is the probabilities.  Computed in f32 (f64
-    logits in f64)."""
+    rank with a size-1 class dim; Softmax is the probabilities.  A hard
+    Label picks one class a row (Loss 0 where it equals ignore_index),
+    computed in f32 (f64 logits in f64).  A soft Label (soft_label)
+    weights every class: Loss = -sum(Label * log_softmax(logits)) with
+    the log-softmax in f32 and Softmax = exp of it, as the JAX package
+    computes it."""
     logits = ins['Logits'][0]
     label = ins['Label'][0]
     ax = attrs.get('axis', -1) % logits.ndim
     ignore_index = int(attrs.get('ignore_index', -100))
     if attrs.get('soft_label', False):
-        raise NotImplementedError('soft_label softmax_with_cross_entropy is '
-                                  'not ported yet')
+        logp = F.log_softmax(logits.float(), dim=ax)
+        loss = -torch.sum(label * logp, dim=ax, keepdim=True)
+        return {'Softmax': [torch.exp(logp).to(logits.dtype)],
+                'Loss': [loss.to(logits.dtype)]}
     lab = label if label.ndim == logits.ndim else label.unsqueeze(ax)
     lf = logits if logits.dtype == torch.float64 else logits.float()
     lse = torch.logsumexp(lf, dim=ax, keepdim=True)
@@ -352,6 +357,17 @@ def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
     if attrs.get('normalize', False):
         loss = loss / torch.clamp(torch.sum(mask.to(x.dtype)), min=1.0)
     return {'Out': [loss]}
+
+
+@register('label_smooth')
+def label_smooth(ctx, ins, attrs):
+    """Reference operators/label_smooth_op.cc: (1 - eps) * X plus eps
+    spread evenly over the last axis' classes, or eps * PriorDist."""
+    x = ins['X'][0]
+    eps = attrs.get('epsilon', 0.1)
+    if ins.get('PriorDist'):
+        return {'Out': [(1 - eps) * x + eps * ins['PriorDist'][0]]}
+    return {'Out': [(1 - eps) * x + eps / x.shape[-1]]}
 
 
 @register('cross_entropy')

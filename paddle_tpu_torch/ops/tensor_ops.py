@@ -1,9 +1,11 @@
 """Tensor creation / manipulation op lowerings, and feed/fetch.
 
 Reference kernels: paddle/fluid/operators/{fill_constant,gaussian_random,
-uniform_random,reshape,split,concat,cast,unsqueeze,lookup_table_v2}_op.cc|.cu,
+uniform_random,reshape,split,concat,cast,unsqueeze,squeeze,transpose,
+expand,stack,gather,shape,range,one_hot,lookup_table_v2}_op.cc|.cu,
 operators/{fill_any_like,increment}_op.cc,
-operators/controlflow/{feed,fetch}_op.cc.
+operators/controlflow/{feed,fetch}_op.cc.  The shape ops return views
+where the strides allow, as jnp's do under XLA.
 """
 
 import numpy as np
@@ -93,6 +95,112 @@ def reshape2(ctx, ins, attrs):
     return {'Out': [x.reshape(_resolve_shape(attrs['shape'], x))]}
 
 
+# v1 op name (no XShape output), the same semantics
+register('reshape')(reshape2)
+
+
+@register('transpose2')
+def transpose2(ctx, ins, attrs):
+    return {'Out': [_x(ins).permute(*attrs['axis'])]}
+
+
+register('transpose')(transpose2)
+
+
+@register('squeeze2', no_grad_out_slots=('XShape',))
+def squeeze2(ctx, ins, attrs):
+    """Drops the listed axes that have size 1 (every size-1 axis when
+    none is listed); an axis of another size stays."""
+    x = _x(ins)
+    axes = attrs.get('axes', [])
+    if not axes:
+        return {'Out': [x.squeeze()]}
+    axes = tuple(a % x.ndim for a in axes if x.shape[a] == 1)
+    return {'Out': [x.squeeze(axes) if axes else x]}
+
+
+@register('squeeze')
+def squeeze(ctx, ins, attrs):
+    """Reference operators/squeeze_op.cc (v1: no XShape output)."""
+    x = _x(ins)
+    axes = attrs.get('axes', [])
+    if axes:
+        shape = [d for i, d in enumerate(x.shape)
+                 if not (d == 1 and (i in axes or i - x.ndim in axes))]
+    else:
+        shape = [d for d in x.shape if d != 1]
+    return {'Out': [x.reshape(shape)]}
+
+
+@register('expand')
+def expand(ctx, ins, attrs):
+    """X repeated expand_times[i] times along axis i (jnp.tile's
+    rule)."""
+    return {'Out': [torch.tile(_x(ins), tuple(attrs['expand_times']))]}
+
+
+@register('stack')
+def stack(ctx, ins, attrs):
+    return {'Y': [torch.stack(ins['X'], dim=attrs.get('axis', 0))]}
+
+
+@register('gather')
+def gather(ctx, ins, attrs):
+    """X's slices at Index along `axis` (jnp.take): the result has
+    Index's dims in place of that axis; a negative index counts from
+    the end.  An index past either end raises (IndexError here, a
+    device-side assert on the card)."""
+    x = _x(ins)
+    idx = ins['Index'][0]
+    axis = attrs.get('axis', 0) % x.ndim
+    n = x.shape[axis]
+    flat = idx.reshape(-1).long()
+    flat = torch.where(flat < 0, flat + n, flat)
+    out = torch.index_select(x, axis, flat)
+    return {'Out': [out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape) +
+                                tuple(x.shape[axis + 1:]))]}
+
+
+@register('shape', no_grad_out_slots=('Out',))
+def shape_op(ctx, ins, attrs):
+    """Input's shape as an int32 vector."""
+    return {'Out': [torch.tensor(tuple(ins['Input'][0].shape),
+                                 dtype=torch.int32, device=ctx.device)]}
+
+
+@register('range')
+def range_op(ctx, ins, attrs):
+    """[Start, End) by Step in Start's dtype.  The layer stores literal
+    bounds as the attr __static__; the values np.arange gives for them
+    are the JAX package's (jnp.arange of static bounds).  Bounds that
+    are only tensors raise, as they do in the JAX package (XLA needs
+    static sizes)."""
+    if '__static__' not in attrs:
+        raise NotImplementedError(
+            'range with traced bounds is not supported; pass python '
+            'scalars to layers.range')
+    s, e, st = attrs['__static__']
+    dtype = ins['Start'][0].dtype
+    vals = np.arange(s, e, st, dtype=np.dtype(core.dtype_name(dtype)))
+    return {'Out': [torch.as_tensor(vals, device=ctx.device)]}
+
+
+@register('one_hot', no_grad_out_slots=('Out',))
+def one_hot(ctx, ins, attrs):
+    """f32 rows of `depth` with a 1 at each id (all 0 for an id outside
+    [0, depth)), as jax.nn.one_hot gives them.  A trailing axis of size
+    1 is dropped first, so [B, T] ids give [B, T, depth]."""
+    x = _x(ins)
+    if x.ndim > 1 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    depth = int(attrs['depth'])
+    cls = torch.arange(depth, dtype=x.dtype, device=x.device)
+    return {'Out': [(x.unsqueeze(-1) == cls).to(torch.float32)]}
+
+
+register('one_hot_v2', no_grad_out_slots=('Out',))(one_hot)
+
+
 @register('split')
 def split(ctx, ins, attrs):
     x = _x(ins)
@@ -114,6 +222,10 @@ def unsqueeze2(ctx, ins, attrs):
     for a in sorted(attrs['axes']):
         x = x.unsqueeze(a)
     return {'Out': [x]}
+
+
+# v1 op name (no XShape output), the same semantics
+register('unsqueeze')(unsqueeze2)
 
 
 @register('lookup_table_v2')

@@ -196,7 +196,9 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
 
 def test_naive_attention_program_raises_in_executor():
     """Below flash_min_len the encoder builds the matmul/softmax chain,
-    whose ops this slice does not lower: the executor names the op."""
+    which the port lowers since the attention-chain slice: the program
+    runs and gives finite [b, T, hidden] rows.  An op the port does not
+    lower yet, appended to it, makes the executor raise and name it."""
     cfg = _cfg(tbert)
     cfg.flash_min_len = 512
     main, startup = tfluid.Program(), tfluid.Program()
@@ -211,5 +213,12 @@ def test_naive_attention_program_raises_in_executor():
     exe = tfluid.Executor(tfluid.CPUPlace())
     with tfluid.scope_guard(tfluid.Scope()):
         exe.run(startup)
-        with pytest.raises(NotImplementedError, match="'transpose2'"):
+        out, = exe.run(main, feed=_requests((1,))[0], fetch_list=[enc])
+        assert out.shape == (1, SEQ, 64) and np.isfinite(out).all()
+        block = main.global_block()
+        pooled = block.create_var(name='pooled', shape=(), dtype='float32')
+        block.append_op('sequence_pool', inputs={'X': [enc.name]},
+                        outputs={'Out': [pooled.name]},
+                        attrs={'pooltype': 'SUM'}, infer_shape=False)
+        with pytest.raises(NotImplementedError, match="'sequence_pool'"):
             exe.run(main, feed=_requests((1,))[0], fetch_list=[enc])

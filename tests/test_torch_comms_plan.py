@@ -300,7 +300,10 @@ from paddle_tpu_torch.fluid import comms
 rs = np.random.RandomState(rank)
 feeds = {'x': (rs.rand(8, 3) + 0.5).astype('float32'),
          'y': rs.randn(5).astype('float32'),
-         'z': rs.randn(300).astype('float32')}
+         'z': rs.randn(300).astype('float32'),
+         'w': rs.randn(6).astype('float32')}
+if rank == 2:
+    feeds['w'][0] = 0.0
 main = fluid.Program()
 block = main.global_block()
 for n, v in feeds.items():
@@ -326,6 +329,7 @@ op('c_allreduce_sum', ['z'], {'ring_id': 0, 'plan_arm': 'quant'})
 op('c_allreduce_fused', ['x', 'y'], {'ring_id': 0, 'plan': True}, 2)
 op('c_sync_comm_stream', ['x', 'y'], {}, 2)
 op('barrier', ['y'], {})
+op('c_allreduce_prod', ['w'], {'ring_id': 0})
 main._collective_dp = True
 fluid.set_flags({'FLAGS_comms_quant_block': 64})
 exe = fluid.Executor(fluid.CPUPlace())
@@ -357,9 +361,13 @@ def four_ranks(tmp_path_factory):
 
 def _feeds(r):
     rs = np.random.RandomState(r)
-    return {'x': (rs.rand(8, 3) + 0.5).astype('float32'),
-            'y': rs.randn(5).astype('float32'),
-            'z': rs.randn(300).astype('float32')}
+    feeds = {'x': (rs.rand(8, 3) + 0.5).astype('float32'),
+             'y': rs.randn(5).astype('float32'),
+             'z': rs.randn(300).astype('float32'),
+             'w': rs.randn(6).astype('float32')}
+    if r == 2:
+        feeds['w'][0] = 0.0
+    return feeds
 
 
 def test_c_ops_over_four_ranks_match_numpy(four_ranks):
@@ -406,3 +414,17 @@ def test_quant_arm_over_four_ranks_is_near_the_sum(four_ranks):
     step = np.abs(zs).max() / 127.0
     assert np.abs(q - zs.sum(0)).max() <= 5 * step / 2
     assert not np.allclose(q, zs.sum(0), rtol=1e-6, atol=0)
+
+
+def test_c_allreduce_prod_takes_signs_and_zeros(four_ranks):
+    """c_allreduce_prod over entries of both signs and a zero on one
+    rank: numpy's product, as the reference's ncclProd gives it.  The
+    JAX package's exp(psum(log x)) is no oracle here: it is NaN wherever
+    a rank's entry is negative."""
+    ws = np.stack([_feeds(r)['w'] for r in range(4)]).astype('float64')
+    assert (ws < 0).any(axis=0).any() and (ws == 0).any()
+    for meta, got in four_ranks:
+        v = got[meta['names'][16]]
+        np.testing.assert_allclose(v, ws.prod(0), rtol=1e-6, atol=0)
+        assert v[0] == 0.0 and np.sign(v[1:]).tolist() == np.sign(
+            ws.prod(0)[1:]).tolist()

@@ -89,7 +89,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
                  'paddle_tpu_torch.dataset.mnist',
                  'paddle_tpu_torch.models.lenet',
                  'paddle_tpu_torch.models.resnet',
-                 'paddle_tpu_torch.models.se_resnext'):
+                 'paddle_tpu_torch.models.se_resnext',
+                 'paddle_tpu_torch.models.transformer',
+                 'paddle_tpu_torch.ops.misc_ops',
+                 'paddle_tpu_torch.ops.tensor_ops'):
         assert name in res['imported']
 
 

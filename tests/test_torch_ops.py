@@ -30,7 +30,8 @@ def test_lowering_matches_jax(case):
 
 
 def test_unlowered_op_raises_not_implemented():
-    # softmax has a lowering since the image slice; matmul waits for the
-    # attention chain below seq 512
-    with pytest.raises(NotImplementedError, match="'matmul'"):
-        treg.get('matmul')
+    # softmax has a lowering since the image slice, matmul since the
+    # attention chain below seq 512; sequence_pool waits for the
+    # sequence ops
+    with pytest.raises(NotImplementedError, match="'sequence_pool'"):
+        treg.get('sequence_pool')
