@@ -45,7 +45,9 @@ Phases, each of which fails the run (non-zero exit) on error:
        10,000 x 512 table at phase 11's 4096 source ids, padding ids 0
        among them (bitwise);
        fused_adam over the 153 parameters of BERT-base pretraining
-       (~132M f32 elements), an AdamW run and LeNet-5's 6 parameters:
+       (~132M f32 elements), over rank 1's rows of them (the sharded
+       optimizer state: the rows bitwise the whole update's), an AdamW
+       run and LeNet-5's 6 parameters:
        parameters and moments bitwise (the library is built with --fmad=false, so it rounds
        every operation as the plain version's separate kernels do);
        and, Adam and AdamW, views at element offsets 1, 2 and 3 (one
@@ -209,15 +211,42 @@ Phases, each of which fails the run (non-zero exit) on error:
      against the plain path); every path's latency or step time and
      rate, peak memory and a profiled request or step (its device time
      and 10 largest kernels) are printed.  f32 products run without
-     TF32 whatever torch.backends.cuda.matmul.allow_tf32 says.
+     TF32 whatever torch.backends.cuda.matmul.allow_tf32 says;
+ 12. data parallel through CompiledProgram.with_data_parallel.  In this
+     process (no process group: one replica) ResNet-50 at batch 128, 3
+     steps with cuDNN's deterministic algorithms, and BERT-base seq 512
+     (hidden dropout 0, attention dropout 0.1) under
+     ReduceStrategy.Reduce, 1 step, each bitwise Executor.run of the
+     same Program from the same state (losses and the whole state).
+     In phase 9's job, after its steps, on its 2 ranks: ResNet-50 at
+     batch 64 a rank (rows of the global batch of 128), 3 steps and 5
+     timed, no kernel launched, the ranks' states bitwise equal after
+     each step; step 1 against one replica of batch 128 on rank 0 (loss
+     rel 1e-4, moving statistics within 1e-3 of their largest; the
+     parameters' and velocities' distances printed, not held in f32)
+     and again in float64 at batch 4 a rank against one replica of
+     batch 8 (the loss and every variable within 1e-6); each rank's and
+     the job's step ms and images/s, the gradient all-reduce alone and
+     the peak memory.  Then BERT-base under Reduce at batch 4 a rank, 3
+     steps, each launching K1 and K2 12 times, K6 and K6b 3 and K4 once,
+     the parameters bitwise equal on the ranks after each, every moment
+     holding half its rows; each rank's K1 mask of step 1, read back,
+     bitwise its rows of dropout_keep_plain over the global batch; step
+     1 against one replica of batch 8 with the same masks (loss rel
+     1e-4, parameters and moments within 1e-3 of their largest); step
+     ms, tokens/s, and each rank's peak beside one AllReduce-strategy
+     step's.
 The line before the last is a JSON object {"kernels": [...]}: a row
 that times one table of a kernel (embedding_scatter_add[2-row],
 embedding_update[wide], embedding_lookup[nmt],
 embedding_scatter_add[nmt]) counts the main path's launches on that
 table,
 its kernel's row those on the kernel's other tables; fused_adam counts
-all of K4's launches (BERT-base Adam's and LeNet-5's) and
-fused_adam[lenet] LeNet-5's; a row with no launch fails the run.  The last is {"ok": true, "device": {...}}.
+all of K4's launches in this process (BERT-base Adam's and LeNet-5's)
+and fused_adam[lenet] LeNet-5's; fused_adam[zero], K4 at rank 1's
+shard of BERT-base under Reduce (half the rows of every tensor), counts
+rank 0's launches in phase 12; K1's dropout row and K2's are timed at
+rank 1's head offset (48); a row with no launch fails the run.  The last is {"ok": true, "device": {...}}.
 --profile adds a torch.profiler breakdown of one request of each batch
 size, of one step of each training path, of one data-parallel step of
 each arm and of one ResNet-50 step.
@@ -287,6 +316,13 @@ BEFORE_MS = {'flash_attention': ('the scalar-FMA K1', 0.4120),
              'embedding_update': ('K7 after torch.sort', 0.1390),
              'embedding_update[wide]': ('K7 after torch.sort', 0.0972),
              'embedding_update[1000-row]': ('K7 after torch.sort', 0.1126)}
+# K1's and K2's kernels-line rows are timed at rank 1's head-index
+# offset of phase 12's BERT-base (local batch 4, 12 heads); their times
+# without the offset (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel
+# table)
+DP_G_OFFSET = 4 * 12
+NO_OFFSET_MS = {'flash_attention[dropout]': 0.1806,
+                'flash_attention_bwd': 0.5112}
 BWD_TOL = 1e-4
 FA_BF16_TOL = 2e-2  # tests/test_torch_cuda_flash_attention.py's bf16 limit
 SLICE_TOL = 1e-3
@@ -310,6 +346,10 @@ WD_LR = 1e-3
 # step 1 of the kernel path against the plain path (see check_plain_step)
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3
+# phase 12: BERT-base's batch a rank (phase 5's batch 8 on 2 ranks), and
+# a data-parallel step 1's state against one replica of the global batch
+DP_BERT_BATCH = 4
+DP_STATE_TOL = 1e-3
 # data-parallel training (phase 9): ranks, K8's block, the time limit
 DP_RANKS = 2
 QUANT_BLOCK = 256
@@ -582,11 +622,12 @@ def check_flash(gen, dev):
     return worst
 
 
-def kernel_keep_mask(b, h, t, seed, dev):
-    """The forward kernel's dropout keep mask [b, h, t, t], read back:
-    with Q = K = 0 every unmasked key gets p = 1/64, and with the key
-    bias opening one 64-key window at a time and V one-hot over that
-    window, O[q, d] = keep(q, window + d) / (64 * (1 - rate))."""
+def kernel_keep_mask(b, h, t, seed, dev, g_offset=0):
+    """The forward kernel's dropout keep mask [b, h, t, t] at head-index
+    offset g_offset, read back: with Q = K = 0 every unmasked key gets
+    p = 1/64, and with the key bias opening one 64-key window at a time
+    and V one-hot over that window, O[q, d] = keep(q, window + d) /
+    (64 * (1 - rate))."""
     z = torch.zeros(b, t, h, 64, device=dev)
     keep = torch.empty(b, h, t, t, dtype=torch.bool, device=dev)
     for k0 in range(0, t, 64):
@@ -595,7 +636,8 @@ def kernel_keep_mask(b, h, t, seed, dev):
         bias[:, k0:k0 + w] = 0.0
         v = torch.zeros(b, t, h, 64, device=dev)
         v[:, k0:k0 + w, :, :w] = torch.eye(w, device=dev)[None, :, None, :]
-        o, _ = fa_k.flash_attention_kernel(z, z, v, False, bias, RATE, seed)
+        o, _ = fa_k.flash_attention_kernel(z, z, v, False, bias, RATE, seed,
+                                           g_offset)
         keep[:, :, :, k0:k0 + w] = (o[..., :w] > 0).permute(0, 2, 1, 3)
     return keep
 
@@ -869,6 +911,48 @@ def check_adam(gen, dev, shapes, lenet_shapes):
         log('  fused_adam %-5s %3d tensors, %d elements: bitwise equal'
             % (kind, len(subset), sum(int(np.prod(s)) for s in subset)))
     check_adam_edges(gen, dev)
+    return 0.0
+
+
+def zero_shapes(shapes):
+    """Rank 1's shard of each tensor under ReduceStrategy.Reduce on
+    DP_RANKS ranks: 1 / DP_RANKS of the rows where dim 0 is > 1 and
+    divides, else the whole tensor."""
+    return [(s[0] // DP_RANKS,) + tuple(s[1:])
+            if s[0] > 1 and s[0] % DP_RANKS == 0 else tuple(s)
+            for s in shapes]
+
+
+def check_adam_rows(gen, dev, shapes):
+    """K4 over rank 1's row slices of BERT-base's tensors (and the other
+    tensors whole) in one launch, as the sharded optimizer state runs
+    it: the updated rows bitwise the whole tensors' plain update."""
+    attrs = {'beta1': 0.9, 'beta2': 0.999, 'epsilon': EPSILON}
+    ins = adam_inputs(shapes, gen, dev)
+    want = opt_k.apply_plain('adam', None, ins, attrs)
+    rows = []
+    part = {k: list(v) for k, v in ins.items()}
+    for i, s in enumerate(shapes):
+        n = s[0]
+        r = slice(n // DP_RANKS, 2 * n // DP_RANKS) \
+            if n > 1 and n % DP_RANKS == 0 else slice(0, n)
+        rows.append(r)
+        for slot in ('Param', 'Grad', 'Moment1', 'Moment2'):
+            part[slot][i] = ins[slot][i][r]
+    opt_k.apply_kernel('adam', part, attrs)  # in place
+    torch.cuda.synchronize()
+    for slot, got_slot in (('ParamOut', 'Param'), ('Moment1Out', 'Moment1'),
+                           ('Moment2Out', 'Moment2')):
+        for got, w, r in zip(part[got_slot], want[slot], rows):
+            if not torch.equal(got, w[r]):
+                raise AssertionError('fused_adam over row slices: %s is not '
+                                     'bitwise the whole update\'s rows'
+                                     % slot)
+    log('  fused_adam over rank 1\'s rows of %d tensors (%d of them '
+        'sliced), %d elements, one launch: bitwise the whole tensors\' '
+        'plain update' % (len(shapes), sum(r != slice(0, s[0]) for r, s in
+                                           zip(rows, shapes)),
+                          sum(x.numel() for x in part['Param'])))
     return 0.0
 
 
@@ -1636,7 +1720,8 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
     bias = torch.from_numpy(req['input_mask']).to(dev) * 10000.0 - 10000.0
     qh, kh, vh = [x.transpose(1, 2) for x in (q, k, v)]
     mask = bias[:, None, None, :]
-    o, lse = fa_k.flash_attention_kernel(q, k, v, False, bias, RATE, seed)
+    o, lse = fa_k.flash_attention_kernel(q, k, v, False, bias, RATE, seed,
+                                         DP_G_OFFSET)
     do = torch.randn(b, t, h, d, generator=gen, device=dev)
     fa_bytes = 4 * (4 * b * t * h * d + b * t + b * h * t)
     fa_flops = 4 * b * h * t * t * d
@@ -1665,6 +1750,17 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
         p.grad = x.clone()
     lib_lenet = torch.optim.Adam(lenet_params, lr=LENET_LR['adam'],
                                  fused=True, capturable=True)
+    # K4 over rank 1's shard of BERT-base under ReduceStrategy.Reduce
+    # (phase 12): half the rows of every tensor whose dim 0 is even, the
+    # others whole, beside fused torch.optim.Adam on the same tensors
+    zero_ins = adam_inputs(zero_shapes(adam_shapes), gen, dev)
+    zero_table, zero_blocks = opt_k.device_table(zero_ins)
+    n_zero = sum(x.numel() for x in zero_ins['Param'])
+    zero_params = [torch.nn.Parameter(x.clone()) for x in zero_ins['Param']]
+    for p, x in zip(zero_params, zero_ins['Grad']):
+        p.grad = x.clone()
+    lib_zero = torch.optim.Adam(zero_params, lr=LR, eps=EPSILON, fused=True,
+                                capturable=True)
     lamb_attrs = {'beta1': 0.9, 'beta2': 0.999, 'epsilon': EPSILON,
                   'weight_decay': LAMB_DECAY}
     lamb_ins = lamb_inputs(adam_shapes, gen, dev)
@@ -1735,9 +1831,9 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          bound(fa_bytes, fa_flops, True), True, True),
         ('flash_attention[dropout]',
          lambda: fa_k.flash_attention_kernel(q, k, v, False, bias, RATE,
-                                             seed),
+                                             seed, DP_G_OFFSET),
          lambda: fa_k.flash_attention_plain(q, k, v, False, bias, RATE,
-                                            seed),
+                                            seed, DP_G_OFFSET),
          lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                 dropout_p=RATE),
          bound(fa_bytes, fa_flops, True), True, True),
@@ -1745,9 +1841,11 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
         # gradient needs from q, k, v, O, lse and dO
         ('flash_attention_bwd',
          lambda: fa_k.flash_attention_bwd_kernel(q, k, v, bias, o, lse, do,
-                                                 None, False, RATE, seed),
+                                                 None, False, RATE, seed,
+                                                 False, DP_G_OFFSET),
          lambda: fa_k.flash_attention_bwd_plain(q, k, v, bias, do, None,
-                                                False, RATE, seed),
+                                                False, RATE, seed, False,
+                                                DP_G_OFFSET),
          sdpa_bwd_call(q, k, v, mask, do),
          bound(4 * (8 * b * t * h * d + b * t + b * h * t),
                10 * b * h * t * t * d, True), False, True),
@@ -1792,6 +1890,11 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          lambda: opt_k.apply_plain('adam', None, lenet_ins, LENET_ADAM),
          lib_lenet.step,
          bound(28 * n_lenet + 12 * len(lenet_shapes), 0), True, True),
+        ('fused_adam[zero]',
+         lambda: opt_k.launch('adam', zero_table, zero_blocks, adam_attrs),
+         lambda: opt_k.apply_plain('adam', None, zero_ins, adam_attrs),
+         lib_zero.step,
+         bound(28 * n_zero + 12 * len(adam_shapes), 0), True, True),
         # moments pass 24 bytes an element, apply pass 16; no PyTorch
         # call computes LAMB
         ('fused_lamb',
@@ -1853,7 +1956,10 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                 ', tensor cores; %.4f ms on the f32 pipe'
                 % bnd['bound_f32_ms']) +
             ('' if name not in BEFORE_MS else
-             '; %s took %.4f ms' % BEFORE_MS[name]))
+             '; %s took %.4f ms' % BEFORE_MS[name]) +
+            ('' if name not in NO_OFFSET_MS else
+             '; at head offset %d (without it: %.4f ms)'
+             % (DP_G_OFFSET, NO_OFFSET_MS[name])))
     # K6b's parts: the sort, the zeroing (in the sort's launch) and the
     # run and long-run passes
     for rows_k, ids_k in ((30522, src), (2, zeros)):
@@ -2052,6 +2158,26 @@ def data_parallel(seed, profile):
                 res['step_collectives_ms']['dense'], res['peak'] / 2 ** 30,
                 res['bound_ratio'], res['collective_ms']['quant'],
                 res['collective_ms']['dense'], res['collective_ms']['rs_ag']))
+    rn = [res['phase12']['resnet'] for res in results]
+    bt = [res['phase12']['bert'] for res in results]
+    log('  phase 12, ResNet-50 on %d ranks of batch %d: step median %s ms, '
+        '%s images/s by rank, %.1f images/s for the job (global batch %d '
+        'over the slowest rank\'s step); gradient all-reduce alone %s ms; '
+        'peak %s GiB' % (
+            DP_RANKS, rn[0]['images'], ['%.2f' % r['step_ms'] for r in rn],
+            ['%.1f' % (r['images'] / r['step_ms'] * 1e3) for r in rn],
+            sum(r['images'] for r in rn) / max(r['step_ms'] for r in rn) *
+            1e3, sum(r['images'] for r in rn),
+            ['%.2f' % r['allreduce_ms'] for r in rn],
+            ['%.2f' % (r['peak'] / 2 ** 30) for r in rn]))
+    log('  phase 12, BERT-base Reduce on %d ranks of batch %d: step median '
+        '%s ms, %s tokens/s by rank, %.0f tokens/s for the job; peak %s GiB '
+        'against %s GiB under AllReduce' % (
+            DP_RANKS, DP_BERT_BATCH, ['%.2f' % b['step_ms'] for b in bt],
+            ['%.0f' % (b['tokens'] / b['step_ms'] * 1e3) for b in bt],
+            sum(b['tokens'] for b in bt) / max(b['step_ms'] for b in bt) *
+            1e3, ['%.2f' % (b['peak'] / 2 ** 30) for b in bt],
+            ['%.2f' % (b['peak_allreduce'] / 2 ** 30) for b in bt]))
     return results
 
 
@@ -2272,6 +2398,11 @@ def dp_worker(args):
            'n_collectives': len(colls), 'n_quant': n_quant,
            'launches': launches,
            'card_line': card_line()}
+    # phase 12 in the same job, phase 9's state freed first
+    del exe, scope, path, main, startup, block, batch, x, payloads
+    gc.collect()
+    torch.cuda.empty_cache()
+    res['phase12'] = dp_ranks_phase12(args, group, rank, n, place, dev, say)
     with open(os.path.join(args.dp_out, 'rank%d.json' % rank), 'w') as f:
         json.dump(res, f)
     dist.barrier(group=group)
@@ -2741,6 +2872,461 @@ def short_attention(seed):
     return launches
 
 
+# ----------------------------------------------------------- phase 12
+def dp_program(main, loss, reduce):
+    """main made with_data_parallel, under ReduceStrategy.Reduce (the
+    sharded optimizer state) with `reduce`."""
+    bs = fluid.BuildStrategy()
+    if reduce:
+        bs.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+    return fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, build_strategy=bs)
+
+
+def dp_bert(seed):
+    """Phase 12's BERT-base pretraining at seq 512: phase 5's program
+    with the hidden dropout at 0 and the attention dropout at RATE (the
+    masks a one-replica step can share): (main, startup, loss, cfg,
+    the launches a step)."""
+    cfg = bert.BertConfig(dropout=0.0, attn_dropout=RATE)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = bert.build_pretrain(cfg, seq_len=SEQ)
+        fluid.optimizer.Adam(learning_rate=LR, epsilon=EPSILON).minimize(loss)
+    n_attn = sum(op.type == 'fused_multihead_attention'
+                 for op in main.global_block().ops)
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update({'flash_attention': n_attn, 'flash_attention_bwd': n_attn,
+                     'embedding_lookup': 3, 'embedding_scatter_add': 3,
+                     'fused_adam': 1})
+    return main, startup, loss, cfg, expected
+
+
+def state_kind(name, stats):
+    return ('velocity' if '_velocity_' in name else
+            'moment' if '_moment' in name else
+            'stats' if name in stats else 'param')
+
+
+def worst_distance(got, want, names, stats=()):
+    """{kind: (max|got - want| / max|want|, name)} over `names`."""
+    worst = {}
+    for n in names:
+        if not want[n].is_floating_point() or want[n].numel() <= 1:
+            continue
+        d = max_abs(got[n].to(want[n].device), want[n]) / max(
+            want[n].abs().max().item(), 1e-30)
+        kind = state_kind(n, stats)
+        if d >= worst.get(kind, (-1.0,))[0]:
+            worst[kind] = (d, n)
+    return worst
+
+
+def top_host(events, n=6):
+    """The n host ops of a profile with the most self CPU time, with
+    their ms and calls."""
+    from torch.autograd import DeviceType
+    rows = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:n]
+    return ', '.join('%s %.1f ms (%d)' % (e.key, e.self_cpu_time_total / 1e3,
+                                          e.count) for e in rows)
+
+
+def dp_world_one(seed, dev):
+    """Phase 12 in this process, which has no process group: ResNet-50
+    and BERT-base through with_data_parallel (one replica) against
+    Executor.run of the same Program from the same state, bitwise;
+    returns the launches of the BERT steps (both counted: each drives
+    the main path's entry points)."""
+    path = image_path(seed, 'resnet', RESNET_BATCH, dev)
+    log('[12] with_data_parallel at world size 1 on CUDAPlace(0): '
+        '%s, batch %d, %d steps, against Executor.run' % (
+            path['name'], RESNET_BATCH, TRAIN_STEPS))
+    names = weights.startup_names(path['startup'])
+    none = {k: 0 for k in common.KERNELS}
+    runs = {}
+    start = None
+    # cuDNN's deterministic algorithms, so that two runs of one step
+    # can be held bit for bit
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ('Executor.run', 'with_data_parallel'):
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            prog = path['main'] if mode == 'Executor.run' else \
+                dp_program(path['main'], path['loss'], False)
+            with fluid.scope_guard(scope):
+                exe.run(path['startup'])
+                if start is None:
+                    start = snapshot(scope, names)
+                for n, v in start.items():
+                    scope.set_var(n, v.clone())
+                losses = []
+                for _ in range(TRAIN_STEPS):
+                    out, counts = counted(lambda: exe.run(
+                        prog, feed=path['batch'], fetch_list=[path['loss']],
+                        return_numpy=False))
+                    losses.append(out[0].clone())
+                    if counts != none:
+                        raise AssertionError('ResNet-50 launched %s'
+                                             % counts)
+                runs[mode] = (losses, snapshot(scope, names))
+            del exe, scope
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    a, b = runs['Executor.run'], runs['with_data_parallel']
+    same = all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+    differ = [n for n in names if not torch.equal(a[1][n], b[1][n])]
+    log('  %s: losses %s, %s; the state after %d steps (%d variables: '
+        'parameters, velocities, moving statistics) %s' % (
+            path['name'], ['%.6f' % float(x) for x in b[0]],
+            'bitwise Executor.run\'s' if same else 'NOT Executor.run\'s',
+            TRAIN_STEPS, len(names),
+            'bitwise equal' if not differ else 'differs in %s' % differ[:5]))
+    if not same or differ:
+        raise AssertionError('with_data_parallel at world size 1 is not '
+                             'bitwise Executor.run (ResNet-50)')
+    del path, runs, start, a, b
+    torch.cuda.empty_cache()
+
+    main, startup, loss, cfg, expected = dp_bert(seed)
+    log('[12] BERT-base seq %d, batch %d, ReduceStrategy.Reduce at world '
+        'size 1: 1 step against Executor.run' % (SEQ, TRAIN_BATCH))
+    batch = bert.synthetic_batch(cfg, TRAIN_BATCH, SEQ,
+                                 np.random.RandomState(seed))
+    names = weights.startup_names(startup)
+    launches = {k: 0 for k in common.KERNELS}
+    res = {}
+    start = None
+    for mode in ('Executor.run', 'with_data_parallel'):
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        prog = main if mode == 'Executor.run' else dp_program(main, loss,
+                                                              True)
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            if start is None:
+                start = snapshot(scope, names)
+            for n, v in start.items():
+                scope.set_var(n, v.clone())
+            out, counts = counted(lambda: exe.run(
+                prog, feed=batch, fetch_list=[loss], return_numpy=False))
+            if counts != expected:
+                raise AssertionError('BERT-base %s launched %s, expected %s'
+                                     % (mode, counts, expected))
+            for k, c in counts.items():
+                launches[k] += c
+            res[mode] = (out[0].clone(), snapshot(scope, names))
+        del exe, scope
+    a, b = res['Executor.run'], res['with_data_parallel']
+    differ = [n for n in names if not torch.equal(a[1][n], b[1][n])]
+    same = torch.equal(a[0], b[0])
+    log('  loss %.6f, %s; the state after the step (%d variables) %s; '
+        'launches a step %s' % (
+            float(b[0]), 'bitwise Executor.run\'s' if same else
+            'NOT Executor.run\'s', len(names), 'bitwise equal' if not differ
+            else 'differs in %s' % differ[:5],
+            {k: c for k, c in expected.items() if c}))
+    if not same or differ:
+        raise AssertionError('with_data_parallel at world size 1 is not '
+                             'bitwise Executor.run (BERT-base)')
+    return launches
+
+
+def dp_resnet_f64(path, start, rank, n, place, group, say):
+    """ResNet-50's data-parallel step 1 in float64 (the state and the
+    images cast; the port keeps f64 in f64, cuDNN's convolutions and the
+    collectives included) on RESNET_CPU_BATCH images a rank, against one
+    replica of the n * RESNET_CPU_BATCH images on rank 0: the loss and
+    every parameter, velocity and moving statistic within F64_TOL of
+    their largest.  Returns rank 0's distances."""
+    main, loss = path['main'], path['loss']
+    names = sorted(start)
+    feed = {'image': path['batch']['image'][:n * RESNET_CPU_BATCH].double(),
+            'label': path['batch']['label'][:n * RESNET_CPU_BATCH]}
+    rows = {k: v[rank * RESNET_CPU_BATCH:(rank + 1) * RESNET_CPU_BATCH]
+            for k, v in feed.items()}
+    state = {k: v.double() if v.is_floating_point() else v
+             for k, v in start.items()}
+
+    def step(prog, batch):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(path['startup'])
+            for name, v in state.items():
+                scope.set_var(name, v.clone())
+            got = float(exe.run(prog, feed=batch, fetch_list=[loss])[0])
+            return got, snapshot(scope, names)
+
+    l_dp, after = step(dp_program(main, loss, False), rows)
+    res = None
+    if rank == 0:
+        l_one, one = step(main, feed)
+        loss_rel = abs(l_dp - l_one) / abs(l_one)
+        worst = worst_distance(after, one, names, path['stats'])
+        say('ResNet-50 step 1 in float64, batch %d a rank, against one '
+            'replica of batch %d: loss rel %.2e; %s (limit %g of the '
+            'largest)', RESNET_CPU_BATCH, n * RESNET_CPU_BATCH, loss_rel,
+            ', '.join('%s %.2e (%s)' % (k, d, nm) for k, (d, nm)
+                      in sorted(worst.items())), F64_TOL)
+        res = {'loss_rel': loss_rel,
+               'worst': {k: d for k, (d, _) in worst.items()}}
+        if not (loss_rel <= F64_TOL and
+                max(d for d, _ in worst.values()) <= F64_TOL):
+            raise AssertionError('ResNet-50 data-parallel step 1 in float64 '
+                                 'disagrees with one replica')
+    dist.barrier(group=group)
+    return res
+
+
+def dp_ranks_phase12(args, group, rank, n, place, dev, say):
+    """Phase 12 on this rank (after phase 9, in the same job): ResNet-50
+    and BERT-base under with_data_parallel, each rank fed its rows of
+    the global batch; returns this rank's numbers."""
+    from paddle_tpu_torch.fluid import parallel_executor as pe
+    rep = registry.Replica(group, rank, n)
+    out = {}
+    if rank == 0:
+        log('[12] with_data_parallel on %d ranks over %s (%s | %s): '
+            'ResNet-50 at batch %d a rank, then BERT-base seq %d under '
+            'ReduceStrategy.Reduce at batch %d a rank' % (
+                n, dist.get_backend(group), torch.cuda.get_device_name(dev),
+                card_line(), RESNET_BATCH // n, SEQ, DP_BERT_BATCH))
+
+    # ResNet-50: global batch RESNET_BATCH, RESNET_BATCH / n a rank
+    path = image_path(args.seed, 'resnet', RESNET_BATCH, dev)
+    main, loss, startup = path['main'], path['loss'], path['startup']
+    local = RESNET_BATCH // n
+    feed = {k: v[rank * local:(rank + 1) * local]
+            for k, v in path['batch'].items()}
+    names = weights.startup_names(startup)
+    prog = dp_program(main, loss, False)
+    none = {k: 0 for k in common.KERNELS}
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    losses, secs = [], []
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        start = snapshot(scope, names)
+        if not params_in_sync(scope, names, group, dev):
+            raise AssertionError('the ranks start from different states')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(TRAIN_STEPS + TIMED_STEPS):
+            t0 = time.perf_counter()
+            got, counts = counted(lambda: exe.run(
+                prog, feed=feed, fetch_list=[loss], return_numpy=False))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if counts != none:
+                raise AssertionError('ResNet-50 launched %s' % counts)
+            if step >= TRAIN_STEPS:
+                continue
+            losses.append(float(got[0]))
+            in_sync = without_counting(
+                lambda: params_in_sync(scope, names, group, dev))
+            if step == 0:
+                after1 = snapshot(scope, names)
+            say('ResNet-50 step %d: loss %.6f (the global batch\'s), %.1f '
+                'ms, the ranks\' states (%d variables) bitwise equal %s',
+                step + 1, losses[-1], secs[-1] * 1e3, len(names), in_sync)
+            if not in_sync:
+                raise AssertionError('the ranks\' ResNet-50 states differ '
+                                     'after step %d' % (step + 1))
+        peak = torch.cuda.max_memory_allocated(dev)
+        grads = [torch.zeros(p.shape, device=dev)
+                 for p in main.all_parameters() if p.trainable]
+        events = without_counting(lambda: profile_run(
+            'rank %d ResNet-50 data-parallel step' % rank, lambda: exe.run(
+                prog, feed=feed, fetch_list=[loss])))
+        say('ResNet-50 step: device %.2f ms; host: %s', device_ms(events),
+            top_host(events))
+    del exe, scope
+    step_ms = statistics.median(secs[TRAIN_STEPS:]) * 1e3
+    ar_ms = collective_ms(lambda: pe.average(grads, rep), group)
+    say('ResNet-50: step median %.2f ms over %d timed steps %s, %.1f '
+        'images/s on this rank; the gradient all-reduce alone (%d tensors, '
+        '%.1f MB f32, flat buckets) %.2f ms; peak %.2f GiB', step_ms,
+        TIMED_STEPS, ['%.1f' % (x * 1e3) for x in secs[TRAIN_STEPS:]],
+        local / step_ms * 1e3, len(grads),
+        sum(g.numel() for g in grads) * 4 / 1e6, ar_ms, peak / 2 ** 30)
+    out['resnet'] = {'losses': losses, 'step_ms': step_ms, 'peak': peak,
+                     'allreduce_ms': ar_ms, 'images': local}
+    del grads
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # one replica of the global batch from the same state
+        ex1, sc1 = fluid.Executor(place), fluid.Scope()
+        with fluid.scope_guard(sc1):
+            ex1.run(startup)
+            for name, v in start.items():
+                sc1.set_var(name, v.clone())
+            l1 = float(without_counting(lambda: ex1.run(
+                main, feed=path['batch'], fetch_list=[loss]))[0])
+            one = snapshot(sc1, names)
+        del ex1, sc1
+        loss_rel = abs(losses[0] - l1) / abs(l1)
+        worst = worst_distance(after1, one, names, path['stats'])
+        say('ResNet-50 step 1 against one replica of batch %d from the same '
+            'state, f32: loss %.6f vs %.6f, rel %.2e (limit %g); moving '
+            'statistics %.2e of their largest (limit %g); parameters %.2e, '
+            'velocities %.2e (not held in f32: relu inputs within f32 '
+            'rounding of 0 fall on either side, phase 10)', RESNET_BATCH,
+            losses[0], l1, loss_rel, LOSS_RTOL, worst['stats'][0],
+            DP_STATE_TOL, worst['param'][0], worst['velocity'][0])
+        out['resnet']['one_replica'] = {'loss_rel': loss_rel, 'worst': {
+            k: d for k, (d, _) in worst.items()}}
+        if not (loss_rel <= LOSS_RTOL and
+                worst['stats'][0] <= DP_STATE_TOL):
+            raise AssertionError('ResNet-50 data-parallel step 1 disagrees '
+                                 'with one replica of the global batch')
+        del one
+    del feed, after1, prog
+    torch.cuda.empty_cache()
+    out['resnet']['f64'] = dp_resnet_f64(path, start, rank, n, place,
+                                         group, say)
+    del path, start
+    torch.cuda.empty_cache()
+    dist.barrier(group=group)
+
+    # BERT-base under Reduce: global batch n * DP_BERT_BATCH
+    main, startup, loss, cfg, expected = dp_bert(args.seed)
+    gbatch = bert.synthetic_batch(cfg, n * DP_BERT_BATCH, SEQ,
+                                  np.random.RandomState(args.seed))
+    feed = {k: v[rank * DP_BERT_BATCH:(rank + 1) * DP_BERT_BATCH]
+            for k, v in gbatch.items()}
+    names = weights.startup_names(startup)
+    params = sorted(p.name for p in main.all_parameters())
+    block = main.global_block()
+    # one AllReduce-strategy step's peak (its second step: the first
+    # makes the moments' shards under Reduce)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    prog = dp_program(main, loss, False)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        start = snapshot(scope, names)
+        without_counting(lambda: exe.run(prog, feed=feed, fetch_list=[loss]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        without_counting(lambda: exe.run(prog, feed=feed, fetch_list=[loss]))
+        peak_ar = torch.cuda.max_memory_allocated(dev)
+    del exe, scope, prog
+    torch.cuda.empty_cache()
+
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    prog = dp_program(main, loss, True)
+    losses, secs = [], []
+    launches = {k: 0 for k in common.KERNELS}
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for name, v in start.items():
+            scope.set_var(name, v.clone())
+        torch.cuda.synchronize()
+        for step in range(TRAIN_STEPS):
+            if step == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got, counts = counted(lambda: exe.run(
+                prog, feed=feed, fetch_list=[loss], return_numpy=False))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(got[0]))
+            for k, c in counts.items():
+                launches[k] += c
+            in_sync = without_counting(
+                lambda: params_in_sync(scope, params, group, dev))
+            if step == 0:
+                # on the host, so that the peak below is the step's
+                step1 = exe._step
+                after1 = {name: pe.whole_value(scope.find_var(name)).to(
+                    'cpu', copy=True) for name in names}
+            say('BERT-base Reduce step %d: loss %.6f, %.1f ms, launches %s, '
+                'parameters bitwise equal on the ranks %s', step + 1,
+                losses[-1], secs[-1] * 1e3,
+                {k: c for k, c in counts.items() if c}, in_sync)
+            if counts != expected:
+                raise AssertionError('step %d launched %s, expected %s'
+                                     % (step + 1, counts, expected))
+            if not in_sync:
+                raise AssertionError('the ranks\' BERT-base parameters '
+                                     'differ after step %d' % (step + 1))
+        peak = torch.cuda.max_memory_allocated(dev)
+        halved, whole = 0, 0
+        for name in names:
+            if '_moment' not in name:
+                continue
+            full = tuple(block.var(name).shape)
+            held = tuple(scope.find_var(name).shape)
+            shard = full[0] > 1 and full[0] % n == 0
+            want = (full[0] // n,) + full[1:] if shard else full
+            if held != want:
+                raise AssertionError('%s holds %s on rank %d, expected %s'
+                                     % (name, held, rank, want))
+            halved += shard
+            whole += not shard
+        events = without_counting(lambda: profile_run(
+            'rank %d BERT-base Reduce step' % rank, lambda: exe.run(
+                prog, feed=feed, fetch_list=[loss])))
+        say('BERT-base Reduce step: device %.2f ms; host: %s',
+            device_ms(events), top_host(events))
+    del exe, scope, prog
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(secs[1:]) * 1e3
+    say('BERT-base Reduce: %d moments hold 1/%d of their rows, %d whole; '
+        'step median %.2f ms (steps 2-%d), %.0f tokens/s on this rank; peak '
+        '%.2f GiB (steps 2-%d) against %.2f GiB under AllReduce: %.2f GiB '
+        'less', halved, n, whole, step_ms, TRAIN_STEPS,
+        DP_BERT_BATCH * SEQ / step_ms * 1e3, peak / 2 ** 30, TRAIN_STEPS,
+        peak_ar / 2 ** 30, (peak_ar - peak) / 2 ** 30)
+    # this rank's K1 mask of step 1's first attention op, read back
+    op = [o for o in block.ops if o.type == 'fused_multihead_attention'][0]
+    seed = registry.LowerCtx(step1, op.attrs['__op_seed__']).dropout_seed(
+        op.attrs)
+    h = cfg.heads
+    keep = without_counting(lambda: kernel_keep_mask(
+        DP_BERT_BATCH, h, SEQ, seed, dev, rank * DP_BERT_BATCH * h))
+    want = fa_k.dropout_keep_plain(seed, n * DP_BERT_BATCH, h, SEQ, SEQ,
+                                   RATE, dev)[rank * DP_BERT_BATCH:
+                                              (rank + 1) * DP_BERT_BATCH]
+    mask_ok = torch.equal(keep, want)
+    say('K1\'s keep mask of step 1 at head offset %d: bitwise rows %d-%d '
+        'of the global batch\'s dropout_keep_plain %s (keep rate %.4f)',
+        rank * DP_BERT_BATCH * h, rank * DP_BERT_BATCH,
+        (rank + 1) * DP_BERT_BATCH - 1, mask_ok, keep.float().mean().item())
+    if not mask_ok:
+        raise AssertionError('K1\'s mask on rank %d is not its rows of the '
+                             'global batch\'s' % rank)
+    del keep, want
+    out['bert'] = {'losses': losses, 'step_ms': step_ms, 'peak': peak,
+                   'peak_allreduce': peak_ar, 'launches': launches,
+                   'tokens': DP_BERT_BATCH * SEQ, 'halved': halved}
+    if rank == 0:
+        ex1, sc1 = fluid.Executor(place), fluid.Scope()
+        with fluid.scope_guard(sc1):
+            ex1.run(startup)
+            for name, v in start.items():
+                sc1.set_var(name, v.clone())
+            l1 = float(without_counting(lambda: ex1.run(
+                main, feed=gbatch, fetch_list=[loss]))[0])
+            one = snapshot(sc1, names)
+        del ex1, sc1
+        loss_rel = abs(losses[0] - l1) / abs(l1)
+        worst = worst_distance(after1, one, names)
+        say('BERT-base Reduce step 1 against one replica of batch %d with '
+            'the same masks: loss %.6f vs %.6f, rel %.2e (limit %g); %s '
+            '(limit %g of the largest)', n * DP_BERT_BATCH, losses[0], l1,
+            loss_rel, LOSS_RTOL, ', '.join(
+                '%s %.2e (%s)' % (k, d, nm) for k, (d, nm)
+                in sorted(worst.items())), DP_STATE_TOL)
+        out['bert']['one_replica'] = {'loss_rel': loss_rel, 'worst': {
+            k: d for k, (d, _) in worst.items()}}
+        if not (loss_rel <= LOSS_RTOL and
+                max(d for d, _ in worst.values()) <= DP_STATE_TOL):
+            raise AssertionError('BERT-base Reduce step 1 disagrees with '
+                                 'one replica of the global batch')
+    dist.barrier(group=group)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2796,6 +3382,8 @@ def main(argv=None):
             lambda: check_scatter(gen, dev)),
         'fused_adam': without_counting(
             lambda: check_adam(gen, dev, adam_shapes, lenet_shapes)),
+        'fused_adam[zero]': without_counting(
+            lambda: check_adam_rows(gen, dev, adam_shapes)),
         'fused_lamb': without_counting(
             lambda: check_lamb(gen, dev, adam_shapes)),
         'embedding_update': without_counting(
@@ -2871,6 +3459,9 @@ def main(argv=None):
     for row in rows:
         if row['name'] in ('quant_quantize', 'quant_reduce'):
             row['launches'] = dp[0]['launches'][row['name']]
+        elif row['name'] == 'fused_adam[zero]':
+            row['launches'] = dp[0]['phase12']['bert']['launches'][
+                'fused_adam']
 
     lenet_k4 = image_classification(args.seed, dev, args.profile)
     # K4's row counts all its launches, LeNet-5's included; the
@@ -2894,6 +3485,23 @@ def main(argv=None):
         elif name in short:
             row['launches'] += short[name] - sum(
                 n for r, n in gain.items() if r.split('[')[0] == name)
+    t0 = time.perf_counter()
+    before = dict(TABLE_LAUNCHES)
+    world_one = dp_world_one(args.seed, dev)
+    log('  phase 12 at world size 1: %.1f s' % (time.perf_counter() - t0))
+    # its BERT-base steps train with attention dropout: K1's launches go
+    # to the dropout row; each kernel's row takes the launches on its
+    # other tables
+    gain = {row: TABLE_LAUNCHES[row] - before[row] for row in TABLE_ROWS}
+    row_of = {'flash_attention': 'flash_attention[dropout]'}
+    for row in rows:
+        name = row['name']
+        if name in gain:
+            row['launches'] += gain[name]
+        for k, c in world_one.items():
+            if row_of.get(k, k) == name:
+                row['launches'] += c - sum(
+                    g for r, g in gain.items() if r.split('[')[0] == k)
     idle = [row['name'] for row in rows if not row['launches']]
     if idle:
         raise AssertionError('no launch on the main path: %s' % idle)

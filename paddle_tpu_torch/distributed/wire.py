@@ -1,12 +1,12 @@
 """The wire calls of the collective ops, over ``torch.distributed``.
 
 Each call takes a tensor and a process group and returns a new tensor;
-none writes its input.  NCCL groups move CUDA tensors card to card.  A
-gloo group takes CPU and CUDA tensors alike (torch 2.11 and later:
-all_to_all_single, all_gather, reduce_scatter, all_reduce and
-broadcast), moving a CUDA tensor through host memory itself; that is
-the transport of ranks that share a card (NCCL refuses two ranks on
-one device), whose compute stays on the card.
+none writes its input but ``all_reduce_``.  NCCL groups move CUDA
+tensors card to card.  A gloo group takes CPU and CUDA tensors alike
+(torch 2.11 and later: all_to_all_single, all_gather, reduce_scatter,
+all_reduce and broadcast), moving a CUDA tensor through host memory
+itself; that is the transport of ranks that share a card (NCCL refuses
+two ranks on one device), whose compute stays on the card.
 """
 
 import torch
@@ -22,6 +22,33 @@ def all_reduce(x, group, op=dist.ReduceOp.SUM):
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=op, group=group)
     return y
+
+
+def all_reduce_(x, group, op=dist.ReduceOp.SUM):
+    """all_reduce in place, over a contiguous x the caller owns (a flat
+    bucket)."""
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the group, whose backward sums the cotangents over
+    the group: on every rank the gradient of the ranks' summed loss
+    reaching this rank's input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def all_reduce_sum_grad(x, group):
+    """all_reduce (sum) with a gradient (_AllReduceSum)."""
+    return _AllReduceSum.apply(x, group)
 
 
 def all_to_all(x, group):

@@ -4,8 +4,9 @@ The static-graph path: Program IR, layers (with the learning-rate
 schedules) and nets, append_backward, gradient clipping, regularizers,
 the SGD, Momentum, Adam, LAMB and Adagrad optimizers, the eager
 Executor (inference and training steps), host-side metrics,
-inference-model io, and collective data parallelism (the transpilers,
-the collective fleet, the comms planner).
+inference-model io, collective data parallelism (the transpilers,
+the collective fleet, the comms planner) and data-parallel training
+through CompiledProgram.with_data_parallel and ParallelExecutor.
 """
 
 from . import core  # noqa: F401  (before framework: ops import it)
@@ -27,9 +28,13 @@ from . import incubate  # noqa: F401
 from .core import (CPUPlace, CUDAPlace, LoDTensor, Scope,  # noqa: F401
                    global_scope, scope_guard)
 from .executor import Executor  # noqa: F401
+from . import compiler  # noqa: F401
+from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                       ExecutionStrategy)
+from .parallel_executor import ParallelExecutor  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .backward import append_backward  # noqa: F401
 from .framework import (Program, Variable, Parameter,  # noqa: F401
                         default_main_program, default_startup_program,
-                        program_guard)
+                        program_guard, cpu_places, cuda_places)
 from .param_attr import ParamAttr  # noqa: F401

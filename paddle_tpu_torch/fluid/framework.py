@@ -523,3 +523,24 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(old_main)
         if old_startup is not None:
             switch_startup_program(old_startup)
+
+
+def cpu_places(device_count=None):
+    """[CPUPlace()]: a process runs one replica (JAX: framework.py:602)."""
+    return [core.CPUPlace()]
+
+
+def cuda_places(device_ids=None):
+    """CUDAPlaces of `device_ids`, by default this rank's card
+    (FLAGS_selected_gpus, which the launcher sets) or, outside the
+    launcher, every visible card (reference framework.py cuda_places;
+    JAX: :642).  More than one place needs the launcher: one process
+    drives one card."""
+    if device_ids is None:
+        sel = os.environ.get('FLAGS_selected_gpus', '')
+        if sel:
+            device_ids = [int(c) for c in sel.split(',') if c.strip()]
+        else:
+            import torch
+            device_ids = range(torch.cuda.device_count())
+    return [core.CUDAPlace(i) for i in device_ids]

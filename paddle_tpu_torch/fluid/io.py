@@ -5,7 +5,12 @@ save_inference_model(:1010), load_inference_model(:1214).
 The on-disk format is the JAX package's: persistables in one .npz (the
 reference's save_combine single-file layout), the inference model as
 ``__model__.json`` (Program.to_dict) beside ``__model_params__.npz``.
-A model either package saved loads in the other unchanged.  Loaded
+A model either package saved loads in the other unchanged.  An
+optimizer accumulator that the sharded optimizer state
+(``ReduceStrategy.Reduce``) keeps by rows is saved whole, as the JAX
+package's global arrays are: its rows are all-gathered, so every rank
+of the data-parallel job calls the save; a load puts the whole value
+back, and the next data-parallel step keeps its rows again.  Loaded
 values land in the scope as tensors on the loading executor's device,
 so a predictor moves its parameters to the device once, at load.
 """
@@ -19,6 +24,7 @@ import torch
 from . import core
 from . import framework
 from .framework import Program
+from .parallel_executor import whole_value
 
 
 def _atomic_write(path, write_fn):
@@ -79,7 +85,7 @@ def save_vars(executor, dirname, main_program=None, vars=None,
         val = scope.find_var(v.name)
         if val is None:
             raise RuntimeError('save: var %s not in scope' % v.name)
-        arrs[v.name] = core.to_numpy(val)
+        arrs[v.name] = core.to_numpy(whole_value(val))
     _atomic_savez(os.path.join(dirname, (filename or '__model_params__') +
                                '.npz'), arrs)
 

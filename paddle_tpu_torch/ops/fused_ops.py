@@ -17,7 +17,10 @@ def fused_multihead_attention(ctx, ins, attrs):
     inside the kernels, with the counter-hash mask keyed on
     ctx.dropout_seed(attrs) (op seed and step), so the backward and any
     replay regenerate it; skipped in test mode (clone(for_test) stamps
-    is_test), like the dropout op."""
+    is_test), like the dropout op.  In data parallel rank r of local
+    batch B passes the head-index offset r * B * H, so its masks are
+    rows [r * B, (r + 1) * B) of the global batch's (the JAX package's
+    one global computation)."""
     from .kernels.flash_attention import flash_attention
     q = ins['Q'][0]
     k = ins['K'][0]
@@ -27,7 +30,10 @@ def fused_multihead_attention(ctx, ins, attrs):
     seed = ctx.dropout_seed(attrs) if rate else None
     if seed is None:
         rate = 0.0
+    rep = ctx.data_parallel()
+    g_offset = rep.rank * q.shape[0] * q.shape[2] if rep and rate else 0
     return {'Out': [flash_attention(q, k, v,
                                     causal=attrs.get('causal', False),
                                     key_bias=bias, dropout_rate=rate,
-                                    dropout_seed=seed)]}
+                                    dropout_seed=seed,
+                                    dropout_g_offset=g_offset)]}

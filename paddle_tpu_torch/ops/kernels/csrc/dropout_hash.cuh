@@ -4,8 +4,8 @@
 // The same counter hash (a murmur3-finalizer mix) as the JAX package's
 // `_dropout_keep` (paddle_tpu/ops/pallas/flash_attention.py:62), so the
 // mask is bit-identical to the Pallas kernels and to the port's plain
-// version: every element (head g = b*H + h, query qpos, key kpos) draws
-// its bit from the uint32 seed alone.  All arithmetic is uint32 with
+// version: every element (head g = b*H + h plus the launch's offset,
+// query qpos, key kpos) draws its bit from the uint32 seed alone.  All arithmetic is uint32 with
 // wraparound; the keep threshold is 24-bit (`_keep_threshold`, :80).
 
 #pragma once

@@ -103,6 +103,7 @@ struct Params {
   int causal;
   int dropout;
   uint32_t seed;
+  uint32_t g_offset;
   uint32_t threshold;
   float inv_keep;
 };
@@ -235,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 3)
         const float pr = live && isfinite(x) ? __expf(x - lse_t[qi]) : 0.f;
         float pu = pr, dpu = dpt[n][e];
         if (p.dropout) {
-          const bool keep = dropout_keep(p.seed, (uint32_t)bh,
+          const bool keep = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
                                          (uint32_t)qpos, (uint32_t)key,
                                          p.threshold);
           pu = keep ? pr * p.inv_keep : 0.f;
@@ -383,7 +384,8 @@ __global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 3)
         const float pr = live && isfinite(x) ? __expf(x - lse[r]) : 0.f;
         float dpu = dp[n][e];
         if (p.dropout)
-          dpu = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qpos,
+          dpu = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+                             (uint32_t)qpos,
                              (uint32_t)key, p.threshold)
                     ? dpu * p.inv_keep
                     : 0.f;
@@ -457,7 +459,8 @@ cudaError_t launch_d(const Params& p, long long bh, int d,
 // multiples.  key_bias: [B, T] f32 contiguous or null.  lse, glse (or
 // null), delta (scratch), dbias (or null): [B*H, T] f32 contiguous.
 // dtype: 0 = f32, 1 = bf16.  D: 32, 64 or 128.  dropout: 0, or 1 with
-// the forward's seed, 24-bit keep threshold and 1 / (1 - rate).
+// the forward's seed, head-index offset, 24-bit keep threshold and
+// 1 / (1 - rate).
 // Launches the delta, dK/dV and dQ kernels in that order on `stream`;
 // returns the first CUDA error (0 on success).
 extern "C" int flash_attention_bwd(
@@ -466,7 +469,8 @@ extern "C" int flash_attention_bwd(
     const float* glse, float* delta, void* dq, void* dk, void* dv,
     float* dbias, int batch, int heads, int t_len, int d, int dtype,
     int causal, float scale, const long long* strides, int dropout,
-    uint32_t seed, uint32_t threshold, float inv_keep, void* stream) {
+    uint32_t seed, uint32_t g_offset, uint32_t threshold, float inv_keep,
+    void* stream) {
   if (batch <= 0 || heads <= 0 || t_len <= 0) return 0;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
@@ -487,6 +491,7 @@ extern "C" int flash_attention_bwd(
   p.causal = causal;
   p.dropout = dropout;
   p.seed = seed;
+  p.g_offset = g_offset;
   p.threshold = threshold;
   p.inv_keep = inv_keep;
   const int elt = dtype == 0 ? 4 : 2;

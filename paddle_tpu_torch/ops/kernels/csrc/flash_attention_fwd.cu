@@ -94,6 +94,7 @@ struct Params {
   int causal;
   int dropout;          // 1: mask the V-weighting with the keep bits
   uint32_t seed;        // dropout seed
+  uint32_t g_offset;    // added to the head index b*H + h in the hash
   uint32_t threshold;   // keep when (hash >> 8) < threshold (24-bit)
   float inv_keep;       // 1 / (1 - rate), rounded to f32
 };
@@ -224,7 +225,8 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd(const Params p) {
         if (p.dropout) {
           const int key = k0 + n * 8 + 2 * t4 + (e & 1);
           const int qpos = q0 + qr + g + 8 * r;
-          pu = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qpos,
+          pu = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+                            (uint32_t)qpos,
                             (uint32_t)key, p.threshold)
                    ? pr * p.inv_keep
                    : 0.f;
@@ -297,7 +299,9 @@ cudaError_t launch_d(const Params& p, long long bh, int d,
 // start on 16 bytes and their rows on 16-byte multiples.  key_bias:
 // [B, T] f32 contiguous or null.  lse: [B*H, T] f32 contiguous.
 // dtype: 0 = f32, 1 = bf16.  D: 32, 64 or 128.  dropout: 0, or 1 with
-// the uint32 seed, the 24-bit keep threshold and 1 / (1 - rate).
+// the uint32 seed, the 24-bit keep threshold and 1 / (1 - rate);
+// g_offset shifts the hash's head index b*H + h (a data-parallel rank's
+// rows of the global batch start at rank * B * H).
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const float* key_bias,
@@ -305,8 +309,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int t_len, int d, int dtype, int causal,
                                    float scale, const long long* strides,
                                    int dropout, uint32_t seed,
-                                   uint32_t threshold, float inv_keep,
-                                   void* stream) {
+                                   uint32_t g_offset, uint32_t threshold,
+                                   float inv_keep, void* stream) {
   if (batch <= 0 || heads <= 0 || t_len <= 0) return 0;
   Params p;
   p.q = q; p.k = k; p.v = v; p.bias = key_bias; p.o = o; p.lse = lse;
@@ -321,6 +325,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.causal = causal;
   p.dropout = dropout;
   p.seed = seed;
+  p.g_offset = g_offset;
   p.threshold = threshold;
   p.inv_keep = inv_keep;
   const int elt = dtype == 0 ? 4 : 2;

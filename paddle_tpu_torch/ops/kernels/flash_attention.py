@@ -9,7 +9,10 @@ additive key bias [B, T] (a padding mask as 0 / -10000), -> O
 (training): each element's keep bit comes from a counter hash of the
 uint32 ``dropout_seed`` and the element's (head, query, key) position,
 the JAX package's ``_dropout_keep``, so the forward kernel, the backward
-kernel and the plain version draw the same mask bit for bit.  There is
+kernel and the plain version draw the same mask bit for bit.
+``dropout_g_offset`` (the JAX kernels' argument) is added to the head
+index b*H + h: a data-parallel rank with local batch B passes
+rank * B * H, so its masks are its rows of the global batch's.  There is
 no sequence-length floor: every call on CUDA tensors launches the
 kernels.
 """
@@ -70,14 +73,16 @@ def _mul32(a, c):
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
 
 
-def dropout_keep_plain(seed, b, h, tq, tk, rate, device=None):
+def dropout_keep_plain(seed, b, h, tq, tk, rate, device=None, g_offset=0):
     """[b, h, tq, tk] bool keep mask: the counter hash of the kernels
-    (csrc/dropout_hash.cuh) at head g = b*H + h, query and key
-    positions, in int64 arithmetic reduced mod 2**32."""
+    (csrc/dropout_hash.cuh) at head g = b*H + h + g_offset, query and
+    key positions, in int64 arithmetic reduced mod 2**32 (the JAX
+    package's ``dropout_keep_dense`` with ``g_off``)."""
     def ar(n):
         return torch.arange(n, dtype=torch.int64, device=device)
 
-    g = (ar(b)[:, None] * h + ar(h)[None, :])[:, :, None, None]
+    g = (ar(b)[:, None] * h + ar(h)[None, :] + int(g_offset)) & _M32
+    g = g[:, :, None, None]
     qpos = ar(tq)[None, None, :, None]
     kpos = ar(tk)[None, None, None, :]
     x = (_mul32(qpos, 0x9E3779B1) ^ _mul32(kpos, 0x85EBCA77) ^
@@ -91,7 +96,8 @@ def dropout_keep_plain(seed, b, h, tq, tk, rate, device=None):
 
 
 def flash_attention_plain(q, k, v, causal=False, key_bias=None,
-                          dropout_rate=0.0, dropout_seed=None):
+                          dropout_rate=0.0, dropout_seed=None,
+                          dropout_g_offset=0):
     """(O [B, T, H, D] in q's dtype, lse [B, H, T] f32), computed in f32;
     differentiable by autograd.
 
@@ -115,7 +121,7 @@ def flash_attention_plain(q, k, v, causal=False, key_bias=None,
     pn = p / l_safe
     if dropout_rate:
         keep = dropout_keep_plain(dropout_seed, b, h, t, t, dropout_rate,
-                                  q.device)
+                                  q.device, dropout_g_offset)
         pn = torch.where(keep, pn * (1.0 / (1.0 - dropout_rate)), 0.0)
     o = torch.einsum('bhts,bshd->bthd', pn, v.float())
     lse = (m_safe + torch.log(l_safe)).squeeze(-1)
@@ -124,7 +130,7 @@ def flash_attention_plain(q, k, v, causal=False, key_bias=None,
 
 def flash_attention_bwd_plain(q, k, v, key_bias, do, dlse, causal=False,
                               dropout_rate=0.0, dropout_seed=None,
-                              bias_grad=False):
+                              bias_grad=False, dropout_g_offset=0):
     """The backward's plain version: autograd of flash_attention_plain
     (the same mask) for the cotangents do of O and dlse of lse (either
     may be None) -> (dq, dk, dv, dbias [B, T] f32 or None)."""
@@ -136,7 +142,7 @@ def flash_attention_bwd_plain(q, k, v, key_bias, do, dlse, causal=False,
             leaves.append(bias)
         o, lse = flash_attention_plain(leaves[0], leaves[1], leaves[2],
                                        causal, bias, dropout_rate,
-                                       dropout_seed)
+                                       dropout_seed, dropout_g_offset)
         outs, cts = [o], [torch.zeros_like(o) if do is None else do]
         if dlse is not None:
             outs.append(lse)
@@ -169,13 +175,15 @@ def _check(q, k, v, key_bias):
                             tuple(key_bias.shape)))
 
 
-def _dropout_args(rate, seed):
-    """(flag, seed, threshold, 1 / (1 - rate)) for the C launchers."""
+def _dropout_args(rate, seed, g_offset):
+    """(flag, seed, head-index offset, threshold, 1 / (1 - rate)) for
+    the C launchers."""
     if not rate:
-        return 0, 0, 0, 1.0
+        return 0, 0, 0, 0, 1.0
     if seed is None:
         raise ValueError('dropout_rate > 0 needs a dropout_seed')
-    return 1, int(seed) & _M32, keep_threshold(rate), 1.0 / (1.0 - rate)
+    return (1, int(seed) & _M32, int(g_offset) & _M32, keep_threshold(rate),
+            1.0 / (1.0 - rate))
 
 
 def _copy_aligned(x):
@@ -196,12 +204,13 @@ def _strides(*tensors):
 
 
 def flash_attention_kernel(q, k, v, causal=False, key_bias=None,
-                           dropout_rate=0.0, dropout_seed=None):
+                           dropout_rate=0.0, dropout_seed=None,
+                           dropout_g_offset=0):
     """The forward CUDA kernel on tensors of one CUDA device:
     (O [B, T, H, D] in q's dtype, lse [B, H, T] f32)."""
     _check(q, k, v, key_bias)
-    drop, seed, threshold, inv_keep = _dropout_args(dropout_rate,
-                                                    dropout_seed)
+    drop, seed, g_off, threshold, inv_keep = _dropout_args(
+        dropout_rate, dropout_seed, dropout_g_offset)
     b, t, h, d = q.shape
     dev = q.device
     q, k, v = [_copy_aligned(x) for x in (q, k, v)]
@@ -213,7 +222,8 @@ def flash_attention_kernel(q, k, v, causal=False, key_bias=None,
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -221,22 +231,23 @@ def flash_attention_kernel(q, k, v, causal=False, key_bias=None,
                  o.data_ptr(), lse.data_ptr(), b, h, t, d,
                  _DTYPE_CODES[q.dtype], int(bool(causal)),
                  1.0 / math.sqrt(d), _strides(q, k, v, o), drop, seed,
-                 threshold, inv_keep, common.stream_ptr(dev))
+                 g_off, threshold, inv_keep, common.stream_ptr(dev))
     common.check_launch('flash_attention', lib, err)
     return o, lse.view(b, h, t)
 
 
 def flash_attention_bwd_kernel(q, k, v, key_bias, o, lse, do, dlse,
                                causal=False, dropout_rate=0.0,
-                               dropout_seed=None, bias_grad=False):
+                               dropout_seed=None, bias_grad=False,
+                               dropout_g_offset=0):
     """The backward CUDA kernels on tensors of one CUDA device: the
     cotangents of q, k, v (each [B, T, H, D] in q's dtype) and, with
     bias_grad, of key_bias ([B, T] f32, summed over heads), from the
     forward's O and lse [B, H, T] and the cotangents do of O and dlse
     of lse (None: zero)."""
     _check(q, k, v, key_bias)
-    drop, seed, threshold, inv_keep = _dropout_args(dropout_rate,
-                                                    dropout_seed)
+    drop, seed, g_off, threshold, inv_keep = _dropout_args(
+        dropout_rate, dropout_seed, dropout_g_offset)
     b, t, h, d = q.shape
     dev = q.device
     if do is None:
@@ -262,7 +273,8 @@ def flash_attention_bwd_kernel(q, k, v, key_bias, o, lse, do, dlse,
     fn = lib.flash_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -274,7 +286,8 @@ def flash_attention_bwd_kernel(q, k, v, key_bias, o, lse, do, dlse,
                  dv.data_ptr(), ptr(dbias_bh), b, h, t, d,
                  _DTYPE_CODES[q.dtype], int(bool(causal)),
                  1.0 / math.sqrt(d), _strides(q, k, v, o, do, dq, dk, dv),
-                 drop, seed, threshold, inv_keep, common.stream_ptr(dev))
+                 drop, seed, g_off, threshold, inv_keep,
+                 common.stream_ptr(dev))
     common.check_launch('flash_attention_bwd', lib, err)
     dbias = None if dbias_bh is None else dbias_bh.view(b, h, t).sum(1)
     return dq, dk, dv, dbias
@@ -285,15 +298,16 @@ class _FlashAttention(torch.autograd.Function):
     tensors, the plain versions for CPU tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, causal, rate, seed):
+    def forward(ctx, q, k, v, key_bias, causal, rate, seed, g_offset):
         if common.use_kernel(q, k, v, key_bias):
             o, lse = flash_attention_kernel(q, k, v, causal, key_bias,
-                                            rate, seed)
+                                            rate, seed, g_offset)
         else:
             o, lse = flash_attention_plain(q, k, v, causal, key_bias, rate,
-                                           seed)
+                                           seed, g_offset)
         ctx.save_for_backward(q, k, v, key_bias, o, lse)
         ctx.causal, ctx.rate, ctx.seed = causal, rate, seed
+        ctx.g_offset = g_offset
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -302,40 +316,44 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, key_bias, o, lse = ctx.saved_tensors
         bias_grad = key_bias is not None and ctx.needs_input_grad[3]
         if do is None and dlse is None:
-            return (None,) * 7
+            return (None,) * 8
         if common.use_kernel(q, k, v, key_bias):
             dq, dk, dv, dbias = flash_attention_bwd_kernel(
                 q, k, v, key_bias, o, lse, do, dlse, ctx.causal, ctx.rate,
-                ctx.seed, bias_grad)
+                ctx.seed, bias_grad, ctx.g_offset)
         else:
             dq, dk, dv, dbias = flash_attention_bwd_plain(
                 q, k, v, key_bias, do, dlse, ctx.causal, ctx.rate,
-                ctx.seed, bias_grad)
+                ctx.seed, bias_grad, ctx.g_offset)
         if dbias is not None:
             dbias = dbias.to(key_bias.dtype)
-        return dq, dk, dv, dbias, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None
 
 
-def _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed):
+def _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed,
+           dropout_g_offset):
     rate = float(dropout_rate or 0.0)
     if rate and dropout_seed is None:
         raise ValueError('dropout_rate > 0 needs a dropout_seed')
     o, lse = _FlashAttention.apply(q, k, v, key_bias, bool(causal), rate,
-                                   dropout_seed)
+                                   dropout_seed, int(dropout_g_offset))
     return o, lse
 
 
 def flash_attention(q, k, v, causal=False, key_bias=None, dropout_rate=0.0,
-                    dropout_seed=None):
+                    dropout_seed=None, dropout_g_offset=0):
     """q, k, v: [B, T, H, D]; key_bias: optional [B, T] additive score
     bias -> [B, T, H, D].  dropout_rate > 0 needs a uint32
-    dropout_seed."""
-    return _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed)[0]
+    dropout_seed; dropout_g_offset shifts the mask's head index."""
+    return _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed,
+                  dropout_g_offset)[0]
 
 
 def flash_attention_with_lse(q, k, v, causal=False, key_bias=None,
-                             dropout_rate=0.0, dropout_seed=None):
+                             dropout_rate=0.0, dropout_seed=None,
+                             dropout_g_offset=0):
     """Like flash_attention but also returns the per-row log-sum-exp
     [B, H, T] (f32, of the un-dropped probabilities), the merge state
     for blockwise/ring composition; both outputs are differentiable."""
-    return _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed)
+    return _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed,
+                  dropout_g_offset)

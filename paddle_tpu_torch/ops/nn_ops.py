@@ -13,8 +13,10 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..distributed import wire
 from .registry import register
 
 
@@ -215,8 +217,10 @@ def pool2d(ctx, ins, attrs):
     return {'Out': [out.permute(0, 2, 3, 1) if nhwc else out]}
 
 
-@register('batch_norm', no_grad_out_slots=('MeanOut', 'VarianceOut',
-                                           'SavedMean', 'SavedVariance'))
+_BN_SIDE_OUTS = ('MeanOut', 'VarianceOut', 'SavedMean', 'SavedVariance')
+
+
+@register('batch_norm', no_grad_out_slots=_BN_SIDE_OUTS)
 def batch_norm(ctx, ins, attrs):
     """Reference operators/batch_norm_op.cc, as the JAX package computes
     it.  MeanOut / VarianceOut are the program's Mean / Variance
@@ -227,7 +231,21 @@ def batch_norm(ctx, ins, attrs):
     inputs stay in f64): the batch's second moment is taken about the
     first batch element's per-channel mean (a shift with no gradient),
     so |mean| >> std does not cancel; half-precision inputs take the
-    raw sums."""
+    raw sums.
+
+    In data parallel the batch is the global batch, as in the JAX
+    package's one computation: the shift is the global first element's
+    (rank 0's, broadcast), the sums are all-reduced with a gradient
+    (wire.all_reduce_sum_grad, so the backward's per-channel sums are
+    global too) and n is the global count.  A collective program
+    (``_collective_dp``) normalizes each rank by its own rows."""
+    rep = ctx.data_parallel()
+    return _batch_norm(ins, attrs, None if rep is None else rep.group)
+
+
+def _batch_norm(ins, attrs, group, raw=False):
+    """batch_norm over the rows of every rank of `group` (None: this
+    rank's), from raw sums with `raw` (sync_batch_norm's form)."""
     x = ins['X'][0]
     scale, bias = ins['Scale'][0], ins['Bias'][0]
     mean, var = ins['Mean'][0], ins['Variance'][0]
@@ -242,17 +260,31 @@ def batch_norm(ctx, ins, attrs):
                    for i in range(x.ndim))
     xf = x if x.dtype == torch.float64 else x.float()
     cnt = float(np.prod([x.shape[i] for i in red]))
+    if group is not None:
+        cnt *= dist.get_world_size(group)
+
+    def sums(a, b):
+        if group is None:
+            return a, b
+        return wire.all_reduce_sum_grad(torch.stack([a, b]), group).unbind(0)
+
     if use_global:
         m, v = mean, var
-    elif x.dtype in (torch.bfloat16, torch.float16):
-        m = torch.sum(xf, dim=red) / cnt
-        v = torch.clamp(torch.sum(xf * xf, dim=red) / cnt - m * m, min=0.0)
+    elif raw or x.dtype in (torch.bfloat16, torch.float16):
+        s1, s2 = sums(torch.sum(xf, dim=red), torch.sum(xf * xf, dim=red))
+        m = s1 / cnt
+        v = s2 / cnt - m * m
+        if not raw:
+            v = torch.clamp(v, min=0.0)
     else:
         shift = torch.mean(xf.narrow(red[0], 0, 1), dim=red).detach()
+        if group is not None:
+            shift = wire.broadcast(shift, group, 0)
         xs = xf - shift.reshape(bshape)
-        d = torch.sum(xs, dim=red) / cnt
+        s1, s2 = sums(torch.sum(xs, dim=red), torch.sum(xs * xs, dim=red))
+        d = s1 / cnt
         m = shift + d
-        v = torch.clamp(torch.sum(xs * xs, dim=red) / cnt - d * d, min=0.0)
+        v = torch.clamp(s2 / cnt - d * d, min=0.0)
     inv = torch.rsqrt(v.to(xf.dtype) + eps)
     y = (xf - m.reshape(bshape)) * inv.reshape(bshape)
     y = y * scale.reshape(bshape) + bias.reshape(bshape)
@@ -266,6 +298,22 @@ def batch_norm(ctx, ins, attrs):
     return {'Y': [y.to(x.dtype)], 'MeanOut': [mean_out],
             'VarianceOut': [var_out], 'SavedMean': [saved_m],
             'SavedVariance': [inv]}
+
+
+@register('sync_batch_norm', no_grad_out_slots=_BN_SIDE_OUTS)
+def sync_batch_norm(ctx, ins, attrs):
+    """Reference operators/sync_batch_norm_op.cu (ncclAllReduce of the
+    partial sums); the JAX package's lowering.  In a collective program
+    (``_collective_dp``) with a group of more than one rank the raw
+    per-channel sums are all-reduced over the group with a gradient
+    (the JAX package's psum inside shard_map) and n is the global
+    count; otherwise it is batch_norm (global in data parallel)."""
+    group = ctx.group if ctx.mode == 'collective' else None
+    if attrs.get('is_test', False) or \
+            attrs.get('use_global_stats', False) or group is None or \
+            dist.get_world_size(group) == 1:
+        return batch_norm(ctx, ins, attrs)
+    return _batch_norm(ins, attrs, group, raw=True)
 
 
 @register('layer_norm')
@@ -290,9 +338,10 @@ def layer_norm(ctx, ins, attrs):
 @register('dropout', no_grad_out_slots=('Mask',))
 def dropout(ctx, ins, attrs):
     """Reference operators/dropout_op.cc.  The keep mask draws from the
-    context's generator, keyed on (program seed, op seed, step), so a
-    replay of the op (its grad op) draws the same mask; it does not
-    reproduce the JAX package's threefry bits."""
+    context's generator, keyed on (program seed, op seed, step, and the
+    rank in data parallel), so a replay of the op (its grad op) draws
+    the same mask and ranks draw different ones; it does not reproduce
+    the JAX package's threefry bits."""
     x = ins['X'][0]
     p = attrs.get('dropout_prob', 0.5)
     impl = attrs.get('dropout_implementation', 'downgrade_in_infer')

@@ -16,30 +16,74 @@ synthesized from the forward lowering by torch.autograd
 import torch
 
 
+class Replica(object):
+    """One data-parallel replica of ``CompiledProgram.with_data_parallel``
+    (fluid/parallel_executor.py): this process's rank in the process
+    group of `world` ranks, each fed its own equal share of the global
+    batch."""
+
+    __slots__ = ('group', 'rank', 'world')
+
+    def __init__(self, group, rank, world):
+        self.group = group
+        self.rank = int(rank)
+        self.world = int(world)
+
+
 class LowerCtx(object):
     """Per-op lowering context: the device new tensors go to, a
-    deterministic per-(op, step) random generator, and the process
-    group ring 0 of the collective ops reduces over (None: no group,
-    every collective is the identity).
+    deterministic per-(op, step) random generator, and the two ways a
+    program runs across ranks, which ``mode`` names:
+
+    - ``'collective'``: a program the collective transpiler marked (the
+      JAX package's ``shard_map`` runner).  ``group`` is the process
+      group ring 0 of the collective ops reduces over; every other op is
+      the rank's own, ``batch_norm`` included, and ranks draw alike.
+    - ``'data_parallel'``: ``with_data_parallel`` (the JAX package's one
+      global computation under GSPMD).  ``replica`` is this rank's
+      ``Replica``; ``group`` is None, so the collective ops are the
+      identity, as outside ``shard_map``.  The ops that reduce over the
+      batch take the global batch's values (``batch_norm``), the
+      attention-dropout masks are this rank's rows of the global
+      batch's, and the dropout op draws per rank.
+    - None: one process, every collective the identity.
 
     Random draws come from an explicit ``torch.Generator`` seeded from
-    the program's ``random_seed``, the op's seed and the step; they do
-    not reproduce the JAX package's threefry bits.
+    the program's ``random_seed``, the op's seed, the step and, in data
+    parallel, the rank (rank 0 draws as one process does); they do not
+    reproduce the JAX package's threefry bits.
     """
 
     def __init__(self, step, op_seed=0, prefer_test=False, device=None,
-                 random_seed=0, group=None):
+                 random_seed=0, group=None, replica=None):
         self.step = step
         self.group = group
+        self.replica = replica
         self.op_seed = int(op_seed)
         self.prefer_test = prefer_test
         self.device = torch.device(device or 'cpu')
         self.random_seed = int(random_seed)
 
+    @property
+    def mode(self):
+        if self.replica is not None:
+            return 'data_parallel'
+        return 'collective' if self.group is not None else None
+
+    def data_parallel(self):
+        """This rank's Replica when data parallel over more than one
+        rank, else None."""
+        r = self.replica
+        return r if r is not None and r.world > 1 else None
+
     def rng(self):
         g = torch.Generator(device=self.device)
-        g.manual_seed((self.random_seed * 1000003 + self.op_seed) * 1000033
-                      + int(self.step))
+        seed = (self.random_seed * 1000003 + self.op_seed) * 1000033 + \
+            int(self.step)
+        if self.replica is not None:
+            # in the low 32 bits, which the CPU generator keeps
+            seed += self.replica.rank * 0x9E3779B1
+        g.manual_seed(seed)
         return g
 
     def dropout_seed(self, attrs):

@@ -12,13 +12,16 @@ with its declared shape.  ``numpy_state`` reads such a state out of a
 scope, the port's or the JAX package's (whose values numpy reads
 through the array protocol), so a trained state moves across too: the
 image models' parameters, moving means and variances, and momentum
-velocities.
+velocities.  An accumulator that the sharded optimizer state keeps by
+rows reads whole (its rows all-gathered: every rank of the job calls
+``numpy_state`` on it).
 """
 
 import numpy as np
 import torch
 
 from .fluid import core, io
+from .fluid.parallel_executor import whole_value
 
 
 def startup_names(startup_program):
@@ -59,7 +62,7 @@ def numpy_state(scope, names):
         value = scope.find_var(name)
         if value is None:
             raise KeyError('%r is not set in the scope' % name)
-        value = core.as_array(value)
+        value = core.as_array(whole_value(value))
         out[name] = (core.to_numpy(value)
                      if isinstance(value, torch.Tensor)
                      else np.array(value))
