@@ -19,22 +19,25 @@ Phases, each of which fails the run (non-zero exit) on error:
        with a 0/-10000 padding bias, a ragged T=200 case, a causal
        case, D = 32 and 128, one query (T=1) and one key past a tile
        (T=65) (O and lse, atol 1e-4: f32-accurate 3xTF32 products and
-       sums over up to 512 keys in another order), bf16 at D = 32, 64
-       and 128 (O bitwise the kernel's f32 output on the same values
-       rounded to bf16, lse bitwise the f32 launch's and within 1e-4
-       of the plain); with attention dropout 0.1 at B=8 H=12 T=512 and
+       sums over up to 512 keys in another order); with attention
+       dropout 0.1 at B=8 H=12 T=512 and
        at a ragged T=300 with D = 32, 64 and 128, and with fully masked
        rows (O exactly 0, lse log(1e-20)) (O and lse, atol 1e-4), and
        its keep mask read back from the kernel bitwise against the
        plain hash at the first two shapes; every case launched twice,
        the second launch bitwise the first;
        flash_attention_bwd (dQ, dK, dV, and the key-bias cotangent in
-       six cases; D = 32, 64 and 128, ragged T, causal, dropout, bf16,
-       fully masked rows) against autograd of the plain forward with the
-       same mask, max|diff| <= 1e-4 * max(1, max|plain|) (bf16: bitwise
-       the f32 path on the same values rounded to bf16, and within 2e-2
-       of the plain), and a second launch from the same inputs bitwise
-       the first;
+       six cases; D = 32, 64 and 128, ragged T, causal, dropout, fully
+       masked rows) against autograd of the plain forward with the
+       same mask, max|diff| <= 1e-4 * max(1, max|plain|), and a second
+       launch from the same inputs bitwise the first;
+       the bf16 route of both (bf16 products with f32 accumulation, P
+       and dS rounded to bf16 as the Pallas kernels round them) against
+       their plain bf16 versions at B=8 H=12 T=512 D=64 with and without
+       dropout and at head offset 48, ragged T=300 at D = 32, causal at
+       D = 128, one query and fully masked rows: O, dQ, dK, dV and the
+       bias cotangent within 2e-2 of max(1, max|plain|), lse within
+       1e-4, second launches bitwise;
        embedding_lookup on a 30522 x 768 table with 4096 ids,
        duplicates and out-of-range ids included (bitwise);
        embedding_scatter_add on the 30522 x 768, 512 x 768 and 2 x 768
@@ -123,7 +126,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      host is timed with CUDA events around single calls instead), the
      least time the card could take (bound; for K1 and K2 with their
      products as f32-accurate 3xTF32 products on the tensor cores, the
-     f32-pipe bound beside it; K1's, K4's and K8's reduce rows also
+     f32-pipe bound beside it; their bf16 rows, flash_attention[bf16],
+     flash_attention[bf16,dropout] and flash_attention_bwd[bf16], at
+     the dense bf16 rate, beside SDPA in bf16; K1's, K4's and K8's
+     reduce rows also
      print the time before their redesign), K4 also at LeNet-5's 6
      tensors (a row of its own, fused_adam[lenet]), K6b also on the 2-row
      sentence table (a row of its own) and split into its sort, its
@@ -235,7 +241,32 @@ Phases, each of which fails the run (non-zero exit) on error:
      1 against one replica of batch 8 with the same masks (loss rel
      1e-4, parameters and moments within 1e-3 of their largest); step
      ms, tokens/s, and each rank's peak beside one AllReduce-strategy
-     step's.
+     step's;
+ 13. mixed precision (fluid.contrib.mixed_precision.decorate, bf16
+     compute with dynamic loss scaling, as the JAX package's bench.py
+     trains): (a) BERT-base pretraining at seq 512, batch 8, under
+     decorate(Adam(1e-4)), attention dropout 0.1 in the kernels, 3
+     steps, each launching K1 and K2 on their bf16 route 12 times, K6
+     and K6b 3 times and K4 once, with finite f32 losses, f32 master
+     gradients and no overflow; step 1 against the plain path (the
+     plain bf16 K1 and K2: loss rel 1e-2, gradients and moments 5e-2
+     of their largest, the loss scale and counters bitwise); its
+     for_test clone (K1 bf16 without dropout 12 times); (b) the same at
+     seq 128, batch 32 (the naive chain in bf16); (c) ResNet-50 at
+     batch 128 in NHWC under decorate(Momentum(0.1, 0.9)), 3 steps and
+     5 timed, bf16 activations, step 1 within rel 5e-2 of the f32 step
+     from the same state; (d) word2vec CBOW (vocabulary 2000, embedding
+     32, hidden 256, 4 context words) with SGD(1e-3) in f32 at batch
+     32, 3 steps, 4 K6 and 4 K6b launches a step on the shared table,
+     step 1 bitwise its plain path; (e) one step of (a)'s program that
+     overflows at the current scale (the scale set to 2^127 with one
+     bad step behind it, the MLM decoder weight times 64): the verdict
+     true on the card, the scale halved, Adam's moments decayed bitwise
+     and its beta powers advanced, no synchronizing call inside the
+     step.  Each path prints its step ms (median of 5), rate, a
+     profiled step's device time and peak memory beside the same
+     model's f32 numbers from phases 5, 10 and 11 of the run, and the
+     card's name and power limit.
 The line before the last is a JSON object {"kernels": [...]}: a row
 that times one table of a kernel (embedding_scatter_add[2-row],
 embedding_update[wide], embedding_lookup[nmt],
@@ -246,7 +277,8 @@ all of K4's launches in this process (BERT-base Adam's and LeNet-5's)
 and fused_adam[lenet] LeNet-5's; fused_adam[zero], K4 at rank 1's
 shard of BERT-base under Reduce (half the rows of every tensor), counts
 rank 0's launches in phase 12; K1's dropout row and K2's are timed at
-rank 1's head offset (48); a row with no launch fails the run.  The last is {"ok": true, "device": {...}}.
+rank 1's head offset (48); the bf16 rows count phase 13's launches;
+a row with no launch fails the run.  The last is {"ok": true, "device": {...}}.
 --profile adds a torch.profiler breakdown of one request of each batch
 size, of one step of each training path, of one data-parallel step of
 each arm and of one ResNet-50 step.
@@ -263,6 +295,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -280,6 +313,7 @@ from paddle_tpu_torch.models import resnet
 from paddle_tpu_torch.models import se_resnext
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.models import wide_deep
+from paddle_tpu_torch.models import word2vec
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.ops.kernels import common
 from paddle_tpu_torch.ops.kernels import embedding as emb_k
@@ -304,6 +338,7 @@ RATE = 0.1
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 FA_TOL = 1e-4
 # times before a redesign (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's
 # kernel table), printed beside the rows of phase 8: K1 when both
@@ -396,6 +431,33 @@ NMT_ROWS = 10000
 # attention: 4096 tokens at each length
 CROSSOVER_SEQS = (128, 256, 512)
 CROSSOVER_TOKENS = 4096
+# phase 13, mixed precision as the JAX package's bench.py trains:
+# BERT-base under decorate(Adam(1e-4)) with dynamic loss scaling
+# (bench.py:311) at seq 512 batch 8 and at its own seq 128 batch 32,
+# ResNet-50 under decorate(Momentum(0.1, 0.9)) in NHWC at batch 128
+# (bench.py:36,48); word2vec CBOW at the JAX model's widths with SGD(1e-3)
+# in f32 at batch 32, as the upstream book test trains it
+AMP_LR = 1e-4
+W2V_VOCAB = 2000
+W2V_BATCH = 32
+W2V_LR = 1e-3
+# an AMP step 1 against its plain path: both round every product and
+# activation to bf16; the kernels' bf16 P differs from the plain one's
+# by a rounding (FA_BF16_TOL), in 12 layers forward and backward
+AMP_LOSS_RTOL = 1e-2
+AMP_GRAD_TOL = 5e-2
+# ResNet-50's AMP step 1 against the f32 step from the same state
+AMP_F32_LOSS_RTOL = 5e-2
+# phase 13's overflow step: the loss scale the state is set to
+OVERFLOW_SCALE = 2.0 ** 127
+SCALE_STATE = ('loss_scaling_0', 'good_steps_0', 'bad_steps_0')
+# the kernels-line rows of the flash kernels' routes
+FLASH_ROWS = ('flash_attention', 'flash_attention[dropout]',
+              'flash_attention[bf16]', 'flash_attention[bf16,dropout]',
+              'flash_attention_bwd', 'flash_attention_bwd[bf16]')
+# the f32 numbers of phases 5, 10 and 11 in this run, printed beside
+# phase 13's
+F32_RUNS = {}
 
 
 START = time.perf_counter()
@@ -577,48 +639,102 @@ def flash_twice(q, k, v, causal, bias, rate=0.0, seed=None):
 
 def check_flash(gen, dev):
     """K1 without dropout against its plain version: O and lse within
-    FA_TOL, and a second launch bitwise the first.  bf16: O bitwise the
-    kernel's own f32 output on the same values upcast, rounded to bf16
-    (the bf16 path only converts at load and store), lse bitwise the
-    f32 launch's and within FA_TOL of the plain version."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [('serving B8 H12 T512 D64', 8, 512, 12, 64, False, True, f32),
-             ('ragged B2 H4 T200 D64', 2, 200, 4, 64, False, True, f32),
-             ('causal ragged B2 H4 T300 D128', 2, 300, 4, 128, True, True,
-              f32),
-             ('no bias B1 H2 T64 D32', 1, 64, 2, 32, False, False, f32),
-             ('one query B2 H4 T1 D64', 2, 1, 4, 64, False, True, f32),
-             ('a key past a tile B2 H4 T65 D64', 2, 65, 4, 64, False, True,
-              f32),
-             ('bf16 ragged B2 H4 T300 D32', 2, 300, 4, 32, False, True,
-              bf16),
-             ('bf16 B2 H4 T512 D64', 2, 512, 4, 64, False, True, bf16),
-             ('bf16 causal ragged B2 H4 T300 D128', 2, 300, 4, 128, True,
-              True, bf16)]
+    FA_TOL, and a second launch bitwise the first (the bf16 route:
+    check_flash_bf16)."""
+    cases = [('serving B8 H12 T512 D64', 8, 512, 12, 64, False, True),
+             ('ragged B2 H4 T200 D64', 2, 200, 4, 64, False, True),
+             ('causal ragged B2 H4 T300 D128', 2, 300, 4, 128, True, True),
+             ('no bias B1 H2 T64 D32', 1, 64, 2, 32, False, False),
+             ('one query B2 H4 T1 D64', 2, 1, 4, 64, False, True),
+             ('a key past a tile B2 H4 T65 D64', 2, 65, 4, 64, False, True)]
     worst = 0.0
-    for name, b, t, h, d, causal, with_bias, dtype in cases:
-        q, k, v = [x.to(dtype) for x in qkv_views(gen, b, t, h, d, dev)]
+    for name, b, t, h, d, causal, with_bias in cases:
+        q, k, v = qkv_views(gen, b, t, h, d, dev)
         bias = padding_bias(gen, b, t, dev) if with_bias else None
         o, lse = flash_twice(q, k, v, causal, bias)
         po, plse = fa_k.flash_attention_plain(q, k, v, causal, bias)
-        note = ''
-        if dtype == bf16:
-            fo, flse = fa_k.flash_attention_kernel(
-                q.float(), k.float(), v.float(), causal, bias)
-            torch.cuda.synchronize()
-            if not (torch.equal(o, fo.to(bf16)) and torch.equal(lse, flse)):
-                raise AssertionError('flash_attention %s: not the f32 path '
-                                     'rounded' % name)
-            note = '; bitwise the f32 path rounded'
         eo, el = max_abs(o, po), max_abs(lse, plse)
-        log('  flash_attention %-36s max|dO| %.3e%s max|dlse| %.3e (limit '
-            '%g); 2nd launch bitwise%s'
-            % (name, eo, ' (bf16 O, held bitwise)' if dtype == bf16 else '',
-               el, FA_TOL, note))
-        if not (el <= FA_TOL and (dtype == bf16 or eo <= FA_TOL)):
+        log('  flash_attention %-36s max|dO| %.3e max|dlse| %.3e (limit '
+            '%g); 2nd launch bitwise' % (name, eo, el, FA_TOL))
+        if not (el <= FA_TOL and eo <= FA_TOL):
             raise AssertionError('flash_attention %s disagrees with its '
                                  'plain version' % name)
-        worst = max(worst, el, 0.0 if dtype == bf16 else eo)
+        worst = max(worst, el, eo)
+    return worst
+
+
+def check_flash_bf16(gen, dev):
+    """The bf16 route of K1 and K2 (bf16 products, P and dS rounded to
+    bf16 as the Pallas kernels round them) against their plain bf16
+    versions, which take the same rounding points: O, dQ, dK and dV
+    within FA_BF16_TOL * max(1, max|plain|) (the plain forward rounds P
+    relative to each row's maximum, the kernel relative to the running
+    maximum of the key tiles, and the f32 sums run in another order),
+    lse within FA_TOL, the bias cotangent (f32) within FA_BF16_TOL *
+    max(1, max|plain|); a second launch bitwise the first.  Returns the
+    worst max|diff| of each kernels-line row."""
+    bf16 = torch.bfloat16
+    worst = {'flash_attention[bf16]': 0.0,
+             'flash_attention[bf16,dropout]': 0.0,
+             'flash_attention_bwd[bf16]': 0.0}
+    for name, b, t, h, d, causal, rate, g_off, masked in (
+            ('B8 H12 T512 D64', 8, 512, 12, 64, False, 0.0, 0, False),
+            ('B8 H12 T512 D64', 8, 512, 12, 64, False, RATE, 0, False),
+            ('B8 H12 T512 D64 head offset 48', 8, 512, 12, 64, False, RATE,
+             DP_G_OFFSET, False),
+            ('ragged B2 H4 T300 D32', 2, 300, 4, 32, False, RATE, 0, False),
+            ('causal ragged B2 H4 T300 D128', 2, 300, 4, 128, True, 0.0, 0,
+             False),
+            ('one query B2 H4 T1 D64', 2, 1, 4, 64, False, 0.0, 0, False),
+            ('masked B2 H4 T200 D64', 2, 200, 4, 64, False, RATE, 0, True)):
+        seed = 91 + t
+        q, k, v = [x.to(bf16) for x in qkv_views(gen, b, t, h, d, dev)]
+        bias = padding_bias(gen, b, t, dev)
+        if masked:
+            bias[0] = float('-inf')
+        o, lse = fa_k.flash_attention_kernel(q, k, v, causal, bias, rate,
+                                             seed, g_off)
+        o2, lse2 = fa_k.flash_attention_kernel(q, k, v, causal, bias, rate,
+                                               seed, g_off)
+        po, plse = fa_k.flash_attention_plain(q, k, v, causal, bias, rate,
+                                              seed, g_off)
+        do = torch.randn(b, t, h, d, generator=gen, device=dev).to(bf16)
+        dlse = torch.randn(b, h, t, generator=gen, device=dev)
+        got, again = [fa_k.flash_attention_bwd_kernel(
+            q, k, v, bias, o, lse, do, dlse, causal, rate, seed, True, g_off)
+            for _ in range(2)]
+        want = fa_k.flash_attention_bwd_plain(q, k, v, bias, do, dlse, causal,
+                                              rate, seed, True, g_off)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2) and
+                all(torch.equal(x, y) for x, y in zip(got, again))):
+            raise AssertionError('flash_attention bf16 %s: a second launch '
+                                 'from the same inputs gave other bits'
+                                 % name)
+        eo, el = max_abs(o, po), max_abs(lse, plse)
+        ok = o.dtype == bf16 and el <= FA_TOL and \
+            eo <= FA_BF16_TOL * max(1.0, po.float().abs().max().item())
+        errs = []
+        for label, g, w in zip(('dQ', 'dK', 'dV', 'dbias'), got, want):
+            e = max_abs(g, w)
+            rel = e / max(1.0, w.float().abs().max().item())
+            ok = ok and rel <= FA_BF16_TOL and g.dtype == w.dtype
+            errs.append('%s %.2e' % (label, rel))
+            worst['flash_attention_bwd[bf16]'] = max(
+                worst['flash_attention_bwd[bf16]'], e)
+        if masked:
+            ok = ok and o[0].abs().max().item() == 0.0 and \
+                all(x[0].abs().max().item() == 0.0 for x in got[:3])
+        row = 'flash_attention[bf16,dropout]' if rate else \
+            'flash_attention[bf16]'
+        worst[row] = max(worst[row], eo, el)
+        log('  flash_attention bf16%s %-32s max|dO| %.3e max|dlse| %.3e; '
+            'backward %s (limit %g of max(1, max|plain|)); 2nd launches '
+            'bitwise' % (' dropout %.1f' % rate if rate else '', name, eo,
+                         el, ', '.join(errs), FA_BF16_TOL))
+        if not ok:
+            raise AssertionError('flash_attention bf16 %s disagrees with its '
+                                 'plain version' % name)
     return worst
 
 
@@ -693,13 +809,9 @@ def check_flash_dropout(gen, dev):
 def check_flash_bwd(gen, dev):
     """K2 against autograd of the plain forward, max|diff| <= 1e-4 *
     max(1, max|plain|) for dQ, dK, dV and the bias cotangent, and a second
-    launch from the same inputs bitwise the first.  bf16 (whose O reaches
-    the backward rounded, while autograd of the plain forward differs
-    through the unrounded O): bitwise the f32 kernel on the same values
-    with its gradients rounded to bf16 (the bf16 path only converts at
-    load and store), and within K1's bf16 limit, 2e-2 * max(1,
-    max|plain|), of the plain backward in f32.  'masked': batch 0's keys
-    all -inf (fully masked rows, whose gradients are 0)."""
+    launch from the same inputs bitwise the first (the bf16 route:
+    check_flash_bf16).  'masked': batch 0's keys all -inf (fully masked
+    rows, whose gradients are 0)."""
     cases = [('B8 H12 T512 D64 dropout', 8, 512, 12, 64, False, RATE, False,
               None),
              ('ragged B2 H4 T300 D64 dropout dbias+dlse', 2, 300, 4, 64,
@@ -711,19 +823,16 @@ def check_flash_bwd(gen, dev):
               RATE, True, None),
              ('ragged B2 H3 T300 D32 dropout dbias+dlse', 2, 300, 3, 32,
               False, RATE, True, None),
-             ('bf16 ragged B2 H4 T300 D64 dropout dbias', 2, 300, 4, 64,
-              False, RATE, True, 'bf16'),
              ('masked B2 H4 T200 D64 dbias+dlse', 2, 200, 4, 64, False, 0.0,
               True, 'masked')]
     worst = 0.0
     for name, b, t, h, d, causal, rate, with_grads, kind in cases:
         seed = 77 + t
-        dtype = torch.bfloat16 if kind == 'bf16' else torch.float32
-        q, k, v = [x.to(dtype) for x in qkv_views(gen, b, t, h, d, dev)]
+        q, k, v = qkv_views(gen, b, t, h, d, dev)
         bias = padding_bias(gen, b, t, dev)
         if kind == 'masked':
             bias[0] = float('-inf')
-        do = torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
+        do = torch.randn(b, t, h, d, generator=gen, device=dev)
         dlse = (torch.randn(b, h, t, generator=gen, device=dev)
                 if with_grads else None)
         o, lse = fa_k.flash_attention_kernel(q, k, v, causal, bias, rate,
@@ -732,37 +841,26 @@ def check_flash_bwd(gen, dev):
             q, k, v, bias, o, lse, do, dlse, causal, rate, seed,
             bias_grad=with_grads) for _ in range(2)]
         want = fa_k.flash_attention_bwd_plain(
-            q.float(), k.float(), v.float(), bias, do.float(), dlse, causal,
-            rate, seed, bias_grad=with_grads)
-        f32 = None
-        if kind == 'bf16':
-            f32 = fa_k.flash_attention_bwd_kernel(
-                q.float(), k.float(), v.float(), bias, o.float(), lse,
-                do.float(), dlse, causal, rate, seed, bias_grad=with_grads)
+            q, k, v, bias, do, dlse, causal, rate, seed, bias_grad=with_grads)
         torch.cuda.synchronize()
         errs = []
-        for i, (label, g, w, g2) in enumerate(zip(
-                ('dQ', 'dK', 'dV', 'dbias'), got, want, again)):
+        for label, g, w, g2 in zip(('dQ', 'dK', 'dV', 'dbias'), got, want,
+                                   again):
             if w is None:
                 continue
             if not torch.equal(g, g2):
                 raise AssertionError('flash_attention_bwd %s: a second launch '
                                      'gave another %s' % (name, label))
-            if f32 is not None and not torch.equal(g, f32[i].to(g.dtype)):
-                raise AssertionError('flash_attention_bwd %s: %s is not the '
-                                     'f32 path rounded' % (name, label))
-            tol = BWD_TOL if f32 is None else FA_BF16_TOL
             e = max_abs(g, w) / max(1.0, w.abs().max().item())
             errs.append('%s %.2e' % (label, e))
-            if not e <= tol:
+            if not e <= BWD_TOL:
                 raise AssertionError('flash_attention_bwd %s: %s differs '
                                      'from the plain backward by %g'
                                      % (name, label, e))
             if kind is None:
                 worst = max(worst, max_abs(g, w))
-        log('  flash_attention_bwd %-42s %s; 2nd launch bitwise%s'
-            % (name, ', '.join(errs), '' if f32 is None else
-               '; bitwise the f32 path rounded to bf16'))
+        log('  flash_attention_bwd %-42s %s; 2nd launch bitwise'
+            % (name, ', '.join(errs)))
     return worst
 
 
@@ -1618,7 +1716,7 @@ def train_step_ms(run):
     log('  %s step: median %.2f ms over %d steps %s, %.0f %s/s' % (
         path['name'], med, TIMED_STEPS, ['%.2f' % (x * 1e3) for x in secs],
         path['tokens'] / med * 1e3,
-        'ids' if path['bitwise'] else 'tokens'))
+        path.get('unit', 'ids' if path['bitwise'] else 'tokens')))
     for i, note in enumerate(notes):
         log('    timed step %d: %s' % (i + 1, note))
     return med
@@ -1642,15 +1740,30 @@ def profile_train(run):
             e.count))
     log('    the port\'s kernels: %.3f us of the step\'s device time'
         % sum(e.self_device_time_total for e in port))
+    return device_ms(events)
+
+
+def step_device_ms(run):
+    """The device time of one profiled step of a training run."""
+    path = run['path']
+    with fluid.scope_guard(run['scope']):
+        return device_ms(profile_run('%s step' % path['name'], lambda: run[
+            'exe'].run(path['main'], feed=path['batch'],
+                       fetch_list=[path['loss']])))
 
 
 # ------------------------------------------------------------ phase 8
-def bound(nbytes, flops, tensor_cores=False):
+def bound(nbytes, flops, tensor_cores=False, bf16=False):
     """The least time for `nbytes` of HBM traffic and `flops` of f32
     work: on the f32 pipe, or (tensor_cores) as f32-accurate products on
     the tensor cores, three TF32 products each, with the f32-pipe figure
-    kept under bound_f32_ms."""
+    kept under bound_f32_ms; `bf16`: products of bf16 operands on the
+    tensor cores at their dense bf16 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if bf16:
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        return {'bound_ms': max(t_bytes, t_ops),
+                'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
     t_f32 = flops / F32_FLOPS_PER_S * 1e3
     t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3 if tensor_cores else t_f32
     out = {'bound_ms': max(t_bytes, t_ops),
@@ -1725,6 +1838,15 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
     do = torch.randn(b, t, h, d, generator=gen, device=dev)
     fa_bytes = 4 * (4 * b * t * h * d + b * t + b * h * t)
     fa_flops = 4 * b * h * t * t * d
+    # the bf16 route at the same shape: bf16 Q, K, V, O and dO, the f32
+    # bias and lse; SDPA in bf16 (its mask in bf16) as the yardstick
+    qb, kb, vb, dob = [x.to(torch.bfloat16) for x in (q, k, v, do)]
+    qhb, khb, vhb = [x.transpose(1, 2) for x in (qb, kb, vb)]
+    mask_b = mask.to(torch.bfloat16)
+    ob, lseb = fa_k.flash_attention_kernel(qb, kb, vb, False, bias, RATE,
+                                           seed)
+    fa_bytes_b = 2 * 4 * b * t * h * d + 4 * (b * t + b * h * t)
+    fa_bwd_bytes_b = 2 * 8 * b * t * h * d + 4 * (b * t + b * h * t)
     w = torch.randn(30522, 768, generator=gen, device=dev)
     ids = torch.from_numpy(req['src_ids']).to(dev).reshape(-1)
     n = ids.numel()
@@ -1849,6 +1971,32 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          sdpa_bwd_call(q, k, v, mask, do),
          bound(4 * (8 * b * t * h * d + b * t + b * h * t),
                10 * b * h * t * t * d, True), False, True),
+        # the bf16 route (phase 13's BERT-base under AMP): one bf16
+        # product for each of the two (forward) and five (backward)
+        ('flash_attention[bf16]',
+         lambda: fa_k.flash_attention_kernel(qb, kb, vb, False, bias),
+         lambda: fa_k.flash_attention_plain(qb, kb, vb, False, bias),
+         lambda: F.scaled_dot_product_attention(qhb, khb, vhb,
+                                                attn_mask=mask_b),
+         bound(fa_bytes_b, fa_flops, bf16=True), True, True),
+        ('flash_attention[bf16,dropout]',
+         lambda: fa_k.flash_attention_kernel(qb, kb, vb, False, bias, RATE,
+                                             seed),
+         lambda: fa_k.flash_attention_plain(qb, kb, vb, False, bias, RATE,
+                                            seed),
+         lambda: F.scaled_dot_product_attention(qhb, khb, vhb,
+                                                attn_mask=mask_b,
+                                                dropout_p=RATE),
+         bound(fa_bytes_b, fa_flops, bf16=True), True, True),
+        ('flash_attention_bwd[bf16]',
+         lambda: fa_k.flash_attention_bwd_kernel(qb, kb, vb, bias, ob, lseb,
+                                                 dob, None, False, RATE,
+                                                 seed),
+         lambda: fa_k.flash_attention_bwd_plain(qb, kb, vb, bias, dob, None,
+                                                False, RATE, seed),
+         sdpa_bwd_call(qb, kb, vb, mask_b, dob),
+         bound(fa_bwd_bytes_b, 10 * b * h * t * t * d, bf16=True), False,
+         True),
         # the ids are in range here: F.embedding does not clip
         ('embedding_lookup',
          lambda: emb_k.gather_kernel(w, ids),
@@ -2539,29 +2687,46 @@ def check_plain_lenet(path, grad_fetch, start, after1, loss1, grads):
                              % path['name'])
 
 
-def image_path(seed, model, batch, dev):
+def image_path(seed, model, batch, dev, bench=None):
     """ResNet-50 ('resnet') or SE-ResNeXt-50 ('se_resnext', cardinality
     32) with Momentum and L2Decay on CUDAPlace(0): the path dict, its
     for_test clone, and a batch of uniform [0, 1) images (as the JAX
-    package's bench.py makes them) and labels from `seed`, on `dev`."""
+    package's bench.py makes them) and labels from `seed`, on `dev`.
+    With `bench` ('amp' or 'f32'), ResNet-50 as bench_resnet50 trains
+    it: NHWC, Momentum without decay, under decorate for 'amp'."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed + 1
+    layout = 'NHWC' if bench else 'NCHW'
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         if model == 'resnet':
-            _, out, loss, acc = resnet.build(class_dim=IMAGE_CLASSES)
+            _, out, loss, acc = resnet.build(class_dim=IMAGE_CLASSES,
+                                             data_format=layout)
         else:
             _, out, loss, acc = se_resnext.build(class_dim=IMAGE_CLASSES)
         test = main.clone(for_test=True)
-        fluid.optimizer.Momentum(
-            IMAGE_LR, IMAGE_MOMENTUM,
-            regularization=fluid.regularizer.L2Decay(IMAGE_DECAY)
-        ).minimize(loss)
+        if bench:
+            opt = fluid.optimizer.Momentum(IMAGE_LR, IMAGE_MOMENTUM)
+            if bench == 'amp':
+                opt = fluid.contrib.mixed_precision.decorate(
+                    opt, use_dynamic_loss_scaling=True)
+            opt.minimize(loss)
+            # after minimize: the clone keeps the AMP marks
+            test = main.clone(for_test=True)
+        else:
+            fluid.optimizer.Momentum(
+                IMAGE_LR, IMAGE_MOMENTUM,
+                regularization=fluid.regularizer.L2Decay(IMAGE_DECAY)
+            ).minimize(loss)
     rng = np.random.RandomState(seed)
-    x = torch.from_numpy(rng.rand(batch, 3, 224, 224).astype('float32'))
+    shape = (batch, 224, 224, 3) if bench else (batch, 3, 224, 224)
+    x = torch.from_numpy(rng.rand(*shape).astype('float32'))
     y = torch.from_numpy(rng.randint(0, IMAGE_CLASSES, (batch, 1)))
     stats = sorted(p.name for p in main.all_parameters()
                    if not p.trainable)
-    return {'name': 'ResNet-50' if model == 'resnet' else 'SE-ResNeXt-50',
+    name = 'ResNet-50' if model == 'resnet' else 'SE-ResNeXt-50'
+    if bench:
+        name += ' NHWC %s' % ('AMP' if bench == 'amp' else 'f32')
+    return {'name': name,
             'main': main, 'startup': startup, 'test': test, 'loss': loss,
             'out': out, 'acc': acc, 'stats': stats,
             'batch': {'image': x.to(dev), 'label': y.to(dev)},
@@ -2630,7 +2795,7 @@ def train_image(path, steps, timed, profile):
         raise AssertionError('%s: moving statistics not updated: %s' % (
             path['name'], sorted(set(path['stats']) - set(moved))[:5]))
     return {'exe': exe, 'scope': scope, 'start': start, 'step_ms': med,
-            'peak': peak, 'device_ms': dev_ms}
+            'peak': peak, 'device_ms': dev_ms, 'losses': losses}
 
 
 def check_eval(path, run):
@@ -2749,6 +2914,10 @@ def image_classification(seed, dev, profile):
             path['name'], RESNET_BATCH, IMAGE_CLASSES, IMAGE_LR,
             IMAGE_MOMENTUM, IMAGE_DECAY))
     run = train_image(path, TRAIN_STEPS, TIMED_STEPS, profile)
+    F32_RUNS['resnet50'] = dict(
+        phase=10, step_ms=run['step_ms'],
+        rate=RESNET_BATCH / run['step_ms'] * 1e3, unit='images',
+        device_ms=run['device_ms'], peak=run['peak'])
     check_eval(path, run)
     start = run['start']
     del run
@@ -2863,8 +3032,10 @@ def short_attention(seed):
         if path['name'].startswith('Transformer'):
             for k, c in bucket_step(run, seed).items():
                 launches[k] += c
-        without_counting(lambda: train_step_ms(run))
-        without_counting(lambda: profile_train(run))
+        med = without_counting(lambda: train_step_ms(run))
+        dev_ms = without_counting(lambda: profile_train(run))
+        if not path['name'].startswith('Transformer'):
+            F32_RUNS['bert128'] = step_numbers(11, run, med, dev_ms)
         del run
         torch.cuda.empty_cache()
     log('  launches on phase 11\'s paths: %s'
@@ -3327,6 +3498,433 @@ def dp_ranks_phase12(args, group, rank, n, place, dev, say):
     return out
 
 
+# ----------------------------------------------------------- phase 13
+def step_numbers(phase, run, step_ms, dev_ms):
+    """A training run's step ms, rate, device ms and peak memory, as
+    side_by_side prints them."""
+    path = run['path']
+    return dict(phase=phase, step_ms=step_ms,
+                rate=path['tokens'] / step_ms * 1e3,
+                unit=path.get('unit', 'tokens'), device_ms=dev_ms,
+                peak=run['peak'])
+
+
+def flash_row(dtype, rate, bwd=False):
+    """The kernels-line row of a flash launch on `dtype` inputs."""
+    tags = (['bf16'] if dtype == torch.bfloat16 else []) + \
+        (['dropout'] if rate and not bwd else [])
+    return 'flash_attention%s%s' % ('_bwd' if bwd else '',
+                                    '[%s]' % ','.join(tags) if tags else '')
+
+
+def flash_counted(fn):
+    """(fn(), launches per kernel, the flash kernels' launches by route)
+    as counted() gives them; the flash wrappers tally each launch on the
+    row of its dtype and dropout (FLASH_ROWS)."""
+    rows = dict.fromkeys(FLASH_ROWS, 0)
+    fwd, bwd = fa_k.flash_attention_kernel, fa_k.flash_attention_bwd_kernel
+
+    def fwd_counted(q, *args):
+        before = common.launches('flash_attention')
+        out = fwd(q, *args)
+        rows[flash_row(q.dtype, args[4] if len(args) > 4 else 0.0)] += \
+            common.launches('flash_attention') - before
+        return out
+
+    def bwd_counted(q, *args):
+        before = common.launches('flash_attention_bwd')
+        out = bwd(q, *args)
+        rows[flash_row(q.dtype, 0.0, True)] += \
+            common.launches('flash_attention_bwd') - before
+        return out
+    fa_k.flash_attention_kernel = fwd_counted
+    fa_k.flash_attention_bwd_kernel = bwd_counted
+    try:
+        out, counts = counted(fn)
+    finally:
+        fa_k.flash_attention_kernel = fwd
+        fa_k.flash_attention_bwd_kernel = bwd
+    return out, counts, rows
+
+
+def amp_bert_path(seed, seq, batch):
+    """BERT-base pretraining under decorate(Adam(AMP_LR)) with dynamic
+    loss scaling, as bench.py trains it, and the for_test clone of its
+    Program (the AMP marks kept, attention dropout off)."""
+    cfg = bert.BASE
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = bert.build_pretrain(cfg, seq_len=seq)
+        fluid.contrib.mixed_precision.decorate(
+            fluid.optimizer.Adam(AMP_LR),
+            use_dynamic_loss_scaling=True).minimize(loss)
+    test = main.clone(for_test=True)
+    n_attn = sum(op.type == 'fused_multihead_attention'
+                 for op in main.global_block().ops)
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update({'flash_attention': n_attn,
+                     'flash_attention_bwd': n_attn, 'embedding_lookup': 3,
+                     'embedding_scatter_add': 3, 'fused_adam': 1})
+    decoder = [p.name for p in main.all_parameters()
+               if p.shape == (cfg.hidden, cfg.vocab_size)][0]
+    return {'name': 'BERT-base AMP Adam seq %d' % seq, 'main': main,
+            'startup': startup, 'test': test, 'loss': loss, 'lr': None,
+            'batch': bert.synthetic_batch(cfg, batch, seq,
+                                          np.random.RandomState(seed)),
+            'expected': expected, 'n_attn': n_attn, 'decoder': decoder,
+            'probe': ['embedding_0.w_0', 'fc_0.w_0', 'layer_norm_0.w_0',
+                      decoder],
+            'tokens': batch * seq, 'rate': AMP_LR, 'bitwise': False}
+
+
+def amp_train(path):
+    """TRAIN_STEPS steps of an AMP path on CUDAPlace(0): each step's
+    launches exact (every flash launch on the bf16 route), finite losses,
+    no overflow (the scale stays, the good-step counter counts the
+    steps); step 1 against the plain path (amp_plain_step).  Returns the
+    run, with the flash launches by route."""
+    main, startup, loss = path['main'], path['startup'], path['loss']
+    params = main.all_parameters()
+    log('  %s program: %d ops, %d parameters (%d elements), %d marked '
+        '__amp__, %d __amp_gray__, %d black' % (
+            path['name'], len(main.global_block().ops), len(params),
+            sum(int(np.prod(p.shape)) for p in params),
+            *[sum(bool(op.attrs.get(m)) for op in main.global_block().ops)
+              for m in ('__amp__', '__amp_gray__', '__amp_black__')]))
+    state_names = weights.startup_names(startup)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    grad_fetch = [main._grad_name_map[p] for p in path['probe']]
+    launches = {k: 0 for k in common.KERNELS}
+    flash = dict.fromkeys(FLASH_ROWS, 0)
+    losses = []
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        start = snapshot(scope, state_names)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            out, counts, rows = flash_counted(lambda: exe.run(
+                main, feed=path['batch'],
+                fetch_list=[loss] + (grad_fetch if step == 0 else []),
+                return_numpy=False))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            losses.append(float(out[0]))
+            if step == 0:
+                grads = [g.clone() for g in out[1:]]
+                after1 = snapshot(scope, state_names)
+                dtypes = {'loss': out[0].dtype,
+                          'gradients': sorted({str(g.dtype) for g in grads})}
+            for k, c in counts.items():
+                launches[k] += c
+            for k, c in rows.items():
+                flash[k] += c
+            log('  step %d: loss %.6f, %.1f ms, launches %s, flash by route '
+                '%s' % (step + 1, losses[-1], ms,
+                        {k: c for k, c in counts.items() if c},
+                        {k: c for k, c in rows.items() if c}))
+            want_rows = dict.fromkeys(FLASH_ROWS, 0)
+            want_rows['flash_attention[bf16,dropout]'] = path['n_attn']
+            want_rows['flash_attention_bwd[bf16]'] = path['n_attn']
+            if counts != path['expected'] or rows != want_rows:
+                raise AssertionError('step %d launched %s (%s), expected %s '
+                                     '(%s)' % (step + 1, counts, rows,
+                                               path['expected'], want_rows))
+        peak = torch.cuda.max_memory_allocated()
+        scale = {n: scope.find_var(n).tolist() for n in SCALE_STATE}
+    log('  losses %s (f32 %s, gradients %s); peak device memory %.2f GiB; '
+        'loss scaling %s' % (['%.6f' % x for x in losses], dtypes['loss'],
+                             dtypes['gradients'], peak / 2 ** 30, scale))
+    if not all(np.isfinite(losses)) or dtypes['loss'] != torch.float32 or \
+            dtypes['gradients'] != ['torch.float32']:
+        raise AssertionError('%s: losses %s not finite, or the loss or the '
+                             'master gradients not f32 (%s)'
+                             % (path['name'], losses, dtypes))
+    if scale != {'loss_scaling_0': [2.0 ** 15],
+                 'good_steps_0': [TRAIN_STEPS], 'bad_steps_0': [0]}:
+        raise AssertionError('%s: loss scaling %s after %d good steps'
+                             % (path['name'], scale, TRAIN_STEPS))
+    amp_plain_step(path, [loss.name] + grad_fetch, start, after1, losses[0],
+                   grads)
+    return {'path': path, 'exe': exe, 'scope': scope, 'launches': launches,
+            'flash': flash, 'peak': peak, 'start': start}
+
+
+def amp_plain_step(path, fetch, start, after1, loss1, grads):
+    """Step 1 again from the same state and step counter with every
+    kernel's plain version (the plain bf16 K1 and K2 among them): the
+    loss within AMP_LOSS_RTOL, the probed gradients and both moments of
+    every parameter within AMP_GRAD_TOL of their largest, the loss scale
+    and its counters bitwise."""
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    flags.set_flags({'FLAGS_torch_kernels_plain': True})
+    try:
+        with fluid.scope_guard(scope):
+            without_counting(lambda: exe.run(path['startup']))
+            exe._step = 1
+            for n, v in start.items():
+                scope.set_var(n, v.clone())
+            out = without_counting(lambda: exe.run(
+                path['main'], feed=path['batch'], fetch_list=fetch,
+                return_numpy=False))
+            torch.cuda.synchronize()
+            got = snapshot(scope, list(start))
+    finally:
+        flags.set_flags({'FLAGS_torch_kernels_plain': False})
+    loss_err = abs(float(out[0]) - loss1) / abs(loss1)
+    grad_err = max(max_abs(a, b) / b.abs().max().item()
+                   for a, b in zip(grads, out[1:]))
+    moment_err = max(max_abs(after1[n], got[n]) /
+                     max(got[n].abs().max().item(), 1e-30)
+                     for n in start if '_moment' in n)
+    scale_same = all(torch.equal(after1[n], got[n]) for n in SCALE_STATE)
+    log('  step 1 vs the plain path: loss rel %.2e (limit %g), gradients '
+        'of %s rel %.2e, moments rel %.2e (limit %g), loss scaling %s'
+        % (loss_err, AMP_LOSS_RTOL, path['probe'], grad_err, moment_err,
+           AMP_GRAD_TOL, 'bitwise' if scale_same else 'DIFFERS'))
+    if not (loss_err <= AMP_LOSS_RTOL and grad_err <= AMP_GRAD_TOL and
+            moment_err <= AMP_GRAD_TOL and scale_same):
+        raise AssertionError('%s: step 1 disagrees with its plain path'
+                             % path['name'])
+
+
+def amp_numbers(run):
+    """Step ms (median of TIMED_STEPS), rate, a profiled step's device
+    time and the peak memory of a training run."""
+    med = without_counting(lambda: train_step_ms(run))
+    dev_ms = without_counting(lambda: step_device_ms(run))
+    return step_numbers(13, run, med, dev_ms)
+
+
+def side_by_side(name, amp, f32, card):
+    """One line: the AMP path's numbers beside the same model's f32
+    numbers from an earlier phase of this run, and the card."""
+    def fmt(x):
+        return ('step %.2f ms, %.0f %s/s, device %.2f ms a profiled step, '
+                'peak %.2f GiB' % (x['step_ms'], x['rate'], x['unit'],
+                                   x['device_ms'], x['peak'] / 2 ** 30))
+    log('  %s: bf16 (AMP) %s | f32 (phase %d, this run) %s | %s' % (
+        name, fmt(amp), f32['phase'], fmt(f32), card))
+
+
+def amp_eval(run):
+    """The for_test clone of an AMP program: its forward in bf16 with
+    attention dropout off.  Returns the flash launches by route."""
+    path = run['path']
+    with fluid.scope_guard(run['scope']):
+        out, counts, rows = flash_counted(lambda: run['exe'].run(
+            path['test'], feed=path['batch'], fetch_list=[path['loss']],
+            return_numpy=False))
+    want = dict.fromkeys(FLASH_ROWS, 0)
+    want['flash_attention[bf16]'] = path['n_attn']
+    log('  the for_test clone: loss %.6f (%s), launches %s' % (
+        float(out[0]), out[0].dtype, {k: c for k, c in counts.items() if c}))
+    if rows != want or not math.isfinite(float(out[0])):
+        raise AssertionError('%s eval: flash launches %s, expected %s, or '
+                             'a loss that is not finite' % (path['name'],
+                                                            rows, want))
+    return counts, rows
+
+
+def amp_overflow_step(run, dev):
+    """(e) One step of the AMP BERT-base program that overflows at the
+    current scale: the state's loss scale set to OVERFLOW_SCALE with one
+    bad step behind it, and the MLM decoder weight times 64, so the
+    gradients behind the decoder grow past 2 and their scaled values
+    past f32's range while the forward stays finite.  The verdict is
+    true on the card, the scale halves and the counters restart, Adam
+    decays its moments (bitwise beta times the old, as zero gradients
+    give), advances its beta powers and moves its parameters, as the
+    JAX package's semantics say; the step runs from feeds already on the
+    card under torch.cuda.set_sync_debug_mode('warn'), and no
+    synchronizing call may happen inside it."""
+    path = run['path']
+    main, scope, exe = path['main'], run['scope'], run['exe']
+    names = weights.startup_names(path['startup'])
+    feed = {k: torch.as_tensor(v, device=dev)
+            for k, v in path['batch'].items()}
+    with fluid.scope_guard(scope):
+        scope.set_var('loss_scaling_0',
+                      torch.full((1,), OVERFLOW_SCALE, device=dev))
+        scope.set_var('bad_steps_0',
+                      torch.ones((1,), dtype=torch.int32, device=dev))
+        scope.set_var(path['decoder'], scope.find_var(path['decoder']) * 64.0)
+        prev = snapshot(scope, names)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                out, counts, rows = flash_counted(lambda: exe.run(
+                    main, feed=feed, fetch_list=['found_inf_0'],
+                    return_numpy=False))
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        syncs = sorted({str(w.message).split('\n')[0] for w in caught
+                        if 'called a synchronizing' in str(w.message)})
+        torch.cuda.synchronize()
+        found = bool(out[0])
+        after = snapshot(scope, names)
+    scale = {n: after[n].tolist() for n in SCALE_STATE}
+    decayed = all(
+        torch.equal(after[n], prev[n] * (0.9 if '_moment1_' in n else 0.999))
+        for n in names if '_moment' in n)
+    powers = all(
+        torch.equal(after[n], prev[n] * (0.9 if '_beta1_' in n else 0.999))
+        for n in names if '_pow_acc_' in n)
+    params = [p.name for p in main.all_parameters()]
+    moved = sum(not torch.equal(after[n], prev[n]) for n in params)
+    finite = all(bool(torch.isfinite(after[n]).all()) for n in params)
+    log('  (e) overflow step: verdict %s on %s, loss scaling %s, moments '
+        'decayed bitwise %s, beta powers advanced %s, %d of %d parameters '
+        'moved, all finite %s, launches %s; synchronizing calls inside the '
+        'step: %s' % (found, out[0].device, scale, decayed, powers, moved,
+                      len(params), finite,
+                      {k: c for k, c in counts.items() if c},
+                      syncs or 'none'))
+    want = {'loss_scaling_0': [OVERFLOW_SCALE / 2], 'good_steps_0': [0],
+            'bad_steps_0': [0]}
+    if not (found and out[0].is_cuda and scale == want and decayed and
+            powers and moved and finite and not syncs and
+            counts == path['expected']):
+        raise AssertionError('the overflow step did not follow the loss '
+                             'scaling semantics (or synchronized)')
+    return counts, rows
+
+
+def amp_resnet(seed, dev, profile, card):
+    """(c) ResNet-50 at batch 128 under AMP as bench_resnet50 trains it;
+    its step 1 against the f32 step from the same state."""
+    path = image_path(seed, 'resnet', RESNET_BATCH, dev, bench='amp')
+    log('[13] (c) %s, batch %d, 224 x 224, %d classes, decorate(Momentum(%g, '
+        '%g))' % (path['name'], RESNET_BATCH, IMAGE_CLASSES, IMAGE_LR,
+                  IMAGE_MOMENTUM))
+    run = train_image(path, TRAIN_STEPS, TIMED_STEPS, profile)
+    with fluid.scope_guard(run['scope']):
+        scale = {n: run['scope'].find_var(n).tolist() for n in SCALE_STATE}
+        conv = [op.output('Output')[0] for op in path['main'].global_block().ops
+                if op.type == 'conv2d'][0]
+        act = without_counting(lambda: run['exe'].run(
+            path['test'], feed=path['batch'], fetch_list=[conv],
+            return_numpy=False))[0]
+    f32_path = image_path(seed, 'resnet', RESNET_BATCH, dev, bench='f32')
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        without_counting(lambda: exe.run(f32_path['startup']))
+        for n in weights.startup_names(f32_path['startup']):
+            scope.set_var(n, run['start'][n].clone())
+        loss32 = float(without_counting(lambda: exe.run(
+            f32_path['main'], feed=f32_path['batch'],
+            fetch_list=[f32_path['loss']]))[0])
+    rel = abs(run['losses'][0] - loss32) / abs(loss32)
+    log('  step 1: AMP loss %.6f, f32 loss from the same state %.6f (rel '
+        '%.2e, limit %g); activations %s; loss scaling %s' % (
+            run['losses'][0], loss32, rel, AMP_F32_LOSS_RTOL, act.dtype,
+            scale))
+    steps = TRAIN_STEPS + TIMED_STEPS + 1  # and the profiled step
+    if not (rel <= AMP_F32_LOSS_RTOL and act.dtype == torch.bfloat16 and
+            scale == {'loss_scaling_0': [2.0 ** 15], 'good_steps_0': [steps],
+                      'bad_steps_0': [0]}):
+        raise AssertionError('ResNet-50 under AMP: step 1 off the f32 step, '
+                             'activations not bf16 or an overflow')
+    side_by_side('ResNet-50 batch %d' % RESNET_BATCH, dict(
+        step_ms=run['step_ms'], rate=RESNET_BATCH / run['step_ms'] * 1e3,
+        unit='images', device_ms=run['device_ms'], peak=run['peak']),
+        F32_RUNS['resnet50'], card)
+    log('    (f32: NCHW with L2Decay(%g), phase 10\'s form; AMP: NHWC '
+        'without decay, bench_resnet50\'s)' % IMAGE_DECAY)
+
+
+def word2vec_path(seed):
+    """(d) word2vec CBOW with SGD(W2V_LR) in f32: the path dict that
+    train() runs, bitwise its plain path."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = word2vec.build(W2V_VOCAB)
+        fluid.optimizer.SGD(W2V_LR).minimize(loss)
+    n_lookup = sum(op.type == 'lookup_table'
+                   for op in main.global_block().ops)
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update({'embedding_lookup': n_lookup,
+                     'embedding_scatter_add': n_lookup})
+    return {'name': 'word2vec CBOW SGD', 'main': main, 'startup': startup,
+            'loss': loss, 'lr': None,
+            'batch': word2vec.synthetic_batch(W2V_VOCAB, W2V_BATCH,
+                                              np.random.RandomState(seed)),
+            'expected': expected, 'probe': [], 'tokens': W2V_BATCH,
+            'unit': 'examples', 'rate': W2V_LR, 'bitwise': True}
+
+
+def mixed_precision(seed, dev, profile):
+    """Phase 13; returns the launches of its paths by kernel and the
+    flash launches by route."""
+    card = '%s | %s' % (torch.cuda.get_device_name(0), card_line())
+    launches = {k: 0 for k in common.KERNELS}
+    flash = dict.fromkeys(FLASH_ROWS, 0)
+
+    def add(counts, rows=None):
+        for k, c in counts.items():
+            launches[k] += c
+        for k, c in (rows or {}).items():
+            flash[k] += c
+
+    for key, seq, batch in (('bert512', SEQ, TRAIN_BATCH),
+                            ('bert128', SHORT_SEQ, SHORT_TRAIN_BATCH)):
+        path = amp_bert_path(seed, seq, batch)
+        log('[13] (%s) %s, batch %d, decorate(Adam(%g)) with dynamic loss '
+            'scaling' % ('a' if seq == SEQ else 'b', path['name'], batch,
+                         AMP_LR))
+        run = amp_train(path)
+        add(run['launches'], run['flash'])
+        nums = amp_numbers(run)
+        # the bf16 products: through the autograd Function that turns
+        # cuBLAS's bf16 partial sums off (PyTorch's default lets them
+        # on), or, with the flag off already, plain torch.matmul
+        flag = torch.backends.cuda.matmul
+        prev = flag.allow_bf16_reduced_precision_reduction
+        flag.allow_bf16_reduced_precision_reduction = False
+        try:
+            plain_mm = without_counting(lambda: train_step_ms(run))
+        finally:
+            flag.allow_bf16_reduced_precision_reduction = prev
+        log('  step with allow_bf16_reduced_precision_reduction off '
+            '(torch.matmul without the Function): median %.2f ms; as the '
+            'run leaves it (%s): %.2f ms' % (plain_mm, prev,
+                                              nums['step_ms']))
+        add(*amp_eval(run))
+        if profile:
+            without_counting(lambda: profile_train(run))
+        side_by_side('BERT-base seq %d batch %d' % (seq, batch), nums,
+                     F32_RUNS[key], card)
+        if seq == SEQ:
+            add(*amp_overflow_step(run, dev))
+        del run
+        torch.cuda.empty_cache()
+    amp_resnet(seed, dev, profile, card)
+    torch.cuda.empty_cache()
+
+    path = word2vec_path(seed)
+    log('[13] (d) %s: vocabulary %d, embedding %d, hidden 256, %d context '
+        'words, batch %d, f32' % (path['name'], W2V_VOCAB, word2vec.EMB_SIZE,
+                                  word2vec.N_GRAM, W2V_BATCH))
+    run = train(path)
+    add(run['launches'])
+    nums = amp_numbers(run)
+    log('  word2vec: step %.2f ms, %.0f examples/s, device %.2f ms a '
+        'profiled step, peak %.2f GiB | %s' % (
+            nums['step_ms'], nums['rate'], nums['device_ms'],
+            nums['peak'] / 2 ** 30, card))
+    log('  launches on phase 13\'s paths: %s; flash by route %s' % (
+        {k: c for k, c in launches.items() if c},
+        {k: c for k, c in flash.items() if c}))
+    return launches, flash
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -3376,6 +3974,7 @@ def main(argv=None):
             lambda: check_flash_dropout(gen, dev)),
         'flash_attention_bwd': without_counting(
             lambda: check_flash_bwd(gen, dev)),
+        **without_counting(lambda: check_flash_bf16(gen, dev)),
         'embedding_lookup': without_counting(
             lambda: check_embedding(gen, dev)),
         'embedding_scatter_add': without_counting(
@@ -3427,6 +4026,10 @@ def main(argv=None):
         'flash_attention[dropout]': train_launches['flash_attention'],
         'embedding_lookup': (serve_launches['embedding_lookup'] +
                              train_launches['embedding_lookup'])})
+    # the bf16 route runs in phase 13
+    launches.update(dict.fromkeys(('flash_attention[bf16]',
+                                   'flash_attention[bf16,dropout]',
+                                   'flash_attention_bwd[bf16]'), 0))
     # a row that times one table counts the launches on that table; its
     # kernel's row, those on the kernel's other tables
     for row, n in TABLE_LAUNCHES.items():
@@ -3445,7 +4048,10 @@ def main(argv=None):
     without_counting(lambda: attention_crossover(timer, gen, dev))
     without_counting(lambda: request_latency(pred, requests))
     for run in runs:
-        without_counting(lambda: train_step_ms(run))
+        med = without_counting(lambda: train_step_ms(run))
+        if run is runs[0]:
+            F32_RUNS['bert512'] = step_numbers(
+                5, run, med, without_counting(lambda: step_device_ms(run)))
     if args.profile:
         without_counting(lambda: profile_requests(pred, requests))
         for run in runs:
@@ -3502,6 +4108,23 @@ def main(argv=None):
             if row_of.get(k, k) == name:
                 row['launches'] += c - sum(
                     g for r, g in gain.items() if r.split('[')[0] == k)
+    t0 = time.perf_counter()
+    before = dict(TABLE_LAUNCHES)
+    amp_launches, amp_flash = mixed_precision(args.seed, dev, args.profile)
+    log('  phase 13: %.1f s' % (time.perf_counter() - t0))
+    # the flash launches go to their route's row (all bf16 here); the
+    # rows of tables take their launches there, each kernel's own row
+    # the launches on its other tables
+    gain = {row: TABLE_LAUNCHES[row] - before[row] for row in TABLE_ROWS}
+    for row in rows:
+        name = row['name']
+        if name in amp_flash:
+            row['launches'] += amp_flash[name]
+        elif name in gain:
+            row['launches'] += gain[name]
+        elif name in amp_launches:
+            row['launches'] += amp_launches[name] - sum(
+                n for r, n in gain.items() if r.split('[')[0] == name)
     idle = [row['name'] for row in rows if not row['launches']]
     if idle:
         raise AssertionError('no launch on the main path: %s' % idle)

@@ -5,8 +5,9 @@ schedules) and nets, append_backward, gradient clipping, regularizers,
 the SGD, Momentum, Adam, LAMB and Adagrad optimizers, the eager
 Executor (inference and training steps), host-side metrics,
 inference-model io, collective data parallelism (the transpilers,
-the collective fleet, the comms planner) and data-parallel training
-through CompiledProgram.with_data_parallel and ParallelExecutor.
+the collective fleet, the comms planner), data-parallel training
+through CompiledProgram.with_data_parallel and ParallelExecutor, and
+mixed precision (contrib.mixed_precision.decorate).
 """
 
 from . import core  # noqa: F401  (before framework: ops import it)
@@ -25,6 +26,7 @@ from . import comms  # noqa: F401
 from . import comms_plan  # noqa: F401
 from . import transpiler  # noqa: F401
 from . import incubate  # noqa: F401
+from . import contrib  # noqa: F401
 from .core import (CPUPlace, CUDAPlace, LoDTensor, Scope,  # noqa: F401
                    global_scope, scope_guard)
 from .executor import Executor  # noqa: F401

@@ -49,11 +49,26 @@ run, before the ops, as in the JAX executor, so dropout masks keyed on
 (op seed, step) line up with the JAX package's.  Segmenting and
 compilation of the JAX executor come with later slices.
 
+A program ``contrib.mixed_precision.decorate`` rewrote (AMP) runs the
+same way: its loss-scale multiply is a forward op, the autograd pass
+starts from the scaled loss, and check_finite_and_unscale and
+update_loss_scaling are the first ops after the backward region, so in
+data parallel they read the averaged gradients and every rank reaches
+the same verdict; the multi-tensor optimizer kernel then takes the
+unscaled f32 gradients.  An overflowing step hands the optimizer zero
+gradients, with the JAX package's consequences: SGD and Momentum leave
+the parameters as they are, Adam decays its moments, advances its beta
+powers and moves its parameters.
+
 ``FLAGS_check_nan_inf`` checks every floating value a step writes (op
 outputs, and the gradients of the whole-program grad) on the device
 and raises FloatingPointError naming each non-finite one (JAX:
-fluid/executor.py:2578).  ``return_numpy='async'`` returns a
-``FetchHandle`` per fetch (JAX: :267).
+fluid/executor.py:2578).  On an AMP program it checks what the JAX
+package checks there, its segments' outputs: the values written to the
+scope and the fetches, so an overflow that the loss scaling absorbs
+passes and a non-finite fetched loss raises.
+``return_numpy='async'`` returns a ``FetchHandle`` per fetch (JAX:
+:267).
 """
 
 import numpy as np
@@ -301,6 +316,9 @@ class Executor(object):
         # (name, 0-d bool tensor) of the step's values while
         # FLAGS_check_nan_inf is on, else None
         self._verdicts = None
+        # on an AMP program the step's fetch names: only they and the
+        # persistables are checked (None: every value)
+        self._checked_only = None
 
     def _to_device(self, value):
         value = core.as_array(value)
@@ -372,6 +390,8 @@ class Executor(object):
         keep = set(fetch_names)
         self._verdicts = [] if get_flag('FLAGS_check_nan_inf', False) \
             else None
+        self._checked_only = keep if any(
+            op.type == 'check_finite_and_unscale' for op in ops) else None
         if any(_role(op) == 'backward' for op in ops):
             plan = _wpg_partition(ops, program, fetch_names)
             if plan is None:
@@ -429,12 +449,17 @@ class Executor(object):
             random_seed=program.random_seed, group=self._group,
             replica=self._replica)
 
-    def _check_finite(self, name, val):
+    def _check_finite(self, name, val, persistable=False):
         """Queue the on-device verdict isfinite(val).all() of a floating
-        value the step writes (FLAGS_check_nan_inf)."""
-        if self._verdicts is not None and isinstance(val, torch.Tensor) \
-                and val.is_floating_point():
-            self._verdicts.append((name, torch.isfinite(val.detach()).all()))
+        value the step writes (FLAGS_check_nan_inf); on an AMP program
+        only of a persistable or fetched one."""
+        if self._verdicts is None or not isinstance(val, torch.Tensor) \
+                or not val.is_floating_point():
+            return
+        if self._checked_only is not None and not persistable and \
+                name not in self._checked_only:
+            return
+        self._verdicts.append((name, torch.isfinite(val.detach()).all()))
 
     def _raise_non_finite(self):
         """Reference CheckVarHasNanOrInf (framework/details/
@@ -454,9 +479,10 @@ class Executor(object):
 
     def _write(self, block, names, vals, env, scope):
         for n, val in zip(names, vals):
-            self._check_finite(n, val)
             var = block._find_var_recursive(n)
-            if var is not None and var.persistable:
+            persistable = var is not None and var.persistable
+            self._check_finite(n, val, persistable)
+            if persistable:
                 scope.set_var(n, val.detach()
                               if isinstance(val, torch.Tensor) else val)
             else:

@@ -53,9 +53,6 @@ class CollectiveOptimizer(DistributedOptimizer):
                  no_grad_set=None):
         from .....distributed import launch
         s = self._strategy
-        if s.use_amp:
-            raise NotImplementedError('DistributedStrategy.use_amp: AMP is '
-                                      'not ported (ROADMAP Queue 1 item 6)')
         if s.use_recompute:
             raise NotImplementedError(
                 'DistributedStrategy.use_recompute: RecomputeOptimizer is '
@@ -65,6 +62,10 @@ class CollectiveOptimizer(DistributedOptimizer):
                 'DistributedStrategy local_sgd: LocalSGD is not ported '
                 '(ROADMAP Queue 1 item 12, "LocalSGD and collective_utils")')
         opt = self._optimizer
+        if s.use_amp:
+            from ....contrib.mixed_precision import decorate
+            opt = decorate(opt, init_loss_scaling=s.amp_loss_scaling,
+                           use_dynamic_loss_scaling=True)
         params_grads = opt.backward(loss, startup_program, parameter_list,
                                     no_grad_set)
         program = loss.block.program

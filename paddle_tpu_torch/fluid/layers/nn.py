@@ -20,8 +20,8 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
            'elementwise_max', 'reduce_sum', 'reshape', 'squeeze',
            'unsqueeze', 'transpose', 'stack', 'split', 'expand', 'gather',
            'softmax_with_cross_entropy',
-           'sigmoid_cross_entropy_with_logits', 'mean', 'slice', 'topk',
-           'accuracy', 'one_hot', 'label_smooth']
+           'sigmoid_cross_entropy_with_logits', 'square_error_cost',
+           'mean', 'slice', 'topk', 'accuracy', 'one_hot', 'label_smooth']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -396,6 +396,16 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
                      outputs={'Out': out},
                      attrs={'ignore_index': ignore_index,
                             'normalize': normalize})
+    return out
+
+
+def square_error_cost(input, label):
+    """Reference layers/nn.py square_error_cost: (input - label)^2."""
+    helper = LayerHelper('square_error_cost')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('square_error_cost',
+                     inputs={'X': input, 'Y': label},
+                     outputs={'Out': out})
     return out
 
 

@@ -1,3 +1,3 @@
 """Model builders of the port (reference: paddle_tpu/models): bert,
-transformer, wide_deep, lenet, resnet and se_resnext, each imported by
-its module path."""
+transformer, wide_deep, lenet, resnet, se_resnext and word2vec, each
+imported by its module path."""

@@ -49,9 +49,7 @@
 // banks.  At D = 64 a block takes 70 KB of shared memory and 168
 // registers a thread, so three blocks (12 warps) share an SM; at D =
 // 128, 133 KB, one.  (Measured on the H100: 64-row streamed tiles, two
-// blocks an SM, ran slower.)  bf16 inputs are copied as bf16 and
-// converted when the fragments are read, so a bf16 launch computes
-// exactly what an f32 launch on the same values does.  Q/K/V/dO and
+// blocks an SM, ran slower.)  Q/K/V/dO and
 // the outputs are addressed by their [B, T, H, D] strides, so the
 // split Q/K/V views of the fused projection need no copy; ragged T is
 // masked in the kernels (keys or queries past T give p = 0); rows whose
@@ -67,6 +65,19 @@
 // every operand is split and read from shared memory by each warp that
 // uses it, some six instructions an mma, and mma.sync does not reach
 // the tensor cores' wgmma rate.
+//
+// The bf16 route (`flash_bwd_dkv_bf16`, `flash_bwd_dq_bf16`, after the
+// same delta pass) computes what the Pallas kernel computes for bf16
+// inputs (flash_attention.py:410-453): S and dP = dO V^T from the bf16
+// operands with f32 accumulation (mma.sync m16n8k16 bf16), P and dS in
+// f32, dV += P_drop^T dO with P_drop rounded to bf16, dK += dS^T Q and
+// dQ += dS K with dS rounded to bf16, the bias cotangent summed in f32,
+// and dQ, dK, dV rounded once to bf16.  The same schedule and tiles as
+// the f32 route; two adjacent n8 accumulators of S^T / dP^T (or S / dP)
+// make one k16 A fragment (bf16_mma.cuh).  Bound at BERT-base (B=8,
+// H=12, T=512, D=64): operations, 16.1 GFLOP at 989 TFLOP/s bf16,
+// 0.0163 ms; the 50 MB of bf16 Q, K, V, O, dO, dQ, dK, dV take 0.015 ms
+// at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,6 +85,7 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -416,6 +428,311 @@ __global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 3)
   }
 }
 
+// ------------------------------------------------------- bf16 route
+
+// 2b. dK, dV (and the bias cotangent) for one (batch*head, 64-key tile),
+// bf16 operands
+template <int D>
+__global__ void __launch_bounds__(kThreads, D > 64 ? 2 : 3)
+    flash_bwd_dkv_bf16(const Params p) {
+  using Elt = __nv_bfloat16;
+  constexpr int kLd = TileShape<Elt, D>::kLd;
+  constexpr int kD8 = D / 8;
+  constexpr int kD16 = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elt* ks = (Elt*)smem_raw;         // [kRows][kLd] this block's keys
+  Elt* vs = ks + kRows * kLd;       // [kRows][kLd]
+  Elt* qs = vs + kRows * kLd;       // [2][kTile][kLd] query tiles
+  Elt* dos = qs + 2 * kTile * kLd;  // [2][kTile][kLd]
+  float* lse_s = (float*)(dos + 2 * kTile * kLd);  // [2][kTile]
+  float* delta_s = lse_s + 2 * kTile;              // [2][kTile]
+  float* bias_s = delta_s + 2 * kTile;             // [kRows]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x / p.tiles;
+  const int k0 = (blockIdx.x - bh * p.tiles) * kRows;
+  const int b = bh / p.heads, h = bh - b * p.heads;
+  const int t_len = p.t_len;
+  const float* lse_row = p.lse + (long long)bh * t_len;
+  const float* delta_row = p.delta + (long long)bh * t_len;
+
+  copy_rows<Elt, D, kRows, kThreads>(ks, p.k, p.sk, b, h, k0, t_len, tid);
+  copy_rows<Elt, D, kRows, kThreads>(vs, p.v, p.sv, b, h, k0, t_len, tid);
+  if (tid < kRows) {
+    const int key = k0 + tid;
+    bias_s[tid] = (p.bias && key < t_len)
+                      ? p.bias[(long long)b * t_len + key] : 0.f;
+  }
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+  const int first = p.causal ? k0 / kTile : 0;
+  auto issue = [&](int tile, int stage) {
+    const int q0 = tile * kTile;
+    copy_rows<Elt, D, kTile, kThreads>(qs + stage * kTile * kLd, p.q, p.sq,
+                                       b, h, q0, t_len, tid);
+    copy_rows<Elt, D, kTile, kThreads>(dos + stage * kTile * kLd, p.dout,
+                                       p.sdo, b, h, q0, t_len, tid);
+    copy_vec<kTile, kThreads>(lse_s + stage * kTile, lse_row, q0, t_len,
+                              tid);
+    copy_vec<kTile, kThreads>(delta_s + stage * kTile, delta_row, q0, t_len,
+                              tid);
+  };
+  issue(first, 0);
+  cp_commit();
+
+  const int kr = warp * 16;  // this warp's keys in the tile
+  float dk[kD8][4], dv[kD8][4], db[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kD8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+  }
+
+  for (int tile = first; tile < n_tiles; ++tile) {
+    const int stage = (tile - first) & 1;
+    if (tile + 1 < n_tiles) issue(tile + 1, stage ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const Elt* qt = qs + stage * kTile * kLd;
+    const Elt* dot = dos + stage * kTile * kLd;
+    const float* lse_t = lse_s + stage * kTile;
+    const float* delta_t = delta_s + stage * kTile;
+    const int q0 = tile * kTile;
+    // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 queries
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD16; ++kk) {
+      const FragA16 ka = tile_a16(ks, kLd, kr, kk * 16, g, t4);
+      const FragA16 va = tile_a16(vs, kLd, kr, kk * 16, g, t4);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        mma_bf16(st[n], ka, tile_bt16(qt, kLd, n * 8, kk * 16, g, t4));
+        mma_bf16(dpt[n], va, tile_bt16(dot, kLd, n * 8, kk * 16, g, t4));
+      }
+    }
+    // P (dropped) and dS in place, in f32
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = kr + g + (e >> 1) * 8;
+        const int key = k0 + kl;
+        const int qi = n * 8 + 2 * t4 + (e & 1);
+        const int qpos = q0 + qi;
+        float x = st[n][e] * p.scale + bias_s[kl];
+        const bool live = qpos < t_len && key < t_len &&
+                          !(p.causal && qpos < key);
+        const float pr = live && isfinite(x) ? __expf(x - lse_t[qi]) : 0.f;
+        float pu = pr, dpu = dpt[n][e];
+        if (p.dropout) {
+          const bool keep = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+                                         (uint32_t)qpos, (uint32_t)key,
+                                         p.threshold);
+          pu = keep ? pr * p.inv_keep : 0.f;
+          dpu = keep ? dpu * p.inv_keep : 0.f;
+        }
+        const float ds = pr * (dpu - delta_t[qi]);
+        db[e >> 1] += ds;
+        st[n][e] = pu;
+        dpt[n][e] = ds;
+      }
+    }
+    // dV += P^T dO, dK += dS^T Q over the tile's 32 queries, 16 a
+    // product, P and dS rounded to bf16
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const FragA16 pa = acc_a16(st[2 * j], st[2 * j + 1]);
+      const FragA16 sa = acc_a16(dpt[2 * j], dpt[2 * j + 1]);
+#pragma unroll
+      for (int dt = 0; dt < kD8; ++dt) {
+        mma_bf16(dv[dt], pa, tile_b16(dot, kLd, j * 16, dt * 8, g, t4));
+        mma_bf16(dk[dt], sa, tile_b16(qt, kLd, j * 16, dt * 8, g, t4));
+      }
+    }
+    __syncthreads();  // this stage is read before the next issue fills it
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
+    db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + kr + g + 8 * r;
+    if (key >= t_len) continue;
+    Elt* dkg = (Elt*)p.dk + row_off(p.sdk, b, key, h);
+    Elt* dvg = (Elt*)p.dv + row_off(p.sdv, b, key, h);
+#pragma unroll
+    for (int dt = 0; dt < kD8; ++dt) {
+      const int col = dt * 8 + 2 * t4;
+      store2(dkg + col, dk[dt][2 * r] * p.scale, dk[dt][2 * r + 1] * p.scale);
+      store2(dvg + col, dv[dt][2 * r], dv[dt][2 * r + 1]);
+    }
+    if (p.dbias && t4 == 0) p.dbias[(long long)bh * t_len + key] = db[r];
+  }
+}
+
+// 3b. dQ for one (batch*head, 64-query tile), bf16 operands
+template <int D>
+__global__ void __launch_bounds__(kThreads, D > 64 ? 2 : 3)
+    flash_bwd_dq_bf16(const Params p) {
+  using Elt = __nv_bfloat16;
+  constexpr int kLd = TileShape<Elt, D>::kLd;
+  constexpr int kD8 = D / 8;
+  constexpr int kD16 = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elt* qs = (Elt*)smem_raw;        // [kRows][kLd] this block's queries
+  Elt* dos = qs + kRows * kLd;     // [kRows][kLd]
+  Elt* ks = dos + kRows * kLd;     // [2][kTile][kLd] key tiles
+  Elt* vs = ks + 2 * kTile * kLd;  // [2][kTile][kLd]
+  float* bias_s = (float*)(vs + 2 * kTile * kLd);  // [2][kTile]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x / p.tiles;
+  const int q0 = (blockIdx.x - bh * p.tiles) * kRows;
+  const int b = bh / p.heads, h = bh - b * p.heads;
+  const int t_len = p.t_len;
+  const float* bias_row = p.bias ? p.bias + (long long)b * t_len : nullptr;
+
+  copy_rows<Elt, D, kRows, kThreads>(qs, p.q, p.sq, b, h, q0, t_len, tid);
+  copy_rows<Elt, D, kRows, kThreads>(dos, p.dout, p.sdo, b, h, q0, t_len,
+                                     tid);
+  const int qr = warp * 16;  // this warp's queries in the tile
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + qr + g + 8 * r;
+    const long long off = (long long)bh * t_len + row;
+    lse[r] = row < t_len ? p.lse[off] : 0.f;
+    delta[r] = row < t_len ? p.delta[off] : 0.f;
+  }
+  int n_tiles = (t_len + kTile - 1) / kTile;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kTile + 1);
+  auto issue = [&](int tile, int stage) {
+    const int k0 = tile * kTile;
+    copy_rows<Elt, D, kTile, kThreads>(ks + stage * kTile * kLd, p.k, p.sk,
+                                       b, h, k0, t_len, tid);
+    copy_rows<Elt, D, kTile, kThreads>(vs + stage * kTile * kLd, p.v, p.sv,
+                                       b, h, k0, t_len, tid);
+    if (bias_row)
+      copy_vec<kTile, kThreads>(bias_s + stage * kTile, bias_row, k0, t_len,
+                                tid);
+  };
+  issue(0, 0);
+  cp_commit();
+
+  float dq[kD8][4];
+#pragma unroll
+  for (int i = 0; i < kD8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    if (tile + 1 < n_tiles) issue(tile + 1, stage ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const Elt* kt = ks + stage * kTile * kLd;
+    const Elt* vt = vs + stage * kTile * kLd;
+    const float* bias_t = bias_s + stage * kTile;
+    const int k0 = tile * kTile;
+    // S = Q K^T and dP = dO V^T for 16 queries x 32 keys
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD16; ++kk) {
+      const FragA16 qa = tile_a16(qs, kLd, qr, kk * 16, g, t4);
+      const FragA16 da = tile_a16(dos, kLd, qr, kk * 16, g, t4);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        mma_bf16(s[n], qa, tile_bt16(kt, kLd, n * 8, kk * 16, g, t4));
+        mma_bf16(dp[n], da, tile_bt16(vt, kLd, n * 8, kk * 16, g, t4));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int qpos = q0 + qr + g + 8 * r;
+        const int kl = n * 8 + 2 * t4 + (e & 1);
+        const int key = k0 + kl;
+        float x = s[n][e] * p.scale + (bias_row ? bias_t[kl] : 0.f);
+        const bool live = qpos < t_len && key < t_len &&
+                          !(p.causal && qpos < key);
+        const float pr = live && isfinite(x) ? __expf(x - lse[r]) : 0.f;
+        float dpu = dp[n][e];
+        if (p.dropout)
+          dpu = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+                             (uint32_t)qpos, (uint32_t)key, p.threshold)
+                    ? dpu * p.inv_keep
+                    : 0.f;
+        s[n][e] = pr * (dpu - delta[r]);
+      }
+    }
+    // dQ += dS K over the tile's 32 keys, dS rounded to bf16
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const FragA16 sa = acc_a16(s[2 * j], s[2 * j + 1]);
+#pragma unroll
+      for (int dt = 0; dt < kD8; ++dt)
+        mma_bf16(dq[dt], sa, tile_b16(kt, kLd, j * 16, dt * 8, g, t4));
+    }
+    __syncthreads();  // this stage is read before the next issue fills it
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + qr + g + 8 * r;
+    if (row >= t_len) continue;
+    Elt* dqg = (Elt*)p.dq + row_off(p.sdq, b, row, h);
+#pragma unroll
+    for (int dt = 0; dt < kD8; ++dt)
+      store2(dqg + dt * 8 + 2 * t4, dq[dt][2 * r] * p.scale,
+             dq[dt][2 * r + 1] * p.scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const Params& p, long long bh, cudaStream_t stream) {
+  static bool dkv_configured[64] = {};
+  static bool dq_configured[64] = {};
+  const size_t smem = smem_bytes<__nv_bfloat16, D>();
+  cudaError_t e = configure(flash_bwd_dkv_bf16<D>, smem, dkv_configured);
+  if (e != cudaSuccess) return e;
+  e = configure(flash_bwd_dq_bf16<D>, smem, dq_configured);
+  if (e != cudaSuccess) return e;
+  const long long rows = bh * p.t_len;
+  const long long blocks = bh * p.tiles;
+  if (blocks > 0x7fffffffLL || (rows + 7) / 8 > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  flash_bwd_delta<__nv_bfloat16>
+      <<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, D, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkv_bf16<D><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_bf16<D><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename Elt, int D>
 cudaError_t launch(const Params& p, long long bh, cudaStream_t stream) {
   static bool dkv_configured[64] = {};
@@ -440,15 +757,25 @@ cudaError_t launch(const Params& p, long long bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename Elt>
-cudaError_t launch_d(const Params& p, long long bh, int d,
+cudaError_t launch_d(const Params& p, long long bh, int d, int dtype,
                      cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<Elt, 32>(p, bh, stream);
-    case 64: return launch<Elt, 64>(p, bh, stream);
-    case 128: return launch<Elt, 128>(p, bh, stream);
-    default: return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    switch (d) {
+      case 32: return launch<float, 32>(p, bh, stream);
+      case 64: return launch<float, 64>(p, bh, stream);
+      case 128: return launch<float, 128>(p, bh, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (dtype == 1) {
+    switch (d) {
+      case 32: return launch_bf16<32>(p, bh, stream);
+      case 64: return launch_bf16<64>(p, bh, stream);
+      case 128: return launch_bf16<128>(p, bh, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -458,8 +785,9 @@ cudaError_t launch_d(const Params& p, long long bh, int d,
 // q, k, v and dout start on 16 bytes and their rows on 16-byte
 // multiples.  key_bias: [B, T] f32 contiguous or null.  lse, glse (or
 // null), delta (scratch), dbias (or null): [B*H, T] f32 contiguous.
-// dtype: 0 = f32, 1 = bf16.  D: 32, 64 or 128.  dropout: 0, or 1 with
-// the forward's seed, head-index offset, 24-bit keep threshold and
+// dtype: 0 = f32 (3xTF32 products), 1 = bf16 (bf16 products, the
+// Pallas kernel's rounding points).  D: 32, 64 or 128.  dropout: 0, or
+// 1 with the forward's seed, head-index offset, 24-bit keep threshold and
 // 1 / (1 - rate).
 // Launches the delta, dK/dV and dQ kernels in that order on `stream`;
 // returns the first CUDA error (0 on success).
@@ -499,10 +827,7 @@ extern "C" int flash_attention_bwd(
       !copy_aligned(v, p.sv, elt) || !copy_aligned(dout, p.sdo, elt))
     return (int)cudaErrorMisalignedAddress;
   const long long bh = (long long)batch * heads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_d<float>(p, bh, d, s);
-  if (dtype == 1) return (int)launch_d<__nv_bfloat16>(p, bh, d, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_d(p, bh, d, dtype, (cudaStream_t)stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -15,6 +15,17 @@ index b*H + h: a data-parallel rank with local batch B passes
 rank * B * H, so its masks are its rows of the global batch's.  There is
 no sequence-length floor: every call on CUDA tensors launches the
 kernels.
+
+Two routes, by the inputs' dtype.  f32: f32-accurate products (3xTF32
+on the tensor cores).  bf16: what the Pallas kernels compute for bf16
+inputs (paddle_tpu/ops/pallas/flash_attention.py:130-181 and
+:410-453): the products take bf16 operands and accumulate in f32, the
+softmax runs in f32 with its normalizer summing the unrounded
+probabilities, and the operands made inside the kernels are rounded to
+bf16 where they enter a product: the dropped and rescaled P of P V and
+of dV, dS of dK and dQ.  O, dQ, dK and dV are rounded once to bf16;
+lse and the bias cotangent stay f32.  The plain versions take the same
+rounding points.
 """
 
 import ctypes
@@ -38,7 +49,8 @@ common.register_kernel(
              '_flash_fwd_kernel',
     doc='a block of 4 warps per 64-row Q tile, 16 rows a warp; S = Q K^T '
         'and O += P V on the tensor cores (mma.sync TF32, 3xTF32 split '
-        'for f32 accuracy), online softmax in the accumulators, P fed '
+        'for f32 accuracy; for bf16 inputs one mma.sync bf16 product, P '
+        'rounded to bf16), online softmax in the accumulators, P fed '
         'back as the A operand with its in-kernel dropout hash; K, V and '
         'the bias through a two-stage cp.async ring; no atomics',
     op_types=('fused_multihead_attention',))
@@ -53,7 +65,8 @@ common.register_kernel(
              'dq / dkv kernels)',
     doc='delta pass, then a dK/dV kernel over 64-key tiles and a dQ '
         'kernel over 64-query tiles, their products on the tensor cores '
-        '(mma.sync TF32, 3xTF32 split for f32 accuracy), streamed tiles '
+        '(mma.sync TF32, 3xTF32 split for f32 accuracy; for bf16 inputs '
+        'mma.sync bf16 with P and dS rounded to bf16), streamed tiles '
         'through a two-stage cp.async ring; no atomics',
     op_types=('fused_multihead_attention_grad',))
 
@@ -95,17 +108,10 @@ def dropout_keep_plain(seed, b, h, tq, tk, rate, device=None, g_offset=0):
     return (x >> 8) < keep_threshold(rate)
 
 
-def flash_attention_plain(q, k, v, causal=False, key_bias=None,
-                          dropout_rate=0.0, dropout_seed=None,
-                          dropout_g_offset=0):
-    """(O [B, T, H, D] in q's dtype, lse [B, H, T] f32), computed in f32;
-    differentiable by autograd.
-
-    Rows whose keys are all masked follow the JAX kernel's rule
-    (m_safe = 0, l_safe = max(l, 1e-20)): O = 0, lse = log(1e-20).
-    With dropout the normalizer and lse use the un-dropped
-    probabilities; only the V-weighting is masked and scaled."""
-    b, t, h, d = q.shape
+def _scores(q, k, causal, key_bias):
+    """S = Q K^T / sqrt(D) + bias [B, H, T, T] in f32, -inf where the
+    causal mask hides a key."""
+    t, d = q.shape[1], q.shape[3]
     s = torch.einsum('bthd,bshd->bhts', q.float(), k.float()) * (
         1.0 / (d ** 0.5))
     if key_bias is not None:
@@ -113,27 +119,98 @@ def flash_attention_plain(q, k, v, causal=False, key_bias=None,
     if causal:
         keep = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, float('-inf'))
+    return s
+
+
+def flash_attention_plain(q, k, v, causal=False, key_bias=None,
+                          dropout_rate=0.0, dropout_seed=None,
+                          dropout_g_offset=0):
+    """(O [B, T, H, D] in q's dtype, lse [B, H, T] f32), computed in f32;
+    differentiable by autograd for f32 inputs.
+
+    Rows whose keys are all masked follow the JAX kernel's rule
+    (m_safe = 0, l_safe = max(l, 1e-20)): O = 0, lse = log(1e-20).
+    With dropout the normalizer and lse use the un-dropped
+    probabilities; only the V-weighting is masked and scaled.  bf16
+    inputs take the Pallas kernel's rounding points: the unnormalized
+    p = exp(s - max), dropped and rescaled, is rounded to bf16 before
+    P V, and O is that product over l, rounded to bf16."""
+    b, t, h, d = q.shape
+    s = _scores(q, k, causal, key_bias)
     # the max only stabilizes: O and lse do not depend on it
     m = s.amax(dim=-1, keepdim=True).detach()
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
-    pn = p / l_safe
+    lse = (m_safe + torch.log(l_safe)).squeeze(-1)
+    keep = None
     if dropout_rate:
         keep = dropout_keep_plain(dropout_seed, b, h, t, t, dropout_rate,
                                   q.device, dropout_g_offset)
+    if q.dtype == torch.bfloat16:
+        if keep is not None:
+            p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+        o = torch.einsum('bhts,bshd->bthd', p.to(torch.bfloat16).float(),
+                         v.float())
+        return (o / l_safe.squeeze(-1).transpose(1, 2)[..., None]).to(
+            q.dtype), lse
+    pn = p / l_safe
+    if keep is not None:
         pn = torch.where(keep, pn * (1.0 / (1.0 - dropout_rate)), 0.0)
     o = torch.einsum('bhts,bshd->bthd', pn, v.float())
-    lse = (m_safe + torch.log(l_safe)).squeeze(-1)
     return o.to(q.dtype), lse
+
+
+def _bwd_plain_bf16(q, k, v, key_bias, do, dlse, causal, dropout_rate,
+                    dropout_seed, bias_grad, dropout_g_offset):
+    """The bf16 backward at the Pallas kernel's rounding points
+    (flash_attention.py:410-453): P = exp(S - lse) and dP = dO V^T in
+    f32 from the bf16 operands, dV = P_drop^T dO with P_drop rounded to
+    bf16, dS = P (dP_drop - delta + dlse) in f32 with delta =
+    rowsum(dO O) of the bf16 O, dK = dS^T Q and dQ = dS K with dS
+    rounded to bf16, each times 1 / sqrt(D); the bias cotangent sums dS
+    in f32."""
+    b, t, h, d = q.shape
+    bf16 = torch.bfloat16
+    scale = 1.0 / (d ** 0.5)
+    o, lse = flash_attention_plain(q, k, v, causal, key_bias, dropout_rate,
+                                   dropout_seed, dropout_g_offset)
+    s = _scores(q, k, causal, key_bias)
+    p = torch.where(torch.isfinite(s), torch.exp(s - lse[..., None]), 0.0)
+    dof = torch.zeros(o.shape, device=q.device) if do is None else do.float()
+    dp = torch.einsum('bthd,bshd->bhts', dof, v.float())
+    pu = p
+    if dropout_rate:
+        keep = dropout_keep_plain(dropout_seed, b, h, t, t, dropout_rate,
+                                  q.device, dropout_g_offset)
+        inv = 1.0 / (1.0 - dropout_rate)
+        pu = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    dv = torch.einsum('bhts,bthd->bshd', pu.to(bf16).float(), dof)
+    dd = dp - torch.sum(dof * o.float(), dim=-1).transpose(1, 2)[..., None]
+    if dlse is not None:
+        dd = dd + dlse.float()[..., None]
+    ds = p * dd
+    dsb = ds.to(bf16).float()
+    dk = torch.einsum('bhts,bthd->bshd', dsb, q.float()) * scale
+    dq = torch.einsum('bhts,bshd->bthd', dsb, k.float()) * scale
+    dbias = ds.sum(dim=(1, 2)) if bias_grad else None
+    return dq.to(bf16), dk.to(bf16), dv.to(bf16), dbias
 
 
 def flash_attention_bwd_plain(q, k, v, key_bias, do, dlse, causal=False,
                               dropout_rate=0.0, dropout_seed=None,
                               bias_grad=False, dropout_g_offset=0):
-    """The backward's plain version: autograd of flash_attention_plain
-    (the same mask) for the cotangents do of O and dlse of lse (either
-    may be None) -> (dq, dk, dv, dbias [B, T] f32 or None)."""
+    """The backward's plain version for the cotangents do of O and dlse
+    of lse (either may be None) -> (dq, dk, dv, dbias [B, T] f32 or
+    None): for f32 inputs autograd of flash_attention_plain (the same
+    mask), for bf16 inputs the Pallas kernel's rounding points
+    (``_bwd_plain_bf16``)."""
+    if q.dtype == torch.bfloat16:
+        return _bwd_plain_bf16(q, k, v, key_bias, do, dlse, causal,
+                               dropout_rate, dropout_seed,
+                               bias_grad and key_bias is not None,
+                               dropout_g_offset)
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         bias = key_bias

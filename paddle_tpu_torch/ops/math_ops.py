@@ -6,6 +6,10 @@ operators/elementwise/, operators/controlflow/compare_op.*,
 operators/reduce_ops/.  The products (mul, matmul, matmul_v2, bmm) go
 to torch.matmul (cuBLAS) in full f32 on the card, forward and backward,
 as the JAX package asks XLA for Precision.HIGHEST (``_product``).
+Under AMP (the ``__amp__`` mark of fluid.contrib.mixed_precision) mul,
+matmul and matmul_v2 take bf16 operands, accumulate in f32 and give a
+bf16 output, as the JAX package's lowerings do (math_ops.py:36-41,
+78-80); bmm is not on the white list.
 """
 
 import contextlib
@@ -22,22 +26,40 @@ def _x(ins, slot='X'):
 
 @contextlib.contextmanager
 def _f32_products():
-    """cuBLAS without TF32, whatever torch.backends.cuda.matmul.
-    allow_tf32 says; the flag is put back after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """cuBLAS without TF32 for f32 products and without bf16 partial
+    sums for bf16 ones (split-K reductions in f32, as XLA takes them),
+    whatever torch.backends.cuda.matmul.allow_tf32 and
+    allow_bf16_reduced_precision_reduction say; the flags are put back
+    after."""
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction
+    flags.allow_tf32 = False
+    flags.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction = \
+            prev
+
+
+def _reduced(dtype):
+    """True where the cuBLAS flags let a product of this dtype round
+    below its accumulation: TF32 for f32, bf16 partial sums for bf16."""
+    flags = torch.backends.cuda.matmul
+    if dtype == torch.float32:
+        return flags.allow_tf32
+    if dtype == torch.bfloat16:
+        return flags.allow_bf16_reduced_precision_reduction
+    return False
 
 
 class _Matmul(torch.autograd.Function):
     """torch.matmul of x and y (both at least 2-D, batch dims
-    broadcast) without TF32, whose backward also runs without it:
-    autograd's own matmul backward reads the global flag when it runs,
-    after the forward's context has closed.  Each gradient is summed
-    over the batch dims its operand was broadcast along."""
+    broadcast) without TF32 or bf16 partial sums, whose backward also
+    runs without them: autograd's own matmul backward reads the global
+    flags when it runs, after the forward's context has closed.  Each
+    gradient is summed over the batch dims its operand was broadcast
+    along."""
 
     @staticmethod
     def forward(ctx, x, y):
@@ -59,20 +81,23 @@ class _Matmul(torch.autograd.Function):
         return gx, gy
 
 
-def _product(x, y):
-    """torch.matmul of x and y in their promoted dtype.  Where
-    torch.backends.cuda.matmul.allow_tf32 allows TF32 for an f32
-    product on the card, it goes through _Matmul (a 1-D operand a row
-    or a column vector, dropped from the result, as torch.matmul
-    treats it), whose forward and backward turn TF32 off.  Otherwise
-    torch.matmul runs as it is: PyTorch's default keeps f32 products
-    in f32, and the custom Function's ~30 us of host time a product,
-    forward and backward, stays off the eager path."""
-    if x.dtype != y.dtype:
+def _product(x, y, amp=False):
+    """torch.matmul of x and y in their promoted dtype; with `amp` (an
+    f32 or bf16 x) both in bf16, accumulated in f32, the output bf16.
+    Where the cuBLAS flags let the product round below that on the card
+    (``_reduced``: TF32 for f32, bf16 partial sums for bf16), it goes
+    through _Matmul (a 1-D operand a row or a column vector, dropped
+    from the result, as torch.matmul treats it), whose forward and
+    backward turn them off.  Otherwise torch.matmul runs as it is:
+    PyTorch's default keeps f32 products in f32, and the custom
+    Function's ~30 us of host time a product, forward and backward,
+    stays off the eager path."""
+    if amp and x.dtype in (torch.float32, torch.bfloat16):
+        x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    elif x.dtype != y.dtype:
         ct = torch.promote_types(x.dtype, y.dtype)
         x, y = x.to(ct), y.to(ct)
-    if not (x.is_cuda and x.dtype == torch.float32 and
-            torch.backends.cuda.matmul.allow_tf32):
+    if not (x.is_cuda and _reduced(x.dtype)):
         return torch.matmul(x, y)
     out = _Matmul.apply(x.unsqueeze(0) if x.ndim == 1 else x,
                         y.unsqueeze(-1) if y.ndim == 1 else y)
@@ -93,7 +118,7 @@ def matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get('transpose_Y', False) and y.ndim > 1:
         y = y.transpose(-1, -2)
-    out = _product(x, y)
+    out = _product(x, y, attrs.get('__amp__', False))
     alpha = attrs.get('alpha', 1.0)
     if alpha != 1.0:
         out = out * alpha
@@ -124,7 +149,8 @@ def mul(ctx, ins, attrs):
     xs, ys = tuple(x.shape), tuple(y.shape)
     k = int(np.prod(xs[xn:]))
     n = int(np.prod(ys[yn:]))
-    out = _product(x.reshape(-1, k), y.reshape(k, n))
+    out = _product(x.reshape(-1, k), y.reshape(k, n),
+                   attrs.get('__amp__', False))
     return {'Out': [out.reshape(xs[:xn] + ys[yn:])]}
 
 

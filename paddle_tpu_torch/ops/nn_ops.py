@@ -6,7 +6,10 @@ softmax_with_cross_entropy,cross_entropy,label_smooth,
 sigmoid_cross_entropy_with_logits}_op.*, operators/metrics/accuracy_op.*.
 Convolutions go to cuDNN in full f32 (the JAX package's
 FLAGS_conv_precision 'highest' default), as the JAX package left them
-to XLA's conv_general_dilated.
+to XLA's conv_general_dilated; under AMP (the ``__amp__`` mark) in bf16,
+input and output.  Normalizations keep their statistics in f32 and give
+their output in the input dtype; softmax_with_cross_entropy under the
+AMP black rule gives an f32 Loss.
 """
 
 import contextlib
@@ -101,9 +104,14 @@ def conv2d(ctx, ins, attrs):
     always OIHW (the layer contract); groups, strides, dilations; 2 or
     4 explicit paddings or padding_algorithm SAME / VALID.  NHWC runs as
     an NCHW view in channels-last memory, so cuDNN takes its NHWC
-    kernels and no copy is made."""
+    kernels and no copy is made.  Under ``__amp__`` an f32 or bf16 input
+    and the filter run in bf16 and the output is bf16 (cuDNN
+    accumulates in f32), the JAX package's AMP convolution
+    (nn_ops.py:73-90); otherwise the filter takes the input's dtype."""
     x = ins['Input'][0]
     w = ins['Filter'][0]
+    if attrs.get('__amp__') and x.dtype in (torch.float32, torch.bfloat16):
+        x = x.to(torch.bfloat16)
     strides = _pair(attrs.get('strides', [1, 1]))
     dilations = _pair(attrs.get('dilations', [1, 1]))
     groups = int(attrs.get('groups', 1) or 1)
@@ -369,16 +377,23 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
     computed in f32 (f64 logits in f64).  A soft Label (soft_label)
     weights every class: Loss = -sum(Label * log_softmax(logits)) with
     the log-softmax in f32 and Softmax = exp of it, as the JAX package
-    computes it."""
+    computes it.  Softmax is in the logits' dtype; so is Loss, but under
+    the AMP black rule (``__amp_black__`` or ``__amp_black_out__``)
+    half-precision logits give an f32 Loss, taken before any rounding
+    (JAX: nn_ops.py:562-577)."""
     logits = ins['Logits'][0]
     label = ins['Label'][0]
     ax = attrs.get('axis', -1) % logits.ndim
     ignore_index = int(attrs.get('ignore_index', -100))
+    loss_dtype = logits.dtype
+    if (attrs.get('__amp_black__') or attrs.get('__amp_black_out__')) and \
+            logits.dtype in (torch.bfloat16, torch.float16):
+        loss_dtype = torch.float32
     if attrs.get('soft_label', False):
         logp = F.log_softmax(logits.float(), dim=ax)
         loss = -torch.sum(label * logp, dim=ax, keepdim=True)
         return {'Softmax': [torch.exp(logp).to(logits.dtype)],
-                'Loss': [loss.to(logits.dtype)]}
+                'Loss': [loss.to(loss_dtype)]}
     lab = label if label.ndim == logits.ndim else label.unsqueeze(ax)
     lf = logits if logits.dtype == torch.float64 else logits.float()
     lse = torch.logsumexp(lf, dim=ax, keepdim=True)
@@ -388,7 +403,7 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
     loss = torch.where(valid, -picked, torch.zeros_like(picked))
     softmax = torch.exp(lf - lse)
     return {'Softmax': [softmax.to(logits.dtype)],
-            'Loss': [loss.to(logits.dtype)]}
+            'Loss': [loss.to(loss_dtype)]}
 
 
 @register('sigmoid_cross_entropy_with_logits')
@@ -406,6 +421,14 @@ def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
     if attrs.get('normalize', False):
         loss = loss / torch.clamp(torch.sum(mask.to(x.dtype)), min=1.0)
     return {'Out': [loss]}
+
+
+@register('square_error_cost')
+def square_error_cost(ctx, ins, attrs):
+    """(X - Y)^2 elementwise, the loss of layers.square_error_cost (one
+    op, as the JAX package lowers it: nn_ops.py:621)."""
+    d = ins['X'][0] - ins['Y'][0]
+    return {'Out': [d * d]}
 
 
 @register('label_smooth')

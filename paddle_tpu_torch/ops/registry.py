@@ -109,7 +109,42 @@ class OpDef(object):
         self.stochastic = stochastic
 
     def run(self, ctx, ins, attrs):
+        """Invoke the lowering with the AMP dtype rule of the op's marks
+        (``_amp_harmonize``).  Grad ops skip it: their fn replays the
+        forward through run(), so the casts sit inside the autograd
+        graph and the f32 master parameters' gradients come back f32,
+        the reference's backward cast op."""
+        if not self.type.endswith('_grad'):
+            ins = _amp_harmonize(ins, attrs)
         return self.fn(ctx, ins, attrs)
+
+
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def _amp_harmonize(ins, attrs):
+    """The AMP marks' input casts (reference fp16_utils._insert_cast_op;
+    the JAX package's registry._amp_harmonize).  A black op
+    (``__amp_black__``) takes bf16 and f16 inputs up to f32.  A gray op
+    (``__amp_gray__``) follows a low-precision input: its f32 inputs go
+    down to the first low dtype among them.  Without the gray rule
+    torch's promotion would take a bf16 activation up to f32 at every
+    f32 master-parameter bias add, and everything after it would run in
+    f32 without any error."""
+    if attrs.get('__amp_black__'):
+        return {s: [v.float() if isinstance(v, torch.Tensor) and
+                    v.dtype in _LOW else v for v in vs]
+                for s, vs in ins.items()}
+    if attrs.get('__amp_gray__'):
+        low = next((v.dtype for vs in ins.values() for v in vs
+                    if isinstance(v, torch.Tensor) and v.dtype in _LOW),
+                   None)
+        if low is None:
+            return ins
+        return {s: [v.to(low) if isinstance(v, torch.Tensor) and
+                    v.dtype == torch.float32 else v for v in vs]
+                for s, vs in ins.items()}
+    return ins
 
 
 _REGISTRY = {}

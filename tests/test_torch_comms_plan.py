@@ -225,7 +225,8 @@ def test_transpiled_bert_plan_matches_bucket_count():
 
 def test_other_entry_points():
     """LocalSGD, the parameter-server transpiler modes and the unported
-    fleet strategies raise; nccl2 mode marks the program; the fleet
+    fleet strategies raise (use_amp decorates: its loss-scaling ops
+    follow the all-reduces); nccl2 mode marks the program; the fleet
     optimizer inserts un-planned all-reduces (nranks 1 without a
     group)."""
     main, startup, loss = _mlp(tfluid)
@@ -238,11 +239,21 @@ def test_other_entry_points():
     cfg.mode = 'pserver'
     with pytest.raises(NotImplementedError, match='item 14'):
         DistributeTranspiler(cfg).transpile(0, program=main)
-    for field in ('use_amp', 'use_recompute', 'use_local_sgd'):
+    for field in ('use_recompute', 'use_local_sgd'):
         s = DistributedStrategy()
         setattr(s, field, True)
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             CollectiveOptimizer(tfluid.optimizer.Adam(0.1), s).minimize(loss)
+    amain, astartup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(amain, astartup):
+        x = tfluid.layers.data('x', shape=[8], dtype='float32')
+        aloss = tfluid.layers.mean(tfluid.layers.fc(x, 1))
+        s = DistributedStrategy()
+        s.use_amp = True
+        CollectiveOptimizer(tfluid.optimizer.Adam(0.1), s).minimize(aloss)
+    types = [op.type for op in amain.global_block().ops]
+    assert types.index('check_finite_and_unscale') > \
+        max(i for i, t in enumerate(types) if t == 'c_allreduce_sum')
     fmain, fstartup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(fmain, fstartup):
         x = tfluid.layers.data('x', shape=[8], dtype='float32')

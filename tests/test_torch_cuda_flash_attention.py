@@ -44,8 +44,10 @@ def _gen(dev, seed=0):
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, tol, b, t, h, d,
                                               causal, bias):
-    # bf16 tolerance: both sides compute in f32 from the same bf16
-    # inputs and round O once to bf16 (8 mantissa bits)
+    # bf16 tolerance: both sides take bf16 products from the same bf16
+    # inputs, round P to bf16 before P V (the plain version at the row's
+    # maximum, the kernel at the running one) and O once (8 mantissa
+    # bits)
     g = _gen(dev)
     q, k, v = [torch.randn(b, t, h, d, generator=g, device=dev).to(dtype)
                for _ in range(3)]

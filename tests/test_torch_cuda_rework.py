@@ -3,7 +3,8 @@ tensor-core products, cp.async tiles) and embedding scatter-add
 (one-block radix sort, run pass, long runs streamed over 32-column
 slices) against their plain PyTorch versions on the card, at the edge
 cases of their designs: head dims 32 and 128, one query, a key past a
-tile, dropout, bf16, fully masked rows, a second launch bitwise the
+tile, dropout, bf16 (held against the plain bf16 versions),
+fully masked rows, a second launch bitwise the
 first; runs longer than a 128-row stage that start mid-chunk, D = 16,
 100 and 1, one id, and more ids than the one-block sort takes.
 Marked `cuda`: every test skips where torch has no CUDA device.  Run on
@@ -57,9 +58,12 @@ def _gen(dev, seed=0):
 def test_forward_edge_cases_match_plain(dev, b, t, h, d, causal, rate, dtype,
                                         masked):
     """O and lse within 1e-4 of the plain forward; a second launch is
-    bitwise the first.  bf16: O bitwise the f32 path on the same values
-    rounded to bf16, lse bitwise the f32 path's.  masked: batch 0's keys
-    all -inf, so its rows give O = 0 exactly and lse = log(1e-20)."""
+    bitwise the first.  bf16 (the bf16 route, bf16 products with P
+    rounded to bf16 as the Pallas kernel rounds it): O within 2e-2 of
+    max(1, max|plain|) of the plain bf16 version, which rounds P at the
+    row's maximum where the kernel rounds it at the running maximum, and
+    lse within 1e-4.  masked: batch 0's keys all -inf, so its rows give
+    O = 0 exactly and lse = log(1e-20)."""
     g = _gen(dev, 5)
     qkv = torch.randn(b, t, 3 * h * d, generator=g, device=dev).to(dtype)
     q, k, v = [x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=2)]
@@ -72,15 +76,14 @@ def test_forward_edge_cases_match_plain(dev, b, t, h, d, causal, rate, dtype,
         q, k, v, causal, bias, rate, 13) for _ in range(2)]
     assert common.launches('flash_attention') == before + 2
     po, plse = fa_k.flash_attention_plain(q, k, v, causal, bias, rate, 13)
-    if dtype == torch.bfloat16:
-        fo, flse = fa_k.flash_attention_kernel(
-            q.float(), k.float(), v.float(), causal, bias, rate, 13)
-        assert torch.equal(o, fo.to(dtype)) and torch.equal(lse, flse)
     torch.cuda.synchronize()
     assert o.dtype == dtype and torch.equal(o, o2) and torch.equal(lse, lse2)
     assert (lse - plse).abs().max().item() <= TOL
     if dtype == torch.float32:
         assert (o - po).abs().max().item() <= TOL
+    else:
+        assert (o.float() - po.float()).abs().max().item() <= 2e-2 * max(
+            1.0, po.float().abs().max().item())
     if masked:
         assert o[0].abs().max().item() == 0.0
         assert (lse[0] - math.log(1e-20)).abs().max().item() <= TOL
@@ -95,9 +98,11 @@ def test_forward_edge_cases_match_plain(dev, b, t, h, d, causal, rate, dtype,
 def test_backward_edge_cases_match_plain(dev, b, t, h, d, causal, rate,
                                          dtype, masked):
     """1e-4 * max(1, max|plain|) against the plain backward; a second
-    launch is bitwise the first.  bf16: bitwise the f32 path on the same
-    values rounded to bf16, and within K1's bf16 limit (2e-2) of the
-    plain backward in f32 (the forward's O reaches the kernel rounded)."""
+    launch is bitwise the first.  bf16 (the bf16 route: bf16 products,
+    P and dS rounded to bf16 as the Pallas kernel rounds them): within
+    2e-2 * max(1, max|plain|) of the plain bf16 backward, which takes
+    the same rounding points (sums in another order, P from the
+    forward's lse)."""
     g = _gen(dev, 3)
     qkv = torch.randn(b, t, 3 * h * d, generator=g, device=dev).to(dtype)
     q, k, v = [x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=2)]
@@ -114,21 +119,13 @@ def test_backward_edge_cases_match_plain(dev, b, t, h, d, causal, rate,
         for _ in range(2)]
     assert common.launches('flash_attention_bwd') == before + 2
     want = fa_k.flash_attention_bwd_plain(
-        q.float(), k.float(), v.float(), bias, do.float(), dlse, causal,
-        rate, 11, bias_grad=True)
-    tol = TOL
-    if dtype == torch.bfloat16:
-        tol = 2e-2
-        f32 = fa_k.flash_attention_bwd_kernel(
-            q.float(), k.float(), v.float(), bias, o.float(), lse,
-            do.float(), dlse, causal, rate, 11, bias_grad=True)
-        for x, y in zip(got, f32):
-            assert torch.equal(x, y.to(x.dtype))
+        q, k, v, bias, do, dlse, causal, rate, 11, bias_grad=True)
+    tol = TOL if dtype == torch.float32 else 2e-2
     torch.cuda.synchronize()
     for x, x2, y in zip(got, again, want):
-        assert torch.equal(x, x2)
-        assert (x.float() - y).abs().max().item() <= tol * max(
-            1.0, y.abs().max().item())
+        assert torch.equal(x, x2) and x.dtype == y.dtype
+        assert (x.float() - y.float()).abs().max().item() <= tol * max(
+            1.0, y.float().abs().max().item())
     if masked:
         assert all(x[0].abs().max().item() == 0.0 for x in got[:3])
 
