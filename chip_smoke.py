@@ -136,7 +136,8 @@ Phases, each of which fails the run (non-zero exit) on error:
      zeroing and its
      passes on both tables, K7 also on the 1000001 x 1 table (a row of
      its own), the 1000 x 16 table and a 64 x 16 table whose 8192 ids
-     all but six are 0 (one run of 8187), and split into its sort and
+     all but six are 0 (one run of 8187), these two beside the sparse
+     step of torch.optim.Adagrad on them, and split into its sort and
      its run kernels on the three Wide&Deep tables, K6b past its
      one-block sort (16,384 and 65,536 ids on the word table, beside
      index_add_, bitwise its plain version), K6 and K6b on the
@@ -2152,18 +2153,27 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                 w3['qt'], w3['st'])), w3['rbound']['bound_ms'],
             *w3['qt'].shape))
     # the row update on BASE's 1000-row table (~106 visits a row) and on
-    # the hot case (one run of 8187 rows)
+    # the hot case (one run of 8187 rows), beside the sparse Adagrad step
+    # of torch.optim on the same table and ids (clipped into the table,
+    # as the kernel clips them)
     for key, label in (((1000, 16), '1000 x 16 table'),
                        ('hot', '64 x 16 table, one run of 8187')):
         r = rows_wd[key]
+        lib_param = torch.nn.Parameter(r['w'].clone())
+        lib_param.grad = torch.sparse_coo_tensor(
+            r['ids'].clamp(0, r['w'].shape[0] - 1)[None], r['g'],
+            r['w'].shape, check_invariants=True)
+        lib_step = torch.optim.Adagrad([lib_param], lr=WD_LR, eps=1e-6).step
         log('  %-28s cold L2: kernel %.4f ms  plain %.4f ms (events)  '
-            'bound %.4f ms (%s, %d ids, %d rows touched)' % (
+            'sparse Adagrad %.4f ms (events)  bound %.4f ms (%s, %d ids, %d '
+            'rows touched)' % (
                 'embedding_update', timer.ms(
                     lambda: emb_k.update_kernel(r['w'], r['m'], r['ids'],
                                                 r['g'], lr_wd, 1e-6)),
                 timer.ms(lambda: emb_k.update_plain(
                     r['w'], r['m'], r['ids'], r['g'], lr_wd, 1e-6),
                     graph=False),
+                timer.ms(lib_step, graph=False),
                 r['bound']['bound_ms'], label, r['ids'].numel(),
                 r['touched']) + (
                     '; %s took %.4f ms'

@@ -66,25 +66,51 @@
 //
 // The bf16 route (`flash_fwd_bf16`) computes what the Pallas kernel
 // computes for bf16 inputs (flash_attention.py:130-181): S = Q K^T from
-// the bf16 operands with f32 accumulation (mma.sync m16n8k16 bf16, one
-// product where the f32 route takes three), the online softmax in f32
+// the bf16 operands with f32 accumulation, the online softmax in f32
 // with l summing the unrounded p, the dropped p scaled by 1 / (1 - rate)
-// and rounded to bf16 as the A operand of P V (two adjacent n8
-// accumulators of S are one k16 A fragment, bf16_mma.cuh), O rounded
-// once to bf16 and lse in f32.  The same block shape, 64-key tiles
-// through the same two-stage cp.async ring, the Q fragments read once
-// into registers.  Bound at BERT-base (B=8, H=12, T=512, D=64):
-// operations, 6.44 GFLOP at 989 TFLOP/s bf16, 0.0065 ms; the 25 MB of
-// bf16 Q, K, V, O and the f32 lse and bias take 0.0075 ms at 3.35 TB/s,
-// so bytes bound it.
+// and rounded to bf16 as the A operand of P V, O rounded once to bf16
+// and lse in f32.  Bound at BERT-base (B=8, H=12, T=512, D=64): the 25
+// MB of bf16 Q, K, V, O and the f32 lse and bias take 0.0076 ms at 3.35
+// TB/s, above the operations' 6.44 GFLOP at 989 TFLOP/s bf16 (0.0065
+// ms), so bytes bound it.  Design, for Hopper (hopper_wgmma.cuh):
+//   - a block of one producer warp and NWG consumer warpgroups of 64
+//     query rows (at D = 64 one warpgroup, 3 blocks an SM: the fastest
+//     of the shapes measured, tools/torch_flash_tune.py);
+//   - the producer's lane 0 loads the Q tile once and K and V in tiles
+//     of BN = 64 keys by TMA from 4-D maps over the [B, T, H, D] views
+//     (no copy of the fused projection's views; rows past T read 0)
+//     into 128-byte-swizzled shared memory (64-byte at D = 32, two
+//     boxes at D = 128), through a ring of 3-4 stages, each with a full
+//     and an empty mbarrier; its lanes copy the tile's bias;
+//   - S = Q K^T is wgmma m64n64k16 from shared memory (both operands
+//     K-major); O += P V is wgmma with A = P from registers (two
+//     adjacent 8-column accumulator blocks, rounded to bf16, are one k16
+//     A fragment) and B = the V tile read MN-major (transpose bit);
+//   - each warpgroup overlaps its softmax with its products: S of tile
+//     j and P V of tile j - 1 are issued together, the exponentials of
+//     tile j run while P V is in flight, and a stage is released once
+//     its P V has completed;
+//   - the softmax in the accumulator layout (rows g and g + 8 of each
+//     warp's 16, columns 2t, 2t + 1 of each 8): the exponentials as
+//     2^(x log2(e) - m log2(e)) on the MUFU, the key masks only on the
+//     tiles that need them and the dropout hash only with dropout, both
+//     branches taken outside the element loops (a branch an element
+//     tripled the softmax's time), each element's keep bit the counter
+//     hash at its own (head, query, key), as in the f32 route.
+// No atomics: a second launch gives the same O and lse bit for bit.
+// What holds it back: at 26% of the byte bound, the softmax's issue
+// slots and MUFU exponentials (and the dropout hash), and each block's
+// first Q and K/V loads from cold HBM (~2 us a block).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dropout_hash.cuh"
-#include "bf16_mma.cuh"
+#include "hopper_wgmma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -284,159 +310,235 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd(const Params p) {
 
 // ------------------------------------------------------- bf16 route
 
-constexpr int kTileB = 64;  // keys a streamed tile of the bf16 route
+struct MapsFwd {  // TMA maps of q, k, v: boxes of query / key tiles
+  CUtensorMap q, k, v;
+};
 
-template <int D>
-constexpr size_t smem_bytes_bf16() {
-  // the Q tile [kRows][kLd], the K and V rings [2][kTileB][kLd], the
-  // bias ring [2][kTileB] f32
-  return (size_t)(kRows + 4 * kTileB) *
-             TileShape<__nv_bfloat16, D>::kLd * sizeof(__nv_bfloat16) +
-         (size_t)2 * kTileB * sizeof(float);
-}
+// the bf16 route's block: NWG consumer warpgroups of 64 query rows and
+// one producer warp; BN keys a streamed tile, kStages tiles in flight;
+// MINB blocks an SM asked of the register allocation
+template <int D, int NWG, int BN, int MINB>
+struct FwdShape {
+  static constexpr int kRows = NWG * 64;
+  static constexpr int kThreads = NWG * 128 + 32;
+  static constexpr int kStages = D == 128 || NWG > 1 ? 3 : 4;
+  static constexpr int kTile = BN * D * 2;  // bytes of a K or V tile
+  // 1 KB of slack to put the tiles on 1024 bytes, the Q tile, the K
+  // and V rings, the bias ring [kStages][BN] f32
+  static constexpr size_t kSmem = 1024 + (size_t)kRows * D * 2 +
+                                  (size_t)2 * kStages * kTile +
+                                  (size_t)kStages * BN * 4;
+};
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_fwd_bf16(const Params p) {
-  using Elt = __nv_bfloat16;
-  constexpr int kLd = TileShape<Elt, D>::kLd;
-  constexpr int kN = kTileB / 8;  // 8-key columns of a tile
-  constexpr int kD8 = D / 8;
-  constexpr int kD16 = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Elt* qs = (Elt*)smem_raw;         // [kRows][kLd] this block's queries
-  Elt* ks = qs + kRows * kLd;       // [2][kTileB][kLd] key tiles
-  Elt* vs = ks + 2 * kTileB * kLd;  // [2][kTileB][kLd]
-  float* bias_s = (float*)(vs + 2 * kTileB * kLd);  // [2][kTileB]
+template <int D, int NWG, int BN, int MINB>
+__global__ void __launch_bounds__(NWG * 128 + 32, MINB)
+    flash_fwd_bf16(const __grid_constant__ MapsFwd maps, const Params p) {
+  using Sh = FwdShape<D, NWG, BN, MINB>;
+  constexpr int kStages = Sh::kStages;
+  extern __shared__ unsigned char smem_tma[];
+  const uint32_t qs = (smem_u32(smem_tma) + 1023) & ~1023u;
+  const uint32_t ks = qs + Sh::kRows * D * 2;   // [kStages] key tiles
+  const uint32_t vs = ks + kStages * Sh::kTile;  // [kStages] value tiles
+  float* bias_s = (float*)(smem_tma + (vs + kStages * Sh::kTile -
+                                       smem_u32(smem_tma)));  // [kStages][BN]
+  __shared__ uint64_t q_full, full[kStages], empty[kStages];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.q_tiles;
-  const int q0 = (blockIdx.x - bh * p.q_tiles) * kRows;
+  const int q0 = (blockIdx.x - bh * p.q_tiles) * Sh::kRows;
   const int b = bh / p.heads, h = bh - b * p.heads;
   const int t_len = p.t_len;
-  const float* bias_row = p.bias ? p.bias + (long long)b * t_len : nullptr;
-  const int qr = warp * 16;  // this warp's queries in the tile
+  int n_tiles = (t_len + BN - 1) / BN;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + Sh::kRows - 1) / BN + 1);
 
-  int n_tiles = (t_len + kTileB - 1) / kTileB;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kTileB + 1);
-  auto issue = [&](int tile, int stage) {
-    const int k0 = tile * kTileB;
-    copy_rows<Elt, D, kTileB, kThreads>(ks + stage * kTileB * kLd, p.k,
-                                        p.sk, b, h, k0, t_len, tid);
-    copy_rows<Elt, D, kTileB, kThreads>(vs + stage * kTileB * kLd, p.v,
-                                        p.sv, b, h, k0, t_len, tid);
-    if (bias_row)
-      copy_vec<kTileB, kThreads>(bias_s + stage * kTileB, bias_row, k0,
-                                 t_len, tid);
-  };
-  copy_rows<Elt, D, kRows, kThreads>(qs, p.q, p.sq, b, h, q0, t_len, tid);
-  issue(0, 0);
-  cp_commit();
-
-  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
-  float o[kD8][4];
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
 #pragma unroll
-  for (int i = 0; i < kD8; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 33);  // the producer's expect_tx and lanes
+      mbar_init(&empty[s], NWG * 4);  // one lane of each consumer warp
+    }
+    mbar_fence_init();
   }
-  FragA16 qa[kD16];  // this warp's 16 queries, read once
+  __syncthreads();
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int stage = tile & 1;
-    if (tile + 1 < n_tiles) issue(tile + 1, stage ^ 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    if (tile == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kD16; ++kk)
-        qa[kk] = tile_a16(qs, kLd, qr, kk * 16, g, t4);
+  if (warp == NWG * 4) {
+    // producer: Q once, then K, V and the bias tile by tile, a stage
+    // refilled once its consumers have released it; lane 0 issues the
+    // TMA loads first, then every lane copies its part of the bias
+    const float* bias_row = p.bias ? p.bias + (long long)b * t_len : nullptr;
+    if (lane == 0) {
+      mbar_expect_tx(&q_full, Sh::kRows * D * 2);
+      tma_tile<D>(qs, Sh::kRows, &maps.q, &q_full, b, h, q0);
     }
-    const Elt* kt = ks + stage * kTileB * kLd;
-    const Elt* vt = vs + stage * kTileB * kLd;
-    const float* bias_t = bias_s + stage * kTileB;
-    const int k0 = tile * kTileB;
-    // S = Q K^T for 16 queries x kTileB keys, one bf16 product
-    float s[kN][4];
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kD16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kN; ++n)
-        mma_bf16(s[n], qa[kk], tile_bt16(kt, kLd, n * 8, kk * 16, g, t4));
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int kl = n * 8 + 2 * t4 + (e & 1);
-        const int key = k0 + kl;
-        const int qpos = q0 + qr + g + 8 * r;
-        float x = s[n][e] * p.scale + (bias_row ? bias_t[kl] : 0.f);
-        if (key >= t_len || (p.causal && qpos < key)) x = -INFINITY;
-        s[n][e] = x;
-        mx[r] = fmaxf(mx[r], x);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int s = tile % kStages, k0 = tile * BN;
+      if (tile >= kStages) mbar_wait(&empty[s], (tile / kStages + 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * Sh::kTile);
+        tma_tile<D>(ks + s * Sh::kTile, BN, &maps.k, &full[s], b, h, k0);
+        tma_tile<D>(vs + s * Sh::kTile, BN, &maps.v, &full[s], b, h, k0);
       }
+      for (int i = lane; i < BN; i += 32)
+        bias_s[s * BN + i] =
+            bias_row && k0 + i < t_len ? bias_row[k0 + i] : 0.f;
+      mbar_arrive(&full[s]);
     }
-    float m_safe[2];
+    return;
+  }
+
+  // consumers: warpgroup wg owns queries q0 + 64 wg ..; this lane rows
+  // g and g + 8 of its warp's 16
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qr = wg * 64 + (warp & 3) * 16;
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  // the online softmax of tile `tile`'s scores in sc: x = s * scale +
+  // bias, the rows' max m over the quad, p = 2^(x log2(e) - m log2(e));
+  // m and l move on, corr is the factor O's rows take, and sc is left
+  // holding P in f32, dropped and rescaled (l sums the unrounded,
+  // un-dropped values)
+  auto softmax = [&](float (&sc)[BN / 2], int tile, float (&corr)[2]) {
+    const float* bias_t = bias_s + (tile % kStages) * BN;
+    const int k0 = tile * BN;
+    // a tile with keys past T or, causal, past the warpgroup's first query
+    const bool edge = k0 + BN > t_len ||
+                      (p.causal && k0 + BN - 1 > q0 + wg * 64);
+    // the masks and the dropout are uniform branches taken outside the
+    // element loops (a branch an element serializes the exponentials)
+    float mx[2] = {-INFINITY, -INFINITY};
+    auto scores = [&](auto masked) {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        const float2 bv = *(const float2*)(bias_t + n * 8 + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = fmaf(sc[4 * n + e], p.scale, (e & 1) ? bv.y : bv.x);
+          if constexpr (decltype(masked)::value) {
+            const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+            const int qpos = q0 + qr + g + 8 * r;
+            if (key >= t_len || (p.causal && qpos < key)) x = -INFINITY;
+          }
+          sc[4 * n + e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+    };
+    if (edge)
+      scores(std::true_type());
+    else
+      scores(std::false_type());
+    float m2[2];  // -m_safe log2(e)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m_i[r], mx[r]);
-      m_safe[r] = isfinite(m_new) ? m_new : 0.f;
-      const float corr =
-          isfinite(m_i[r]) ? __expf(m_i[r] - m_safe[r]) : 0.f;
+      m2[r] = isfinite(m_new) ? -m_new * kLog2e : 0.f;
+      corr[r] = exp2_approx(fmaf(m_i[r], kLog2e, m2[r]));  // 0: m_i -inf
       m_i[r] = m_new;
-      l_i[r] *= corr;
-#pragma unroll
-      for (int dt = 0; dt < kD8; ++dt) {
-        o[dt][2 * r] *= corr;
-        o[dt][2 * r + 1] *= corr;
-      }
+      l_i[r] *= corr[r];
     }
-    // P in f32: l sums the unrounded values; the dropped, rescaled
-    // values are rounded to bf16 where they become A fragments
+    auto probs = [&](auto drop) {
 #pragma unroll
-    for (int n = 0; n < kN; ++n) {
+      for (int n = 0; n < BN / 8; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float pr =
-            isfinite(s[n][e]) ? __expf(s[n][e] - m_safe[r]) : 0.f;
-        l_i[r] += pr;
-        float pu = pr;
-        if (p.dropout) {
-          const int key = k0 + n * 8 + 2 * t4 + (e & 1);
-          const int qpos = q0 + qr + g + 8 * r;
-          pu = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
-                            (uint32_t)qpos, (uint32_t)key, p.threshold)
-                   ? pr * p.inv_keep
-                   : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float pr = exp2_approx(fmaf(sc[4 * n + e], kLog2e, m2[r]));
+          l_i[r] += pr;
+          float pu = pr;
+          if constexpr (decltype(drop)::value) {
+            const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+            const int qpos = q0 + qr + g + 8 * r;
+            pu = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+                              (uint32_t)qpos, (uint32_t)key, p.threshold)
+                     ? pr * p.inv_keep
+                     : 0.f;
+          }
+          sc[4 * n + e] = pu;
         }
-        s[n][e] = pu;
       }
-    }
-    // O += P V over the tile's keys, 16 keys a product
+    };
+    if (p.dropout)
+      probs(std::true_type());
+    else
+      probs(std::false_type());
+  };
+  // S = Q K^T of a tile (64 queries x BN keys), issued and committed
+  auto issue_s = [&](float (&sc)[BN / 2], int tile) {
+    const uint32_t kt = ks + (tile % kStages) * Sh::kTile;
 #pragma unroll
-    for (int j = 0; j < kN / 2; ++j) {
-      const FragA16 pa = acc_a16(s[2 * j], s[2 * j + 1]);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0>(sc, desc_k<D>(qs, Sh::kRows, wg * 64, kk),
+                  desc_k<D>(kt, BN, 0, kk), kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of a tile, P (bf16) from registers, issued and committed
+  auto issue_pv = [&](const uint32_t (&pf)[BN / 16][4], int tile) {
+    const uint32_t vt = vs + (tile % kStages) * Sh::kTile;
 #pragma unroll
-      for (int dt = 0; dt < kD8; ++dt)
-        mma_bf16(o[dt], pa, tile_b16(vt, kLd, j * 16, dt * 8, g, t4));
-    }
-    __syncthreads();  // this stage is read before the next issue fills it
-  }
-  cp_wait<0>();
+    for (int j = 0; j < BN / 16; ++j)
+      wgmma_rs<1>(o, pf[j], desc_mn<D>(vt, BN, j), 1);
+    wgmma_commit();
+  };
 
+  // The products of a warpgroup overlap its softmax: while the exps of
+  // tile j run, O += P V of tile j - 1 is in flight.  A stage is released
+  // once its P V has completed.
+  float sc[BN / 2], corr[2];
+  uint32_t pf[BN / 16][4];  // P of the previous tile as A fragments
+  CYCLES_BEGIN;
+  mbar_wait(&q_full, 0);
+  CYCLES_STAMP(0);
+  mbar_wait(&full[0], 0);
+  wgmma_fence();
+  issue_s(sc, 0);
+  wgmma_wait<0>();
+  fence_acc(sc);
+  softmax(sc, 0, corr);
+#pragma unroll
+  for (int j = 0; j < BN / 16; ++j) acc_a16(sc, j, pf[j]);
+  for (int tile = 1; tile < n_tiles; ++tile) {
+    mbar_wait(&full[tile % kStages], (tile / kStages) & 1);
+    CYCLES_STAMP(1);
+    wgmma_fence();
+    issue_s(sc, tile);
+    issue_pv(pf, tile - 1);
+    wgmma_wait<1>();  // S of this tile
+    CYCLES_STAMP(2);
+    fence_acc(sc);
+    softmax(sc, tile, corr);
+    CYCLES_STAMP(3);
+    wgmma_wait<0>();  // P V of the previous tile
+    CYCLES_STAMP(4);
+    fence_acc(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(tile - 1) % kStages]);
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      o[4 * dt] *= corr[0];
+      o[4 * dt + 1] *= corr[0];
+      o[4 * dt + 2] *= corr[1];
+      o[4 * dt + 3] *= corr[1];
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) acc_a16(sc, j, pf[j]);
+    CYCLES_STAMP(5);
+  }
+  wgmma_fence();
+  issue_pv(pf, n_tiles - 1);
+  wgmma_wait<0>();
+  fence_acc(o);
+
+  CYCLES_END(0, warp);
+
+  // the normalizer of a row: the 4 lanes of a quad hold disjoint keys
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
@@ -447,11 +549,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int row = q0 + qr + g + 8 * r;
     if (row >= t_len) continue;
     const float l_safe = fmaxf(l_i[r], 1e-20f);
-    Elt* og = (Elt*)p.o + row_off(p.so, b, row, h);
+    __nv_bfloat16* og = (__nv_bfloat16*)p.o + row_off(p.so, b, row, h);
 #pragma unroll
-    for (int dt = 0; dt < kD8; ++dt)
-      store2(og + dt * 8 + 2 * t4, o[dt][2 * r] / l_safe,
-             o[dt][2 * r + 1] / l_safe);
+    for (int dt = 0; dt < D / 8; ++dt)
+      store2(og + dt * 8 + 2 * t4, o[4 * dt + 2 * r] / l_safe,
+             o[4 * dt + 2 * r + 1] / l_safe);
     if (t4 == 0) {
       const float m_fin = isfinite(m_i[r]) ? m_i[r] : 0.f;
       p.lse[(long long)bh * t_len + row] = m_fin + logf(l_safe);
@@ -459,16 +561,47 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int D>
-cudaError_t launch_bf16(const Params& p, long long bh, cudaStream_t stream) {
+template <int D, int NWG, int BN, int MINB = 1>
+cudaError_t launch_bf16(const Params& p0, int batch, cudaStream_t stream) {
+  using Sh = FwdShape<D, NWG, BN, MINB>;
   static bool configured[64] = {};
-  const size_t smem = smem_bytes_bf16<D>();
-  cudaError_t e = configure(flash_fwd_bf16<D>, smem, configured);
+  cudaError_t e =
+      configure(flash_fwd_bf16<D, NWG, BN, MINB>, Sh::kSmem, configured);
+  if (e == cudaSuccess) e = bind_context();
   if (e != cudaSuccess) return e;
-  const long long blocks = bh * p.q_tiles;
+  MapsFwd maps;
+  int err = encode_rows<D>(&maps.q, p0.q, p0.sq.b, p0.sq.t, p0.sq.h, batch,
+                           p0.t_len, p0.heads, Sh::kRows);
+  if (!err)
+    err = encode_rows<D>(&maps.k, p0.k, p0.sk.b, p0.sk.t, p0.sk.h, batch,
+                         p0.t_len, p0.heads, BN);
+  if (!err)
+    err = encode_rows<D>(&maps.v, p0.v, p0.sv.b, p0.sv.t, p0.sv.h, batch,
+                         p0.t_len, p0.heads, BN);
+  if (err) return (cudaError_t)err;
+  Params p = p0;
+  p.q_tiles = (p.t_len + Sh::kRows - 1) / Sh::kRows;
+  const long long blocks = (long long)batch * p.heads * p.q_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_fwd_bf16<D><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  flash_fwd_bf16<D, NWG, BN, MINB>
+      <<<(unsigned)blocks, Sh::kThreads, Sh::kSmem, stream>>>(maps, p);
   return cudaGetLastError();
+}
+
+// the bf16 route's block shape at D = 64 (NWG, BN, MINB); a copy built
+// with another one defined is how tools/torch_flash_tune.py measures it
+#ifndef FWD_BF16_SHAPE_D64
+#define FWD_BF16_SHAPE_D64 1, 64, 3
+#endif
+
+cudaError_t launch_bf16_d(const Params& p, int batch, int d,
+                          cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_bf16<32, 1, 64, 3>(p, batch, stream);
+    case 64: return launch_bf16<64, FWD_BF16_SHAPE_D64>(p, batch, stream);
+    case 128: return launch_bf16<128, 2, 64>(p, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename Elt, int D>
@@ -483,8 +616,9 @@ cudaError_t launch(const Params& p, long long bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_d(const Params& p, long long bh, int d, int dtype,
+cudaError_t launch_d(const Params& p, int batch, int d, int dtype,
                      cudaStream_t stream) {
+  const long long bh = (long long)batch * p.heads;
   if (dtype == 0) {
     switch (d) {
       case 32: return launch<float, 32>(p, bh, stream);
@@ -493,15 +627,95 @@ cudaError_t launch_d(const Params& p, long long bh, int d, int dtype,
       default: return cudaErrorInvalidValue;
     }
   }
-  if (dtype == 1) {
-    switch (d) {
-      case 32: return launch_bf16<32>(p, bh, stream);
-      case 64: return launch_bf16<64>(p, bh, stream);
-      case 128: return launch_bf16<128>(p, bh, stream);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+  if (dtype == 1) return launch_bf16_d(p, batch, d, stream);
   return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------- wgmma probe
+
+struct MapsProbe {
+  CUtensorMap x, y, v;
+};
+
+// One block of one warpgroup: X, Y, V ([64, D] bf16 each) loaded by TMA
+// as the flash kernels load their tiles; S = X Y^T (wgmma, both operands
+// K-major from shared memory) and O = P V (P [64, 64] f32 read from
+// global in the accumulator layout, rounded to bf16 as an A fragment
+// from registers; V MN-major).  Holds the descriptors and swizzles of
+// hopper_wgmma.cuh against a plain matrix product.
+template <int D>
+__global__ void __launch_bounds__(128)
+    wgmma_probe(const __grid_constant__ MapsProbe m, const float* pin,
+                float* s_out, float* o_out) {
+  using S = SwTile<D>;
+  extern __shared__ unsigned char smem_tma[];
+  const uint32_t xs = (smem_u32(smem_tma) + 1023) & ~1023u;
+  const uint32_t ys = xs + S::bytes(64), vs = ys + S::bytes(64);
+  __shared__ uint64_t bar;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  if (tid == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar, 3 * S::bytes(64));
+    tma_tile<D>(xs, 64, &m.x, &bar, 0, 0, 0);
+    tma_tile<D>(ys, 64, &m.y, &bar, 0, 0, 0);
+    tma_tile<D>(vs, 64, &m.v, &bar, 0, 0, 0);
+  }
+  mbar_wait(&bar, 0);
+  float s[32], pa[32], o[D / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<0>(s, desc_k<D>(xs, 64, 0, kk), desc_k<D>(ys, 64, 0, kk),
+                kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(s);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = r0 + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + c0 + (i & 1);
+    s_out[r * 64 + c] = s[i];
+    pa[i] = pin[r * 64 + c];
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t a[4];
+    acc_a16(pa, j, a);
+    wgmma_rs<1>(o, a, desc_mn<D>(vs, 64, j), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(o);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    const int r = r0 + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + c0 + (i & 1);
+    o_out[r * D + c] = o[i];
+  }
+}
+
+template <int D>
+cudaError_t launch_probe(const void* x, const void* y, const void* v,
+                         const float* p, float* s, float* o,
+                         cudaStream_t stream) {
+  static bool configured[64] = {};
+  const size_t smem = 1024 + 3 * SwTile<D>::bytes(64);
+  cudaError_t e = configure(wgmma_probe<D>, smem, configured);
+  if (e == cudaSuccess) e = bind_context();
+  if (e != cudaSuccess) return e;
+  MapsProbe m;  // each a [1, 64, 1, D] contiguous tensor
+  int err = encode_rows<D>(&m.x, x, 64 * D, D, D, 1, 64, 1, 64);
+  if (!err) err = encode_rows<D>(&m.y, y, 64 * D, D, D, 1, 64, 1, 64);
+  if (!err) err = encode_rows<D>(&m.v, v, 64 * D, D, D, 1, 64, 1, 64);
+  if (err) return (cudaError_t)err;
+  wgmma_probe<D><<<1, 128, smem, stream>>>(m, p, s, o);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -545,10 +759,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (!copy_aligned(q, p.sq, elt) || !copy_aligned(k, p.sk, elt) ||
       !copy_aligned(v, p.sv, elt))
     return (int)cudaErrorMisalignedAddress;
-  const long long bh = (long long)batch * heads;
-  return (int)launch_d(p, bh, d, dtype, (cudaStream_t)stream);
+  return (int)launch_d(p, batch, d, dtype, (cudaStream_t)stream);
+}
+
+// x, y, v: [64, D] bf16 contiguous (16-byte aligned); p: [64, 64] f32;
+// s = x y^T [64, 64] f32 and o = bf16(p) v [64, D] f32, both products
+// by wgmma on TMA-loaded tiles.  D: 32, 64 or 128.
+extern "C" int hopper_wgmma_probe(const void* x, const void* y,
+                                  const void* v, const float* p, float* s,
+                                  float* o, int d, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 32: return (int)launch_probe<32>(x, y, v, p, s, o, st);
+    case 64: return (int)launch_probe<64>(x, y, v, p, s, o, st);
+    case 128: return (int)launch_probe<128>(x, y, v, p, s, o, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+  const char* s = hopper_error_string(err);
+  return s ? s : cudaGetErrorString((cudaError_t)err);
 }

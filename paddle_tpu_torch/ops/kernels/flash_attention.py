@@ -47,12 +47,13 @@ common.register_kernel(
           '(einsum, bias, mask, softmax, dropout mask, einsum in f32)',
     replaces='paddle_tpu/ops/pallas/flash_attention.py:121 '
              '_flash_fwd_kernel',
-    doc='a block of 4 warps per 64-row Q tile, 16 rows a warp; S = Q K^T '
-        'and O += P V on the tensor cores (mma.sync TF32, 3xTF32 split '
-        'for f32 accuracy; for bf16 inputs one mma.sync bf16 product, P '
-        'rounded to bf16), online softmax in the accumulators, P fed '
-        'back as the A operand with its in-kernel dropout hash; K, V and '
-        'the bias through a two-stage cp.async ring; no atomics',
+    doc='f32: a block of 4 warps per 64-row Q tile, S = Q K^T and O += '
+        'P V as mma.sync TF32 with the 3xTF32 split, K, V and the bias '
+        'through a two-stage cp.async ring; bf16: a producer warp feeding '
+        'Q, K and V tiles by TMA through an mbarrier ring to warpgroups '
+        'of 64 rows, S and P V as wgmma (P from registers, rounded to '
+        'bf16); online softmax in the accumulators, P fed back as the A '
+        'operand with its in-kernel dropout hash; no atomics',
     op_types=('fused_multihead_attention',))
 
 common.register_kernel(
@@ -63,11 +64,11 @@ common.register_kernel(
     replaces='paddle_tpu/ops/pallas/flash_attention.py:361 '
              '_flash_bwd_fused_kernel (and :200 + :273, the two-pass '
              'dq / dkv kernels)',
-    doc='delta pass, then a dK/dV kernel over 64-key tiles and a dQ '
-        'kernel over 64-query tiles, their products on the tensor cores '
-        '(mma.sync TF32, 3xTF32 split for f32 accuracy; for bf16 inputs '
-        'mma.sync bf16 with P and dS rounded to bf16), streamed tiles '
-        'through a two-stage cp.async ring; no atomics',
+    doc='delta pass, then a dK/dV kernel over key tiles and a dQ '
+        'kernel over query tiles; f32: mma.sync TF32 with the 3xTF32 '
+        'split, streamed tiles through a two-stage cp.async ring; bf16: '
+        'wgmma on TMA-fed tiles (a producer warp, an mbarrier ring), P '
+        'and dS rounded to bf16 as A operands from registers; no atomics',
     op_types=('fused_multihead_attention_grad',))
 
 _M32 = 0xFFFFFFFF

@@ -1,4 +1,4 @@
-"""The bf16 route of the flash-attention kernels (K1, K2: mma.sync bf16
+"""The bf16 route of the flash-attention kernels (K1, K2: wgmma bf16
 products, P and dS rounded to bf16 where they enter a product) against
 their plain bf16 versions on the card, over T, D in (32, 64, 128),
 causal, dropout, a padding bias, fully masked rows and a head offset.
