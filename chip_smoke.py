@@ -82,10 +82,18 @@ Phases, each of which fails the run (non-zero exit) on error:
      from --seed) built with the port's layers, saved with
      save_inference_model, loaded by create_paddle_predictor on
      CUDAPlace(0), answering 3 requests of batch 1, 3 and 8 (buckets 1,
-     4, 8).  Each request must launch flash_attention 12 times and
-     embedding_lookup 3 times; outputs are finite [b, 512, 768]; the
-     batch-8 answer matches the same predictor run with the plain
-     versions (FLAGS_torch_kernels_plain) to max-abs 1e-3;
+     4, 8), each eagerly (use_program_cache=False through the
+     predictor's executor) and then from its bucket's CUDA graph (the
+     bucket's first run, its capture with one replay, a replay, a
+     profiled replay).  Every eager call and first run must launch
+     flash_attention 12 times and embedding_lookup 3 times at the
+     wrappers, and every replay replay as many through its graph's
+     launch manifest (counted apart as replayed launches), which the
+     profiled replay must show as K1's and K6's kernels; outputs are
+     finite [b, 512, 768] and every graph answer is bitwise the eager
+     one; the batch-8 answer matches the same predictor run with the
+     plain versions (FLAGS_torch_kernels_plain) to max-abs 1e-3, whose
+     runs take a CUDA graph of their own and launch no kernel;
   5. training: BERT-base pretraining (build_pretrain(BASE, 512), MLM +
      NSP heads, hidden and attention dropout 0.1) with
      fluid.optimizer.Adam(1e-6, epsilon 1e-6).minimize on
@@ -147,9 +155,17 @@ Phases, each of which fails the run (non-zero exit) on error:
      autograd for its backward) and K1 (forward) and K1 + K2 (forward
      and backward) on BERT-base's attention at seq 128, 256 and 512
      with 4096 tokens each (no dropout, a padding bias; the two routes'
-     outputs within 1e-4), the request latency per batch size and the
+     outputs within 1e-4), the request latency per batch size eagerly
+     and from graph replays (median of 5 requests, the self CPU, device
+     time and device-op count of a profiled request, in which K1's and
+     K6's kernels must appear once a launch, and peak memory), the
      median step of each training path, with the garbage collections
-     and allocator retries of each timed step.  The library call for
+     and allocator retries of each timed step, and (phases 5 and 7; 10's
+     LeNet-5 Adam, 11's Transformer and 13's AMP BERT-base at seq 512
+     in their phases) 5 steps with use_program_cache=False against the
+     same 5 steps from the same state with the plan cache: each side's
+     median step and a profiled step's self CPU, the state after them
+     bitwise equal.  The library call for
      the flash backward is
      SDPA's memory-efficient backward op on its own forward's saved
      outputs; for the row update (deep and wide tables),
@@ -202,8 +218,10 @@ Phases, each of which fails the run (non-zero exit) on error:
  11. the attention chain below flash_min_len on CUDAPlace(0): BERT-base
      built by build_pretrain(BASE, 128, is_test=True), saved and served
      through create_paddle_predictor at batches 1, 8 and 32 (buckets 1,
-     8, 32): each request launches embedding_lookup 3 times and no
-     flash kernel, the batch-8 answer within 1e-3 of the plain path;
+     8, 32) eagerly and from CUDA graphs as in phase 4: each call
+     launches embedding_lookup 3 times and no flash kernel, the graph
+     answers bitwise the eager ones, the batch-8 answer within 1e-3 of
+     the plain path, latency both ways as in phase 8;
      BERT-base pretraining at seq 128 with Adam as in phase 5 at batch
      32 (4096 tokens), each step launching embedding_lookup 3 times,
      embedding_scatter_add 3 and fused_adam once, the loss checks and
@@ -279,7 +297,10 @@ and fused_adam[lenet] LeNet-5's; fused_adam[zero], K4 at rank 1's
 shard of BERT-base under Reduce (half the rows of every tensor), counts
 rank 0's launches in phase 12; K1's dropout row and K2's are timed at
 rank 1's head offset (48); the bf16 rows count phase 13's launches;
-a row with no launch fails the run.  The last is {"ok": true, "device": {...}}.
+a row with no launch fails the run.  "launches" counts the launches
+the wrappers made; "replayed_launches" those that CUDA-graph replays
+ran while serving (phases 4 and 11), from the graphs' manifests, each
+bucket's also seen by the profiler in one replay.  The last is {"ok": true, "device": {...}}.
 --profile adds a torch.profiler breakdown of one request of each batch
 size, of one step of each training path, of one data-parallel step of
 each arm and of one ResNet-50 step.
@@ -306,7 +327,7 @@ import torch.nn.functional as F
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch import weights
 from paddle_tpu_torch.dataset import mnist
-from paddle_tpu_torch.fluid import core, flags, metrics
+from paddle_tpu_torch.fluid import compile_cache, core, flags, metrics
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.models import bert
 from paddle_tpu_torch.models import lenet
@@ -552,12 +573,14 @@ class Timer(object):
 def without_counting(fn):
     """Run fn() and put the launch counters back as they were: parity
     and timing launches are not the main path's."""
-    saved = {k: common.launches(k) for k in common.KERNELS}
+    saved = {k: (common.launches(k), common.replayed(k))
+             for k in common.KERNELS}
     try:
         return fn()
     finally:
-        for k, n in saved.items():
+        for k, (n, r) in saved.items():
             common.KERNELS[k]['launches'] = n
+            common.KERNELS[k]['replayed'] = r
 
 
 # rows of the kernels line that time one table of a kernel: the
@@ -1358,8 +1381,15 @@ def build_model(model_dir, seed, seq=SEQ, pretrain=False):
 
 
 def serve(model_dir, cfg, n_attn, n_emb, seed, seq=SEQ, batches=BATCHES):
-    """The requests of `batches` at `seq`, each one's launches checked;
-    the batch-8 answer against the plain path."""
+    """The requests of `batches` at `seq`: each served eagerly (a plan
+    built for it) and then from its bucket's CUDA graph (the bucket's
+    first run, its capture with one replay, one more replay, and a
+    profiled replay), every call's launches at the wrappers and
+    replayed launches checked, the profiled replay's K1 and K6
+    kernels counted by the profiler, and every graph answer bitwise
+    the eager one; the batch-8 answer against the plain path, whose
+    own graph launches no kernel.  Returns the predictor, the
+    requests, and the launches and the replayed launches by kernel."""
     config = AnalysisConfig(model_dir)
     pred = create_paddle_predictor(config)
     if pred.place != fluid.CUDAPlace(0):
@@ -1368,44 +1398,156 @@ def serve(model_dir, cfg, n_attn, n_emb, seed, seq=SEQ, batches=BATCHES):
     requests = [bert.encoder_batch(cfg, b, seq, rng, pad_to=seq - 37 * i)
                 for i, b in enumerate(batches)]
     names = pred.get_input_names()
-    outs, latency, per_request = [], [], []
-    expected = {k: 0 for k in common.KERNELS}
-    expected.update({'flash_attention': n_attn, 'embedding_lookup': n_emb})
-    launches = {k: 0 for k in common.KERNELS}
-    for req in requests:
+    none = {k: 0 for k in common.KERNELS}
+    expected = dict(none, flash_attention=n_attn, embedding_lookup=n_emb)
+    launches, replayed = dict(none), dict(none)
+
+    def call(req, replay=False, profile=False):
+        """One request: its answer and seconds, and with `profile` its
+        profile; its launches must be `expected` at the wrappers
+        (replay False) or replayed."""
+        events = []
+
+        def run():
+            return pred.run([req[n] for n in names])[0].data
+
+        def run_profiled():
+            out = []
+            events.extend(profile_run('', lambda: out.append(run()),
+                                      quiet=True, pad=True))
+            return out[0]
         t0 = time.perf_counter()
-        out, counts = counted(
-            lambda: pred.run([req[n] for n in names])[0].data)
-        latency.append(time.perf_counter() - t0)
-        per_request.append(counts)
-        outs.append(out)
-        for k, c in counts.items():
-            launches[k] += c
-    for req, out, counts, sec in zip(requests, outs, per_request, latency):
+        out, counts = counted(run_profiled if profile else run)
+        sec = time.perf_counter() - t0
+        again = {k: common.replayed(k) for k in common.KERNELS}
         b = req['src_ids'].shape[0]
-        log('  request batch %d: out %s %s, %.2f ms, launches %s'
+        want = (none, expected) if replay else (expected, none)
+        if (counts, again) != want:
+            raise AssertionError('request batch %d launched %s and replayed '
+                                 '%s, expected %s and %s'
+                                 % ((b, counts, again) + want))
+        for k in common.KERNELS:
+            launches[k] += counts[k]
+            replayed[k] += again[k]
+        return out, sec, events
+
+    def profiled_replay(req):
+        """A replay under the profiler, which must see K1 and K6 run
+        as often as the graph's manifest says (profiled_request)."""
+        tries = []
+
+        def once():
+            out, sec, events = call(req, replay=True, profile=True)
+            tries.append((out, sec))
+            return events
+        events = profiled_request(once, len(names))
+        kernels = kernel_counts(events)
+        if kernels != {'flash_fwd<float': n_attn, 'gather_rows<': n_emb}:
+            raise AssertionError(
+                'request batch %d: the profiler saw K1 / K6 %s times in a '
+                'replay, expected %d / %d' % (req['src_ids'].shape[0],
+                                              kernels, n_attn, n_emb))
+        return tries
+
+    pred._use_program_cache = False
+    eager = []
+    for req in requests:
+        out, sec, _ = call(req)
+        b = req['src_ids'].shape[0]
+        log('  request batch %d, eager: out %s %s, %.2f ms, launches %s'
             % (b, out.shape, out.dtype, sec * 1e3,
-               {k: c for k, c in counts.items() if c}))
+               {k: c for k, c in expected.items() if c}))
         if out.shape != (b, seq, cfg.hidden) or not np.isfinite(out).all():
             raise AssertionError('request batch %d: bad output' % b)
-        if counts != expected:
-            raise AssertionError('request batch %d launched %s, expected %s'
-                                 % (b, counts, expected))
-    # the whole path again with the plain versions, on the card
+        eager.append(out)
+    pred._use_program_cache = True
+    plane = compile_cache.plane()
+    for req, want in zip(requests, eager):
+        before = plane.stats()
+        # the first run, the capture with a replay, a replay, and a
+        # replay under the profiler
+        tries = [call(req, replay=i > 0)[:2] for i in range(3)]
+        tries += profiled_replay(req)
+        secs = [sec for _, sec in tries]
+        for out, _ in tries:
+            if not np.array_equal(out, want):
+                raise AssertionError(
+                    'request batch %d: the graph path differs from the '
+                    'eager answer by %g' % (req['src_ids'].shape[0],
+                                            float(np.abs(out - want).max())))
+        after = plane.stats()
+        if after['graph_captures'] - before['graph_captures'] != 1 or \
+                after['graph_replays'] - before['graph_replays'] != \
+                len(tries) - 1:
+            raise AssertionError('request batch %d: %s -> %s: not one '
+                                 'capture and %d replays'
+                                 % (req['src_ids'].shape[0], before, after,
+                                    len(tries) - 1))
+        log('  request batch %d, graph path (first run, capture + replay, '
+            'replay, profiled replay): %s ms, each bitwise the eager '
+            'answer; launches at the wrappers on the first run, replayed '
+            'after, and the profiled replay ran K1 %d and K6 %d times; the '
+            'capture grew the graphs\' pool by %.1f MiB'
+            % (req['src_ids'].shape[0], ['%.2f' % (x * 1e3) for x in secs],
+               n_attn, n_emb,
+               (after['graph_pool_bytes'] - before['graph_pool_bytes']) /
+               2 ** 20))
+    # the whole path again with the plain versions, on the card: a graph
+    # of its own, which launches no kernel
     i8 = batches.index(8)
+    entries = plane.entry_count()
     flags.set_flags({'FLAGS_torch_kernels_plain': True})
     try:
-        plain = without_counting(
-            lambda: pred.run([requests[i8][n] for n in names])[0].data)
+        plain = [counted(lambda: pred.run(
+            [requests[i8][n] for n in names])[0].data) for _ in range(3)]
     finally:
         flags.set_flags({'FLAGS_torch_kernels_plain': False})
-    err = float(np.abs(plain - outs[i8]).max())
-    log('  batch 8 vs the plain path on the card: max|diff| %.3e '
-        '(limit %g)' % (err, SLICE_TOL))
+    if plane.entry_count() != entries + 1 or any(
+            any(c.values()) for _, c in plain) or any(
+            common.replayed(k) for k in common.KERNELS) or not all(
+            np.array_equal(o, plain[0][0]) for o, _ in plain):
+        raise AssertionError('the plain path: %d -> %d graphs, launches %s'
+                             % (entries, plane.entry_count(),
+                                [c for _, c in plain]))
+    err = float(np.abs(plain[0][0] - eager[i8]).max())
+    log('  batch 8 vs the plain path on the card (its own graph: %d -> %d '
+        'entries, no kernel launched): max|diff| %.3e (limit %g)'
+        % (entries, plane.entry_count(), err, SLICE_TOL))
     if not err <= SLICE_TOL:
         raise AssertionError('the kernel path disagrees with the plain '
                              'path: %g' % err)
-    return pred, requests, launches
+    return pred, requests, launches, replayed
+
+
+def profiled_request(once, n_feeds, attempts=3):
+    """The events of once(), a request under the profiler, which
+    returns its profile.  A profile without the request's feed copies
+    (n_feeds host-to-device) or its answer's device-to-host copy lost
+    device records (seen on the H100: the first ~35 device ops of a
+    request missing), so it says nothing of what ran: the request runs
+    again under a new profile, up to `attempts` times."""
+    from torch.autograd import DeviceType
+    for _ in range(attempts):
+        events = once()
+        copies = {kind: sum(e.count for e in events
+                            if e.device_type == DeviceType.CUDA and
+                            'Memcpy %s' % kind in e.key)
+                  for kind in ('HtoD', 'DtoH')}
+        if copies['HtoD'] >= n_feeds and copies['DtoH'] >= 1:
+            return events
+        log('    the profiler lost device records (copies %s, %d device '
+            'ops): profiled again' % (copies, device_ops(events)))
+    raise AssertionError('the profiler lost device records in %d profiles '
+                         'of a request in a row' % attempts)
+
+
+def kernel_counts(events):
+    """How many times K1's f32 forward and K6's gather kernels ran in
+    a profile."""
+    from torch.autograd import DeviceType
+    return {k: sum(e.count for e in events
+                   if e.device_type == DeviceType.CUDA and k in e.key)
+            for k in ('flash_fwd<float', 'gather_rows<')}
 
 
 def device_ms(events):
@@ -1416,22 +1558,54 @@ def device_ms(events):
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
-def profile_run(label, fn):
-    """torch.profiler over one call of fn: host and device totals, the
-    device-op count and the by-kernel table."""
+def host_ms(events, waits=True):
+    """Self CPU time of a profiled call (ms): the sum over its ops,
+    without the profiler's own 'Activity Buffer Request' (~1.4 ms on
+    the H100's host) and the 'profiled call' range (Python between
+    the ops); waits=False also leaves out the time spent waiting for
+    the device in the cuda*Synchronize calls."""
+    return sum(e.self_cpu_time_total for e in events
+               if e.key not in ('Activity Buffer Request', 'profiled call')
+               and (waits or 'Synchronize' not in e.key)) / 1e3
+
+
+def device_ops(events):
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    return sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+
+
+PAD_KERNELS = 32
+
+
+def profile_run(label, fn, quiet=False, pad=False):
+    """torch.profiler over one call of fn: host and device totals, the
+    device-op count and the by-kernel table.  pad: PAD_KERNELS spin
+    kernels (torch.cuda._sleep) run first under the profiler, fn inside
+    a record_function range ('profiled call'), and both are left out of
+    the totals (their launches add ~0.1 ms to the self CPU): late in a
+    run the profiler has dropped the first device ops it saw."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+        if pad:
+            for _ in range(PAD_KERNELS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            with record_function('profiled call'):
+                fn()
+                torch.cuda.synchronize()
+        else:
+            fn()
+            torch.cuda.synchronize()
     events = prof.key_averages()
-    host = sum(e.self_cpu_time_total for e in events) / 1e3
-    dev = device_ms(events)
-    n_dev = sum(e.count for e in events
-                if e.device_type == DeviceType.CUDA)
-    log('  profile %s: host %.2f ms self CPU, device %.2f ms in %d '
-        'kernels/copies' % (label, host, dev, n_dev))
+    if pad:
+        from torch.autograd import DeviceType
+        events = [e for e in events if 'spin_kernel' not in e.key and not (
+            e.key == 'profiled call' and e.device_type == DeviceType.CUDA)]
+    if not quiet:
+        log('  profile %s: host %.2f ms self CPU, device %.2f ms in %d '
+            'kernels/copies' % (label, host_ms(events), device_ms(events),
+                                device_ops(events)))
     return events
 
 
@@ -1721,6 +1895,73 @@ def train_step_ms(run):
     for i, note in enumerate(notes):
         log('    timed step %d: %s' % (i + 1, note))
     return med
+
+
+def plan_cache_steps(run):
+    """TIMED_STEPS steps from the run's current state with
+    use_program_cache=False (the plan built for every step), then the
+    same steps from the same state and executor step with the plan
+    cache: each side's median step (host clock, the loss fetched to
+    numpy) and the self CPU of one profiled step after its timed ones.
+    Every variable of the startup program after the timed steps must be
+    bitwise equal between the two: both sides run with cuDNN's
+    deterministic algorithms (LeNet-5's filter gradients otherwise sum
+    in a varying order).  Where they differ, the uncached steps are run
+    once more, to tell a plan-cache fault from a path that does not
+    repeat itself."""
+    path, exe, scope = run['path'], run['exe'], run['scope']
+    names = weights.startup_names(path['startup'])
+    res = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def steps(cache):
+        for n, v in start.items():
+            scope.set_var(n, v.clone())
+        exe._step = step0
+        secs = []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            exe.run(path['main'], feed=path['batch'],
+                    fetch_list=[path['loss']], use_program_cache=cache)
+            secs.append(time.perf_counter() - t0)
+        return secs, snapshot(scope, names)
+
+    try:
+        with fluid.scope_guard(scope):
+            start, step0 = snapshot(scope, names), exe._step
+            for cache in (False, True):
+                secs, after = steps(cache)
+                events = profile_run('', lambda: exe.run(
+                    path['main'], feed=path['batch'],
+                    fetch_list=[path['loss']], use_program_cache=cache),
+                    quiet=True, pad=True)
+                res[cache] = (statistics.median(secs) * 1e3, secs,
+                              host_ms(events), device_ms(events), after)
+            differ = [n for n in names
+                      if not torch.equal(res[False][4][n], res[True][4][n])]
+            if differ:
+                again = steps(False)[1]
+                log('  the uncached steps run again: %s' % (
+                    'bitwise the first uncached run' if all(
+                        torch.equal(again[n], res[False][4][n])
+                        for n in names) else 'they differ from the first '
+                    'uncached run too'))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    for cache in (False, True):
+        med, secs, host, dev, _ = res[cache]
+        log('  %s step, %s (cuDNN deterministic): median %.2f ms over %d '
+            'steps %s; one profiled: self CPU %.2f ms, device %.2f ms' % (
+                path['name'], 'plan cache' if cache else
+                'use_program_cache=False', med, TIMED_STEPS,
+                ['%.2f' % (x * 1e3) for x in secs], host, dev))
+    log('  %s: the %d variables after the timed steps %s' % (
+        path['name'], len(names), 'bitwise equal with and without the '
+        'plan cache' if not differ else 'differ in %s' % differ[:8]))
+    if differ:
+        raise AssertionError('%s: the cached steps differ from the '
+                             'uncached ones' % path['name'])
 
 
 def profile_train(run):
@@ -2192,19 +2433,57 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
     return rows
 
 
-def request_latency(pred, requests, runs=5):
-    """Median host-clock time of pred.run (numpy in, numpy out, so it
-    ends after the device-to-host copy) per request batch size."""
+def request_latency(pred, requests, n_attn, n_emb, runs=5):
+    """Per request batch size, eager (a plan built for each request) and
+    from the bucket's CUDA graph: the median host-clock time of pred.run
+    (numpy in, numpy out, so it ends after the device-to-host copy),
+    the self CPU, device time and device-op count of one profiled
+    request, and the peak device memory over the timed requests.  The
+    profiled replay must show K1's and K6's kernels n_attn and n_emb
+    times: the replay runs the hand-written kernels."""
+    from torch.autograd import DeviceType
     names = pred.get_input_names()
     for req in requests:
-        secs = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
+        b = req['src_ids'].shape[0]
+        for cache in (False, True):
+            pred._use_program_cache = cache
             pred.run([req[n] for n in names])
-            secs.append(time.perf_counter() - t0)
-        log('  request latency batch %d: median %.2f ms over %d runs %s' % (
-            req['src_ids'].shape[0], statistics.median(secs) * 1e3, runs,
-            ['%.2f' % (x * 1e3) for x in secs]))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resting = torch.cuda.memory_allocated()
+            secs = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                pred.run([req[n] for n in names])
+                secs.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() - resting
+            want = {'flash_fwd<float': n_attn, 'gather_rows<': n_emb}
+            events = profiled_request(lambda: profile_run(
+                '', lambda: pred.run([req[n] for n in names]), quiet=True,
+                pad=True), len(names))
+            kernels = kernel_counts(events)
+            if kernels != want:
+                log('    the profile saw K1 / K6 %s times; its device ops: '
+                    '%s' % (kernels, sorted(
+                        (e.count, e.key[:60]) for e in events
+                        if e.device_type == DeviceType.CUDA)))
+            log('  request batch %d %s: median %.2f ms over %d runs %s; '
+                'one profiled: self CPU %.2f ms (%.2f outside the '
+                'synchronizing waits), device %.2f ms in %d kernels/copies '
+                '(K1 %d, K6 %d); peak %.1f MiB above the resting '
+                'allocation' % (
+                    b, 'graph replay' if cache else 'eager',
+                    statistics.median(secs) * 1e3, runs,
+                    ['%.2f' % (x * 1e3) for x in secs], host_ms(events),
+                    host_ms(events, waits=False), device_ms(events),
+                    device_ops(events), kernels['flash_fwd<float'],
+                    kernels['gather_rows<'], peak / 2 ** 20))
+            if kernels != want and cache:
+                raise AssertionError(
+                    'request batch %d: the profiler saw K1 / K6 %s times '
+                    'in a replay, expected %d / %d'
+                    % (b, kernels, n_attn, n_emb))
+    pred._use_program_cache = True
 
 
 def naive_attention(q, k, v, mask):
@@ -2647,7 +2926,8 @@ def train_lenet(path):
         raise AssertionError('%s: loss %s not finite or not falling'
                              % (path['name'], losses))
     check_plain_lenet(path, grad_fetch, start, after1, losses[0], grads)
-    return {'launches': launches, 'step_ms': med}
+    return {'launches': launches, 'step_ms': med, 'path': path, 'exe': exe,
+            'scope': scope}
 
 
 def check_plain_lenet(path, grad_fetch, start, after1, loss1, grads):
@@ -2909,7 +3189,10 @@ def image_classification(seed, dev, profile):
         path = lenet_path(seed, opt)
         log('[10] %s, batch %d, %d steps and %d timed' % (
             path['name'], LENET_BATCH, TRAIN_STEPS, TIMED_STEPS))
-        lenet_launches[opt] = train_lenet(path)['launches']
+        run = train_lenet(path)
+        lenet_launches[opt] = run['launches']
+        if opt == 'adam':
+            without_counting(lambda: plan_cache_steps(run))
     want = TRAIN_STEPS + TIMED_STEPS
     if lenet_launches['adam']['fused_adam'] != want or \
             any(lenet_launches['sgd'].values()):
@@ -3010,7 +3293,7 @@ def short_attention(seed):
     """Phase 11: BERT-base served and trained at seq 128 and
     Transformer-base trained, all through the naive attention chain,
     each with a profiled request or step; returns the launches of the
-    three paths."""
+    three paths and the replayed launches of the served one."""
     launches = {k: 0 for k in common.KERNELS}
     log('[11] BERT-base seq %d serving through create_paddle_predictor'
         % SHORT_SEQ)
@@ -3022,11 +3305,11 @@ def short_attention(seed):
         if n_attn:
             raise AssertionError('seq %d built %d fused attention ops'
                                  % (SHORT_SEQ, n_attn))
-        pred, requests, served = serve(model_dir, cfg, 0, n_emb, seed,
-                                       SHORT_SEQ, SHORT_BATCHES)
+        pred, requests, served, replayed = serve(
+            model_dir, cfg, 0, n_emb, seed, SHORT_SEQ, SHORT_BATCHES)
     for k, c in served.items():
         launches[k] += c
-    without_counting(lambda: request_latency(pred, requests))
+    without_counting(lambda: request_latency(pred, requests, 0, n_emb))
     log('  peak device memory while serving: %.2f GiB'
         % (torch.cuda.max_memory_allocated() / 2 ** 30))
     without_counting(lambda: profile_requests(pred, requests))
@@ -3046,11 +3329,14 @@ def short_attention(seed):
         dev_ms = without_counting(lambda: profile_train(run))
         if not path['name'].startswith('Transformer'):
             F32_RUNS['bert128'] = step_numbers(11, run, med, dev_ms)
+        else:
+            without_counting(lambda: plan_cache_steps(run))
         del run
         torch.cuda.empty_cache()
-    log('  launches on phase 11\'s paths: %s'
-        % {k: c for k, c in launches.items() if c})
-    return launches
+    log('  launches on phase 11\'s paths: %s; replayed while serving: %s'
+        % ({k: c for k, c in launches.items() if c},
+           {k: c for k, c in replayed.items() if c}))
+    return launches, replayed
 
 
 # ----------------------------------------------------------- phase 12
@@ -3892,6 +4178,8 @@ def mixed_precision(seed, dev, profile):
         run = amp_train(path)
         add(run['launches'], run['flash'])
         nums = amp_numbers(run)
+        if seq == SEQ:
+            without_counting(lambda: plan_cache_steps(run))
         # the bf16 products: through the autograd Function that turns
         # cuBLAS's bf16 partial sums off (PyTorch's default lets them
         # on), or, with the flag off already, plain torch.matmul
@@ -4014,10 +4302,11 @@ def main(argv=None):
         log('  built, initialised and saved %d parameters (%d attention, '
             '%d lookup ops) in %.1f s' % (n_params, n_attn, n_emb,
                                           time.perf_counter() - t0))
-        pred, requests, serve_launches = serve(model_dir, cfg, n_attn,
-                                               n_emb, args.seed)
-    log('  launches on the 3 requests: %s'
-        % {k: c for k, c in serve_launches.items() if c})
+        pred, requests, serve_launches, serve_replayed = serve(
+            model_dir, cfg, n_attn, n_emb, args.seed)
+    log('  launches on the 3 requests: %s; replayed: %s'
+        % ({k: c for k, c in serve_launches.items() if c},
+           {k: c for k, c in serve_replayed.items() if c}))
 
     runs = []
     TABLE_LAUNCHES.update(dict.fromkeys(TABLE_ROWS, 0))
@@ -4056,12 +4345,14 @@ def main(argv=None):
         timer, gen, dev, requests[-1], paths[0]['batch'], paths[2]['batch'],
         launches, max_err, adam_shapes, lenet_shapes, args.seed))
     without_counting(lambda: attention_crossover(timer, gen, dev))
-    without_counting(lambda: request_latency(pred, requests))
+    without_counting(lambda: request_latency(pred, requests, n_attn, n_emb))
     for run in runs:
         med = without_counting(lambda: train_step_ms(run))
         if run is runs[0]:
             F32_RUNS['bert512'] = step_numbers(
                 5, run, med, without_counting(lambda: step_device_ms(run)))
+        if run is not runs[1]:
+            without_counting(lambda: plan_cache_steps(run))
     if args.profile:
         without_counting(lambda: profile_requests(pred, requests))
         for run in runs:
@@ -4089,8 +4380,14 @@ def main(argv=None):
             row['launches'] = lenet_k4
     t0 = time.perf_counter()
     before = dict(TABLE_LAUNCHES)
-    short = short_attention(args.seed)
+    short, short_replayed = short_attention(args.seed)
     log('  phase 11: %.1f s' % (time.perf_counter() - t0))
+    # the launches that graph replays ran while serving (phases 4 and
+    # 11), counted from their graphs' manifests, beside the launches
+    # the wrappers counted
+    for row in rows:
+        row['replayed_launches'] = (serve_replayed.get(row['name'], 0) +
+                                    short_replayed.get(row['name'], 0))
     # the rows of phase 11's tables take their launches there; each
     # kernel's own row, the launches on its other tables
     gain = {row: TABLE_LAUNCHES[row] - before[row] for row in TABLE_ROWS}

@@ -131,12 +131,21 @@ class Scope(object):
     """name -> value map with parent-chain lookup and child scopes.
 
     Reference: framework/scope.h:46 (Var/FindVar/kids).
+
+    The scope is versioned for the executor's argument binder (JAX:
+    fluid/core.py:216-290): ``_struct_version`` counts structural
+    changes only, a name appearing in or leaving this scope's own dict;
+    overwriting a name (a step's write-back of a parameter) does not
+    bump it.  A binder caches which dict along the parent chain holds
+    each name and revalidates against ``_chain_token()``, so a steady
+    step reads each scope value with one dict read.
     """
 
     def __init__(self, parent=None):
         self._vars = {}
         self.parent = parent
         self.kids = []
+        self._struct_version = 0
 
     def new_scope(self):
         kid = Scope(self)
@@ -144,10 +153,14 @@ class Scope(object):
         return kid
 
     def var(self, name):
-        self._vars.setdefault(name, None)
+        if name not in self._vars:
+            self._vars[name] = None
+            self._struct_version += 1
         return name
 
     def set_var(self, name, value):
+        if name not in self._vars:
+            self._struct_version += 1
         self._vars[name] = value
 
     def find_scope(self, name):
@@ -167,11 +180,30 @@ class Scope(object):
         return self.find_var(name) is not None
 
     def erase(self, name):
-        self._vars.pop(name, None)
+        if self._vars.pop(name, _ERASED) is not _ERASED:
+            self._struct_version += 1
 
     def local_var_names(self):
         return list(self._vars.keys())
 
+    def _owner_vars(self, name):
+        """The ``_vars`` dict along the parent chain that holds `name`,
+        or None; valid while ``_chain_token()`` is unchanged."""
+        s = self.find_scope(name)
+        return None if s is None else s._vars
+
+    def _chain_token(self):
+        """Structural version summed over the parent chain: a cached
+        owner dict stays valid while it is unchanged."""
+        t = 0
+        s = self
+        while s is not None:
+            t += s._struct_version
+            s = s.parent
+        return t
+
+
+_ERASED = object()  # pop sentinel for Scope.erase
 
 _global_scope = Scope()
 

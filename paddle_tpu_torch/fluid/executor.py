@@ -46,8 +46,23 @@ A contiguous run of same-hyperparameter adam/adamw/lamb ops runs as one
 multi-tensor update (``_fused_opt_run``), which on CUDA updates the
 parameters and moments in place.  The step counter advances once per
 run, before the ops, as in the JAX executor, so dropout masks keyed on
-(op seed, step) line up with the JAX package's.  Segmenting and
-compilation of the JAX executor come with later slices.
+(op seed, step) line up with the JAX package's.
+
+The compile plane (JAX: fluid/executor.py:1830-1868 and
+fluid/compile_cache.py): what a step derives from the program, its
+op list, the whole-program-grad partition, the drop lists, the fused
+optimizer runs and each op's lowering and names, is a ``_Plan`` kept
+in the program's ``_exec_cache`` (``_get_plan``), which every rewrite
+empties (``Program._bump_version``); scope names resolve through
+``_Binder`` once for each scope version.  ``use_program_cache=False``
+builds the plan for the call alone.  On a CUDA place a program that
+writes no persistable variable and draws no random numbers (serving,
+``for_test`` clones) is replayed from a CUDA graph per scope and feed
+signature, which its plan keeps (fluid/cuda_graph.py).  ``warmup``
+builds plans and captures ahead of the first run; ``compile`` gives a
+``CompiledStep``, which replays such a program's graph on a scope of
+its own.  The JAX package's segments around host ops
+(``CompiledPipeline``) come with the host ops (ROADMAP Queue 1 item 7).
 
 A program ``contrib.mixed_precision.decorate`` rewrote (AMP) runs the
 same way: its loss-scale multiply is a forward op, the autograd pass
@@ -71,10 +86,13 @@ passes and a non-finite fetched loss raises.
 :267).
 """
 
+import weakref
+
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import compile_cache
 from . import core
 from . import framework
 from .flags import get_flag
@@ -293,6 +311,217 @@ class FetchHandle(object):
         return arr.astype(dtype) if dtype is not None else arr
 
 
+# ops the JAX package runs on the host between device segments
+# (ops/host_ops.py); the port lowers none of them yet (ROADMAP Queue 1
+# item 7)
+_HOST_OP_TYPES = ('save', 'load', 'save_combine', 'load_combine', 'print',
+                  'py_func')
+
+
+def _is_persistable(block, name):
+    var = block._find_var_recursive(name)
+    return var is not None and var.persistable
+
+
+class _OpStep(object):
+    """One op resolved for a plan: its lowering (None when the registry
+    has none: the run raises when it reaches the op, as before), its
+    input and output names, whether each output is persistable, its
+    seed, and the outputs the whole-program grad cuts from autograd."""
+
+    __slots__ = ('op', 'opdef', 'ins', 'outs', 'seed', 'stops')
+
+    def __init__(self, op, stop=()):
+        self.op = op
+        try:
+            self.opdef = registry.get(op.type)
+        except NotImplementedError:
+            self.opdef = None
+        block = op.block
+        self.ins = tuple((slot, tuple(names))
+                         for slot, names in op.inputs.items())
+        self.outs = tuple(
+            (slot, tuple(names),
+             tuple(_is_persistable(block, n) for n in names))
+            for slot, names in op.outputs.items())
+        self.seed = op.attrs.get('__op_seed__', 0)
+        self.stops = tuple(n for n in op.output_arg_names if n in stop)
+
+
+class _Step(object):
+    """An op, or a fused optimizer run (``_fused_opt_run``), at op
+    index `index`, and the env names released after it."""
+
+    __slots__ = ('index', 'members', 'fused', 'drops')
+
+    def __init__(self, index, members, fused, drops):
+        self.index = index
+        self.members = members
+        self.fused = fused
+        self.drops = drops
+
+
+def _steps(ops, keep):
+    drops = _drop_plan(ops, keep)
+    out = []
+    i = 0
+    while i < len(ops):
+        run = _fused_opt_run(ops, i)
+        members = run or [ops[i]]
+        out.append(_Step(i, [_OpStep(op) for op in members], run is not None,
+                         [n for j in range(i, i + len(members))
+                          for n in drops[j]]))
+        i += len(members)
+    return out
+
+
+class _Binder(object):
+    """Where each scope name lives (JAX: fluid/executor.py:171
+    ``_SegmentBinder``): for each scope of a plan, the owner dict of each
+    name read from it, resolved once for each ``_chain_token()``; a run
+    then reads a scope value with one dict read.  The tables are keyed
+    weakly: a plan never keeps a dead scope's values alive."""
+
+    __slots__ = ('_tables',)
+
+    def __init__(self):
+        self._tables = weakref.WeakKeyDictionary()
+
+    def owners(self, scope):
+        token = scope._chain_token()
+        tab = self._tables.get(scope)
+        if tab is None or tab[0] != token:
+            tab = self._tables[scope] = (token, {})
+        return tab[1]
+
+
+class _Plan(object):
+    """A program's run plan for one key of ``_get_plan``: everything a
+    step derives from the program and its fetch names, built once.
+
+    kind 'forward' (no backward ops: ``steps``, ``writes_state``),
+    'per_op' (every op in order: ``steps``; ``post_grads`` and
+    ``var_of`` for data parallel) or 'wpg' (the whole-program grad:
+    ``wpg``, ``pre`` with ``pre_drops``, ``post``).  ``no_graph`` says
+    why the program is never captured in a CUDA graph (None: it may
+    be); ``graphs`` holds its CUDA graphs, weakly keyed by scope, and
+    ``scope_reads`` (built with the first capture) the names its ops
+    read before writing them (fluid/cuda_graph.py)."""
+
+    __slots__ = ('ops', 'keep', 'checked_only', 'kind', 'writes_state',
+                 'steps', 'post_grads', 'var_of', 'wpg', 'pre', 'pre_drops',
+                 'post', 'no_graph', 'graphs', 'binder', 'scope_reads')
+
+
+def _build_plan(program, fetch_names):
+    block = program.global_block()
+    ops = [op for op in block.ops if op.type not in registry.HOST_OPS]
+    plan = _Plan()
+    plan.ops = ops
+    plan.keep = keep = frozenset(fetch_names)
+    plan.checked_only = keep if any(
+        op.type == 'check_finite_and_unscale' for op in ops) else None
+    plan.writes_state = True
+    plan.graphs = weakref.WeakKeyDictionary()
+    plan.scope_reads = None
+    plan.binder = _Binder()
+    plan.wpg = None
+    if any(_role(op) == 'backward' for op in ops):
+        plan.wpg = _wpg_partition(ops, program, fetch_names)
+    if plan.wpg is not None:
+        plan.kind = 'wpg'
+        wpg = plan.wpg
+        later = set(n for op in wpg['post'] for n in op.input_arg_names)
+        plan.pre = [_OpStep(op, wpg['stop']) for op in wpg['pre']]
+        plan.pre_drops = _drop_plan(wpg['pre'],
+                                    keep | later | {wpg['loss']})
+        plan.post = _steps(wpg['post'], keep)
+    else:
+        plan.kind = 'per_op' if any(_role(op) == 'backward'
+                                    for op in ops) else 'forward'
+        plan.steps = _steps(ops, keep)
+        if plan.kind == 'per_op':
+            plan.post_grads = _post_grads(ops, fetch_names)
+            plan.var_of = {g: p for p, g in
+                           getattr(program, '_grad_name_map', {}).items()}
+        else:
+            plan.writes_state = any(
+                _is_persistable(block, n)
+                for op in ops for n in op.output_arg_names)
+    plan.no_graph = _graph_refusal(plan, ops)
+    return plan
+
+
+def _segment_names(plan):
+    """(inputs, state, outputs) of a plan's ops as the JAX package's
+    segments classify them (fluid/executor.py:2000): the names read
+    before any op writes them, those of them the ops also write, and
+    the written names that are fetched or persistable."""
+    block = plan.ops[0].block if plan.ops else None
+    written, reads = set(), set()
+    for op in plan.ops:
+        reads.update(n for n in op.input_arg_names if n not in written)
+        written.update(op.output_arg_names)
+    outputs = sorted(n for n in written
+                     if n in plan.keep or _is_persistable(block, n))
+    return sorted(reads - written), sorted(reads & written), outputs
+
+
+def _graph_refusal(plan, ops):
+    """Why a plan's program is never captured in a CUDA graph, or None.
+    Training on CUDA graphs is ROADMAP Queue 1 item 9 step 3."""
+    if plan.kind != 'forward' or plan.writes_state:
+        return ('it writes persistable variables (a training or startup '
+                'step; CUDA graphs of training steps are ROADMAP Queue 1 '
+                'item 9 step 3)')
+    for op in ops:
+        od = registry._REGISTRY.get(op.type)
+        if (op.type == 'dropout' or (od is not None and od.stochastic)) \
+                and not op.attrs.get('is_test'):
+            return ('op %s draws random numbers each step (stochastic, '
+                    'is_test not set)' % op.type)
+    return None
+
+
+class CompiledStep(object):
+    """A program compiled to one function, ``fn(step, state, data) ->
+    {name: tensor}`` (JAX: fluid/executor.py:1213): ``state`` holds the
+    names the program updates (parameters, optimizer slots), ``data``
+    the pure inputs (feeds, and an inference program's parameters); the
+    outputs are the fetches and the persistable variables written.  The
+    caller's tensors are left as they were.  On a CUDA place a program
+    that may be captured (fluid/cuda_graph.py) runs on a scope the step
+    keeps, into which each call copies ``state`` and ``data`` in place
+    (a new shape or dtype takes a new tensor), and so replays its CUDA
+    graph as ``Executor.run`` does: the first call eager, the second
+    captures.  Any other program runs its cached plan eagerly as
+    executor step `step` on a new scope, from copies of ``state``."""
+
+    __slots__ = ('fn', 'input_names', 'state_names', 'output_names')
+
+    def __init__(self, fn, input_names, state_names, output_names):
+        self.fn = fn
+        self.input_names = list(input_names)
+        self.state_names = list(state_names)
+        self.output_names = list(output_names)
+
+    def __call__(self, step, state, data):
+        return self.fn(step, state, data)
+
+
+class WarmupResult(object):
+    """What ``Executor.warmup`` did (JAX: fluid/executor.py:1250
+    ``_WarmupResult``): ``captured``, the feed signatures (``arg_specs``
+    rows) now replayed from CUDA graphs, and ``skipped``, (signature,
+    reason) for each one that was not captured."""
+
+    __slots__ = ('captured', 'skipped')
+
+    def __init__(self, captured, skipped):
+        self.captured = list(captured)
+        self.skipped = list(skipped)
+
+
 class Executor(object):
     """Reference: python/paddle/fluid/executor.py:680."""
 
@@ -319,6 +548,15 @@ class Executor(object):
         # on an AMP program the step's fetch names: only they and the
         # persistables are checked (None: every value)
         self._checked_only = None
+        # the running plan's owner dicts of the scope's names, and,
+        # while a CUDA graph is captured, {name: (dict, value)} of the
+        # scope values it reads
+        self._owners = {}
+        self._reads = None
+        # the CUDA-graph state (fluid/cuda_graph.py): the capture
+        # stream and the graphs' memory pool
+        self._capture_stream = None
+        self._graph_pool = None
 
     def _to_device(self, value):
         value = core.as_array(value)
@@ -327,37 +565,74 @@ class Executor(object):
         return torch.as_tensor(np.asarray(value), device=self.device)
 
     def _read(self, name, env, scope):
-        if name in env:
-            return env[name]
-        owner = scope.find_scope(name)
-        value = None if owner is None else owner.find_var(name)
+        value = env.get(name, _UNSET)
+        if value is not _UNSET:
+            return value
+        owners = self._owners
+        vars_ = owners.get(name)
+        if vars_ is None:
+            vars_ = scope._owner_vars(name)
+            if vars_ is not None:
+                owners[name] = vars_
+        value = None if vars_ is None else vars_[name]
         if value is None:
             raise RuntimeError(
                 'variable %r is read before it is set: feed it or run the '
                 'startup program first' % name)
-        if isinstance(value, torch.Tensor) and value.device == self.device:
-            return value
-        # a host value (loaded params, numpy) moves to the device once:
-        # the device copy replaces it in the scope that owns it
-        value = self._to_device(value)
-        owner.set_var(name, value)
+        if not (isinstance(value, torch.Tensor) and
+                value.device == self.device):
+            # a host value (loaded params, numpy) moves to the device
+            # once: the device copy replaces it where it lives
+            value = vars_[name] = self._to_device(value)
+        if self._reads is not None:
+            self._reads[name] = (vars_, value)
         return value
 
+    def _set_scope(self, scope, name, value):
+        """scope.set_var, keeping the running plan's owner dicts true."""
+        scope.set_var(name, value)
+        self._owners[name] = scope._vars
+
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+            return_numpy=True, use_program_cache=True):
         """Run the program's global block once.  return_numpy=False
         returns the fetched device tensors, 'async' a FetchHandle for
         each.  A CompiledProgram runs data parallel
-        (fluid/parallel_executor.py)."""
+        (fluid/parallel_executor.py).
+
+        The program's run plan is cached (``_get_plan``); on a CUDA
+        place a program that may be captured replays a CUDA graph of
+        each feed signature from its second run on
+        (fluid/cuda_graph.py).  use_program_cache=False rebuilds the
+        plan for this call and runs it eagerly, as the reference's
+        uncached run."""
         from .compiler import CompiledProgram
         if isinstance(program, CompiledProgram):
             from .parallel_executor import run_parallel
             return run_parallel(self, program, feed, fetch_list, scope,
-                                return_numpy)
+                                return_numpy, use_program_cache)
         program = program or framework.default_main_program()
-        results = self._run_program(program, feed or {},
-                                    _fetch_names(fetch_list),
-                                    scope or core.global_scope())
+        feed = feed or {}
+        fetch_names = _fetch_names(fetch_list)
+        scope = scope or core.global_scope()
+        plan = self._get_plan(program, feed, fetch_names,
+                              use_cache=use_program_cache)
+        return self._run_graphed(plan, program, feed, fetch_names, scope,
+                                 return_numpy, use_program_cache)
+
+    def _run_graphed(self, plan, program, feed, fetch_names, scope,
+                     return_numpy, graphs=True):
+        """One step of `plan`: through its CUDA graph where it has one
+        (`graphs`, a CUDA place and a plan that may be captured), else
+        eagerly."""
+        if graphs and plan.no_graph is None and self.device.type == 'cuda':
+            from . import cuda_graph
+            out = cuda_graph.run(self, plan, program, feed, fetch_names,
+                                 scope, return_numpy)
+            if out is not None:
+                return out
+        self._step += 1
+        results = self._run_plan(plan, program, feed, fetch_names, scope)
         return self._return(results, return_numpy)
 
     @staticmethod
@@ -369,14 +644,56 @@ class Executor(object):
         return [r.detach() if isinstance(r, torch.Tensor) else r
                 for r in results]
 
+    # ----------------------------------------------------------- plans
+    def _plan_key(self, program, feed, fetch_names, replica, shard_opt):
+        """What a cached plan is valid for (JAX: fluid/executor.py:1855):
+        the program's version, the feed and fetch names, this executor,
+        the flags that change the plan, and the data-parallel replica.
+        The feeds' shapes and dtypes key the CUDA graphs instead."""
+        return ('plan', program._version, tuple(sorted(feed)),
+                tuple(fetch_names), id(self),
+                bool(get_flag('FLAGS_check_nan_inf', False)),
+                bool(get_flag('FLAGS_torch_opt_fuse', True)),
+                int(get_flag('FLAGS_torch_opt_min_tensors', 2)),
+                None if replica is None else (replica.world, replica.rank),
+                bool(shard_opt))
+
+    def _get_plan(self, program, feed, fetch_names, replica=None,
+                  shard_opt=False, use_cache=True):
+        """The program's run plan from its ``_exec_cache`` (which every
+        rewrite clears: ``Program._bump_version``), built on a miss;
+        use_cache=False builds one for this call and leaves the cache
+        as it is (JAX: fluid/executor.py:1830)."""
+        if not use_cache:
+            compile_cache.count('executor/plan_cache_bypass')
+            return _build_plan(program, fetch_names)
+        key = self._plan_key(program, feed, fetch_names, replica, shard_opt)
+        plan = program._exec_cache.get(key)
+        if plan is not None:
+            compile_cache.count('executor/plan_cache_hit')
+            return plan
+        compile_cache.count('executor/plan_cache_miss')
+        plan = _build_plan(program, fetch_names)
+        program._exec_cache[key] = plan
+        return plan
+
     def _run_program(self, program, feed, fetch_names, scope, replica=None,
-                     shard_opt=False, batch_feeds=()):
-        """One step of `program`: the fetched values on the device.  With
-        a `replica` the step is that data-parallel replica's (see the
-        module docstring), fed its rows of `batch_feeds`, its optimizer
-        state sharded by rows with `shard_opt`."""
-        block = program.global_block()
+                     shard_opt=False, batch_feeds=(), use_cache=True):
+        """One step of `program` through its plan: the fetched values on
+        the device.  With a `replica` the step is that data-parallel
+        replica's (see the module docstring), fed its rows of
+        `batch_feeds`, its optimizer state sharded by rows with
+        `shard_opt`."""
+        plan = self._get_plan(program, feed, fetch_names, replica,
+                              shard_opt, use_cache)
         self._step += 1
+        return self._run_plan(plan, program, feed, fetch_names, scope,
+                              replica, shard_opt, batch_feeds)
+
+    def _run_plan(self, plan, program, feed, fetch_names, scope,
+                  replica=None, shard_opt=False, batch_feeds=(), env=None):
+        """Run `plan` as step ``self._step``: the fetched values.  `env`
+        (name -> device tensor) stands in for the feed when given."""
         data_parallel = replica is not None and replica.world > 1
         self._replica = replica
         self._batch_feeds = frozenset(batch_feeds)
@@ -385,43 +702,35 @@ class Executor(object):
             _program_group(program)
         self._averaged = set()
         self._row_updates = []
-        ops = [op for op in block.ops if op.type not in registry.HOST_OPS]
-        env = {name: self._to_device(value) for name, value in feed.items()}
-        keep = set(fetch_names)
+        self._owners = plan.binder.owners(scope)
+        if env is None:
+            env = {name: self._to_device(value)
+                   for name, value in feed.items()}
         self._verdicts = [] if get_flag('FLAGS_check_nan_inf', False) \
             else None
-        self._checked_only = keep if any(
-            op.type == 'check_finite_and_unscale' for op in ops) else None
-        if any(_role(op) == 'backward' for op in ops):
-            plan = _wpg_partition(ops, program, fetch_names)
-            if plan is None:
-                hook = None
-                if data_parallel:
-                    k, names = _post_grads(ops, fetch_names)
-                    var_of = {g: p for p, g in
-                              getattr(program, '_grad_name_map', {}).items()}
-                    hook = (k, lambda env: env.update(self._global_grads(
-                        {n: env[n] for n in names
-                         if isinstance(env.get(n), torch.Tensor)}, var_of)))
-                with torch.no_grad():
-                    self._run_ops(ops, env, scope, program, keep, hook)
-            else:
-                self._run_whole_program_grad(plan, env, scope, program,
-                                             keep)
+        self._checked_only = plan.checked_only
+        if plan.kind == 'wpg':
+            self._run_whole_program_grad(plan, env, scope, program)
+        elif plan.kind == 'per_op':
+            hook = None
+            if data_parallel:
+                k, names = plan.post_grads
+                hook = (k, lambda env: env.update(self._global_grads(
+                    {n: env[n] for n in names
+                     if isinstance(env.get(n), torch.Tensor)}, plan.var_of)))
+            with torch.no_grad():
+                self._run_steps(plan.steps, env, scope, program, hook)
         else:
-            writes_state = any(
-                v is not None and v.persistable
-                for op in ops for v in map(block._find_var_recursive,
-                                           op.output_arg_names))
-            mode = torch.no_grad() if writes_state else \
+            mode = torch.no_grad() if plan.writes_state else \
                 torch.inference_mode()
             with mode:
-                self._run_ops(ops, env, scope, program, keep)
+                self._run_steps(plan.steps, env, scope, program)
         if self._row_updates:
             from .parallel_executor import gather_rows
             gather_rows(self._row_updates, scope, replica)
             self._row_updates = []
         results = [self._read(n, env, scope) for n in fetch_names]
+        self._owners = {}
         if self._verdicts:
             self._raise_non_finite()
         return results
@@ -442,10 +751,149 @@ class Executor(object):
         self._averaged.update(shared)
         return out
 
+    # ------------------------------------------------- warmup, compile
+    def warmup(self, program=None, feed_shapes=None, fetch_list=None,
+               scope=None):
+        """Build the program's run plan ahead of the first run and, on a
+        CUDA place, capture the CUDA graph of each feed signature (JAX:
+        fluid/executor.py:1457).  `feed_shapes` maps each feed name to
+        a (shape, dtype) pair or an example array or tensor; a list of
+        such dicts gives several signatures (a predictor's batch
+        buckets).  Pass the feed names and `fetch_list` the later runs
+        use: they key the plan.  Each signature runs once from zero
+        feeds, on the capture stream, then is captured; parameters come
+        from `scope` (run the startup program first).  Returns a
+        WarmupResult naming what was captured and, for each signature
+        that was not, why."""
+        program = program or framework.default_main_program()
+        scope = scope or core.global_scope()
+        fetch_names = _fetch_names(fetch_list)
+        sigs = feed_shapes if isinstance(feed_shapes, (list, tuple)) \
+            else [feed_shapes or {}]
+        captured, skipped = [], []
+        for shapes in sigs:
+            specs = {n: _spec(v) for n, v in shapes.items()}
+            plan = self._get_plan(program, specs, fetch_names)
+            row = tuple(sorted((n, s, core.dtype_name(d))
+                               for n, (s, d) in specs.items()))
+            why = plan.no_graph or self._no_graph(program)
+            if why is not None:
+                skipped.append((row, why))
+                continue
+            from . import cuda_graph
+            feed = {n: torch.zeros(s, dtype=core.convert_dtype(d),
+                                   device=self.device)
+                    for n, (s, d) in specs.items()}
+            step = self._step
+            try:
+                why = cuda_graph.warm(self, plan, program, feed,
+                                      fetch_names, scope)
+            finally:
+                self._step = step
+            if why is not None:
+                skipped.append((row, why))
+            else:
+                captured.append(row)
+        return WarmupResult(captured, skipped)
+
+    def _no_graph(self, program):
+        """Why this run of a capturable plan stays eager, or None."""
+        if self.device.type != 'cuda':
+            return '%r: CUDA graphs need a CUDA place' % (self.place,)
+        if getattr(program, '_collective_dp', False):
+            return 'a collective program (its ops reduce over the group)'
+        if get_flag('FLAGS_check_nan_inf', False):
+            return 'FLAGS_check_nan_inf reads its verdicts on the host'
+        return None
+
+    def compile(self, program, feed_names=(), fetch_names=(),
+                allow_host=False):
+        """The program as one function, a CompiledStep (JAX:
+        fluid/executor.py:1341).  A program with host ops cannot be one
+        function: the JAX package's allow_host=True gives a
+        CompiledPipeline there, which comes with the host ops of ROADMAP
+        Queue 1 item 7."""
+        feed_names = _fetch_names(feed_names)
+        fetch_names = _fetch_names(fetch_names)
+        host = sorted(set(op.type for op in program.global_block().ops
+                          if op.type in _HOST_OP_TYPES))
+        if host:
+            if allow_host:
+                raise NotImplementedError(
+                    'Executor.compile(allow_host=True): CompiledPipeline '
+                    'runs device segments around host ops %r, which come '
+                    'with ROADMAP Queue 1 item 7; the port registers no '
+                    'host op yet' % (host,))
+            raise ValueError(
+                'Executor.compile needs a program without host ops for '
+                'one function; this one holds %r (allow_host=True gives '
+                'a CompiledPipeline in the JAX package)' % (host,))
+        plan = self._get_plan(program, dict.fromkeys(feed_names),
+                              fetch_names)
+        written = set(n for op in plan.ops for n in op.output_arg_names)
+        missing = [n for n in fetch_names if n not in written]
+        if missing:
+            raise ValueError(
+                'fetch vars %r are not produced by the compiled step (a '
+                'fetch must be written by the program; pure inputs are '
+                'available to the caller already)' % (missing,))
+        inputs, state, outputs = _segment_names(plan)
+        known = set(inputs) | set(state)
+        bogus = [n for n in feed_names if n not in known]
+        if bogus:
+            raise ValueError('feed names %r are not read by the program '
+                             '(inputs: %r)' % (bogus, sorted(known)))
+
+        graphed = plan.no_graph is None and self.device.type == 'cuda'
+        kept = core.Scope() if graphed else None
+
+        def fn(step, state, data):
+            pure = [(n, v) for n, v in data.items() if n not in feed_names]
+            if graphed:
+                scope = kept
+                for n, v in list(state.items()) + pure:
+                    self._assign(scope, n, v)
+            else:
+                scope = core.Scope()
+                for n, v in state.items():
+                    scope.set_var(n, v.clone() if isinstance(
+                        v, torch.Tensor) else np.array(v))
+                for n, v in pure:
+                    scope.set_var(n, v)
+            saved = self._step
+            self._step = int(step) - 1
+            try:
+                results = self._run_graphed(
+                    plan, program, {n: data[n] for n in feed_names},
+                    fetch_names, scope, False, graphed)
+            finally:
+                self._step = saved
+            out = dict(zip(fetch_names, results))
+            for n in outputs:
+                if n not in out:
+                    out[n] = scope.find_var(n)
+            return out
+
+        return CompiledStep(fn, inputs, state, outputs)
+
+    def _assign(self, scope, name, value):
+        """Write `value` into `scope`'s tensor `name` in place where its
+        shape and dtype allow (a CUDA graph reads that tensor), else
+        set a device copy of its own."""
+        value = core.as_array(value)
+        if not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value))
+        cur = scope._vars.get(name)
+        if isinstance(cur, torch.Tensor) and cur.shape == value.shape \
+                and cur.dtype == value.dtype:
+            cur.copy_(value)
+        else:
+            scope.set_var(name, value.to(self.device, copy=True))
+
     # ------------------------------------------------------------ ops
-    def _ctx(self, op, program):
+    def _ctx(self, seed, program):
         return registry.LowerCtx(
-            self._step, op.attrs.get('__op_seed__', 0), device=self.device,
+            self._step, seed, device=self.device,
             random_seed=program.random_seed, group=self._group,
             replica=self._replica)
 
@@ -477,46 +925,47 @@ class Executor(object):
                 'nan/inf detected in %d var(s) [%s] (step %d)'
                 % (len(bad), ', '.join(bad), self._step))
 
-    def _write(self, block, names, vals, env, scope):
-        for n, val in zip(names, vals):
-            var = block._find_var_recursive(n)
-            persistable = var is not None and var.persistable
-            self._check_finite(n, val, persistable)
-            if persistable:
-                scope.set_var(n, val.detach()
-                              if isinstance(val, torch.Tensor) else val)
+    def _write(self, names, persistable, vals, env, scope):
+        for n, p, val in zip(names, persistable, vals):
+            self._check_finite(n, val, p)
+            if p:
+                self._set_scope(scope, n, val.detach()
+                                if isinstance(val, torch.Tensor) else val)
             else:
                 env[n] = val
 
-    def _lower_op(self, op, env, scope, program):
-        opdef = registry.get(op.type)
-        ins = {slot: [self._read(n, env, scope) for n in names]
-               for slot, names in op.inputs.items()}
+    def _lower_op(self, st, env, scope, program):
+        op = st.op
+        opdef = st.opdef or registry.get(op.type)
+        read = self._read
+        ins = {slot: [read(n, env, scope) for n in names]
+               for slot, names in st.ins}
         rows = self._shard_rows(op, ins, 0, scope) if self._shard_opt \
             else None
         try:
-            outs = opdef.run(self._ctx(op, program), ins, op.attrs)
+            outs = opdef.run(self._ctx(st.seed, program), ins, op.attrs)
         except Exception as e:
             e.add_note('in op %s (created at %s)' % (
                 op.type, '; '.join(op.attrs.get('__op_callstack__', [])[:2])))
             raise
-        self._write_op(op, outs, {}, rows, env, scope)
+        self._write_op(st, outs, {}, rows, env, scope)
 
-    def _write_op(self, op, outs, cursor, rows, env, scope):
-        """Write op's outputs, taken from each output slot of `outs` at
-        the slot's `cursor` position (advanced past them).  With `rows`
-        (the sharded optimizer state) the accumulators are this rank's
-        rows and the parameter's updated rows wait for the all-gather."""
-        for slot, names in op.outputs.items():
+    def _write_op(self, st, outs, cursor, rows, env, scope):
+        """Write the op's outputs, taken from each output slot of `outs`
+        at the slot's `cursor` position (advanced past them).  With
+        `rows` (the sharded optimizer state) the accumulators are this
+        rank's rows and the parameter's updated rows wait for the
+        all-gather."""
+        for slot, names, persistable in st.outs:
             k = cursor.get(slot, 0)
             cursor[slot] = k + len(names)
             vals = outs.get(slot, [])[k:k + len(names)]
             if rows is not None and slot == 'ParamOut':
                 self._row_updates.append((names[0], rows, vals[0]))
                 continue
-            self._write(op.block, names, vals, env, scope)
+            self._write(names, persistable, vals, env, scope)
             if rows is not None and slot[:-3] in \
-                    _ROW_ACCUMULATORS[op.type]:
+                    _ROW_ACCUMULATORS[st.op.type]:
                 scope.find_var(names[0])._pt_row_shard = self._replica
 
     def _shard_rows(self, op, ins, k, scope):
@@ -548,7 +997,7 @@ class Executor(object):
             acc = ins[slot][k]
             if acc.shape[0] == n:
                 acc = acc[a:b].clone()
-                scope.set_var(op.input(slot)[0], acc)
+                self._set_scope(scope, op.input(slot)[0], acc)
             ins[slot][k] = acc
         return a, b
 
@@ -558,78 +1007,71 @@ class Executor(object):
         go back to each member op's outputs.  A run holding a tensor
         the kernel does not take (not f32) runs op by op instead."""
         ins = {}
-        for op in run:
-            for slot, names in op.inputs.items():
+        for st in run:
+            for slot, names in st.ins:
                 ins.setdefault(slot, []).extend(
                     self._read(n, env, scope) for n in names)
         if not all(x.dtype == torch.float32 for slot in
                    ('Param', 'Moment1', 'Moment2') for x in ins[slot]) or \
                 not all(x.is_floating_point() for x in ins['Grad']):
-            for op in run:
-                self._lower_op(op, env, scope, program)
+            for st in run:
+                self._lower_op(st, env, scope, program)
             return
-        rows = [self._shard_rows(op, ins, k, scope) if self._shard_opt
-                else None for k, op in enumerate(run)]
-        fused = _FUSABLE_OPT[run[0].type]
+        rows = [self._shard_rows(st.op, ins, k, scope) if self._shard_opt
+                else None for k, st in enumerate(run)]
+        first = run[0].op
+        fused = _FUSABLE_OPT[first.type]
         try:
-            outs = registry.get(fused).run(self._ctx(run[0], program), ins,
-                                           dict(run[0].attrs))
+            outs = registry.get(fused).run(
+                self._ctx(run[0].seed, program), ins, dict(first.attrs))
         except Exception as e:
             e.add_note('in a fused run of %d %s ops (%s)' % (
-                len(run), run[0].type,
-                ', '.join(op.outputs.get('ParamOut', ['?'])[0]
-                          for op in run)))
+                len(run), first.type,
+                ', '.join(st.op.outputs.get('ParamOut', ['?'])[0]
+                          for st in run)))
             raise
         cursor = {}
-        for op, r in zip(run, rows):
-            self._write_op(op, outs, cursor, r, env, scope)
+        for st, r in zip(run, rows):
+            self._write_op(st, outs, cursor, r, env, scope)
 
-    def _run_ops(self, ops, env, scope, program, keep, hook=None):
-        """Run `ops` in order; `hook` = (k, fn) calls fn(env) before
-        ops[k]."""
-        drops = _drop_plan(ops, keep)
-        i = 0
-        while i < len(ops):
-            if hook is not None and i == hook[0]:
+    def _run_steps(self, steps, env, scope, program, hook=None):
+        """Run a plan's steps in order; `hook` = (k, fn) calls fn(env)
+        before the step at op index k."""
+        for st in steps:
+            if hook is not None and st.index == hook[0]:
                 hook, fn = None, hook[1]
                 fn(env)
-            run = _fused_opt_run(ops, i)
-            if run is not None:
-                self._lower_fused_run(run, env, scope, program)
+            if st.fused:
+                self._lower_fused_run(st.members, env, scope, program)
             else:
-                run = [ops[i]]
-                self._lower_op(ops[i], env, scope, program)
-            for j in range(i, i + len(run)):
-                for n in drops[j]:
-                    env.pop(n, None)
-            i += len(run)
+                self._lower_op(st.members[0], env, scope, program)
+            for n in st.drops:
+                env.pop(n, None)
         if hook is not None:
             hook[1](env)
 
-    def _run_whole_program_grad(self, plan, env, scope, program, keep):
+    def _run_whole_program_grad(self, plan, env, scope, program):
         """The forward region with autograd recording, one autograd pass
         from the loss to every variable whose gradient is read, then the
         remaining (optimizer) ops without it."""
-        pre, post = plan['pre'], plan['post']
-        wrt = sorted(set(plan['grads'].values()))
+        wpg = plan.wpg
+        wrt = sorted(set(wpg['grads'].values()))
         fed = {n: env[n] for n in wrt if n in env}
-        later = set(n for op in post for n in op.input_arg_names)
-        drops = _drop_plan(pre, keep | later | {plan['loss']})
         with torch.enable_grad():
             leaves = []
             for n in wrt:
                 leaf = self._read(n, env, scope).detach().requires_grad_()
                 leaves.append(leaf)
                 env[n] = leaf
-            for op, drop in zip(pre, drops):
-                self._lower_op(op, env, scope, program)
-                for n in op.output_arg_names:
-                    if n in plan['stop'] and n in env:
+            for st, drop in zip(plan.pre, plan.pre_drops):
+                self._lower_op(st, env, scope, program)
+                for n in st.stops:
+                    if n in env:
                         env[n] = env[n].detach()
                 for n in drop:
                     env.pop(n, None)
-            loss = env[plan['loss']]
-            seed = torch.full_like(loss, plan['seed_value'])
+            loss = env[wpg['loss']]
+            seed = torch.full_like(loss, wpg['seed_value'])
             if loss.requires_grad and leaves:
                 grads = torch.autograd.grad([loss], leaves, [seed],
                                             allow_unused=True)
@@ -638,19 +1080,32 @@ class Executor(object):
         by_name = {n: (torch.zeros_like(x).detach() if g is None else g)
                    for n, x, g in zip(wrt, leaves, grads)}
         del leaves, grads
-        grads = {g: by_name[p] for g, p in plan['grads'].items()}
+        grads = {g: by_name[p] for g, p in wpg['grads'].items()}
         if self._replica is not None and self._replica.world > 1:
             # CoeffNumDevice: the gradients of the global loss
-            grads = self._global_grads(grads, plan['grads'])
+            grads = self._global_grads(grads, wpg['grads'])
         # the optimizer reads the scope's parameters, not the leaves
         for n in wrt:
             env.pop(n, None)
         env.update(fed)
-        env[plan['loss']] = loss.detach()
+        env[wpg['loss']] = loss.detach()
         for g, v in grads.items():
             env[g] = v
             self._check_finite(g, v)
-        if plan['seed_grad'] in keep:
-            env[plan['seed_grad']] = seed
+        if wpg['seed_grad'] in plan.keep:
+            env[wpg['seed_grad']] = seed
         with torch.no_grad():
-            self._run_ops(post, env, scope, program, keep)
+            self._run_steps(plan.post, env, scope, program)
+
+
+_UNSET = object()
+
+
+def _spec(v):
+    """(shape, dtype) of a warmup feed spec: a (shape, dtype) pair, or
+    an example array, tensor or LoDTensor."""
+    v = core.as_array(v)
+    if hasattr(v, 'shape') and hasattr(v, 'dtype'):
+        return tuple(int(s) for s in v.shape), v.dtype
+    shape, dtype = v
+    return tuple(int(s) for s in shape), dtype

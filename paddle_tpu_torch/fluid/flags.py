@@ -50,6 +50,9 @@ _DEFAULTS = {
     # raises (fluid/comms_plan.py)
     'FLAGS_comms_model_path': '',
     'FLAGS_comms_hbm_budget_bytes': 0,
+    # run plans a Program keeps (fluid/executor.py _get_plan; 0:
+    # unbounded), as in the JAX package
+    'FLAGS_plan_cache_capacity': 64,
 }
 
 _flags = {}

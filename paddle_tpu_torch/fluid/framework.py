@@ -134,6 +134,16 @@ def grad_var_name(name):
     return name + "@GRAD"
 
 
+def _new_exec_cache():
+    """A Program's run-plan cache (fluid/executor.py ``_get_plan``),
+    LRU-capped by FLAGS_plan_cache_capacity (0: unbounded), as the JAX
+    package's ``_new_exec_cache`` (framework.py:159)."""
+    from .compile_cache import LRUCache
+    from .flags import get_flag
+    return LRUCache(lambda: get_flag('FLAGS_plan_cache_capacity', 64),
+                    'executor/plan_cache_evictions')
+
+
 def _op_is_stochastic(op_type):
     """dropout, or any lowering registered stochastic=True (draws
     randomness without a declared is_test attr) — clone(for_test)
@@ -296,6 +306,7 @@ class Block(object):
         op = self.append_op(type, inputs, outputs, attrs)
         self.ops.remove(op)
         self.ops.insert(index, op)
+        self.program._bump_version()
         return op
 
     def _remove_op(self, index):
@@ -368,6 +379,7 @@ class Program(object):
         self._version = 0
         self._op_seed_counter = [0]
         self._seed_base = np.random.randint(0, 2 ** 31 - 1)
+        self._exec_cache = _new_exec_cache()
         self._current_role = 'forward'
 
     @contextlib.contextmanager
@@ -382,7 +394,10 @@ class Program(object):
             self._current_role = prev
 
     def _bump_version(self):
+        """Every rewrite of the program calls this: the cached run
+        plans go with the old version."""
         self._version += 1
+        self._exec_cache.clear()
 
     def _next_op_seed(self):
         self._op_seed_counter[0] += 1
@@ -417,6 +432,7 @@ class Program(object):
         p._version = 0
         p._op_seed_counter = list(self._op_seed_counter)
         p._seed_base = self._seed_base
+        p._exec_cache = _new_exec_cache()
         p._current_role = 'forward'
         p.current_block_idx = self.current_block_idx
         p.blocks = [Block(p, b.idx, b.parent_idx) for b in self.blocks]

@@ -73,6 +73,7 @@ class CollectiveOptimizer(DistributedOptimizer):
                                max(launch.world_size(), 1))
         optimize_ops = opt.apply_gradients(params_grads)
         program._collective_dp = True
+        program._bump_version()
         return optimize_ops, params_grads
 
 

@@ -133,6 +133,7 @@ def _prune_for_inference(program, feeded_var_names, target_vars):
             for n in op.input_arg_names:
                 needed.add(n)
     block.ops = list(reversed(keep))
+    p._bump_version()
     return p
 
 

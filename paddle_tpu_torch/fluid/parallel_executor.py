@@ -221,7 +221,8 @@ def _global_fetch(name, val, block, rep, local_batch, averaged):
     return wire.all_reduce(val, rep.group)
 
 
-def run_parallel(executor, compiled, feed, fetch_list, scope, return_numpy):
+def run_parallel(executor, compiled, feed, fetch_list, scope, return_numpy,
+                 use_program_cache=True):
     """Executor.run of a CompiledProgram: one data-parallel step of this
     rank (see the module docstring), or Executor.run of its program
     where it is not data parallel or the process has no group."""
@@ -229,7 +230,8 @@ def run_parallel(executor, compiled, feed, fetch_list, scope, return_numpy):
     program = compiled.program
     rep = replica_of(executor) if compiled._is_data_parallel else None
     if rep is None:
-        return executor.run(program, feed, fetch_list, scope, return_numpy)
+        return executor.run(program, feed, fetch_list, scope, return_numpy,
+                            use_program_cache)
     feed = feed or {}
     scope = scope or core.global_scope()
     names = _fetch_names(fetch_list)
@@ -238,7 +240,7 @@ def run_parallel(executor, compiled, feed, fetch_list, scope, return_numpy):
     results = executor._run_program(
         program, feed, names, scope, rep,
         compiled._shard_opt_states_axis is not None,
-        _batch_feed_names(program, feed))
+        _batch_feed_names(program, feed), use_program_cache)
     block = program.global_block()
     results = [_global_fetch(n, v, block, rep, local_batch,
                              executor._averaged)

@@ -57,6 +57,7 @@ class DistributeTranspiler(object):
             # or GradAllReduce; this marks the program for the
             # collective runtime
             program._collective_dp = True
+            program._bump_version()
             self.trainer_program = program
             return
         if mode in ('pserver', 'ps', 'geo'):

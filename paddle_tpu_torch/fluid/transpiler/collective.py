@@ -55,6 +55,7 @@ class Collective(object):
         self.nranks = max(len(self.endpoints), launch.world_size())
         self._transpile_main_program()
         main_program._collective_dp = True
+        main_program._bump_version()
 
     def _transpile_main_program(self):
         raise NotImplementedError

@@ -8,6 +8,14 @@ inference/analysis/passes/ir_params_sync_among_devices_pass), so no
 run uploads the weights again.  A single-shot run pads
 the batch to the next power-of-two bucket and slices the answer back,
 so the predictor sees O(log max_batch) distinct batch sizes.
+
+On a CUDA place each bucket is one CUDA-graph signature of the
+executor (fluid/cuda_graph.py): a bucket's first request runs eagerly,
+its second captures the graph, and every later one replays it, the
+padded feed copied in through pinned host buffers and the answer
+copied back through one before the rows are sliced.
+``_use_program_cache = False`` runs every request eagerly through a
+plan built for it (``Executor.run(use_program_cache=False)``).
 """
 
 import numpy as np
@@ -71,6 +79,7 @@ class AnalysisPredictor(object):
         self._bucket_ok = all(
             getattr(v, 'shape', None) and int(v.shape[0]) < 0
             for v in self._fetch_vars)
+        self._use_program_cache = True
 
     @property
     def place(self):
@@ -123,7 +132,8 @@ class AnalysisPredictor(object):
         with core.scope_guard(self._scope):
             outs = self._exe.run(self._program, feed=feed,
                                  fetch_list=self._fetch_vars,
-                                 return_numpy=return_numpy)
+                                 return_numpy=return_numpy,
+                                 use_program_cache=self._use_program_cache)
         if rows is not None:
             outs = [fluid_serving.slice_rows(o, 0, rows, bucket)
                     for o in outs]

@@ -10,6 +10,13 @@ floors and no quiet fallback: a build or launch failure raises.
 tensors to the plain versions too, so a whole path can be held against
 its plain twin on the card.
 
+Launch counts: each wrapper counts its launch at Python time
+(``launches``).  While a CUDA graph is captured (fluid/cuda_graph.py)
+the launches go into the graph's manifest instead
+(``recording_launches``), and each replay adds the manifest to a count
+of its own (``add_replays``, ``replayed``): a replay runs no wrapper,
+so what it launched is known from its capture, not measured.
+
 Build: ``nvcc -O3 -gencode=arch=compute_90a,code=sm_90a`` compiles each
 ``csrc/<name>.cu`` into ``<build dir>/<name>-<source hash>.so``, a
 library with a plain C interface loaded through ctypes; a source may
@@ -18,6 +25,7 @@ add flags of its own (``SOURCE_FLAGS``), and the hash covers the shared
 starts every missing build at once.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -58,7 +66,8 @@ def register_kernel(name, source, plain, replaces, doc='', op_types=()):
                          % (name,))
     KERNELS[name] = {'source': source, 'plain': plain,
                      'replaces': replaces, 'doc': doc,
-                     'op_types': tuple(op_types), 'launches': 0}
+                     'op_types': tuple(op_types), 'launches': 0,
+                     'replayed': 0}
     return name
 
 
@@ -66,27 +75,62 @@ def kernels():
     return {k: dict(v) for k, v in KERNELS.items()}
 
 
+# the launch manifest of the CUDA graph being captured, or None: a
+# launch into a capturing stream does not run, so it is recorded here
+# and counted at each replay (add_replays)
+_manifest = None
+
+
 def count_launch(name):
-    KERNELS[name]['launches'] += 1
+    if _manifest is not None:
+        _manifest[name] = _manifest.get(name, 0) + 1
+    else:
+        KERNELS[name]['launches'] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside, launches go into the yielded manifest {kernel: launches}
+    instead of the counters (a CUDA graph's capture)."""
+    global _manifest
+    saved, _manifest = _manifest, {}
+    try:
+        yield _manifest
+    finally:
+        _manifest = saved
+
+
+def add_replays(manifest):
+    """Count a replay of a captured graph: its manifest's launches, as
+    replayed launches."""
+    for name, n in manifest.items():
+        KERNELS[name]['replayed'] += n
 
 
 def launches(name):
     return KERNELS[name]['launches']
 
 
+def replayed(name):
+    return KERNELS[name]['replayed']
+
+
 def reset_launches():
     for info in KERNELS.values():
         info['launches'] = 0
+        info['replayed'] = 0
 
 
 def report():
-    """Per-kernel registration and launch counts (empty when nothing
-    has launched)."""
+    """Per-kernel registration, launch and replayed-launch counts
+    (empty when nothing has launched)."""
     out = {name: {'source': info['source'], 'plain': info['plain'],
                   'replaces': info['replaces'],
                   'op_types': list(info['op_types']),
-                  'launches': info['launches']}
-           for name, info in sorted(KERNELS.items()) if info['launches']}
+                  'launches': info['launches'],
+                  'replayed': info['replayed']}
+           for name, info in sorted(KERNELS.items())
+           if info['launches'] or info['replayed']}
     return {'kernels': out} if out else {}
 
 
