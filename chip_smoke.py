@@ -98,7 +98,12 @@ Phases, each of which fails the run (non-zero exit) on error:
      NSP heads, hidden and attention dropout 0.1) with
      fluid.optimizer.Adam(1e-6, epsilon 1e-6).minimize on
      CUDAPlace(0): the startup program, then 3 steps of batch 8 on one
-     repeated synthetic_batch.  Each step must launch flash_attention
+     repeated synthetic_batch, through Executor.run as it runs by
+     default (as every training phase's steps: step 1, which fetches
+     gradients too, and step 2 each their signature's first run,
+     eager; step 3 captured in a CUDA graph and replayed; a step's
+     launches are those at the wrappers plus those its graph's replay
+     ran).  Each step must launch flash_attention
      (with dropout) 12 times, flash_attention_bwd 12, embedding_lookup
      3, embedding_scatter_add 3 and fused_adam once; the loss is finite
      and falls from step 1 to step 3, and at step 3 it is below the loss
@@ -160,12 +165,26 @@ Phases, each of which fails the run (non-zero exit) on error:
      time and device-op count of a profiled request, in which K1's and
      K6's kernels must appear once a launch, and peak memory), the
      median step of each training path, with the garbage collections
-     and allocator retries of each timed step, and (phases 5 and 7; 10's
-     LeNet-5 Adam, 11's Transformer and 13's AMP BERT-base at seq 512
-     in their phases) 5 steps with use_program_cache=False against the
-     same 5 steps from the same state with the plan cache: each side's
-     median step and a profiled step's self CPU, the state after them
-     bitwise equal.  The library call for
+     and allocator retries of each timed step, and (phases 5, 6 and 7;
+     10's LeNet-5 Adam, ResNet-50 and SE-ResNeXt-50, 11's BERT-base at
+     seq 128 and Transformer and 13's AMP BERT-base at seq 512 and AMP
+     ResNet-50 in their phases) 5 steps three ways from the same state
+     and executor step: with use_program_cache=False, from the plan
+     cache eagerly (Executor.run's path without its CUDA graph) and
+     from the plan cache with CUDA graphs, as Executor.run runs by
+     default (the graphs captured before freed; the first step eager,
+     the second captured with one replay, the rest replayed): each
+     side's median
+     step (the graph side's over its replays), a profiled step's self
+     CPU and device time and the peak memory, the graph side's first
+     run, capture and graph pool; every loss and the whole startup
+     state (parameters, moments, beta powers, learning-rate counter,
+     loss scale and counters) bitwise equal on the three sides, the
+     scope's tensors the same objects, and on the graph side one
+     capture, nothing refused (LAMB, Wide&Deep and BERT-base at seq
+     128 print why where their capture is refused) and the launches at
+     the wrappers plus the replayed launches the eager side's, kernel by
+     kernel.  The library call for
      the flash backward is
      SDPA's memory-efficient backward op on its own forward's saved
      outputs; for the row update (deep and wide tables),
@@ -282,25 +301,33 @@ Phases, each of which fails the run (non-zero exit) on error:
      bad step behind it, the MLM decoder weight times 64): the verdict
      true on the card, the scale halved, Adam's moments decayed bitwise
      and its beta powers advanced, no synchronizing call inside the
-     step.  Each path prints its step ms (median of 5), rate, a
+     step, which is its signature's first run; then the same step
+     twice more from the same state and executor step, captured with
+     one replay and then replayed under the same sync debug mode:
+     bitwise the eager step, its launches all replayed.  Each path prints its step ms (median of 5), rate, a
      profiled step's device time and peak memory beside the same
      model's f32 numbers from phases 5, 10 and 11 of the run, and the
      card's name and power limit.
-The line before the last is a JSON object {"kernels": [...]}: a row
-that times one table of a kernel (embedding_scatter_add[2-row],
+The line before the last is a JSON object {"kernels": [...]}.  Each
+row's "launches" are those the wrappers made on the main path (every
+counted step and request: the counters set to 0 just before each and
+read just after) and its "replayed_launches" those that the main
+path's CUDA-graph replays ran, from the graphs' manifests: serving's
+(phases 4 and 11; each bucket's also seen by the profiler in one
+replay) and the training steps' (each training phase's step 3).  A row
+that times one table or route of a kernel (embedding_scatter_add[2-row],
 embedding_update[wide], embedding_lookup[nmt],
-embedding_scatter_add[nmt]) counts the main path's launches on that
-table,
-its kernel's row those on the kernel's other tables; fused_adam counts
+embedding_scatter_add[nmt], the flash kernels' [dropout], [bf16] and
+[bf16,dropout] rows) counts the main path's launches on that table or
+route, measured at each call of the wrapper, which also writes them
+into the manifest of a graph being captured; its kernel's row counts
+those on the kernel's other tables or routes; fused_adam counts
 all of K4's launches in this process (BERT-base Adam's and LeNet-5's)
 and fused_adam[lenet] LeNet-5's; fused_adam[zero], K4 at rank 1's
 shard of BERT-base under Reduce (half the rows of every tensor), counts
 rank 0's launches in phase 12; K1's dropout row and K2's are timed at
-rank 1's head offset (48); the bf16 rows count phase 13's launches;
-a row with no launch fails the run.  "launches" counts the launches
-the wrappers made; "replayed_launches" those that CUDA-graph replays
-ran while serving (phases 4 and 11), from the graphs' manifests, each
-bucket's also seen by the profiler in one replay.  The last is {"ok": true, "device": {...}}.
+rank 1's head offset (48); a row with no launch fails the run.  The
+last is {"ok": true, "device": {...}}.
 --profile adds a torch.profiler breakdown of one request of each batch
 size, of one step of each training path, of one data-parallel step of
 each arm and of one ResNet-50 step.
@@ -570,64 +597,175 @@ class Timer(object):
                 self._graph_ms(self._flush, reps, iters))
 
 
+def fwd_rate(q, k, v, causal=False, key_bias=None, dropout_rate=0.0,
+             *rest, **kwargs):
+    """The dropout rate of a flash_attention_kernel call."""
+    return dropout_rate
+
+
+# rows of the kernels line that count one kernel's launches on some of
+# its calls: row -> (the kernel's wrapper, pick(its arguments)).  A
+# kernel's own row counts its other launches.
+SUB_ROWS = {
+    'embedding_scatter_add[2-row]': (
+        (emb_k, 'scatter_add_kernel'), lambda nrows, ids, g: nrows == 2),
+    'embedding_update[wide]': (
+        (emb_k, 'update_kernel'), lambda w, *rest: w.shape[1] == 1),
+    # the Transformer's 10,000 x 512 source and target tables
+    'embedding_lookup[nmt]': (
+        (emb_k, 'gather_kernel'), lambda w, ids: w.shape[0] == NMT_ROWS),
+    'embedding_scatter_add[nmt]': (
+        (emb_k, 'scatter_add_kernel'),
+        lambda nrows, ids, g: nrows == NMT_ROWS),
+    # the flash kernels' routes: f32 or bf16, with or without dropout
+    'flash_attention[dropout]': (
+        (fa_k, 'flash_attention_kernel'),
+        lambda q, *a, **kw: q.dtype == torch.float32 and fwd_rate(
+            q, *a, **kw)),
+    'flash_attention[bf16]': (
+        (fa_k, 'flash_attention_kernel'),
+        lambda q, *a, **kw: q.dtype == torch.bfloat16 and not fwd_rate(
+            q, *a, **kw)),
+    'flash_attention[bf16,dropout]': (
+        (fa_k, 'flash_attention_kernel'),
+        lambda q, *a, **kw: q.dtype == torch.bfloat16 and fwd_rate(
+            q, *a, **kw)),
+    'flash_attention_bwd[bf16]': (
+        (fa_k, 'flash_attention_bwd_kernel'),
+        lambda q, *a, **kw: q.dtype == torch.bfloat16)}
+# the launches on the sub-rows since the counters were last set to 0,
+# at the wrappers and replayed, as the kernels' own counters keep them
+SUB_LAUNCHES = dict.fromkeys(SUB_ROWS, 0)
+SUB_REPLAYED = dict.fromkeys(SUB_ROWS, 0)
+# the main path's launches by row of the kernels line: every counted()
+# call adds its own (without_counting puts them back)
+MAIN_LAUNCHES = {}
+MAIN_REPLAYED = {}
+
+
+def on_sub_rows(wrapper, kernel, rows):
+    """The kernel wrapper `wrapper` (a KERNELS name), tallying each
+    call's launches on the sub-rows whose pick takes its arguments: in
+    SUB_LAUNCHES, or, while a CUDA graph is captured, in the graph's
+    manifest under the row's name, which each replay adds to
+    SUB_REPLAYED (count_replays)."""
+    def call(*args, **kwargs):
+        rec = common.recording()
+        manifest = rec.launches if rec is not None else None
+
+        def now():
+            return common.launches(wrapper) if manifest is None else \
+                manifest.get(wrapper, 0)
+        before = now()
+        out = kernel(*args, **kwargs)
+        n = now() - before
+        for row, pick in rows:
+            if n and pick(*args, **kwargs):
+                if manifest is None:
+                    SUB_LAUNCHES[row] += n
+                else:
+                    manifest[row] = manifest.get(row, 0) + n
+        return out
+    return call
+
+
+def count_replays(manifest, add=common.add_replays):
+    """common.add_replays, which also adds a replay's launches on the
+    sub-rows (its manifest's row names) to SUB_REPLAYED."""
+    for row, n in manifest.items():
+        if row in SUB_REPLAYED:
+            SUB_REPLAYED[row] += n
+    add({k: n for k, n in manifest.items() if k in common.KERNELS})
+
+
+def tally_sub_rows():
+    """Wrap the wrappers of SUB_ROWS and the replay count for the whole
+    run: the sub-rows are counted as the kernels are, eagerly and in
+    every CUDA graph the run captures."""
+    groups = {}
+    for row, ((mod, name), pick) in SUB_ROWS.items():
+        groups.setdefault((mod, name), []).append((row, pick))
+    wrapper = {'scatter_add_kernel': 'embedding_scatter_add',
+               'update_kernel': 'embedding_update',
+               'gather_kernel': 'embedding_lookup',
+               'flash_attention_kernel': 'flash_attention',
+               'flash_attention_bwd_kernel': 'flash_attention_bwd'}
+    for (mod, name), rows in groups.items():
+        setattr(mod, name, on_sub_rows(wrapper[name], getattr(mod, name),
+                                       rows))
+    common.add_replays = count_replays
+
+
+def reset_counts():
+    common.reset_launches()
+    for row in SUB_ROWS:
+        SUB_LAUNCHES[row] = SUB_REPLAYED[row] = 0
+
+
+def by_row(per_kernel, per_sub_row):
+    """{row of the kernels line: n}: a sub-row's own count, a kernel's
+    row the rest of the kernel's."""
+    out = dict(per_kernel)
+    for row, n in per_sub_row.items():
+        out[row] = n
+        out[row.split('[')[0]] -= n
+    return out
+
+
 def without_counting(fn):
     """Run fn() and put the launch counters back as they were: parity
     and timing launches are not the main path's."""
     saved = {k: (common.launches(k), common.replayed(k))
              for k in common.KERNELS}
+    subs = dict(SUB_LAUNCHES), dict(SUB_REPLAYED)
+    mains = dict(MAIN_LAUNCHES), dict(MAIN_REPLAYED)
     try:
         return fn()
     finally:
         for k, (n, r) in saved.items():
             common.KERNELS[k]['launches'] = n
             common.KERNELS[k]['replayed'] = r
-
-
-# rows of the kernels line that time one table of a kernel: the
-# kernel's wrapper and which of its calls are on that table
-TABLE_ROWS = {
-    'embedding_scatter_add[2-row]': ('scatter_add_kernel',
-                                     lambda nrows, ids, g: nrows == 2),
-    'embedding_update[wide]': ('update_kernel',
-                               lambda w, *rest: w.shape[1] == 1),
-    # the Transformer's 10,000 x 512 source and target tables
-    'embedding_lookup[nmt]': ('gather_kernel',
-                              lambda w, ids: w.shape[0] == NMT_ROWS),
-    'embedding_scatter_add[nmt]': ('scatter_add_kernel',
-                                   lambda nrows, ids, g: nrows == NMT_ROWS)}
-# the launches counted() saw on those tables
-TABLE_LAUNCHES = dict.fromkeys(TABLE_ROWS, 0)
-
-
-def on_table(row, kernel, pick):
-    """kernel, adding to TABLE_LAUNCHES[row] what its launch counter
-    gains in each call that pick() puts on that row's table."""
-    base = row.split('[')[0]
-
-    def call(*args):
-        before = common.launches(base)
-        out = kernel(*args)
-        if pick(*args):
-            TABLE_LAUNCHES[row] += common.launches(base) - before
-        return out
-    return call
+        for d, old in zip((SUB_LAUNCHES, SUB_REPLAYED, MAIN_LAUNCHES,
+                           MAIN_REPLAYED), subs + mains):
+            d.clear()
+            d.update(old)
 
 
 def counted(fn):
-    """(fn(), launches per kernel during it): the counters are set to 0
-    just before and read just after.  Meanwhile the launches on the
-    tables of TABLE_ROWS are added to TABLE_LAUNCHES."""
-    common.reset_launches()
-    kernels = {name: getattr(emb_k, name) for name, _ in TABLE_ROWS.values()}
-    # a kernel with rows on two tables is wrapped twice
-    for row, (name, pick) in TABLE_ROWS.items():
-        setattr(emb_k, name, on_table(row, getattr(emb_k, name), pick))
-    try:
-        out = fn()
-    finally:
-        for name, kernel in kernels.items():
-            setattr(emb_k, name, kernel)
-    return out, {k: common.launches(k) for k in common.KERNELS}
+    """(fn(), what it ran per kernel: the launches at the wrappers plus
+    the launches its CUDA graph replays ran): the counters are set to 0
+    just before and read just after; the launches and the replayed
+    launches by row of the kernels line are added to MAIN_LAUNCHES and
+    MAIN_REPLAYED."""
+    reset_counts()
+    out = fn()
+    for acc, read, subs in ((MAIN_LAUNCHES, common.launches, SUB_LAUNCHES),
+                            (MAIN_REPLAYED, common.replayed, SUB_REPLAYED)):
+        rows = by_row({k: read(k) for k in common.KERNELS}, subs)
+        for row, n in rows.items():
+            acc[row] = acc.get(row, 0) + n
+    return out, {k: common.launches(k) + common.replayed(k)
+                 for k in common.KERNELS}
+
+
+def ran_by_row():
+    """The launches at the wrappers plus the replayed ones, by row of
+    the kernels line, since the counters were last set to 0."""
+    return by_row({k: common.launches(k) + common.replayed(k)
+                   for k in common.KERNELS},
+                  {r: SUB_LAUNCHES[r] + SUB_REPLAYED[r] for r in SUB_ROWS})
+
+
+def eager_run(exe, program, feed=None, fetch_list=None, return_numpy=True,
+              scope=None):
+    """Executor.run's path without its CUDA graph: the cached plan run
+    op by op (Executor._run_graphed with graphs=False)."""
+    feed = feed or {}
+    fetch = [getattr(f, 'name', f) for f in fetch_list or []]
+    plan = exe._get_plan(program, feed, fetch)
+    return exe._run_graphed(plan, program, feed, fetch,
+                            scope or fluid.global_scope(), return_numpy,
+                            graphs=False)
 
 
 def max_abs(a, b):
@@ -1417,8 +1555,9 @@ def serve(model_dir, cfg, n_attn, n_emb, seed, seq=SEQ, batches=BATCHES):
                                       quiet=True, pad=True))
             return out[0]
         t0 = time.perf_counter()
-        out, counts = counted(run_profiled if profile else run)
+        out, _ = counted(run_profiled if profile else run)
         sec = time.perf_counter() - t0
+        counts = {k: common.launches(k) for k in common.KERNELS}
         again = {k: common.replayed(k) for k in common.KERNELS}
         b = req['src_ids'].shape[0]
         want = (none, expected) if replay else (expected, none)
@@ -1689,9 +1828,13 @@ def snapshot(scope, names):
 
 
 def train(path):
-    """TRAIN_STEPS steps of a training path on CUDAPlace(0), each step's
-    launches checked; the loss checks and the step-1 check against the
-    plain path.  Returns what the timings need."""
+    """TRAIN_STEPS steps of a training path on CUDAPlace(0) through
+    Executor.run as it runs by default (step 1, which fetches gradients
+    too, and step 2 eager, each its signature's first run; step 3
+    captured in a CUDA graph and replayed), each step's launches at the
+    wrappers plus its replayed launches checked; the loss checks and the
+    step-1 check against the plain path.  Returns what the timings
+    need."""
     main, startup, loss = path['main'], path['startup'], path['loss']
     n_opt = sum(op.type in ('adam', 'lamb', 'adagrad', 'fused_emb_update')
                 for op in main.global_block().ops)
@@ -1726,7 +1869,7 @@ def train(path):
                 after1 = snapshot(scope, state_names)
             for k, c in counts.items():
                 launches[k] += c
-            log('  step %d: loss %.6f%s, %.1f ms, launches %s'
+            log('  step %d: loss %.6f%s, %.1f ms, launches + replayed %s'
                 % (step + 1, losses[-1],
                    ', lr %.4g' % rates[-1] if path['lr'] else '',
                    secs[-1] * 1e3, {k: c for k, c in counts.items() if c}))
@@ -1754,7 +1897,7 @@ def train(path):
 def held_losses(path, start, place=None):
     """The losses of TRAIN_STEPS steps that each start from `start`: the
     same step numbers, hence the same dropout masks, and parameters that
-    do not move."""
+    do not move (eager steps: each starts from new tensors)."""
     exe = fluid.Executor(place or fluid.CUDAPlace(0))
     scope = fluid.Scope()
     losses = []
@@ -1763,9 +1906,8 @@ def held_losses(path, start, place=None):
         for _ in range(TRAIN_STEPS):
             for n, v in start.items():
                 scope.set_var(n, v.clone())
-            losses.append(float(without_counting(lambda: exe.run(
-                path['main'], feed=path['batch'],
-                fetch_list=[path['loss']]))[0]))
+            losses.append(float(without_counting(lambda: eager_run(
+                exe, path['main'], path['batch'], [path['loss']]))[0]))
     return losses
 
 
@@ -1897,71 +2039,188 @@ def train_step_ms(run):
     return med
 
 
-def plan_cache_steps(run):
-    """TIMED_STEPS steps from the run's current state with
-    use_program_cache=False (the plan built for every step), then the
-    same steps from the same state and executor step with the plan
-    cache: each side's median step (host clock, the loss fetched to
-    numpy) and the self CPU of one profiled step after its timed ones.
-    Every variable of the startup program after the timed steps must be
-    bitwise equal between the two: both sides run with cuDNN's
+# each training path's numbers from plan_cache_steps
+GRAPH_NUMBERS = []
+
+
+def graph_stats():
+    return {k: compile_cache.counter_value('executor/' + k)
+            for k in ('graph_captures', 'graph_replays', 'graph_refused',
+                      'graph_stale', 'graph_pool_bytes')}
+
+
+def graph_refusals(program, scope):
+    """The reasons kept for the signatures of `program` whose capture
+    failed on `scope`."""
+    return [g for plan in program._exec_cache.values()
+            for g in plan.graphs.get(scope, {}).values()
+            if isinstance(g, str)]
+
+
+def drop_graphs(program, scope):
+    """Free the CUDA graphs (and their pools) of `program` on `scope`."""
+    for plan in program._exec_cache.values():
+        plan.graphs.pop(scope, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plan_cache_steps(run, required=True):
+    """TIMED_STEPS steps from the run's current state, three ways, each
+    from the same state (written back in place) and executor step: with
+    use_program_cache=False (the plan built for every step), from the
+    plan cache eagerly (eager_run), and from the plan cache with CUDA
+    graphs, as Executor.run runs by default (the first step eager on the
+    capture stream, the second captured with one replay, the rest
+    replayed; the graphs the run captured before are freed first).  Each side: its median step (host clock,
+    the loss fetched to numpy; the graph side's over its replays), the
+    self CPU and device time of one profiled step after its timed ones
+    (a replay on the graph side) and its peak memory; the graph side's
+    first run, capture and graph pool.
+
+    Every loss and every variable of the startup program after the
+    timed steps must be bitwise equal on the three sides (the
+    parameters, moments, beta powers, the learning-rate counter, the
+    AMP loss scale and its counters): all run with cuDNN's
     deterministic algorithms (LeNet-5's filter gradients otherwise sum
-    in a varying order).  Where they differ, the uncached steps are run
-    once more, to tell a plan-cache fault from a path that does not
-    repeat itself."""
+    in a varying order).  The scope's tensors must stay the same
+    objects.  The graph side must capture once, replay the other steps
+    and refuse nothing, and its launches at the wrappers plus its
+    replayed launches must be the eager cached side's, kernel by
+    kernel; a path that is not `required` (Wide&Deep) prints why its
+    capture was refused instead.  Where the eager sides differ, the
+    uncached steps are run once more, to tell a plan-cache fault from
+    a path that does not repeat itself.  The graphs are freed after."""
     path, exe, scope = run['path'], run['exe'], run['scope']
+    main = path['main']
     names = weights.startup_names(path['startup'])
+    sides = (('use_program_cache=False', False, False),
+             ('plan cache, eager', True, False),
+             ('plan cache, CUDA graphs', True, True))
     res = {}
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
 
-    def steps(cache):
+    def one(cache, graphs):
+        if cache and not graphs:
+            return eager_run(exe, main, path['batch'], [path['loss']])[0]
+        return exe.run(main, feed=path['batch'], fetch_list=[path['loss']],
+                       use_program_cache=cache)[0]
+
+    def steps(cache, graphs=False):
         for n, v in start.items():
-            scope.set_var(n, v.clone())
+            held[n].copy_(v)
         exe._step = step0
-        secs = []
+        secs, losses = [], []
         for _ in range(TIMED_STEPS):
             t0 = time.perf_counter()
-            exe.run(path['main'], feed=path['batch'],
-                    fetch_list=[path['loss']], use_program_cache=cache)
+            losses.append(one(cache, graphs))
             secs.append(time.perf_counter() - t0)
-        return secs, snapshot(scope, names)
+        return secs, losses, snapshot(scope, names)
 
+    drop_graphs(main, scope)
     try:
         with fluid.scope_guard(scope):
+            held = {n: scope.find_var(n) for n in names}
             start, step0 = snapshot(scope, names), exe._step
-            for cache in (False, True):
-                secs, after = steps(cache)
-                events = profile_run('', lambda: exe.run(
-                    path['main'], feed=path['batch'],
-                    fetch_list=[path['loss']], use_program_cache=cache),
-                    quiet=True, pad=True)
-                res[cache] = (statistics.median(secs) * 1e3, secs,
-                              host_ms(events), device_ms(events), after)
-            differ = [n for n in names
-                      if not torch.equal(res[False][4][n], res[True][4][n])]
-            if differ:
-                again = steps(False)[1]
+            for label, cache, graphs in sides:
+                stats = graph_stats()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                common.reset_launches()
+                secs, losses, after = steps(cache, graphs)
+                launched = {k: common.launches(k)
+                            for k in common.KERNELS}
+                replayed = {k: common.replayed(k)
+                            for k in common.KERNELS}
+                events = profile_run('', lambda: one(cache, graphs),
+                                     quiet=True, pad=True)
+                torch.cuda.synchronize()
+                res[label] = dict(
+                    secs=secs, losses=losses, after=after,
+                    launched=launched, replayed=replayed,
+                    host=host_ms(events),
+                    host_nowait=host_ms(events, waits=False),
+                    dev=device_ms(events),
+                    peak=torch.cuda.max_memory_allocated(),
+                    stats={k: v - stats[k]
+                           for k, v in graph_stats().items()})
+            moved = [n for n, v in held.items() if scope.find_var(n) is not v]
+            refusals = graph_refusals(main, scope)
+            base = res[sides[0][0]]
+            differ = {label: [n for n in names if not torch.equal(
+                base['after'][n], r['after'][n])] + [
+                    'loss of step %d' % (i + 1) for i, (a, b) in enumerate(
+                        zip(base['losses'], r['losses']))
+                    if not np.array_equal(a, b)]
+                for label, r in res.items()}
+            if differ[sides[1][0]]:
+                again = steps(False)[2]
                 log('  the uncached steps run again: %s' % (
                     'bitwise the first uncached run' if all(
-                        torch.equal(again[n], res[False][4][n])
+                        torch.equal(again[n], base['after'][n])
                         for n in names) else 'they differ from the first '
                     'uncached run too'))
     finally:
         torch.backends.cudnn.deterministic = saved
-    for cache in (False, True):
-        med, secs, host, dev, _ = res[cache]
-        log('  %s step, %s (cuDNN deterministic): median %.2f ms over %d '
-            'steps %s; one profiled: self CPU %.2f ms, device %.2f ms' % (
-                path['name'], 'plan cache' if cache else
-                'use_program_cache=False', med, TIMED_STEPS,
-                ['%.2f' % (x * 1e3) for x in secs], host, dev))
-    log('  %s: the %d variables after the timed steps %s' % (
-        path['name'], len(names), 'bitwise equal with and without the '
-        'plan cache' if not differ else 'differ in %s' % differ[:8]))
-    if differ:
-        raise AssertionError('%s: the cached steps differ from the '
-                             'uncached ones' % path['name'])
+        drop_graphs(main, scope)
+    for label, _, graphs in sides:
+        r = res[label]
+        timed = r['secs'][2:] if graphs else r['secs']
+        r['median'] = statistics.median(timed) * 1e3
+        log('  %s step, %s (cuDNN deterministic): median %.2f ms over %s '
+            '%s; one profiled: self CPU %.2f ms (%.2f outside the '
+            'synchronizing waits), device %.2f ms; peak %.2f GiB' % (
+                path['name'], label, r['median'],
+                'its %d replays' % len(timed) if graphs else
+                '%d steps' % len(timed),
+                ['%.2f' % (x * 1e3) for x in r['secs']], r['host'],
+                r['host_nowait'], r['dev'], r['peak'] / 2 ** 30))
+    g, e = res[sides[2][0]], res[sides[1][0]]
+    st = g['stats']
+    log('  %s graph side: first run %.2f ms, capture with one replay %.2f '
+        'ms, graph pool %.1f MiB, captures %d, replays %d, refused %d, '
+        'stale %d%s; launches at the wrappers %s, replayed %s' % (
+            path['name'], g['secs'][0] * 1e3, g['secs'][1] * 1e3,
+            st['graph_pool_bytes'] / 2 ** 20, st['graph_captures'],
+            st['graph_replays'], st['graph_refused'], st['graph_stale'],
+            ' (%s)' % refusals if refusals else '',
+            {k: c for k, c in g['launched'].items() if c},
+            {k: c for k, c in g['replayed'].items() if c}))
+    log('  %s: the %d variables and %d losses after the timed steps %s; '
+        'scope tensors %s' % (
+            path['name'], len(names), TIMED_STEPS, '; '.join(
+                '%s: %s' % (label, 'bitwise equal to the uncached side'
+                            if not d else 'differ in %s' % d[:8])
+                for label, d in differ.items() if label != sides[0][0]),
+            'kept' if not moved else 'replaced: %s' % moved[:8]))
+    if any(differ.values()) or moved:
+        raise AssertionError('%s: the three sides differ, or the state '
+                             'left its tensors' % path['name'])
+    total = {k: g['launched'][k] + g['replayed'][k] for k in common.KERNELS}
+    if not required and st['graph_captures'] == 0:
+        log('  %s stays eager: %s' % (path['name'], refusals))
+        return
+    if st['graph_captures'] != 1 or st['graph_refused'] or \
+            st['graph_stale'] or st['graph_replays'] != TIMED_STEPS or \
+            total != e['launched']:
+        raise AssertionError(
+            '%s: the graph side captured %d, replayed %d, refused %d (%s), '
+            'stale %d; launches + replayed %s against eager %s' % (
+                path['name'], st['graph_captures'], st['graph_replays'],
+                st['graph_refused'], refusals, st['graph_stale'],
+                {k: c for k, c in total.items() if c},
+                {k: c for k, c in e['launched'].items() if c}))
+    GRAPH_NUMBERS.append(
+        '%s: use_program_cache=False %.2f ms, plan cache %.2f ms, graph '
+        'replays %.2f ms; self CPU outside the waits %.2f / %.2f / %.2f '
+        'ms; device %.2f / %.2f / %.2f ms; peak %.2f / %.2f / %.2f GiB; '
+        'pool %.1f MiB' % (
+            path['name'], *[res[lb[0]]['median'] for lb in sides],
+            *[res[lb[0]]['host_nowait'] for lb in sides],
+            *[res[lb[0]]['dev'] for lb in sides],
+            *[res[lb[0]]['peak'] / 2 ** 30 for lb in sides],
+            st['graph_pool_bytes'] / 2 ** 20))
 
 
 def profile_train(run):
@@ -2071,12 +2330,15 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                  max_err, adam_shapes, lenet_shapes, seed):
     b, t, h, d = 8, SEQ, 12, 64
     seed = 4242
+    # the dropout seed in device memory, as the executor hands it to K1
+    # and K2 (a CUDA graph of a call reads it there)
+    drop_seed = torch.full((), seed, dtype=torch.int64, device=dev)
     q, k, v = qkv_views(gen, b, t, h, d, dev)
     bias = torch.from_numpy(req['input_mask']).to(dev) * 10000.0 - 10000.0
     qh, kh, vh = [x.transpose(1, 2) for x in (q, k, v)]
     mask = bias[:, None, None, :]
-    o, lse = fa_k.flash_attention_kernel(q, k, v, False, bias, RATE, seed,
-                                         DP_G_OFFSET)
+    o, lse = fa_k.flash_attention_kernel(q, k, v, False, bias, RATE,
+                                         drop_seed, DP_G_OFFSET)
     do = torch.randn(b, t, h, d, generator=gen, device=dev)
     fa_bytes = 4 * (4 * b * t * h * d + b * t + b * h * t)
     fa_flops = 4 * b * h * t * t * d
@@ -2086,7 +2348,7 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
     qhb, khb, vhb = [x.transpose(1, 2) for x in (qb, kb, vb)]
     mask_b = mask.to(torch.bfloat16)
     ob, lseb = fa_k.flash_attention_kernel(qb, kb, vb, False, bias, RATE,
-                                           seed)
+                                           drop_seed)
     fa_bytes_b = 2 * 4 * b * t * h * d + 4 * (b * t + b * h * t)
     fa_bwd_bytes_b = 2 * 8 * b * t * h * d + 4 * (b * t + b * h * t)
     w = torch.randn(30522, 768, generator=gen, device=dev)
@@ -2195,9 +2457,9 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          bound(fa_bytes, fa_flops, True), True, True),
         ('flash_attention[dropout]',
          lambda: fa_k.flash_attention_kernel(q, k, v, False, bias, RATE,
-                                             seed, DP_G_OFFSET),
+                                             drop_seed, DP_G_OFFSET),
          lambda: fa_k.flash_attention_plain(q, k, v, False, bias, RATE,
-                                            seed, DP_G_OFFSET),
+                                            drop_seed, DP_G_OFFSET),
          lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                 dropout_p=RATE),
          bound(fa_bytes, fa_flops, True), True, True),
@@ -2205,10 +2467,10 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
         # gradient needs from q, k, v, O, lse and dO
         ('flash_attention_bwd',
          lambda: fa_k.flash_attention_bwd_kernel(q, k, v, bias, o, lse, do,
-                                                 None, False, RATE, seed,
+                                                 None, False, RATE, drop_seed,
                                                  False, DP_G_OFFSET),
          lambda: fa_k.flash_attention_bwd_plain(q, k, v, bias, do, None,
-                                                False, RATE, seed, False,
+                                                False, RATE, drop_seed, False,
                                                 DP_G_OFFSET),
          sdpa_bwd_call(q, k, v, mask, do),
          bound(4 * (8 * b * t * h * d + b * t + b * h * t),
@@ -2223,9 +2485,9 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          bound(fa_bytes_b, fa_flops, bf16=True), True, True),
         ('flash_attention[bf16,dropout]',
          lambda: fa_k.flash_attention_kernel(qb, kb, vb, False, bias, RATE,
-                                             seed),
+                                             drop_seed),
          lambda: fa_k.flash_attention_plain(qb, kb, vb, False, bias, RATE,
-                                            seed),
+                                            drop_seed),
          lambda: F.scaled_dot_product_attention(qhb, khb, vhb,
                                                 attn_mask=mask_b,
                                                 dropout_p=RATE),
@@ -2233,9 +2495,9 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
         ('flash_attention_bwd[bf16]',
          lambda: fa_k.flash_attention_bwd_kernel(qb, kb, vb, bias, ob, lseb,
                                                  dob, None, False, RATE,
-                                                 seed),
+                                                 drop_seed),
          lambda: fa_k.flash_attention_bwd_plain(qb, kb, vb, bias, dob, None,
-                                                False, RATE, seed),
+                                                False, RATE, drop_seed),
          sdpa_bwd_call(qb, kb, vb, mask_b, dob),
          bound(fa_bwd_bytes_b, 10 * b * h * t * t * d, bf16=True), False,
          True),
@@ -3183,13 +3445,19 @@ def check_card_against_cpu(path, start):
 
 
 def image_classification(seed, dev, profile):
-    """Phase 10; returns LeNet-5 + Adam's K4 launches."""
+    """Phase 10; returns LeNet-5 + Adam's K4 launches at the wrapper and
+    replayed, as counted() added them to the main path's."""
     lenet_launches = {}
     for opt in ('adam', 'sgd'):
         path = lenet_path(seed, opt)
         log('[10] %s, batch %d, %d steps and %d timed' % (
             path['name'], LENET_BATCH, TRAIN_STEPS, TIMED_STEPS))
+        before = (MAIN_LAUNCHES.get('fused_adam', 0),
+                  MAIN_REPLAYED.get('fused_adam', 0))
         run = train_lenet(path)
+        if opt == 'adam':
+            lenet_k4 = (MAIN_LAUNCHES['fused_adam'] - before[0],
+                        MAIN_REPLAYED['fused_adam'] - before[1])
         lenet_launches[opt] = run['launches']
         if opt == 'adam':
             without_counting(lambda: plan_cache_steps(run))
@@ -3212,6 +3480,8 @@ def image_classification(seed, dev, profile):
         rate=RESNET_BATCH / run['step_ms'] * 1e3, unit='images',
         device_ms=run['device_ms'], peak=run['peak'])
     check_eval(path, run)
+    run['path'] = path
+    without_counting(lambda: plan_cache_steps(run))
     start = run['start']
     del run
     torch.cuda.empty_cache()
@@ -3223,10 +3493,12 @@ def image_classification(seed, dev, profile):
     log('[10] %s (cardinality 32), batch %d, Momentum(%g, %g) with '
         'L2Decay(%g)' % (path['name'], SE_BATCH, IMAGE_LR, IMAGE_MOMENTUM,
                          IMAGE_DECAY))
-    train_image(path, TRAIN_STEPS, 0, profile)
-    del path
+    run = train_image(path, TRAIN_STEPS, 0, profile)
+    run['path'] = path
+    without_counting(lambda: plan_cache_steps(run))
+    del path, run
     torch.cuda.empty_cache()
-    return lenet_launches['adam']['fused_adam']
+    return lenet_k4
 
 
 # ----------------------------------------------------------- phase 11
@@ -3292,8 +3564,7 @@ def bucket_step(run, seed):
 def short_attention(seed):
     """Phase 11: BERT-base served and trained at seq 128 and
     Transformer-base trained, all through the naive attention chain,
-    each with a profiled request or step; returns the launches of the
-    three paths and the replayed launches of the served one."""
+    each with a profiled request or step."""
     launches = {k: 0 for k in common.KERNELS}
     log('[11] BERT-base seq %d serving through create_paddle_predictor'
         % SHORT_SEQ)
@@ -3329,14 +3600,13 @@ def short_attention(seed):
         dev_ms = without_counting(lambda: profile_train(run))
         if not path['name'].startswith('Transformer'):
             F32_RUNS['bert128'] = step_numbers(11, run, med, dev_ms)
-        else:
-            without_counting(lambda: plan_cache_steps(run))
+        without_counting(lambda: plan_cache_steps(
+            run, required=path['name'].startswith('Transformer')))
         del run
         torch.cuda.empty_cache()
-    log('  launches on phase 11\'s paths: %s; replayed while serving: %s'
-        % ({k: c for k, c in launches.items() if c},
-           {k: c for k, c in replayed.items() if c}))
-    return launches, replayed
+    log('  launches + replayed on phase 11\'s paths: %s; replayed while '
+        'serving: %s' % ({k: c for k, c in launches.items() if c},
+                         {k: c for k, c in replayed.items() if c}))
 
 
 # ----------------------------------------------------------- phase 12
@@ -3403,9 +3673,8 @@ def top_host(events, n=6):
 def dp_world_one(seed, dev):
     """Phase 12 in this process, which has no process group: ResNet-50
     and BERT-base through with_data_parallel (one replica) against
-    Executor.run of the same Program from the same state, bitwise;
-    returns the launches of the BERT steps (both counted: each drives
-    the main path's entry points)."""
+    Executor.run of the same Program from the same state, bitwise (all
+    steps counted: each drives the main path's entry points)."""
     path = image_path(seed, 'resnet', RESNET_BATCH, dev)
     log('[12] with_data_parallel at world size 1 on CUDAPlace(0): '
         '%s, batch %d, %d steps, against Executor.run' % (
@@ -3463,7 +3732,6 @@ def dp_world_one(seed, dev):
     batch = bert.synthetic_batch(cfg, TRAIN_BATCH, SEQ,
                                  np.random.RandomState(seed))
     names = weights.startup_names(startup)
-    launches = {k: 0 for k in common.KERNELS}
     res = {}
     start = None
     for mode in ('Executor.run', 'with_data_parallel'):
@@ -3481,8 +3749,6 @@ def dp_world_one(seed, dev):
             if counts != expected:
                 raise AssertionError('BERT-base %s launched %s, expected %s'
                                      % (mode, counts, expected))
-            for k, c in counts.items():
-                launches[k] += c
             res[mode] = (out[0].clone(), snapshot(scope, names))
         del exe, scope
     a, b = res['Executor.run'], res['with_data_parallel']
@@ -3497,7 +3763,6 @@ def dp_world_one(seed, dev):
     if not same or differ:
         raise AssertionError('with_data_parallel at world size 1 is not '
                              'bitwise Executor.run (BERT-base)')
-    return launches
 
 
 def dp_resnet_f64(path, start, rank, n, place, group, say):
@@ -3805,42 +4070,13 @@ def step_numbers(phase, run, step_ms, dev_ms):
                 peak=run['peak'])
 
 
-def flash_row(dtype, rate, bwd=False):
-    """The kernels-line row of a flash launch on `dtype` inputs."""
-    tags = (['bf16'] if dtype == torch.bfloat16 else []) + \
-        (['dropout'] if rate and not bwd else [])
-    return 'flash_attention%s%s' % ('_bwd' if bwd else '',
-                                    '[%s]' % ','.join(tags) if tags else '')
-
-
 def flash_counted(fn):
-    """(fn(), launches per kernel, the flash kernels' launches by route)
-    as counted() gives them; the flash wrappers tally each launch on the
-    row of its dtype and dropout (FLASH_ROWS)."""
-    rows = dict.fromkeys(FLASH_ROWS, 0)
-    fwd, bwd = fa_k.flash_attention_kernel, fa_k.flash_attention_bwd_kernel
-
-    def fwd_counted(q, *args):
-        before = common.launches('flash_attention')
-        out = fwd(q, *args)
-        rows[flash_row(q.dtype, args[4] if len(args) > 4 else 0.0)] += \
-            common.launches('flash_attention') - before
-        return out
-
-    def bwd_counted(q, *args):
-        before = common.launches('flash_attention_bwd')
-        out = bwd(q, *args)
-        rows[flash_row(q.dtype, 0.0, True)] += \
-            common.launches('flash_attention_bwd') - before
-        return out
-    fa_k.flash_attention_kernel = fwd_counted
-    fa_k.flash_attention_bwd_kernel = bwd_counted
-    try:
-        out, counts = counted(fn)
-    finally:
-        fa_k.flash_attention_kernel = fwd
-        fa_k.flash_attention_bwd_kernel = bwd
-    return out, counts, rows
+    """(fn(), what it ran per kernel, the flash kernels' launches by
+    route (FLASH_ROWS), at the wrappers plus replayed) as counted()
+    gives them."""
+    out, counts = counted(fn)
+    rows = ran_by_row()
+    return out, counts, {r: rows[r] for r in FLASH_ROWS}
 
 
 def amp_bert_path(seed, seq, batch):
@@ -4037,12 +4273,19 @@ def amp_overflow_step(run, dev):
     give), advances its beta powers and moves its parameters, as the
     JAX package's semantics say; the step runs from feeds already on the
     card under torch.cuda.set_sync_debug_mode('warn'), and no
-    synchronizing call may happen inside it."""
+    synchronizing call may happen inside it.  It is its signature's
+    first run (eager, on the capture stream); the same step from the
+    same state (written back in place) and executor step then runs
+    twice more, as Executor.run runs it: captured with one replay, then
+    a replay under the same sync debug mode, whose state must be
+    bitwise the eager step's, with no launch at the wrappers and the
+    eager step's launches replayed."""
     path = run['path']
     main, scope, exe = path['main'], run['scope'], run['exe']
     names = weights.startup_names(path['startup'])
     feed = {k: torch.as_tensor(v, device=dev)
             for k, v in path['batch'].items()}
+    step0 = exe._step
     with fluid.scope_guard(scope):
         scope.set_var('loss_scaling_0',
                       torch.full((1,), OVERFLOW_SCALE, device=dev))
@@ -4089,6 +4332,59 @@ def amp_overflow_step(run, dev):
             counts == path['expected']):
         raise AssertionError('the overflow step did not follow the loss '
                              'scaling semantics (or synchronized)')
+    stats = graph_stats()
+    common.reset_launches()
+    with fluid.scope_guard(scope):
+        held = {n: scope.find_var(n) for n in names}
+        for i in range(2):
+            for n, v in prev.items():
+                held[n].copy_(v)
+            exe._step = step0
+            torch.cuda.synchronize()
+            if i == 1:
+                launched = {k: common.launches(k) for k in common.KERNELS}
+                before = {k: common.replayed(k) for k in common.KERNELS}
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter('always')
+                    torch.cuda.set_sync_debug_mode('warn')
+                    try:
+                        out = exe.run(main, feed=feed,
+                                      fetch_list=['found_inf_0'],
+                                      return_numpy=False)
+                    finally:
+                        torch.cuda.set_sync_debug_mode('default')
+                last = {k: common.replayed(k) - before[k]
+                        for k in common.KERNELS}
+                again = {k: common.launches(k) - launched[k]
+                         for k in common.KERNELS}
+            else:
+                out = exe.run(main, feed=feed, fetch_list=['found_inf_0'],
+                              return_numpy=False)
+        torch.cuda.synchronize()
+        replayed = snapshot(scope, names)
+        found = bool(out[0])
+        refusals = graph_refusals(main, scope)
+    drop_graphs(main, scope)
+    syncs = sorted({str(w.message).split('\n')[0] for w in caught
+                    if 'called a synchronizing' in str(w.message)})
+    st = {k: v - stats[k] for k, v in graph_stats().items()}
+    differ = [n for n in names if not torch.equal(replayed[n], after[n])]
+    log('  (e) the overflow step replayed: verdict %s, captures %d, replays '
+        '%d, refused %d%s; the replay launched %s at the wrappers and '
+        'replayed %s; the state %s; synchronizing calls inside the '
+        'replayed step: %s' % (
+            found, st['graph_captures'], st['graph_replays'],
+            st['graph_refused'], ' (%s)' % refusals if refusals else '',
+            {k: c for k, c in again.items() if c},
+            {k: c for k, c in last.items() if c},
+            'bitwise the eager step\'s' if not differ else
+            'differs in %s' % differ[:8], syncs or 'none'))
+    if not (found and st['graph_captures'] == 1 and
+            st['graph_replays'] == 2 and not st['graph_refused'] and
+            not differ and not any(again.values()) and
+            last == path['expected'] and not syncs):
+        raise AssertionError('the replayed overflow step is not the eager '
+                             'one (or synchronized)')
     return counts, rows
 
 
@@ -4133,6 +4429,8 @@ def amp_resnet(seed, dev, profile, card):
         F32_RUNS['resnet50'], card)
     log('    (f32: NCHW with L2Decay(%g), phase 10\'s form; AMP: NHWC '
         'without decay, bench_resnet50\'s)' % IMAGE_DECAY)
+    run['path'] = path
+    without_counting(lambda: plan_cache_steps(run))
 
 
 def word2vec_path(seed):
@@ -4157,8 +4455,7 @@ def word2vec_path(seed):
 
 
 def mixed_precision(seed, dev, profile):
-    """Phase 13; returns the launches of its paths by kernel and the
-    flash launches by route."""
+    """Phase 13."""
     card = '%s | %s' % (torch.cuda.get_device_name(0), card_line())
     launches = {k: 0 for k in common.KERNELS}
     flash = dict.fromkeys(FLASH_ROWS, 0)
@@ -4217,10 +4514,9 @@ def mixed_precision(seed, dev, profile):
         'profiled step, peak %.2f GiB | %s' % (
             nums['step_ms'], nums['rate'], nums['device_ms'],
             nums['peak'] / 2 ** 30, card))
-    log('  launches on phase 13\'s paths: %s; flash by route %s' % (
-        {k: c for k, c in launches.items() if c},
-        {k: c for k, c in flash.items() if c}))
-    return launches, flash
+    log('  launches + replayed on phase 13\'s paths: %s; flash by route %s'
+        % ({k: c for k, c in launches.items() if c},
+           {k: c for k, c in flash.items() if c}))
 
 
 def main(argv=None):
@@ -4239,6 +4535,9 @@ def main(argv=None):
         return dp_worker(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the kernels line's rows of one table or route, counted as the
+    # kernels are
+    tally_sub_rows()
     dev = torch.device('cuda', 0)
     card = card_line()
     t_start = time.perf_counter()
@@ -4309,41 +4608,19 @@ def main(argv=None):
            {k: c for k, c in serve_replayed.items() if c}))
 
     runs = []
-    TABLE_LAUNCHES.update(dict.fromkeys(TABLE_ROWS, 0))
     for phase, path in zip((5, 6, 7), paths):
         log('[%d] %s training steps on CUDAPlace(0)' % (phase, path['name']))
         runs.append(train(path))
-        log('  launches on the %d steps: %s' % (
+        log('  launches + replayed on the %d steps: %s' % (
             TRAIN_STEPS, {k: c for k, c in runs[-1]['launches'].items()
                           if c}))
-    train_launches = {k: sum(r['launches'][k] for r in runs)
-                      for k in common.KERNELS}
-    # serving runs flash_attention without dropout, training with it
-    launches = dict(train_launches)
-    launches.update({
-        'flash_attention': serve_launches['flash_attention'],
-        'flash_attention[dropout]': train_launches['flash_attention'],
-        'embedding_lookup': (serve_launches['embedding_lookup'] +
-                             train_launches['embedding_lookup'])})
-    # the bf16 route runs in phase 13
-    launches.update(dict.fromkeys(('flash_attention[bf16]',
-                                   'flash_attention[bf16,dropout]',
-                                   'flash_attention_bwd[bf16]'), 0))
-    # a row that times one table counts the launches on that table; its
-    # kernel's row, those on the kernel's other tables
-    for row, n in TABLE_LAUNCHES.items():
-        launches[row] = n
-        launches[row.split('[')[0]] -= n
-    log('  launches by the kernels line\'s rows: %s'
-        % {k: launches[k] for k in sorted(TABLE_ROWS) + sorted(
-            {r.split('[')[0] for r in TABLE_ROWS})})
 
     log('[8] timings at the main path\'s shapes (%s | %s)' % (
         torch.cuda.get_device_name(0), card))
     timer = Timer(dev)
     rows = without_counting(lambda: time_kernels(
         timer, gen, dev, requests[-1], paths[0]['batch'], paths[2]['batch'],
-        launches, max_err, adam_shapes, lenet_shapes, args.seed))
+        MAIN_LAUNCHES, max_err, adam_shapes, lenet_shapes, args.seed))
     without_counting(lambda: attention_crossover(timer, gen, dev))
     without_counting(lambda: request_latency(pred, requests, n_attn, n_emb))
     for run in runs:
@@ -4351,8 +4628,8 @@ def main(argv=None):
         if run is runs[0]:
             F32_RUNS['bert512'] = step_numbers(
                 5, run, med, without_counting(lambda: step_device_ms(run)))
-        if run is not runs[1]:
-            without_counting(lambda: plan_cache_steps(run))
+        without_counting(lambda: plan_cache_steps(
+            run, required=run is runs[0]))
     if args.profile:
         without_counting(lambda: profile_requests(pred, requests))
         for run in runs:
@@ -4363,75 +4640,40 @@ def main(argv=None):
     log('[9] data-parallel BERT-base training, %d ranks (%s | %s)' % (
         DP_RANKS, torch.cuda.get_device_name(0), card))
     dp = data_parallel(args.seed, args.profile)
+    lenet_k4 = image_classification(args.seed, dev, args.profile)
+    t0 = time.perf_counter()
+    short_attention(args.seed)
+    log('  phase 11: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    dp_world_one(args.seed, dev)
+    log('  phase 12 at world size 1: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    mixed_precision(args.seed, dev, args.profile)
+    log('  phase 13: %.1f s' % (time.perf_counter() - t0))
+    # each row's launches at the wrappers and replayed from CUDA graphs'
+    # manifests on the main path, as counted() read them in this
+    # process; the data-parallel rows, as the ranks of phases 9 and 12
+    # counted them; LeNet-5's K4 (also in K4's own row), as phase 10
+    # counted it
     for row in rows:
-        if row['name'] in ('quant_quantize', 'quant_reduce'):
-            row['launches'] = dp[0]['launches'][row['name']]
-        elif row['name'] == 'fused_adam[zero]':
+        name = row['name']
+        row['launches'] = MAIN_LAUNCHES.get(name, 0)
+        row['replayed_launches'] = MAIN_REPLAYED.get(name, 0)
+        if name in ('quant_quantize', 'quant_reduce'):
+            row['launches'] = dp[0]['launches'][name]
+        elif name == 'fused_adam[zero]':
             row['launches'] = dp[0]['phase12']['bert']['launches'][
                 'fused_adam']
-
-    lenet_k4 = image_classification(args.seed, dev, args.profile)
-    # K4's row counts all its launches, LeNet-5's included; the
-    # fused_adam[lenet] row counts LeNet-5's
-    for row in rows:
-        if row['name'] == 'fused_adam':
-            row['launches'] += lenet_k4
-        elif row['name'] == 'fused_adam[lenet]':
-            row['launches'] = lenet_k4
-    t0 = time.perf_counter()
-    before = dict(TABLE_LAUNCHES)
-    short, short_replayed = short_attention(args.seed)
-    log('  phase 11: %.1f s' % (time.perf_counter() - t0))
-    # the launches that graph replays ran while serving (phases 4 and
-    # 11), counted from their graphs' manifests, beside the launches
-    # the wrappers counted
-    for row in rows:
-        row['replayed_launches'] = (serve_replayed.get(row['name'], 0) +
-                                    short_replayed.get(row['name'], 0))
-    # the rows of phase 11's tables take their launches there; each
-    # kernel's own row, the launches on its other tables
-    gain = {row: TABLE_LAUNCHES[row] - before[row] for row in TABLE_ROWS}
-    for row in rows:
-        name = row['name']
-        if name in gain:
-            row['launches'] += gain[name]
-        elif name in short:
-            row['launches'] += short[name] - sum(
-                n for r, n in gain.items() if r.split('[')[0] == name)
-    t0 = time.perf_counter()
-    before = dict(TABLE_LAUNCHES)
-    world_one = dp_world_one(args.seed, dev)
-    log('  phase 12 at world size 1: %.1f s' % (time.perf_counter() - t0))
-    # its BERT-base steps train with attention dropout: K1's launches go
-    # to the dropout row; each kernel's row takes the launches on its
-    # other tables
-    gain = {row: TABLE_LAUNCHES[row] - before[row] for row in TABLE_ROWS}
-    row_of = {'flash_attention': 'flash_attention[dropout]'}
-    for row in rows:
-        name = row['name']
-        if name in gain:
-            row['launches'] += gain[name]
-        for k, c in world_one.items():
-            if row_of.get(k, k) == name:
-                row['launches'] += c - sum(
-                    g for r, g in gain.items() if r.split('[')[0] == k)
-    t0 = time.perf_counter()
-    before = dict(TABLE_LAUNCHES)
-    amp_launches, amp_flash = mixed_precision(args.seed, dev, args.profile)
-    log('  phase 13: %.1f s' % (time.perf_counter() - t0))
-    # the flash launches go to their route's row (all bf16 here); the
-    # rows of tables take their launches there, each kernel's own row
-    # the launches on its other tables
-    gain = {row: TABLE_LAUNCHES[row] - before[row] for row in TABLE_ROWS}
-    for row in rows:
-        name = row['name']
-        if name in amp_flash:
-            row['launches'] += amp_flash[name]
-        elif name in gain:
-            row['launches'] += gain[name]
-        elif name in amp_launches:
-            row['launches'] += amp_launches[name] - sum(
-                n for r, n in gain.items() if r.split('[')[0] == name)
+        elif name == 'fused_adam[lenet]':
+            row['launches'], row['replayed_launches'] = lenet_k4
+    log('  launches by row of the kernels line (%s | %s): at the wrappers '
+        '%s; replayed from CUDA graphs %s' % (
+            torch.cuda.get_device_name(0), card,
+            {r['name']: r['launches'] for r in rows},
+            {r['name']: r['replayed_launches'] for r in rows}))
+    log('  training steps from CUDA graphs (plan_cache_steps):')
+    for line in GRAPH_NUMBERS:
+        log('    ' + line)
     idle = [row['name'] for row in rows if not row['launches']]
     if idle:
         raise AssertionError('no launch on the main path: %s' % idle)

@@ -243,5 +243,9 @@ def to_numpy(value):
     if isinstance(value, torch.Tensor):
         if value.dtype == torch.bfloat16:
             raise TypeError('numpy has no bfloat16: cast the tensor first')
-        return value.detach().cpu().numpy()
+        value = value.detach()
+        if value.device.type == 'cpu':
+            # a copy: the executor writes the state in place
+            return value.numpy().copy()
+        return value.cpu().numpy()
     return np.asarray(value)

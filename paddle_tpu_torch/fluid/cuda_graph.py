@@ -1,12 +1,14 @@
 """CUDA graphs of a program's run: the port's counterpart of the JAX
 package's compiled segment executables.
 
-``Executor.run`` sends a program whose plan may be captured (it writes
-no persistable variable, draws no random numbers, is not collective,
-and ``FLAGS_check_nan_inf`` is off) on a CUDA place here, with the
-program cache on.  The plan keeps its graphs per scope, since a graph
-reads that scope's tensors by address and no other scope can replay
-it, and per signature: the feeds' names, shapes and dtypes and the
+``Executor.run`` sends a program whose plan may be captured (no op
+draws from a host generator, it is not collective,
+``FLAGS_check_nan_inf`` is off: serving, ``for_test`` clones and
+training steps, the whole-program grad's and the per-op grad path's
+alike, batch norms' running statistics included) on a CUDA place here,
+with the program cache on.  The plan keeps its graphs per scope,
+since a graph reads that scope's tensors by address and no other scope
+can replay it, and per signature: the feeds' names, shapes and dtypes and the
 switches read at Python time (``FLAGS_torch_kernels_plain``, the TF32
 switches), so the plain path never replays a kernel graph.  The graphs
 of a scope go with the scope, and those of a plan with the plan (a
@@ -24,13 +26,29 @@ rewrite of the program drops both).  Per signature:
 
 A capture that fails (an op that synchronizes with the host) leaves
 the reason in the graph's place: the signature runs eagerly on that
-scope from then on, and ``executor/graph_refused`` counts it.
+scope from then on (the failed capture's run among them, as the same
+step), and ``executor/graph_refused`` counts it.
+
+A training step is captured as it runs eagerly.  It writes every
+persistable variable into the tensor the scope holds
+(``Executor._write_state``), so its graph reads and updates the same
+state at each replay, and it reads the step from a static input of the
+graph (``Executor._step_mix``), from which the attention-dropout
+seed and the dropout op's mask are computed on the device: a replay
+draws the masks of its own step, and ``Executor._step`` stays the one
+count (setting it before a run is honoured by the replay).  The
+optimizer kernels' pointer tables that a capture uploads
+(``common.upload``) go into buffers the graph keeps, allocated on the
+stream it replays on rather than from its memory pool (whose blocks
+the graph's earlier kernels overwrite at every replay), and are copied
+there once, after the capture.
 
 A graph owns static input tensors, which a run fills from the feeds
-through pinned host buffers (one host-to-device copy a feed), and
-static outputs, which a run copies out: into pinned host buffers for
-``return_numpy=True``, into new device tensors otherwise, so no caller
-holds memory the next replay overwrites.  It keeps (weakly) the scope
+and the step through pinned host buffers (one host-to-device copy a
+feed, 8 bytes for the step), and static outputs, which a run copies
+out: into pinned host buffers for ``return_numpy=True``, into new
+device tensors otherwise, so no caller holds memory the next replay
+overwrites.  It keeps (weakly) the scope
 tensors it read at capture; a replay first checks each is still the
 object the scope holds, and after a ``set_var`` or a load the
 signature runs eagerly once more and is captured again.  Kernel
@@ -38,6 +56,10 @@ launches made during the capture are recorded in the graph's manifest
 (``common.recording_launches``); each replay counts them as replayed
 launches (``common.add_replays``), apart from the launches the
 wrappers count.
+
+``warm`` (``Executor.warmup``) of a training step runs its first step
+from zero feeds and puts the state it wrote back as it was, in place,
+before it captures; the capture itself runs nothing.
 """
 
 import weakref
@@ -50,8 +72,11 @@ from . import core
 from .flags import get_flag
 from ..ops.kernels import common
 
+
 # a signature whose first run was eager: its next run captures
 _SEEN = object()
+# the step's name among a graph's static inputs
+_STEP = '@STEP@'
 
 
 def _signature(feed):
@@ -124,7 +149,8 @@ class CapturedStep(object):
     """One program and feed signature captured in a CUDA graph."""
 
     __slots__ = ('device', 'graph', 'inputs', 'outputs', 'reads', 'token',
-                 'manifest', 'pool_bytes', 'host_out', 'h2d', '__weakref__')
+                 'manifest', 'uploads', 'pool_bytes', 'host_out', 'h2d',
+                 '__weakref__')
 
     def valid(self, scope):
         """True while every scope tensor the capture read is still the
@@ -144,13 +170,13 @@ class CapturedStep(object):
                 return False
         return True
 
-    def feed(self, feed):
-        """Copy the feeds into the static inputs: host values through
-        the pinned buffers, device tensors directly."""
+    def feed(self, feed, step):
+        """Copy the feeds and the step into the static inputs: host
+        values through the pinned buffers, device tensors directly."""
         if self.h2d is not None:
             self.h2d.synchronize()  # the pinned buffers are free again
         for name, (static, pinned, view) in self.inputs.items():
-            v = core.as_array(feed[name])
+            v = core.as_array(step if name == _STEP else feed[name])
             if isinstance(v, torch.Tensor):
                 if v.is_cuda:
                     static.copy_(v, non_blocking=True)
@@ -180,14 +206,16 @@ class CapturedStep(object):
 
 
 def _capture(exe, plan, program, feed, fetch_names, scope):
-    """Capture one run of `plan` on the feeds' signature."""
+    """Capture one run of `plan` on the feeds' signature, as the next
+    executor step."""
     dev = exe.device
     side = _streams(exe)
     _to_device_reads(exe, plan, feed, scope)
     cap = CapturedStep()
     cap.device = dev
     cap.inputs = {}
-    for name, v in feed.items():
+    exe._step += 1
+    for name, v in list(feed.items()) + [(_STEP, np.int64(exe._step))]:
         v = core.as_array(v)
         if not hasattr(v, 'dtype'):
             v = np.asarray(v)
@@ -198,20 +226,23 @@ def _capture(exe, plan, program, feed, fetch_names, scope):
         view = None if dtype == torch.bfloat16 else pinned.numpy()
         cap.inputs[name] = (static, pinned, view)
     cap.h2d = None
-    cap.feed(feed)
+    cap.feed(feed, exe._step)
     main = torch.cuda.current_stream(dev)
     main.synchronize()
     cap.graph = torch.cuda.CUDAGraph()
     exe._reads = {}
-    exe._step += 1
     try:
-        with common.recording_launches() as manifest:
+        # the kernels' host tables go into buffers on the stream the
+        # graph replays on, which the graph's pool never reuses
+        with common.recording_launches(main) as rec:
             with torch.cuda.graph(cap.graph, pool=exe._graph_pool,
                                   stream=side):
                 before = torch.cuda.memory_reserved(dev)
-                env = {n: x for n, (x, _, _) in cap.inputs.items()}
+                env = {n: x for n, (x, _, _) in cap.inputs.items()
+                       if n != _STEP}
                 outs = exe._run_plan(plan, program, feed, fetch_names,
-                                     scope, env=env)
+                                     scope, env=env,
+                                     step_t=cap.inputs[_STEP][0])
         reads = exe._reads
     except BaseException:
         # a failed capture_end leaves torch.cuda.graph's stream context
@@ -221,8 +252,17 @@ def _capture(exe, plan, program, feed, fetch_names, scope):
     finally:
         exe._reads = None
     cap.pool_bytes = torch.cuda.memory_reserved(dev) - before
-    cap.manifest = dict(manifest)
-    cap.outputs = outs
+    cap.manifest = dict(rec.launches)
+    # the tables the capture uploaded, once, before the first replay
+    cap.uploads = rec.uploads
+    for buf, host in cap.uploads:
+        buf.copy_(torch.from_numpy(host))
+    # a training step's fetched forward value (an AMP program's unscaled
+    # loss) is part of autograd's graph: the static output keeps the
+    # value alone
+    cap.outputs = [o.detach() if isinstance(o, torch.Tensor) else o
+                   for o in outs]
+    outs = cap.outputs
     for n, o in zip(fetch_names, outs):
         if not (isinstance(o, torch.Tensor) and o.is_cuda):
             raise TypeError('fetch %r is not a CUDA tensor in the captured '
@@ -241,10 +281,13 @@ def _capture(exe, plan, program, feed, fetch_names, scope):
 def _try_capture(exe, plan, program, feed, fetch_names, scope, graphs,
                  sig):
     """The signature's graph, or the reason its capture failed, kept in
-    `graphs` either way."""
+    `graphs` either way.  A failed capture leaves ``exe._step`` as it
+    found it: the run goes eager as that step."""
+    step = exe._step
     try:
         cap = _capture(exe, plan, program, feed, fetch_names, scope)
     except Exception as e:  # kept as the reason: the run goes eager
+        exe._step = step
         cap = 'the capture failed: %s: %s' % (type(e).__name__, e)
         compile_cache.count('executor/graph_refused')
     graphs[sig] = cap
@@ -271,15 +314,15 @@ def _run(exe, plan, program, feed, fetch_names, scope, return_numpy):
     if isinstance(entry, CapturedStep):
         if entry.valid(scope):
             exe._step += 1
-            entry.feed(feed)
+            entry.feed(feed, exe._step)
             return entry.replay(return_numpy)
         compile_cache.count('executor/graph_stale')
         entry = None
     if entry is None:
-        graphs[sig] = _SEEN
         compile_cache.count('executor/graph_first_runs')
         results = _eager_on_capture_stream(exe, plan, program, feed,
                                            fetch_names, scope)
+        graphs[sig] = _SEEN
         return exe._return(results, return_numpy)
     if entry is _SEEN:
         entry = _try_capture(exe, plan, program, feed, fetch_names, scope,
@@ -289,10 +332,25 @@ def _run(exe, plan, program, feed, fetch_names, scope, return_numpy):
     return entry.replay(return_numpy)
 
 
+def _written_state(plan, scope):
+    """{name: tensor} of the persistable variables `plan` writes that
+    the scope holds as tensors."""
+    from .executor import _is_persistable
+    block = plan.ops[0].block
+    out = {}
+    for op in plan.ops:
+        for n in op.output_arg_names:
+            v = scope.find_var(n)
+            if isinstance(v, torch.Tensor) and _is_persistable(block, n):
+                out[n] = v
+    return out
+
+
 def warm(exe, plan, program, feed, fetch_names, scope):
     """Executor.warmup of one signature: its first run and its capture,
-    from the device tensors of `feed`.  None, or the reason the
-    capture failed."""
+    from the device tensors of `feed`; a training step's first run
+    leaves the state as it found it.  None, or the reason the capture
+    failed."""
     with torch.cuda.device(exe.device):
         graphs = _graphs(plan, scope)
         sig = _signature(feed)
@@ -301,8 +359,14 @@ def warm(exe, plan, program, feed, fetch_names, scope):
             return None
         if isinstance(entry, str):
             return entry
+        state = _written_state(plan, scope)
+        kept = {n: v.clone() for n, v in state.items()}
         _eager_on_capture_stream(exe, plan, program, feed, fetch_names,
                                  scope)
+        for n, v in state.items():
+            v.copy_(kept[n])
+            if scope.find_var(n) is not v:
+                scope.set_var(n, v)
         entry = _try_capture(exe, plan, program, feed, fetch_names, scope,
                              graphs, sig)
         return entry if isinstance(entry, str) else None

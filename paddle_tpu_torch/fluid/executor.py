@@ -55,14 +55,23 @@ optimizer runs and each op's lowering and names, is a ``_Plan`` kept
 in the program's ``_exec_cache`` (``_get_plan``), which every rewrite
 empties (``Program._bump_version``); scope names resolve through
 ``_Binder`` once for each scope version.  ``use_program_cache=False``
-builds the plan for the call alone.  On a CUDA place a program that
-writes no persistable variable and draws no random numbers (serving,
-``for_test`` clones) is replayed from a CUDA graph per scope and feed
-signature, which its plan keeps (fluid/cuda_graph.py).  ``warmup``
-builds plans and captures ahead of the first run; ``compile`` gives a
-``CompiledStep``, which replays such a program's graph on a scope of
-its own.  The JAX package's segments around host ops
-(``CompiledPipeline``) come with the host ops (ROADMAP Queue 1 item 7).
+builds the plan for the call alone.  On a CUDA place a program whose
+plan may be captured (``_graph_refusal``: serving, ``for_test`` clones
+and the training steps) is replayed from a CUDA graph per scope and
+feed signature, which its plan keeps (fluid/cuda_graph.py).  The JAX
+package jits each segment with its state donated
+(fluid/executor.py:1089); the port's counterpart is that a step writes
+every persistable variable into the tensor the scope holds
+(``_write_state``), so a graph reads and writes the same state at
+every replay, and that the step reaches the device as a tensor
+(``_step_mix``, a graph's static input), from which the dropout
+masks are drawn.  A fetched persistable is returned as a copy, which
+the next step does not change.  ``warmup`` builds plans and captures
+ahead of the first run; ``compile`` gives a ``CompiledStep``, which
+replays a program's graph on a scope of its own where the program
+writes no persistable variable.  The JAX package's segments around
+host ops (``CompiledPipeline``) come with the host ops (ROADMAP Queue
+1 item 7).
 
 A program ``contrib.mixed_precision.decorate`` rewrote (AMP) runs the
 same way: its loss-scale multiply is a forward op, the autograd pass
@@ -469,17 +478,14 @@ def _segment_names(plan):
 
 def _graph_refusal(plan, ops):
     """Why a plan's program is never captured in a CUDA graph, or None.
-    Training on CUDA graphs is ROADMAP Queue 1 item 9 step 3."""
-    if plan.kind != 'forward' or plan.writes_state:
-        return ('it writes persistable variables (a training or startup '
-                'step; CUDA graphs of training steps are ROADMAP Queue 1 '
-                'item 9 step 3)')
+    The run-time reasons (the place, collective programs,
+    FLAGS_check_nan_inf) are ``Executor._no_graph``'s."""
     for op in ops:
         od = registry._REGISTRY.get(op.type)
-        if (op.type == 'dropout' or (od is not None and od.stochastic)) \
-                and not op.attrs.get('is_test'):
-            return ('op %s draws random numbers each step (stochastic, '
-                    'is_test not set)' % op.type)
+        if od is not None and od.host_random:
+            return ('op %s draws from a host generator (a startup '
+                    'program\'s initializer), which a graph would freeze'
+                    % op.type)
     return None
 
 
@@ -490,12 +496,14 @@ class CompiledStep(object):
     the pure inputs (feeds, and an inference program's parameters); the
     outputs are the fetches and the persistable variables written.  The
     caller's tensors are left as they were.  On a CUDA place a program
-    that may be captured (fluid/cuda_graph.py) runs on a scope the step
-    keeps, into which each call copies ``state`` and ``data`` in place
-    (a new shape or dtype takes a new tensor), and so replays its CUDA
-    graph as ``Executor.run`` does: the first call eager, the second
-    captures.  Any other program runs its cached plan eagerly as
-    executor step `step` on a new scope, from copies of ``state``."""
+    that writes no persistable variable and may be captured
+    (fluid/cuda_graph.py) runs on a scope the step keeps, into which
+    each call copies ``state`` and ``data`` in place (a new shape or
+    dtype takes a new tensor), and so replays its CUDA graph as
+    ``Executor.run`` does: the first call eager, the second
+    captures.  Any other program (a training step among them: ROADMAP
+    Queue 1 item 9) runs its cached plan eagerly as executor step
+    `step` on a new scope, from copies of ``state``."""
 
     __slots__ = ('fn', 'input_names', 'state_names', 'output_names')
 
@@ -557,6 +565,10 @@ class Executor(object):
         # stream and the graphs' memory pool
         self._capture_stream = None
         self._graph_pool = None
+        # the running step on the device and its mixes (_step_mix), made
+        # at most once a run
+        self._step_t = None
+        self._step_mixes = None
 
     def _to_device(self, value):
         value = core.as_array(value)
@@ -592,6 +604,43 @@ class Executor(object):
         """scope.set_var, keeping the running plan's owner dicts true."""
         scope.set_var(name, value)
         self._owners[name] = scope._vars
+
+    def _write_state(self, scope, name, value):
+        """Write a persistable variable's new value into the tensor the
+        scope holds (the JAX package's donated state): in place where
+        shape, dtype and device match, nothing where the value is that
+        tensor (the optimizer kernels update it in place), a new entry
+        otherwise (the first write, or an inference tensor)."""
+        if isinstance(value, torch.Tensor):
+            value = value.detach()
+            cur = scope._vars.get(name)
+            if isinstance(cur, torch.Tensor) and cur.shape == value.shape \
+                    and cur.dtype == value.dtype and \
+                    cur.device == value.device and not cur.is_inference():
+                if cur.data_ptr() != value.data_ptr() or \
+                        cur.stride() != value.stride():
+                    cur.copy_(value)
+                self._owners[name] = scope._vars
+                return
+        self._set_scope(scope, name, value)
+
+    def _step_mix(self, c):
+        """(step * c) mod 2**32 of the running step on the device, made
+        once a run for each constant c (the ops of a run share it).  The
+        step is a CUDA graph's static input while one is captured, else
+        made at the run's first call (one copy from pinned memory)."""
+        if self._step_mixes is None:
+            self._step_mixes = {}
+        m = self._step_mixes.get(c)
+        if m is None:
+            t = self._step_t
+            if t is None:
+                t = torch.tensor(self._step, dtype=torch.int64)
+                if self.device.type == 'cuda':
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                self._step_t = t
+            m = self._step_mixes[c] = registry.mul32(t & 0xFFFFFFFF, c)
+        return m
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, use_program_cache=True):
@@ -691,9 +740,12 @@ class Executor(object):
                               replica, shard_opt, batch_feeds)
 
     def _run_plan(self, plan, program, feed, fetch_names, scope,
-                  replica=None, shard_opt=False, batch_feeds=(), env=None):
-        """Run `plan` as step ``self._step``: the fetched values.  `env`
-        (name -> device tensor) stands in for the feed when given."""
+                  replica=None, shard_opt=False, batch_feeds=(), env=None,
+                  step_t=None):
+        """Run `plan` as step ``self._step``: the fetched values, a
+        persistable one as a copy.  `env` (name -> device tensor) stands
+        in for the feed when given, `step_t` for the device step."""
+        self._step_t, self._step_mixes = step_t, None
         data_parallel = replica is not None and replica.world > 1
         self._replica = replica
         self._batch_feeds = frozenset(batch_feeds)
@@ -730,7 +782,10 @@ class Executor(object):
             gather_rows(self._row_updates, scope, replica)
             self._row_updates = []
         results = [self._read(n, env, scope) for n in fetch_names]
+        results = [r.clone() if n not in env and isinstance(r, torch.Tensor)
+                   else r for n, r in zip(fetch_names, results)]
         self._owners = {}
+        self._step_t = self._step_mixes = None
         if self._verdicts:
             self._raise_non_finite()
         return results
@@ -844,7 +899,9 @@ class Executor(object):
             raise ValueError('feed names %r are not read by the program '
                              '(inputs: %r)' % (bogus, sorted(known)))
 
-        graphed = plan.no_graph is None and self.device.type == 'cuda'
+        # a training CompiledStep runs eagerly (ROADMAP Queue 1 item 9)
+        graphed = plan.no_graph is None and not plan.writes_state and \
+            self.device.type == 'cuda'
         kept = core.Scope() if graphed else None
 
         def fn(step, state, data):
@@ -895,7 +952,7 @@ class Executor(object):
         return registry.LowerCtx(
             self._step, seed, device=self.device,
             random_seed=program.random_seed, group=self._group,
-            replica=self._replica)
+            replica=self._replica, step_mix=self._step_mix)
 
     def _check_finite(self, name, val, persistable=False):
         """Queue the on-device verdict isfinite(val).all() of a floating
@@ -929,8 +986,7 @@ class Executor(object):
         for n, p, val in zip(names, persistable, vals):
             self._check_finite(n, val, p)
             if p:
-                self._set_scope(scope, n, val.detach()
-                                if isinstance(val, torch.Tensor) else val)
+                self._write_state(scope, n, val)
             else:
                 env[n] = val
 

@@ -11,6 +11,7 @@ ported (ROADMAP Queue 1 item 14).
 
 from .collective import (Collective, GradAllReduce, LocalSGD,  # noqa: F401
                          SingleProcessMultiThread)
+from .memory_optimize import memory_optimize, release_memory  # noqa: F401
 
 
 def _no_ps(what):

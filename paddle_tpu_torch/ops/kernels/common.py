@@ -17,6 +17,13 @@ the launches go into the graph's manifest instead
 of its own (``add_replays``, ``replayed``): a replay runs no wrapper,
 so what it launched is known from its capture, not measured.
 
+Host data a kernel reads (the optimizer kernels' pointer tables) goes
+to the device through ``upload``: queued from pinned memory on the
+current stream, or, while a graph is captured, into a buffer allocated
+on the stream the graph replays on (outside the graph's memory pool,
+whose blocks the graph's own kernels reuse) and filled once after the
+capture: a captured copy would read host memory that is freed after it.
+
 Build: ``nvcc -O3 -gencode=arch=compute_90a,code=sm_90a`` compiles each
 ``csrc/<name>.cu`` into ``<build dir>/<name>-<source hash>.so``, a
 library with a plain C interface loaded through ctypes; a source may
@@ -32,6 +39,7 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import torch
 
 from ...fluid.flags import get_flag
@@ -75,29 +83,65 @@ def kernels():
     return {k: dict(v) for k, v in KERNELS.items()}
 
 
-# the launch manifest of the CUDA graph being captured, or None: a
-# launch into a capturing stream does not run, so it is recorded here
-# and counted at each replay (add_replays)
-_manifest = None
+class Recording(object):
+    """What the capture of a CUDA graph recorded: ``launches``, its
+    launch manifest {kernel: launches} (a launch into a capturing stream
+    does not run, so it is counted at each replay: add_replays), and
+    ``uploads``, (device buffer, host array) for each ``upload`` made
+    during it, the buffers allocated on ``stream``, the stream the graph
+    replays on, for the capturer to fill once after the capture."""
+
+    __slots__ = ('launches', 'uploads', 'stream')
+
+    def __init__(self, stream):
+        self.launches = {}
+        self.uploads = []
+        self.stream = stream
+
+
+# the Recording of the CUDA graph being captured, or None
+_recording = None
 
 
 def count_launch(name):
-    if _manifest is not None:
-        _manifest[name] = _manifest.get(name, 0) + 1
+    if _recording is not None:
+        _recording.launches[name] = _recording.launches.get(name, 0) + 1
     else:
         KERNELS[name]['launches'] += 1
 
 
 @contextlib.contextmanager
-def recording_launches():
-    """Inside, launches go into the yielded manifest {kernel: launches}
-    instead of the counters (a CUDA graph's capture)."""
-    global _manifest
-    saved, _manifest = _manifest, {}
+def recording_launches(stream=None):
+    """Inside, launches go into the yielded Recording instead of the
+    counters, and uploads into buffers allocated on `stream` (a CUDA
+    graph's capture, which replays on `stream`)."""
+    global _recording
+    saved, _recording = _recording, Recording(stream)
     try:
-        yield _manifest
+        yield _recording
     finally:
-        _manifest = saved
+        _recording = saved
+
+
+def recording():
+    """The Recording of the CUDA graph being captured, or None."""
+    return _recording
+
+
+def upload(array, device):
+    """The host numpy `array` on `device`, for a kernel to read: a copy
+    queued from pinned memory on the current stream, or, during a
+    capture, a buffer allocated on the recording's stream, which the
+    capturer fills before the first replay."""
+    array = np.ascontiguousarray(array)
+    if _recording is None:
+        return torch.from_numpy(array).pin_memory().to(device,
+                                                        non_blocking=True)
+    with torch.cuda.stream(_recording.stream):
+        buf = torch.empty(array.shape, device=device,
+                          dtype=torch.from_numpy(array[:0]).dtype)
+    _recording.uploads.append((buf, array.copy()))
+    return buf
 
 
 def add_replays(manifest):

@@ -137,7 +137,7 @@ struct Params {
   float scale;
   int causal;
   int dropout;
-  uint32_t seed;
+  const long long* seed;  // dropout seed in [0, 2^32), on the device
   uint32_t g_offset;
   uint32_t threshold;
   float inv_keep;
@@ -188,6 +188,9 @@ __global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 3)
   float* bias_s = delta_s + 2 * kTile;             // [kRows]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the dropout seed, read from device memory (a replayed CUDA
+  // graph draws the masks of each replay's seed)
+  const uint32_t seed = p.dropout ? (uint32_t)__ldg(p.seed) : 0u;
   const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.tiles;
   const int k0 = (blockIdx.x - bh * p.tiles) * kRows;
@@ -271,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 3)
         const float pr = live && isfinite(x) ? __expf(x - lse_t[qi]) : 0.f;
         float pu = pr, dpu = dpt[n][e];
         if (p.dropout) {
-          const bool keep = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+          const bool keep = dropout_keep(seed, (uint32_t)bh + p.g_offset,
                                          (uint32_t)qpos, (uint32_t)key,
                                          p.threshold);
           pu = keep ? pr * p.inv_keep : 0.f;
@@ -336,6 +339,9 @@ __global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 3)
   float* bias_s = (float*)(vs + 2 * kTile * kLd);  // [2][kTile]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the dropout seed, read from device memory (a replayed CUDA
+  // graph draws the masks of each replay's seed)
+  const uint32_t seed = p.dropout ? (uint32_t)__ldg(p.seed) : 0u;
   const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.tiles;
   const int q0 = (blockIdx.x - bh * p.tiles) * kRows;
@@ -419,7 +425,7 @@ __global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 3)
         const float pr = live && isfinite(x) ? __expf(x - lse[r]) : 0.f;
         float dpu = dp[n][e];
         if (p.dropout)
-          dpu = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+          dpu = dropout_keep(seed, (uint32_t)bh + p.g_offset,
                              (uint32_t)qpos,
                              (uint32_t)key, p.threshold)
                     ? dpu * p.inv_keep
@@ -493,6 +499,9 @@ __global__ void __launch_bounds__(NWG * 128 + 32, MINB)
   __shared__ uint64_t kv_full, full[kStages], empty[kStages];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the dropout seed, read from device memory (a replayed CUDA
+  // graph draws the masks of each replay's seed)
+  const uint32_t seed = p.dropout ? (uint32_t)__ldg(p.seed) : 0u;
   const int bh = blockIdx.x / p.tiles;
   const int k0 = (blockIdx.x - bh * p.tiles) * Sh::kRows;
   const int b = bh / p.heads, h = bh - b * p.heads;
@@ -647,7 +656,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, MINB)
             const int key = k0 + kr + g + 8 * r;
             const int qpos = q0 + n * 8 + 2 * t4 + (e & 1);
             const bool keep = dropout_keep(
-                p.seed, (uint32_t)bh + p.g_offset, (uint32_t)qpos,
+                seed, (uint32_t)bh + p.g_offset, (uint32_t)qpos,
                 (uint32_t)key, p.threshold);
             pu = keep ? pr * p.inv_keep : 0.f;
             dpu = keep ? dpu * p.inv_keep : 0.f;
@@ -742,6 +751,9 @@ __global__ void __launch_bounds__(NWG * 128 + 32, MINB)
   __shared__ uint64_t qdo_full, full[kStages], empty[kStages];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the dropout seed, read from device memory (a replayed CUDA
+  // graph draws the masks of each replay's seed)
+  const uint32_t seed = p.dropout ? (uint32_t)__ldg(p.seed) : 0u;
   const int bh = blockIdx.x / p.tiles;
   const int q0 = (blockIdx.x - bh * p.tiles) * Sh::kRows;
   const int b = bh / p.heads, h = bh - b * p.heads;
@@ -882,7 +894,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, MINB)
           if constexpr (decltype(drop)::value) {
             const int qpos = q0 + qr + g + 8 * r;
             const int key = k0 + n * 8 + 2 * t4 + (e & 1);
-            dpu = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+            dpu = dropout_keep(seed, (uint32_t)bh + p.g_offset,
                                (uint32_t)qpos, (uint32_t)key, p.threshold)
                       ? dpu * p.inv_keep
                       : 0.f;
@@ -1063,7 +1075,8 @@ cudaError_t launch_d(const Params& p, int batch, int d, int dtype,
 // null), delta (scratch), dbias (or null): [B*H, T] f32 contiguous.
 // dtype: 0 = f32 (3xTF32 products), 1 = bf16 (bf16 products, the
 // Pallas kernel's rounding points).  D: 32, 64 or 128.  dropout: 0, or
-// 1 with the forward's seed, head-index offset, 24-bit keep threshold and
+// 1 with the address of the forward's seed (an int64 in [0, 2^32) in
+// device memory), head-index offset, 24-bit keep threshold and
 // 1 / (1 - rate).
 // Launches the delta, dK/dV and dQ kernels in that order on `stream`;
 // returns the first CUDA error (0 on success).
@@ -1073,8 +1086,8 @@ extern "C" int flash_attention_bwd(
     const float* glse, float* delta, void* dq, void* dk, void* dv,
     float* dbias, int batch, int heads, int t_len, int d, int dtype,
     int causal, float scale, const long long* strides, int dropout,
-    uint32_t seed, uint32_t g_offset, uint32_t threshold, float inv_keep,
-    void* stream) {
+    const long long* seed, uint32_t g_offset, uint32_t threshold,
+    float inv_keep, void* stream) {
   if (batch <= 0 || heads <= 0 || t_len <= 0) return 0;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;

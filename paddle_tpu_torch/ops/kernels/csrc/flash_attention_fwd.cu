@@ -132,7 +132,7 @@ struct Params {
   float scale;
   int causal;
   int dropout;          // 1: mask the V-weighting with the keep bits
-  uint32_t seed;        // dropout seed
+  const long long* seed;  // dropout seed in [0, 2^32), on the device
   uint32_t g_offset;    // added to the head index b*H + h in the hash
   uint32_t threshold;   // keep when (hash >> 8) < threshold (24-bit)
   float inv_keep;       // 1 / (1 - rate), rounded to f32
@@ -158,6 +158,9 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd(const Params p) {
   float* bias_s = (float*)(vs + 2 * kTile * kLd);  // [2][kTile]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the dropout seed, read from device memory (a replayed CUDA
+  // graph draws the masks of each replay's seed)
+  const uint32_t seed = p.dropout ? (uint32_t)__ldg(p.seed) : 0u;
   const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.q_tiles;
   const int q0 = (blockIdx.x - bh * p.q_tiles) * kRows;
@@ -264,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd(const Params p) {
         if (p.dropout) {
           const int key = k0 + n * 8 + 2 * t4 + (e & 1);
           const int qpos = q0 + qr + g + 8 * r;
-          pu = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+          pu = dropout_keep(seed, (uint32_t)bh + p.g_offset,
                             (uint32_t)qpos,
                             (uint32_t)key, p.threshold)
                    ? pr * p.inv_keep
@@ -344,6 +347,9 @@ __global__ void __launch_bounds__(NWG * 128 + 32, MINB)
   __shared__ uint64_t q_full, full[kStages], empty[kStages];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the dropout seed, read from device memory (a replayed CUDA
+  // graph draws the masks of each replay's seed)
+  const uint32_t seed = p.dropout ? (uint32_t)__ldg(p.seed) : 0u;
   const int bh = blockIdx.x / p.q_tiles;
   const int q0 = (blockIdx.x - bh * p.q_tiles) * Sh::kRows;
   const int b = bh / p.heads, h = bh - b * p.heads;
@@ -456,7 +462,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, MINB)
           if constexpr (decltype(drop)::value) {
             const int key = k0 + n * 8 + 2 * t4 + (e & 1);
             const int qpos = q0 + qr + g + 8 * r;
-            pu = dropout_keep(p.seed, (uint32_t)bh + p.g_offset,
+            pu = dropout_keep(seed, (uint32_t)bh + p.g_offset,
                               (uint32_t)qpos, (uint32_t)key, p.threshold)
                      ? pr * p.inv_keep
                      : 0.f;
@@ -726,7 +732,9 @@ cudaError_t launch_probe(const void* x, const void* y, const void* v,
 // [B, T] f32 contiguous or null.  lse: [B*H, T] f32 contiguous.
 // dtype: 0 = f32 (3xTF32 products), 1 = bf16 (bf16 products, the
 // Pallas kernel's rounding points).  D: 32, 64 or 128.  dropout: 0, or
-// 1 with the uint32 seed, the 24-bit keep threshold and 1 / (1 - rate);
+// 1 with the address of the seed (an int64 in [0, 2^32) in device
+// memory, read by every thread at the kernel's start), the 24-bit keep
+// threshold and 1 / (1 - rate);
 // g_offset shifts the hash's head index b*H + h (a data-parallel rank's
 // rows of the global batch start at rank * B * H).
 // Returns the CUDA error of the launch (0 on success).
@@ -735,7 +743,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    void* o, float* lse, int batch, int heads,
                                    int t_len, int d, int dtype, int causal,
                                    float scale, const long long* strides,
-                                   int dropout, uint32_t seed,
+                                   int dropout, const long long* seed,
                                    uint32_t g_offset, uint32_t threshold,
                                    float inv_keep, void* stream) {
   if (batch <= 0 || heads <= 0 || t_len <= 0) return 0;

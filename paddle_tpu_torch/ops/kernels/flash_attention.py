@@ -14,7 +14,10 @@ kernel and the plain version draw the same mask bit for bit.
 index b*H + h: a data-parallel rank with local batch B passes
 rank * B * H, so its masks are its rows of the global batch's.  There is
 no sequence-length floor: every call on CUDA tensors launches the
-kernels.
+kernels.  The seed is an int or a 0-d integer tensor holding a value in
+[0, 2**32) (the executor's, computed on the device from the step); the
+kernels read it from device memory, once a thread at their start, so a
+CUDA graph that captured them draws the masks of each replay's seed.
 
 Two routes, by the inputs' dtype.  f32: f32-accurate products (3xTF32
 on the tensor cores).  bf16: what the Pallas kernels compute for bf16
@@ -80,11 +83,19 @@ def keep_threshold(rate):
     return int(round((1.0 - float(rate)) * (1 << 24)))
 
 
-def _mul32(a, c):
+def mul32(a, c):
     """(a * c) mod 2**32 for an int64 tensor a in [0, 2**32) and a
     constant c < 2**32, in 16-bit halves so no product leaves int64."""
     lo, hi = c & 0xFFFF, c >> 16
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _seed_value(seed, device):
+    """The uint32 seed as an int, or as a 0-d int64 tensor on `device`
+    where it is a tensor (whose value is in [0, 2**32) already)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int64)
+    return int(seed) & _M32
 
 
 def dropout_keep_plain(seed, b, h, tq, tk, rate, device=None, g_offset=0):
@@ -99,12 +110,12 @@ def dropout_keep_plain(seed, b, h, tq, tk, rate, device=None, g_offset=0):
     g = g[:, :, None, None]
     qpos = ar(tq)[None, None, :, None]
     kpos = ar(tk)[None, None, None, :]
-    x = (_mul32(qpos, 0x9E3779B1) ^ _mul32(kpos, 0x85EBCA77) ^
-         _mul32(g, 0xC2B2AE3D) ^ (int(seed) & _M32))
+    x = (mul32(qpos, 0x9E3779B1) ^ mul32(kpos, 0x85EBCA77) ^
+         mul32(g, 0xC2B2AE3D) ^ _seed_value(seed, device))
     x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
+    x = mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
+    x = mul32(x, 0x846CA68B)
     x = x ^ (x >> 16)
     return (x >> 8) < keep_threshold(rate)
 
@@ -253,15 +264,25 @@ def _check(q, k, v, key_bias):
                             tuple(key_bias.shape)))
 
 
-def _dropout_args(rate, seed, g_offset):
+def _dropout_args(rate, seed, g_offset, device):
     """(flag, seed, head-index offset, threshold, 1 / (1 - rate)) for
-    the C launchers."""
+    the C launchers; the seed is a 0-d int64 tensor on `device` (made
+    there from an int seed), whose address the kernels take, or None
+    without dropout."""
     if not rate:
-        return 0, 0, 0, 0, 1.0
+        return 0, None, 0, 0, 1.0
     if seed is None:
         raise ValueError('dropout_rate > 0 needs a dropout_seed')
-    return (1, int(seed) & _M32, int(g_offset) & _M32, keep_threshold(rate),
-            1.0 / (1.0 - rate))
+    seed = _seed_value(seed, device)
+    if not isinstance(seed, torch.Tensor):
+        # a fill on the device, which a CUDA graph can capture
+        seed = torch.full((), seed, dtype=torch.int64, device=device)
+    return (1, seed.contiguous(), int(g_offset) & _M32,
+            keep_threshold(rate), 1.0 / (1.0 - rate))
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _copy_aligned(x):
@@ -288,7 +309,7 @@ def flash_attention_kernel(q, k, v, causal=False, key_bias=None,
     (O [B, T, H, D] in q's dtype, lse [B, H, T] f32)."""
     _check(q, k, v, key_bias)
     drop, seed, g_off, threshold, inv_keep = _dropout_args(
-        dropout_rate, dropout_seed, dropout_g_offset)
+        dropout_rate, dropout_seed, dropout_g_offset, q.device)
     b, t, h, d = q.shape
     dev = q.device
     q, k, v = [_copy_aligned(x) for x in (q, k, v)]
@@ -300,7 +321,7 @@ def flash_attention_kernel(q, k, v, causal=False, key_bias=None,
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
@@ -308,8 +329,9 @@ def flash_attention_kernel(q, k, v, causal=False, key_bias=None,
                  None if key_bias is None else key_bias.data_ptr(),
                  o.data_ptr(), lse.data_ptr(), b, h, t, d,
                  _DTYPE_CODES[q.dtype], int(bool(causal)),
-                 1.0 / math.sqrt(d), _strides(q, k, v, o), drop, seed,
-                 g_off, threshold, inv_keep, common.stream_ptr(dev))
+                 1.0 / math.sqrt(d), _strides(q, k, v, o), drop,
+                 _ptr(seed), g_off, threshold, inv_keep,
+                 common.stream_ptr(dev))
     common.check_launch('flash_attention', lib, err)
     return o, lse.view(b, h, t)
 
@@ -325,7 +347,7 @@ def flash_attention_bwd_kernel(q, k, v, key_bias, o, lse, do, dlse,
     of lse (None: zero)."""
     _check(q, k, v, key_bias)
     drop, seed, g_off, threshold, inv_keep = _dropout_args(
-        dropout_rate, dropout_seed, dropout_g_offset)
+        dropout_rate, dropout_seed, dropout_g_offset, q.device)
     b, t, h, d = q.shape
     dev = q.device
     if do is None:
@@ -351,20 +373,17 @@ def flash_attention_bwd_kernel(q, k, v, key_bias, o, lse, do, dlse,
     fn = lib.flash_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), ptr(key_bias), lse.data_ptr(), ptr(dlse),
+                 do.data_ptr(), _ptr(key_bias), lse.data_ptr(), _ptr(dlse),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), ptr(dbias_bh), b, h, t, d,
+                 dv.data_ptr(), _ptr(dbias_bh), b, h, t, d,
                  _DTYPE_CODES[q.dtype], int(bool(causal)),
                  1.0 / math.sqrt(d), _strides(q, k, v, o, do, dq, dk, dv),
-                 drop, seed, g_off, threshold, inv_keep,
+                 drop, _ptr(seed), g_off, threshold, inv_keep,
                  common.stream_ptr(dev))
     common.check_launch('flash_attention_bwd', lib, err)
     dbias = None if dbias_bh is None else dbias_bh.view(b, h, t).sum(1)
@@ -422,7 +441,8 @@ def flash_attention(q, k, v, causal=False, key_bias=None, dropout_rate=0.0,
                     dropout_seed=None, dropout_g_offset=0):
     """q, k, v: [B, T, H, D]; key_bias: optional [B, T] additive score
     bias -> [B, T, H, D].  dropout_rate > 0 needs a uint32
-    dropout_seed; dropout_g_offset shifts the mask's head index."""
+    dropout_seed (an int or a 0-d integer tensor); dropout_g_offset
+    shifts the mask's head index."""
     return _flash(q, k, v, causal, key_bias, dropout_rate, dropout_seed,
                   dropout_g_offset)[0]
 

@@ -126,7 +126,9 @@ def _check(ins):
 def device_table(ins, source=SOURCE):
     """(table, blocks): the [n, 10] int64 table of the run's tensor
     pointers and sizes that the kernels of `source` read, on the run's
-    device, and the number of blocks one pass over the run takes."""
+    device, and the number of blocks one pass over the run takes.  The
+    table goes up through ``common.upload``: from pinned memory, or,
+    while a CUDA graph is captured, into a buffer the graph keeps."""
     _check(ins)
     lib = common.library(source)
     chunk_fn = getattr(lib, os.path.splitext(source)[0] + '_chunk')
@@ -143,10 +145,7 @@ def device_table(ins, source=SOURCE):
         table[i, 7] = numel
         table[i, 8] = first
         first += -(-numel // chunk)
-    # pinned, so the upload is queued on the stream without a host sync
-    table = torch.from_numpy(table).pin_memory().to(ins['Param'][0].device,
-                                                    non_blocking=True)
-    return table, first
+    return common.upload(table, ins['Param'][0].device), first
 
 
 def launch(kind, table, blocks, attrs):

@@ -20,7 +20,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..distributed import wire
-from .registry import register
+from .registry import hash_keep, register
 
 
 def _pair(v):
@@ -345,11 +345,14 @@ def layer_norm(ctx, ins, attrs):
 
 @register('dropout', no_grad_out_slots=('Mask',))
 def dropout(ctx, ins, attrs):
-    """Reference operators/dropout_op.cc.  The keep mask draws from the
-    context's generator, keyed on (program seed, op seed, step, and the
-    rank in data parallel), so a replay of the op (its grad op) draws
-    the same mask and ranks draw different ones; it does not reproduce
-    the JAX package's threefry bits."""
+    """Reference operators/dropout_op.cc.  The keep mask is a counter
+    hash of each element's index (``registry.hash_keep``) under a seed
+    keyed on (program seed, op seed, step, and the rank in data
+    parallel) and computed from the device step
+    (``LowerCtx.dropout_op_seed``), so a replay of the op (its grad op)
+    and a replayed CUDA graph draw the same mask as the eager step, and
+    ranks draw different ones; it does not reproduce the JAX package's
+    threefry bits."""
     x = ins['X'][0]
     p = attrs.get('dropout_prob', 0.5)
     impl = attrs.get('dropout_implementation', 'downgrade_in_infer')
@@ -358,8 +361,7 @@ def dropout(ctx, ins, attrs):
         return {'Out': [out], 'Mask': [torch.ones_like(x)]}
     if x.device.type == 'meta':
         return {'Out': [torch.empty_like(x)], 'Mask': [torch.empty_like(x)]}
-    keep = torch.rand(x.shape, generator=ctx.rng(),
-                      device=x.device) < (1.0 - p)
+    keep = hash_keep(ctx.dropout_op_seed(), x.shape, p, x.device)
     mask = keep.to(x.dtype)
     if impl == 'upscale_in_train':
         out = torch.where(keep, x / max(1.0 - p, 1e-8), torch.zeros_like(x))
@@ -484,5 +486,5 @@ def accuracy(ctx, ins, attrs):
     total = idx.shape[0]
     return {'Accuracy': [correct / total],
             'Correct': [correct.to(torch.int32)],
-            'Total': [torch.tensor(total, dtype=torch.int32,
-                                   device=idx.device)]}
+            'Total': [torch.full((), total, dtype=torch.int32,
+                                 device=idx.device)]}

@@ -13,7 +13,10 @@ synthesized from the forward lowering by torch.autograd
 (``grad_op_def``), with the JAX package's slot convention.
 """
 
+import numpy as np
 import torch
+
+from .kernels.flash_attention import mul32
 
 
 class Replica(object):
@@ -30,10 +33,69 @@ class Replica(object):
         self.world = int(world)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _i32(c):
+    """The int32 with the bits of the uint32 constant c."""
+    return c - (1 << 32) if c >= 1 << 31 else c
+
+
+def hash_keep(seed, shape, rate, device):
+    """[shape] bool keep mask of the hidden dropout op: element i keeps
+    where the murmur3 finalizer of (i * 0x9E3779B1) ^ seed, a uint32,
+    has its top 24 bits below the keep threshold of 1 - rate.  `seed`
+    is a 0-d int64 tensor in [0, 2**32) on `device`, so the mask is a
+    function of device values alone (a CUDA graph replays it with the
+    step of each replay).  The arithmetic is int32 with two's-complement
+    wraparound, as PyTorch's integer kernels give it on the CPU and the
+    card alike (the int64 seed's conversion keeps its low 32 bits); right
+    shifts are masked to be logical."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    if n >= 1 << 31:
+        raise ValueError('dropout over %d elements: the counter hash '
+                         'indexes them in int32' % n)
+    h = torch.arange(n, dtype=torch.int32, device=device) * \
+        _i32(0x9E3779B1)
+    h ^= seed.to(torch.int32)
+    h ^= (h >> 16) & 0xFFFF
+    h *= _i32(0x7FEB352D)
+    h ^= (h >> 15) & 0x1FFFF
+    h *= _i32(0x846CA68B)
+    h ^= (h >> 16) & 0xFFFF
+    threshold = int(round((1.0 - float(rate)) * (1 << 24)))
+    return (((h >> 8) & 0xFFFFFF) < threshold).reshape(tuple(shape))
+
+
+_CONSTANTS = {}
+
+
+def device_constant(values, device):
+    """A tensor of the numpy array `values` on `device`.  On a CUDA
+    device the values are uploaded once (the first, eager run of a
+    program) and each call returns a copy made on the device, which a
+    CUDA graph can capture: a capture cannot copy from host memory."""
+    values = np.ascontiguousarray(values)
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return torch.as_tensor(values, device=device)
+    key = (device, values.dtype.str, values.shape, values.tobytes())
+    master = _CONSTANTS.get(key)
+    if master is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                'a host constant %s first met inside a CUDA graph capture'
+                % (values.shape,))
+        master = _CONSTANTS[key] = torch.as_tensor(values, device=device)
+    return master.clone()
+
+
 class LowerCtx(object):
-    """Per-op lowering context: the device new tensors go to, a
-    deterministic per-(op, step) random generator, and the two ways a
-    program runs across ranks, which ``mode`` names:
+    """Per-op lowering context: the device new tensors go to, the step
+    and what is keyed on it, and the two ways a program runs across
+    ranks, which ``mode`` names:
 
     - ``'collective'``: a program the collective transpiler marked (the
       JAX package's ``shard_map`` runner).  ``group`` is the process
@@ -48,14 +110,19 @@ class LowerCtx(object):
       batch's, and the dropout op draws per rank.
     - None: one process, every collective the identity.
 
-    Random draws come from an explicit ``torch.Generator`` seeded from
-    the program's ``random_seed``, the op's seed, the step and, in data
-    parallel, the rank (rank 0 draws as one process does); they do not
-    reproduce the JAX package's threefry bits.
+    The step is a host int (``step``) and, for what the training ops
+    draw each step (the attention-dropout seed, the dropout op's mask),
+    a value on the device (``step_mix``: the executor's, made once a
+    run from its device step, a CUDA graph's static input while one is
+    captured), as the JAX package feeds the step as a traced scalar: a
+    replayed graph draws the masks of the step it replays.  Random initializers draw on the host from
+    ``rng()``, an explicit ``torch.Generator`` seeded from the
+    program's ``random_seed``, the op's seed and the step; neither
+    reproduces the JAX package's threefry bits.
     """
 
     def __init__(self, step, op_seed=0, prefer_test=False, device=None,
-                 random_seed=0, group=None, replica=None):
+                 random_seed=0, group=None, replica=None, step_mix=None):
         self.step = step
         self.group = group
         self.replica = replica
@@ -63,6 +130,8 @@ class LowerCtx(object):
         self.prefer_test = prefer_test
         self.device = torch.device(device or 'cpu')
         self.random_seed = int(random_seed)
+        # c -> mul32(device step, c), or None: made from the host step
+        self._step_mix = step_mix
 
     @property
     def mode(self):
@@ -77,6 +146,8 @@ class LowerCtx(object):
         return r if r is not None and r.world > 1 else None
 
     def rng(self):
+        """A host generator for the random initializers (startup
+        programs; a CUDA graph never captures an op that draws here)."""
         g = torch.Generator(device=self.device)
         seed = (self.random_seed * 1000003 + self.op_seed) * 1000033 + \
             int(self.step)
@@ -86,19 +157,43 @@ class LowerCtx(object):
         g.manual_seed(seed)
         return g
 
+    def step_mix(self, c):
+        """(step * c) mod 2**32 for a constant c < 2**32, as a 0-d int64
+        tensor on the context's device."""
+        if self._step_mix is not None:
+            return self._step_mix(c)
+        return mul32(torch.tensor(int(self.step) & _M32, dtype=torch.int64,
+                                  device=self.device), c)
+
     def dropout_seed(self, attrs):
-        """uint32 seed for in-kernel dropout, or None in eval mode
-        (prefer_test lowering or a clone-stamped is_test attr)."""
+        """The uint32 seed of in-kernel attention dropout as a 0-d int64
+        tensor on the device, or None in eval mode (prefer_test lowering
+        or a clone-stamped is_test attr): the JAX package's
+        (op_seed * 2654435761 mod 2**32) ^ (step * 0x9E3779B9 mod 2**32)
+        in uint32 arithmetic, computed from the device step."""
         if self.prefer_test or attrs.get("is_test"):
             return None
-        return ((self.op_seed * 2654435761) % (1 << 32) ^
-                (int(self.step) * 0x9E3779B9) % (1 << 32))
+        return ((self.op_seed * 2654435761) % (1 << 32)) ^ \
+            self.step_mix(0x9E3779B9)
+
+    def dropout_op_seed(self):
+        """The uint32 seed of the dropout op's counter hash
+        (``hash_keep``) as a 0-d int64 tensor on the device: a host mix
+        of the program's random_seed, the op's seed and, in data
+        parallel, the rank, xor the device step times 0x85EBCA77."""
+        base = (self.random_seed * 1000003 + self.op_seed) * 1000033
+        if self.replica is not None:
+            base += self.replica.rank * 0x9E3779B1
+        base = ((base & _M32) * 0xC2B2AE3D) % (1 << 32)
+        return base ^ self.step_mix(0x85EBCA77)
 
 
 class OpDef(object):
-    __slots__ = ("type", "fn", "no_grad_out_slots", "stochastic")
+    __slots__ = ("type", "fn", "no_grad_out_slots", "stochastic",
+                 "host_random")
 
-    def __init__(self, type, fn, no_grad_out_slots=(), stochastic=False):
+    def __init__(self, type, fn, no_grad_out_slots=(), stochastic=False,
+                 host_random=False):
         self.type = type
         self.fn = fn
         # output slots that carry no gradient (dropout's Mask)
@@ -107,6 +202,9 @@ class OpDef(object):
         # (for_test=True) stamps is_test on these so eval is
         # deterministic (framework.Program.clone)
         self.stochastic = stochastic
+        # draws from the host generator LowerCtx.rng(), which a CUDA
+        # graph would freeze: a program holding it is never captured
+        self.host_random = host_random
 
     def run(self, ctx, ins, attrs):
         """Invoke the lowering with the AMP dtype rule of the op's marks
@@ -152,12 +250,14 @@ _REGISTRY = {}
 HOST_OPS = set()
 
 
-def register(type, no_grad_out_slots=(), stochastic=False):
+def register(type, no_grad_out_slots=(), stochastic=False,
+             host_random=False):
     """Decorator: register `fn(ctx, ins, attrs) -> outs` as op `type`."""
 
     def deco(fn):
         _REGISTRY[type] = OpDef(type, fn, no_grad_out_slots,
-                                stochastic=stochastic)
+                                stochastic=stochastic,
+                                host_random=host_random)
         return fn
 
     return deco

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..fluid import core
-from .registry import register, register_host
+from .registry import device_constant, register, register_host
 
 
 def _x(ins, slot='X'):
@@ -51,7 +51,7 @@ def _random_f32(ctx, shape, draw):
     return out
 
 
-@register('uniform_random')
+@register('uniform_random', host_random=True)
 def uniform_random(ctx, ins, attrs):
     shape = tuple(int(s) for s in attrs['shape'])
     lo = attrs.get('min', -1.0)
@@ -61,7 +61,7 @@ def uniform_random(ctx, ins, attrs):
                                                          'float32')))]}
 
 
-@register('gaussian_random')
+@register('gaussian_random', host_random=True)
 def gaussian_random(ctx, ins, attrs):
     shape = tuple(int(s) for s in attrs['shape'])
     mean = attrs.get('mean', 0.0)
@@ -164,8 +164,8 @@ def gather(ctx, ins, attrs):
 @register('shape', no_grad_out_slots=('Out',))
 def shape_op(ctx, ins, attrs):
     """Input's shape as an int32 vector."""
-    return {'Out': [torch.tensor(tuple(ins['Input'][0].shape),
-                                 dtype=torch.int32, device=ctx.device)]}
+    return {'Out': [device_constant(
+        np.array(ins['Input'][0].shape, dtype=np.int32), ctx.device)]}
 
 
 @register('range')
@@ -182,7 +182,7 @@ def range_op(ctx, ins, attrs):
     s, e, st = attrs['__static__']
     dtype = ins['Start'][0].dtype
     vals = np.arange(s, e, st, dtype=np.dtype(core.dtype_name(dtype)))
-    return {'Out': [torch.as_tensor(vals, device=ctx.device)]}
+    return {'Out': [device_constant(vals, ctx.device)]}
 
 
 @register('one_hot', no_grad_out_slots=('Out',))
@@ -284,9 +284,11 @@ def assign(ctx, ins, attrs):
 def assign_value(ctx, ins, attrs):
     """A constant from the op's attrs: values (flat), shape, dtype."""
     dtype = core.convert_dtype(attrs.get('dtype', 'float32'))
-    vals = torch.tensor(attrs['values'], dtype=dtype)
-    return {'Out': [vals.reshape(tuple(int(s) for s in attrs['shape']))
-                    .to(ctx.device)]}
+    vals = torch.tensor(attrs['values'], dtype=dtype).reshape(
+        tuple(int(s) for s in attrs['shape']))
+    if dtype == torch.bfloat16:  # numpy has no bfloat16
+        return {'Out': [vals.to(ctx.device)]}
+    return {'Out': [device_constant(vals.numpy(), ctx.device)]}
 
 
 @register('cast')

@@ -247,15 +247,25 @@ def test_warmup_on_cpu_plans_and_skips_every_signature():
 
 
 def test_warmup_names_a_training_program():
+    """A training step may be captured, its batch norm's running
+    statistics included (only the CPU place keeps it eager here); a
+    startup program is named as never captured: its initializers draw
+    from a host generator."""
     main, startup, y = _fc()
     with tfluid.program_guard(main, startup):
-        tfluid.optimizer.SGD(0.1).minimize(tfluid.layers.mean(y))
+        z = tfluid.layers.batch_norm(tfluid.layers.reshape(y, [-1, 3, 1, 1]))
+        tfluid.optimizer.SGD(0.1).minimize(tfluid.layers.mean(z))
     exe = tfluid.Executor(tfluid.CPUPlace())
     with tfluid.scope_guard(tfluid.Scope()):
         exe.run(startup)
         res = exe.warmup(main, {'x': ((2, 6), 'float32')}, [y])
+        (_, why), = res.skipped
+        assert 'CUDA graphs need a CUDA place' in why
+        (plan,) = main._exec_cache.values()
+        assert plan.kind == 'wpg' and plan.no_graph is None
+        res = exe.warmup(startup, {}, [])
     (_, why), = res.skipped
-    assert 'writes persistable variables' in why and 'item 9' in why
+    assert 'host generator' in why and 'uniform_random' in why
 
 
 def test_compiled_step_is_run_bitwise():

@@ -17,8 +17,9 @@ CUDAPlace(0).
 - ``FLAGS_torch_kernels_plain`` keys another graph, which launches no
   kernel;
 - ``return_numpy=False`` outputs survive the next replay;
-- ``Executor.warmup`` captures ahead of the first request, and a
-  training program is never captured;
+- ``Executor.warmup`` captures ahead of the first request, and ahead
+  of a training program's first step, whose replays are its eager
+  steps bitwise;
 - a predictor's graphs go with its scope;
 - a capture that hits a host sync fails, and its signature is served
   eagerly from then on;
@@ -32,12 +33,15 @@ a GPU machine with
 This file imports torch and the port only.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid import compile_cache
+from paddle_tpu_torch.fluid import executor
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.models import bert
 from paddle_tpu_torch.ops.kernels import common
@@ -104,6 +108,15 @@ def _replayed(fn):
 
 def _stat(name):
     return compile_cache.counter_value('executor/' + name)
+
+
+def _eager_run(exe, program, feed, fetch_list):
+    """Executor.run's path without its CUDA graph: the cached plan run
+    op by op."""
+    fetch = executor._fetch_names(fetch_list)
+    plan = exe._get_plan(program, feed, fetch)
+    return exe._run_graphed(plan, program, feed, fetch,
+                            fluid.global_scope(), True, graphs=False)
 
 
 EXPECTED = {'flash_attention': LAYERS, 'embedding_lookup': 3}
@@ -226,6 +239,9 @@ def test_device_outputs_survive_the_next_replay(model_dir):
 
 
 def test_warmup_captures_ahead_and_training_stays_eager(model_dir, dev):
+    """Named when training steps stayed eager; they are captured now:
+    a training program's warmup captures its step too, its runs replay
+    it, and the loss falls as the eager steps' does, bitwise."""
     pred = create_paddle_predictor(AnalysisConfig(model_dir))
     exe, program = pred._exe, pred._program
     shapes = {n: ((8, SEQ), 'float32' if n == 'input_mask' else 'int64')
@@ -244,14 +260,28 @@ def test_warmup_captures_ahead_and_training_stays_eager(model_dir, dev):
         x = fluid.layers.data('x', shape=[8], dtype='float32')
         loss = fluid.layers.mean(fluid.layers.fc(x, 4))
         fluid.optimizer.SGD(0.1).minimize(loss)
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    captures = _stat('graph_captures')
-    with fluid.scope_guard(fluid.Scope()):
-        exe.run(startup)
-        losses = [exe.run(main, feed={'x': np.ones((2, 8), 'float32')},
-                          fetch_list=[loss])[0] for _ in range(3)]
-    assert _stat('graph_captures') == captures
-    assert losses[2] < losses[0]
+    feed = {'x': np.ones((2, 8), 'float32')}
+    runs = {}
+    for graphs in (False, True):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            w = fluid.global_scope().find_var('fc_0.w_0')
+            if graphs:
+                res = exe.warmup(main, [{'x': ((2, 8), 'float32')}],
+                                 [loss])
+                assert len(res.captured) == 1 and res.skipped == []
+            captures = _stat('graph_captures')
+            replays = _stat('graph_replays')
+            run = exe.run if graphs else functools.partial(_eager_run, exe)
+            runs[graphs] = [run(main, feed=feed, fetch_list=[loss])[0]
+                            for _ in range(3)]
+            assert fluid.global_scope().find_var('fc_0.w_0') is w
+            assert _stat('graph_captures') == captures
+            assert _stat('graph_replays') == replays + 3 * graphs
+    assert runs[True][2] < runs[True][0]
+    for a, b in zip(runs[False], runs[True]):
+        assert np.array_equal(a, b)
 
 
 def test_graphs_go_with_their_scope(model_dir):
@@ -272,7 +302,8 @@ def test_a_capture_that_syncs_raises(dev):
     """An op that reads a value on the host (a synchronizing copy)
     cannot be captured: the capture raises instead of hanging, the
     failure is kept with its reason, and that run and every later one
-    answer eagerly, capturing no more."""
+    answer eagerly, capturing no more; the executor's step counts each
+    run once, the one whose capture failed included."""
     from paddle_tpu_torch.ops import registry
 
     @registry.register('host_read_probe')
@@ -296,6 +327,7 @@ def test_a_capture_that_syncs_raises(dev):
         with fluid.scope_guard(fluid.Scope()):
             outs = [exe.run(main, feed=feed, fetch_list=[y])[0]
                     for _ in range(4)]
+            assert exe._step == 4
             (graphs,) = [g for plan in main._exec_cache.values()
                          for g in plan.graphs.values()]
         assert _stat('graph_refused') == refused + 1
