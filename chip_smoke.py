@@ -78,6 +78,12 @@ Phases, each of which fails the run (non-zero exit) on error:
        200, 256, 1024 and 4096, n = 1, 2, 3 and 8, one row and 37 rows
        with an all-zero row and a row whose absmax is its last element,
        and shards at byte 1 of their buffer (bitwise);
+       dropout (the dropout op's kernel) at BERT-base's [8, 512, 768],
+       the Transformer FFN's [64, 64, 2048] and an odd [7, 13, 33], f32
+       and bf16, both implementations, p 0.1, 0 and 1, NaN and infinite
+       inputs, a non-contiguous view and one at an element offset, every
+       launch twice, and its gradient against autograd through the plain
+       version (bitwise);
   4. serving: BERT-base (12 layers, hidden 768, seq 512, random weights
      from --seed) built with the port's layers, saved with
      save_inference_model, loaded by create_paddle_predictor on
@@ -105,7 +111,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      launches are those at the wrappers plus those its graph's replay
      ran).  Each step must launch flash_attention
      (with dropout) 12 times, flash_attention_bwd 12, embedding_lookup
-     3, embedding_scatter_add 3 and fused_adam once; the loss is finite
+     3, embedding_scatter_add 3, fused_adam once and dropout 25 times
+     (each dropout op in training mode, here and in every training
+     phase: 37 at seq 128, where attention takes the naive chain, 32 on
+     the Transformer, 1 on SE-ResNeXt-50); the loss is finite
      and falls from step 1 to step 3, and at step 3 it is below the loss
      the same 3 steps give with the parameters held (each step from the
      starting state: the same dropout masks, so the difference is what
@@ -156,6 +165,9 @@ Phases, each of which fails the run (non-zero exit) on error:
      index_add_, bitwise its plain version), K6 and K6b on the
      Transformer's 10,000 x 512 table at phase 11's source ids (rows of
      their own, embedding_lookup[nmt] and embedding_scatter_add[nmt]),
+     the dropout kernel (upscale_in_train) at BERT-base's [8, 512, 768]
+     in f32 and bf16 (rows dropout and dropout[bf16], beside
+     torch.native_dropout) and at the Transformer FFN's [64, 64, 2048],
      the crossover of the naive attention chain (the port's lowerings,
      autograd for its backward) and K1 (forward) and K1 + K2 (forward
      and backward) on BERT-base's attention at seq 128, 256 and 512
@@ -308,6 +320,28 @@ Phases, each of which fails the run (non-zero exit) on error:
      profiled step's device time and peak memory beside the same
      model's f32 numbers from phases 5, 10 and 11 of the run, and the
      card's name and power limit.
+ 14. the data and IO plane: (a) Wide&Deep at phase 7's widths trained
+     from MultiSlot text files in Criteo's layout written from --seed
+     (8 full batches of 4096 and one of 1000 over 4 files): the native
+     feeder's parse rate (QueueDataset, 4 threads) and load_into_memory,
+     then InMemoryDataset + local_shuffle through
+     exe.train_from_dataset(thread=4) and QueueDataset through
+     train_from_dataset(thread=1), each bitwise exe.run over the same
+     batches from the same state (every loss and the whole state), 2
+     embedding_lookup and 2 embedding_update launches a step; the
+     prediction saved with save_inference_model and answered, bitwise
+     the training program's clone(for_test=True), by
+     load_inference_model in a fresh scope, infer_from_dataset and
+     create_paddle_predictor; examples/s through train_from_dataset
+     beside the same steps fed from staged device tensors; (b) phase
+     5's BERT-base program for 5 steps fed by
+     DataLoader.from_generator(capacity=4, use_double_buffer=True) on
+     cuda_places(), bitwise the numpy-fed steps with phase 5's launches
+     a step, a checkpoint after step 3 (save_persistables, npz and
+     save_format='paddle') resumed in a fresh scope bitwise the
+     uninterrupted steps 4-5, and loaded into the running scope with no
+     new capture (its graph replays steps 4-5 bitwise again); the
+     step time both ways and the loader's next() per step.
 The line before the last is a JSON object {"kernels": [...]}.  Each
 row's "launches" are those the wrappers made on the main path (every
 counted step and request: the counters set to 0 just before each and
@@ -318,8 +352,8 @@ replay) and the training steps' (each training phase's step 3).  A row
 that times one table or route of a kernel (embedding_scatter_add[2-row],
 embedding_update[wide], embedding_lookup[nmt],
 embedding_scatter_add[nmt], the flash kernels' [dropout], [bf16] and
-[bf16,dropout] rows) counts the main path's launches on that table or
-route, measured at each call of the wrapper, which also writes them
+[bf16,dropout] rows, dropout[bf16]) counts the main path's launches on
+that table or route, measured at each call of the wrapper, which also writes them
 into the manifest of a graph being captured; its kernel's row counts
 those on the kernel's other tables or routes; fused_adam counts
 all of K4's launches in this process (BERT-base Adam's and LeNet-5's)
@@ -334,7 +368,9 @@ each arm and of one ResNet-50 step.
 """
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -352,7 +388,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import paddle_tpu_torch.fluid as fluid
-from paddle_tpu_torch import weights
+from paddle_tpu_torch import runtime, weights
 from paddle_tpu_torch.dataset import mnist
 from paddle_tpu_torch.fluid import compile_cache, core, flags, metrics
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
@@ -365,6 +401,7 @@ from paddle_tpu_torch.models import wide_deep
 from paddle_tpu_torch.models import word2vec
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.ops.kernels import common
+from paddle_tpu_torch.ops.kernels import dropout as drop_k
 from paddle_tpu_torch.ops.kernels import embedding as emb_k
 from paddle_tpu_torch.ops.kernels import flash_attention as fa_k
 from paddle_tpu_torch.ops.kernels import fused_optimizer as opt_k
@@ -427,6 +464,14 @@ CLIP_NORM = 1.0
 WD_ROWS = 1000001
 WD_BATCH = 4096
 WD_LR = 1e-3
+# phase 14: the MultiSlot files (8 full batches of WD_BATCH and one of
+# WD_PARTIAL lines over WD_FILES files) and the BERT-base steps fed by
+# the DataLoader, checkpointed after CHECKPOINT_STEP
+WD_FILES = 4
+WD_FULL_BATCHES = 8
+WD_PARTIAL = 1000
+LOADER_STEPS = 5
+CHECKPOINT_STEP = 3
 # step 1 of the kernel path against the plain path (see check_plain_step)
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3
@@ -461,6 +506,9 @@ F64_TOL = 1e-6
 # K6b past its one-block sort (SORT_MAX ids): a batch of 32 and of 128
 # at seq 512 on the word table
 SCATTER_BIG_IDS = (16384, 65536)
+# phase 8 also times the dropout kernel at this many times BERT-base's
+# [8, 512, 768] activation
+DROPOUT_BIG = 8
 # the attention chain below flash_min_len (phase 11): BERT-base served
 # and trained at seq 128, the length of its main pretraining phase
 # (Devlin et al. 2019), training at batch 32 (4096 tokens, as the seq-512
@@ -632,7 +680,11 @@ SUB_ROWS = {
             q, *a, **kw)),
     'flash_attention_bwd[bf16]': (
         (fa_k, 'flash_attention_bwd_kernel'),
-        lambda q, *a, **kw: q.dtype == torch.bfloat16)}
+        lambda q, *a, **kw: q.dtype == torch.bfloat16),
+    # the dropout op's kernel on bf16 activations (mixed precision)
+    'dropout[bf16]': (
+        (drop_k, 'dropout_kernel'),
+        lambda x, *a, **kw: x.dtype == torch.bfloat16)}
 # the launches on the sub-rows since the counters were last set to 0,
 # at the wrappers and replayed, as the kernels' own counters keep them
 SUB_LAUNCHES = dict.fromkeys(SUB_ROWS, 0)
@@ -689,7 +741,8 @@ def tally_sub_rows():
                'update_kernel': 'embedding_update',
                'gather_kernel': 'embedding_lookup',
                'flash_attention_kernel': 'flash_attention',
-               'flash_attention_bwd_kernel': 'flash_attention_bwd'}
+               'flash_attention_bwd_kernel': 'flash_attention_bwd',
+               'dropout_kernel': 'dropout'}
     for (mod, name), rows in groups.items():
         setattr(mod, name, on_sub_rows(wrapper[name], getattr(mod, name),
                                        rows))
@@ -1050,6 +1103,88 @@ def check_embedding(gen, dev):
     log('  embedding_lookup 30522x768, 4096 ids: bitwise equal '
         '(int64, int32 ids, bf16 table)')
     return 0.0
+
+
+def bits(t):
+    """An integer view of a float tensor: NaNs compare by their bits."""
+    t = t.contiguous()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def dropout_twice(x, seed, p, upscale):
+    """The dropout kernel's (Out, Mask), launched twice from the same
+    inputs: the second launch must give the first's bits."""
+    out, mask = drop_k.dropout_kernel(x, seed, p, upscale)
+    out2, mask2 = drop_k.dropout_kernel(x, seed, p, upscale)
+    torch.cuda.synchronize()
+    if not (torch.equal(bits(out), bits(out2)) and
+            torch.equal(bits(mask), bits(mask2))):
+        raise AssertionError('dropout: a second launch from the same inputs '
+                             'gave other bits')
+    return out, mask
+
+
+def check_dropout(gen, dev):
+    """The dropout op's kernel against its plain version, bitwise, at
+    BERT-base's [8, 512, 768] and the Transformer FFN's [64, 64, 2048]
+    activations, f32 and bf16, both implementations, p 0.1, 0 and 1,
+    NaN and infinite values among the inputs; an odd element count, a
+    non-contiguous view and a view at an element offset (no 16-byte
+    vectors); its gradient against autograd through the plain version."""
+    seed = torch.tensor(0x9E3779B1 ^ 4242, device=dev)
+    cases = 0
+    for shape in ((8, SEQ, 768), (NMT_BATCH, NMT_LEN, 2048), (7, 13, 33)):
+        base = torch.randn(*shape, generator=gen, device=dev)
+        base.view(-1)[:4] = torch.tensor(
+            [float('nan'), float('inf'), -float('inf'), -0.0], device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = base.to(dtype)
+            for upscale in (True, False):
+                for p in (RATE, 0.0, 1.0):
+                    out, mask = dropout_twice(x, seed, p, upscale)
+                    want, want_mask = drop_k.dropout_plain(x, seed, p,
+                                                           upscale)
+                    if not (torch.equal(bits(out), bits(want)) and
+                            torch.equal(bits(mask), bits(want_mask))):
+                        raise AssertionError(
+                            'dropout %s %s upscale=%s p=%g is not bitwise '
+                            'its plain version' % (shape, dtype, upscale, p))
+                    cases += 1
+    x = torch.randn(8, SEQ, 769, generator=gen, device=dev)
+    for name, view in (('non-contiguous', x[..., 1:]),
+                       ('offset', x.view(-1)[3:3 + 8 * SEQ * 768])):
+        out, mask = dropout_twice(view, seed, RATE, True)
+        want, want_mask = drop_k.dropout_plain(view.contiguous(), seed, RATE,
+                                               True)
+        if not (torch.equal(out, want) and torch.equal(mask, want_mask)):
+            raise AssertionError('dropout on a %s view is not bitwise its '
+                                 'plain version' % name)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(8, SEQ, 768, generator=gen, device=dev).to(dtype)
+        g = torch.randn(8, SEQ, 768, generator=gen, device=dev).to(dtype)
+        for upscale in (True, False):
+            xa = x.clone().requires_grad_()
+            out, _ = drop_k.dropout(xa, seed, RATE, upscale)
+            got, = torch.autograd.grad(out, xa, g)
+            xb = x.clone().requires_grad_()
+            keep = drop_k.hash_keep(seed, x.shape, RATE, dev)
+            want, = torch.autograd.grad(
+                drop_k.apply_keep(xb, keep, RATE, upscale)[0], xb, g)
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError('the dropout gradient (%s, upscale=%s) '
+                                     'is not autograd\'s' % (dtype, upscale))
+    log('  dropout: %d cases at [8, 512, 768], [64, 64, 2048] and [7, 13, '
+        '33] (f32, bf16; both implementations; p %g, 0, 1; NaN and inf '
+        'inputs), a non-contiguous and an offset view, second launches and '
+        'the gradient: bitwise' % (cases, RATE))
+    return 0.0
+
+
+def dropout_ops(main):
+    """The dropout kernel's launches a step of `main`: one for each
+    dropout op in training mode."""
+    return sum(op.type == 'dropout' and not op.attrs.get('is_test')
+               for op in main.global_block().ops)
 
 
 def check_scatter(gen, dev):
@@ -1786,7 +1921,7 @@ def pretrain_program(seed, optimizer, seq=SEQ, batch=TRAIN_BATCH):
     expected.update({'flash_attention': n_attn,
                      'flash_attention_bwd': n_attn,
                      'embedding_lookup': 3, 'embedding_scatter_add': 3,
-                     'fused_' + optimizer: 1})
+                     'fused_' + optimizer: 1, 'dropout': dropout_ops(main)})
     # gradients fetched beside the loss on step 1, held against the
     # plain path
     probe = ['embedding_0.w_0', 'fc_0.w_0', 'fc_0.w_1', 'layer_norm_0.w_0']
@@ -1808,14 +1943,15 @@ def wide_deep_program(seed):
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed + 1
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        _, _, loss = wide_deep.build(cfg)
+        _, preds, loss = wide_deep.build(cfg)
         fluid.optimizer.Adagrad(WD_LR, epsilon=1e-6).minimize(loss)
     n_update = sum(op.type == 'fused_emb_update'
                    for op in main.global_block().ops)
     expected = {k: 0 for k in common.KERNELS}
-    expected.update({'embedding_lookup': 2, 'embedding_update': n_update})
+    expected.update({'embedding_lookup': 2, 'embedding_update': n_update,
+                     'dropout': dropout_ops(main)})
     return {'name': 'Wide&Deep Adagrad', 'main': main, 'startup': startup,
-            'loss': loss, 'lr': None,
+            'loss': loss, 'preds': preds, 'lr': None,
             'batch': wide_deep.synthetic_batch(cfg, WD_BATCH,
                                                np.random.RandomState(seed)),
             'expected': expected, 'probe': [],
@@ -2446,6 +2582,11 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
     nmt = nmt_ids(seed).to(dev)
     w_nmt = torch.randn(NMT_ROWS, 512, generator=gen, device=dev)
     g_nmt = torch.randn(nmt.numel(), 512, generator=gen, device=dev)
+    # the dropout op's activations: BERT-base's [8, 512, 768] in f32 and
+    # (under AMP) bf16; it reads X and writes Out and Mask
+    x_drop = torch.randn(8, SEQ, 768, generator=gen, device=dev)
+    x_drop_b = x_drop.to(torch.bfloat16)
+    n_drop = x_drop.numel()
     # name, kernel, plain, library, bound, whether a CUDA graph can
     # hold the plain version and the library call (the others have no
     # host sync)
@@ -2577,6 +2718,18 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          lambda: qc_k.reduce_kernel(tab['qt'], tab['st']),
          lambda: qc_k.dequant_reduce_requant_plain(tab['qt'], tab['st']),
          None, tab['rbound'], True, True),
+        # the dropout op (upscale_in_train, as BERT's), beside
+        # torch.native_dropout (its own mask from Philox)
+        ('dropout',
+         lambda: drop_k.dropout_kernel(x_drop, drop_seed, RATE, True),
+         lambda: drop_k.dropout_plain(x_drop, drop_seed, RATE, True),
+         lambda: torch.native_dropout(x_drop, RATE, True),
+         bound(12 * n_drop + 8, 0), True, True),
+        ('dropout[bf16]',
+         lambda: drop_k.dropout_kernel(x_drop_b, drop_seed, RATE, True),
+         lambda: drop_k.dropout_plain(x_drop_b, drop_seed, RATE, True),
+         lambda: torch.native_dropout(x_drop_b, RATE, True),
+         bound(6 * n_drop + 8, 0), True, True),
     ]
     rows = []
     for name, kernel, plain, library, bnd, graph, lib_graph in calls:
@@ -2640,6 +2793,37 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
         if not same:
             raise AssertionError('embedding_scatter_add at %d ids is not '
                                  'bitwise its plain version' % n_ids)
+    # the dropout kernel at the Transformer FFN's [64, 64, 2048]
+    x_ffn = torch.randn(NMT_BATCH, NMT_LEN, 2048, generator=gen, device=dev)
+    log('  %-28s cold L2: kernel %.4f ms  plain %.4f ms  native_dropout '
+        '%.4f ms  bound %.4f ms (the Transformer FFN\'s [%d, %d, 2048] '
+        'f32)' % (
+            'dropout', timer.ms(lambda: drop_k.dropout_kernel(
+                x_ffn, drop_seed, RATE, True)),
+            timer.ms(lambda: drop_k.dropout_plain(x_ffn, drop_seed, RATE,
+                                                  True)),
+            timer.ms(lambda: torch.native_dropout(x_ffn, RATE, True)),
+            bound(12 * x_ffn.numel() + 8, 0)['bound_ms'], NMT_BATCH,
+            NMT_LEN))
+    del x_ffn
+    # and at DROPOUT_BIG times BERT-base's tensor: how much of the gap to
+    # the bound at [8, 512, 768] is the launch's fixed cost
+    x_big = torch.randn(8 * DROPOUT_BIG, SEQ, 768, generator=gen,
+                        device=dev)
+    for dt, width in ((torch.float32, 4), (torch.bfloat16, 2)):
+        xb = x_big.to(dt)
+        ms = timer.ms(lambda: drop_k.dropout_kernel(xb, drop_seed, RATE,
+                                                    True))
+        bnd = bound(3 * width * xb.numel() + 8, 0)['bound_ms']
+        log('  %-28s cold L2: kernel %.4f ms  native_dropout %.4f ms  '
+            'bound %.4f ms, %.0f%% of it (%s at [%d, %d, 768], %d times '
+            'BERT-base\'s)' % (
+                'dropout' if dt == torch.float32 else 'dropout[bf16]', ms,
+                timer.ms(lambda: torch.native_dropout(xb, RATE, True)), bnd,
+                100 * bnd / ms, str(dt).split('.')[1], 8 * DROPOUT_BIG, SEQ,
+                DROPOUT_BIG))
+        del xb
+    del x_big
     # K8 at a 768 x 3072 gradient's shapes
     w3 = quant[768 * 3072]
     log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms  bound %.4f ms '
@@ -3123,6 +3307,7 @@ def lenet_path(seed, opt):
             fluid.optimizer.SGD(LENET_LR['sgd']).minimize(loss)
     imgs, labels = mnist._synthetic(LENET_BATCH, seed)
     expected = {k: 0 for k in common.KERNELS}
+    expected['dropout'] = dropout_ops(main)
     if opt == 'adam':
         expected['fused_adam'] = 1
     return {'name': 'LeNet-5 %s' % opt.upper(), 'opt': opt, 'main': main,
@@ -3301,7 +3486,7 @@ def train_image(path, steps, timed, profile):
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     names = weights.startup_names(path['startup'])
-    none = {k: 0 for k in common.KERNELS}
+    want = dict({k: 0 for k in common.KERNELS}, dropout=dropout_ops(main))
     batch = path['batch']['image'].shape[0]
     losses, secs = [], []
     with fluid.scope_guard(scope):
@@ -3315,10 +3500,11 @@ def train_image(path, steps, timed, profile):
                 main, feed=path['batch'], fetch_list=[loss, path['acc']]))
             secs.append(time.perf_counter() - t0)
             losses.append(float(out[0]))
-            if counts != none:
-                raise AssertionError('%s step %d launched %s: no kernel of '
-                                     'the port is on this path'
-                                     % (path['name'], step + 1, counts))
+            if counts != want:
+                raise AssertionError('%s step %d launched %s: only the '
+                                     'dropout kernel (%d) is on this path'
+                                     % (path['name'], step + 1, counts,
+                                        want['dropout']))
             if step < steps:
                 log('  step %d: loss %.5f, accuracy %.4f, %.1f ms' % (
                     step + 1, losses[-1], float(out[1]), secs[-1] * 1e3))
@@ -3514,7 +3700,7 @@ def nmt_program(seed):
                              epsilon=EPSILON).minimize(loss)
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'embedding_lookup': 2, 'embedding_scatter_add': 2,
-                     'fused_adam': 1})
+                     'fused_adam': 1, 'dropout': dropout_ops(main)})
     probe = ['embedding_0.w_0', 'embedding_1.w_0', 'fc_0.w_0']
     probe += [p.name for p in main.all_parameters()
               if p.shape == (cfg.d_model, cfg.tgt_vocab)]
@@ -3636,7 +3822,7 @@ def dp_bert(seed):
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'flash_attention': n_attn, 'flash_attention_bwd': n_attn,
                      'embedding_lookup': 3, 'embedding_scatter_add': 3,
-                     'fused_adam': 1})
+                     'fused_adam': 1, 'dropout': dropout_ops(main)})
     return main, startup, loss, cfg, expected
 
 
@@ -4097,7 +4283,8 @@ def amp_bert_path(seed, seq, batch):
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'flash_attention': n_attn,
                      'flash_attention_bwd': n_attn, 'embedding_lookup': 3,
-                     'embedding_scatter_add': 3, 'fused_adam': 1})
+                     'embedding_scatter_add': 3, 'fused_adam': 1,
+                     'dropout': dropout_ops(main)})
     decoder = [p.name for p in main.all_parameters()
                if p.shape == (cfg.hidden, cfg.vocab_size)][0]
     return {'name': 'BERT-base AMP Adam seq %d' % seq, 'main': main,
@@ -4445,7 +4632,8 @@ def word2vec_path(seed):
                    for op in main.global_block().ops)
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'embedding_lookup': n_lookup,
-                     'embedding_scatter_add': n_lookup})
+                     'embedding_scatter_add': n_lookup,
+                     'dropout': dropout_ops(main)})
     return {'name': 'word2vec CBOW SGD', 'main': main, 'startup': startup,
             'loss': loss, 'lr': None,
             'batch': word2vec.synthetic_batch(W2V_VOCAB, W2V_BATCH,
@@ -4519,6 +4707,438 @@ def mixed_precision(seed, dev, profile):
            {k: c for k, c in flash.items() if c}))
 
 
+# ----------------------------------------------------------- phase 14
+def write_criteo_files(d, seed, lines, files=WD_FILES):
+    """MultiSlot text in Criteo's layout at Wide&Deep's widths, from
+    `seed`: 13 dense floats, 26 hashed ids in [0, WD_ROWS), the label
+    (correlated with the features, as wide_deep.synthetic_batch's), one
+    sample a line, `lines` lines over `files` files."""
+    rng = np.random.RandomState(seed)
+    dense = rng.rand(lines, 13).astype('float32')
+    ids = rng.randint(0, WD_ROWS, (lines, 26))
+    score = dense.sum(1) + (ids.sum(1) % 7) * 0.1
+    label = (score > np.median(score)).astype('int64')
+    fmt = '13 ' + ' '.join(['%.9g'] * 13) + ' 26 ' + \
+        ' '.join(['%d'] * 26) + ' 1 %d'
+    paths = []
+    for k, part in enumerate(np.array_split(np.arange(lines), files)):
+        path = os.path.join(d, 'part-%05d' % k)
+        with open(path, 'w') as f:
+            for i in part:
+                f.write(fmt % (tuple(dense[i]) + tuple(ids[i]) +
+                               (label[i],)) + '\n')
+        paths.append(path)
+    return paths
+
+
+def wd_dataset(kind, path, files, thread):
+    ds = fluid.DatasetFactory().create_dataset(kind)
+    ds.set_batch_size(WD_BATCH)
+    ds.set_thread(thread)
+    ds.set_filelist(files)
+    block = path['main'].global_block()
+    ds.set_use_var([block.var(n) for n in
+                    ('dense_input', 'sparse_input', 'label')])
+    ds.seed = 7
+    return ds
+
+
+def fetches_of(exe, into):
+    """Record the first fetch of each exe.run that train_from_dataset or
+    infer_from_dataset makes (at print_period=1, one every step) into
+    `into`; the call runs under quiet_steps."""
+    run = exe.run
+
+    def recorded(*args, **kwargs):
+        out = run(*args, **kwargs)
+        if out:
+            into.append(out[0])
+        return out
+    exe.run = recorded
+
+
+def quiet_steps():
+    """Swallow the '[dataset step N]' lines of print_period=1."""
+    return contextlib.redirect_stdout(io.StringIO())
+
+
+def wd_steps(path, start, batches, dataset=None, thread=1):
+    """Wide&Deep from `start` on a new executor and scope: exe.run over
+    `batches`, or train_from_dataset(dataset, thread) when `dataset` is
+    given, the loss fetched every step.  (losses, the final state, the
+    launches + replayed, the executor, the scope, each exe.run's
+    seconds)."""
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    losses, secs = [], []
+    with fluid.scope_guard(scope):
+        without_counting(lambda: exe.run(path['startup']))
+        for n, v in start.items():
+            scope.find_var(n).copy_(v)
+        if dataset is None:
+            def run():
+                for b in batches:
+                    t0 = time.perf_counter()
+                    losses.append(float(exe.run(
+                        path['main'], feed=b, fetch_list=[path['loss']])[0]))
+                    secs.append(time.perf_counter() - t0)
+        else:
+            fetches_of(exe, losses)
+
+            def run():
+                with quiet_steps():
+                    exe.train_from_dataset(
+                        path['main'], dataset, thread=thread,
+                        fetch_list=[path['loss']], print_period=1)
+        _, counts = counted(run)
+        losses = [float(x) for x in losses]
+        torch.cuda.synchronize()
+        state = snapshot(scope, list(start))
+    return losses, state, counts, exe, scope, secs
+
+
+def same_state(a, b):
+    return [n for n in a if not torch.equal(a[n], b[n])]
+
+
+def data_plane_ctr(seed, dev, card):
+    """Phase 14 (a): Wide&Deep trained from MultiSlot files through
+    Dataset + train_from_dataset, held bitwise against exe.run over the
+    same batches; its prediction saved and served three ways."""
+    path = wide_deep_program(seed)
+    lines = WD_FULL_BATCHES * WD_BATCH + WD_PARTIAL
+    base = os.path.join(ROOT, 'build', 'chip_smoke')
+    with tempfile.TemporaryDirectory(dir=base) as d:
+        t0 = time.perf_counter()
+        files = write_criteo_files(d, seed, lines)
+        log('  wrote %d lines of MultiSlot text (13 dense, 26 ids, the '
+            'label) in %d files in %.1f s' % (lines, len(files),
+                                              time.perf_counter() - t0))
+        # the native feeder alone: every file parsed by 4 threads (its
+        # library built first, as set-up)
+        t0 = time.perf_counter()
+        feeder_lib = runtime.build()
+        log('  the MultiSlot feeder library %s ready in %.1f s' % (
+            os.path.basename(feeder_lib), time.perf_counter() - t0))
+        queue4 = wd_dataset('QueueDataset', path, files, 4)
+        t0 = time.perf_counter()
+        parsed = sum(int(b['label'].shape[0]) for b in queue4.batches())
+        parse_s = time.perf_counter() - t0
+        mem = wd_dataset('InMemoryDataset', path, files, 4)
+        t0 = time.perf_counter()
+        mem.load_into_memory()
+        load_s = time.perf_counter() - t0
+        mem.local_shuffle()
+        batches = list(mem.batches())
+        pinned = all(v.is_pinned() for b in batches for v in b.values())
+        log('  feeder: %d lines parsed in %.1f ms (%.0f lines/s, 4 threads, '
+            'warm page cache); load_into_memory %.1f ms; %d batches (%s), '
+            'in pinned memory %s' % (
+                parsed, parse_s * 1e3, parsed / parse_s, load_s * 1e3,
+                len(batches), [int(b['label'].shape[0]) for b in batches],
+                pinned))
+        if parsed != lines or mem.get_memory_data_size() != lines or \
+                not pinned:
+            raise AssertionError('the feeder gave %d lines (memory %d) of '
+                                 '%d, pinned %s' % (
+                                     parsed, mem.get_memory_data_size(),
+                                     lines, pinned))
+        exe0, scope0 = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(scope0):
+            without_counting(lambda: exe0.run(path['startup']))
+            start = snapshot(scope0, weights.startup_names(path['startup']))
+        del exe0, scope0
+        ref = wd_steps(path, start, batches)
+        want = {k: v * len(batches) for k, v in path['expected'].items()}
+        sizes = [int(b['label'].shape[0]) for b in batches]
+        log('  exe.run over the batches, each its signature\'s first run, '
+            'capture or replay: %s ms (the %d-row batch at step %d, its '
+            'signature\'s first run, eager)' % (
+                ['%.2f' % (x * 1e3) for x in ref[5]], WD_PARTIAL,
+                sizes.index(WD_PARTIAL) + 1))
+        queue1 = wd_dataset('QueueDataset', path, files, 1)
+        queue_batches = list(queue1.batches())
+        for kind, ds, thread, held in (
+                ('InMemoryDataset', mem, 4, ref),
+                ('QueueDataset', queue1, 1,
+                 wd_steps(path, start, queue_batches))):
+            got = wd_steps(path, start, None, ds, thread)
+            differ = same_state(got[1], held[1])
+            log('  %s, train_from_dataset(thread=%d): %d steps, losses %s, '
+                'launches + replayed %s; against exe.run over the same '
+                'batches: losses %s, state (%d variables) %s' % (
+                    kind, thread, len(got[0]),
+                    ['%.6f' % x for x in got[0]],
+                    {k: c for k, c in got[2].items() if c},
+                    'bitwise equal' if got[0] == held[0] else 'DIFFER',
+                    len(start), 'bitwise equal' if not differ else
+                    'differs in %s' % differ))
+            if got[0] != held[0] or differ or got[2] != want or \
+                    len(got[0]) != len(batches) or \
+                    not all(np.isfinite(got[0])):
+                raise AssertionError('%s through train_from_dataset is not '
+                                     'bitwise exe.run over its batches, or '
+                                     'launched %s (expected %s)' % (
+                                         kind, got[2], want))
+        exe, scope = ref[3], ref[4]
+        test = path['main'].clone(for_test=True)
+        feeds = ['dense_input', 'sparse_input']
+        with fluid.scope_guard(scope):
+            want_preds = [without_counting(lambda: exe.run(
+                test, feed=b, fetch_list=[path['preds']])[0])
+                for b in batches]
+            inferred = []
+            fetches_of(exe, inferred)
+            with quiet_steps():
+                steps = without_counting(lambda: exe.infer_from_dataset(
+                    path['main'], mem, fetch_list=[path['preds']],
+                    print_period=1))
+            del exe.run
+            model_dir = os.path.join(d, 'model')
+            fluid.save_inference_model(model_dir, feeds, [path['preds']],
+                                       exe, path['main'])
+        exe2, scope2 = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(scope2):
+            prog, feed_names, fetch_vars = fluid.io.load_inference_model(
+                model_dir, exe2)
+            loaded = [without_counting(lambda: exe2.run(
+                prog, feed={n: b[n] for n in feed_names},
+                fetch_list=fetch_vars)[0]) for b in batches]
+        pred = create_paddle_predictor(AnalysisConfig(model_dir))
+        served = without_counting(lambda: pred.run(
+            [batches[0][n].numpy() for n in pred.get_input_names()])[0].data)
+        ok = steps == len(batches) and all(
+            np.array_equal(a, w) for a, w in zip(inferred, want_preds)) and \
+            all(np.array_equal(a, w) for a, w in zip(loaded, want_preds)) \
+            and np.array_equal(served, want_preds[0])
+        log('  the prediction saved with save_inference_model: '
+            'load_inference_model in a fresh scope (%d batches), '
+            'infer_from_dataset (%d steps) and create_paddle_predictor (one '
+            'batch, [%d, 2]) against the training program\'s '
+            'clone(for_test=True): %s' % (
+                len(loaded), steps, served.shape[0],
+                'bitwise equal' if ok else 'DIFFER'))
+        if not ok:
+            raise AssertionError('the saved Wide&Deep prediction does not '
+                                 'answer as the for_test clone')
+        # examples/s: train_from_dataset (thread 4) beside the same steps
+        # fed from device tensors staged before; both warm (every
+        # signature captured), nothing fetched
+        staged = [{n: v.to(dev) for n, v in b.items()} for b in batches]
+
+        def from_dataset():
+            exe.train_from_dataset(path['main'], mem, thread=4)
+
+        def from_device():
+            for b in staged:
+                exe.run(path['main'], feed=b)
+        secs = {}
+        with fluid.scope_guard(scope):
+            for name, fn in (('dataset', from_dataset),
+                             ('staged', from_device)) * 2:
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    without_counting(fn)
+                    torch.cuda.synchronize()
+                    secs.setdefault(name, []).append(
+                        time.perf_counter() - t0)
+        rate = {k: lines / min(v[-3:]) for k, v in secs.items()}
+        log('  Wide&Deep %d examples an epoch (%s | %s): train_from_dataset '
+            '(InMemoryDataset, thread 4) %.0f examples/s, the same steps '
+            'from staged device tensors %.0f examples/s (best of the last 3 '
+            'epochs each, every signature replayed)' % (
+                lines, torch.cuda.get_device_name(0), card,
+                rate['dataset'], rate['staged']))
+        pred = None
+    return {'parse_lines_s': parsed / parse_s, 'load_ms': load_s * 1e3,
+            'rate': rate}
+
+
+def data_plane_bert(seed, dev, card):
+    """Phase 14 (b): BERT-base pretraining (phase 5's program) fed by
+    DataLoader.from_generator, held bitwise against numpy feeds, with a
+    checkpoint after step 3 in both formats resumed bitwise."""
+    path = pretrain_program(seed, 'adam')
+    main, loss = path['main'], path['loss']
+    names = list(path['batch'])
+    feed_list = [main.global_block().var(n) for n in names]
+    data = [bert.synthetic_batch(bert.BASE, TRAIN_BATCH, SEQ,
+                                 np.random.RandomState(seed + 100 + i))
+            for i in range(LOADER_STEPS)]
+    state_names = weights.startup_names(path['startup'])
+
+    def fresh(start=None):
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(scope):
+            without_counting(lambda: exe.run(path['startup']))
+            if start is not None:
+                for n, v in start.items():
+                    scope.find_var(n).copy_(v)
+        return exe, scope
+
+    def step(exe, scope, feed):
+        with fluid.scope_guard(scope):
+            t0 = time.perf_counter()
+            out = float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+            return out, time.perf_counter() - t0
+
+    exe, scope = fresh()
+    with fluid.scope_guard(scope):
+        start = snapshot(scope, state_names)
+    ref_losses, ref_secs = [], []
+    for i, b in enumerate(data):
+        l, sec = without_counting(lambda: step(exe, scope, b))
+        ref_losses.append(l)
+        ref_secs.append(sec)
+        if i == CHECKPOINT_STEP - 1:
+            at3 = snapshot(scope, state_names)
+            step3 = exe._step
+    with fluid.scope_guard(scope):
+        ref_final = snapshot(scope, state_names)
+    drop_graphs(main, scope)
+    del exe, scope
+    torch.cuda.empty_cache()
+
+    loader = fluid.io.DataLoader.from_generator(
+        feed_list=feed_list, capacity=4, use_double_buffer=True,
+        iterable=True)
+    loader.set_batch_generator(lambda: (tuple(b[n] for n in names)
+                                        for b in data),
+                               places=fluid.cuda_places())
+    exe, scope = fresh(start)
+    losses, secs, next_s = [], [], []
+    per_step = []
+    it = iter(loader)
+    base = os.path.join(ROOT, 'build', 'chip_smoke')
+    with tempfile.TemporaryDirectory(dir=base) as d:
+        dirs = {'npz': os.path.join(d, 'npz'),
+                'paddle': os.path.join(d, 'paddle')}
+        for i in range(LOADER_STEPS):
+            if i == 2:
+                # the loader's host work a step: its next() under the
+                # profiler, which pops a staged batch and stages the next
+                got = []
+                events = without_counting(lambda: profile_run(
+                    'next()', lambda: got.append(next(it)), quiet=True))
+                next_cpu = host_ms(events, waits=False)
+                batch = got[0]
+            else:
+                t0 = time.perf_counter()
+                batch = next(it)
+                next_s.append(time.perf_counter() - t0)
+            if not all(v.is_cuda for v in batch.values()):
+                raise AssertionError('the loader handed out host tensors')
+            (l, sec), counts = counted(lambda: step(exe, scope, batch))
+            losses.append(l)
+            secs.append(sec)
+            per_step.append(counts)
+            if i == CHECKPOINT_STEP - 1:
+                with fluid.scope_guard(scope):
+                    for fmt, dd in dirs.items():
+                        fluid.io.save_persistables(
+                            exe, dd, main,
+                            save_format='native' if fmt == 'npz'
+                            else 'paddle')
+        if next(it, None) is not None:
+            raise AssertionError('the loader gave more than %d batches'
+                                 % LOADER_STEPS)
+        with fluid.scope_guard(scope):
+            final = snapshot(scope, state_names)
+        differ = same_state(final, ref_final)
+        log('  %d steps fed by DataLoader.from_generator (capacity 4, '
+            'double buffer, cuda_places()): losses %s; against numpy feeds: '
+            'losses %s, state (%d variables) %s; launches + replayed a step '
+            '%s' % (LOADER_STEPS, ['%.6f' % x for x in losses],
+                    'bitwise equal' if losses == ref_losses else 'DIFFER',
+                    len(state_names), 'bitwise equal' if not differ else
+                    'differs in %s' % differ[:4],
+                    {k: c for k, c in per_step[-1].items() if c}))
+        if losses != ref_losses or differ or \
+                any(c != path['expected'] for c in per_step):
+            raise AssertionError('BERT-base fed by the DataLoader is not '
+                                 'bitwise the numpy-fed steps, or launched %s '
+                                 '(expected %s)' % (per_step,
+                                                    path['expected']))
+        # the checkpoint after step 3: loaded into a fresh scope, steps
+        # 4-5 as the uninterrupted run's.  save_persistables keeps no
+        # executor step (nor does the JAX package's, outside its elastic
+        # store), and the step seeds every dropout mask: the resume sets
+        # it by hand, as a user must for a bitwise resume
+        for fmt, dd in dirs.items():
+            exe2, scope2 = fresh()
+            with fluid.scope_guard(scope2):
+                fluid.io.load_persistables(exe2, dd, main)
+                loaded = snapshot(scope2, state_names)
+            exe2._step = step3
+            resumed = [without_counting(lambda: step(exe2, scope2, b))[0]
+                       for b in data[CHECKPOINT_STEP:]]
+            with fluid.scope_guard(scope2):
+                differ = same_state(loaded, at3) + same_state(
+                    snapshot(scope2, state_names), ref_final)
+            log('  checkpoint after step %d (%s): loaded into a fresh scope '
+                'and resumed with the executor\'s dropout step set by hand '
+                '(the checkpoint holds no step), steps %d-%d losses %s, the '
+                'loaded and final states %s' % (CHECKPOINT_STEP, fmt, CHECKPOINT_STEP + 1,
+                               LOADER_STEPS, 'bitwise the uninterrupted '
+                               'run\'s' if resumed == ref_losses[
+                                   CHECKPOINT_STEP:] else 'DIFFER',
+                               'bitwise equal' if not differ else
+                               'differ in %s' % differ[:4]))
+            if resumed != ref_losses[CHECKPOINT_STEP:] or differ:
+                raise AssertionError('the %s checkpoint did not resume '
+                                     'bitwise' % fmt)
+            drop_graphs(main, scope2)
+            del exe2, scope2
+            torch.cuda.empty_cache()
+        # a load into the running scope: written in place, so the
+        # captured graph replays steps 4-5 again, no capture
+        before = compile_cache.plane().stats()
+        with fluid.scope_guard(scope):
+            fluid.io.load_persistables(exe, dirs['paddle'], main)
+        exe._step = step3
+        again = [without_counting(lambda: step(exe, scope, b))[0]
+                 for b in data[CHECKPOINT_STEP:]]
+        after = compile_cache.plane().stats()
+    moved = {k: after[k] - before[k] for k in
+             ('graph_captures', 'graph_replays', 'graph_stale')}
+    log('  load_persistables into the running scope, the dropout step set '
+        'back by hand, then steps %d-%d again: losses %s, graphs %s' % (
+            CHECKPOINT_STEP + 1, LOADER_STEPS,
+            'bitwise the uninterrupted run\'s' if again == ref_losses[
+                CHECKPOINT_STEP:] else 'DIFFER', moved))
+    if again != ref_losses[CHECKPOINT_STEP:] or moved != {
+            'graph_captures': 0, 'graph_stale': 0,
+            'graph_replays': LOADER_STEPS - CHECKPOINT_STEP}:
+        raise AssertionError('a load into the running scope recaptured or '
+                             'changed the steps')
+    ms = {'numpy': statistics.median(ref_secs[2:]) * 1e3,
+          'loader': statistics.median(secs[2:]) * 1e3,
+          'next': statistics.median(next_s[1:]) * 1e3,
+          'next_self_cpu': next_cpu}
+    log('  BERT-base step (%s | %s), median of steps 3-%d (replays): fed '
+        'numpy arrays %.2f ms, fed by the DataLoader %.2f ms; the loader\'s '
+        'next() a step: %.3f ms self CPU (profiled at step 3, outside the '
+        'waits), %.3f ms on the host clock (median of steps 2, 4 and 5)' % (
+            torch.cuda.get_device_name(0), card, LOADER_STEPS, ms['numpy'],
+            ms['loader'], ms['next_self_cpu'], ms['next']))
+    drop_graphs(main, scope)
+    return ms
+
+
+def data_plane(seed, dev):
+    """Phase 14: the data and IO plane's paths at full width."""
+    card = card_line()
+    log('[14] the data and IO plane (%s | %s): (a) Wide&Deep from MultiSlot '
+        'files through Dataset + train_from_dataset' % (
+            torch.cuda.get_device_name(0), card))
+    ctr = data_plane_ctr(seed, dev, card)
+    torch.cuda.empty_cache()
+    log('[14] (b) BERT-base pretraining fed by DataLoader.from_generator')
+    bert_ms = data_plane_bert(seed, dev, card)
+    torch.cuda.empty_cache()
+    return ctr, bert_ms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -4588,7 +5208,9 @@ def main(argv=None):
         'quant_reduce': 0.0,
         'embedding_lookup[nmt]': without_counting(
             lambda: check_nmt_tables(gen, dev, args.seed)),
+        'dropout': without_counting(lambda: check_dropout(gen, dev)),
     }
+    max_err['dropout[bf16]'] = max_err['dropout']
     max_err['embedding_scatter_add[nmt]'] = max_err['embedding_lookup[nmt]']
     torch.cuda.empty_cache()
 
@@ -4650,6 +5272,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     mixed_precision(args.seed, dev, args.profile)
     log('  phase 13: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    data_plane(args.seed, dev)
+    log('  phase 14: %.1f s' % (time.perf_counter() - t0))
     # each row's launches at the wrappers and replayed from CUDA graphs'
     # manifests on the main path, as counted() read them in this
     # process; the data-parallel rows, as the ranks of phases 9 and 12

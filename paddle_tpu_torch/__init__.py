@@ -11,5 +11,7 @@ This package imports torch, numpy and the standard library only.
 
 from . import fluid  # noqa: F401
 from . import ops  # noqa: F401
+from . import reader  # noqa: F401
+from .reader import batch  # noqa: F401  (paddle.batch)
 
 __version__ = '0.1.0'

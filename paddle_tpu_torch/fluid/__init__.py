@@ -3,11 +3,14 @@
 The static-graph path: Program IR, layers (with the learning-rate
 schedules) and nets, append_backward, gradient clipping, regularizers,
 the SGD, Momentum, Adam, LAMB and Adagrad optimizers, the eager
-Executor (inference and training steps), host-side metrics,
-inference-model io, collective data parallelism (the transpilers,
-the collective fleet, the comms planner), data-parallel training
-through CompiledProgram.with_data_parallel and ParallelExecutor, and
-mixed precision (contrib.mixed_precision.decorate).
+Executor (inference and training steps, host ops, train_from_dataset),
+host-side metrics, io (the native and the reference binary formats),
+the data plane (DataLoader / PyReader, DataFeeder, Dataset over the
+native MultiSlot feeder, the trainer and device-worker configs),
+collective data parallelism (the transpilers, the collective fleet, the
+comms planner), data-parallel training through
+CompiledProgram.with_data_parallel and ParallelExecutor, and mixed
+precision (contrib.mixed_precision.decorate).
 """
 
 from . import core  # noqa: F401  (before framework: ops import it)
@@ -27,8 +30,8 @@ from . import comms_plan  # noqa: F401
 from . import transpiler  # noqa: F401
 from . import incubate  # noqa: F401
 from . import contrib  # noqa: F401
-from .core import (CPUPlace, CUDAPlace, LoDTensor, Scope,  # noqa: F401
-                   global_scope, scope_guard)
+from .core import (CPUPlace, CUDAPlace, CUDAPinnedPlace,  # noqa: F401
+                   LoDTensor, Scope, global_scope, scope_guard)
 from .executor import Executor  # noqa: F401
 from . import compiler  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
@@ -38,5 +41,19 @@ from .flags import get_flags, set_flags  # noqa: F401
 from .backward import append_backward  # noqa: F401
 from .framework import (Program, Variable, Parameter,  # noqa: F401
                         default_main_program, default_startup_program,
-                        program_guard, cpu_places, cuda_places)
+                        program_guard, cpu_places, cuda_places,
+                        cuda_pinned_places)
 from .param_attr import ParamAttr  # noqa: F401
+from .io import (save_params, save_persistables,  # noqa: F401
+                 load_params, load_persistables, save_inference_model,
+                 load_inference_model)
+from . import trainer_desc  # noqa: F401
+from . import device_worker  # noqa: F401
+from .trainer_desc import TrainerFactory  # noqa: F401
+from . import data_feeder  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
+from . import reader  # noqa: F401
+from .reader import DataLoader, PyReader  # noqa: F401
+from . import dataset  # noqa: F401
+from .dataset import (DatasetFactory, InMemoryDataset,  # noqa: F401
+                      QueueDataset)

@@ -58,6 +58,12 @@ class CUDAPlace(Place):
         return torch.device('cuda', self.device_id)
 
 
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory (reference: platform/place.h:62): tensors
+    of this place are CPU tensors; the readers pin what they stage for
+    the card."""
+
+
 # ---------------------------------------------------------------------------
 # dtype conversion
 # ---------------------------------------------------------------------------

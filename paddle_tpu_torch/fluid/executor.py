@@ -69,9 +69,17 @@ masks are drawn.  A fetched persistable is returned as a copy, which
 the next step does not change.  ``warmup`` builds plans and captures
 ahead of the first run; ``compile`` gives a ``CompiledStep``, which
 replays a program's graph on a scope of its own where the program
-writes no persistable variable.  The JAX package's segments around
-host ops (``CompiledPipeline``) come with the host ops (ROADMAP Queue
-1 item 7).
+writes no persistable variable.
+
+Host ops (ops/host_ops.py: print, save, load, save_combine,
+load_combine, py_func) run on the host between the device ops, as the
+JAX package runs them between its segments; the read-only ones (print,
+save, save_combine) are deferred past the device ops after them that
+do not rewrite what they read (``_defer_readonly_host_ops``, JAX:
+fluid/executor.py:1893), so the whole-program grad still sees the
+forward region whole.  A plan holding a host op is never captured in
+a CUDA graph.  ``train_from_dataset`` / ``infer_from_dataset`` drive
+``run`` over a fluid.dataset's batches (JAX: fluid/executor.py:2642).
 
 A program ``contrib.mixed_precision.decorate`` rewrote (AMP) runs the
 same way: its loss-scale multiply is a forward op, the autograd pass
@@ -320,11 +328,41 @@ class FetchHandle(object):
         return arr.astype(dtype) if dtype is not None else arr
 
 
-# ops the JAX package runs on the host between device segments
-# (ops/host_ops.py); the port lowers none of them yet (ROADMAP Queue 1
-# item 7)
-_HOST_OP_TYPES = ('save', 'load', 'save_combine', 'load_combine', 'print',
-                  'py_func')
+# host ops that write no program state (print and save write stdout
+# and files): deferring one past later device ops is observably the same
+# when nothing later rewrites what it reads
+_DEFERRABLE_HOST_OPS = ('print', 'save', 'save_combine')
+
+
+def _defer_readonly_host_ops(ops):
+    """Reorder a block's ops so deferrable host ops run after the device
+    ops that follow them, unless a later op rewrites their reads (JAX:
+    fluid/executor.py:1895).  A deferred op is placed just before the
+    first later op that writes what it reads, with every op deferred
+    before it, so host side effects keep their relative order."""
+    deferred = []  # (op, read names) pending placement
+    out = []
+    for op in ops:
+        writes = set(op.output_arg_names)
+        if writes and deferred:
+            last = max((i for i, (_, reads) in enumerate(deferred)
+                        if reads & writes), default=-1)
+            if last >= 0:
+                out.extend(d for d, _ in deferred[:last + 1])
+                deferred = deferred[last + 1:]
+        if op.type in _DEFERRABLE_HOST_OPS:
+            deferred.append((op, set(op.input_arg_names)))
+        else:
+            out.append(op)
+    out.extend(d for d, _ in deferred)
+    return out
+
+
+def _host_ops(ops):
+    """The types of the host ops the executor runs among `ops`."""
+    return sorted(set(op.type for op in ops
+                      if getattr(registry._REGISTRY.get(op.type), 'host',
+                                 False)))
 
 
 def _is_persistable(block, name):
@@ -424,7 +462,9 @@ class _Plan(object):
 
 def _build_plan(program, fetch_names):
     block = program.global_block()
-    ops = [op for op in block.ops if op.type not in registry.HOST_OPS]
+    ops = _defer_readonly_host_ops(
+        [op for op in block.ops
+         if not registry.skipped_by_executor(op.type)])
     plan = _Plan()
     plan.ops = ops
     plan.keep = keep = frozenset(fetch_names)
@@ -480,6 +520,11 @@ def _graph_refusal(plan, ops):
     """Why a plan's program is never captured in a CUDA graph, or None.
     The run-time reasons (the place, collective programs,
     FLAGS_check_nan_inf) are ``Executor._no_graph``'s."""
+    host = _host_ops(ops)
+    if host:
+        return ('host op %s runs on the host between the device ops '
+                '(files, stdout, Python), which a graph cannot replay'
+                % ', '.join(host))
     for op in ops:
         od = registry._REGISTRY.get(op.type)
         if od is not None and od.host_random:
@@ -866,19 +911,18 @@ class Executor(object):
         """The program as one function, a CompiledStep (JAX:
         fluid/executor.py:1341).  A program with host ops cannot be one
         function: the JAX package's allow_host=True gives a
-        CompiledPipeline there, which comes with the host ops of ROADMAP
-        Queue 1 item 7."""
+        CompiledPipeline there, which waits with ROADMAP Queue 1 item
+        9's list; Executor.run runs such a program."""
         feed_names = _fetch_names(feed_names)
         fetch_names = _fetch_names(fetch_names)
-        host = sorted(set(op.type for op in program.global_block().ops
-                          if op.type in _HOST_OP_TYPES))
+        host = _host_ops(program.global_block().ops)
         if host:
             if allow_host:
                 raise NotImplementedError(
                     'Executor.compile(allow_host=True): CompiledPipeline '
-                    'runs device segments around host ops %r, which come '
-                    'with ROADMAP Queue 1 item 7; the port registers no '
-                    'host op yet' % (host,))
+                    '(device segments around host ops %r) waits with '
+                    'ROADMAP Queue 1 item 9\'s list; Executor.run runs '
+                    'this program' % (host,))
             raise ValueError(
                 'Executor.compile needs a program without host ops for '
                 'one function; this one holds %r (allow_host=True gives '
@@ -947,6 +991,85 @@ class Executor(object):
         else:
             scope.set_var(name, value.to(self.device, copy=True))
 
+    # -------------------------------------------------------- datasets
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """One pass of `program` over a fluid.dataset's batches, one
+        ``run`` a batch (reference executor.py:1115; JAX:
+        fluid/executor.py:2707).  The fetches are read and printed every
+        `print_period` steps.  thread=N > 1 (or the fleet's thread_num)
+        stages N batches ahead onto the executor's card from a producer
+        thread (the Hogwild worker's overlap; fluid/reader.py
+        _AsyncBatchIterator); at one thread run takes the feeder's
+        batches as they are.  Every step goes through run, so a
+        full-size batch replays the plan's CUDA graph and a last,
+        smaller batch runs its own signature.  Returns the number of
+        steps."""
+        return self._from_dataset(program, dataset, scope, thread, debug,
+                                  fetch_list, fetch_info, print_period)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """train_from_dataset that updates nothing (JAX:
+        fluid/executor.py:2719): a training program runs as its
+        clone(for_test=True), cached on the program and made again after
+        a rewrite (keyed on the program's version)."""
+        program = program or framework.default_main_program()
+        if any(_role(op) in ('optimize', 'backward')
+               for op in program.global_block().ops):
+            cached = getattr(program, '_infer_clone', None)
+            if cached is None or cached[0] != program._version:
+                cached = (program._version, program.clone(for_test=True))
+                program._infer_clone = cached
+            program = cached[1]
+        return self._from_dataset(program, dataset, scope, thread, debug,
+                                  fetch_list, fetch_info, print_period)
+
+    def _from_dataset(self, program, dataset, scope, thread, debug,
+                      fetch_list, fetch_info, print_period):
+        from .trainer_desc import TrainerFactory
+        program = program or framework.default_main_program()
+        scope = scope or core.global_scope()
+        fetch_names = _fetch_names(fetch_list)
+        # the trainer/worker config plane (reference TrainerFactory,
+        # executor.py:962): fleet opt_info picks the trainer and may set
+        # thread_num when the call leaves thread=0
+        opt_info = getattr(program, '_fleet_opt', None)
+        trainer = TrainerFactory()._create_trainer(opt_info)
+        trainer._set_program(program)
+        trainer._set_debug(debug)
+        if thread:
+            trainer._set_thread(thread)
+        elif not opt_info or 'thread_num' not in opt_info:
+            trainer._set_thread(0)
+        trainer._gen_trainer_desc()
+        thread = int(trainer.proto_desc['thread_num'])
+        if thread > 1:
+            from .reader import _AsyncBatchIterator
+            batches = _AsyncBatchIterator(dataset.batches, thread,
+                                          self.device)
+        else:
+            batches = dataset.batches()
+        step = 0
+        try:
+            for feed in batches:
+                fetches = fetch_names if (fetch_names and print_period and
+                                          step % print_period == 0) else []
+                out = self.run(program, feed=feed, fetch_list=fetches,
+                               scope=scope)
+                if fetches:
+                    info = fetch_info or fetch_names
+                    print('[dataset step %d] %s' % (step, ' '.join(
+                        '%s=%s' % (k, np.asarray(v).ravel()[:4])
+                        for k, v in zip(info, out))))
+                step += 1
+        finally:
+            if thread > 1:
+                batches.close()
+        return step
+
     # ------------------------------------------------------------ ops
     def _ctx(self, seed, program):
         return registry.LowerCtx(
@@ -996,6 +1119,11 @@ class Executor(object):
         read = self._read
         ins = {slot: [read(n, env, scope) for n in names]
                for slot, names in st.ins}
+        if opdef.host:
+            with torch.no_grad():
+                outs = opdef.fn(self._ctx(st.seed, program), op, ins)
+            self._write_op(st, outs, {}, None, env, scope)
+            return
         rows = self._shard_rows(op, ins, 0, scope) if self._shard_opt \
             else None
         try:

@@ -15,6 +15,9 @@ _DEFAULTS = {
     # Directory the CUDA kernels are compiled into; '' means
     # <checkout>/build/torch_kernels.
     'FLAGS_torch_kernel_build_dir': '',
+    # Directory g++ builds the native MultiSlot feeder into; '' means
+    # <checkout>/build/torch_runtime.
+    'FLAGS_torch_runtime_build_dir': '',
     # Group each contiguous run of same-hyperparameter adam/adamw ops
     # into one multi-tensor update (the JAX package's
     # FLAGS_pallas_opt_fuse), when the run holds at least this many

@@ -560,3 +560,9 @@ def cuda_places(device_ids=None):
             import torch
             device_ids = range(torch.cuda.device_count())
     return [core.CUDAPlace(i) for i in device_ids]
+
+
+def cuda_pinned_places(device_count=None):
+    """Pinned host memory places (reference framework.py
+    cuda_pinned_places): one a process, as cpu_places."""
+    return [core.CUDAPinnedPlace()]

@@ -11,4 +11,5 @@ from . import misc_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import collective_ops  # noqa: F401
+from . import host_ops  # noqa: F401
 from . import amp_ops  # noqa: F401

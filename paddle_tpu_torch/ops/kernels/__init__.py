@@ -3,6 +3,7 @@ PyTorch version; importing the package registers them (common.KERNELS).
 Nothing is compiled at import: a kernel builds at its first launch."""
 
 from . import common  # noqa: F401
+from . import dropout  # noqa: F401
 from . import embedding  # noqa: F401
 from . import flash_attention  # noqa: F401
 from . import fused_optimizer  # noqa: F401

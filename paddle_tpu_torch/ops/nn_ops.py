@@ -20,7 +20,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..distributed import wire
-from .registry import hash_keep, register
+from .kernels import dropout as dropout_k
+from .registry import register
 
 
 def _pair(v):
@@ -346,13 +347,14 @@ def layer_norm(ctx, ins, attrs):
 @register('dropout', no_grad_out_slots=('Mask',))
 def dropout(ctx, ins, attrs):
     """Reference operators/dropout_op.cc.  The keep mask is a counter
-    hash of each element's index (``registry.hash_keep``) under a seed
-    keyed on (program seed, op seed, step, and the rank in data
-    parallel) and computed from the device step
-    (``LowerCtx.dropout_op_seed``), so a replay of the op (its grad op)
-    and a replayed CUDA graph draw the same mask as the eager step, and
-    ranks draw different ones; it does not reproduce the JAX package's
-    threefry bits."""
+    hash of each element's index (``kernels.dropout.hash_keep``) under a
+    seed keyed on (program seed, op seed, step, and the rank in data
+    parallel) and read from the device (``LowerCtx.dropout_op_seed``),
+    so a replay of the op (its grad op) and a replayed CUDA graph draw
+    the same mask as the eager step, and ranks draw different ones; it
+    does not reproduce the JAX package's threefry bits.  On the card
+    Out and Mask come from one kernel (csrc/dropout_mask.cu), and the
+    gradient from the saved Mask (``kernels.dropout._Dropout``)."""
     x = ins['X'][0]
     p = attrs.get('dropout_prob', 0.5)
     impl = attrs.get('dropout_implementation', 'downgrade_in_infer')
@@ -361,12 +363,8 @@ def dropout(ctx, ins, attrs):
         return {'Out': [out], 'Mask': [torch.ones_like(x)]}
     if x.device.type == 'meta':
         return {'Out': [torch.empty_like(x)], 'Mask': [torch.empty_like(x)]}
-    keep = hash_keep(ctx.dropout_op_seed(), x.shape, p, x.device)
-    mask = keep.to(x.dtype)
-    if impl == 'upscale_in_train':
-        out = torch.where(keep, x / max(1.0 - p, 1e-8), torch.zeros_like(x))
-    else:
-        out = x * mask
+    out, mask = dropout_k.dropout(x, ctx.dropout_op_seed(), p,
+                                  impl == 'upscale_in_train')
     return {'Out': [out], 'Mask': [mask]}
 
 

@@ -35,40 +35,6 @@ class Replica(object):
 
 _M32 = 0xFFFFFFFF
 
-
-def _i32(c):
-    """The int32 with the bits of the uint32 constant c."""
-    return c - (1 << 32) if c >= 1 << 31 else c
-
-
-def hash_keep(seed, shape, rate, device):
-    """[shape] bool keep mask of the hidden dropout op: element i keeps
-    where the murmur3 finalizer of (i * 0x9E3779B1) ^ seed, a uint32,
-    has its top 24 bits below the keep threshold of 1 - rate.  `seed`
-    is a 0-d int64 tensor in [0, 2**32) on `device`, so the mask is a
-    function of device values alone (a CUDA graph replays it with the
-    step of each replay).  The arithmetic is int32 with two's-complement
-    wraparound, as PyTorch's integer kernels give it on the CPU and the
-    card alike (the int64 seed's conversion keeps its low 32 bits); right
-    shifts are masked to be logical."""
-    n = 1
-    for s in shape:
-        n *= int(s)
-    if n >= 1 << 31:
-        raise ValueError('dropout over %d elements: the counter hash '
-                         'indexes them in int32' % n)
-    h = torch.arange(n, dtype=torch.int32, device=device) * \
-        _i32(0x9E3779B1)
-    h ^= seed.to(torch.int32)
-    h ^= (h >> 16) & 0xFFFF
-    h *= _i32(0x7FEB352D)
-    h ^= (h >> 15) & 0x1FFFF
-    h *= _i32(0x846CA68B)
-    h ^= (h >> 16) & 0xFFFF
-    threshold = int(round((1.0 - float(rate)) * (1 << 24)))
-    return (((h >> 8) & 0xFFFFFF) < threshold).reshape(tuple(shape))
-
-
 _CONSTANTS = {}
 
 
@@ -190,12 +156,15 @@ class LowerCtx(object):
 
 class OpDef(object):
     __slots__ = ("type", "fn", "no_grad_out_slots", "stochastic",
-                 "host_random")
+                 "host_random", "host")
 
     def __init__(self, type, fn, no_grad_out_slots=(), stochastic=False,
-                 host_random=False):
+                 host_random=False, host=False):
         self.type = type
         self.fn = fn
+        # a host op the executor runs between device ops (ops/host_ops.py):
+        # fn(ctx, op, ins) -> outs, never recorded by autograd or captured
+        self.host = host
         # output slots that carry no gradient (dropout's Mask)
         self.no_grad_out_slots = tuple(no_grad_out_slots)
         # draws randomness without a declared is_test attr: clone
@@ -246,7 +215,9 @@ def _amp_harmonize(ins, attrs):
 
 
 _REGISTRY = {}
-# Op types the executor handles itself (feed/fetch), never lowered.
+# Host-level op types: no shape inference and no gradient.  The
+# executor skips feed/fetch and the collective rendezvous ops, and runs
+# the others (ops/host_ops.py) on the host between device ops.
 HOST_OPS = set()
 
 
@@ -263,15 +234,21 @@ def register(type, no_grad_out_slots=(), stochastic=False,
     return deco
 
 
-def register_host(type):
-    """Register a host-level op (feed/fetch)."""
+def register_host(type, runs=False):
+    """Register a host-level op: one the executor skips (feed/fetch), or
+    with `runs` one it runs as fn(ctx, op, ins) -> outs."""
 
     def deco(fn):
-        _REGISTRY[type] = OpDef(type, fn)
+        _REGISTRY[type] = OpDef(type, fn, host=runs)
         HOST_OPS.add(type)
         return fn
 
     return deco
+
+
+def skipped_by_executor(type):
+    """True for the host ops the executor leaves out of a plan."""
+    return type in HOST_OPS and not _REGISTRY[type].host
 
 
 def is_registered(type):

@@ -176,4 +176,6 @@ def test_small_training_step_launches_every_kernel(dev):
         'flash_attention': 2, 'flash_attention_bwd': 2,
         'embedding_lookup': 3, 'embedding_scatter_add': 3, 'fused_adam': 1,
         'embedding_update': 0, 'fused_lamb': 0, 'quant_quantize': 0,
-        'quant_reduce': 0}
+        'quant_reduce': 0,
+        # the 2 layers' 2 hidden dropouts and the embeddings' one
+        'dropout': 5}

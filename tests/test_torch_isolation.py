@@ -92,7 +92,19 @@ def test_import_loads_neither_jax_nor_the_jax_package():
                  'paddle_tpu_torch.models.se_resnext',
                  'paddle_tpu_torch.models.transformer',
                  'paddle_tpu_torch.ops.misc_ops',
-                 'paddle_tpu_torch.ops.tensor_ops'):
+                 'paddle_tpu_torch.ops.tensor_ops',
+                 'paddle_tpu_torch.ops.host_ops',
+                 'paddle_tpu_torch.ops.kernels.dropout',
+                 'paddle_tpu_torch.fluid.io',
+                 'paddle_tpu_torch.fluid.paddle_format',
+                 'paddle_tpu_torch.fluid.data_feeder',
+                 'paddle_tpu_torch.fluid.dataset',
+                 'paddle_tpu_torch.fluid.reader',
+                 'paddle_tpu_torch.fluid.trainer_desc',
+                 'paddle_tpu_torch.fluid.device_worker',
+                 'paddle_tpu_torch.fluid.layers.io',
+                 'paddle_tpu_torch.reader',
+                 'paddle_tpu_torch.runtime'):
         assert name in res['imported']
 
 

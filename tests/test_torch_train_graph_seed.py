@@ -1,6 +1,6 @@
 """What a replayed training step draws, computed on the device: the
-attention-dropout seed and the dropout op's mask (ops/registry.py), on
-the CPU.
+attention-dropout seed and the dropout op's mask (ops/registry.py and
+ops/kernels/dropout.py), on the CPU.
 
 - ``LowerCtx.dropout_seed`` is a 0-d int64 tensor computed from the
   device step, bitwise the JAX package's uint32 ``dropout_seed`` over a
@@ -27,6 +27,7 @@ from paddle_tpu.ops import registry as jregistry
 import torch
 
 from paddle_tpu_torch.ops import registry as tregistry
+from paddle_tpu_torch.ops.kernels import dropout as tdropout
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 
 OP_SEEDS = (0, 1, 5, 1000003, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1,
@@ -126,7 +127,7 @@ def _hash_reference(seed, n, rate):
 
 @pytest.mark.parametrize('seed', [0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1])
 def test_hash_keep_is_the_uint32_reference(seed):
-    got = tregistry.hash_keep(torch.tensor(seed), (37, 41), 0.25, 'cpu')
+    got = tdropout.hash_keep(torch.tensor(seed), (37, 41), 0.25, 'cpu')
     assert got.shape == (37, 41) and got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy().ravel(),
                                   _hash_reference(seed, 37 * 41, 0.25))
