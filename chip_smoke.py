@@ -78,12 +78,16 @@ Phases, each of which fails the run (non-zero exit) on error:
        200, 256, 1024 and 4096, n = 1, 2, 3 and 8, one row and 37 rows
        with an all-zero row and a row whose absmax is its last element,
        and shards at byte 1 of their buffer (bitwise);
-       dropout (the dropout op's kernel) at BERT-base's [8, 512, 768],
-       the Transformer FFN's [64, 64, 2048] and an odd [7, 13, 33], f32
-       and bf16, both implementations, p 0.1, 0 and 1, NaN and infinite
-       inputs, a non-contiguous view and one at an element offset, every
-       launch twice, and its gradient against autograd through the plain
-       version (bitwise);
+       dropout and dropout_grad (the dropout op's forward, with Mask
+       and without it, and its gradient from the saved seed) at
+       BERT-base's [8, 512, 768], the Transformer FFN's [64, 64, 2048]
+       and an odd [7, 13, 33], f32 and bf16, both implementations, p
+       0.1, 0 and 1, NaN, infinite and -0 inputs and gradients, a
+       non-contiguous view and one at an element offset, every launch
+       twice: the forward against its plain version, the gradient
+       against the gradient from the saved Mask that it replaces, and
+       the autograd Function's gradient against autograd through the
+       plain version (bitwise);
   4. serving: BERT-base (12 layers, hidden 768, seq 512, random weights
      from --seed) built with the port's layers, saved with
      save_inference_model, loaded by create_paddle_predictor on
@@ -111,10 +115,13 @@ Phases, each of which fails the run (non-zero exit) on error:
      launches are those at the wrappers plus those its graph's replay
      ran).  Each step must launch flash_attention
      (with dropout) 12 times, flash_attention_bwd 12, embedding_lookup
-     3, embedding_scatter_add 3, fused_adam once and dropout 25 times
-     (each dropout op in training mode, here and in every training
-     phase: 37 at seq 128, where attention takes the naive chain, 32 on
-     the Transformer, 1 on SE-ResNeXt-50); the loss is finite
+     3, embedding_scatter_add 3, fused_adam once, and dropout and
+     dropout_grad 25 times each (each dropout op in training mode, here
+     and in every training phase: 37 at seq 128, where attention takes
+     the naive chain, 32 on the Transformer, 1 on SE-ResNeXt-50; the
+     forward writes Mask only where it is read: step 1 fetches the last
+     dropout op's X, Out and Mask, which must be bitwise dropout_plain
+     of X); the loss is finite
      and falls from step 1 to step 3, and at step 3 it is below the loss
      the same 3 steps give with the parameters held (each step from the
      starting state: the same dropout masks, so the difference is what
@@ -165,9 +172,14 @@ Phases, each of which fails the run (non-zero exit) on error:
      index_add_, bitwise its plain version), K6 and K6b on the
      Transformer's 10,000 x 512 table at phase 11's source ids (rows of
      their own, embedding_lookup[nmt] and embedding_scatter_add[nmt]),
-     the dropout kernel (upscale_in_train) at BERT-base's [8, 512, 768]
-     in f32 and bf16 (rows dropout and dropout[bf16], beside
-     torch.native_dropout) and at the Transformer FFN's [64, 64, 2048],
+     the dropout kernels (upscale_in_train) at BERT-base's [8, 512,
+     768] in f32 and bf16 (rows dropout and dropout[bf16] with Mask,
+     dropout[no mask] and dropout[bf16,no mask] without it, beside
+     torch.native_dropout; dropout_grad and dropout_grad[bf16] beside
+     native_dropout_backward), an empty kernel launched and timed the
+     same way, the gradient as the PyTorch chain it replaces, and each
+     kernel at the Transformer FFN's [64, 64, 2048] and at DROPOUT_BIG
+     times BERT-base's tensor with its share of its bound,
      the crossover of the naive attention chain (the port's lowerings,
      autograd for its backward) and K1 (forward) and K1 + K2 (forward
      and backward) on BERT-base's attention at seq 128, 256 and 512
@@ -297,8 +309,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      trains): (a) BERT-base pretraining at seq 512, batch 8, under
      decorate(Adam(1e-4)), attention dropout 0.1 in the kernels, 3
      steps, each launching K1 and K2 on their bf16 route 12 times, K6
-     and K6b 3 times and K4 once, with finite f32 losses, f32 master
-     gradients and no overflow; step 1 against the plain path (the
+     and K6b 3 times and K4 once, and the dropout kernels 25 times
+     each, with finite f32 losses, f32 master gradients and no overflow;
+     step 1 fetches the last dropout op's bf16 X, Out and Mask, bitwise
+     dropout_plain of X; step 1 against the plain path (the
      plain bf16 K1 and K2: loss rel 1e-2, gradients and moments 5e-2
      of their largest, the loss scale and counters bitwise); its
      for_test clone (K1 bf16 without dropout 12 times); (b) the same at
@@ -352,7 +366,9 @@ replay) and the training steps' (each training phase's step 3).  A row
 that times one table or route of a kernel (embedding_scatter_add[2-row],
 embedding_update[wide], embedding_lookup[nmt],
 embedding_scatter_add[nmt], the flash kernels' [dropout], [bf16] and
-[bf16,dropout] rows, dropout[bf16]) counts the main path's launches on
+[bf16,dropout] rows, dropout[bf16], dropout[no mask],
+dropout[bf16,no mask], dropout_grad[bf16]) counts the main path's
+launches on
 that table or route, measured at each call of the wrapper, which also writes them
 into the manifest of a graph being captured; its kernel's row counts
 those on the kernel's other tables or routes; fused_adam counts
@@ -369,6 +385,7 @@ each arm and of one ResNet-50 step.
 
 import argparse
 import contextlib
+import ctypes
 import gc
 import io
 import json
@@ -429,14 +446,20 @@ FA_TOL = 1e-4
 # times before a redesign (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's
 # kernel table), printed beside the rows of phase 8: K1 when both
 # products ran as scalar f32 FMAs, K4 with scalar loads, K8's reduce
-# with a warp a row and one byte a lane
+# with a warp a row and one byte a lane, the dropout op's forward when
+# it always wrote Mask
 BEFORE_MS = {'flash_attention': ('the scalar-FMA K1', 0.4120),
              'flash_attention[dropout]': ('the scalar-FMA K1', 0.4141),
              'fused_adam': ('the scalar-load K4', 1.4078),
              'quant_reduce': ('the warp-a-row reduce', 0.0795),
              'embedding_update': ('K7 after torch.sort', 0.1390),
              'embedding_update[wide]': ('K7 after torch.sort', 0.0972),
-             'embedding_update[1000-row]': ('K7 after torch.sort', 0.1126)}
+             'embedding_update[1000-row]': ('K7 after torch.sort', 0.1126),
+             # the first dropout kernel, which always wrote Mask
+             'dropout': ('the Mask-writing kernel', 0.0209),
+             'dropout[bf16]': ('the Mask-writing kernel', 0.0121),
+             'dropout[no mask]': ('the Mask-writing kernel', 0.0209),
+             'dropout[bf16,no mask]': ('the Mask-writing kernel', 0.0121)}
 # K1's and K2's kernels-line rows are timed at rank 1's head-index
 # offset of phase 12's BERT-base (local batch 4, 12 heads); their times
 # without the offset (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel
@@ -651,6 +674,11 @@ def fwd_rate(q, k, v, causal=False, key_bias=None, dropout_rate=0.0,
     return dropout_rate
 
 
+def writes_mask(seed, rate, upscale, write_mask=True):
+    """Whether a dropout_kernel call (after its x) writes Mask."""
+    return write_mask
+
+
 # rows of the kernels line that count one kernel's launches on some of
 # its calls: row -> (the kernel's wrapper, pick(its arguments)).  A
 # kernel's own row counts its other launches.
@@ -681,10 +709,22 @@ SUB_ROWS = {
     'flash_attention_bwd[bf16]': (
         (fa_k, 'flash_attention_bwd_kernel'),
         lambda q, *a, **kw: q.dtype == torch.bfloat16),
-    # the dropout op's kernel on bf16 activations (mixed precision)
+    # the dropout op's forward on bf16 activations (mixed precision),
+    # and without Mask (nothing reads it: every training step but one
+    # that fetches it), in f32 and bf16
     'dropout[bf16]': (
         (drop_k, 'dropout_kernel'),
-        lambda x, *a, **kw: x.dtype == torch.bfloat16)}
+        lambda x, *a: x.dtype == torch.bfloat16 and writes_mask(*a)),
+    'dropout[no mask]': (
+        (drop_k, 'dropout_kernel'),
+        lambda x, *a: x.dtype == torch.float32 and not writes_mask(*a)),
+    'dropout[bf16,no mask]': (
+        (drop_k, 'dropout_kernel'),
+        lambda x, *a: x.dtype == torch.bfloat16 and not writes_mask(*a)),
+    # the dropout op's gradient on bf16 activations
+    'dropout_grad[bf16]': (
+        (drop_k, 'dropout_grad_kernel'),
+        lambda g, *a: g.dtype == torch.bfloat16)}
 # the launches on the sub-rows since the counters were last set to 0,
 # at the wrappers and replayed, as the kernels' own counters keep them
 SUB_LAUNCHES = dict.fromkeys(SUB_ROWS, 0)
@@ -742,7 +782,8 @@ def tally_sub_rows():
                'gather_kernel': 'embedding_lookup',
                'flash_attention_kernel': 'flash_attention',
                'flash_attention_bwd_kernel': 'flash_attention_bwd',
-               'dropout_kernel': 'dropout'}
+               'dropout_kernel': 'dropout',
+               'dropout_grad_kernel': 'dropout_grad'}
     for (mod, name), rows in groups.items():
         setattr(mod, name, on_sub_rows(wrapper[name], getattr(mod, name),
                                        rows))
@@ -1111,61 +1152,126 @@ def bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-def dropout_twice(x, seed, p, upscale):
-    """The dropout kernel's (Out, Mask), launched twice from the same
-    inputs: the second launch must give the first's bits."""
-    out, mask = drop_k.dropout_kernel(x, seed, p, upscale)
-    out2, mask2 = drop_k.dropout_kernel(x, seed, p, upscale)
+def dropout_twice(x, seed, p, upscale, write_mask=True):
+    """The forward kernel's (Out, Mask), launched twice from the same
+    inputs: the second launch must give the first's bits (Mask None
+    both times without `write_mask`)."""
+    out, mask = drop_k.dropout_kernel(x, seed, p, upscale, write_mask)
+    out2, mask2 = drop_k.dropout_kernel(x, seed, p, upscale, write_mask)
     torch.cuda.synchronize()
-    if not (torch.equal(bits(out), bits(out2)) and
-            torch.equal(bits(mask), bits(mask2))):
-        raise AssertionError('dropout: a second launch from the same inputs '
-                             'gave other bits')
+    if not (torch.equal(bits(out), bits(out2)) and (
+            mask is None and mask2 is None if not write_mask else
+            torch.equal(bits(mask), bits(mask2)))):
+        raise AssertionError('dropout (write_mask=%s): a second launch from '
+                             'the same inputs gave other bits' % write_mask)
     return out, mask
 
 
+def dropout_grad_twice(g, seed, p, upscale):
+    """The gradient kernel's dX, launched twice from the same inputs: the
+    second launch must give the first's bits."""
+    dx = drop_k.dropout_grad_kernel(g, seed, p, upscale)
+    dx2 = drop_k.dropout_grad_kernel(g, seed, p, upscale)
+    torch.cuda.synchronize()
+    if not torch.equal(bits(dx), bits(dx2)):
+        raise AssertionError('dropout_grad: a second launch from the same '
+                             'inputs gave other bits')
+    return dx
+
+
+def first_differences(x, got, want, *more):
+    """The first elements where got (or any of `more`) and want differ in
+    their bits: index, input, got's and want's bits."""
+    differ = bits(got) != bits(want)
+    for other in more:
+        differ |= bits(other) != bits(want)
+    idx = differ.view(-1).nonzero()[:4].view(-1).tolist()
+    return ['%d: x %r got %#x want %#x' % (
+        i, x.view(-1)[i].item(), bits(got).view(-1)[i].item(),
+        bits(want).view(-1)[i].item()) for i in idx]
+
+
+def with_specials(t):
+    """t with NaN, +-inf and -0 as its first four values."""
+    t.view(-1)[:4] = torch.tensor(
+        [float('nan'), float('inf'), -float('inf'), -0.0], device=t.device)
+    return t
+
+
 def check_dropout(gen, dev):
-    """The dropout op's kernel against its plain version, bitwise, at
+    """The dropout op's kernels against their plain versions, bitwise, at
     BERT-base's [8, 512, 768] and the Transformer FFN's [64, 64, 2048]
     activations, f32 and bf16, both implementations, p 0.1, 0 and 1,
-    NaN and infinite values among the inputs; an odd element count, a
-    non-contiguous view and a view at an element offset (no 16-byte
-    vectors); its gradient against autograd through the plain version."""
+    NaN, infinite and -0 values among the inputs and the gradients; an
+    odd element count, a non-contiguous view and a view at an element
+    offset (no 16-byte vectors): the forward with Mask and without it
+    (Out the same bits, no Mask) against dropout_plain, the gradient
+    kernel against the gradient from the saved Mask (dropout_grad, the
+    chain of PyTorch ops it replaces), every launch twice; and the
+    autograd Function's gradient (the kernel, from the saved seed)
+    against autograd through the plain version."""
     seed = torch.tensor(0x9E3779B1 ^ 4242, device=dev)
     cases = 0
     for shape in ((8, SEQ, 768), (NMT_BATCH, NMT_LEN, 2048), (7, 13, 33)):
-        base = torch.randn(*shape, generator=gen, device=dev)
-        base.view(-1)[:4] = torch.tensor(
-            [float('nan'), float('inf'), -float('inf'), -0.0], device=dev)
+        base = with_specials(torch.randn(*shape, generator=gen, device=dev))
+        base_g = with_specials(torch.randn(*shape, generator=gen,
+                                           device=dev))
+        base_g.view(-1)[4:8] = base.view(-1)[:4]
         for dtype in (torch.float32, torch.bfloat16):
-            x = base.to(dtype)
+            x, g = base.to(dtype), base_g.to(dtype)
             for upscale in (True, False):
                 for p in (RATE, 0.0, 1.0):
                     out, mask = dropout_twice(x, seed, p, upscale)
+                    out_n, none = dropout_twice(x, seed, p, upscale, False)
+                    dx = dropout_grad_twice(g, seed, p, upscale)
                     want, want_mask = drop_k.dropout_plain(x, seed, p,
                                                            upscale)
+                    want_dx = drop_k.dropout_grad(g, want_mask, p, upscale)
                     if not (torch.equal(bits(out), bits(want)) and
-                            torch.equal(bits(mask), bits(want_mask))):
+                            torch.equal(bits(mask), bits(want_mask)) and
+                            torch.equal(bits(out_n), bits(want)) and
+                            none is None):
                         raise AssertionError(
-                            'dropout %s %s upscale=%s p=%g is not bitwise '
-                            'its plain version' % (shape, dtype, upscale, p))
+                            'dropout %s %s upscale=%s p=%g (with and without '
+                            'Mask) is not bitwise its plain version: %s'
+                            % (shape, dtype, upscale, p, first_differences(
+                                x, out, want, out_n)))
+                    if not torch.equal(bits(dx), bits(want_dx)):
+                        raise AssertionError(
+                            'dropout_grad %s %s upscale=%s p=%g is not '
+                            'bitwise the gradient from the saved Mask: %s'
+                            % (shape, dtype, upscale, p, first_differences(
+                                g, dx, want_dx)))
                     cases += 1
     x = torch.randn(8, SEQ, 769, generator=gen, device=dev)
-    for name, view in (('non-contiguous', x[..., 1:]),
-                       ('offset', x.view(-1)[3:3 + 8 * SEQ * 768])):
+    g = torch.randn(8, SEQ, 769, generator=gen, device=dev)
+    for name, view, gview in (
+            ('non-contiguous', x[..., 1:], g[..., 1:]),
+            ('offset', x.view(-1)[3:3 + 8 * SEQ * 768],
+             g.view(-1)[3:3 + 8 * SEQ * 768])):
         out, mask = dropout_twice(view, seed, RATE, True)
+        out_n, _ = dropout_twice(view, seed, RATE, True, False)
+        dx = dropout_grad_twice(gview, seed, RATE, True)
         want, want_mask = drop_k.dropout_plain(view.contiguous(), seed, RATE,
                                                True)
-        if not (torch.equal(out, want) and torch.equal(mask, want_mask)):
+        want_dx = drop_k.dropout_grad(gview.contiguous(), want_mask, RATE,
+                                      True)
+        if not (torch.equal(out, want) and torch.equal(mask, want_mask) and
+                torch.equal(out_n, want) and torch.equal(dx, want_dx)):
             raise AssertionError('dropout on a %s view is not bitwise its '
                                  'plain version' % name)
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn(8, SEQ, 768, generator=gen, device=dev).to(dtype)
         g = torch.randn(8, SEQ, 768, generator=gen, device=dev).to(dtype)
-        for upscale in (True, False):
+        for upscale, write_mask in ((True, True), (False, True),
+                                    (True, False)):
             xa = x.clone().requires_grad_()
-            out, _ = drop_k.dropout(xa, seed, RATE, upscale)
+            before = common.launches('dropout_grad')
+            out, _ = drop_k.dropout(xa, seed, RATE, upscale, write_mask)
             got, = torch.autograd.grad(out, xa, g)
+            if common.launches('dropout_grad') != before + 1:
+                raise AssertionError('the dropout op\'s backward did not '
+                                     'launch the gradient kernel once')
             xb = x.clone().requires_grad_()
             keep = drop_k.hash_keep(seed, x.shape, RATE, dev)
             want, = torch.autograd.grad(
@@ -1174,17 +1280,57 @@ def check_dropout(gen, dev):
                 raise AssertionError('the dropout gradient (%s, upscale=%s) '
                                      'is not autograd\'s' % (dtype, upscale))
     log('  dropout: %d cases at [8, 512, 768], [64, 64, 2048] and [7, 13, '
-        '33] (f32, bf16; both implementations; p %g, 0, 1; NaN and inf '
-        'inputs), a non-contiguous and an offset view, second launches and '
-        'the gradient: bitwise' % (cases, RATE))
+        '33] (f32, bf16; both implementations; p %g, 0, 1; NaN, inf and -0 '
+        'inputs and gradients), each the forward with and without Mask and '
+        'the gradient kernel, a non-contiguous and an offset view, second '
+        'launches and the autograd Function\'s gradient: bitwise'
+        % (cases, RATE))
     return 0.0
 
 
-def dropout_ops(main):
-    """The dropout kernel's launches a step of `main`: one for each
-    dropout op in training mode."""
-    return sum(op.type == 'dropout' and not op.attrs.get('is_test')
-               for op in main.global_block().ops)
+def dropout_launches(main):
+    """The dropout kernels' launches a training step of `main`: the
+    forward's and the gradient's, one each for each dropout op in
+    training mode (every one on these paths is on the loss's path)."""
+    n = sum(op.type == 'dropout' and not op.attrs.get('is_test')
+            for op in main.global_block().ops)
+    return {'dropout': n, 'dropout_grad': n}
+
+
+def mask_probe(main):
+    """The last dropout op of `main` in training mode (after the last
+    layer's FFN, on bf16 activations under AMP): step 1 of phases 5 and
+    13 (a) fetches its X, Out and Mask, and the fetch makes the kernel
+    write Mask."""
+    return [op for op in main.global_block().ops
+            if op.type == 'dropout' and not op.attrs.get('is_test')][-1]
+
+
+def probe_fetch(op):
+    return [op.input('X')[0], op.output('Out')[0], op.output('Mask')[0]]
+
+
+def check_fetched_mask(exe, main, op, fetched, dtype):
+    """The fetched (X, Out, Mask) of a dropout op: X in `dtype`, and Out
+    and Mask bit for bit what the kernel wrote before Mask became
+    optional, dropout_plain of X under the op's seed at the executor's
+    step."""
+    x, out, mask = fetched
+    seed = registry.LowerCtx(
+        exe._step, op.attrs.get('__op_seed__', 0), device=x.device,
+        random_seed=main.random_seed).dropout_op_seed()
+    want, want_mask = drop_k.dropout_plain(
+        x, seed, op.attrs.get('dropout_prob', 0.5),
+        op.attrs.get('dropout_implementation') == 'upscale_in_train')
+    if x.dtype != dtype or not (torch.equal(bits(out), bits(want)) and
+                                torch.equal(bits(mask), bits(want_mask))):
+        raise AssertionError('the fetched Out and Mask of %s (X %s) are not '
+                             'the plain version\'s' % (op.output('Mask')[0],
+                                                       x.dtype))
+    log('  fetched X, Out and Mask of %s %s %s: bitwise dropout_plain '
+        '(%.4f kept)' % (op.output('Mask')[0], tuple(mask.shape),
+                         str(dtype).split('.')[1],
+                         mask.float().mean().item()))
 
 
 def check_scatter(gen, dev):
@@ -1921,7 +2067,7 @@ def pretrain_program(seed, optimizer, seq=SEQ, batch=TRAIN_BATCH):
     expected.update({'flash_attention': n_attn,
                      'flash_attention_bwd': n_attn,
                      'embedding_lookup': 3, 'embedding_scatter_add': 3,
-                     'fused_' + optimizer: 1, 'dropout': dropout_ops(main)})
+                     'fused_' + optimizer: 1, **dropout_launches(main)})
     # gradients fetched beside the loss on step 1, held against the
     # plain path
     probe = ['embedding_0.w_0', 'fc_0.w_0', 'fc_0.w_1', 'layer_norm_0.w_0']
@@ -1933,7 +2079,9 @@ def pretrain_program(seed, optimizer, seq=SEQ, batch=TRAIN_BATCH):
             'batch': bert.synthetic_batch(cfg, batch, seq,
                                           np.random.RandomState(seed)),
             'expected': expected, 'probe': probe, 'tokens': batch * seq,
-            'rate': LR, 'bitwise': False}
+            'rate': LR, 'bitwise': False,
+            'mask_op': mask_probe(main) if optimizer == 'adam' and
+            seq == SEQ else None}
 
 
 def wide_deep_program(seed):
@@ -1949,7 +2097,7 @@ def wide_deep_program(seed):
                    for op in main.global_block().ops)
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'embedding_lookup': 2, 'embedding_update': n_update,
-                     'dropout': dropout_ops(main)})
+                     **dropout_launches(main)})
     return {'name': 'Wide&Deep Adagrad', 'main': main, 'startup': startup,
             'loss': loss, 'preds': preds, 'lr': None,
             'batch': wide_deep.synthetic_batch(cfg, WD_BATCH,
@@ -1983,6 +2131,8 @@ def train(path):
     scope = fluid.Scope()
     fetch = [loss.name] + ([path['lr'].name] if path['lr'] else [])
     grad_fetch = [main._grad_name_map[p] for p in path['probe']]
+    mask_op = path.get('mask_op')
+    mask_fetch = probe_fetch(mask_op) if mask_op else []
     launches = {k: 0 for k in common.KERNELS}
     losses, rates, secs = [], [], []
     with fluid.scope_guard(scope):
@@ -1994,15 +2144,20 @@ def train(path):
             t0 = time.perf_counter()
             out, counts = counted(lambda: exe.run(
                 main, feed=path['batch'],
-                fetch_list=fetch + (grad_fetch if step == 0 else []),
+                fetch_list=fetch + (grad_fetch + mask_fetch if step == 0
+                                    else []),
                 return_numpy=False))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             losses.append(float(out[0]))
             rates.append(float(out[1]) if path['lr'] else None)
             if step == 0:
-                grads = [g.clone() for g in out[len(fetch):]]
+                grads = [g.clone() for g in
+                         out[len(fetch):len(fetch) + len(grad_fetch)]]
                 after1 = snapshot(scope, state_names)
+                if mask_op:
+                    check_fetched_mask(exe, main, mask_op, out[-3:],
+                                       torch.float32)
             for k, c in counts.items():
                 launches[k] += c
             log('  step %d: loss %.6f%s, %.1f ms, launches + replayed %s'
@@ -2582,10 +2737,15 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
     nmt = nmt_ids(seed).to(dev)
     w_nmt = torch.randn(NMT_ROWS, 512, generator=gen, device=dev)
     g_nmt = torch.randn(nmt.numel(), 512, generator=gen, device=dev)
-    # the dropout op's activations: BERT-base's [8, 512, 768] in f32 and
-    # (under AMP) bf16; it reads X and writes Out and Mask
+    # the dropout op's activations and their gradients: BERT-base's
+    # [8, 512, 768] in f32 and (under AMP) bf16; the forward reads X and
+    # writes Out, and Mask where it is read; the gradient reads dOut and
+    # writes dX; native_dropout_backward takes the 1-byte keep mask
     x_drop = torch.randn(8, SEQ, 768, generator=gen, device=dev)
     x_drop_b = x_drop.to(torch.bfloat16)
+    g_drop = torch.randn(8, SEQ, 768, generator=gen, device=dev)
+    g_drop_b = g_drop.to(torch.bfloat16)
+    keep_drop = drop_k.hash_keep(drop_seed, x_drop.shape, RATE, dev)
     n_drop = x_drop.numel()
     # name, kernel, plain, library, bound, whether a CUDA graph can
     # hold the plain version and the library call (the others have no
@@ -2730,6 +2890,30 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
          lambda: drop_k.dropout_plain(x_drop_b, drop_seed, RATE, True),
          lambda: torch.native_dropout(x_drop_b, RATE, True),
          bound(6 * n_drop + 8, 0), True, True),
+        # without Mask, as every training step but a fetching one runs it
+        ('dropout[no mask]',
+         lambda: drop_k.dropout_kernel(x_drop, drop_seed, RATE, True, False),
+         lambda: drop_k.dropout_plain(x_drop, drop_seed, RATE, True),
+         lambda: torch.native_dropout(x_drop, RATE, True),
+         bound(8 * n_drop + 8, 0), True, True),
+        ('dropout[bf16,no mask]',
+         lambda: drop_k.dropout_kernel(x_drop_b, drop_seed, RATE, True,
+                                       False),
+         lambda: drop_k.dropout_plain(x_drop_b, drop_seed, RATE, True),
+         lambda: torch.native_dropout(x_drop_b, RATE, True),
+         bound(4 * n_drop + 8, 0), True, True),
+        ('dropout_grad',
+         lambda: drop_k.dropout_grad_kernel(g_drop, drop_seed, RATE, True),
+         lambda: drop_k.dropout_grad_plain(g_drop, drop_seed, RATE, True),
+         lambda: torch.ops.aten.native_dropout_backward(
+             g_drop, keep_drop, 1.0 / (1.0 - RATE)),
+         bound(8 * n_drop + 8, 0), True, True),
+        ('dropout_grad[bf16]',
+         lambda: drop_k.dropout_grad_kernel(g_drop_b, drop_seed, RATE, True),
+         lambda: drop_k.dropout_grad_plain(g_drop_b, drop_seed, RATE, True),
+         lambda: torch.ops.aten.native_dropout_backward(
+             g_drop_b, keep_drop, 1.0 / (1.0 - RATE)),
+         bound(4 * n_drop + 8, 0), True, True),
     ]
     rows = []
     for name, kernel, plain, library, bnd, graph, lib_graph in calls:
@@ -2793,37 +2977,7 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
         if not same:
             raise AssertionError('embedding_scatter_add at %d ids is not '
                                  'bitwise its plain version' % n_ids)
-    # the dropout kernel at the Transformer FFN's [64, 64, 2048]
-    x_ffn = torch.randn(NMT_BATCH, NMT_LEN, 2048, generator=gen, device=dev)
-    log('  %-28s cold L2: kernel %.4f ms  plain %.4f ms  native_dropout '
-        '%.4f ms  bound %.4f ms (the Transformer FFN\'s [%d, %d, 2048] '
-        'f32)' % (
-            'dropout', timer.ms(lambda: drop_k.dropout_kernel(
-                x_ffn, drop_seed, RATE, True)),
-            timer.ms(lambda: drop_k.dropout_plain(x_ffn, drop_seed, RATE,
-                                                  True)),
-            timer.ms(lambda: torch.native_dropout(x_ffn, RATE, True)),
-            bound(12 * x_ffn.numel() + 8, 0)['bound_ms'], NMT_BATCH,
-            NMT_LEN))
-    del x_ffn
-    # and at DROPOUT_BIG times BERT-base's tensor: how much of the gap to
-    # the bound at [8, 512, 768] is the launch's fixed cost
-    x_big = torch.randn(8 * DROPOUT_BIG, SEQ, 768, generator=gen,
-                        device=dev)
-    for dt, width in ((torch.float32, 4), (torch.bfloat16, 2)):
-        xb = x_big.to(dt)
-        ms = timer.ms(lambda: drop_k.dropout_kernel(xb, drop_seed, RATE,
-                                                    True))
-        bnd = bound(3 * width * xb.numel() + 8, 0)['bound_ms']
-        log('  %-28s cold L2: kernel %.4f ms  native_dropout %.4f ms  '
-            'bound %.4f ms, %.0f%% of it (%s at [%d, %d, 768], %d times '
-            'BERT-base\'s)' % (
-                'dropout' if dt == torch.float32 else 'dropout[bf16]', ms,
-                timer.ms(lambda: torch.native_dropout(xb, RATE, True)), bnd,
-                100 * bnd / ms, str(dt).split('.')[1], 8 * DROPOUT_BIG, SEQ,
-                DROPOUT_BIG))
-        del xb
-    del x_big
+    dropout_extra(timer, gen, dev, drop_seed, x_drop, g_drop, keep_drop)
     # K8 at a 768 x 3072 gradient's shapes
     w3 = quant[768 * 3072]
     log('  %-24s cold L2: kernel %.4f ms  plain %.4f ms  bound %.4f ms '
@@ -2877,6 +3031,72 @@ def time_kernels(timer, gen, dev, req, train_batch, wd_batch, launches,
                 'embedding_update', rows_k, r['w'].shape[1],
                 split['sort_ms'], split['kernel_ms']))
     return rows
+
+
+def dropout_extra(timer, gen, dev, seed, x, g, keep):
+    """Phase 8's lines beside the dropout kernels' rows: an empty kernel
+    launched and timed as the kernels are (on one block and on the
+    forward's wave), the gradient as the chain of PyTorch ops it was
+    (dropout_grad from the saved Mask), the Transformer FFN's
+    [64, 64, 2048] and DROPOUT_BIG times BERT-base's tensor, each kernel
+    beside its bound and its library call."""
+    lib = common.library(drop_k.SOURCE)
+    lib.dropout_empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.dropout_wave.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    wave = {}
+    for dt in (torch.float32, torch.bfloat16):
+        blocks = ctypes.c_int(0)
+        lib.dropout_wave(drop_k._DTYPES[dt], ctypes.byref(blocks))
+        wave[dt] = blocks.value
+    empty = {blocks: timer.ms(lambda: lib.dropout_empty(
+        blocks, common.stream_ptr(dev))) for blocks in {1, *wave.values()}}
+    log('  %-28s cold L2: %s (the timer\'s floor: a launch that does '
+        'nothing)' % ('empty kernel', ', '.join(
+            '%.4f ms on %d blocks' % (ms, b) for b, ms in sorted(
+                empty.items()))))
+    for dt in (torch.float32, torch.bfloat16):
+        gd, mask = g.to(dt), keep.to(dt)
+        log('  %-28s cold L2: %.4f ms (%s at [8, %d, 768]: the compare, the '
+            'division, zeros_like and where from the saved Mask%s)' % (
+                'dropout_grad chain', timer.ms(lambda: drop_k.dropout_grad(
+                    gd, mask, RATE, True)), str(dt).split('.')[1], SEQ,
+                '' if dt == torch.float32 else ', and the casts'))
+    # the Transformer trains in f32 only
+    shapes = (('the Transformer FFN\'s', (NMT_BATCH, NMT_LEN, 2048),
+               (torch.float32,)),
+              ('%d times BERT-base\'s' % DROPOUT_BIG,
+               (8 * DROPOUT_BIG, SEQ, 768), (torch.float32, torch.bfloat16)))
+    for label, shape, dtypes in shapes:
+        xs = torch.randn(*shape, generator=gen, device=dev)
+        gs = torch.randn(*shape, generator=gen, device=dev)
+        ks = drop_k.hash_keep(seed, shape, RATE, dev)
+        for dt in dtypes:
+            xd, gd = xs.to(dt), gs.to(dt)
+            width = xd.element_size()
+            n = xd.numel()
+            sfx = '' if dt == torch.float32 else '[bf16]'
+            for name, call, library, nbytes in (
+                    ('dropout' + sfx,
+                     lambda: drop_k.dropout_kernel(xd, seed, RATE, True),
+                     lambda: torch.native_dropout(xd, RATE, True),
+                     3 * width * n),
+                    ('dropout[%sno mask]' % ('bf16,' if sfx else ''),
+                     lambda: drop_k.dropout_kernel(xd, seed, RATE, True,
+                                                   False),
+                     lambda: torch.native_dropout(xd, RATE, True),
+                     2 * width * n),
+                    ('dropout_grad' + sfx,
+                     lambda: drop_k.dropout_grad_kernel(gd, seed, RATE,
+                                                        True),
+                     lambda: torch.ops.aten.native_dropout_backward(
+                         gd, ks, 1.0 / (1.0 - RATE)), 2 * width * n)):
+                ms = timer.ms(call)
+                bnd = bound(nbytes + 8, 0)['bound_ms']
+                log('  %-28s cold L2: kernel %.4f ms  library %.4f ms  '
+                    'bound %.4f ms, %.0f%% of it (%s %s)' % (
+                        name, ms, timer.ms(library), bnd, 100 * bnd / ms,
+                        label, list(shape)))
+        del xs, gs, ks
 
 
 def request_latency(pred, requests, n_attn, n_emb, runs=5):
@@ -3307,7 +3527,7 @@ def lenet_path(seed, opt):
             fluid.optimizer.SGD(LENET_LR['sgd']).minimize(loss)
     imgs, labels = mnist._synthetic(LENET_BATCH, seed)
     expected = {k: 0 for k in common.KERNELS}
-    expected['dropout'] = dropout_ops(main)
+    expected.update(dropout_launches(main))
     if opt == 'adam':
         expected['fused_adam'] = 1
     return {'name': 'LeNet-5 %s' % opt.upper(), 'opt': opt, 'main': main,
@@ -3486,7 +3706,7 @@ def train_image(path, steps, timed, profile):
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     names = weights.startup_names(path['startup'])
-    want = dict({k: 0 for k in common.KERNELS}, dropout=dropout_ops(main))
+    want = dict({k: 0 for k in common.KERNELS}, **dropout_launches(main))
     batch = path['batch']['image'].shape[0]
     losses, secs = [], []
     with fluid.scope_guard(scope):
@@ -3502,7 +3722,7 @@ def train_image(path, steps, timed, profile):
             losses.append(float(out[0]))
             if counts != want:
                 raise AssertionError('%s step %d launched %s: only the '
-                                     'dropout kernel (%d) is on this path'
+                                     'dropout kernels (%d each) are on this path'
                                      % (path['name'], step + 1, counts,
                                         want['dropout']))
             if step < steps:
@@ -3700,7 +3920,7 @@ def nmt_program(seed):
                              epsilon=EPSILON).minimize(loss)
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'embedding_lookup': 2, 'embedding_scatter_add': 2,
-                     'fused_adam': 1, 'dropout': dropout_ops(main)})
+                     'fused_adam': 1, **dropout_launches(main)})
     probe = ['embedding_0.w_0', 'embedding_1.w_0', 'fc_0.w_0']
     probe += [p.name for p in main.all_parameters()
               if p.shape == (cfg.d_model, cfg.tgt_vocab)]
@@ -3822,7 +4042,7 @@ def dp_bert(seed):
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'flash_attention': n_attn, 'flash_attention_bwd': n_attn,
                      'embedding_lookup': 3, 'embedding_scatter_add': 3,
-                     'fused_adam': 1, 'dropout': dropout_ops(main)})
+                     'fused_adam': 1, **dropout_launches(main)})
     return main, startup, loss, cfg, expected
 
 
@@ -4284,7 +4504,7 @@ def amp_bert_path(seed, seq, batch):
     expected.update({'flash_attention': n_attn,
                      'flash_attention_bwd': n_attn, 'embedding_lookup': 3,
                      'embedding_scatter_add': 3, 'fused_adam': 1,
-                     'dropout': dropout_ops(main)})
+                     **dropout_launches(main)})
     decoder = [p.name for p in main.all_parameters()
                if p.shape == (cfg.hidden, cfg.vocab_size)][0]
     return {'name': 'BERT-base AMP Adam seq %d' % seq, 'main': main,
@@ -4294,7 +4514,8 @@ def amp_bert_path(seed, seq, batch):
             'expected': expected, 'n_attn': n_attn, 'decoder': decoder,
             'probe': ['embedding_0.w_0', 'fc_0.w_0', 'layer_norm_0.w_0',
                       decoder],
-            'tokens': batch * seq, 'rate': AMP_LR, 'bitwise': False}
+            'tokens': batch * seq, 'rate': AMP_LR, 'bitwise': False,
+            'mask_op': mask_probe(main) if seq == SEQ else None}
 
 
 def amp_train(path):
@@ -4315,6 +4536,8 @@ def amp_train(path):
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     grad_fetch = [main._grad_name_map[p] for p in path['probe']]
+    mask_op = path['mask_op']
+    mask_fetch = probe_fetch(mask_op) if mask_op else []
     launches = {k: 0 for k in common.KERNELS}
     flash = dict.fromkeys(FLASH_ROWS, 0)
     losses = []
@@ -4327,13 +4550,17 @@ def amp_train(path):
             t0 = time.perf_counter()
             out, counts, rows = flash_counted(lambda: exe.run(
                 main, feed=path['batch'],
-                fetch_list=[loss] + (grad_fetch if step == 0 else []),
+                fetch_list=[loss] + (grad_fetch + mask_fetch if step == 0
+                                     else []),
                 return_numpy=False))
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             losses.append(float(out[0]))
             if step == 0:
-                grads = [g.clone() for g in out[1:]]
+                grads = [g.clone() for g in out[1:1 + len(grad_fetch)]]
+                if mask_op:
+                    check_fetched_mask(exe, main, mask_op, out[-3:],
+                                       torch.bfloat16)
                 after1 = snapshot(scope, state_names)
                 dtypes = {'loss': out[0].dtype,
                           'gradients': sorted({str(g.dtype) for g in grads})}
@@ -4633,7 +4860,7 @@ def word2vec_path(seed):
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'embedding_lookup': n_lookup,
                      'embedding_scatter_add': n_lookup,
-                     'dropout': dropout_ops(main)})
+                     **dropout_launches(main)})
     return {'name': 'word2vec CBOW SGD', 'main': main, 'startup': startup,
             'loss': loss, 'lr': None,
             'batch': word2vec.synthetic_batch(W2V_VOCAB, W2V_BATCH,
@@ -5210,7 +5437,9 @@ def main(argv=None):
             lambda: check_nmt_tables(gen, dev, args.seed)),
         'dropout': without_counting(lambda: check_dropout(gen, dev)),
     }
-    max_err['dropout[bf16]'] = max_err['dropout']
+    for row in ('dropout[bf16]', 'dropout[no mask]', 'dropout[bf16,no mask]',
+                'dropout_grad', 'dropout_grad[bf16]'):
+        max_err[row] = max_err['dropout']
     max_err['embedding_scatter_add[nmt]'] = max_err['embedding_lookup[nmt]']
     torch.cuda.empty_cache()
 

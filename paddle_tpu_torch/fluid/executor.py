@@ -374,11 +374,14 @@ class _OpStep(object):
     """One op resolved for a plan: its lowering (None when the registry
     has none: the run raises when it reaches the op, as before), its
     input and output names, whether each output is persistable, its
-    seed, and the outputs the whole-program grad cuts from autograd."""
+    seed, the outputs the whole-program grad cuts from autograd, and
+    the output slots nothing reads after it (every name of the slot
+    released right after the op, `unread`: its ``_drop_plan`` entry, and
+    not persistable), which its lowering context names."""
 
-    __slots__ = ('op', 'opdef', 'ins', 'outs', 'seed', 'stops')
+    __slots__ = ('op', 'opdef', 'ins', 'outs', 'seed', 'stops', 'unread')
 
-    def __init__(self, op, stop=()):
+    def __init__(self, op, stop=(), unread=frozenset()):
         self.op = op
         try:
             self.opdef = registry.get(op.type)
@@ -393,6 +396,10 @@ class _OpStep(object):
             for slot, names in op.outputs.items())
         self.seed = op.attrs.get('__op_seed__', 0)
         self.stops = tuple(n for n in op.output_arg_names if n in stop)
+        self.unread = frozenset(
+            slot for slot, names, persistable in self.outs
+            if names and not any(persistable) and
+            all(n in unread for n in names))
 
 
 class _Step(object):
@@ -415,7 +422,9 @@ def _steps(ops, keep):
     while i < len(ops):
         run = _fused_opt_run(ops, i)
         members = run or [ops[i]]
-        out.append(_Step(i, [_OpStep(op) for op in members], run is not None,
+        out.append(_Step(i, [_OpStep(op, unread=drops[i + k])
+                             for k, op in enumerate(members)],
+                         run is not None,
                          [n for j in range(i, i + len(members))
                           for n in drops[j]]))
         i += len(members)
@@ -481,9 +490,10 @@ def _build_plan(program, fetch_names):
         plan.kind = 'wpg'
         wpg = plan.wpg
         later = set(n for op in wpg['post'] for n in op.input_arg_names)
-        plan.pre = [_OpStep(op, wpg['stop']) for op in wpg['pre']]
         plan.pre_drops = _drop_plan(wpg['pre'],
                                     keep | later | {wpg['loss']})
+        plan.pre = [_OpStep(op, wpg['stop'], drop)
+                    for op, drop in zip(wpg['pre'], plan.pre_drops)]
         plan.post = _steps(wpg['post'], keep)
     else:
         plan.kind = 'per_op' if any(_role(op) == 'backward'
@@ -1071,11 +1081,11 @@ class Executor(object):
         return step
 
     # ------------------------------------------------------------ ops
-    def _ctx(self, seed, program):
+    def _ctx(self, seed, program, unread=frozenset()):
         return registry.LowerCtx(
             self._step, seed, device=self.device,
             random_seed=program.random_seed, group=self._group,
-            replica=self._replica, step_mix=self._step_mix)
+            replica=self._replica, step_mix=self._step_mix, unread=unread)
 
     def _check_finite(self, name, val, persistable=False):
         """Queue the on-device verdict isfinite(val).all() of a floating
@@ -1127,7 +1137,8 @@ class Executor(object):
         rows = self._shard_rows(op, ins, 0, scope) if self._shard_opt \
             else None
         try:
-            outs = opdef.run(self._ctx(st.seed, program), ins, op.attrs)
+            outs = opdef.run(self._ctx(st.seed, program, st.unread), ins,
+                             op.attrs)
         except Exception as e:
             e.add_note('in op %s (created at %s)' % (
                 op.type, '; '.join(op.attrs.get('__op_callstack__', [])[:2])))

@@ -1,32 +1,49 @@
-// The dropout op's forward in one pass for Hopper (sm_90a): Out and Mask
-// of operators/dropout_op.cc from X and a seed in device memory.
+// The dropout op's forward and its gradient for Hopper (sm_90a), each
+// one pass: Out (and Mask where something reads it) of
+// operators/dropout_op.cc from X and a seed in device memory, and dX
+// from dOut and the same seed, the keep bits computed again.
 //
 // Replaces no Pallas kernel.  The JAX package's dropout op draws its mask
 // with jax.random.bernoulli inside the XLA step
 // (paddle_tpu/ops/nn_ops.py:464-479), which XLA fuses into the
-// surrounding elementwise work.  The port's plain version
-// (ops/kernels/dropout.py: dropout_plain over hash_keep) is some 17 int32
-// PyTorch passes over the tensor per op; this kernel is that function in
-// one pass.
+// surrounding elementwise work and whose unread Mask it never writes.
+// The port's plain versions (ops/kernels/dropout.py: dropout_plain and
+// dropout_grad_plain over hash_keep) are some 17 int32 PyTorch passes
+// over the tensor per call; these kernels are those functions in one
+// pass each.
 //
-// What it computes, bitwise the plain version on the card: element i of
-// the flattened X keeps where dropout_op_keep(seed, i, threshold)
-// (csrc/dropout_hash.cuh); Mask is 1 or 0 in X's dtype; Out is
+// What they compute, bitwise the plain versions on the card: element i
+// of the flattened tensor keeps where dropout_op_keep(seed, i,
+// threshold) (csrc/dropout_hash.cuh); Mask is 1 or 0 in X's dtype; Out is
 //   upscale_in_train:   keep ? X / scale : 0   (an IEEE f32 division;
 //                       bf16 X divided in f32 and rounded to bf16 once)
 //   downgrade_in_infer: X * Mask               (a multiply: NaN * 0 is NaN)
-// The seed is read from a 0-d int64 tensor on the device (its low 32
-// bits), so a CUDA-graph replay draws the mask of the step it replays.
+// and dX the same formula with dOut in place of X.  The seed is read
+// from a 0-d int64 tensor on the device (its low 32 bits), so a
+// CUDA-graph replay draws the mask of the step it replays.
 //
-// Bound on the H100: bytes.  It reads X once and writes Out and Mask:
-// 3 x 4 bytes an element in f32, about 0.28 ms for BERT-base's 79M
-// elements a training step at 3.35 TB/s.  The hash is ~10 integer
-// operations an element, far under the integer pipes' rate.
+// Bound on the H100: bytes.  The forward reads X once and writes Out,
+// and Mask only where it is asked for: 8 bytes an element in f32 (12
+// with Mask), 4 in bf16 (6); the gradient reads dOut and writes dX, as
+// many bytes as the forward without Mask.  At BERT-base's [8, 512, 768]
+// f32 that is 25 MB, 0.0075 ms at 3.35 TB/s.  The work is ~12 integer
+// operations of the hash an element and the quotient, which in bf16 sit
+// close to the issue rate: there the f32 division's sequence and its
+// branch to a slow path cost a sixth of the time (PERF.md), so the
+// quotient is an f64 product instead (quotient(), bitwise the division).
 //
-// Design: each thread moves 16 bytes of each stream (4 f32 or 8 bf16
-// elements) with one vector load and two vector stores, in a grid-stride
-// loop; a tensor whose three pointers are not all 16-byte aligned, and
-// the last n % vector elements, go element by element in the same launch.
+// Design: one wave of blocks (the SMs times the blocks the occupancy
+// calculator lets each hold), each thread walking the tensor in steps
+// of the whole grid's threads, one 16-byte vector (4 f32 or 8 bf16
+// elements) a step; the seed is read by every thread beside its first
+// load.  A tensor whose pointers are not all 16-byte aligned, and the
+// last n % vector elements, go element by element in the same launch.
+// The DROPOUT_* macros build the alternatives that
+// tools/torch_dropout_tune.py times beside these choices (PERF.md): the
+// f32 division (DROPOUT_FDIV), several vectors in flight a thread
+// (DROPOUT_UNROLL), the first design's fixed grid (DROPOUT_FIXED_GRID),
+// the seed read once a block (DROPOUT_SEED_SHARED) and evict-first Mask
+// stores (DROPOUT_MASK_EVICT_FIRST); none of them was faster.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,10 +51,14 @@
 
 #include "dropout_hash.cuh"
 
+#ifndef DROPOUT_UNROLL
+#define DROPOUT_UNROLL 1
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
+constexpr int kUnroll = DROPOUT_UNROLL;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -52,89 +73,233 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as PyTorch's bf16
 }
 
-template <typename T>
-__device__ __forceinline__ void one(T x, uint32_t seed, uint32_t i,
-                                    uint32_t threshold, float scale,
-                                    bool upscale, T* out, T* mask) {
-  const bool keep = dropout_op_keep(seed, i, threshold);
-  const float m = keep ? 1.0f : 0.0f;
-  const float xf = to_f(x);
-  float o;
-  if (upscale) {
-    o = keep ? __fdiv_rn(xf, scale) : 0.0f;
-  } else {
-    o = __fmul_rn(xf, m);
-  }
-  *out = from_f<T>(o);
-  *mask = from_f<T>(m);
+// v / scale rounded once to f32: the IEEE quotient, from rd, the f64
+// reciprocal of scale rounded to nearest.  The f64 product v * rd lies
+// within 2^-52 of v / scale (relative), while v / scale, a quotient of two
+// 24-bit significands with scale in [1e-8, 1], lies at least ~2^-49 from
+// every f32 rounding boundary and never on one; so rounding the product to
+// f32 gives the division's result for every number v: zero, subnormal,
+// infinite and overflowing quotients included.  A NaN v gives a NaN of
+// another payload than the division's: f32 outputs take the division's
+// NaN from nan_quotients().  Three conversion and f64 instructions in
+// place of the division's sequence and its branch to a slow path.
+__device__ __forceinline__ float quotient(float v, float scale, double rd) {
+#ifdef DROPOUT_FDIV
+  return __fdiv_rn(v, scale);
+#else
+  return __double2float_rn(__dmul_rn((double)v, rd));
+#endif
 }
 
+// For f32 elements: where a kept element of xe[0..count) is NaN, the
+// division's own NaN in oe (bf16 rounds every NaN to the one bf16 NaN,
+// the division's or not).  One branch a vector, taken only where the
+// vector holds a NaN.
 template <typename T>
+__device__ __forceinline__ void nan_quotients(const T* xe, T* oe, int count,
+                                              uint32_t seed, uint32_t i0,
+                                              uint32_t threshold,
+                                              float scale) {
+#ifndef DROPOUT_FDIV
+  if (sizeof(T) != 4) return;
+  bool nan = false;
+#pragma unroll
+  for (int j = 0; j < count; ++j) nan |= isnan(to_f(xe[j]));
+  if (!nan) return;
+  for (int j = 0; j < count; ++j)
+    if (isnan(to_f(xe[j])) && dropout_op_keep(seed, i0 + j, threshold))
+      oe[j] = from_f<T>(__fdiv_rn(to_f(xe[j]), scale));
+#endif
+}
+
+// The op's formula for one element: keep ? v / scale : 0 (upscale) or
+// v * (keep ? 1 : 0).
+__device__ __forceinline__ float apply(float v, bool keep, float scale,
+                                       double rd, bool upscale) {
+  if (upscale) return keep ? quotient(v, scale, rd) : 0.0f;
+  return __fmul_rn(v, keep ? 1.0f : 0.0f);
+}
+
+__device__ __forceinline__ uint32_t load_seed(const long long* seed_ptr) {
+#ifdef DROPOUT_SEED_SHARED
+  // one load a block, handed to the threads through shared memory
+  __shared__ uint32_t s_seed;
+  if (threadIdx.x == 0) s_seed = (uint32_t)(unsigned long long)(*seed_ptr);
+  __syncthreads();
+  return s_seed;
+#else
+  // every thread's own load: the warp's lanes share one transaction,
+  // and no thread waits on a barrier before its first vector loads
+  return (uint32_t)(unsigned long long)__ldg(seed_ptr);
+#endif
+}
+
+__device__ __forceinline__ void store_mask(uint4* p, uint4 v) {
+#ifdef DROPOUT_MASK_EVICT_FIRST
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+// y = the formula of src (X or dOut) with the element's keep bit, in
+// 16-byte vectors; mask (the forward's, kMask) gets the keep bits.
+template <typename T, bool kMask>
 __global__ void __launch_bounds__(kThreads)
-dropout_fwd(const T* __restrict__ x, T* __restrict__ out,
-            T* __restrict__ mask, long long n, long long nvec,
-            const long long* __restrict__ seed_ptr, uint32_t threshold,
-            float scale, int upscale) {
+dropout_pass(const T* __restrict__ src, T* __restrict__ y,
+             T* __restrict__ mask, long long n, long long nvec,
+             const long long* __restrict__ seed_ptr, uint32_t threshold,
+             float scale, int upscale) {
   constexpr int kVec = 16 / sizeof(T);
-  const uint32_t seed = (uint32_t)(unsigned long long)(*seed_ptr);
   const bool up = upscale != 0;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long v = tid; v < nvec; v += stride) {
-    const uint4 xin = reinterpret_cast<const uint4*>(x)[v];
-    uint4 o, m;
-    const T* xe = reinterpret_cast<const T*>(&xin);
-    T* oe = reinterpret_cast<T*>(&o);
-    T* me = reinterpret_cast<T*>(&m);
+  const uint4* src4 = reinterpret_cast<const uint4*>(src);
+  uint4* y4 = reinterpret_cast<uint4*>(y);
+  uint4* mask4 = reinterpret_cast<uint4*>(mask);
+  const uint32_t seed = load_seed(seed_ptr);
+  const double rd = 1.0 / (double)scale;
+  for (long long v0 = tid; v0 < nvec; v0 += kUnroll * stride) {
+    uint4 in[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      one<T>(xe[j], seed, (uint32_t)(v * kVec + j), threshold, scale, up,
-             oe + j, me + j);
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = v0 + u * stride;
+      if (v < nvec) in[u] = __ldg(src4 + v);
     }
-    reinterpret_cast<uint4*>(out)[v] = o;
-    reinterpret_cast<uint4*>(mask)[v] = m;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = v0 + u * stride;
+      if (v >= nvec) break;
+      uint4 o, m;
+      const T* xe = reinterpret_cast<const T*>(&in[u]);
+      T* oe = reinterpret_cast<T*>(&o);
+      T* me = reinterpret_cast<T*>(&m);
+      const uint32_t i0 = (uint32_t)(v * kVec);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const bool keep = dropout_op_keep(seed, i0 + j, threshold);
+        oe[j] = from_f<T>(apply(to_f(xe[j]), keep, scale, rd, up));
+        if (kMask) me[j] = from_f<T>(keep ? 1.0f : 0.0f);
+      }
+      if (up) nan_quotients(xe, oe, kVec, seed, i0, threshold, scale);
+      y4[v] = o;
+      if (kMask) store_mask(mask4 + v, m);
+    }
   }
   for (long long i = nvec * kVec + tid; i < n; i += stride) {
-    one<T>(x[i], seed, (uint32_t)i, threshold, scale, up, out + i, mask + i);
+    const bool keep = dropout_op_keep(seed, (uint32_t)i, threshold);
+    y[i] = from_f<T>(apply(to_f(src[i]), keep, scale, rd, up));
+    if (up) nan_quotients(src + i, y + i, 1, seed, (uint32_t)i, threshold,
+                          scale);
+    if (kMask) mask[i] = from_f<T>(keep ? 1.0f : 0.0f);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, void* out, void* mask, long long n,
+// The blocks of one wave of `kernel` on the current device: its SMs
+// times the blocks of kThreads each one holds (asked once a device).
+template <typename T, bool kMask>
+cudaError_t wave(int* blocks) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dropout_pass<T, kMask>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+#ifdef DROPOUT_FIXED_GRID
+  *blocks = 132 * 16;  // the first design's cap
+#endif
+  if (dev < 64) cached[dev] = *blocks;
+  return cudaSuccess;
+}
+
+template <typename T, bool kMask>
+cudaError_t launch(const void* src, void* y, void* mask, long long n,
                    const void* seed, uint32_t threshold, float scale,
                    int upscale, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
-  const uintptr_t align = (uintptr_t)x | (uintptr_t)out | (uintptr_t)mask;
+  const uintptr_t align =
+      (uintptr_t)src | (uintptr_t)y | (kMask ? (uintptr_t)mask : 0);
   const long long nvec = align % 16 == 0 ? n / kVec : 0;
   const long long work = nvec + (n - nvec * kVec);
+  int most = 0;
+  cudaError_t err = wave<T, kMask>(&most);
+  if (err != cudaSuccess) return err;
   long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  dropout_fwd<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const T*)x, (T*)out, (T*)mask, n, nvec, (const long long*)seed,
+  if (blocks > most) blocks = most;
+  dropout_pass<T, kMask><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (const T*)src, (T*)y, (T*)mask, n, nvec, (const long long*)seed,
       threshold, scale, upscale);
   return cudaGetLastError();
 }
 
+template <bool kMask>
+int run(const void* src, void* y, void* mask, long long n, int dtype,
+        const void* seed, unsigned threshold, float scale, int upscale,
+        void* stream) {
+  if (n <= 0) return 0;
+  if (n >= (1LL << 31) || threshold > (1u << 24))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)launch<float, kMask>(src, y, mask, n, seed, threshold, scale,
+                                     upscale, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, kMask>(src, y, mask, n, seed,
+                                             threshold, scale, upscale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+__global__ void empty_kernel() {}
+
 }  // namespace
 
-// x, out, mask: [n] contiguous, f32 (dtype 0) or bf16 (dtype 1); seed: a
-// 0-d int64 on the device; threshold: the 24-bit keep threshold
+// x, out: [n] contiguous, f32 (dtype 0) or bf16 (dtype 1); mask: the
+// same, or NULL where nothing reads Mask (then it is not written); seed:
+// a 0-d int64 on the device; threshold: the 24-bit keep threshold
 // round((1 - p) * 2**24); scale: max(1 - p, 1e-8) as f32; upscale: 1 for
 // upscale_in_train, 0 for downgrade_in_infer.  n < 2**31.  Returns the
 // CUDA error of the launch (0 on success).
 extern "C" int dropout_mask(const void* x, void* out, void* mask, long long n,
                             int dtype, const void* seed, unsigned threshold,
                             float scale, int upscale, void* stream) {
-  if (n <= 0) return 0;
-  if (n >= (1LL << 31) || threshold > (1u << 24))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)launch<float>(x, out, mask, n, seed, threshold, scale,
-                              upscale, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, out, mask, n, seed, threshold,
-                                      scale, upscale, s);
+  if (mask == nullptr)
+    return run<false>(x, out, nullptr, n, dtype, seed, threshold, scale,
+                      upscale, stream);
+  return run<true>(x, out, mask, n, dtype, seed, threshold, scale, upscale,
+                   stream);
+}
+
+// The gradient: dx = the op's formula of g under the keep bits of
+// (seed, threshold), as dropout_mask draws them.  The same arguments
+// with g in place of x and dx in place of out.
+extern "C" int dropout_grad(const void* g, void* dx, long long n, int dtype,
+                            const void* seed, unsigned threshold, float scale,
+                            int upscale, void* stream) {
+  return run<false>(g, dx, nullptr, n, dtype, seed, threshold, scale,
+                    upscale, stream);
+}
+
+// An empty kernel on `blocks` blocks of 256 threads: what a launch and
+// its timer cost with no work, for the measurements beside the kernels
+// (chip_smoke.py phase 8, tools/torch_dropout_tune.py).
+extern "C" int dropout_empty(int blocks, void* stream) {
+  empty_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// The blocks of the wave the forward launches without Mask in `dtype`.
+extern "C" int dropout_wave(int dtype, int* blocks) {
+  if (dtype == 0) return (int)wave<float, false>(blocks);
+  if (dtype == 1) return (int)wave<__nv_bfloat16, false>(blocks);
   return (int)cudaErrorInvalidValue;
 }
 

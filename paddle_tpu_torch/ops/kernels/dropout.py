@@ -1,6 +1,6 @@
-"""The dropout op's forward as one CUDA kernel (csrc/dropout_mask.cu),
-its plain PyTorch version (``hash_keep`` and the op's formula) and the
-``torch.autograd.Function`` that joins them to the op's gradient.
+"""The dropout op's forward and its gradient as CUDA kernels
+(csrc/dropout_mask.cu), their plain PyTorch versions (``hash_keep`` and
+the op's formula) and the ``torch.autograd.Function`` that joins them.
 
 The keep mask is a counter hash of each element's index under a seed on
 the device: element i of the flattened input keeps where the murmur3
@@ -12,9 +12,12 @@ round((1 - p) * 2**24).  Out is, in the input's dtype,
   dropped NaN gives 0;
 - ``downgrade_in_infer``: x * mask, a multiply, so NaN * 0 stays NaN;
 
-and Mask is the keep mask in the input's dtype.  The gradient reads the
-saved Mask with PyTorch elementwise ops: where(mask, g / s, 0) and
-g * mask, bit for bit what autograd gives for the plain formula.
+and Mask is the keep mask in the input's dtype, written only where the
+caller asks for it (the op's lowering asks where something reads Mask).
+The gradient is the same formula over dOut: the backward keeps the 0-d
+seed, not Mask, and computes the keep bits again (``dropout_grad_kernel``
+on the card, ``dropout_grad_plain`` on the CPU), bit for bit what
+autograd gives for the plain formula.
 """
 
 import ctypes
@@ -33,8 +36,20 @@ common.register_kernel(
     replaces='none (the JAX dropout op draws jax.random.bernoulli inside '
              'the XLA step, paddle_tpu/ops/nn_ops.py:464-479: no Pallas '
              'kernel)',
-    doc='one pass: the counter hash, Out and Mask from 16-byte vectors of '
-        'X, the seed read from device memory',
+    doc='one pass over 16-byte vectors of X in one wave of blocks: the '
+        'counter hash, Out, and Mask only where it is read, the seed read '
+        'from device memory',
+    op_types=('dropout',))
+
+common.register_kernel(
+    'dropout_grad',
+    source=SOURCE,
+    plain='ops.kernels.dropout.dropout_grad_plain (hash_keep, then the '
+          'op\'s formula over dOut in PyTorch ops)',
+    replaces='none (the gradient of the JAX dropout op is XLA\'s, '
+             'paddle_tpu/ops/nn_ops.py:464-479: no Pallas kernel)',
+    doc='one pass over 16-byte vectors of dOut: the keep bits computed '
+        'again from the seed the forward saved, dX written',
     op_types=('dropout',))
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,22 +127,29 @@ def apply_keep(x, keep, rate, upscale):
     return out, mask
 
 
-def dropout_kernel(x, seed, rate, upscale):
-    """The CUDA kernel: x (f32 or bf16, copied first when it is not
-    contiguous) and the 0-d int64 seed on one CUDA device -> (Out, Mask),
-    bitwise equal to dropout_plain."""
+def _check(x, seed, what):
+    """Raise on what the kernels do not take: x f32 or bf16, and the 0-d
+    int64 seed on x's device."""
     if x.dtype not in _DTYPES:
-        raise TypeError('the dropout kernel takes f32 or bf16, got %s'
-                        % x.dtype)
+        raise TypeError('the dropout %s takes f32 or bf16, got %s'
+                        % (what, x.dtype))
     if seed.dim() != 0 or seed.dtype != torch.int64 or \
             seed.device != x.device:
         raise ValueError('seed must be a 0-d int64 tensor on %s, got %s %s '
                          'on %s' % (x.device, tuple(seed.shape), seed.dtype,
                                     seed.device))
+
+
+def dropout_kernel(x, seed, rate, upscale, write_mask=True):
+    """The forward kernel: x (f32 or bf16, copied first when it is not
+    contiguous) and the 0-d int64 seed on one CUDA device -> (Out, Mask),
+    bitwise equal to dropout_plain; Mask is None, and not written, unless
+    `write_mask`."""
+    _check(x, seed, 'kernel')
     n = _count(x.shape)
     x = x.contiguous()
     out = torch.empty_like(x)
-    mask = torch.empty_like(x)
+    mask = torch.empty_like(x) if write_mask else None
     lib = common.library(SOURCE)
     fn = lib.dropout_mask
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -136,7 +158,8 @@ def dropout_kernel(x, seed, rate, upscale):
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), mask.data_ptr(), n,
+        err = fn(x.data_ptr(), out.data_ptr(),
+                 None if mask is None else mask.data_ptr(), n,
                  _DTYPES[x.dtype], seed.data_ptr(), keep_threshold(rate),
                  max(1.0 - float(rate), 1e-8), int(bool(upscale)),
                  common.stream_ptr(x.device))
@@ -144,8 +167,32 @@ def dropout_kernel(x, seed, rate, upscale):
     return out, mask
 
 
+def dropout_grad_kernel(g, seed, rate, upscale):
+    """The gradient kernel: dOut `g` (f32 or bf16, copied first when it
+    is not contiguous) and the forward's 0-d int64 seed on one CUDA
+    device -> dX, the keep bits computed again; bitwise equal to
+    dropout_grad_plain."""
+    _check(g, seed, 'gradient kernel')
+    n = _count(g.shape)
+    g = g.contiguous()
+    dx = torch.empty_like(g)
+    lib = common.library(SOURCE)
+    fn = lib.dropout_grad
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(g.device):
+        err = fn(g.data_ptr(), dx.data_ptr(), n, _DTYPES[g.dtype],
+                 seed.data_ptr(), keep_threshold(rate),
+                 max(1.0 - float(rate), 1e-8), int(bool(upscale)),
+                 common.stream_ptr(g.device))
+    common.check_launch('dropout_grad', lib, err)
+    return dx
+
+
 def dropout_grad(g, mask, rate, upscale):
-    """The gradient of Out with respect to X from the saved Mask."""
+    """The gradient of Out with respect to X from the op's Mask."""
     if upscale:
         s = _scale(rate, g)
         return torch.where(mask != 0, (g.to(s.dtype) / s).to(g.dtype),
@@ -153,26 +200,45 @@ def dropout_grad(g, mask, rate, upscale):
     return g * mask
 
 
+def dropout_grad_plain(g, seed, rate, upscale):
+    """The gradient kernel's plain version and the CPU path: the keep
+    bits of `seed` (hash_keep), then dropout_grad's formula."""
+    keep = hash_keep(seed, g.shape, rate, g.device)
+    return dropout_grad(g, keep.to(g.dtype), rate, upscale)
+
+
 class _Dropout(torch.autograd.Function):
+    """The op's forward and gradient: the kernels for CUDA tensors, the
+    plain versions for CPU ones.  The backward keeps the 0-d seed, not
+    Mask."""
 
     @staticmethod
-    def forward(ctx, x, seed, rate, upscale):
+    def forward(ctx, x, seed, rate, upscale, write_mask):
         if common.use_kernel(x, seed):
-            out, mask = dropout_kernel(x, seed, rate, upscale)
+            out, mask = dropout_kernel(x, seed, rate, upscale, write_mask)
         else:
             out, mask = dropout_plain(x, seed, rate, upscale)
-        ctx.save_for_backward(mask)
+            if not write_mask:
+                mask = None
+        ctx.save_for_backward(seed)
         ctx.rate, ctx.upscale = rate, upscale
-        ctx.mark_non_differentiable(mask)
+        if mask is not None:
+            ctx.mark_non_differentiable(mask)
         return out, mask
 
     @staticmethod
     def backward(ctx, g, _):
-        mask, = ctx.saved_tensors
-        return dropout_grad(g, mask, ctx.rate, ctx.upscale), None, None, None
+        seed, = ctx.saved_tensors
+        if common.use_kernel(g, seed):
+            dx = dropout_grad_kernel(g, seed, ctx.rate, ctx.upscale)
+        else:
+            dx = dropout_grad_plain(g, seed, ctx.rate, ctx.upscale)
+        return dx, None, None, None, None
 
 
-def dropout(x, seed, rate, upscale):
+def dropout(x, seed, rate, upscale, write_mask=True):
     """(Out, Mask) of the dropout op in training, differentiable in x:
-    the kernel for a CUDA tensor, the plain version for a CPU one."""
-    return _Dropout.apply(x, seed, float(rate), bool(upscale))
+    the kernels for a CUDA tensor, the plain versions for a CPU one.
+    Mask is None unless `write_mask`."""
+    return _Dropout.apply(x, seed, float(rate), bool(upscale),
+                          bool(write_mask))

@@ -352,20 +352,26 @@ def dropout(ctx, ins, attrs):
     parallel) and read from the device (``LowerCtx.dropout_op_seed``),
     so a replay of the op (its grad op) and a replayed CUDA graph draw
     the same mask as the eager step, and ranks draw different ones; it
-    does not reproduce the JAX package's threefry bits.  On the card
-    Out and Mask come from one kernel (csrc/dropout_mask.cu), and the
-    gradient from the saved Mask (``kernels.dropout._Dropout``)."""
+    does not reproduce the JAX package's threefry bits.  On the card Out
+    comes from one kernel (csrc/dropout_mask.cu), which writes Mask too
+    where something reads it (``LowerCtx.writes``: a fetch, a later op,
+    a persistable Mask); otherwise the result has no Mask, as XLA never
+    materialises an unread output.  The gradient computes the keep bits
+    again from the seed (``kernels.dropout._Dropout``)."""
     x = ins['X'][0]
     p = attrs.get('dropout_prob', 0.5)
     impl = attrs.get('dropout_implementation', 'downgrade_in_infer')
+    write_mask = ctx.writes('Mask')
     if attrs.get('is_test', False):
         out = x if impl == 'upscale_in_train' else x * (1.0 - p)
-        return {'Out': [out], 'Mask': [torch.ones_like(x)]}
-    if x.device.type == 'meta':
-        return {'Out': [torch.empty_like(x)], 'Mask': [torch.empty_like(x)]}
-    out, mask = dropout_k.dropout(x, ctx.dropout_op_seed(), p,
-                                  impl == 'upscale_in_train')
-    return {'Out': [out], 'Mask': [mask]}
+        mask = torch.ones_like(x) if write_mask else None
+    elif x.device.type == 'meta':
+        out = torch.empty_like(x)
+        mask = torch.empty_like(x) if write_mask else None
+    else:
+        out, mask = dropout_k.dropout(x, ctx.dropout_op_seed(), p,
+                                      impl == 'upscale_in_train', write_mask)
+    return {'Out': [out]} if mask is None else {'Out': [out], 'Mask': [mask]}
 
 
 @register('softmax_with_cross_entropy')

@@ -13,6 +13,8 @@ synthesized from the forward lowering by torch.autograd
 (``grad_op_def``), with the JAX package's slot convention.
 """
 
+import copy
+
 import numpy as np
 import torch
 
@@ -85,11 +87,18 @@ class LowerCtx(object):
     ``rng()``, an explicit ``torch.Generator`` seeded from the
     program's ``random_seed``, the op's seed and the step; neither
     reproduces the JAX package's threefry bits.
+
+    ``unread`` names the op's output slots that nothing reads (no later
+    op, no fetch, not persistable: the executor's run plan says so), which
+    the lowering may leave out of its result (``writes``); by default
+    every slot is written.
     """
 
     def __init__(self, step, op_seed=0, prefer_test=False, device=None,
-                 random_seed=0, group=None, replica=None, step_mix=None):
+                 random_seed=0, group=None, replica=None, step_mix=None,
+                 unread=frozenset()):
         self.step = step
+        self.unread = frozenset(unread)
         self.group = group
         self.replica = replica
         self.op_seed = int(op_seed)
@@ -98,6 +107,17 @@ class LowerCtx(object):
         self.random_seed = int(random_seed)
         # c -> mul32(device step, c), or None: made from the host step
         self._step_mix = step_mix
+
+    def writes(self, slot):
+        """Whether the op's output slot `slot` is read after it."""
+        return slot not in self.unread
+
+    def leaving_out(self, slots):
+        """A copy of this context whose op leaves out the output `slots`
+        too."""
+        ctx = copy.copy(self)
+        ctx.unread = self.unread | frozenset(slots)
+        return ctx
 
     @property
     def mode(self):
@@ -289,9 +309,11 @@ def grad_op_def(fwd):
     The forward is replayed with the same context (op seed and step),
     so a stochastic op draws the same mask; a forward that runs its own
     autograd.Function (flash attention, the embedding gather) takes
-    that Function's backward kernels."""
+    that Function's backward kernels.  The replay leaves out the output
+    slots that carry no gradient (dropout's Mask): nothing reads them."""
 
     def fn(ctx, ins, attrs):
+        ctx = ctx.leaving_out(fwd.no_grad_out_slots)
         primal_slots = sorted(s for s in ins if not s.startswith("GRAD::"))
         with torch.enable_grad():
             primals = {s: [v.detach().requires_grad_()

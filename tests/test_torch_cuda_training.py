@@ -177,5 +177,6 @@ def test_small_training_step_launches_every_kernel(dev):
         'embedding_lookup': 3, 'embedding_scatter_add': 3, 'fused_adam': 1,
         'embedding_update': 0, 'fused_lamb': 0, 'quant_quantize': 0,
         'quant_reduce': 0,
-        # the 2 layers' 2 hidden dropouts and the embeddings' one
-        'dropout': 5}
+        # the 2 layers' 2 hidden dropouts and the embeddings' one, forward
+        # and gradient
+        'dropout': 5, 'dropout_grad': 5}

@@ -79,7 +79,8 @@ def test_kernel_registry_and_report():
     assert set(info) == {'embedding_lookup', 'embedding_scatter_add',
                          'embedding_update', 'flash_attention',
                          'flash_attention_bwd', 'fused_adam', 'fused_lamb',
-                         'quant_quantize', 'quant_reduce', 'dropout'}
+                         'quant_quantize', 'quant_reduce', 'dropout',
+                         'dropout_grad'}
     assert info['embedding_lookup']['op_types'] == ('lookup_table',
                                                     'lookup_table_v2')
     assert info['embedding_scatter_add']['replaces'].startswith(
