@@ -674,11 +674,6 @@ def fwd_rate(q, k, v, causal=False, key_bias=None, dropout_rate=0.0,
     return dropout_rate
 
 
-def writes_mask(seed, rate, upscale, write_mask=True):
-    """Whether a dropout_kernel call (after its x) writes Mask."""
-    return write_mask
-
-
 # rows of the kernels line that count one kernel's launches on some of
 # its calls: row -> (the kernel's wrapper, pick(its arguments)).  A
 # kernel's own row counts its other launches.
@@ -714,13 +709,16 @@ SUB_ROWS = {
     # that fetches it), in f32 and bf16
     'dropout[bf16]': (
         (drop_k, 'dropout_kernel'),
-        lambda x, *a: x.dtype == torch.bfloat16 and writes_mask(*a)),
+        lambda x, seed, rate, upscale, write_mask=True:
+            x.dtype == torch.bfloat16 and write_mask),
     'dropout[no mask]': (
         (drop_k, 'dropout_kernel'),
-        lambda x, *a: x.dtype == torch.float32 and not writes_mask(*a)),
+        lambda x, seed, rate, upscale, write_mask=True:
+            x.dtype == torch.float32 and not write_mask),
     'dropout[bf16,no mask]': (
         (drop_k, 'dropout_kernel'),
-        lambda x, *a: x.dtype == torch.bfloat16 and not writes_mask(*a)),
+        lambda x, seed, rate, upscale, write_mask=True:
+            x.dtype == torch.bfloat16 and not write_mask),
     # the dropout op's gradient on bf16 activations
     'dropout_grad[bf16]': (
         (drop_k, 'dropout_grad_kernel'),
@@ -3046,10 +3044,15 @@ def dropout_extra(timer, gen, dev, seed, x, g, keep):
     wave = {}
     for dt in (torch.float32, torch.bfloat16):
         blocks = ctypes.c_int(0)
-        lib.dropout_wave(drop_k._DTYPES[dt], ctypes.byref(blocks))
+        common.check_launch('dropout_wave', lib, lib.dropout_wave(
+            drop_k._DTYPES[dt], ctypes.byref(blocks)), count=False)
         wave[dt] = blocks.value
-    empty = {blocks: timer.ms(lambda: lib.dropout_empty(
-        blocks, common.stream_ptr(dev))) for blocks in {1, *wave.values()}}
+
+    def empty_launch(blocks):
+        common.check_launch('dropout_empty', lib, lib.dropout_empty(
+            blocks, common.stream_ptr(dev)), count=False)
+    empty = {blocks: timer.ms(lambda: empty_launch(blocks))
+             for blocks in {1, *wave.values()}}
     log('  %-28s cold L2: %s (the timer\'s floor: a launch that does '
         'nothing)' % ('empty kernel', ', '.join(
             '%.4f ms on %d blocks' % (ms, b) for b, ms in sorted(

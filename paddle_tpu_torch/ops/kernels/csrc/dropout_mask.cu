@@ -38,12 +38,9 @@
 // elements) a step; the seed is read by every thread beside its first
 // load.  A tensor whose pointers are not all 16-byte aligned, and the
 // last n % vector elements, go element by element in the same launch.
-// The DROPOUT_* macros build the alternatives that
-// tools/torch_dropout_tune.py times beside these choices (PERF.md): the
-// f32 division (DROPOUT_FDIV), several vectors in flight a thread
-// (DROPOUT_UNROLL), the first design's fixed grid (DROPOUT_FIXED_GRID),
-// the seed read once a block (DROPOUT_SEED_SHARED) and evict-first Mask
-// stores (DROPOUT_MASK_EVICT_FIRST); none of them was faster.
+// The f32 division, several vectors in flight a thread, a fixed grid,
+// the seed read once a block and evict-first Mask stores were each timed
+// beside these choices and none was faster (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,14 +48,9 @@
 
 #include "dropout_hash.cuh"
 
-#ifndef DROPOUT_UNROLL
-#define DROPOUT_UNROLL 1
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = DROPOUT_UNROLL;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -83,12 +75,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 // another payload than the division's: f32 outputs take the division's
 // NaN from nan_quotients().  Three conversion and f64 instructions in
 // place of the division's sequence and its branch to a slow path.
-__device__ __forceinline__ float quotient(float v, float scale, double rd) {
-#ifdef DROPOUT_FDIV
-  return __fdiv_rn(v, scale);
-#else
+__device__ __forceinline__ float quotient(float v, double rd) {
   return __double2float_rn(__dmul_rn((double)v, rd));
-#endif
 }
 
 // For f32 elements: where a kept element of xe[0..count) is NaN, the
@@ -100,7 +88,6 @@ __device__ __forceinline__ void nan_quotients(const T* xe, T* oe, int count,
                                               uint32_t seed, uint32_t i0,
                                               uint32_t threshold,
                                               float scale) {
-#ifndef DROPOUT_FDIV
   if (sizeof(T) != 4) return;
   bool nan = false;
 #pragma unroll
@@ -109,37 +96,14 @@ __device__ __forceinline__ void nan_quotients(const T* xe, T* oe, int count,
   for (int j = 0; j < count; ++j)
     if (isnan(to_f(xe[j])) && dropout_op_keep(seed, i0 + j, threshold))
       oe[j] = from_f<T>(__fdiv_rn(to_f(xe[j]), scale));
-#endif
 }
 
 // The op's formula for one element: keep ? v / scale : 0 (upscale) or
 // v * (keep ? 1 : 0).
-__device__ __forceinline__ float apply(float v, bool keep, float scale,
-                                       double rd, bool upscale) {
-  if (upscale) return keep ? quotient(v, scale, rd) : 0.0f;
+__device__ __forceinline__ float apply(float v, bool keep, double rd,
+                                       bool upscale) {
+  if (upscale) return keep ? quotient(v, rd) : 0.0f;
   return __fmul_rn(v, keep ? 1.0f : 0.0f);
-}
-
-__device__ __forceinline__ uint32_t load_seed(const long long* seed_ptr) {
-#ifdef DROPOUT_SEED_SHARED
-  // one load a block, handed to the threads through shared memory
-  __shared__ uint32_t s_seed;
-  if (threadIdx.x == 0) s_seed = (uint32_t)(unsigned long long)(*seed_ptr);
-  __syncthreads();
-  return s_seed;
-#else
-  // every thread's own load: the warp's lanes share one transaction,
-  // and no thread waits on a barrier before its first vector loads
-  return (uint32_t)(unsigned long long)__ldg(seed_ptr);
-#endif
-}
-
-__device__ __forceinline__ void store_mask(uint4* p, uint4 v) {
-#ifdef DROPOUT_MASK_EVICT_FIRST
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
 }
 
 // y = the formula of src (X or dOut) with the element's keep bit, in
@@ -157,38 +121,30 @@ dropout_pass(const T* __restrict__ src, T* __restrict__ y,
   const uint4* src4 = reinterpret_cast<const uint4*>(src);
   uint4* y4 = reinterpret_cast<uint4*>(y);
   uint4* mask4 = reinterpret_cast<uint4*>(mask);
-  const uint32_t seed = load_seed(seed_ptr);
+  // every thread's own load: the warp's lanes share one transaction,
+  // and no thread waits on a barrier before its first vector loads
+  const uint32_t seed = (uint32_t)(unsigned long long)__ldg(seed_ptr);
   const double rd = 1.0 / (double)scale;
-  for (long long v0 = tid; v0 < nvec; v0 += kUnroll * stride) {
-    uint4 in[kUnroll];
+  for (long long v = tid; v < nvec; v += stride) {
+    const uint4 in = __ldg(src4 + v);
+    uint4 o, m;
+    const T* xe = reinterpret_cast<const T*>(&in);
+    T* oe = reinterpret_cast<T*>(&o);
+    T* me = reinterpret_cast<T*>(&m);
+    const uint32_t i0 = (uint32_t)(v * kVec);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long v = v0 + u * stride;
-      if (v < nvec) in[u] = __ldg(src4 + v);
+    for (int j = 0; j < kVec; ++j) {
+      const bool keep = dropout_op_keep(seed, i0 + j, threshold);
+      oe[j] = from_f<T>(apply(to_f(xe[j]), keep, rd, up));
+      if (kMask) me[j] = from_f<T>(keep ? 1.0f : 0.0f);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long v = v0 + u * stride;
-      if (v >= nvec) break;
-      uint4 o, m;
-      const T* xe = reinterpret_cast<const T*>(&in[u]);
-      T* oe = reinterpret_cast<T*>(&o);
-      T* me = reinterpret_cast<T*>(&m);
-      const uint32_t i0 = (uint32_t)(v * kVec);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const bool keep = dropout_op_keep(seed, i0 + j, threshold);
-        oe[j] = from_f<T>(apply(to_f(xe[j]), keep, scale, rd, up));
-        if (kMask) me[j] = from_f<T>(keep ? 1.0f : 0.0f);
-      }
-      if (up) nan_quotients(xe, oe, kVec, seed, i0, threshold, scale);
-      y4[v] = o;
-      if (kMask) store_mask(mask4 + v, m);
-    }
+    if (up) nan_quotients(xe, oe, kVec, seed, i0, threshold, scale);
+    y4[v] = o;
+    if (kMask) mask4[v] = m;
   }
   for (long long i = nvec * kVec + tid; i < n; i += stride) {
     const bool keep = dropout_op_keep(seed, (uint32_t)i, threshold);
-    y[i] = from_f<T>(apply(to_f(src[i]), keep, scale, rd, up));
+    y[i] = from_f<T>(apply(to_f(src[i]), keep, rd, up));
     if (up) nan_quotients(src + i, y + i, 1, seed, (uint32_t)i, threshold,
                           scale);
     if (kMask) mask[i] = from_f<T>(keep ? 1.0f : 0.0f);
@@ -214,9 +170,6 @@ cudaError_t wave(int* blocks) {
       &per_sm, dropout_pass<T, kMask>, kThreads, 0);
   if (err != cudaSuccess) return err;
   *blocks = sms * (per_sm > 0 ? per_sm : 1);
-#ifdef DROPOUT_FIXED_GRID
-  *blocks = 132 * 16;  // the first design's cap
-#endif
   if (dev < 64) cached[dev] = *blocks;
   return cudaSuccess;
 }
@@ -290,7 +243,7 @@ extern "C" int dropout_grad(const void* g, void* dx, long long n, int dtype,
 
 // An empty kernel on `blocks` blocks of 256 threads: what a launch and
 // its timer cost with no work, for the measurements beside the kernels
-// (chip_smoke.py phase 8, tools/torch_dropout_tune.py).
+// (chip_smoke.py phase 8).
 extern "C" int dropout_empty(int blocks, void* stream) {
   empty_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
