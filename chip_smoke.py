@@ -356,6 +356,35 @@ Phases, each of which fails the run (non-zero exit) on error:
      uninterrupted steps 4-5, and loaded into the running scope with no
      new capture (its graph replays steps 4-5 bitwise again); the
      step time both ways and the loader's next() per step.
+ 15. control flow and RNN sequences: an LSTM seq2seq at the widths of
+     PaddleNLP's seq2seq example for IWSLT'15 en-vi without attention
+     (models.seq2seq.BASE: 2 LSTM layers, hidden and embeddings 512,
+     vocabularies 17,191 and 7,709, dropout 0.2 between the encoder's
+     layers) with Adam(1e-3) and GradientClipByGlobalNorm(5.0), batch
+     128 of 50 + 50 tokens with lengths from --seed and Zipf-drawn ids
+     (models.seq2seq.zipf_ids: eos is not the most frequent token, so
+     the trained model's beams do not all end at once): the encoder's two
+     masked dynamic_lstm, the decoder teacher-forced through a
+     layers.While(max_trip_count=51) over two LSTMCells (bounded and
+     masked: no host read).  3 steps through Executor.run as every
+     training phase runs them, each launching embedding_lookup and
+     embedding_scatter_add twice, fused_adam, dropout and dropout_grad
+     once; the loss falls below the held run's; step 1 again with the
+     plain versions bitwise (loss and whole state); the replays'
+     median, a profiled step's device time, peak memory and target
+     tokens/s; plan_cache_steps (uncached, cached eager and replayed
+     bitwise, one capture with the While inside).  Then, from the
+     trained scope, BeamSearchDecoder + dynamic_decode at beam 10 and
+     50 steps (no while: captured, its replays bitwise the plain path,
+     51 embedding_lookup launches a run) and the book's decode, a
+     forward-only While over layers.beam_search, array_write and
+     gather_tree that stops when every beam has ended or at 50 steps
+     (refused capture with the reason its plan names, run eagerly,
+     bitwise the plain path, 1 + trips embedding_lookup launches), each
+     with its live steps (the While's trips; the last step at which
+     dynamic_decode's ids hold a beam that has not ended), which must
+     reach S2S_MIN_LIVE, its ms a batch and a profiled run's device
+     time.
 The line before the last is a JSON object {"kernels": [...]}.  Each
 row's "launches" are those the wrappers made on the main path (every
 counted step and request: the counters set to 0 just before each and
@@ -413,6 +442,7 @@ from paddle_tpu_torch.models import bert
 from paddle_tpu_torch.models import lenet
 from paddle_tpu_torch.models import resnet
 from paddle_tpu_torch.models import se_resnext
+from paddle_tpu_torch.models import seq2seq
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.models import wide_deep
 from paddle_tpu_torch.models import word2vec
@@ -547,6 +577,15 @@ NMT_LEN = 64
 NMT_BUCKET = 32
 NMT_LR = 1e-4
 NMT_ROWS = 10000
+S2S_BATCH = 128  # PaddleNLP seq2seq (IWSLT'15 en-vi): batch, max length,
+S2S_LEN = 50     # Adam's rate and the global-norm clip
+S2S_LR = 1e-3
+S2S_CLIP = 5.0
+S2S_DECODE_RUNS = 3
+# each decode must keep a beam live for this many of its 50 steps (a
+# decode whose beams all end at once checks beam_search's selection on
+# frozen beams only)
+S2S_MIN_LIVE = 50
 # phase 8's crossover of the naive chain and K1 + K2 on BERT-base's
 # attention: 4096 tokens at each length
 CROSSOVER_SEQS = (128, 256, 512)
@@ -5369,6 +5408,142 @@ def data_plane(seed, dev):
     return ctr, bert_ms
 
 
+# ----------------------------------------------------------- phase 15
+def seq2seq_path(seed):
+    """The LSTM seq2seq's training step (models.seq2seq.build_train at
+    BASE widths) with Adam and the global-norm clip: the path dict that
+    train() runs.  Every kernel on it is bitwise its plain version, so
+    the whole step is (bitwise)."""
+    cfg = seq2seq.BASE
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        loss = seq2seq.build_train(fluid, cfg, S2S_BATCH, S2S_LEN, S2S_LEN)
+        fluid.optimizer.Adam(
+            learning_rate=S2S_LR,
+            grad_clip=fluid.clip.GradientClipByGlobalNorm(S2S_CLIP)
+        ).minimize(loss)
+    batch = seq2seq.synthetic_batch(cfg, S2S_BATCH, S2S_LEN, S2S_LEN,
+                                    np.random.RandomState(seed))
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update({'embedding_lookup': 2, 'embedding_scatter_add': 2,
+                     'fused_adam': 1, **dropout_launches(main)})
+    return {'name': 'LSTM seq2seq Adam', 'main': main, 'startup': startup,
+            'loss': loss, 'lr': None, 'batch': batch, 'expected': expected,
+            'probe': ['src_emb', 'tgt_emb', 'dec_l0_w', 'out_w'],
+            'tokens': int(batch['tgt_len'].sum()), 'unit': 'target tokens',
+            'rate': S2S_LR, 'bitwise': True}
+
+
+def decode_program(seed, build):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        outs = build(fluid, seq2seq.BASE, S2S_BATCH, S2S_LEN)
+    return main, [v.name for v in outs]
+
+
+def live_steps(ids):
+    """1 + the last step (axis 1 of dynamic_decode's ids [B * beam,
+    T]) at which some beam's id is not eos, 0 when none is."""
+    live = np.flatnonzero((ids != seq2seq.BASE.eos).any(0))
+    return int(live[-1]) + 1 if live.size else 0
+
+
+def seq2seq_decode(run, seed, label, build, graphed):
+    """A decode program on the trained scope: once with the plain
+    versions (eagerly), then S2S_DECODE_RUNS times through Executor.run
+    (counted; a program that may be captured runs its first run eager,
+    the second captured with one replay, the rest replayed), each run's
+    fetches bitwise the plain run's and its launches exact.  `graphed`
+    says whether the plan may be captured; a plan that may not must
+    name why.  The decode must keep a beam live for S2S_MIN_LIVE steps:
+    the While's trips, dynamic_decode's ``live_steps``.  Returns the ms
+    of each counted run (host clock, fetches to numpy) and a profiled
+    run's device ms."""
+    main, fetch = decode_program(seed, build)
+    exe, scope = run['exe'], run['scope']
+    feed = {k: run['path']['batch'][k] for k in ('src', 'src_len')}
+    with fluid.scope_guard(scope):
+        flags.set_flags({'FLAGS_torch_kernels_plain': True})
+        try:
+            plain = without_counting(lambda: eager_run(exe, main, feed,
+                                                       fetch))
+        finally:
+            flags.set_flags({'FLAGS_torch_kernels_plain': False})
+        plan = exe._get_plan(main, feed, fetch)
+        why = plan.no_graph
+        if graphed != (why is None):
+            raise AssertionError('%s: capture refusal %r' % (label, why))
+        steps = int(np.asarray(plain[-1]).ravel()[0]) if not graphed \
+            else S2S_LEN
+        live = live_steps(np.asarray(plain[0])) if graphed else steps
+        if live < S2S_MIN_LIVE:
+            raise AssertionError(
+                '%s: a beam stays live for %d of its %d steps, fewer than '
+                '%d' % (label, live, S2S_LEN, S2S_MIN_LIVE))
+        expected = {k: 0 for k in common.KERNELS}
+        expected['embedding_lookup'] = 1 + steps
+        secs = []
+        for i in range(S2S_DECODE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: exe.run(main, feed=feed,
+                                                  fetch_list=fetch))
+            secs.append(time.perf_counter() - t0)
+            differ = [n for n, a, b in zip(fetch, out, plain)
+                      if not np.array_equal(a, b)]
+            if counts != expected or differ:
+                raise AssertionError(
+                    '%s run %d launched %s (expected %s); differs from '
+                    'the plain path in %s' % (label, i + 1, counts,
+                                              expected, differ))
+        events = without_counting(lambda: profile_run(
+            label, lambda: exe.run(main, feed=feed, fetch_list=fetch),
+            quiet=True))
+    ids = np.asarray(out[0])
+    if not ((ids >= 0) & (ids < seq2seq.BASE.tgt_vocab)).all():
+        raise AssertionError('%s: ids out of the vocabulary' % label)
+    log('  %s (%d ops, %d steps, a beam live for %d): ids %s, scores '
+        'finite %s; bitwise the plain path on %d runs, launches %s a run; '
+        '%s; ms a batch of %d at %d steps %s, a profiled run\'s device '
+        '%.2f ms' % (
+            label, sum(len(b.ops) for b in main.blocks), steps, live,
+            tuple(ids.shape), bool(np.isfinite(np.asarray(out[3 if not
+                                                         graphed else 1])
+                                              ).all()),
+            S2S_DECODE_RUNS, {k: c for k, c in expected.items() if c},
+            'captured and replayed' if graphed else
+            'eager, capture refused: %s' % why, S2S_BATCH, steps,
+            ['%.2f' % (x * 1e3) for x in secs], device_ms(events)))
+    return secs, device_ms(events)
+
+
+def seq2seq_phase(seed):
+    """Phase 15: the LSTM seq2seq trained through its bounded While and
+    decoded both ways."""
+    log('[15] LSTM seq2seq training steps on CUDAPlace(0) (%s | %s)' % (
+        torch.cuda.get_device_name(0), card_line()))
+    path = seq2seq_path(seed)
+    log('  %d ops in the While\'s sub-block, batch %d, %d + %d tokens '
+        '(%d target tokens)' % (
+            len(path['main'].blocks[1].ops), S2S_BATCH, S2S_LEN, S2S_LEN,
+            path['tokens']))
+    run = train(path)
+    med = without_counting(lambda: train_step_ms(run))
+    dev_ms = without_counting(lambda: profile_train(run))
+    log('  step: median %.2f ms (replays), device %.2f ms, peak %.2f GiB, '
+        '%.0f target tokens/s' % (med, dev_ms, run['peak'] / 2 ** 30,
+                                  path['tokens'] / med * 1e3))
+    without_counting(lambda: plan_cache_steps(run))
+    seq2seq_decode(run, seed, 'BeamSearchDecoder + dynamic_decode',
+                   seq2seq.build_beam_decode, True)
+    seq2seq_decode(run, seed, 'While + beam_search + gather_tree',
+                   seq2seq.build_while_decode, False)
+    del run
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -5507,6 +5682,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     data_plane(args.seed, dev)
     log('  phase 14: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    seq2seq_phase(args.seed)
+    log('  phase 15: %.1f s' % (time.perf_counter() - t0))
     # each row's launches at the wrappers and replayed from CUDA graphs'
     # manifests on the main path, as counted() read them in this
     # process; the data-parallel rows, as the ranks of phases 9 and 12

@@ -13,8 +13,17 @@ like the JAX package's: the same grad op types, @GRAD names and roles.
 By default the executor does not run the grad ops one by one: it takes
 one autograd pass over the forward region (executor._wpg_partition).
 
-Control-flow backward (while / conditional_block) and recompute
-checkpoints are not ported yet.
+A while or conditional_block op gets one grad op (while_grad,
+conditional_block_grad; ``_control_flow_backward``, the JAX package's
+fluid/backward.py:341): the forward op saves the entry values of its
+loop state (the Entry slot), and gradients reach those entries and the
+values the sub-block only reads (its closure: weights used in the
+body).  The executor's whole-program grad differentiates through the
+loop as it ran (a bounded, masked loop while it carries gradients);
+on the per-op grad path the grad op runs that loop again from the
+saved entries under autograd.
+
+Recompute checkpoints are not ported yet.
 """
 
 from collections import defaultdict
@@ -94,9 +103,6 @@ def _append_backward_impl(loss, program, block, parameter_list,
         return target
 
     for op in reversed(block.ops[:loss_idx + 1]):
-        if op.type in ('while', 'conditional_block'):
-            raise NotImplementedError('the backward of %s is not ported '
-                                      'yet' % op.type)
         _op_backward(block, op, contribs, resolve_grad, no_grad_set)
 
     # resolve every accumulated grad and publish the name map so callers
@@ -128,6 +134,24 @@ def _append_backward_impl(loss, program, block, parameter_list,
 
 
 def _op_backward(block, op, contribs, resolve_grad, no_grad_set):
+    if op.type in ('while', 'conditional_block'):
+        # does the loop or branch need a gradient?  Its declared outputs
+        # may be empty, so the sub-blocks' writes count too
+        out_names = set(op.output_arg_names)
+
+        def _collect(sub_idx, seen):
+            if sub_idx is None or sub_idx in seen:
+                return
+            seen.add(sub_idx)
+            for sop in block.program.blocks[sub_idx].ops:
+                out_names.update(sop.output_arg_names)
+                _collect(sop.attrs.get('sub_block'), seen)
+
+        _collect(op.attrs.get('sub_block'), set())
+        if any(contribs.get(n) for n in out_names):
+            return _control_flow_backward(block, op, contribs,
+                                          resolve_grad, no_grad_set)
+        return False
     from ..ops import registry
     if op.type in registry.HOST_OPS:
         return False
@@ -182,4 +206,115 @@ def _op_backward(block, op, contribs, resolve_grad, no_grad_set):
     attrs['__op_role__'] = 'backward'
     block.append_op(op.type + '_grad', inputs=grad_inputs,
                     outputs=grad_outputs, attrs=attrs, infer_shape=False)
+    return True
+
+
+def _new_grad_var(block, n, v):
+    """A stop_gradient variable unique_name'd after n, shaped like the
+    variable v."""
+    gv = block.create_var(name=unique_name.generate(n),
+                          shape=v.shape if v else (),
+                          dtype=v.dtype if v else 'float32')
+    gv.stop_gradient = True
+    return gv.name
+
+
+def _control_flow_backward(block, op, contribs, resolve_grad, no_grad_set):
+    """Differentiate a while / conditional_block op (the reference's
+    WhileGradOp and ConditionalBlockGradOp, operators/controlflow/
+    while_op.cc and conditional_block_op.cc, replay saved step scopes).
+
+    The forward op re-declares its loop state (carry) as the Entry slot
+    and, marked __needs_grad__, saves the carry's values before it
+    there; a while then runs bounded and masked (max_trip_count trips,
+    or a power of two its executor counts when unbounded: the
+    auto-bucket).  The grad op maps the cotangents of the float
+    carries after the op to the gradients of their entries (GRAD::Entry)
+    and of the closure reads (GRAD::X): the differentiable inputs the
+    sub-block only reads."""
+    is_while = op.type == 'while'
+    if is_while and int(op.attrs.get('max_trip_count') or 0) <= 0:
+        # no bound: the executor counts the trips on the host before the
+        # loop and runs it at the next power of two (every op of the
+        # group, the forward while and its grad)
+        op.attrs['__auto_bucket__'] = True
+        op.attrs['__bucket_group__'] = unique_name.generate('while_bucket')
+    carry_names = list(op.output('Out'))
+    cond_slot = 'Condition' if is_while else 'Cond'
+    cond_name = op.input(cond_slot)[0]
+    if is_while and cond_name not in carry_names:
+        carry_names.append(cond_name)
+
+    float_carries = []
+    for n in carry_names:
+        v = block._find_var_recursive(n)
+        if v is not None and _is_float_dtype(v.dtype):
+            float_carries.append(n)
+
+    # the cotangents of the float carries after the op; the producers
+    # before the op get the entry gradients appended below instead
+    cot_row = []
+    for n in float_carries:
+        g = resolve_grad(n)
+        if g is None:
+            v = block._find_var_recursive(n)
+            z = block.create_var(name=unique_name.generate(n + '@ZERO'),
+                                 shape=v.shape, dtype=v.dtype)
+            z.stop_gradient = True
+            block.append_op('fill_zeros_like', inputs={'X': n},
+                            outputs={'Out': z}, infer_shape=False)
+            g = z.name
+        cot_row.append(g)
+        contribs[n] = []
+
+    # the entry variables, which the forward op's lowering fills with the
+    # carry's values before it (__needs_grad__)
+    entry_row = [_new_grad_var(block, n + '@CF_ENTRY',
+                               block._find_var_recursive(n))
+                 for n in carry_names]
+    op.attrs['__needs_grad__'] = True
+    op.attrs['__carry_names__'] = list(carry_names)
+    op.attrs['__entry_names__'] = list(entry_row)
+    op.outputs['Entry'] = list(entry_row)
+
+    # closure reads: declared X values the sub-block only reads, the same
+    # after the op, so read by name
+    closure = []
+    for n in op.input('X'):
+        if n in carry_names or n in closure:
+            continue
+        v = block._find_var_recursive(n)
+        if v is not None and _creates_grad(v) and n not in no_grad_set:
+            closure.append(n)
+
+    entry_grad_row = []
+    for n in float_carries:
+        v = block._find_var_recursive(n)
+        gname = _new_grad_var(block, grad_var_name(n), v)
+        entry_grad_row.append(gname)
+        if _creates_grad(v) and n not in no_grad_set:
+            contribs[n].append(gname)
+    closure_grad_row = []
+    for n in closure:
+        gname = _new_grad_var(block, grad_var_name(n),
+                              block._find_var_recursive(n))
+        closure_grad_row.append(gname)
+        contribs[n].append(gname)
+
+    grad_inputs = {'X': list(op.input('X')), cond_slot: [cond_name],
+                   'Entry': list(entry_row), 'GRAD::Out': cot_row}
+    attrs = {'sub_block': op.attrs['sub_block'],
+             '__carry_names__': list(carry_names),
+             '__float_carries__': list(float_carries),
+             '__closure_names__': list(closure),
+             '__op_role__': 'backward'}
+    if is_while:
+        if op.attrs.get('__auto_bucket__'):
+            attrs['__bucket_group__'] = op.attrs['__bucket_group__']
+        else:
+            attrs['max_trip_count'] = int(op.attrs['max_trip_count'])
+    block.append_op(op.type + '_grad', inputs=grad_inputs,
+                    outputs={'GRAD::Entry': entry_grad_row,
+                             'GRAD::X': closure_grad_row},
+                    attrs=attrs, infer_shape=False)
     return True

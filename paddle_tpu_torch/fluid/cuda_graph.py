@@ -98,9 +98,10 @@ def _graphs(plan, scope):
 def _scope_reads(plan):
     """The names the plan's ops read before any op writes them."""
     if plan.scope_reads is None:
+        from .executor import _op_reads
         written, reads = set(), {}
         for op in plan.ops:
-            reads.update((n, None) for n in op.input_arg_names
+            reads.update((n, None) for n in _op_reads(op)
                          if n not in written)
             written.update(op.output_arg_names)
         plan.scope_reads = tuple(reads)

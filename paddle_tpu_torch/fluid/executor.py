@@ -32,6 +32,14 @@ between the gradients and the optimizer (the whole-program grad's
 shard of the batch and keeps its own step counter, so the dropout
 masks are keyed alike on every rank.
 
+A while or conditional_block op runs its sub-block here
+(``_control_flow``; JAX: fluid/executor.py:553-768): a forward-only
+while reads its condition on the host before each trip, one that
+carries gradients (``__needs_grad__``) runs ``max_trip_count`` masked
+trips with no host read, which the whole-program grad differentiates as
+they ran, and a conditional_block reads its condition on the host.  A
+plan holding a host read is never captured (``_host_control``).
+
 A ``CompiledProgram`` made ``with_data_parallel`` goes to
 fluid/parallel_executor.py, which runs the program here as one
 ``Replica`` of the process group (``_run_program``): the lowering
@@ -103,6 +111,7 @@ passes and a non-finite fetched loss raises.
 :267).
 """
 
+import collections
 import weakref
 
 import numpy as np
@@ -116,13 +125,38 @@ from .flags import get_flag
 from ..ops import registry
 
 
+# the ops whose lowering runs a sub-block (Executor._control_flow)
+_CONTROL_FLOW = ('while', 'conditional_block', 'while_grad',
+                 'conditional_block_grad')
+
+
+def _op_reads(op):
+    """The names an op reads: its inputs, and for a while or a
+    conditional_block also its loop state (Out), whose values before
+    the op it starts from even where the sub-block only writes them."""
+    if op.type in ('while', 'conditional_block'):
+        return list(op.input_arg_names) + list(op.output('Out'))
+    return op.input_arg_names
+
+
+def _with_sub_blocks(ops):
+    """`ops` and, after each control-flow op, the ops of its sub-block
+    (recursively)."""
+    for op in ops:
+        yield op
+        sub = op.attrs.get('sub_block')
+        if op.type in _CONTROL_FLOW and isinstance(sub, int):
+            for inner in _with_sub_blocks(op.block.program.blocks[sub].ops):
+                yield inner
+
+
 def _drop_plan(ops, keep):
     """For each op index, the env names nobody reads after it: values
     are released after their last reader, or right after their writer
     when no op reads them.  Names in `keep` (fetches) stay."""
     last = {}
     for i, op in enumerate(ops):
-        for n in op.input_arg_names:
+        for n in _op_reads(op):
             last[n] = i
     drops = [[] for _ in ops]
     for i, op in enumerate(ops):
@@ -359,8 +393,9 @@ def _defer_readonly_host_ops(ops):
 
 
 def _host_ops(ops):
-    """The types of the host ops the executor runs among `ops`."""
-    return sorted(set(op.type for op in ops
+    """The types of the host ops the executor runs among `ops` and their
+    sub-blocks."""
+    return sorted(set(op.type for op in _with_sub_blocks(ops)
                       if getattr(registry._REGISTRY.get(op.type), 'host',
                                  False)))
 
@@ -462,11 +497,13 @@ class _Plan(object):
     why the program is never captured in a CUDA graph (None: it may
     be); ``graphs`` holds its CUDA graphs, weakly keyed by scope, and
     ``scope_reads`` (built with the first capture) the names its ops
-    read before writing them (fluid/cuda_graph.py)."""
+    read before writing them (fluid/cuda_graph.py).  ``sub_steps`` maps
+    each sub-block a control-flow op runs to its ops' ``_OpStep``s."""
 
     __slots__ = ('ops', 'keep', 'checked_only', 'kind', 'writes_state',
                  'steps', 'post_grads', 'var_of', 'wpg', 'pre', 'pre_drops',
-                 'post', 'no_graph', 'graphs', 'binder', 'scope_reads')
+                 'post', 'no_graph', 'graphs', 'binder', 'scope_reads',
+                 'sub_steps')
 
 
 def _build_plan(program, fetch_names):
@@ -483,6 +520,10 @@ def _build_plan(program, fetch_names):
     plan.graphs = weakref.WeakKeyDictionary()
     plan.scope_reads = None
     plan.binder = _Binder()
+    plan.sub_steps = {
+        op.attrs['sub_block']: [_OpStep(o) for o in
+                                program.blocks[op.attrs['sub_block']].ops]
+        for op in _with_sub_blocks(ops) if op.type in _CONTROL_FLOW}
     plan.wpg = None
     if any(_role(op) == 'backward' for op in ops):
         plan.wpg = _wpg_partition(ops, program, fetch_names)
@@ -535,12 +576,34 @@ def _graph_refusal(plan, ops):
         return ('host op %s runs on the host between the device ops '
                 '(files, stdout, Python), which a graph cannot replay'
                 % ', '.join(host))
-    for op in ops:
+    for op in _with_sub_blocks(ops):
         od = registry._REGISTRY.get(op.type)
         if od is not None and od.host_random:
             return ('op %s draws from a host generator (a startup '
                     'program\'s initializer), which a graph would freeze'
                     % op.type)
+        why = _host_control(op)
+        if why is not None:
+            return why
+    return None
+
+
+def _host_control(op):
+    """Why a control-flow op reads a value on the host, or None: a graph
+    replays one fixed sequence of launches."""
+    if op.type == 'while' and not op.attrs.get('__needs_grad__'):
+        return ('op while (sub-block %d) reads its condition on the host '
+                'at every trip: a forward-only loop stops when its '
+                'condition does, which a graph cannot replay'
+                % op.attrs['sub_block'])
+    if op.type == 'while' and op.attrs.get('__auto_bucket__'):
+        return ('op while (sub-block %d) has no max_trip_count: its '
+                'trips are counted on the host before each step (the '
+                'auto-bucket)' % op.attrs['sub_block'])
+    if op.type == 'conditional_block':
+        return ('op conditional_block (sub-block %d) reads its condition '
+                'on the host to choose whether its branch runs'
+                % op.attrs['sub_block'])
     return None
 
 
@@ -611,6 +674,8 @@ class Executor(object):
         # on an AMP program the step's fetch names: only they and the
         # persistables are checked (None: every value)
         self._checked_only = None
+        # the running plan's sub_steps
+        self._sub_steps = {}
         # the running plan's owner dicts of the scope's names, and,
         # while a CUDA graph is captured, {name: (dict, value)} of the
         # scope values it reads
@@ -816,6 +881,7 @@ class Executor(object):
         self._verdicts = [] if get_flag('FLAGS_check_nan_inf', False) \
             else None
         self._checked_only = plan.checked_only
+        self._sub_steps = plan.sub_steps
         if plan.kind == 'wpg':
             self._run_whole_program_grad(plan, env, scope, program)
         elif plan.kind == 'per_op':
@@ -1125,15 +1191,28 @@ class Executor(object):
 
     def _lower_op(self, st, env, scope, program):
         op = st.op
+        if op.type in _CONTROL_FLOW:
+            block = op.block
+            for n, val in self._control_flow(op, env, scope,
+                                             program).items():
+                self._write([n], [_is_persistable(block, n)], [val], env,
+                            scope)
+            return
+        outs, rows = self._run_op(st, env, scope, program)
+        self._write_op(st, outs, {}, rows, env, scope)
+
+    def _run_op(self, st, env, scope, program):
+        """Read an op's inputs and run its lowering (a host op's without
+        autograd): (its outputs by slot, the sharded rows of
+        ``_shard_rows`` or None)."""
+        op = st.op
         opdef = st.opdef or registry.get(op.type)
         read = self._read
         ins = {slot: [read(n, env, scope) for n in names]
                for slot, names in st.ins}
         if opdef.host:
             with torch.no_grad():
-                outs = opdef.fn(self._ctx(st.seed, program), op, ins)
-            self._write_op(st, outs, {}, None, env, scope)
-            return
+                return opdef.fn(self._ctx(st.seed, program), op, ins), None
         rows = self._shard_rows(op, ins, 0, scope) if self._shard_opt \
             else None
         try:
@@ -1143,7 +1222,7 @@ class Executor(object):
             e.add_note('in op %s (created at %s)' % (
                 op.type, '; '.join(op.attrs.get('__op_callstack__', [])[:2])))
             raise
-        self._write_op(st, outs, {}, rows, env, scope)
+        return outs, rows
 
     def _write_op(self, st, outs, cursor, rows, env, scope):
         """Write the op's outputs, taken from each output slot of `outs`
@@ -1195,6 +1274,196 @@ class Executor(object):
                 self._set_scope(scope, op.input(slot)[0], acc)
             ins[slot][k] = acc
         return a, b
+
+    # --------------------------------------------------- control flow
+    # (JAX: fluid/executor.py:477-480, :553-768).  A sub-block runs op by
+    # op on an env of its own chained over the parent's (a ChainMap:
+    # its writes stay local, its reads fall through to the parent env
+    # and the scope); the op's loop state comes back as its outputs.
+
+    def _control_flow(self, op, env, scope, program):
+        """{name: value} that the control-flow op `op` writes."""
+        sub = self._sub_steps[op.attrs['sub_block']]
+        if op.type == 'while':
+            return self._lower_while(op, sub, env, scope, program)
+        if op.type == 'conditional_block':
+            return self._lower_conditional_block(op, sub, env, scope,
+                                                 program)
+        return self._lower_control_flow_grad(op, sub, env, scope, program)
+
+    def _readable(self, name, env, scope):
+        if name in env:
+            return True
+        vars_ = scope._owner_vars(name)
+        return vars_ is not None and vars_[name] is not None
+
+    def _run_sub_block(self, steps, env, scope, program):
+        """Run a sub-block's ops (the plan's ``sub_steps``) on `env` (a
+        ChainMap over its parent's) through ``_run_op``, or a nested
+        control-flow op's lowering; every write stays in `env`.  As in
+        the JAX package, FLAGS_check_nan_inf sees a body's values where
+        they leave the loop (the control-flow op's outputs): a masked
+        trip computes values that it then throws away."""
+        for st in steps:
+            if st.op.type in _CONTROL_FLOW:
+                env.update(self._control_flow(st.op, env, scope, program))
+                continue
+            outs, _ = self._run_op(st, env, scope, program)
+            for slot, names, _ in st.outs:
+                env.update(zip(names, outs.get(slot, [])))
+
+    def _body(self, sub, carry, env, scope, program):
+        """One trip of a sub-block from `carry`: the carry's new values,
+        each in its dtype before the trip (an AMP lowering in the body
+        may return bf16 for an f32 carry; JAX: fluid/executor.py:589)."""
+        local = collections.ChainMap(dict(carry), env)
+        self._run_sub_block(sub, local, scope, program)
+        return {n: local[n].to(v.dtype) for n, v in carry.items()}
+
+    def _carry(self, op, env, scope, cond_name=None):
+        """The loop state of a control-flow op without gradients: what
+        its sub-block writes that has a value before it."""
+        names = [n for n in op.output('Out')
+                 if self._readable(n, env, scope)]
+        if cond_name is not None and cond_name not in names:
+            names.append(cond_name)
+        return {n: self._read(n, env, scope) for n in names}
+
+    def _entries(self, op, env, scope):
+        """The loop state of an op that carries gradients
+        (__carry_names__) and its values before the op, which the op
+        also writes to its Entry slot."""
+        carry, out = {}, {}
+        for n, en in zip(op.attrs['__carry_names__'],
+                         op.attrs['__entry_names__']):
+            if not self._readable(n, env, scope):
+                raise RuntimeError(
+                    '%s loop state %s is not initialized before the op'
+                    % (op.type, n))
+            carry[n] = out[en] = self._read(n, env, scope)
+        return carry, out
+
+    def _lower_while(self, op, sub, env, scope, program):
+        """A while op.  Without gradients, the loop of the JAX package's
+        lax.while_loop: the condition read on the host before each trip.
+        With them (__needs_grad__, set by backward._control_flow_backward)
+        the bounded, masked loop of ``_while_scan``, which reads nothing
+        on the host; an unbounded one counts its trips first
+        (``_bucket_trips``)."""
+        cond_name = op.input('Condition')[0]
+        if op.attrs.get('__needs_grad__'):
+            carry, out = self._entries(op, env, scope)
+            if op.attrs.get('__auto_bucket__'):
+                self._bucket_trips(op, sub, dict(carry), cond_name, env,
+                                   scope, program)
+            out.update(self._while_scan(
+                sub, carry, cond_name, env, int(op.attrs['max_trip_count']),
+                scope, program))
+            return out
+        carry = self._carry(op, env, scope, cond_name)
+        while bool(carry[cond_name].reshape(())):
+            carry = self._body(sub, carry, env, scope, program)
+        return carry
+
+    def _while_scan(self, sub, carry, cond_name, env, max_t, scope,
+                    program):
+        """The bounded, masked rendering of a while loop (JAX:
+        fluid/executor.py:607 ``_while_scan``): `max_t` trips of the
+        body, each kept only while the condition held before it, so
+        autograd differentiates the loop as it ran and no trip reads the
+        condition on the host.
+
+        Truncation guard: if the condition still holds after `max_t`
+        trips (max_trip_count underestimated the trips), the float
+        carries become NaN rather than the truncated recurrence; within
+        the bound the guard adds an exact 0."""
+        for _ in range(max_t):
+            pred = carry[cond_name].reshape(()).bool()
+            new = self._body(sub, carry, env, scope, program)
+            carry = {n: torch.where(pred, new[n], v)
+                     for n, v in carry.items()}
+        truncated = carry[cond_name].reshape(()).bool()
+        poison = torch.where(
+            truncated, torch.full((), float('nan'), device=truncated.device),
+            torch.zeros((), device=truncated.device))
+        return {n: v + poison.to(v.dtype) if v.is_floating_point() else v
+                for n, v in carry.items()}
+
+    def _bucket_trips(self, op, sub, carry, cond_name, env, scope,
+                      program):
+        """The auto-bucket of an unbounded while that carries gradients
+        (JAX: fluid/executor.py:2256): the loop once without autograd,
+        its trips counted, rounded up to a power of two and set as
+        max_trip_count on every op of its bucket group (the forward
+        while and its grad)."""
+        trips = 0
+        with torch.no_grad():
+            while bool(carry[cond_name].reshape(())):
+                carry = self._body(sub, carry, env, scope, program)
+                trips += 1
+        bucket = 1
+        while bucket < max(trips, 1):
+            bucket *= 2
+        gid = op.attrs['__bucket_group__']
+        for o in op.block.ops:
+            if o.attrs.get('__bucket_group__') == gid:
+                o.attrs['max_trip_count'] = bucket
+
+    def _lower_conditional_block(self, op, sub, env, scope, program):
+        """A conditional_block: its sub-block runs when Cond holds (read
+        on the host, the JAX package's lax.cond), else its outputs keep
+        their values.  With __needs_grad__ it also writes the entries."""
+        out = {}
+        if op.attrs.get('__needs_grad__'):
+            carry, out = self._entries(op, env, scope)
+        else:
+            carry = self._carry(op, env, scope)
+        pred = self._read(op.input('Cond')[0], env, scope)
+        if bool(pred.reshape(())):
+            carry = self._body(sub, carry, env, scope, program)
+        out.update(carry)
+        return out
+
+    def _lower_control_flow_grad(self, op, sub, env, scope, program):
+        """while_grad / conditional_block_grad on the per-op grad path
+        (JAX: fluid/executor.py:648 ``_control_flow_grad``): the loop or
+        branch again from the saved entries under autograd, then one
+        torch.autograd.grad from the float carries' cotangents to the
+        entries (GRAD::Entry) and the closure reads (GRAD::X).  The
+        whole-program grad never runs it: it differentiates the forward
+        op as it ran."""
+        carry_names = list(op.attrs['__carry_names__'])
+        floats = list(op.attrs['__float_carries__'])
+        closure = list(op.attrs['__closure_names__'])
+        with torch.enable_grad():
+            entry = {n: self._read(en, env, scope)
+                     for n, en in zip(carry_names, op.input('Entry'))}
+            entry = {n: v.detach().requires_grad_() if n in floats else v
+                     for n, v in entry.items()}
+            shadow = {n: self._read(n, env, scope).detach().requires_grad_()
+                      for n in closure}
+            local = collections.ChainMap(shadow, env)
+            if op.type == 'while_grad':
+                final = self._while_scan(
+                    sub, entry, op.input('Condition')[0], local,
+                    int(op.attrs['max_trip_count']), scope, program)
+            elif bool(self._read(op.input('Cond')[0], env,
+                                 scope).reshape(())):
+                final = self._body(sub, entry, local, scope, program)
+            else:
+                final = entry
+            xs = [entry[n] for n in floats] + [shadow[n] for n in closure]
+            ys, cts = [], []
+            for n, g in zip(floats, op.input('GRAD::Out')):
+                if final[n].requires_grad:
+                    ys.append(final[n])
+                    cts.append(self._read(g, env, scope).to(
+                        final[n].dtype).reshape(final[n].shape))
+            grads = torch.autograd.grad(ys, xs, cts, allow_unused=True) \
+                if ys else [None] * len(xs)
+        names = list(op.output('GRAD::Entry')) + list(op.output('GRAD::X'))
+        return {g: torch.zeros_like(x).detach() if d is None else d
+                for g, x, d in zip(names, xs, grads)}
 
     def _lower_fused_run(self, run, env, scope, program):
         """One fused_<type> op for a grouped optimizer run: each input

@@ -410,6 +410,27 @@ class Program(object):
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    def block(self, idx):
+        return self.blocks[idx]
+
+    @property
+    def num_blocks(self):
+        return len(self.blocks)
+
+    def _create_block(self, parent_idx=None):
+        """A new block (a while's or a conditional_block's sub-block)
+        under the current one, made current."""
+        parent_idx = (self.current_block_idx
+                      if parent_idx is None else parent_idx)
+        b = Block(self, len(self.blocks), parent_idx)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump_version()
+        return b
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
     def all_parameters(self):
         out = []
         for b in self.blocks:

@@ -1,15 +1,17 @@
-"""Unary, power and comparison layers.  Reference:
+"""Unary, power, comparison and logical layers.  Reference:
 python/paddle/fluid/layers/ops.py (generated there from the OpProtos);
 here one generated layer per unary op the port lowers
 (ops/activation_ops.py)."""
 
 from ..layer_helper import LayerHelper
 
-_UNARY = ['sigmoid', 'exp', 'relu', 'sqrt', 'floor', 'cos', 'reciprocal',
-          'sign']
-_COMPARE = ['less_than', 'greater_equal']
+_UNARY = ['sigmoid', 'tanh', 'exp', 'relu', 'sqrt', 'floor', 'cos',
+          'reciprocal', 'log', 'sign']
+_COMPARE = ['equal', 'not_equal', 'less_than', 'less_equal', 'greater_than',
+            'greater_equal']
 
-__all__ = _UNARY + _COMPARE + ['scale', 'pow']
+__all__ = _UNARY + _COMPARE + ['scale', 'pow', 'logical_and', 'logical_or',
+                               'logical_xor', 'logical_not']
 
 
 def _make_unary(op_type):
@@ -63,3 +65,33 @@ def _make_compare(op_type):
 
 for _op in _COMPARE:
     globals()[_op] = _make_compare(_op)
+
+
+def _logical(op, x, y, out=None, name=None):
+    helper = LayerHelper(op, name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            'bool', stop_gradient=True)
+    helper.append_op(op, inputs={'X': x, 'Y': y}, outputs={'Out': out})
+    return out
+
+
+def logical_and(x, y, out=None, name=None):
+    return _logical('logical_and', x, y, out, name)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _logical('logical_or', x, y, out, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _logical('logical_xor', x, y, out, name)
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper('logical_not', name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            'bool', stop_gradient=True)
+    helper.append_op('logical_not', inputs={'X': x}, outputs={'Out': out})
+    return out

@@ -1,5 +1,6 @@
 """Tensor layers: the subset the learning-rate schedules, gradient
-clipping, the CTR and NMT models and Variable's operators build.
+clipping, the CTR, NMT and recurrent models, the control-flow layers and
+Variable's operators build.
 Reference: python/paddle/fluid/layers/tensor.py; each appends the ops
 the JAX package's layers/tensor.py (``shape``: its more_layers.py)
 appends."""
@@ -10,8 +11,9 @@ from .. import core
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ['assign', 'cast', 'concat', 'fill_constant', 'ones_like',
-           'shape', 'range']
+__all__ = ['assign', 'cast', 'concat', 'fill_constant',
+           'fill_constant_batch_size_like', 'ones', 'zeros', 'ones_like',
+           'zeros_like', 'create_parameter', 'shape', 'range']
 
 
 def assign(input, output=None):
@@ -60,6 +62,49 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                             'value': float(value)})
     out.stop_gradient = True
     return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """A constant of `shape` whose dim output_dim_idx is input's dim
+    input_dim_idx at run time (the batch)."""
+    helper = LayerHelper('fill_constant_batch_size_like')
+    out = helper.create_variable_for_type_inference(core.dtype_name(dtype))
+    helper.append_op('fill_constant_batch_size_like',
+                     inputs={'Input': input}, outputs={'Out': out},
+                     attrs={'shape': list(shape), 'dtype': dtype,
+                            'value': float(value),
+                            'input_dim_idx': input_dim_idx,
+                            'output_dim_idx': output_dim_idx})
+    out.stop_gradient = True
+    return out
+
+
+def ones(shape, dtype='float32', force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros(shape, dtype='float32', force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper('zeros_like')
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op('fill_zeros_like', inputs={'X': x},
+                     outputs={'Out': out})
+    return out
+
+
+def create_parameter(shape, dtype, name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """Reference layers/tensor.py create_parameter."""
+    from ..param_attr import ParamAttr
+    helper = LayerHelper('create_parameter')
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, list(shape), dtype, is_bias,
+                                   default_initializer)
 
 
 def ones_like(x, out=None):

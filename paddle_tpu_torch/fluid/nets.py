@@ -1,7 +1,6 @@
 """Composite networks.  Reference: python/paddle/fluid/nets.py; each
 appends the layers the JAX package's fluid/nets.py appends.
-``sequence_conv_pool`` and ``scaled_dot_product_attention`` are not
-ported: they wait for the sequence ops and the matmul chain."""
+``scaled_dot_product_attention`` is not ported yet."""
 
 from . import layers
 
@@ -48,3 +47,16 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(x=tmp, dropout_prob=rate)
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act='sigmoid', pool_type='max', mask=None):
+    """A context-window conv over time, then a sequence pool (reference
+    nets.py sequence_conv_pool).  On the padded+mask representation pass
+    `mask` ([B, T], e.g. from layers.sequence_mask) so padded steps
+    neither convolve nor pool."""
+    conv = layers.sequence_conv(input, num_filters,
+                                filter_size=filter_size,
+                                param_attr=param_attr, act=act,
+                                mask=mask)
+    return layers.sequence_pool(conv, pool_type, mask=mask)

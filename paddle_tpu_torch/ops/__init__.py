@@ -13,3 +13,6 @@ from . import optimizer_ops  # noqa: F401
 from . import collective_ops  # noqa: F401
 from . import host_ops  # noqa: F401
 from . import amp_ops  # noqa: F401
+from . import sequence_ops  # noqa: F401
+from . import rnn_ops  # noqa: F401
+from . import lang_ops  # noqa: F401

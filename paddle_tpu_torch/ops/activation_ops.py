@@ -1,5 +1,5 @@
-"""Activation and other unary op lowerings: the BERT, CTR and image
-models', the learning-rate schedules' and the regularizers'.
+"""Activation and other unary op lowerings: the BERT, CTR, image and
+recurrent models', the learning-rate schedules' and the regularizers'.
 Reference: operators/activation_op.cc|.cu|.h."""
 
 import torch
@@ -19,6 +19,8 @@ def _unary(name, fn):
 # 0 at 0, reciprocal is 1 / x
 _unary('relu', torch.relu)
 _unary('sigmoid', torch.sigmoid)
+_unary('tanh', torch.tanh)
+_unary('log', torch.log)
 _unary('sqrt', torch.sqrt)
 _unary('floor', torch.floor)
 _unary('cos', torch.cos)

@@ -195,6 +195,12 @@ _ew('elementwise_div', lambda x, y: x / y)
 _ew('elementwise_min', torch.minimum)
 _ew('elementwise_max', torch.maximum)
 _ew('elementwise_pow', torch.pow)
+# the remainder takes the divisor's sign, and the quotient rounds down,
+# as jnp.mod and jnp.floor_divide (BeamSearchDecoder's beam and token
+# of a flat top-k index)
+_ew('elementwise_mod', torch.remainder)
+_ew('elementwise_floordiv',
+    lambda x, y: torch.div(x, y, rounding_mode='floor'))
 
 # comparisons (the learning-rate schedules' and Variable's operators):
 # a bool Out that carries no gradient
@@ -204,6 +210,24 @@ _ew('less_than', torch.lt, ('Out',))
 _ew('less_equal', torch.le, ('Out',))
 _ew('greater_than', torch.gt, ('Out',))
 _ew('greater_equal', torch.ge, ('Out',))
+
+
+
+
+def _logical(name, fn, unary=False):
+    @register(name, no_grad_out_slots=('Out',))
+    def op(ctx, ins, attrs, _fn=fn, _u=unary):
+        if _u:
+            return {'Out': [_fn(ins['X'][0])]}
+        return {'Out': [_fn(ins['X'][0], ins['Y'][0])]}
+    return op
+
+
+# the control-flow conditions' (Switch, the decoders' stop tests)
+_logical('logical_and', torch.logical_and)
+_logical('logical_or', torch.logical_or)
+_logical('logical_xor', torch.logical_xor)
+_logical('logical_not', torch.logical_not, unary=True)
 
 
 @register('reduce_sum')

@@ -1,7 +1,9 @@
 """Ops that size themselves from their input's runtime length: the
 Transformer's sinusoidal position encoding and the additive causal
 bias (the JAX package's ops/misc_ops.py).  One Program then serves
-every length bucket of a padded batch.
+every length bucket of a padded batch.  Beside them, two of the JAX
+module's control-flow helpers: is_empty and
+reorder_lod_tensor_by_rank.
 
 Reference: operators/add_position_encoding_op.cc computed the encoding
 per LoD batch on the host.
@@ -38,3 +40,19 @@ def causal_mask_like(ctx, ins, attrs):
     m = torch.triu(torch.full((t, t), -1e9, dtype=torch.float32,
                               device=x.device), diagonal=1)
     return {'Out': [m[None, None].to(x.dtype)]}
+
+
+@register('is_empty')
+def is_empty(ctx, ins, attrs):
+    """Whether X has no element (a 0-d bool)."""
+    x = ins['X'][0]
+    return {'Out': [torch.full((), x.numel() == 0, dtype=torch.bool,
+                               device=x.device)]}
+
+
+@register('reorder_lod_tensor_by_rank')
+def reorder_lod_tensor_by_rank(ctx, ins, attrs):
+    """X's rows in the order RankTable holds (its dense rendering: the
+    permutation's indices)."""
+    return {'Out': [torch.index_select(
+        ins['X'][0], 0, ins['RankTable'][0].reshape(-1).long())]}

@@ -41,6 +41,20 @@ def fill_constant(ctx, ins, attrs):
                                device=ctx.device)]}
 
 
+@register('fill_constant_batch_size_like')
+def fill_constant_batch_size_like(ctx, ins, attrs):
+    """A constant of `shape` whose dim output_dim_idx is Input's dim
+    input_dim_idx (the batch)."""
+    ref = _x(ins, 'Input')
+    shape = list(attrs['shape'])
+    shape[attrs.get('output_dim_idx', 0)] = \
+        ref.shape[attrs.get('input_dim_idx', 0)]
+    return {'Out': [torch.full(tuple(shape), attrs.get('value', 0.0),
+                               dtype=core.convert_dtype(
+                                   attrs.get('dtype', 'float32')),
+                               device=ctx.device)]}
+
+
 def _random_f32(ctx, shape, draw):
     """A float32 tensor of `shape` on the context's device, filled by
     `draw(tensor, generator)`; on the meta device (shape inference)
@@ -305,3 +319,105 @@ def concat(ctx, ins, attrs):
 def increment(ctx, ins, attrs):
     """The learning-rate schedules' step counter: X + step."""
     return {'Out': [_x(ins) + attrs.get('step', 1.0)]}
+
+
+# ---------------------------------------------------------------------------
+# The tensor-array family (reference operators/controlflow/tensor_array_*,
+# lod_tensor_to_array_op.cc, shrink_rnn_memory_op.cc, split_lod_tensor_op.cc,
+# merge_lod_tensor_op.cc, select_input_op.cc, select_output_op.cc).  As in
+# the JAX package (ops/tensor_ops.py:576-655), a LoDTensorArray of same-shaped
+# items is one stacked tensor with the index on axis 0 (a created array has
+# ARRAY_CAPACITY rows, fluid/layers/control_flow.py); an index past either
+# end is clamped, as lax's dynamic slicing clamps it, and nothing reads it
+# on the host, so a loop body that reads and writes arrays can be captured.
+# ---------------------------------------------------------------------------
+
+
+def _array_index(ins, n):
+    return ins['I'][0].reshape(1).long().clamp(0, n - 1)
+
+
+@register('write_to_array')
+def write_to_array(ctx, ins, attrs):
+    arr = ins['Array'][0]
+    x = _x(ins).to(arr.dtype)
+    return {'Out': [arr.index_copy(0, _array_index(ins, arr.shape[0]),
+                                   x.unsqueeze(0))]}
+
+
+@register('read_from_array')
+def read_from_array(ctx, ins, attrs):
+    arr = _x(ins)
+    return {'Out': [arr.index_select(
+        0, _array_index(ins, arr.shape[0])).squeeze(0)]}
+
+
+@register('lod_tensor_to_array')
+def lod_tensor_to_array(ctx, ins, attrs):
+    """[B, T, ...] -> the time-major stack [T, B, ...] (the reference
+    splits by the LoD rank table; padded+mask makes it a transpose)."""
+    return {'Out': [_x(ins).transpose(0, 1)]}
+
+
+@register('array_to_lod_tensor')
+def array_to_lod_tensor(ctx, ins, attrs):
+    return {'Out': [_x(ins).transpose(0, 1)]}
+
+
+@register('shrink_rnn_memory')
+def shrink_rnn_memory(ctx, ins, attrs):
+    """The reference keeps the first rank_table[i] rows at step I; here
+    the rows whose length (RankTable) is not past I are zeroed."""
+    x = _x(ins)
+    i = ins['I'][0].reshape(()).to(torch.int32)
+    keep = (ins['RankTable'][0].to(torch.int32) > i).to(x.dtype)
+    return {'Out': [x * keep.reshape((-1,) + (1,) * (x.ndim - 1))]}
+
+
+@register('split_lod_tensor')
+def split_lod_tensor(ctx, ins, attrs):
+    """Both branches get the whole tensor, the other branch's rows
+    zeroed."""
+    x = _x(ins)
+    m = ins['Mask'][0].reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+    return {'OutTrue': [x * m], 'OutFalse': [x * (1 - m)]}
+
+
+@register('merge_lod_tensor')
+def merge_lod_tensor(ctx, ins, attrs):
+    x_t = ins['InTrue'][0]
+    m = ins['Mask'][0].reshape((-1,) + (1,) * (x_t.ndim - 1))
+    return {'Out': [torch.where(m.bool(), x_t, ins['InFalse'][0])]}
+
+
+@register('select_input')
+def select_input(ctx, ins, attrs):
+    """Out = X[Mask], the candidates stacked and indexed on the device."""
+    xs = torch.stack(ins['X'])
+    m = ins['Mask'][0].reshape(1).long().clamp(0, len(ins['X']) - 1)
+    return {'Out': [xs.index_select(0, m).squeeze(0)]}
+
+
+@register('select_output')
+def select_output(ctx, ins, attrs):
+    """X routed to branch Mask; the other branches read zeros."""
+    x = _x(ins)
+    m = ins['Mask'][0].reshape(())
+    zeros = torch.zeros_like(x)
+    return {'Out': [torch.where(m == k, x, zeros)
+                    for k in range(attrs.get('branches', 2))]}
+
+
+@register('while')
+def while_op(ctx, ins, attrs):
+    """Lowered by the executor (Executor._lower_while), which runs the
+    sub-block; the entry names the op type."""
+    raise RuntimeError('the while op is lowered by the executor, not the '
+                       'registry')
+
+
+@register('conditional_block')
+def conditional_block_op(ctx, ins, attrs):
+    """Lowered by the executor (Executor._lower_conditional_block)."""
+    raise RuntimeError('conditional_block is lowered by the executor, not '
+                       'the registry')
