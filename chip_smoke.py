@@ -385,6 +385,39 @@ Phases, each of which fails the run (non-zero exit) on error:
      dynamic_decode's ids hold a beam that has not ended), which must
      reach S2S_MIN_LIVE, its ms a batch and a profiled run's device
      time.
+ 16. structured prediction and recompute: (a) the Fluid book's
+     label_semantic_roles (models.label_semantic_roles.BASE: db_lstm
+     with embeddings 32 and 5, hidden 512, depth 8, a linear-chain CRF
+     over 59 IOB labels, the CoNLL-2005 dictionaries' 44,068 words and
+     3,162 predicates; SGD on exponential_decay(0.01, 100000, 0.5), batch
+     10) on synthetic sentences of 4-100 words (mean ~25) from --seed,
+     fed by DataLoader.from_generator(bucket_boundaries=[16, 32, 64,
+     128], batch_size=10) onto CUDAPlace(0): every batch bitwise a numpy
+     padding of the same samples; each step through Executor.run with
+     the K6 and K6b launches the program implies (8 and 2); at least
+     20 steps, 3 buckets of 2 or more; each bucket's first step again
+     with the plain versions bitwise (loss and state), a replay of each
+     bucket's own graph bitwise its eager step; per bucket the
+     replayed and eager ms, a profiled replay's device ms, peak memory
+     and tokens/s; then the eval clone (crf_decoding + chunk_eval IOB,
+     29 types) on held-out batches: refused capture by name, bitwise
+     the plain path, chunk counts equal to numpy's, precision, recall
+     and F1; (b) BERT-base at seq 512 batch 8 with
+     RecomputeOptimizer(Adam), a checkpoint at each encoder layer's
+     output, 3 steps from the same start as the same steps without
+     recompute: every loss and the whole state bitwise (or, where
+     autograd sums in another order, the loss within rel 1e-6 and each
+     state tensor within 1e-5 of its max), step 1's peak memory below
+     the unrecomputed step's, launches exact (K1, K6 and the dropout
+     forward once more for each recomputed op), plan_cache_steps
+     (replays bitwise eager), the step ms and device ms both ways;
+     (c) every other new op type (the CRF pair, warpctc, ctc_align,
+     edit_distance, hierarchical_sigmoid, sample_logits, cos_sim,
+     pyramid_hash, filter_by_instag, var_conv_2d, tree_conv, row_conv,
+     nce with each sampler) at a size its users run: forward and
+     gradients twice bitwise, and against the same lowering on the CPU
+     (integers and samples exact, floats within 1e-5 of the largest
+     magnitude).
 The line before the last is a JSON object {"kernels": [...]}.  Each
 row's "launches" are those the wrappers made on the main path (every
 counted step and request: the counters set to 0 just before each and
@@ -439,6 +472,7 @@ from paddle_tpu_torch.dataset import mnist
 from paddle_tpu_torch.fluid import compile_cache, core, flags, metrics
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.models import bert
+from paddle_tpu_torch.models import label_semantic_roles as srl
 from paddle_tpu_torch.models import lenet
 from paddle_tpu_torch.models import resnet
 from paddle_tpu_torch.models import se_resnext
@@ -446,6 +480,7 @@ from paddle_tpu_torch.models import seq2seq
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.models import wide_deep
 from paddle_tpu_torch.models import word2vec
+from paddle_tpu_torch.ops import lang_ops
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.ops.kernels import common
 from paddle_tpu_torch.ops.kernels import dropout as drop_k
@@ -582,6 +617,17 @@ S2S_LEN = 50     # Adam's rate and the global-norm clip
 S2S_LR = 1e-3
 S2S_CLIP = 5.0
 S2S_DECODE_RUNS = 3
+# phase 16: label_semantic_roles at the book's batch, fed by the bucketed
+# loader; the samples drawn (about 26 batches of 10 after the buckets
+# drop their partial batches) and the held-out eval batches
+SRL_BUCKETS = (16, 32, 64, 128)
+SRL_SAMPLES = 300
+SRL_MIN_STEPS = 20
+SRL_EVAL_BATCHES = 3
+# BERT-base under RecomputeOptimizer: the tolerance where autograd sums
+# a gradient in another order than the unrecomputed step
+RC_LOSS_RTOL = 1e-6
+RC_STATE_TOL = 1e-5
 # each decode must keep a beam live for this many of its 50 steps (a
 # decode whose beams all end at once checks beam_search's selection on
 # frozen beams only)
@@ -1329,7 +1375,8 @@ def dropout_launches(main):
     """The dropout kernels' launches a training step of `main`: the
     forward's and the gradient's, one each for each dropout op in
     training mode (every one on these paths is on the loss's path)."""
-    n = sum(op.type == 'dropout' and not op.attrs.get('is_test')
+    n = sum(op.type == 'dropout' and not op.attrs.get('is_test') and
+            op.attrs.get('__op_role__') != 'backward'
             for op in main.global_block().ops)
     return {'dropout': n, 'dropout_grad': n}
 
@@ -2075,11 +2122,29 @@ def profile_requests(pred, requests):
 
 
 # ------------------------------------------------------- phases 5-7
-def pretrain_program(seed, optimizer, seq=SEQ, batch=TRAIN_BATCH):
+def encoder_outputs(main):
+    """The output of each BERT encoder layer: the layer_norm after its
+    FFN (the first layer_norm is the embeddings', then two a layer)."""
+    lns = [op for op in main.global_block().ops if op.type == 'layer_norm'
+           and op.attrs.get('__op_role__') != 'backward']
+    return [op.output('Y')[0] for op in lns[2::2]]
+
+
+def recomputed(main, types):
+    """How many ops of each of `types` a RecomputeOptimizer program
+    emits again in its backward (their outputs carry the @RC suffix)."""
+    return {t: sum(op.type == t and op.output_arg_names and all(
+        n.endswith('@RC') for n in op.output_arg_names)
+        for op in main.global_block().ops) for t in types}
+
+
+def pretrain_program(seed, optimizer, seq=SEQ, batch=TRAIN_BATCH,
+                     recompute=False):
     """BERT-base pretraining with Adam ('adam', phase 5; phase 11 at
-    seq 128) or with LAMB, the warmup over a polynomial decay and the
-    global-norm clip ('lamb', phase 6): the path dict that train()
-    runs."""
+    seq 128; with `recompute`, phase 16 (b): under RecomputeOptimizer
+    with a checkpoint at each encoder layer's output) or with LAMB, the
+    warmup over a polynomial decay and the global-norm clip ('lamb',
+    phase 6): the path dict that train() runs."""
     cfg = bert.BASE
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed + 1
@@ -2087,8 +2152,11 @@ def pretrain_program(seed, optimizer, seq=SEQ, batch=TRAIN_BATCH):
         _, _, loss = bert.build_pretrain(cfg, seq_len=seq)
         if optimizer == 'adam':
             lr = None
-            fluid.optimizer.Adam(learning_rate=LR,
-                                 epsilon=EPSILON).minimize(loss)
+            opt = fluid.optimizer.Adam(learning_rate=LR, epsilon=EPSILON)
+            if recompute:
+                opt = fluid.optimizer.RecomputeOptimizer(opt)
+                opt._set_checkpoints(encoder_outputs(main))
+            opt.minimize(loss)
         else:
             lr = fluid.layers.linear_lr_warmup(
                 fluid.layers.polynomial_decay(LAMB_PEAK, LAMB_DECAY_STEPS,
@@ -2098,27 +2166,36 @@ def pretrain_program(seed, optimizer, seq=SEQ, batch=TRAIN_BATCH):
                 lr, lamb_weight_decay=LAMB_DECAY, epsilon=EPSILON,
                 grad_clip=fluid.clip.GradientClipByGlobalNorm(CLIP_NORM)
             ).minimize(loss)
-    n_attn = sum(op.type == 'fused_multihead_attention'
+    n_attn = sum(op.type == 'fused_multihead_attention' and
+                 op.attrs.get('__op_role__') != 'backward'
                  for op in main.global_block().ops)
     expected = {k: 0 for k in common.KERNELS}
     expected.update({'flash_attention': n_attn,
                      'flash_attention_bwd': n_attn,
                      'embedding_lookup': 3, 'embedding_scatter_add': 3,
                      'fused_' + optimizer: 1, **dropout_launches(main)})
+    # each recomputed span's forward kernels run again in the backward
+    again = recomputed(main, ('fused_multihead_attention', 'lookup_table',
+                              'lookup_table_v2', 'dropout'))
+    expected['flash_attention'] += again['fused_multihead_attention']
+    expected['embedding_lookup'] += again['lookup_table'] + \
+        again['lookup_table_v2']
+    expected['dropout'] += again['dropout']
     # gradients fetched beside the loss on step 1, held against the
     # plain path
     probe = ['embedding_0.w_0', 'fc_0.w_0', 'fc_0.w_1', 'layer_norm_0.w_0']
     probe += [p.name for p in main.all_parameters()
               if p.shape == (cfg.hidden, cfg.vocab_size)]
-    return {'name': 'BERT-base %s%s' % (
-                optimizer.upper(), '' if seq == SEQ else ' seq %d' % seq),
+    return {'name': 'BERT-base %s%s%s' % (
+                optimizer.upper(), '' if seq == SEQ else ' seq %d' % seq,
+                ' recompute' if recompute else ''),
             'main': main, 'startup': startup, 'loss': loss, 'lr': lr,
             'batch': bert.synthetic_batch(cfg, batch, seq,
                                           np.random.RandomState(seed)),
             'expected': expected, 'probe': probe, 'tokens': batch * seq,
             'rate': LR, 'bitwise': False,
             'mask_op': mask_probe(main) if optimizer == 'adam' and
-            seq == SEQ else None}
+            seq == SEQ and not recompute else None}
 
 
 def wide_deep_program(seed):
@@ -2282,7 +2359,8 @@ def check_plain_step(path, fetch, start, after1, loss1, grads, lr1,
         flags.set_flags({'FLAGS_torch_kernels_plain': False})
     if path['bitwise']:
         differ = [n for n in start if not torch.equal(after1[n], got[n])]
-        log('  step 1 vs the plain path: loss %s, state %s' % (
+        log('  step %s vs the plain path: loss %s, state %s' % (
+            '1' if step == 1 else 'after executor step %d' % step,
             'equal' if float(out[0]) == loss1 else 'differs',
             'bitwise equal (%d variables)' % len(start) if not differ
             else 'differs in %s' % differ))
@@ -5543,6 +5621,451 @@ def seq2seq_phase(seed):
     del run
     torch.cuda.empty_cache()
 
+# ----------------------------------------------------------- phase 16
+def srl_expected(main):
+    """The kernels' launches of a label_semantic_roles training step,
+    from its program: the gather (K6) once for each lookup op, the
+    scatter-add (K6b) once for each lookup whose table takes a gradient
+    (the six word lookups share the frozen word table, trainable=False
+    as the book's pretrained one)."""
+    block = main.global_block()
+    lookups = [op for op in block.ops
+               if op.type in ('lookup_table', 'lookup_table_v2')]
+    expected = {k: 0 for k in common.KERNELS}
+    expected['embedding_lookup'] = len(lookups)
+    expected['embedding_scatter_add'] = sum(
+        block.var(op.input('W')[0]).trainable for op in lookups)
+    return expected
+
+
+def srl_batches(samples, batch):
+    """(bucket, numpy feed) of each batch the bucketed loader makes of
+    `samples` (drop_last), in its order: a sample joins the smallest
+    bucket that holds it, and a bucket's batch goes out when full."""
+    buckets = {b: [] for b in SRL_BUCKETS}
+    for smp in samples:
+        b = min(x for x in SRL_BUCKETS if x >= smp[-1][0])
+        buckets[b].append(smp)
+        if len(buckets[b]) == batch:
+            yield b, srl.pad_batch(buckets[b], b)
+            buckets[b] = []
+
+
+def median_ms(fn, n):
+    secs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs) * 1e3
+
+
+def srl_phase(seed):
+    """Phase 16 (a): label_semantic_roles at the book's widths."""
+    cfg = srl.BASE
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feeds, loss, decode = srl.build_train(fluid, cfg)
+    test, chunk = srl.build_eval(fluid, cfg, main, decode)
+    expected = srl_expected(main)
+    params = main.all_parameters()
+    log('  program: %d ops, %d parameters (%d elements); launches a step '
+        'from the program: %s' % (
+            len(main.global_block().ops), len(params),
+            sum(int(np.prod(p.shape)) for p in params),
+            {k: c for k, c in expected.items() if c}))
+    samples = srl.synthetic_samples(cfg, seed, SRL_SAMPLES)
+    want = list(srl_batches(samples, cfg.batch))
+    loader = fluid.io.DataLoader.from_generator(
+        feed_list=feeds[:len(srl.SEQUENCE_FIELDS) + 1],
+        bucket_boundaries=SRL_BUCKETS, batch_size=cfg.batch, drop_last=True)
+    loader.set_sample_generator(lambda: iter(samples),
+                                places=fluid.CUDAPlace(0))
+    names = weights.startup_names(startup)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    steps = {}
+    with fluid.scope_guard(scope):
+        without_counting(lambda: exe.run(startup))
+        n = 0
+        for batch in loader:
+            b, ref = want[n]
+            n += 1
+            differ = [k for k in ref if not np.array_equal(
+                core.to_numpy(batch[k]).reshape(ref[k].shape), ref[k])]
+            if set(batch) != set(ref) or differ or \
+                    batch['word'].device.type != 'cuda':
+                raise AssertionError('loader batch %d (bucket %d) is not '
+                                     'the numpy padding: %s' % (n, b, differ))
+            rec = {'step': exe._step, 'batch': ref,
+                   'tokens': int(ref['length'].sum())}
+            if b not in steps:
+                rec['start'] = snapshot(scope, names)
+            out, counts = counted(lambda: exe.run(
+                main, feed=batch, fetch_list=[loss], return_numpy=False))
+            rec['loss'] = float(out[0])
+            if 'start' in rec:
+                rec['after'] = snapshot(scope, names)
+            if counts != expected or not math.isfinite(rec['loss']):
+                raise AssertionError('step %d (bucket %d): loss %s, launched '
+                                     '%s, expected %s' % (
+                                         n, b, rec['loss'], counts, expected))
+            steps.setdefault(b, []).append(rec)
+        if n != len(want):
+            raise AssertionError('the loader made %d batches, numpy %d'
+                                 % (n, len(want)))
+        multi = sorted(b for b, r in steps.items() if len(r) >= 2)
+        log('  %d steps through the bucketed loader (every batch bitwise '
+            'its numpy padding, staged on the card), steps by bucket %s; '
+            'launches a step as expected; losses by bucket %s' % (
+                n, {b: len(r) for b, r in sorted(steps.items())},
+                {b: ['%.3f' % x['loss'] for x in r]
+                 for b, r in sorted(steps.items())}))
+        if n < SRL_MIN_STEPS or len(multi) < 3:
+            raise AssertionError('%d steps, %d buckets of 2 or more steps'
+                                 % (n, len(multi)))
+        longest = max(steps.values(), key=len)
+        if not longest[-1]['loss'] < longest[0]['loss']:
+            raise AssertionError('the loss does not fall in the bucket of '
+                                 'the most steps: %s' % [
+                                     r['loss'] for r in longest])
+        path = {'main': main, 'startup': startup, 'bitwise': True}
+        for b in sorted(steps):
+            r = steps[b][0]
+            check_plain_step(path, [loss.name], r['start'], r['after'],
+                             r['loss'], [], None, batch=r['batch'],
+                             step=r['step'])
+        # each bucket's graph against its eager step from the same state
+        for b in multi:
+            feed = steps[b][0]['batch']
+            held = {k: scope.find_var(k) for k in names}
+            before, step0 = snapshot(scope, names), exe._step
+            stats = graph_stats()
+            replay = without_counting(lambda: exe.run(
+                main, feed=feed, fetch_list=[loss]))
+            after = snapshot(scope, names)
+            moved = {k: v - stats[k] for k, v in graph_stats().items()}
+            for k, v in before.items():
+                held[k].copy_(v)
+            exe._step = step0
+            eager = without_counting(lambda: eager_run(exe, main, feed,
+                                                       [loss]))
+            differ = [k for k in names
+                      if not torch.equal(after[k], scope.find_var(k))]
+            if moved['graph_replays'] != 1 or moved['graph_captures'] or \
+                    not np.array_equal(replay[0], eager[0]) or differ:
+                raise AssertionError(
+                    'bucket %d: replays %d, captures %d; the replayed step '
+                    '(loss %s) against the eager one (%s), state differs '
+                    'in %s' % (b, moved['graph_replays'],
+                               moved['graph_captures'], replay[0], eager[0],
+                               differ[:8]))
+            log('  bucket %d: the step replayed from its own graph is '
+                'bitwise its eager step (loss and %d variables)' % (
+                    b, len(names)))
+        for b in multi:
+            feed = steps[b][0]['batch']
+            tokens = steps[b][0]['tokens']
+            fetch = [loss]
+            rep = without_counting(lambda: median_ms(
+                lambda: exe.run(main, feed=feed, fetch_list=fetch), 5))
+            eag = without_counting(lambda: median_ms(
+                lambda: eager_run(exe, main, feed, fetch), 3))
+            events = without_counting(lambda: profile_run(
+                '', lambda: exe.run(main, feed=feed, fetch_list=fetch),
+                quiet=True))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            without_counting(lambda: eager_run(exe, main, feed, fetch))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            log('  bucket %d (batch %d, %d tokens): replayed %.2f ms, eager '
+                '%.2f ms, a profiled replay\'s device %.2f ms, peak %.3f GiB '
+                '(%.1f MiB over the resident %.3f GiB), %.0f tokens/s '
+                'replayed (%s | %s)' % (
+                    b, cfg.batch, tokens, rep, eag, device_ms(events),
+                    peak / 2 ** 30, (peak - base) / 2 ** 20, base / 2 ** 30,
+                    tokens / rep * 1e3, torch.cuda.get_device_name(0),
+                    card_line()))
+        # the eval clone: crf_decoding + chunk_eval on held-out batches
+        fetch = [decode] + chunk
+        held_out = [f for _, f in srl_batches(srl.synthetic_samples(
+            cfg, seed + 1000, SRL_SAMPLES), cfg.batch)][:SRL_EVAL_BATCHES]
+        why = exe._get_plan(test, held_out[0],
+                            [getattr(v, 'name', v) for v in fetch]).no_graph
+        if why is None or 'chunk_eval' not in why:
+            raise AssertionError('the eval program\'s capture refusal: %r'
+                                 % why)
+        totals = np.zeros(3, np.int64)
+        test_expected = {k: 0 for k in common.KERNELS}
+        test_expected['embedding_lookup'] = expected['embedding_lookup']
+        for feed in held_out:
+            got, counts = counted(lambda: exe.run(test, feed=feed,
+                                                  fetch_list=fetch))
+            flags.set_flags({'FLAGS_torch_kernels_plain': True})
+            try:
+                plain = without_counting(lambda: eager_run(exe, test, feed,
+                                                           fetch))
+            finally:
+                flags.set_flags({'FLAGS_torch_kernels_plain': False})
+            counts_np = lang_ops.chunk_counts(
+                got[0], feed['target'], feed['length'].ravel(), 'IOB',
+                cfg.chunk_types)
+            if counts != test_expected or any(
+                    not np.array_equal(a, b) for a, b in zip(got, plain)) \
+                    or tuple(int(np.asarray(v).ravel()[0])
+                             for v in got[4:]) != counts_np:
+                raise AssertionError(
+                    'eval: launched %s (expected %s); paths or chunk '
+                    'outputs differ from the plain path, or the chunk '
+                    'counts %s from numpy\'s %s' % (
+                        counts, test_expected, [int(np.asarray(v).ravel()[0])
+                                                for v in got[4:]],
+                        counts_np))
+            totals += counts_np
+        p = totals[2] / max(totals[0], 1)
+        r = totals[2] / max(totals[1], 1)
+        log('  eval clone (crf_decoding + chunk_eval IOB, %d types) on %d '
+            'held-out batches, eager (capture refused: %s): paths and chunk '
+            'outputs bitwise the plain path, counts equal numpy\'s; chunks '
+            'inferred %d, labelled %d, correct %d: precision %.4f, recall '
+            '%.4f, F1 %.4f' % (
+                cfg.chunk_types, len(held_out), why, totals[0], totals[1],
+                totals[2], p, r, 2 * p * r / (p + r) if totals[2] else 0.0))
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def recompute_phase(seed):
+    """Phase 16 (b): BERT-base with RecomputeOptimizer(Adam) against the
+    same steps without recompute."""
+    plain = pretrain_program(seed, 'adam')
+    rc = pretrain_program(seed, 'adam', recompute=True)
+    names = weights.startup_names(plain['startup'])
+    again = recomputed(rc['main'], ('fused_multihead_attention',
+                                    'lookup_table_v2', 'lookup_table',
+                                    'dropout', 'recompute_barrier'))
+    log('  %d checkpoints; ops emitted again in the backward: %s; launches '
+        'a step with recompute %s, without %s' % (
+            len(encoder_outputs(rc['main'])),
+            {k: c for k, c in again.items() if c},
+            {k: c for k, c in rc['expected'].items() if c},
+            {k: c for k, c in plain['expected'].items() if c}))
+    start, res = None, {}
+    for path in (plain, rc):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            without_counting(lambda: exe.run(path['startup']))
+            if start is None:
+                start = {n: scope.find_var(n).cpu() for n in names}
+            else:
+                for n, v in start.items():
+                    scope.find_var(n).copy_(v)
+            losses, states, peaks = [], [], []
+            for step in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                out, counts = counted(lambda: exe.run(
+                    path['main'], feed=path['batch'],
+                    fetch_list=[path['loss']], return_numpy=False))
+                torch.cuda.synchronize()
+                peaks.append(torch.cuda.max_memory_allocated())
+                if counts != path['expected']:
+                    raise AssertionError('%s step %d launched %s, expected %s'
+                                         % (path['name'], step + 1, counts,
+                                            path['expected']))
+                losses.append(float(out[0]))
+                states.append({n: scope.find_var(n).cpu() for n in names})
+            run = {'path': path, 'exe': exe, 'scope': scope}
+            med = without_counting(lambda: train_step_ms(run))
+            dev_ms = without_counting(lambda: step_device_ms(run))
+            if path is rc:
+                without_counting(lambda: plan_cache_steps(run))
+        res[path['name']] = dict(losses=losses, states=states, peaks=peaks,
+                                 ms=med, dev=dev_ms)
+        del exe, scope, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = res[plain['name']], res[rc['name']]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a['losses'],
+                                                       b['losses']))
+    differ, worst = [], 0.0
+    for sa, sb in zip(a['states'], b['states']):
+        for n in names:
+            if not torch.equal(sa[n], sb[n]):
+                differ.append(n)
+                worst = max(worst, max_abs(sa[n], sb[n]) / max(
+                    sa[n].abs().max().item(), 1e-30))
+    log('  losses with recompute %s, without %s: %s; state after each '
+        'step %s' % (
+            ['%.6f' % x for x in b['losses']],
+            ['%.6f' % x for x in a['losses']],
+            'bitwise' if a['losses'] == b['losses'] else
+            'rel %.2e' % loss_rel,
+            'bitwise equal (%d variables)' % len(names) if not differ else
+            'differs in %d (worst %.2e of its max): %s' % (
+                len(set(differ)), worst, sorted(set(differ))[:8])))
+    if (differ or a['losses'] != b['losses']) and not (
+            loss_rel <= RC_LOSS_RTOL and worst <= RC_STATE_TOL):
+        raise AssertionError('recompute moves the steps beyond the '
+                             'tolerance')
+    for label, r in ((rc['name'], b), (plain['name'], a)):
+        log('  %s: step %.2f ms median (replayed), a profiled step\'s '
+            'device %.2f ms, peak %s GiB over steps 1-%d (%s | %s)' % (
+                label, r['ms'], r['dev'],
+                ['%.3f' % (x / 2 ** 30) for x in r['peaks']], TRAIN_STEPS,
+                torch.cuda.get_device_name(0), card_line()))
+    if not b['peaks'][0] < a['peaks'][0]:
+        raise AssertionError('recompute does not lower step 1\'s peak: %d '
+                             'against %d bytes' % (b['peaks'][0],
+                                                   a['peaks'][0]))
+    log('  recompute saves %.3f GiB of step 1\'s peak and adds %.2f ms '
+        '(%.1f%%) to the replayed step' % (
+            (a['peaks'][0] - b['peaks'][0]) / 2 ** 30, b['ms'] - a['ms'],
+            (b['ms'] / a['ms'] - 1) * 100))
+
+
+# the new op types of phase 16 (c), each at a size its users run:
+# (op, inputs from a numpy generator, attrs, whether its float inputs
+# take a gradient)
+def lang_op_cases(rng):
+    f = lambda *s: rng.randn(*s).astype('float32')  # noqa: E731
+    i = lambda hi, *s: rng.randint(0, hi, s).astype('int64')  # noqa: E731
+    b, t, v = 16, 100, 40
+    lab_len = rng.randint(10, 31, b)
+    cases = [
+        ('linear_chain_crf', {'Emission': [f(10, 64, 59)],
+                              'Transition': [f(61, 59)],
+                              'Label': [i(59, 10, 64)],
+                              'Length': [rng.randint(4, 65, (10, 1))]}, {}),
+        ('crf_decoding', {'Emission': [f(10, 64, 59)],
+                          'Transition': [f(61, 59)],
+                          'Length': [rng.randint(4, 65, (10, 1))]}, {}),
+        ('warpctc', {'Logits': [f(b, t, v)], 'Label': [i(v - 1, b, 30) + 1],
+                     'LogitsLength': [rng.randint(80, t + 1, b)],
+                     'LabelLength': [lab_len]},
+         {'blank': 0, 'norm_by_times': True}),
+        ('ctc_align', {'Input': [i(v, b, t)],
+                       'InputLength': [rng.randint(50, t + 1, b)]},
+         {'blank': 0, 'padding_value': -1}),
+        ('edit_distance', {'Hyps': [i(30, b, 40)], 'Refs': [i(30, b, 40)],
+                           'HypsLength': [rng.randint(0, 41, b)],
+                           'RefsLength': [rng.randint(1, 41, b)]},
+         {'normalized': True, 'ignored_tokens': [0]}),
+        ('hierarchical_sigmoid', {'X': [f(128, 64)], 'W': [f(9999, 64)],
+                                  'Bias': [f(9999)],
+                                  'Label': [i(10000, 128)]},
+         {'num_classes': 10000}),
+        ('sample_logits', {'Logits': [f(128, 10000)],
+                           'Labels': [i(10000, 128, 1)]},
+         {'num_samples': 64, 'seed': 5}),
+        ('cos_sim', {'X': [f(128, 64)], 'Y': [f(1, 64)]}, {}),
+        ('pyramid_hash', {'X': [i(1 << 30, 8, 50)], 'W': [f(100003, 16)]},
+         {'pyramid_layer': 4}),
+        ('filter_by_instag', {'Ins': [f(64, 32)], 'Ins_tag': [i(8, 64)],
+                              'Filter_tag': [np.array([1, 3, 5])]}, {}),
+        ('var_conv_2d', {'X': [f(8, 2, 32, 32)], 'W': [f(4, 18)],
+                         'Mask': [(rng.rand(8, 1, 32, 32) < 0.8).astype(
+                             'float32')]},
+         {'output_channel': 4, 'input_channel': 2}),
+        ('tree_conv', {'NodesVector': [f(4, 30, 16)],
+                       'EdgeSet': [np.array([[[(c - 1) // 2, c]
+                                              for c in range(1, 30)]] * 4)],
+                       'Filter': [f(16, 3, 8, 4)]}, {}),
+        ('row_conv', {'X': [f(8, 100, 64)], 'Filter': [f(3, 64)]}, {}),
+    ]
+    for sampler in ('uniform', 'log_uniform', 'custom_dist'):
+        attrs = {'num_neg_samples': 10, 'sampler': sampler, 'seed': 3,
+                 'num_total_classes': 10000}
+        if sampler == 'custom_dist':
+            attrs['custom_dist'] = list(rng.dirichlet(np.ones(10000)))
+        cases.append(('nce', {'Input': [f(128, 64)], 'Weight': [f(10000, 64)],
+                              'Bias': [f(10000)], 'Label': [i(10000, 128, 1)]},
+                      attrs))
+    return cases
+
+
+def lang_op_run(op, ins, attrs, dev, seed):
+    """The op's outputs and its float inputs' gradients under seeded
+    cotangents, on `dev`, all brought to the CPU."""
+    ctx = registry.LowerCtx(step=3, op_seed=7, device=dev,
+                            random_seed=seed + 1)
+    opdef = registry.get(op)
+    with torch.enable_grad():
+        tins = {s: [torch.as_tensor(a, device=dev) for a in v]
+                for s, v in ins.items()}
+        xs = [x.requires_grad_() for v in tins.values() for x in v
+              if x.is_floating_point()]
+        outs = opdef.run(ctx, tins, attrs)
+        gen = np.random.RandomState(seed)
+        ys = [y for s, v in sorted(outs.items()) for y in v
+              if s not in opdef.no_grad_out_slots and y.requires_grad]
+        cts = [torch.as_tensor(gen.randn(*y.shape).astype('float32'),
+                               device=dev) for y in ys]
+        grads = torch.autograd.grad(ys, xs, cts, allow_unused=True) \
+            if ys and xs else []
+    return ({s: [y.detach().cpu() for y in v] for s, v in outs.items()},
+            [None if g is None else g.cpu() for g in grads])
+
+
+def lang_ops_phase(seed, dev):
+    """Phase 16 (c): every other new op type on the card, twice bitwise
+    and against the same lowering on the CPU."""
+    rng = np.random.RandomState(seed + 16)
+    rows = []
+    for op, ins, attrs in lang_op_cases(rng):
+        first = lang_op_run(op, ins, attrs, dev, seed)
+        second = lang_op_run(op, ins, attrs, dev, seed)
+        cpu = lang_op_run(op, ins, attrs, 'cpu', seed)
+        outs = [(s, a, b, c) for s in sorted(first[0]) for a, b, c in zip(
+            first[0][s], second[0][s], cpu[0][s])]
+        outs += [('grad %d' % k, a, b, c) for k, (a, b, c) in enumerate(zip(
+            first[1], second[1], cpu[1])) if a is not None]
+        twice = [s for s, a, b, _ in outs if not torch.equal(a, b)]
+        worst, bad = 0.0, []
+        for s, a, _, c in outs:
+            if a.is_floating_point():
+                err = max_abs(a, c) / max(c.abs().max().item(), 1e-30)
+                worst = max(worst, err)
+                if err > 1e-5:
+                    bad.append('%s %.2e' % (s, err))
+            elif not torch.equal(a, c):
+                bad.append(s)
+        label = op + (' ' + attrs['sampler'] if op == 'nce' else '')
+        if twice or bad:
+            raise AssertionError('%s on the card: second launch differs in '
+                                 '%s; against the CPU: %s' % (
+                                     label, twice, bad))
+        rows.append('%s (%d outputs, %d gradients: %.1e)' % (
+            label, sum(len(v) for v in first[0].values()),
+            sum(g is not None for g in first[1]), worst))
+    log('  on the card twice bitwise and against the CPU (integers and the '
+        'samples exact, floats within 1e-5 of the largest magnitude): %s'
+        % '; '.join(rows))
+
+
+def lang_phase(seed, dev):
+    """Phase 16: structured prediction and recompute."""
+    log('[16] (a) label_semantic_roles (the book\'s db_lstm + CRF) on '
+        'CUDAPlace(0) (%s | %s)' % (torch.cuda.get_device_name(0),
+                                   card_line()))
+    t0 = time.perf_counter()
+    srl_phase(seed)
+    log('  (a): %.1f s' % (time.perf_counter() - t0))
+    log('[16] (b) BERT-base with RecomputeOptimizer(Adam), a checkpoint at '
+        'each encoder layer')
+    t0 = time.perf_counter()
+    recompute_phase(seed)
+    log('  (b): %.1f s' % (time.perf_counter() - t0))
+    log('[16] (c) the other new op types on the card')
+    t0 = time.perf_counter()
+    without_counting(lambda: lang_ops_phase(seed, dev))
+    log('  (c): %.1f s' % (time.perf_counter() - t0))
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -5685,6 +6208,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     seq2seq_phase(args.seed)
     log('  phase 15: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    lang_phase(args.seed, dev)
+    log('  phase 16: %.1f s' % (time.perf_counter() - t0))
     # each row's launches at the wrappers and replayed from CUDA graphs'
     # manifests on the main path, as counted() read them in this
     # process; the data-parallel rows, as the ranks of phases 9 and 12

@@ -23,7 +23,15 @@ loop as it ran (a bounded, masked loop while it carries gradients);
 on the per-op grad path the grad op runs that loop again from the
 saved entries under autograd.
 
-Recompute checkpoints are not ported yet.
+With ``checkpoints`` (RecomputeOptimizer) the program is rewritten as
+the JAX package rewrites it (``_RecomputePlan``, its
+fluid/backward.py:137): where the backward walk enters a span of
+forward ops between checkpoints, the span's ops are emitted again
+(backward role) behind ``recompute_barrier`` ops and write ``@RC``
+twins, which the span's grad ops read.  The per-op grad path runs that
+program as written, releasing each forward activation after its last
+reader; the whole-program grad runs each span's forward under
+``torch.utils.checkpoint`` instead (executor._wpg_partition).
 """
 
 from collections import defaultdict
@@ -44,9 +52,6 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None, checkpoints=None):
     """Append the backward of `loss` to its program; returns
     [(param, grad_var), ...] for the trainable parameters."""
-    if checkpoints:
-        raise NotImplementedError('recompute checkpoints are not ported '
-                                  'yet')
     program = loss.block.program
     block = program.global_block()
     no_grad_set = set(no_grad_set or [])
@@ -56,11 +61,11 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         program, '_backward_no_grad_names', ())) | no_grad_set
     with program._role_guard('backward'):
         return _append_backward_impl(loss, program, block, parameter_list,
-                                     no_grad_set)
+                                     no_grad_set, checkpoints)
 
 
 def _append_backward_impl(loss, program, block, parameter_list,
-                          no_grad_set):
+                          no_grad_set, checkpoints):
     loss_idx = None
     for i in range(len(block.ops) - 1, -1, -1):
         if loss.name in block.ops[i].output_arg_names:
@@ -102,8 +107,16 @@ def _append_backward_impl(loss, program, block, parameter_list,
         contribs[name] = [target]
         return target
 
+    checkpoint_names = set(v.name if isinstance(v, framework.Variable)
+                           else v for v in (checkpoints or []))
+    recompute = None
+    if checkpoint_names:
+        recompute = _RecomputePlan(block, block.ops[:loss_idx + 1],
+                                   checkpoint_names, loss.name)
+
     for op in reversed(block.ops[:loss_idx + 1]):
-        _op_backward(block, op, contribs, resolve_grad, no_grad_set)
+        rename = recompute.activations_for(op) if recompute else {}
+        _op_backward(block, op, contribs, resolve_grad, no_grad_set, rename)
 
     # resolve every accumulated grad and publish the name map so callers
     # can find grads of arbitrary vars
@@ -133,7 +146,114 @@ def _append_backward_impl(loss, program, block, parameter_list,
     return params_grads
 
 
-def _op_backward(block, op, contribs, resolve_grad, no_grad_set):
+RECOMPUTE_SUFFIX = '@RC'
+RECOMPUTE_INPUT_SUFFIX = '@RCIN'
+
+
+class _RecomputePlan(object):
+    """Activation checkpointing by program rewrite (the reference's
+    _append_backward_ops_with_checkpoints_, backward.py:618; the JAX
+    package's fluid/backward.py:137, name for name).
+
+    The forward ops are cut into spans after each op that writes a
+    checkpoint (or the loss).  When the backward walk enters a span of
+    more than one op, the span's ops are emitted again, reading the
+    span's activation inputs through ``recompute_barrier`` ops
+    (``<name>@RCIN``) and writing ``<name>@RC`` twins; the span's grad
+    ops then read the twins.  Names nobody writes in the forward (feeds,
+    parameters) and persistable ones are read as they are."""
+
+    def __init__(self, block, fwd_ops, checkpoint_names, loss_name):
+        from ..ops import registry
+        self.block = block
+        produced = set()
+        for op in fwd_ops:
+            produced.update(op.output_arg_names)
+        self.stable = set()
+        for op in fwd_ops:
+            for n in op.input_arg_names:
+                if n not in produced:
+                    self.stable.add(n)
+                else:
+                    v = block._find_var_recursive(n)
+                    if v is not None and getattr(v, 'persistable', False):
+                        self.stable.add(n)
+        keep = set(checkpoint_names) | {loss_name}
+        self.span_of = {}
+        self.spans = []
+        cur = []
+        for op in fwd_ops:
+            if op.type in registry.HOST_OPS:
+                continue
+            cur.append(op)
+            self.span_of[id(op)] = len(self.spans)
+            if any(n in keep for n in op.output_arg_names):
+                self.spans.append(cur)
+                cur = []
+        if cur:
+            self.spans.append(cur)
+        self.keep = keep
+        self._emitted = {}
+
+    def activations_for(self, op):
+        """The rename map of the span holding `op`, its recompute ops
+        emitted on first use (the backward walk meets a span's last op
+        first, so they land just before the span's grad ops)."""
+        s = self.span_of.get(id(op))
+        if s is None or len(self.spans[s]) <= 1:
+            return {}
+        if s in self._emitted:
+            return self._emitted[s]
+        span_ops = self.spans[s]
+        rename = {}
+        span_produced = set()
+        for f in span_ops:
+            span_produced.update(f.output_arg_names)
+        for f in span_ops:
+            for n in f.input_arg_names:
+                if n in rename or n in span_produced or n in self.stable:
+                    continue
+                self._mk_var(n, n + RECOMPUTE_INPUT_SUFFIX)
+                self.block.append_op(
+                    'recompute_barrier', inputs={'X': [n]},
+                    outputs={'Out': [n + RECOMPUTE_INPUT_SUFFIX]},
+                    infer_shape=False)
+                rename[n] = n + RECOMPUTE_INPUT_SUFFIX
+        # the span again, outputs renamed (a checkpoint's twin is written
+        # but read by nobody: the checkpoint itself stays)
+        for f in span_ops:
+            ins = {slot: [rename.get(n, n) for n in names]
+                   for slot, names in f.inputs.items()}
+            outs = {}
+            for slot, names in f.outputs.items():
+                row = []
+                for n in names:
+                    rc = n + RECOMPUTE_SUFFIX
+                    self._mk_var(n, rc)
+                    if n not in self.keep:
+                        rename[n] = rc
+                    row.append(rc)
+                outs[slot] = row
+            attrs = dict(f.attrs)
+            attrs['__op_role__'] = 'backward'
+            self.block.append_op(f.type, inputs=ins, outputs=outs,
+                                 attrs=attrs, infer_shape=False)
+        self._emitted[s] = rename
+        return rename
+
+    def _mk_var(self, src_name, new_name):
+        if self.block.has_var(new_name):
+            return
+        v = self.block._find_var_recursive(src_name)
+        nv = self.block.create_var(
+            name=new_name, shape=v.shape if v is not None else (),
+            dtype=v.dtype if v is not None else 'float32')
+        nv.stop_gradient = True
+
+
+def _op_backward(block, op, contribs, resolve_grad, no_grad_set,
+                 rename=None):
+    rename = rename or {}
     if op.type in ('while', 'conditional_block'):
         # does the loop or branch need a gradient?  Its declared outputs
         # may be empty, so the sub-blocks' writes count too
@@ -170,7 +290,8 @@ def _op_backward(block, op, contribs, resolve_grad, no_grad_set):
                 z = block.create_var(
                     name=unique_name.generate(n + '@ZERO'),
                     shape=v.shape, dtype=v.dtype)
-                block.append_op('fill_zeros_like', inputs={'X': n},
+                block.append_op('fill_zeros_like',
+                                inputs={'X': rename.get(n, n)},
                                 outputs={'Out': z})
                 g = z.name
             row.append(g)
@@ -184,7 +305,8 @@ def _op_backward(block, op, contribs, resolve_grad, no_grad_set):
                             for n in op.input_arg_names)):
         return False
 
-    grad_inputs = {slot: list(names) for slot, names in op.inputs.items()}
+    grad_inputs = {slot: [rename.get(n, n) for n in names]
+                   for slot, names in op.inputs.items()}
     grad_inputs.update(grad_in)
     grad_outputs = {}
     for slot, names in op.inputs.items():

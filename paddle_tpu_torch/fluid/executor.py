@@ -19,7 +19,9 @@ last reader.  What a run records depends on the program:
   and the grad ops themselves do not run.  Where that partition does
   not apply (several losses, an intermediate's gradient read) every op
   runs in order and each grad op replays its forward op through
-  autograd;
+  autograd.  On the whole-program grad a RecomputeOptimizer program's
+  re-emitted ops do not run: each span of the forward they repeat runs
+  under ``torch.utils.checkpoint`` (``_run_span``);
 - any other program (a startup program) runs under ``torch.no_grad()``,
   so the parameters it creates can enter autograd later.
 
@@ -118,6 +120,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import backward
 from . import compile_cache
 from . import core
 from . import framework
@@ -257,6 +260,76 @@ def _fused_opt_run(ops, i):
     return run if len(run) >= min_n else None
 
 
+# the ops that read the one ragged level of the padded + mask form
+_LEVEL1_CONSUMERS = ('gru', 'lstm', 'lstmp', 'im2sequence',
+                     'linear_chain_crf', 'crf_decoding')
+
+
+def _reject_multilevel_lod(program, name, levels):
+    """Raise where a LoDTensor feed of two or more levels reaches a
+    sequence op (JAX: fluid/executor.py:2058): the padded + mask form
+    holds one ragged level (the '@MASK' feeds), so nested sequences
+    (reference framework/lod_tensor.h:219, paragraphs of sentences)
+    would compute as dense without a word.  What the feed flows into is
+    followed through the ops' outputs, sub-blocks included, to a fixed
+    point."""
+    tainted = {name}
+    ops = [op for block in program.blocks for op in block.ops]
+    changed = True
+    while changed:
+        changed = False
+        for op in ops:
+            if tainted.isdisjoint(op.input_arg_names):
+                continue
+            if op.type.startswith('sequence_') or \
+                    op.type in _LEVEL1_CONSUMERS:
+                raise RuntimeError(
+                    "feed '%s' carries a %d-level LoD and flows into op "
+                    '[%s] (via %r), which lowers on the padded + mask form '
+                    'holding ONE ragged level: nested sequences would '
+                    'compute as dense.  Flatten the outer level into the '
+                    'batch (one row per inner sequence) and feed the '
+                    "level-1 LoD, or use the bucketed DataLoader, which "
+                    "emits the '@MASK' feeds the sequence ops read."
+                    % (name, levels, op.type,
+                       sorted(tainted & set(op.input_arg_names))[0]))
+            for out in op.output_arg_names:
+                if out not in tainted:
+                    tainted.add(out)
+                    changed = True
+
+
+def _recompute_spans(pre, twins):
+    """The forward ops a RecomputeOptimizer program emits again in its
+    backward (`twins`, each re-emitted op, whose outputs are its forward
+    op's with the ``@RC`` suffix), as spans of `pre`: [(start, end)] of
+    the runs of consecutive forward ops re-emitted as one group (a
+    group's ops follow each other in the backward, in forward order).
+    None where a twin has no forward op or a span writes a persistable
+    variable (running it again would write it twice)."""
+    at = {}
+    for i, op in enumerate(pre):
+        at.setdefault((op.type, tuple(op.output_arg_names)), i)
+    suffix = len(backward.RECOMPUTE_SUFFIX)
+    spans, prev = [], None
+    for op in twins:
+        i = at.get((op.type, tuple(n[:-suffix]
+                                   for n in op.output_arg_names)))
+        if i is None:
+            return None
+        if prev is not None and i == prev + 1:
+            spans[-1][1] = i + 1
+        else:
+            spans.append([i, i + 1])
+        prev = i
+    block = pre[0].block if pre else None
+    for a, b in spans:
+        if any(_is_persistable(block, n) for op in pre[a:b]
+               for n in op.output_arg_names):
+            return None
+    return sorted((a, b) for a, b in spans if b - a > 1)
+
+
 def _wpg_partition(ops, program, fetch_names):
     """Whole-program grad (JAX: fluid/executor.py:846): split a training
     step into the forward region, the backward region and the rest, and
@@ -264,9 +337,17 @@ def _wpg_partition(ops, program, fetch_names):
     differentiates.  Returns None where one autograd pass over the
     forward cannot stand in for the backward region: no backward-role
     op, a backward-role op other than the synthesized grad ops, seed
-    fills, zero placeholders and aggregation sums, not exactly one
-    loss, or a needed gradient of a value the forward region writes
-    (an intermediate) or never reads."""
+    fills, zero placeholders, aggregation sums and recompute spans, not
+    exactly one loss, or a needed gradient of a value the forward
+    region writes (an intermediate) or never reads.
+
+    A RecomputeOptimizer program's re-emitted forward ops and their
+    ``recompute_barrier`` ops do not run: each span they re-emit
+    (``spans``, ``_recompute_spans``) runs its forward under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+    span's inputs and outputs and runs the span again in the autograd
+    pass, as the program's backward would.  (The JAX package declines
+    such a program here and runs its grad ops one by one.)"""
     roles = [_role(op) for op in ops]
     if 'backward' not in roles:
         return None
@@ -275,10 +356,14 @@ def _wpg_partition(ops, program, fetch_names):
     bwd = [op for op in ops[first:] if _role(op) == 'backward']
     post = [op for op in ops[first:] if _role(op) != 'backward']
     rev = {g: p for p, g in getattr(program, '_grad_name_map', {}).items()}
-    seeds = []
+    seeds, twins = [], []
     for op in bwd:
         ws = op.output_arg_names
-        if op.type.endswith('_grad') or op.type == 'fill_zeros_like':
+        if op.type.endswith('_grad') or op.type in ('fill_zeros_like',
+                                                    'recompute_barrier'):
+            continue
+        if ws and all(n.endswith(backward.RECOMPUTE_SUFFIX) for n in ws):
+            twins.append(op)
             continue
         if op.type == 'sum' and ws and all(n in rev for n in ws):
             continue
@@ -318,8 +403,12 @@ def _wpg_partition(ops, program, fetch_names):
             if n in no_grad or (n != loss and v is not None and
                                 v.stop_gradient):
                 stop.add(n)
+    spans = _recompute_spans(pre, twins)
+    if spans is None:
+        return None
     return {'pre': pre, 'post': post, 'loss': loss, 'seed_grad': seed_grad,
-            'seed_value': seed_value, 'grads': grads, 'stop': stop}
+            'seed_value': seed_value, 'grads': grads, 'stop': stop,
+            'spans': spans}
 
 
 class FetchHandle(object):
@@ -466,6 +555,28 @@ def _steps(ops, keep):
     return out
 
 
+class _Span(object):
+    """A recompute span of the whole-program grad's forward: its op
+    steps and drop lists, the names its ops read before writing them
+    (`reads`) and the names it writes that live past it (`outs`)."""
+
+    __slots__ = ('steps', 'drops', 'reads', 'outs', 'dropped')
+
+    def __init__(self, steps, drops):
+        self.steps, self.drops = steps, drops
+        self.dropped = frozenset(n for d in drops for n in d)
+        reads, written, outs = [], set(), []
+        for st in steps:
+            for _, names in st.ins:
+                reads.extend(n for n in names
+                             if n not in written and n not in reads)
+            for _, names, _ in st.outs:
+                written.update(names)
+                outs.extend(n for n in names
+                            if n not in self.dropped and n not in outs)
+        self.reads, self.outs = reads, outs
+
+
 class _Binder(object):
     """Where each scope name lives (JAX: fluid/executor.py:171
     ``_SegmentBinder``): for each scope of a plan, the owner dict of each
@@ -493,7 +604,8 @@ class _Plan(object):
     kind 'forward' (no backward ops: ``steps``, ``writes_state``),
     'per_op' (every op in order: ``steps``; ``post_grads`` and
     ``var_of`` for data parallel) or 'wpg' (the whole-program grad:
-    ``wpg``, ``pre`` with ``pre_drops``, ``post``).  ``no_graph`` says
+    ``wpg``, ``pre`` with ``pre_drops`` and the recompute ``spans``
+    over it, ``post``).  ``no_graph`` says
     why the program is never captured in a CUDA graph (None: it may
     be); ``graphs`` holds its CUDA graphs, weakly keyed by scope, and
     ``scope_reads`` (built with the first capture) the names its ops
@@ -503,7 +615,7 @@ class _Plan(object):
     __slots__ = ('ops', 'keep', 'checked_only', 'kind', 'writes_state',
                  'steps', 'post_grads', 'var_of', 'wpg', 'pre', 'pre_drops',
                  'post', 'no_graph', 'graphs', 'binder', 'scope_reads',
-                 'sub_steps')
+                 'sub_steps', 'spans')
 
 
 def _build_plan(program, fetch_names):
@@ -525,6 +637,7 @@ def _build_plan(program, fetch_names):
                                 program.blocks[op.attrs['sub_block']].ops]
         for op in _with_sub_blocks(ops) if op.type in _CONTROL_FLOW}
     plan.wpg = None
+    plan.spans = {}
     if any(_role(op) == 'backward' for op in ops):
         plan.wpg = _wpg_partition(ops, program, fetch_names)
     if plan.wpg is not None:
@@ -535,6 +648,8 @@ def _build_plan(program, fetch_names):
                                     keep | later | {wpg['loss']})
         plan.pre = [_OpStep(op, wpg['stop'], drop)
                     for op, drop in zip(wpg['pre'], plan.pre_drops)]
+        plan.spans = {a: _Span(plan.pre[a:b], plan.pre_drops[a:b])
+                      for a, b in wpg['spans']}
         plan.post = _steps(wpg['post'], keep)
     else:
         plan.kind = 'per_op' if any(_role(op) == 'backward'
@@ -876,6 +991,9 @@ class Executor(object):
         self._row_updates = []
         self._owners = plan.binder.owners(scope)
         if env is None:
+            for name, value in feed.items():
+                if isinstance(value, core.LoDTensor) and len(value.lod) > 1:
+                    _reject_multilevel_lod(program, name, len(value.lod))
             env = {name: self._to_device(value)
                    for name, value in feed.items()}
         self._verdicts = [] if get_flag('FLAGS_check_nan_inf', False) \
@@ -1527,13 +1645,16 @@ class Executor(object):
                 leaf = self._read(n, env, scope).detach().requires_grad_()
                 leaves.append(leaf)
                 env[n] = leaf
-            for st, drop in zip(plan.pre, plan.pre_drops):
-                self._lower_op(st, env, scope, program)
-                for n in st.stops:
-                    if n in env:
-                        env[n] = env[n].detach()
-                for n in drop:
-                    env.pop(n, None)
+            i = 0
+            while i < len(plan.pre):
+                span = plan.spans.get(i)
+                if span is not None:
+                    self._run_span(span, env, scope, program)
+                    i += len(span.steps)
+                    continue
+                self._run_pre_step(plan.pre[i], plan.pre_drops[i], env,
+                                   scope, program)
+                i += 1
             loss = env[wpg['loss']]
             seed = torch.full_like(loss, wpg['seed_value'])
             if loss.requires_grad and leaves:
@@ -1560,6 +1681,41 @@ class Executor(object):
             env[wpg['seed_grad']] = seed
         with torch.no_grad():
             self._run_steps(plan.post, env, scope, program)
+
+    def _run_pre_step(self, st, drop, env, scope, program):
+        self._lower_op(st, env, scope, program)
+        for n in st.stops:
+            if n in env:
+                env[n] = env[n].detach()
+        for n in drop:
+            env.pop(n, None)
+
+    def _run_span(self, span, env, scope, program):
+        """A recompute span under non-reentrant torch.utils.checkpoint:
+        autograd keeps the span's inputs (its env reads, passed in) and
+        outputs only, and runs the span again from them in the backward
+        pass, with the same op seeds and device step, so the dropout
+        masks and the attention-dropout bits are drawn again bit for
+        bit.  No host read: a step with spans is captured like any
+        other."""
+        from torch.utils.checkpoint import (checkpoint,
+                                            set_checkpoint_early_stop)
+        reads = [n for n in span.reads if n in env]
+
+        def run(*vals):
+            local = dict(zip(reads, vals))
+            for st, drop in zip(span.steps, span.drops):
+                self._run_pre_step(st, drop, local, scope, program)
+            return tuple(local[n] for n in span.outs)
+
+        # the whole span again, as the program's re-emitted ops run it,
+        # not only up to the last tensor autograd saved
+        with set_checkpoint_early_stop(False):
+            outs = checkpoint(run, *[env[n] for n in reads],
+                              use_reentrant=False, preserve_rng_state=False)
+        for n in span.dropped:
+            env.pop(n, None)
+        env.update(zip(span.outs, outs))
 
 
 _UNSET = object()

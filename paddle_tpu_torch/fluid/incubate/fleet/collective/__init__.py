@@ -53,10 +53,6 @@ class CollectiveOptimizer(DistributedOptimizer):
                  no_grad_set=None):
         from .....distributed import launch
         s = self._strategy
-        if s.use_recompute:
-            raise NotImplementedError(
-                'DistributedStrategy.use_recompute: RecomputeOptimizer is '
-                'not ported (ROADMAP Queue 1 item 8)')
         if s.use_local_sgd or s.mode == 'local_sgd':
             raise NotImplementedError(
                 'DistributedStrategy local_sgd: LocalSGD is not ported '
@@ -66,6 +62,10 @@ class CollectiveOptimizer(DistributedOptimizer):
             from ....contrib.mixed_precision import decorate
             opt = decorate(opt, init_loss_scaling=s.amp_loss_scaling,
                            use_dynamic_loss_scaling=True)
+        if s.use_recompute:
+            from ....optimizer import RecomputeOptimizer
+            opt = RecomputeOptimizer(opt)
+            opt._set_checkpoints(s.recompute_checkpoints)
         params_grads = opt.backward(loss, startup_program, parameter_list,
                                     no_grad_set)
         program = loss.block.program

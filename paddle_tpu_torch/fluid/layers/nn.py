@@ -21,7 +21,10 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
            'unsqueeze', 'transpose', 'stack', 'split', 'expand', 'gather',
            'softmax_with_cross_entropy',
            'sigmoid_cross_entropy_with_logits', 'square_error_cost',
-           'mean', 'slice', 'topk', 'accuracy', 'one_hot', 'label_smooth']
+           'mean', 'slice', 'topk', 'accuracy', 'one_hot', 'label_smooth',
+           'linear_chain_crf', 'crf_decoding', 'chunk_eval', 'cos_sim',
+           'nce', 'hsigmoid', 'warpctc', 'ctc_greedy_decoder',
+           'edit_distance']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -477,3 +480,202 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype='float32',
     helper.append_op('label_smooth', inputs=inputs, outputs={'Out': out},
                      attrs={'epsilon': float(epsilon)})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Structured prediction and language layers (reference layers/nn.py:
+# linear_chain_crf, crf_decoding, chunk_eval, cos_sim, nce, hsigmoid,
+# warpctc, ctc_greedy_decoder, edit_distance; the JAX package's
+# layers/nn.py:774-965, op for op)
+# ---------------------------------------------------------------------------
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """CRF negative log-likelihood over padded [B,T,D] emissions: the
+    per-sequence cost [B,1].  The transition parameter is [D+2, D] (row 0
+    start, row 1 end, the rest pairwise)."""
+    helper = LayerHelper('linear_chain_crf', param_attr=param_attr)
+    tag_num = input.shape[-1]
+    trans = helper.create_parameter(param_attr,
+                                    shape=[tag_num + 2, tag_num],
+                                    dtype=input.dtype)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    e_exps = helper.create_variable_for_type_inference(input.dtype)
+    t_exps = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {'Emission': input, 'Transition': trans, 'Label': label}
+    if length is not None:
+        inputs['Length'] = length
+    helper.append_op('linear_chain_crf', inputs=inputs,
+                     outputs={'LogLikelihood': ll, 'Alpha': alpha,
+                              'EmissionExps': e_exps,
+                              'TransitionExps': t_exps},
+                     infer_shape=False)
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """Viterbi decode with the transition parameter named by
+    `param_attr` (linear_chain_crf's); with `label`, each position's
+    correctness 0/1."""
+    helper = LayerHelper('crf_decoding')
+    pname = param_attr.name if hasattr(param_attr, 'name') else param_attr
+    trans = helper.main_program.global_block()._find_var_recursive(pname)
+    if trans is None:
+        raise ValueError('crf_decoding: transition parameter %r not found '
+                         '(pass the ParamAttr used by linear_chain_crf)'
+                         % pname)
+    out = helper.create_variable_for_type_inference('int64')
+    inputs = {'Emission': input, 'Transition': trans}
+    if label is not None:
+        inputs['Label'] = label
+    if length is not None:
+        inputs['Length'] = length
+    helper.append_op('crf_decoding', inputs=inputs,
+                     outputs={'ViterbiPath': out}, infer_shape=False)
+    out.stop_gradient = True
+    return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """Chunk precision, recall and F1, and the three counts (a host op)."""
+    helper = LayerHelper('chunk_eval')
+    precision = helper.create_variable_for_type_inference('float32')
+    recall = helper.create_variable_for_type_inference('float32')
+    f1 = helper.create_variable_for_type_inference('float32')
+    n_infer = helper.create_variable_for_type_inference('int64')
+    n_label = helper.create_variable_for_type_inference('int64')
+    n_correct = helper.create_variable_for_type_inference('int64')
+    inputs = {'Inference': input, 'Label': label}
+    if seq_length is not None:
+        inputs['SeqLength'] = seq_length
+    helper.append_op('chunk_eval', inputs=inputs,
+                     outputs={'Precision': precision, 'Recall': recall,
+                              'F1-Score': f1, 'NumInferChunks': n_infer,
+                              'NumLabelChunks': n_label,
+                              'NumCorrectChunks': n_correct},
+                     attrs={'chunk_scheme': chunk_scheme,
+                            'num_chunk_types': num_chunk_types,
+                            'excluded_chunk_types':
+                                list(excluded_chunk_types or [])},
+                     infer_shape=False)
+    return precision, recall, f1, n_infer, n_label, n_correct
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper('cos_sim')
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op('cos_sim', inputs={'X': X, 'Y': Y},
+                     outputs={'Out': out, 'XNorm': xn, 'YNorm': yn},
+                     infer_shape=False)
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10, name=None,
+        sampler='uniform', custom_dist=None, seed=0, is_sparse=False):
+    """Noise-contrastive estimation loss; samplers uniform, log_uniform
+    (Zipf) and custom_dist."""
+    helper = LayerHelper('nce', param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    s_logits = helper.create_variable_for_type_inference(input.dtype)
+    s_labels = helper.create_variable_for_type_inference('int64')
+    inputs = {'Input': input, 'Weight': w, 'Label': label}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr,
+                                    shape=[num_total_classes],
+                                    dtype=input.dtype, is_bias=True)
+        inputs['Bias'] = b
+    attrs = {'num_total_classes': num_total_classes,
+             'num_neg_samples': num_neg_samples,
+             'seed': seed, 'sampler': sampler}
+    if custom_dist is not None:
+        attrs['sampler'] = 'custom_dist'
+        attrs['custom_dist'] = [float(p) for p in custom_dist]
+    helper.append_op('nce', inputs=inputs,
+                     outputs={'Cost': cost, 'SampleLogits': s_logits,
+                              'SampleLabels': s_labels},
+                     attrs=attrs, infer_shape=False)
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid over the default complete binary tree."""
+    helper = LayerHelper('hsigmoid', param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[num_classes - 1, dim],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre_out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {'X': input, 'W': w, 'Label': label}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, shape=[num_classes - 1],
+                                    dtype=input.dtype, is_bias=True)
+        inputs['Bias'] = b
+    helper.append_op('hierarchical_sigmoid', inputs=inputs,
+                     outputs={'Out': out, 'PreOut': pre_out},
+                     attrs={'num_classes': num_classes},
+                     infer_shape=False)
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None):
+    """CTC loss on padded [B,T,V] logits."""
+    helper = LayerHelper('warpctc')
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    grad = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {'Logits': input, 'Label': label}
+    if input_length is not None:
+        inputs['LogitsLength'] = input_length
+    if label_length is not None:
+        inputs['LabelLength'] = label_length
+    helper.append_op('warpctc', inputs=inputs,
+                     outputs={'Loss': loss, 'WarpCTCGrad': grad},
+                     attrs={'blank': blank, 'norm_by_times': norm_by_times},
+                     infer_shape=False)
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, padding_value=0):
+    """Greedy CTC decode: argmax, merge repeats, drop blanks."""
+    from .tensor import argmax
+    helper = LayerHelper('ctc_greedy_decoder')
+    amax = argmax(input, axis=-1)
+    out = helper.create_variable_for_type_inference('int64')
+    out_len = helper.create_variable_for_type_inference('int64')
+    inputs = {'Input': amax}
+    if input_length is not None:
+        inputs['InputLength'] = input_length
+    helper.append_op('ctc_align', inputs=inputs,
+                     outputs={'Output': out, 'OutputLength': out_len},
+                     attrs={'blank': blank, 'padding_value': padding_value},
+                     infer_shape=False)
+    return out, out_len
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    helper = LayerHelper('edit_distance')
+    out = helper.create_variable_for_type_inference('float32')
+    seq_num = helper.create_variable_for_type_inference('int64')
+    inputs = {'Hyps': input, 'Refs': label}
+    if input_length is not None:
+        inputs['HypsLength'] = input_length
+    if label_length is not None:
+        inputs['RefsLength'] = label_length
+    helper.append_op('edit_distance', inputs=inputs,
+                     outputs={'Out': out, 'SequenceNum': seq_num},
+                     attrs={'normalized': normalized,
+                            'ignored_tokens': list(ignored_tokens or [])},
+                     infer_shape=False)
+    return out, seq_num

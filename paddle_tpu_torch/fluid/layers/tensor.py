@@ -13,7 +13,8 @@ from ..layer_helper import LayerHelper
 
 __all__ = ['assign', 'cast', 'concat', 'fill_constant',
            'fill_constant_batch_size_like', 'ones', 'zeros', 'ones_like',
-           'zeros_like', 'create_parameter', 'shape', 'range']
+           'zeros_like', 'create_parameter', 'shape', 'range', 'sums',
+           'argmax']
 
 
 def assign(input, output=None):
@@ -49,6 +50,25 @@ def concat(input, axis=0, name=None):
     out = helper.create_variable_for_type_inference(input[0].dtype)
     helper.append_op('concat', inputs={'X': list(input)},
                      outputs={'Out': out}, attrs={'axis': axis})
+    return out
+
+
+def sums(input, out=None):
+    """The sum of a list of variables (op sum)."""
+    helper = LayerHelper('sum')
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op('sum', inputs={'X': list(input)},
+                     outputs={'Out': out})
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper('arg_max')
+    out = helper.create_variable_for_type_inference('int64',
+                                                    stop_gradient=True)
+    helper.append_op('arg_max', inputs={'X': x}, outputs={'Out': out},
+                     attrs={'axis': axis})
     return out
 
 

@@ -369,6 +369,35 @@ class LambOptimizer(AdamOptimizer):
             infer_shape=False)
 
 
+class RecomputeOptimizer(Optimizer):
+    """Activation checkpointing around another optimizer (reference
+    optimizer.py:3611; the JAX package's fluid/optimizer.py:624):
+    ``_set_checkpoints`` names the variables kept from the forward, and
+    the backward (fluid/backward.py ``_RecomputePlan``) recomputes each
+    span between them."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        return append_backward(loss, parameter_list, no_grad_set,
+                               callbacks, checkpoints=self._checkpoints)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        return self.apply_gradients(params_grads), params_grads
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer

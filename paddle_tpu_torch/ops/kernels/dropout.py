@@ -75,16 +75,15 @@ def _count(shape):
     return n
 
 
-def hash_keep(seed, shape, rate, device):
-    """[shape] bool keep mask of the dropout op: element i keeps where the
-    murmur3 finalizer of (i * 0x9E3779B1) ^ seed, a uint32, has its top
-    24 bits below the keep threshold of 1 - rate.  `seed` is a 0-d int64
-    tensor in [0, 2**32) on `device`, so the mask is a function of device
-    values alone (a CUDA graph replays it with the step of each replay).
-    The arithmetic is int32 with two's-complement wraparound, as
-    PyTorch's integer kernels give it on the CPU and the card alike (the
-    int64 seed's conversion keeps its low 32 bits); right shifts are
-    masked to be logical."""
+def hash_bits(seed, shape, device):
+    """[shape] int32 in [0, 2**24): the top 24 bits of the murmur3
+    finalizer of (i * 0x9E3779B1) ^ seed for element i, a uint32.
+    `seed` is a 0-d int64 tensor in [0, 2**32) on `device`, so the bits
+    are a function of device values alone (a CUDA graph replays them
+    with the step of each replay).  The arithmetic is int32 with
+    two's-complement wraparound, as PyTorch's integer kernels give it on
+    the CPU and the card alike (the int64 seed's conversion keeps its low
+    32 bits); right shifts are masked to be logical."""
     n = _count(shape)
     h = torch.arange(n, dtype=torch.int32, device=device) * \
         _i32(0x9E3779B1)
@@ -94,8 +93,13 @@ def hash_keep(seed, shape, rate, device):
     h ^= (h >> 15) & 0x1FFFF
     h *= _i32(0x846CA68B)
     h ^= (h >> 16) & 0xFFFF
-    return (((h >> 8) & 0xFFFFFF) < keep_threshold(rate)).reshape(
-        tuple(shape))
+    return ((h >> 8) & 0xFFFFFF).reshape(tuple(shape))
+
+
+def hash_keep(seed, shape, rate, device):
+    """[shape] bool keep mask of the dropout op: element i keeps where
+    its ``hash_bits`` are below the keep threshold of 1 - rate."""
+    return hash_bits(seed, shape, device) < keep_threshold(rate)
 
 
 def _scale(rate, like):

@@ -284,6 +284,17 @@ def sum_op(ctx, ins, attrs):
     return {'Out': [out]}
 
 
+@register('arg_max', no_grad_out_slots=('Out',))
+def arg_max(ctx, ins, attrs):
+    """int64 index of the largest value along `axis` (the first of equal
+    ones, as jnp.argmax)."""
+    axis = attrs.get('axis', -1)
+    out = torch.argmax(_x(ins), dim=axis)
+    if attrs.get('keepdims', False):
+        out = out.unsqueeze(axis)
+    return {'Out': [out]}
+
+
 @register('top_k', no_grad_out_slots=('Indices',))
 def top_k(ctx, ins, attrs):
     """The k largest along the last axis, largest first, int64 Indices;

@@ -492,3 +492,15 @@ def accuracy(ctx, ins, attrs):
             'Correct': [correct.to(torch.int32)],
             'Total': [torch.full((), total, dtype=torch.int32,
                                  device=idx.device)]}
+
+
+@register('row_conv')
+def row_conv(ctx, ins, attrs):
+    """Lookahead convolution (operators/row_conv_op.cc, DeepSpeech2):
+    out[b, t] = sum_{j < context} x[b, t + j] * w[j], past the end
+    zero.  X [B,T,D], Filter [context, D]."""
+    x = ins['X'][0]
+    w = ins['Filter'][0]
+    t = x.shape[1]
+    xp = F.pad(x, (0, 0, 0, w.shape[0] - 1))
+    return {'Out': [sum(xp[:, j:j + t] * w[j] for j in range(w.shape[0]))]}

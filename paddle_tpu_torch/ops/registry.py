@@ -173,6 +173,20 @@ class LowerCtx(object):
         base = ((base & _M32) * 0xC2B2AE3D) % (1 << 32)
         return base ^ self.step_mix(0x85EBCA77)
 
+    def sample_seed(self, salt):
+        """The uint32 seed of a sampling op's counter hash (nce,
+        sample_logits: ``kernels.dropout.hash_bits``) as a 0-d int64
+        tensor on the device: a host mix of the program's random_seed,
+        the op's seed, its `salt` (the op's seed attr) and, in data
+        parallel, the rank, xor the device step times 0x27D4EB2F, so a
+        replayed graph draws the samples of the step it replays."""
+        base = ((self.random_seed * 1000003 + self.op_seed) * 1000033 +
+                int(salt)) * 1000037
+        if self.replica is not None:
+            base += self.replica.rank * 0x9E3779B1
+        base = ((base & _M32) * 0x165667B1) % (1 << 32)
+        return base ^ self.step_mix(0x27D4EB2F)
+
 
 class OpDef(object):
     __slots__ = ("type", "fn", "no_grad_out_slots", "stochastic",

@@ -54,6 +54,12 @@ def lstm(ctx, ins, attrs):
     h = h4 // 4
     mask = ins['Mask'][0] if ins.get('Mask') else None
     hp, cp = _state(ins, 'H0', b, h, x), _state(ins, 'C0', b, h, x)
+    if x.device.type == 'meta':
+        # shape inference (registry.infer_shapes), where a dynamic time
+        # axis is a sentinel far too long to step through
+        seq = torch.empty((b, t, h), dtype=x.dtype, device='meta')
+        return {'Hidden': [seq], 'Cell': [seq], 'LastH': [hp],
+                'LastC': [cp]}
     hs, cs = [None] * t, [None] * t
     for k in _time_order(t, attrs.get('is_reverse', False)):
         hh, c = _lstm_cell(x[:, k] + _product(hp, w), cp)

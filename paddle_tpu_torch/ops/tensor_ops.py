@@ -294,6 +294,15 @@ def assign(ctx, ins, attrs):
     return {'Out': [_x(ins)]}
 
 
+@register('recompute_barrier')
+def recompute_barrier(ctx, ins, attrs):
+    """The input of a span RecomputeOptimizer runs again in the backward
+    (fluid/backward.py).  The JAX package makes it an
+    optimization_barrier so XLA does not merge the span with the
+    forward; PyTorch merges nothing, so it is the identity."""
+    return {'Out': [_x(ins)]}
+
+
 @register('assign_value')
 def assign_value(ctx, ins, attrs):
     """A constant from the op's attrs: values (flat), shape, dtype."""

@@ -225,7 +225,7 @@ def test_transpiled_bert_plan_matches_bucket_count():
 
 def test_other_entry_points():
     """LocalSGD, the parameter-server transpiler modes and the unported
-    fleet strategies raise (use_amp decorates: its loss-scaling ops
+    fleet strategy (local SGD) raise (use_amp decorates: its loss-scaling ops
     follow the all-reduces); nccl2 mode marks the program; the fleet
     optimizer inserts un-planned all-reduces (nranks 1 without a
     group)."""
@@ -239,7 +239,7 @@ def test_other_entry_points():
     cfg.mode = 'pserver'
     with pytest.raises(NotImplementedError, match='item 14'):
         DistributeTranspiler(cfg).transpile(0, program=main)
-    for field in ('use_recompute', 'use_local_sgd'):
+    for field in ('use_local_sgd',):
         s = DistributedStrategy()
         setattr(s, field, True)
         with pytest.raises(NotImplementedError, match='ROADMAP'):

@@ -32,6 +32,7 @@ def test_lowering_matches_jax(case):
 def test_unlowered_op_raises_not_implemented():
     # softmax has a lowering since the image slice, matmul since the
     # attention chain below seq 512, sequence_pool since the sequence
-    # ops; linear_chain_crf waits for the rest of lang_ops
-    with pytest.raises(NotImplementedError, match="'linear_chain_crf'"):
-        treg.get('linear_chain_crf')
+    # ops, linear_chain_crf since the rest of lang_ops; prior_box waits
+    # for the detection ops
+    with pytest.raises(NotImplementedError, match="'prior_box'"):
+        treg.get('prior_box')

@@ -164,17 +164,16 @@ def test_append_backward_honours_no_grad_set_and_trainable():
 
 
 def test_optimizer_raises_on_what_is_not_ported():
-    """Recompute checkpoints are not ported, and an optimizer without
-    an update op of its own (the base class) raises.  (Clipping and
-    regularization are ported: tests/test_torch_lr_clip.py.)"""
+    """An optimizer without an update op of its own (the base class)
+    raises.  (Clipping and regularization are ported:
+    tests/test_torch_lr_clip.py; recompute checkpoints:
+    tests/test_torch_recompute.py.)"""
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
         x = tfluid.layers.data('x', shape=[4], dtype='float32')
         loss = tfluid.layers.mean(tfluid.layers.fc(x, size=2))
         with pytest.raises(NotImplementedError):
             tfluid.optimizer.Optimizer(0.1).minimize(loss)
-        with pytest.raises(NotImplementedError, match='recompute'):
-            tfluid.backward.append_backward(loss, checkpoints=[x])
 
 
 def test_startup_state_loading_is_checked(programs):
