@@ -417,7 +417,29 @@ Phases, each of which fails the run (non-zero exit) on error:
      nce with each sampler) at a size its users run: forward and
      gradients twice bitwise, and against the same lowering on the CPU
      (integers and samples exact, floats within 1e-5 of the largest
-     magnitude).
+     magnitude);
+ 17. the core layers, ops and optimizers, cuDNN deterministic through
+     (a): (a) MobileNetV3-Large at the paper's widths
+     (models/mobilenet_v3.py BASE: 5,480,206 parameters, 1000
+     classes) at batch 128 of 224 x 224 images from --seed, with
+     RMSProp (momentum 0.9, rho 0.9), L2 decay 1e-5, the staircase
+     exponential decay and ExponentialMovingAverage(0.9999): 3 steps
+     through Executor.run (the dropout forward and gradient once each
+     a step, exact; step 3 replayed), the loss falling and finite, step
+     1 bitwise the plain path (every state variable, EMA and RMSProp
+     accumulators among them), plan_cache_steps (5 steps each
+     uncached, cached eager and replayed, bitwise; host clock, self
+     CPU, device time, peak), and one profiled eager step's share of
+     the depthwise convolutions and of the 176 rmsprop ops; (b)
+     LarsMomentum, Adamax, Adadelta, centered RMSProp, Ftrl, Dpsgd
+     (sigma 0), DecayedAdagrad, DGCMomentum, ModelAverage (with its
+     apply / restore) and Lookahead, 3 LeNet-5 steps each in float64
+     at batch 16, each step from the port's CPU state before the same
+     CPU step: the loss and the state within 1e-5 (relative, plus 1e-5
+     of the largest of its kind), the CPU tests' tolerance; dpsgd's
+     noise by its moments; (c) every op type of the
+     slice at a size its users run, twice bitwise and against the CPU
+     (integers exact, floats within 1e-5 of the largest magnitude).
 The line before the last is a JSON object {"kernels": [...]}.  Each
 row's "launches" are those the wrappers made on the main path (every
 counted step and request: the counters set to 0 just before each and
@@ -474,6 +496,7 @@ from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.models import bert
 from paddle_tpu_torch.models import label_semantic_roles as srl
 from paddle_tpu_torch.models import lenet
+from paddle_tpu_torch.models import mobilenet_v3
 from paddle_tpu_torch.models import resnet
 from paddle_tpu_torch.models import se_resnext
 from paddle_tpu_torch.models import seq2seq
@@ -6004,8 +6027,8 @@ def lang_op_run(op, ins, attrs, dev, seed):
         gen = np.random.RandomState(seed)
         ys = [y for s, v in sorted(outs.items()) for y in v
               if s not in opdef.no_grad_out_slots and y.requires_grad]
-        cts = [torch.as_tensor(gen.randn(*y.shape).astype('float32'),
-                               device=dev) for y in ys]
+        cts = [torch.as_tensor(np.asarray(gen.randn(*y.shape)).astype(
+            'float32'), device=dev) for y in ys]
         grads = torch.autograd.grad(ys, xs, cts, allow_unused=True) \
             if ys and xs else []
     return ({s: [y.detach().cpu() for y in v] for s, v in outs.items()},
@@ -6064,6 +6087,586 @@ def lang_phase(seed, dev):
     log('[16] (c) the other new op types on the card')
     t0 = time.perf_counter()
     without_counting(lambda: lang_ops_phase(seed, dev))
+    log('  (c): %.1f s' % (time.perf_counter() - t0))
+
+
+# ----------------------------------------------------------- phase 17
+def mobilenet_path(seed):
+    """MobileNetV3-Large BASE (models.mobilenet_v3) with the paper's
+    RMSProp + L2 + EMA recipe at batch 128, 224 x 224: the path dict
+    that train() runs.  Its one kernel pair (the dropout forward and
+    gradient) is bitwise its plain version, so the whole step is
+    (bitwise) under cuDNN's deterministic algorithms."""
+    cfg = mobilenet_v3.BASE
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss, _ = mobilenet_v3.build_train(fluid, cfg)
+    batch = mobilenet_v3.synthetic_batch(cfg, np.random.RandomState(seed))
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update(dropout_launches(main))
+    names = sorted(p.name for p in main.all_parameters() if p.trainable)
+    return {'name': 'MobileNetV3-Large RMSProp', 'main': main,
+            'startup': startup, 'loss': loss, 'lr': None, 'batch': batch,
+            'expected': expected, 'probe': [names[0], names[-1]],
+            'tokens': cfg.batch, 'unit': 'images', 'rate': cfg.lr,
+            'bitwise': True}
+
+
+def mobilenet_shares(run):
+    """One profiled eager step of the MobileNetV3 run: its device time,
+    the share of the depthwise convolutions' kernels (forward and
+    backward, by kernel name) and of the rmsprop ops (their kernels,
+    under a record_function range around each op's lowering)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+    path = run['path']
+    od = registry.get('rmsprop')
+    fn = od.fn
+
+    def ranged(ctx, ins, attrs):
+        with record_function('rmsprop op'):
+            return fn(ctx, ins, attrs)
+    od.fn = ranged
+    try:
+        with fluid.scope_guard(run['scope']):
+            events = profile_run('', lambda: eager_run(
+                run['exe'], path['main'], path['batch'], [path['loss']]),
+                quiet=True, pad=True)
+    finally:
+        od.fn = fn
+    # the device rows without the range's own (its wall span on the
+    # stream, gaps included)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and
+               e.key != 'rmsprop op']
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    dw = [e for e in kernels if 'depthwise' in e.key.lower()]
+    dw_ms = sum(e.self_device_time_total for e in dw) / 1e3
+    ranges = [e for e in events if e.key == 'rmsprop op' and
+              e.device_type == DeviceType.CPU]
+    rms_ms = sum(e.device_time_total for e in ranges) / 1e3
+    n_rms = sum(e.count for e in ranges)
+    log('  one profiled eager step: device %.2f ms in %d kernels; the '
+        'depthwise convolutions %.2f ms (%.1f%%, %d launches of %s); the '
+        '%d rmsprop ops %.2f ms (%.1f%%) (%s | %s)' % (
+            total, sum(e.count for e in kernels), dw_ms,
+            100 * dw_ms / total, sum(e.count for e in dw),
+            sorted({k for e in dw for k in e.key.replace('(', ' ').split()
+                    if 'depthwise' in k.lower()}), n_rms, rms_ms,
+            100 * rms_ms / total, torch.cuda.get_device_name(0),
+            card_line()))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        log('    %-60s %9.3f ms in %d launches' % (
+            e.key[:60], e.self_device_time_total / 1e3, e.count))
+
+
+def mobilenet_phase(seed):
+    """Phase 17 (a): MobileNetV3-Large trained by the paper's recipe."""
+    saved = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        path = mobilenet_path(seed)
+        names = weights.startup_names(path['startup'])
+        log('  %d trainable parameters (%d elements), %d state variables '
+            '(%d EMA, %d RMSProp accumulators), batch %d at %d x %d' % (
+                sum(p.trainable for p in path['main'].all_parameters()),
+                mobilenet_v3.count_parameters(path['main']), len(names),
+                sum(n.endswith('.ema') for n in names),
+                sum(any(a in n for a in ('_momentum_', '_mean_square_',
+                                         '_mean_grad_')) for n in names),
+                mobilenet_v3.BASE.batch, mobilenet_v3.BASE.image,
+                mobilenet_v3.BASE.image))
+        run = train(path)
+        # the step's host clock, self CPU, device time and peak, uncached,
+        # cached eager and replayed
+        without_counting(lambda: plan_cache_steps(run))
+        log('  (%s | %s)' % (torch.cuda.get_device_name(0), card_line()))
+        without_counting(lambda: mobilenet_shares(run))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# phase 17 (b): the other optimizer classes of the core slice, each as
+# (label, build(optimizer module, loss)) on LeNet-5
+CORE_OPTIMIZERS = (
+    ('LarsMomentum', lambda o, loss: o.LarsMomentum(
+        0.01, 0.9, lars_coeff=0.01).minimize(loss)),
+    ('Adamax', lambda o, loss: o.Adamax(1e-3).minimize(loss)),
+    ('Adadelta', lambda o, loss: o.Adadelta(1.0, rho=0.9).minimize(loss)),
+    ('RMSProp centered', lambda o, loss: o.RMSProp(
+        1e-3, rho=0.9, epsilon=1e-3, momentum=0.9,
+        centered=True).minimize(loss)),
+    ('Ftrl', lambda o, loss: o.Ftrl(0.01, l1=1e-3, l2=1e-3).minimize(loss)),
+    ('Dpsgd (sigma 0)', lambda o, loss: o.Dpsgd(
+        0.01, clip=1.0, sigma=0.0).minimize(loss)),
+    ('DecayedAdagrad', lambda o, loss: o.DecayedAdagrad(
+        0.01, decay=0.9).minimize(loss)),
+    ('DGCMomentum', lambda o, loss: o.DGCMomentumOptimizer(
+        0.01, 0.9, sparsity=[0.75]).minimize(loss)),
+    ('ModelAverage over Momentum', lambda o, loss: (
+        o.Momentum(0.01, 0.9).minimize(loss), o.ModelAverage(0.15))[1]),
+    ('Lookahead over SGD (k 2)', lambda o, loss: o.LookaheadOptimizer(
+        o.SGD(0.01), alpha=0.5, k=2).minimize(loss)),
+)
+# LeNet-5 on the card against the CPU in float64: the loss and each
+# state variable within CORE_TOL (relative, plus CORE_TOL of the largest
+# of its kind), the tolerance the optimizers' CPU tests state.  In f32 the
+# convolutions' rounding (cuDNN's order against oneDNN's) moves the
+# gradients, which first steps amplify where the update is a ratio of
+# gradient sums (FTRL, Adadelta); in f64 it stays far below.  The f32
+# witness holds the card's update ops alone at CORE_TOL, fed the CPU
+# step's gradients, and logs how far the card's own f32 gradients and
+# whole step land from the CPU's
+CORE_TOL = 1e-5
+CORE_LENET_BATCH = 16
+
+
+def state_group(name, params):
+    """The kind of a state variable: its accumulator's suffix after the
+    parameter's name, or 'state' (parameters, counters): each compared
+    within CORE_TOL of the largest magnitude of its kind."""
+    for p in params:
+        if name.startswith(p) and name != p:
+            return name[len(p):].rstrip('0123456789')
+    return 'state'
+
+
+def state_distance(state, want, params):
+    """The worst distance of `state` from `want` as a share of its limit
+    (CORE_TOL relative, plus CORE_TOL of the largest magnitude of its
+    kind in `want`), and the variables over it."""
+    scale = {}
+    for n in want:
+        g = state_group(n, params)
+        scale[g] = max(scale.get(g, 0.0),
+                       float(np.abs(want[n]).max(initial=0.0)))
+    worst, over = 0.0, []
+    for n in want:
+        a, b = state[n].astype(np.float64), want[n].astype(np.float64)
+        err = np.abs(a - b) - CORE_TOL * np.abs(b)
+        lim = CORE_TOL * scale[state_group(n, params)]
+        e = float(err.max(initial=0.0))
+        worst = max(worst, e / max(lim, 1e-30))
+        if e > lim:
+            over.append('%s (%.3g over %.3g)' % (n, e, lim))
+    return worst, over
+
+
+def lenet_optimizer_program(seed, build, dtype):
+    """LeNet-5 under `build` with `dtype` images: (main, startup, loss,
+    what build returned)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data('img', shape=[1, 28, 28], dtype=dtype)
+        _, _, loss, _ = lenet.build(img=img)
+        extra = build(fluid.optimizer, loss)
+    return main, startup, loss, extra
+
+
+def lenet_feeds(seed, dtype):
+    """3 batches of CORE_LENET_BATCH synthetic MNIST images."""
+    imgs, labels = mnist._synthetic(CORE_LENET_BATCH * 3, seed + 17)
+    imgs = imgs.astype(dtype)
+    return [{'img': imgs[k::3].reshape(-1, 1, 28, 28),
+             'label': labels[k::3].reshape(-1, 1)} for k in range(3)]
+
+
+def update_program(main):
+    """`main` with only its optimize-role ops, and the names those read
+    that neither the scope holds nor an earlier of them writes (the
+    gradients): what the step's updates see of its backward."""
+    upd = main.clone()
+    block = upd.global_block()
+    for k in reversed(range(len(block.ops))):
+        if block.ops[k].attrs.get('__op_role__') != 'optimize':
+            block._remove_op(k)
+    written, fed = set(), []
+    for op in block.ops:
+        for names in op.inputs.values():
+            for n in names:
+                v = block._find_var_recursive(n)
+                if n not in written and n not in fed and not (
+                        v is not None and v.persistable):
+                    fed.append(n)
+        for names in op.outputs.values():
+            written.update(names)
+    return upd, fed
+
+
+def core_optimizer_witness(seed, label, build, place):
+    """The f32 witness of the float64 lockstep: 3 LeNet-5 steps on the
+    CPU; on `place`, from the CPU's state before each step, (1) the
+    step's update ops alone fed the CPU step's gradients, the state held
+    within CORE_TOL as in the lockstep, and (2) the whole f32 step, whose
+    gradients' and state's distance from the CPU's is returned, not held.
+    Returns (the update ops' worst share of the limit, the worst gradient
+    distance as a share of its largest magnitude, the whole step's worst
+    share of the state limit)."""
+    main, startup, loss, _ = lenet_optimizer_program(seed, build, 'float32')
+    upd, fed = update_program(main)
+    names = weights.startup_names(startup)
+    params = sorted((p.name for p in main.all_parameters()),
+                    key=lambda s: -len(s))
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    with fluid.scope_guard(cpu_scope):
+        cpu_exe.run(startup)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    upd_worst = grad_worst = step_worst = 0.0
+    for k, feed in enumerate(lenet_feeds(seed, np.float32)):
+        with fluid.scope_guard(cpu_scope):
+            before = weights.numpy_state(cpu_scope, names)
+            out = cpu_exe.run(main, feed=feed, fetch_list=[loss] + fed)
+            after = weights.numpy_state(cpu_scope, names)
+        grads = dict(zip(fed, out[1:]))
+        with fluid.scope_guard(scope):
+            weights.load_numpy_params(scope, before, place, startup)
+            exe._step = cpu_exe._step - 1
+            eager_run(exe, upd, grads, [])
+            share, over = state_distance(weights.numpy_state(scope, names),
+                                         after, params)
+            if over:
+                raise AssertionError(
+                    '%s f32 step %d: the update ops on the card, fed the '
+                    'CPU\'s gradients, against the CPU: %s' % (
+                        label, k + 1, over[:6]))
+            upd_worst = max(upd_worst, share)
+            weights.load_numpy_params(scope, before, place, startup)
+            exe._step = cpu_exe._step - 1
+            mine = eager_run(exe, main, feed, [loss] + fed)[1:]
+            step_worst = max(step_worst, state_distance(
+                weights.numpy_state(scope, names), after, params)[0])
+        for n, a in zip(fed, mine):
+            b = grads[n]
+            grad_worst = max(grad_worst, float(np.abs(a - b).max()) /
+                             max(float(np.abs(b).max()), 1e-30))
+    return upd_worst, grad_worst, step_worst
+
+
+def core_optimizer_lockstep(seed, label, build):
+    """3 steps of LeNet-5 under `build` on the card, each from the
+    port's CPU state before the same step on the CPU, in float64: the
+    loss and every state variable within CORE_TOL (relative, plus
+    CORE_TOL of the largest magnitude of its kind).  Returns the worst
+    error as a share of its limit and a note of ModelAverage's apply /
+    restore check."""
+    main, startup, loss, extra = lenet_optimizer_program(seed, build,
+                                                         'float64')
+    feeds = lenet_feeds(seed, np.float64)
+    names = weights.startup_names(startup)
+    params = sorted((p.name for p in main.all_parameters()),
+                    key=lambda s: -len(s))
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    worst = 0.0
+    with fluid.scope_guard(cpu_scope):
+        cpu_exe.run(startup)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    for k, feed in enumerate(feeds):
+        with fluid.scope_guard(cpu_scope):
+            before = weights.numpy_state(cpu_scope, names)
+            want = float(cpu_exe.run(main, feed=feed, fetch_list=[loss])[0])
+            after = weights.numpy_state(cpu_scope, names)
+        with fluid.scope_guard(scope):
+            weights.load_numpy_params(scope, before, fluid.CUDAPlace(0),
+                                      startup)
+            exe._step = cpu_exe._step - 1
+            got = float(eager_run(exe, main, feed, [loss])[0])
+            state = weights.numpy_state(scope, names)
+        bad = []
+        # rtol plus the atol of a scalar's own magnitude, as close() holds
+        if not abs(got - want) <= 2 * CORE_TOL * abs(want):
+            bad.append('loss %r vs %r' % (got, want))
+        share, over = state_distance(state, after, params)
+        worst = max(worst, share)
+        bad += over
+        if bad:
+            raise AssertionError('%s step %d on the card against the CPU: '
+                                 '%s' % (label, k + 1, bad[:6]))
+    note = ''
+    if not hasattr(extra, 'apply'):
+        return worst, note
+    # ModelAverage: apply() / restore() on both, into the scope's tensors
+    ps = [p.name for p in main.all_parameters() if p.trainable]
+    out = {}
+    for key, sc in (('cpu', cpu_scope), ('card', scope)):
+        with fluid.scope_guard(sc):
+            ptrs = [core.as_array(sc.find_var(n)).data_ptr() for n in ps]
+            base = weights.numpy_state(sc, ps)
+            with extra.apply():
+                avg = weights.numpy_state(sc, ps)
+                same = ptrs == [core.as_array(sc.find_var(n)).data_ptr()
+                                for n in ps]
+            out[key] = (base, avg, weights.numpy_state(sc, ps), same)
+    for n in ps:
+        b = out['cpu'][1][n]
+        if not (out['card'][3] and out['cpu'][3] and np.array_equal(
+                out['card'][2][n], out['card'][0][n]) and np.allclose(
+                out['card'][1][n], b, rtol=0,
+                atol=CORE_TOL * np.abs(b).max())):
+            raise AssertionError('ModelAverage apply/restore on the card: '
+                                 '%s' % n)
+    return worst, '; apply() averaged and restore() put back %d ' \
+        'parameters in their own tensors, as on the CPU' % len(ps)
+
+
+def dpsgd_noise_check(dev):
+    """The dpsgd op's noise on the card at LeNet-5's largest parameter
+    (fc 800 x 10 -> 8000, tiled to 400,000 elements) with zero gradient:
+    mean 0 and std sigma * clip within 5 sigma of the sampling error,
+    and the same draws on the CPU (the hash is integer arithmetic; the
+    inverse CDF within 1e-5)."""
+    n = 400000
+    ins = {'Param': [torch.zeros(n, device=dev)],
+           'Grad': [torch.zeros(n, device=dev)],
+           'LearningRate': [torch.ones(1, device=dev)]}
+    attrs = {'clip': 0.5, 'sigma': 2.0}
+    ctx = registry.LowerCtx(step=3, op_seed=5, device=dev, random_seed=1)
+    noise = -registry.get('dpsgd').run(ctx, ins, attrs)['ParamOut'][0]
+    cpu_ctx = registry.LowerCtx(step=3, op_seed=5, device='cpu',
+                                random_seed=1)
+    cpu = -registry.get('dpsgd').run(cpu_ctx, {k: [v[0].cpu()] for k, v in
+                                               ins.items()},
+                                     attrs)['ParamOut'][0]
+    noise = noise.double().cpu()
+    mean, std = noise.mean().item(), noise.std().item()
+    err = max_abs(noise.float(), cpu) / cpu.abs().max().item()
+    if abs(mean) > 5 / n ** 0.5 or abs(std - 1.0) > 5 / (2 * n) ** 0.5 or \
+            err > 1e-5:
+        raise AssertionError('dpsgd noise on the card: mean %g, std %g, '
+                             'against the CPU %.2e' % (mean, std, err))
+    return mean, std, err
+
+
+def core_optimizers_phase(seed, dev):
+    """Phase 17 (b)."""
+    rows, witness = [], []
+    for label, build in CORE_OPTIMIZERS:
+        t0 = time.perf_counter()
+        worst, note = core_optimizer_lockstep(seed, label, build)
+        rows.append('%s (worst %.1e of the tolerance%s; %.1f s)' % (
+            label, worst, note, time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        upd, grad, step = core_optimizer_witness(seed, label, build,
+                                                 fluid.CUDAPlace(0))
+        witness.append('%s (update ops %.1e of the tolerance; the card\'s '
+                       'own gradients %.1e of their largest, its whole '
+                       'step %.1e of the tolerance; %.1f s)' % (
+                           label, upd, grad, step,
+                           time.perf_counter() - t0))
+    mean, std, err = dpsgd_noise_check(dev)
+    log('  3 LeNet-5 steps each (float64, batch %d) on the card, each from '
+        'the CPU\'s state before the same step, the loss and the state '
+        'within %g (relative, plus %g of the largest of its kind): %s' % (
+            CORE_LENET_BATCH, CORE_TOL, CORE_TOL, '; '.join(rows)))
+    log('  the f32 witness, each step from the CPU\'s state: the update '
+        'ops alone on the card fed the CPU step\'s gradients, held within '
+        '%g as above; the whole f32 step on the card, not held: %s' % (
+            CORE_TOL, '; '.join(witness)))
+    log('  dpsgd noise (sigma 2, clip 0.5, 400,000 elements): mean %.2e, '
+        'std / (sigma * clip) %.5f, against the CPU %.1e' % (
+            mean, std, err))
+
+
+def core_op_cases(rng):
+    """Every op type of the core slice at a size its users run: (op,
+    inputs, attrs).  tests/test_torch_coverage.py holds the list of
+    those op types and checks that each has a case here."""
+    f = lambda *s: rng.randn(*s).astype('float32')  # noqa: E731
+    pos = lambda *s: rng.uniform(0.1, 3.0, s).astype('float32')  # noqa
+    unit = lambda *s: rng.uniform(-0.9, 0.9, s).astype('float32')  # noqa
+    i = lambda hi, *s: rng.randint(0, hi, s).astype('int64')  # noqa: E731
+    # a MobileNetV3 activation at batch 4 (the expansion of block 3)
+    act = f(4, 72, 56, 56)
+    cases = []
+    for op in ('abs', 'ceil', 'round', 'square', 'atan', 'sinh', 'cosh',
+               'erf', 'softsign', 'softplus', 'logsigmoid', 'silu',
+               'tanh_shrink', 'sin', 'tan', 'mish', 'selu', 'stanh'):
+        cases.append((op, {'X': [act]}, {}))
+    for op in ('rsqrt', 'log2', 'log10', 'log1p'):
+        cases.append((op, {'X': [pos(4, 72, 56, 56)]}, {}))
+    for op in ('acos', 'asin'):
+        cases.append((op, {'X': [unit(4, 72, 56, 56)]}, {}))
+    cases += [
+        ('leaky_relu', {'X': [act]}, {'alpha': 0.1}),
+        ('elu', {'X': [act]}, {'alpha': 1.0}),
+        ('relu6', {'X': [act * 4]}, {'threshold': 6.0}),
+        ('brelu', {'X': [act]}, {'t_min': -1.0, 't_max': 1.0}),
+        ('hard_sigmoid', {'X': [act * 4]}, {'slope': 1.0 / 6, 'offset': 0.5}),
+        ('hard_swish', {'X': [act * 4]}, {}),
+        ('swish', {'X': [act]}, {'beta': 1.0}),
+        ('thresholded_relu', {'X': [act]}, {'threshold': 1.0}),
+        ('hard_shrink', {'X': [act]}, {'threshold': 0.5}),
+        ('soft_shrink', {'X': [act]}, {'lambda': 0.5}),
+        ('softshrink', {'X': [act]}, {'lambda': 0.5}),
+        ('prelu', {'X': [act], 'Alpha': [pos(72) / 10]}, {'mode': 'channel'}),
+        ('maxout', {'X': [act]}, {'groups': 4}),
+        ('reduce_mean', {'X': [act]}, {'dim': [2, 3], 'keep_dim': True}),
+        ('reduce_max', {'X': [act]}, {'dim': [1]}),
+        ('reduce_min', {'X': [act]}, {'reduce_all': True}),
+        ('reduce_prod', {'X': [pos(64, 32) / 2 + 0.5]}, {'dim': [1]}),
+        ('reduce_all', {'X': [act > -3]}, {'dim': [1, 2]}),
+        ('reduce_any', {'X': [act > 3]}, {'dim': [0]}),
+        ('dot', {'X': [f(1024, 768)], 'Y': [f(1024, 768)]}, {}),
+        ('isfinite', {'X': [act, f(1000)]}, {}),
+        ('isinf', {'X': [act]}, {}),
+        ('isnan', {'X': [act]}, {}),
+        ('p_norm', {'X': [f(1024, 768)]}, {'porder': 2.0, 'axis': -1}),
+        ('arg_min', {'X': [f(1024, 1000)]}, {'axis': -1}),
+        ('top_k_v2', {'X': [f(1024, 1000)]}, {'k': 5}),
+        ('argsort', {'X': [f(256, 1000)]}, {'axis': -1, 'descending': True}),
+        ('norm', {'X': [f(1024, 768)]}, {'axis': 1, 'epsilon': 1e-10}),
+        ('cholesky', {'X': [(lambda a: a @ a.transpose(0, 2, 1) +
+                             64 * np.eye(64, dtype='float32'))(
+                                 f(32, 64, 64))]}, {}),
+        ('inverse', {'Input': [f(32, 64, 64) + 16 * np.eye(
+            64, dtype='float32')]}, {}),
+        ('flatten2', {'X': [act]}, {'axis': 1}),
+        ('flatten', {'X': [act]}, {'axis': 2}),
+        ('flatten_contiguous_range', {'X': [act]},
+         {'start_axis': 1, 'stop_axis': 3}),
+        ('strided_slice', {'Input': [act]}, {'axes': [2, 3],
+                                             'starts': [1, 55],
+                                             'ends': [56, 0],
+                                             'strides': [2, -3]}),
+        ('expand_as', {'X': [f(128, 1, 768)],
+                       'target_tensor': [f(128, 16, 768)]}, {}),
+        ('tile', {'X': [f(128, 1, 768)]}, {'repeat_times': [1, 16, 1]}),
+        ('unstack', {'X': [f(16, 128, 768)]}, {'axis': 0}),
+        # distinct rows (and below distinct ids): a gradient summed by
+        # atomics over repeated rows would not repeat bitwise
+        ('gather_nd', {'X': [f(32, 128, 768)],
+                       'Index': [np.stack(np.divmod(rng.permutation(4096),
+                                                    128), 1)]}, {}),
+        ('scatter', {'X': [f(8192, 768)],
+                     'Ids': [rng.permutation(8192)[:4096].astype('int64')],
+                     'Updates': [f(4096, 768)]}, {'overwrite': True}),
+        ('embedding', {'W': [f(8192, 768)], 'Ids': [i(8192, 32, 128)]},
+         {'padding_idx': 0}),
+        ('cumsum', {'X': [f(128, 4096)]}, {'axis': 1, 'exclusive': True,
+                                           'reverse': True}),
+        ('pad', {'X': [act]}, {'paddings': [0, 0, 0, 0, 1, 1, 1, 1],
+                               'pad_value': 0.0}),
+        ('pad2d', {'X': [act]}, {'paddings': [1, 1, 2, 2],
+                                 'mode': 'constant', 'pad_value': 0.5}),
+        ('where', {'Condition': [act > 0], 'X': [act], 'Y': [act * 2]}, {}),
+        ('where_index', {'Condition': [f(256, 1024) > 1.5]},
+         {'capacity': 20000}),
+        ('diag', {'Diagonal': [f(1024)]}, {}),
+        ('flip', {'X': [act]}, {'axis': [2, 3]}),
+        ('reverse', {'X': [act]}, {'axis': [1]}),
+        ('roll', {'X': [act]}, {'shifts': [3, -5], 'axis': [2, 3]}),
+        ('tril_triu', {'X': [f(4, 512, 512)]}, {'lower': True,
+                                                 'diagonal': 0}),
+        ('index_select', {'X': [f(8192, 768)],
+                          'Index': [rng.permutation(8192)[:4096]]},
+         {'dim': 0}),
+        ('minus', {'X': [act], 'Y': [act * 0.5]}, {}),
+        ('share_data', {'X': [act]}, {}),
+        ('split_byref', {'X': [act]}, {'axis': 1, 'num': 4}),
+        ('coalesce_tensor', {'Input': [f(768, 768), f(768), f(3072, 768)]},
+         {}),
+        ('shuffle_batch', {'X': [f(4096, 64)]}, {}),
+        ('truncated_gaussian_random', {}, {'shape': [768, 3072],
+                                           'mean': 0.0, 'std': 0.02}),
+        ('uniform_random_batch_size_like', {'Input': [f(4096, 1)]},
+         {'shape': [-1, 768], 'min': -1.0, 'max': 1.0}),
+        ('eye', {}, {'num_rows': 1024, 'num_columns': 768}),
+        ('tensor_array_to_tensor', {'X': [f(64, 32, 512)]},
+         {'axis': 1, 'length': 50}),
+    ]
+    p, g = f(768, 768), f(768, 768) * 0.01
+    m2 = pos(768, 768) * 1e-4
+    lr = np.array([0.01], 'float32')
+    cases += [
+        ('lars_momentum', {'Param': [p], 'Grad': [g], 'Velocity': [g],
+                           'LearningRate': [lr]}, {'mu': 0.9}),
+        ('adamax', {'Param': [p], 'Grad': [g], 'Moment': [g],
+                    'InfNorm': [m2], 'Beta1Pow': [np.array([0.729],
+                                                           'float32')],
+                    'LearningRate': [lr]}, {}),
+        ('adadelta', {'Param': [p], 'Grad': [g], 'AvgSquaredGrad': [m2],
+                      'AvgSquaredUpdate': [m2]}, {'rho': 0.95}),
+        ('rmsprop', {'Param': [p], 'Grad': [g], 'Moment': [g],
+                     'MeanSquare': [m2], 'MeanGrad': [g * 0.1],
+                     'LearningRate': [lr]},
+         {'decay': 0.9, 'epsilon': 1e-3, 'momentum': 0.9,
+          'centered': True}),
+        ('ftrl', {'Param': [p], 'Grad': [g], 'SquaredAccumulator': [m2],
+                  'LinearAccumulator': [g], 'LearningRate': [lr]},
+         {'l1': 1e-3, 'l2': 1e-3}),
+        ('dpsgd', {'Param': [p], 'Grad': [g], 'LearningRate': [lr]},
+         {'clip': 1.0, 'sigma': 1.0}),
+        ('proximal_gd', {'Param': [p], 'Grad': [g], 'LearningRate': [lr]},
+         {'l1': 1e-3, 'l2': 1e-3}),
+        ('dgc', {'Grad': [g], 'U': [g], 'V': [g]},
+         {'m': 0.9, 'sparsity_ratio': 0.999}),
+        ('decayed_adagrad', {'Param': [p], 'Grad': [g], 'Moment': [m2],
+                             'LearningRate': [lr]}, {'decay': 0.95}),
+    ]
+    return cases
+
+
+def core_ops_phase(seed, dev):
+    """Phase 17 (c): every op type of the core slice on the card, twice
+    bitwise and against the same lowering on the CPU, as phase 16 (c)
+    holds its ops."""
+    rng = np.random.RandomState(seed + 17)
+    cases = core_op_cases(rng)
+    worst_all, n_out = 0.0, 0
+    for op, ins, attrs in cases:
+        first = lang_op_run(op, ins, attrs, dev, seed)
+        second = lang_op_run(op, ins, attrs, dev, seed)
+        cpu = lang_op_run(op, ins, attrs, 'cpu', seed)
+        outs = [(s, a, b, c) for s in sorted(first[0]) for a, b, c in zip(
+            first[0][s], second[0][s], cpu[0][s])]
+        outs += [('grad %d' % k, a, b, c) for k, (a, b, c) in enumerate(zip(
+            first[1], second[1], cpu[1])) if a is not None]
+        twice = [s for s, a, b, _ in outs if not torch.equal(a, b)]
+        bad = []
+        for s, a, _, c in outs:
+            n_out += 1
+            if a.is_floating_point():
+                err = max_abs(a, c) / max(c.abs().max().item(), 1e-30)
+                worst_all = max(worst_all, err)
+                if err > 1e-5:
+                    bad.append('%s %.2e' % (s, err))
+            elif not torch.equal(a, c):
+                bad.append(s)
+        if twice or bad:
+            raise AssertionError('%s on the card: second launch differs in '
+                                 '%s; against the CPU: %s' % (op, twice, bad))
+    log('  %d op types (%d cases, %d outputs and gradients) on the card '
+        'twice bitwise and against the CPU (integers exact, floats within '
+        '1e-5 of the largest magnitude; worst %.1e)' % (
+            len({op for op, _, _ in cases}), len(cases), n_out, worst_all))
+
+
+def core_phase(seed, dev):
+    """Phase 17: the core layers, ops and optimizers."""
+    log('[17] (a) MobileNetV3-Large, RMSProp + L2 + EMA (the paper\'s '
+        'recipe), on CUDAPlace(0) (%s | %s)' % (
+            torch.cuda.get_device_name(0), card_line()))
+    t0 = time.perf_counter()
+    mobilenet_phase(seed)
+    log('  (a): %.1f s' % (time.perf_counter() - t0))
+    log('[17] (b) the other optimizer classes on LeNet-5')
+    t0 = time.perf_counter()
+    without_counting(lambda: core_optimizers_phase(seed, dev))
+    log('  (b): %.1f s' % (time.perf_counter() - t0))
+    log('[17] (c) the core op types on the card')
+    t0 = time.perf_counter()
+    without_counting(lambda: core_ops_phase(seed, dev))
     log('  (c): %.1f s' % (time.perf_counter() - t0))
 
 
@@ -6211,6 +6814,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     lang_phase(args.seed, dev)
     log('  phase 16: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    core_phase(args.seed, dev)
+    log('  phase 17: %.1f s' % (time.perf_counter() - t0))
     # each row's launches at the wrappers and replayed from CUDA graphs'
     # manifests on the main path, as counted() read them in this
     # process; the data-parallel rows, as the ranks of phases 9 and 12

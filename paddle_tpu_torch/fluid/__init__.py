@@ -1,8 +1,10 @@
 """fluid API of the PyTorch port (reference: python/paddle/fluid/__init__.py).
 
 The static-graph path: Program IR, layers (with the learning-rate
-schedules) and nets, append_backward, gradient clipping, regularizers,
-the SGD, Momentum, Adam, LAMB and Adagrad optimizers, the eager
+schedules) and nets, append_backward and gradients, gradient clipping,
+regularizers, the optimizers of the JAX package's fluid/optimizer.py
+(PipelineOptimizer aside) with ModelAverage,
+ExponentialMovingAverage and Lookahead, the eager
 Executor (inference and training steps, host ops, train_from_dataset),
 host-side metrics, io (the native and the reference binary formats),
 the data plane (DataLoader / PyReader, DataFeeder, Dataset over the
@@ -31,19 +33,22 @@ from . import transpiler  # noqa: F401
 from . import incubate  # noqa: F401
 from . import contrib  # noqa: F401
 from .core import (CPUPlace, CUDAPlace, CUDAPinnedPlace,  # noqa: F401
-                   LoDTensor, Scope, global_scope, scope_guard)
+                   LoDTensor, Scope, global_scope, scope_guard,
+                   is_compiled_with_cuda)
 from .executor import Executor  # noqa: F401
 from . import compiler  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .parallel_executor import ParallelExecutor  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
-from .backward import append_backward  # noqa: F401
+from .backward import append_backward, gradients  # noqa: F401
 from .framework import (Program, Variable, Parameter,  # noqa: F401
                         default_main_program, default_startup_program,
                         program_guard, cpu_places, cuda_places,
-                        cuda_pinned_places)
-from .param_attr import ParamAttr  # noqa: F401
+                        cuda_pinned_places, name_scope, load_op_library,
+                        require_version)
+from .initializer import init_on_cpu  # noqa: F401
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from .io import (save_params, save_persistables,  # noqa: F401
                  load_params, load_persistables, save_inference_model,
                  load_inference_model)

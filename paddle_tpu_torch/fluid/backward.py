@@ -36,6 +36,8 @@ reader; the whole-program grad runs each span's forward under
 
 from collections import defaultdict
 
+import numpy as np
+
 from . import framework, unique_name
 from .framework import grad_var_name
 
@@ -440,3 +442,63 @@ def _control_flow_backward(block, op, contribs, resolve_grad, no_grad_set):
                              'GRAD::X': closure_grad_row},
                     attrs=attrs, infer_shape=False)
     return True
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """The gradients of `targets` with respect to `inputs` (reference
+    backward.py:1407; the JAX package's fluid/backward.py:463): a
+    single one-element target is differentiated as it is; otherwise the
+    weighted sum sum_i <target_gradients_i, targets_i> (ones where no
+    target gradient is given) through reduce_sum ops.  Returns the
+    gradient variable of each input, None where it has none."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    if target_gradients is not None and not isinstance(
+            target_gradients, (list, tuple)):
+        target_gradients = [target_gradients]
+    block = targets[0].block
+    program = block.program
+    if len(targets) == 1 and target_gradients is None and \
+            int(np.prod(targets[0].shape or (1,))) == 1:
+        loss = targets[0]
+    else:
+        parts = []
+        for i, t in enumerate(targets):
+            tg = target_gradients[i] if target_gradients else None
+            weighted = t
+            if tg is not None:
+                weighted = block.create_var(
+                    name=unique_name.generate(t.name + '@WEIGHTED'),
+                    shape=t.shape, dtype=t.dtype)
+                block.append_op('elementwise_mul',
+                                inputs={'X': t, 'Y': tg},
+                                outputs={'Out': weighted},
+                                attrs={'axis': -1})
+            s = block.create_var(
+                name=unique_name.generate(t.name + '@TSUM'),
+                shape=(), dtype=t.dtype)
+            block.append_op('reduce_sum', inputs={'X': weighted},
+                            outputs={'Out': s},
+                            attrs={'dim': None, 'reduce_all': True,
+                                   'keep_dim': False},
+                            infer_shape=False)
+            parts.append(s.name)
+        if len(parts) == 1:
+            loss = block.vars[parts[0]]
+        else:
+            total = block.create_var(
+                name=unique_name.generate('calc_grad_total'),
+                shape=(), dtype=targets[0].dtype)
+            block.append_op('sum', inputs={'X': parts},
+                            outputs={'Out': total}, infer_shape=False)
+            loss = total
+    append_backward(loss, no_grad_set=no_grad_set)
+    outs = []
+    for v in inputs:
+        gname = program._grad_name_map.get(v.name)
+        outs.append(block._find_var_recursive(gname) if gname else None)
+    return outs
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    return calc_gradient(targets, inputs, target_gradients, no_grad_set)

@@ -255,3 +255,9 @@ def to_numpy(value):
             return value.numpy().copy()
         return value.cpu().numpy()
     return np.asarray(value)
+
+
+def is_compiled_with_cuda():
+    """Whether the installed torch was built with CUDA (the JAX
+    package's answers False)."""
+    return torch.backends.cuda.is_built()

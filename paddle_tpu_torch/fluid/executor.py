@@ -804,6 +804,9 @@ class Executor(object):
         # at most once a run
         self._step_t = None
         self._step_mixes = None
+        # {storage pointer: name} of the scope's tensors, made at a run's
+        # first new persistable entry (_write_state)
+        self._held = None
 
     def _to_device(self, value):
         value = core.as_array(value)
@@ -857,7 +860,29 @@ class Executor(object):
                     cur.copy_(value)
                 self._owners[name] = scope._vars
                 return
+            if self._aliases_state(scope, name, value):
+                value = value.clone()
         self._set_scope(scope, name, value)
+
+    def _aliases_state(self, scope, name, value):
+        """Whether a new persistable entry `value` shares its storage with
+        a tensor the scope holds under another name: an identity op
+        (assign) of one persistable into another, as Lookahead's startup
+        copies each parameter into its slow weights.  The JAX package's
+        arrays cannot alias; here the next in-place write of one would
+        change the other, so the entry takes a copy."""
+        held = self._held
+        if held is None:
+            held = self._held = {}
+            s = scope
+            while s is not None:
+                for n, v in s._vars.items():
+                    if isinstance(v, torch.Tensor):
+                        held.setdefault(v.untyped_storage().data_ptr(), n)
+                s = s.parent
+        ptr = value.untyped_storage().data_ptr()
+        other = held.setdefault(ptr, name)
+        return other != name
 
     def _step_mix(self, c):
         """(step * c) mod 2**32 of the running step on the device, made
@@ -1024,7 +1049,7 @@ class Executor(object):
         results = [r.clone() if n not in env and isinstance(r, torch.Tensor)
                    else r for n, r in zip(fetch_names, results)]
         self._owners = {}
-        self._step_t = self._step_mixes = None
+        self._step_t = self._step_mixes = self._held = None
         if self._verdicts:
             self._raise_non_finite()
         return results

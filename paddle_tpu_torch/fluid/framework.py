@@ -302,6 +302,9 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def _prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        return self._insert_op(0, type, inputs, outputs, attrs)
+
     def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
         op = self.append_op(type, inputs, outputs, attrs)
         self.ops.remove(op)
@@ -587,3 +590,44 @@ def cuda_pinned_places(device_count=None):
     """Pinned host memory places (reference framework.py
     cuda_pinned_places): one a process, as cpu_places."""
     return [core.CUDAPinnedPlace()]
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """Reference framework.py name_scope: a naming block for debugging
+    tools; it changes no variable or op name, as in the JAX package."""
+    yield
+
+
+def load_op_library(lib_filename):
+    """Reference framework.py load_op_library loads a custom C++ op
+    library; the port's ops are Python lowerings registered with
+    ``ops.registry.register``, so there is nothing to load."""
+    import warnings
+    warnings.warn('load_op_library loads nothing: register custom ops '
+                  'with paddle_tpu_torch.ops.registry.register')
+
+
+def _version_tuple(v):
+    parts = []
+    for x in str(v).split('.')[:3]:
+        digits = ''
+        for ch in x:
+            if not ch.isdigit():
+                break
+            digits += ch
+        parts.append(int(digits) if digits else 0)
+    return tuple(parts + [0] * (3 - len(parts)))
+
+
+def require_version(min_version, max_version=None):
+    """Raise unless the package's version is within [min_version,
+    max_version] (reference framework.py require_version)."""
+    from .. import __version__ as ver
+    if _version_tuple(ver) < _version_tuple(min_version):
+        raise Exception('installed version %s < required %s'
+                        % (ver, min_version))
+    if max_version is not None and \
+            _version_tuple(ver) > _version_tuple(max_version):
+        raise Exception('installed version %s > allowed %s'
+                        % (ver, max_version))

@@ -7,6 +7,8 @@ the random ones draw from a ``torch.Generator`` seeded from the
 program's random_seed and the op's seed (ops/tensor_ops.py).
 """
 
+import contextlib
+
 import numpy as np
 
 
@@ -84,3 +86,16 @@ Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
 Xavier = XavierInitializer
+
+
+def force_init_on_cpu():
+    return False
+
+
+@contextlib.contextmanager
+def init_on_cpu():
+    """Reference initializer.py init_on_cpu: the initializer ops of its
+    body on the CPU.  The port's startup programs run where their
+    executor's place says, so the guard changes nothing, as in the JAX
+    package."""
+    yield

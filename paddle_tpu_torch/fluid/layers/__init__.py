@@ -1,6 +1,7 @@
 """fluid.layers: the subset the BERT, CTR, image, recurrent and
 structured-prediction models, the learning-rate schedules, gradient
-clipping, control flow and beam-search decoding use (reference:
+clipping, control flow, beam-search decoding and ordinary Fluid scripts
+(the core math, activation and tensor layers) use (reference:
 python/paddle/fluid/layers/)."""
 
 from . import nn  # noqa: F401
@@ -36,6 +37,4 @@ from .sequence_lod import (  # noqa: F401
     sequence_pad, sequence_unpad, sequence_concat, sequence_slice,
     sequence_erase, sequence_enumerate, sequence_reverse,
     sequence_expand_as, sequence_scatter, lod_reset, sequence_mask)
-from .more_layers import (  # noqa: F401
-    elementwise_mod, elementwise_floordiv, im2sequence, row_conv, sum,
-    filter_by_instag, lod_append, sampled_softmax_with_cross_entropy)
+from .more_layers import *  # noqa: F401,F403

@@ -1,7 +1,10 @@
 """Layers of the JAX package's layers/more_layers.py that the port
 lowers: elementwise_mod and elementwise_floordiv (which
 BeamSearchDecoder.step builds), im2sequence, row_conv, sum,
-filter_by_instag, lod_append and sampled_softmax_with_cross_entropy.
+filter_by_instag, lod_append, sampled_softmax_with_cross_entropy,
+reduce_all / reduce_any, the random layers, strided_slice, expand_as,
+pad2d, maxout and autoincreased_step_counter; and brelu, selu and stanh
+of its layers/extras.py.
 Each appends the ops the JAX package's layer appends (reference
 python/paddle/fluid/layers/nn.py and loss.py)."""
 
@@ -9,7 +12,11 @@ from ..layer_helper import LayerHelper
 
 __all__ = ['elementwise_mod', 'elementwise_floordiv', 'im2sequence',
            'row_conv', 'sum', 'filter_by_instag', 'lod_append',
-           'sampled_softmax_with_cross_entropy']
+           'sampled_softmax_with_cross_entropy', 'reduce_all',
+           'reduce_any', 'uniform_random', 'uniform_random_batch_size_like',
+           'gaussian_random', 'strided_slice', 'expand_as', 'pad2d',
+           'maxout', 'autoincreased_step_counter', 'brelu', 'selu',
+           'stanh']
 
 
 def _simple(op_type, inputs, attrs=None, dtype=None, out_slot='Out',
@@ -116,3 +123,125 @@ def sampled_softmax_with_cross_entropy(logits, label, num_samples,
     sampled_label.shape = (b, num_true)
     from . import nn as _nn
     return _nn.softmax_with_cross_entropy(sampled_logits, sampled_label)
+
+
+def _bool_reduce(op_type, input, dim, keep_dim, name):
+    return _simple(op_type, {'X': input},
+                   {'dim': list(dim) if dim is not None else [],
+                    'keep_dim': keep_dim, 'reduce_all': dim is None},
+                   name=name)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _bool_reduce('reduce_all', input, dim, keep_dim, name)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _bool_reduce('reduce_any', input, dim, keep_dim, name)
+
+
+def _random(op_type, shape, dtype, attrs, name):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    attrs = dict(attrs, shape=list(shape), dtype=dtype)
+    helper.append_op(op_type, outputs={'Out': out}, attrs=attrs,
+                     infer_shape=False)
+    out.shape = tuple(shape)
+    return out
+
+
+def uniform_random(shape, dtype='float32', min=-1.0, max=1.0, seed=0,
+                   name=None):
+    """Drawn from the host generator (ops/tensor_ops.py registers the
+    op host_random): a main program holding one runs eagerly, never
+    from a CUDA graph."""
+    return _random('uniform_random', shape, dtype,
+                   {'min': float(min), 'max': float(max), 'seed': seed},
+                   name)
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype='float32',
+                    name=None):
+    """Drawn from the host generator, as uniform_random."""
+    return _random('gaussian_random', shape, dtype,
+                   {'mean': float(mean), 'std': float(std), 'seed': seed},
+                   name)
+
+
+def uniform_random_batch_size_like(input, shape, dtype='float32',
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    return _simple('uniform_random_batch_size_like', {'Input': input},
+                   {'shape': list(shape), 'dtype': dtype,
+                    'input_dim_idx': input_dim_idx,
+                    'output_dim_idx': output_dim_idx,
+                    'min': float(min), 'max': float(max), 'seed': seed},
+                   dtype=dtype)
+
+
+def strided_slice(input, axes, starts, ends, strides, name=None):
+    return _simple('strided_slice', {'Input': input},
+                   {'axes': list(axes), 'starts': list(starts),
+                    'ends': list(ends), 'strides': list(strides)},
+                   name=name)
+
+
+def expand_as(x, target_tensor, name=None):
+    return _simple('expand_as', {'X': x, 'target_tensor': target_tensor},
+                   name=name)
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode='constant', pad_value=0.0,
+          data_format='NCHW', name=None):
+    return _simple('pad2d', {'X': input},
+                   {'paddings': list(paddings), 'mode': mode,
+                    'pad_value': pad_value, 'data_format': data_format},
+                   name=name)
+
+
+def maxout(x, groups, name=None, axis=1):
+    return _simple('maxout', {'X': x}, {'groups': groups, 'axis': axis},
+                   name=name)
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _simple('brelu', {'X': x}, {'t_min': t_min, 't_max': t_max},
+                   name=name)
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    attrs = {}
+    if scale is not None:
+        attrs['scale'] = scale
+    if alpha is not None:
+        attrs['alpha'] = alpha
+    return _simple('selu', {'X': x}, attrs, name=name)
+
+
+def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
+    return _simple('stanh', {'X': x},
+                   {'scale_a': scale_a, 'scale_b': scale_b}, name=name)
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """The persistable int64 [1] counter `counter_name`, begin on the
+    first run: the startup program fills begin - step and an increment
+    op at the head of the main program adds step each run."""
+    helper = LayerHelper('global_step_counter')
+    name = counter_name or '@STEP_COUNTER@'
+    block = helper.main_program.global_block()
+    counter = block._find_var_recursive(name)
+    if counter is None:
+        counter = block.create_var(name=name, shape=(1,), dtype='int64',
+                                   persistable=True)
+        sb = helper.startup_program.global_block()
+        sb.create_var(name=name, shape=(1,), dtype='int64',
+                      persistable=True)
+        sb.append_op('fill_constant', outputs={'Out': name},
+                     attrs={'shape': [1], 'dtype': 'int64',
+                            'value': float(begin - step)})
+        block._prepend_op('increment', inputs={'X': counter},
+                          outputs={'Out': counter},
+                          attrs={'step': float(step)})
+        counter.stop_gradient = True
+    return counter

@@ -1,5 +1,6 @@
 """Neural-net layers: the subset BERT pretraining, the CTR models, the
-image classifiers and gradient clipping build.  Reference:
+image classifiers, gradient clipping and ordinary Fluid scripts
+(reductions, clipping, selection, padding, n-d indexing) build.  Reference:
 python/paddle/fluid/layers/nn.py.
 
 Each layer appends IR ops via LayerHelper exactly like the reference
@@ -12,6 +13,7 @@ import numpy as np
 from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
+from .ops import _unary_op
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
            'layer_norm', 'dropout', 'softmax', 'log_softmax',
@@ -24,7 +26,10 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
            'mean', 'slice', 'topk', 'accuracy', 'one_hot', 'label_smooth',
            'linear_chain_crf', 'crf_decoding', 'chunk_eval', 'cos_sim',
            'nce', 'hsigmoid', 'warpctc', 'ctc_greedy_decoder',
-           'edit_distance']
+           'edit_distance', 'reduce_mean', 'reduce_max', 'reduce_min',
+           'reduce_prod', 'elementwise_pow', 'mul', 'clip', 'clip_by_norm',
+           'l2_normalize', 'flatten', 'where', 'cond_select', 'leaky_relu',
+           'prelu', 'pad', 'gather_nd', 'scatter', 'unstack', 'dice_loss']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -284,18 +289,42 @@ def elementwise_max(x, y, axis=-1, act=None, name=None):
     return _elementwise('elementwise_max', x, y, axis, act, name)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper('reduce_sum', name=name)
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     if dim is None:
         dim, reduce_all = [0], True
     else:
         dim = [dim] if isinstance(dim, int) else list(dim)
         reduce_all = False
-    helper.append_op('reduce_sum', inputs={'X': input}, outputs={'Out': out},
+    helper.append_op(op_type, inputs={'X': input}, outputs={'Out': out},
                      attrs={'dim': dim, 'keep_dim': keep_dim,
                             'reduce_all': reduce_all})
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_sum', input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_mean', input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_max', input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_min', input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_prod', input, dim, keep_dim, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_pow', x, y, axis, act, name)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False,
@@ -679,3 +708,117 @@ def edit_distance(input, label, normalized=True, ignored_tokens=None,
                             'ignored_tokens': list(ignored_tokens or [])},
                      infer_shape=False)
     return out, seq_num
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper('mul', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op('mul', inputs={'X': x, 'Y': y}, outputs={'Out': out},
+                     attrs={'x_num_col_dims': x_num_col_dims,
+                            'y_num_col_dims': y_num_col_dims})
+    return out
+
+
+def clip(x, min, max, name=None):
+    return _unary_op('clip', x, {'min': float(min), 'max': float(max)}, name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _unary_op('clip_by_norm', x, {'max_norm': float(max_norm)},
+                     name)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x / sqrt(sum(x^2) over axis + epsilon) through the norm op."""
+    helper = LayerHelper('l2_normalize', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op('norm', inputs={'X': x},
+                     outputs={'Out': out, 'Norm': norm},
+                     attrs={'axis': 1 if axis is None else axis,
+                            'epsilon': epsilon})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    return _unary_op('flatten2', x, {'axis': axis}, name)
+
+
+def where(condition, x, y):
+    helper = LayerHelper('where')
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op('where',
+                     inputs={'Condition': condition, 'X': x, 'Y': y},
+                     outputs={'Out': out})
+    return out
+
+
+def cond_select(cond, true_val, false_val):
+    return where(cond, true_val, false_val)
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _unary_op('leaky_relu', x, {'alpha': alpha}, name)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """x where positive, else alpha * x, alpha a parameter (0.25) of
+    shape [1] ('all'), [C] ('channel') or x.shape[1:] ('element')."""
+    helper = LayerHelper('prelu', name=name)
+    if mode == 'all':
+        alpha_shape = [1]
+    elif mode == 'channel':
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(param_attr, shape=alpha_shape,
+                                    dtype=x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op('prelu', inputs={'X': x, 'Alpha': alpha},
+                     outputs={'Out': out}, attrs={'mode': mode})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _unary_op('pad', x, {'paddings': list(paddings),
+                                 'pad_value': float(pad_value)}, name)
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper('gather_nd', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('gather_nd', inputs={'X': input, 'Index': index},
+                     outputs={'Out': out})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper('scatter', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('scatter',
+                     inputs={'X': input, 'Ids': index, 'Updates': updates},
+                     outputs={'Out': out}, attrs={'overwrite': overwrite})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper('unstack')
+    num = num if num is not None else x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op('unstack', inputs={'X': x}, outputs={'Y': outs},
+                     attrs={'axis': axis, 'num': num})
+    return outs
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """1 - 2 |A n B| / (|A| + |B|) per example, averaged over the batch
+    (reference python/paddle/fluid/layers/nn.py dice_loss)."""
+    onehot = one_hot(label, depth=input.shape[-1])
+    axes = list(range(1, len(input.shape)))
+    overlap = reduce_sum(input * onehot, dim=axes)
+    mass = reduce_sum(input, dim=axes) + reduce_sum(onehot, dim=axes)
+    per_example = 1 - 2 * overlap / (mass + epsilon)
+    return reduce_mean(per_example)

@@ -5,13 +5,21 @@ here one generated layer per unary op the port lowers
 
 from ..layer_helper import LayerHelper
 
-_UNARY = ['sigmoid', 'tanh', 'exp', 'relu', 'sqrt', 'floor', 'cos',
-          'reciprocal', 'log', 'sign']
+# the JAX package's list (its layers/ops.py), in its order
+_UNARY = [
+    'sigmoid', 'tanh', 'exp', 'relu', 'sqrt', 'rsqrt', 'abs', 'ceil',
+    'floor', 'cos', 'sin', 'tan', 'acos', 'asin', 'atan', 'sinh', 'cosh',
+    'round', 'reciprocal', 'square', 'softplus', 'softsign', 'log',
+    'log2', 'log10', 'log1p', 'erf', 'sign', 'silu',
+    'logsigmoid', 'tanh_shrink',
+]
 _COMPARE = ['equal', 'not_equal', 'less_than', 'less_equal', 'greater_than',
             'greater_equal']
 
 __all__ = _UNARY + _COMPARE + ['scale', 'pow', 'logical_and', 'logical_or',
-                               'logical_xor', 'logical_not']
+                               'logical_xor', 'logical_not', 'gelu', 'elu',
+                               'relu6', 'swish', 'hard_sigmoid',
+                               'hard_swish', 'cumsum']
 
 
 def _make_unary(op_type):
@@ -47,6 +55,57 @@ def pow(x, factor=1.0, name=None):
     helper.append_op('pow', inputs={'X': x}, outputs={'Out': out},
                      attrs={'factor': float(factor)})
     return out
+
+
+def _unary_op(op_type, x, attrs, name):
+    """A layer of one op from X to Out (of X's dtype) with `attrs`."""
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(op_type, inputs={'X': x}, outputs={'Out': out},
+                     attrs=attrs)
+    return out
+
+
+def gelu(x, approximate=False, name=None):
+    return _unary_op('gelu', x, {'approximate': approximate}, name)
+
+
+def elu(x, alpha=1.0, name=None):
+    return _unary_op('elu', x, {'alpha': alpha}, name)
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _unary_op('relu6', x, {'threshold': threshold}, name)
+
+
+def swish(x, beta=1.0, name=None):
+    return _unary_op('swish', x, {'beta': beta}, name)
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    """clip(slope * x + offset, 0, 1); slope 1/6 and offset 0.5 give
+    MobileNetV3's h-sigmoid, relu6(x + 3) / 6."""
+    return _unary_op('hard_sigmoid', x, {'slope': slope,
+                                          'offset': offset}, name)
+
+
+def hard_swish(x, threshold=6.0, scale=6.0, offset=3.0, name=None):
+    return _unary_op('hard_swish', x, {'threshold': threshold,
+                                        'scale': scale, 'offset': offset},
+                     name)
+
+
+def cumsum(x, axis=None, exclusive=None, reverse=None):
+    """Only the attrs given are set (the op's defaults: the last axis,
+    inclusive, forward)."""
+    attrs = {}
+    if axis is not None:
+        attrs['axis'] = axis
+    if exclusive is not None:
+        attrs['exclusive'] = exclusive
+    if reverse is not None:
+        attrs['reverse'] = reverse
+    return _unary_op('cumsum', x, attrs, None)
 
 
 def _make_compare(op_type):

@@ -1,6 +1,7 @@
-"""Tensor layers: the subset the learning-rate schedules, gradient
-clipping, the CTR, NMT and recurrent models, the control-flow layers and
-Variable's operators build.
+"""Tensor layers: those of the JAX package's layers/tensor.py (the
+learning-rate schedules', gradient clipping's, the CTR, NMT and
+recurrent models', the control-flow layers' and Variable's operators',
+and the sorting, finite-check, global-variable and identity layers).
 Reference: python/paddle/fluid/layers/tensor.py; each appends the ops
 the JAX package's layers/tensor.py (``shape``: its more_layers.py)
 appends."""
@@ -14,7 +15,9 @@ from ..layer_helper import LayerHelper
 __all__ = ['assign', 'cast', 'concat', 'fill_constant',
            'fill_constant_batch_size_like', 'ones', 'zeros', 'ones_like',
            'zeros_like', 'create_parameter', 'shape', 'range', 'sums',
-           'argmax']
+           'argmax', 'argmin', 'argsort', 'create_global_var',
+           'create_tensor', 'diag', 'eye', 'has_inf', 'has_nan', 'isfinite',
+           'linspace', 'reverse', 'tensor_array_to_tensor']
 
 
 def assign(input, output=None):
@@ -160,3 +163,126 @@ def range(start, end, step, dtype):
                                            float(step)]})
     out.stop_gradient = True
     return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper('arg_min')
+    out = helper.create_variable_for_type_inference('int64',
+                                                    stop_gradient=True)
+    helper.append_op('arg_min', inputs={'X': x}, outputs={'Out': out},
+                     attrs={'axis': axis})
+    return out
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    """(the sorted values, their int64 indices)."""
+    helper = LayerHelper('argsort', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ids = helper.create_variable_for_type_inference('int64',
+                                                    stop_gradient=True)
+    helper.append_op('argsort', inputs={'X': input},
+                     outputs={'Out': out, 'Indices': ids},
+                     attrs={'axis': axis, 'descending': descending})
+    return out, ids
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global-block variable the startup program fills with value."""
+    helper = LayerHelper('global_var', name=name)
+    var = helper.create_global_variable(
+        dtype=dtype, shape=tuple(shape), persistable=persistable,
+        name=name or helper.name)
+    sb = helper.startup_program.global_block()
+    sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                  persistable=persistable)
+    sb.append_op('fill_constant', outputs={'Out': var.name},
+                 attrs={'shape': list(shape), 'dtype': dtype,
+                        'value': float(value)})
+    return var
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper('create_tensor', name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable, shape=())
+
+
+def diag(diagonal):
+    """The square matrix with the 1-D `diagonal` on its main diagonal."""
+    helper = LayerHelper('diag')
+    out = helper.create_variable_for_type_inference(diagonal.dtype)
+    helper.append_op('diag', inputs={'Diagonal': diagonal},
+                     outputs={'Out': out})
+    return out
+
+
+def eye(num_rows, num_columns=None, batch_shape=None, dtype='float32'):
+    """An identity of num_rows x num_columns, tiled over batch_shape."""
+    from . import nn as _nn
+    helper = LayerHelper('eye')
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op('eye', outputs={'Out': out},
+                     attrs={'num_rows': num_rows,
+                            'num_columns': num_columns or -1,
+                            'dtype': dtype}, infer_shape=False)
+    out.shape = (num_rows, num_columns or num_rows)
+    if batch_shape:
+        for _ in batch_shape:
+            out = _nn.unsqueeze(out, axes=[0])
+        out = _nn.expand(out, expand_times=list(batch_shape) + [1, 1])
+    return out
+
+
+def _flag(op_type, x):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference('bool',
+                                                    stop_gradient=True)
+    helper.append_op(op_type, inputs={'X': [x]}, outputs={'Out': out})
+    return out
+
+
+def has_inf(x):
+    return _flag('isinf', x)
+
+
+def has_nan(x):
+    return _flag('isnan', x)
+
+
+def isfinite(x):
+    return _flag('isfinite', x)
+
+
+def linspace(start, stop, num, dtype='float32'):
+    """`num` values from start to stop, through range (as the JAX
+    package builds it)."""
+    step = (float(stop) - float(start)) / max(int(num) - 1, 1)
+    return range(start, float(stop) + step / 2, step, dtype)
+
+
+def reverse(x, axis):
+    helper = LayerHelper('reverse')
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op('flip', inputs={'X': x}, outputs={'Out': out},
+                     attrs={'axis': [axis] if isinstance(axis, int)
+                            else list(axis)})
+    return out
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    """(the array's items joined along axis, or stacked; int32 [n] of
+    ones).  An array written only outside control flow records its
+    static length, which the op reads; else it takes the capacity."""
+    helper = LayerHelper('tensor_array_to_tensor', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idx = helper.create_variable_for_type_inference('int32')
+    meta = getattr(input, '_tensor_array', None)
+    length = 0 if (meta is None or meta.get('dynamic')) else \
+        meta.get('static_len', 0)
+    helper.append_op('tensor_array_to_tensor', inputs={'X': input},
+                     outputs={'Out': out, 'OutIndex': idx},
+                     attrs={'axis': axis, 'use_stack': use_stack,
+                            'length': length},
+                     infer_shape=False)
+    return out, idx

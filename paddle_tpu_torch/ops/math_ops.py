@@ -1,7 +1,8 @@
 """Dense math, elementwise (+paddle axis broadcast), comparison,
-reduction and clipping lowerings.
+reduction, clipping, finite-check, norm, sorting and linalg lowerings.
 
-Reference kernels: paddle/fluid/operators/{matmul,mul,scale,sum,clip}_op.*,
+Reference kernels: paddle/fluid/operators/{matmul,mul,scale,sum,clip,
+dot,isfinite,p_norm,arg_min_max,top_k,argsort,norm,cholesky,inverse}_op.*,
 operators/elementwise/, operators/controlflow/compare_op.*,
 operators/reduce_ops/.  The products (mul, matmul, matmul_v2, bmm) go
 to torch.matmul (cuBLAS) in full f32 on the card, forward and backward,
@@ -212,8 +213,6 @@ _ew('greater_than', torch.gt, ('Out',))
 _ew('greater_equal', torch.ge, ('Out',))
 
 
-
-
 def _logical(name, fn, unary=False):
     @register(name, no_grad_out_slots=('Out',))
     def op(ctx, ins, attrs, _fn=fn, _u=unary):
@@ -304,3 +303,160 @@ def top_k(ctx, ins, attrs):
     k = int(attrs.get('k', 1))
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return {'Out': [vals[..., :k]], 'Indices': [idx[..., :k]]}
+
+
+# ---------------------------------------------------------------------------
+# The rest of the JAX package's ops/math_ops.py: the other reductions, the
+# finite checks, norms, arg_min, sorting and the linalg extras
+# ---------------------------------------------------------------------------
+
+
+def _reduce_dims(x, attrs):
+    """The reduced dims of a reduce_* op: every dim with reduce_all, else
+    `dim` (default [0]) taken mod x's rank; () reduces nothing, as
+    jnp's empty axis tuple."""
+    if attrs.get('reduce_all', False):
+        return tuple(range(x.ndim))
+    return tuple(a % x.ndim for a in attrs.get('dim', [0]))
+
+
+def _reduce(name, fn, int_out=False):
+    """Register reduce op `name`: fn(x, dims, keepdim) over the op's dims
+    (``_reduce_dims``), the JAX package's ``_reduce`` (math_ops.py:259).
+    A bool result (reduce_all / reduce_any) carries no gradient."""
+    @register(name, no_grad_out_slots=('Out',) if int_out else ())
+    def op(ctx, ins, attrs, _fn=fn):
+        x = _x(ins)
+        dims = _reduce_dims(x, attrs)
+        keep = attrs.get('keep_dim', False)
+        if not dims:
+            return {'Out': [x.bool() if int_out else x]}
+        return {'Out': [_fn(x, dims, keep)]}
+    return op
+
+
+def _all(x, dims, keep):
+    out = x.bool()
+    for d in sorted(dims, reverse=True):
+        out = out.all(dim=d, keepdim=keep)
+    return out
+
+
+def _any(x, dims, keep):
+    out = x.bool()
+    for d in sorted(dims, reverse=True):
+        out = out.any(dim=d, keepdim=keep)
+    return out
+
+
+def _prod(x, dims, keep):
+    for d in sorted(dims, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keep)
+    return x
+
+
+# amax / amin split the gradient evenly among equal maxima, as the
+# gradient of jnp.max / jnp.min does
+_reduce('reduce_mean', lambda x, d, k: torch.mean(x, dim=d, keepdim=k))
+_reduce('reduce_max', lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
+_reduce('reduce_min', lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
+_reduce('reduce_prod', _prod)
+_reduce('reduce_all', _all, int_out=True)
+_reduce('reduce_any', _any, int_out=True)
+
+
+@register('dot')
+def dot(ctx, ins, attrs):
+    """sum(X * Y) over the last axis, kept for 1-D inputs."""
+    x, y = ins['X'][0], ins['Y'][0]
+    return {'Out': [torch.sum(x * y, dim=-1, keepdim=x.ndim == 1)]}
+
+
+def _flag(ctx, xs, test, combine, start):
+    """One 0-d bool over every input: `combine` of `test` reduced over
+    each, from `start` (the JAX package's isfinite / isinf / isnan,
+    math_ops.py:139: a flag, not an elementwise mask)."""
+    out = torch.full((), start, dtype=torch.bool,
+                     device=xs[0].device if xs else ctx.device)
+    for x in xs:
+        out = combine(out, test(x))
+    return out
+
+
+@register('isfinite', no_grad_out_slots=('Out',))
+def isfinite(ctx, ins, attrs):
+    """Whether every element of every input is finite."""
+    return {'Out': [_flag(ctx, ins['X'], lambda x: torch.isfinite(x).all(),
+                          torch.logical_and, True)]}
+
+
+@register('isinf', no_grad_out_slots=('Out',))
+def isinf(ctx, ins, attrs):
+    """Whether any element of any input is infinite."""
+    return {'Out': [_flag(ctx, ins['X'], lambda x: torch.isinf(x).any(),
+                          torch.logical_or, False)]}
+
+
+@register('isnan', no_grad_out_slots=('Out',))
+def isnan(ctx, ins, attrs):
+    """Whether any element of any input is NaN."""
+    return {'Out': [_flag(ctx, ins['X'], lambda x: torch.isnan(x).any(),
+                          torch.logical_or, False)]}
+
+
+@register('p_norm')
+def p_norm(ctx, ins, attrs):
+    """(sum |x|^p over `axis`)^(1/p), the JAX expression in its order."""
+    x = _x(ins)
+    p = attrs.get('porder', 2.0)
+    out = torch.sum(torch.abs(x) ** p, dim=attrs.get('axis', -1),
+                    keepdim=attrs.get('keepdim', False)) ** (1.0 / p)
+    return {'Out': [out]}
+
+
+@register('arg_min', no_grad_out_slots=('Out',))
+def arg_min(ctx, ins, attrs):
+    """int64 index of the smallest value along `axis` (the first of
+    equal ones, as jnp.argmin)."""
+    return {'Out': [torch.argmin(_x(ins), dim=attrs.get('axis', -1))]}
+
+
+# the JAX package's top_k_v2 is its top_k: the k largest along the last
+# axis (its axis / largest attrs are not read)
+register('top_k_v2', no_grad_out_slots=('Indices',))(top_k)
+
+
+@register('argsort', no_grad_out_slots=('Indices',))
+def argsort(ctx, ins, attrs):
+    """Out sorted along `axis` and its int64 Indices: a stable sort of X
+    (of -X when descending, so equal values keep their order, as
+    jnp.argsort of -X gives them)."""
+    x = _x(ins)
+    axis = attrs.get('axis', -1)
+    key = -x if attrs.get('descending', False) else x
+    idx = torch.sort(key, dim=axis, stable=True)[1]
+    return {'Out': [torch.take_along_dim(x, idx, dim=axis)],
+            'Indices': [idx]}
+
+
+@register('norm')
+def norm(ctx, ins, attrs):
+    """X / n with n = sqrt(sum(x * x) over `axis` + epsilon), kept as
+    Norm."""
+    x = _x(ins)
+    n = torch.sqrt(torch.sum(x * x, dim=attrs.get('axis', -1), keepdim=True)
+                   + attrs.get('epsilon', 1e-10))
+    return {'Out': [x / n], 'Norm': [n]}
+
+
+# the _ex forms report a failed factorization in `info` instead of
+# checking it on the host, which would stop a CUDA graph capture
+@register('cholesky')
+def cholesky(ctx, ins, attrs):
+    """The lower Cholesky factor of each (symmetric) matrix."""
+    return {'Out': [torch.linalg.cholesky_ex(_x(ins)).L]}
+
+
+@register('inverse')
+def inverse(ctx, ins, attrs):
+    return {'Output': [torch.linalg.inv_ex(ins['Input'][0]).inverse]}

@@ -2,8 +2,9 @@
 Transformer's sinusoidal position encoding and the additive causal
 bias (the JAX package's ops/misc_ops.py).  One Program then serves
 every length bucket of a padded batch.  Beside them, two of the JAX
-module's control-flow helpers: is_empty and
-reorder_lod_tensor_by_rank.
+module's control-flow helpers (is_empty and reorder_lod_tensor_by_rank),
+eye and tensor_array_to_tensor (decayed_adagrad is with the other
+updates in ops/optimizer_ops.py).
 
 Reference: operators/add_position_encoding_op.cc computed the encoding
 per LoD batch on the host.
@@ -11,6 +12,7 @@ per LoD batch on the host.
 
 import torch
 
+from ..fluid import core
 from .registry import register
 
 
@@ -56,3 +58,29 @@ def reorder_lod_tensor_by_rank(ctx, ins, attrs):
     permutation's indices)."""
     return {'Out': [torch.index_select(
         ins['X'][0], 0, ins['RankTable'][0].reshape(-1).long())]}
+
+
+@register('eye')
+def eye(ctx, ins, attrs):
+    """A num_rows x num_columns identity (square where num_columns is
+    -1, 0 or missing)."""
+    rows = int(attrs['num_rows'])
+    cols = int(attrs.get('num_columns', -1) or -1)
+    cols = rows if cols == -1 else cols
+    return {'Out': [torch.eye(rows, cols, dtype=core.convert_dtype(
+        attrs.get('dtype', 'float32')), device=ctx.device)]}
+
+
+@register('tensor_array_to_tensor', no_grad_out_slots=('OutIndex',))
+def tensor_array_to_tensor(ctx, ins, attrs):
+    """The array's first `length` items (its capacity where the layer
+    recorded no static length), concatenated along `axis`, or as the
+    stack they are with use_stack; OutIndex is a 1 per item, as in the
+    JAX package (misc_ops.py:207)."""
+    arr = ins['X'][0]
+    length = int(attrs.get('length', 0)) or arr.shape[0]
+    arr = arr[:length]
+    out = arr if attrs.get('use_stack', False) else \
+        torch.cat(list(arr.unbind(0)), dim=attrs.get('axis', 0))
+    return {'Out': [out], 'OutIndex': [torch.ones(
+        (length,), dtype=torch.int32, device=arr.device)]}

@@ -2,11 +2,16 @@
 
 Reference kernels: paddle/fluid/operators/{fill_constant,gaussian_random,
 uniform_random,reshape,split,concat,cast,unsqueeze,squeeze,transpose,
-expand,stack,gather,shape,range,one_hot,lookup_table_v2}_op.cc|.cu,
+expand,stack,gather,shape,range,one_hot,lookup_table_v2,flatten,
+strided_slice,expand_as,tile,unstack,gather_nd,scatter,cumsum,pad,pad2d,
+where,where_index,diag,flip,roll,tril_triu,index_select,minus,
+coalesce_tensor,shuffle_batch,truncated_gaussian_random}_op.cc|.cu,
 operators/{fill_any_like,increment}_op.cc,
 operators/controlflow/{feed,fetch}_op.cc.  The shape ops return views
 where the strides allow, as jnp's do under XLA.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -430,3 +435,338 @@ def conditional_block_op(ctx, ins, attrs):
     """Lowered by the executor (Executor._lower_conditional_block)."""
     raise RuntimeError('conditional_block is lowered by the executor, not '
                        'the registry')
+
+
+# ---------------------------------------------------------------------------
+# The rest of the JAX package's ops/tensor_ops.py: flattening, strided and
+# n-d indexing, scatter, tiling, cumulative sums, padding, selection,
+# flips, the draws of the batch-size-like and truncated initializers and
+# coalesce_tensor.
+# ---------------------------------------------------------------------------
+
+
+def _flatten_to_2d(x, axis):
+    lead = int(np.prod(x.shape[:axis])) if axis > 0 else 1
+    return x.reshape(lead, -1)
+
+
+@register('flatten2')
+def flatten2(ctx, ins, attrs):
+    """X folded to 2-D at `axis` (dims before it make the rows)."""
+    return {'Out': [_flatten_to_2d(_x(ins), attrs.get('axis', 1))]}
+
+
+# v1 op name (no XShape output), the same semantics
+register('flatten')(flatten2)
+
+
+@register('flatten_contiguous_range')
+def flatten_contiguous_range(ctx, ins, attrs):
+    x = _x(ins)
+    start = attrs.get('start_axis', 1)
+    stop = attrs.get('stop_axis', -1) % x.ndim
+    return {'Out': [x.reshape(tuple(x.shape[:start]) + (-1,) +
+                              tuple(x.shape[stop + 1:]))]}
+
+
+@register('strided_slice')
+def strided_slice(ctx, ins, attrs):
+    """X[start:end:stride] along each listed axis, Python's slice rule;
+    a negative stride (which a torch view cannot take) gathers the
+    indices the slice names."""
+    x = ins['Input'][0]
+    for ax, st, en, sd in zip(attrs['axes'], attrs['starts'], attrs['ends'],
+                              attrs['strides']):
+        s = slice(st, en, sd)
+        if sd > 0:
+            idx = [slice(None)] * x.ndim
+            idx[ax] = s
+            x = x[tuple(idx)]
+        else:
+            pick = torch.arange(*s.indices(x.shape[ax]), device=x.device)
+            x = x.index_select(ax, pick)
+    return {'Out': [x]}
+
+
+@register('expand_as')
+def expand_as(ctx, ins, attrs):
+    """X tiled to target_tensor's shape (each dim target // X's)."""
+    x = _x(ins)
+    target = ins['target_tensor'][0]
+    return {'Out': [torch.tile(x, tuple(t // s for t, s in
+                                        zip(target.shape, x.shape)))]}
+
+
+@register('tile')
+def tile(ctx, ins, attrs):
+    return {'Out': [torch.tile(_x(ins), tuple(attrs['repeat_times']))]}
+
+
+@register('unstack')
+def unstack(ctx, ins, attrs):
+    return {'Y': list(torch.unbind(_x(ins), dim=attrs.get('axis', 0)))}
+
+
+def _wrap(idx, n):
+    """int64 indices with the negative ones counted from the end."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + n, idx)
+
+
+@register('gather_nd')
+def gather_nd(ctx, ins, attrs):
+    """X at the leading coordinates Index[..., :k] (k = Index's last
+    dim): Index.shape[:-1] + X.shape[k:]."""
+    x = _x(ins)
+    idx = ins['Index'][0].long()
+    return {'Out': [x[tuple(_wrap(idx[..., i], x.shape[i])
+                            for i in range(idx.shape[-1]))]]}
+
+
+@register('scatter')
+def scatter(ctx, ins, attrs):
+    """X with the rows Ids replaced by Updates (overwrite) or Updates
+    added to them."""
+    x = _x(ins)
+    ids = _wrap(ins['Ids'][0].reshape(-1), x.shape[0])
+    upd = ins['Updates'][0].to(x.dtype)
+    if attrs.get('overwrite', True):
+        return {'Out': [x.index_copy(0, ids, upd)]}
+    return {'Out': [x.index_add(0, ids, upd)]}
+
+
+register('embedding')(lookup_table_v2)
+
+
+@register('cumsum')
+def cumsum(ctx, ins, attrs):
+    """The running sum along `axis` (of the flattened X with `flatten`),
+    from the end with `reverse`, each sum without its own element with
+    `exclusive` (a zero first, the last sum dropped), in X's dtype as
+    jnp.cumsum keeps it."""
+    x = _x(ins)
+    axis = attrs.get('axis', -1)
+    if attrs.get('flatten', False):
+        x, axis = x.reshape(-1), 0
+    axis %= x.ndim
+    if attrs.get('reverse', False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis,
+                                      dtype=x.dtype), (axis,))
+    else:
+        out = torch.cumsum(x, dim=axis, dtype=x.dtype)
+    if attrs.get('exclusive', False):
+        pad = [0, 0] * (x.ndim - 1 - axis) + [1, 0]
+        out = torch.nn.functional.pad(out, pad).narrow(axis, 0,
+                                                       x.shape[axis])
+    return {'Out': [out]}
+
+
+def _pad_pairs(widths):
+    """[(before, after)] per dim -> F.pad's flat list, last dim first."""
+    out = []
+    for lo, hi in reversed(widths):
+        out += [lo, hi]
+    return out
+
+
+@register('pad')
+def pad(ctx, ins, attrs):
+    x = _x(ins)
+    p = attrs['paddings']
+    widths = [(p[2 * i], p[2 * i + 1]) for i in range(x.ndim)]
+    return {'Out': [torch.nn.functional.pad(
+        x, _pad_pairs(widths), value=attrs.get('pad_value', 0.0))]}
+
+
+@register('pad2d')
+def pad2d(ctx, ins, attrs):
+    """H and W padded by [top, bottom, left, right]: a constant, or the
+    reflection / edge values (replicate) of jnp.pad's modes."""
+    x = _x(ins)
+    p = attrs['paddings']
+    mode = attrs.get('mode', 'constant')
+    nhwc = attrs.get('data_format', 'NCHW') == 'NHWC'
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    flat = [p[2], p[3], p[0], p[1]]
+    if mode == 'constant':
+        out = torch.nn.functional.pad(x, flat,
+                                      value=attrs.get('pad_value', 0.0))
+    else:
+        out = torch.nn.functional.pad(
+            x, flat, mode={'reflect': 'reflect', 'edge': 'replicate'}[mode])
+    return {'Out': [out.permute(0, 2, 3, 1) if nhwc else out]}
+
+
+@register('where')
+def where(ctx, ins, attrs):
+    cond = ins['Condition'][0]
+    return {'Out': [torch.where(cond if cond.dtype == torch.bool
+                                else cond != 0, ins['X'][0], ins['Y'][0])]}
+
+
+@register('where_index', no_grad_out_slots=('Out',))
+def where_index(ctx, ins, attrs):
+    """The int64 coordinates [capacity, rank] of Condition's nonzero
+    elements in row-major order, the rows past their count -1: the JAX
+    package's capacity-padded form (tensor_ops.py:426), whose shape does
+    not depend on the data.  The rows are placed by a running count on
+    the device (no host read, so a CUDA graph can hold it).  Without a
+    capacity the op raises, as there."""
+    cap = attrs.get('capacity')
+    if cap is None:
+        raise NotImplementedError(
+            'where_index has a data-dependent output shape; pass '
+            "attrs={'capacity': K} for a [K, rank] result padded with -1 "
+            'rows (mask on out[:, 0] >= 0), or use masking')
+    cap = int(cap)
+    cond = ins['Condition'][0]
+    flat = (cond != 0).reshape(-1)
+    n = flat.numel()
+    pos = torch.cumsum(flat.long(), 0) - 1
+    slot = torch.where(flat & (pos < cap), pos,
+                       torch.full((), cap, dtype=torch.long,
+                                  device=cond.device))
+    src = torch.arange(n, dtype=torch.long, device=cond.device)
+    picked = torch.full((cap + 1,), -1, dtype=torch.long, device=cond.device)
+    picked = picked.scatter(0, slot, src)[:cap]
+    coords, rest = [], picked
+    for d in reversed(cond.shape):
+        coords.append(torch.remainder(rest, d))
+        rest = torch.div(rest, d, rounding_mode='floor')
+    coords = torch.stack(coords[::-1], dim=1) if coords else \
+        picked.new_zeros((cap, 0))
+    return {'Out': [torch.where(picked[:, None] >= 0, coords,
+                                torch.full((), -1, dtype=torch.long,
+                                           device=cond.device))]}
+
+
+@register('diag')
+def diag(ctx, ins, attrs):
+    """A square matrix with the 1-D Diagonal on its main diagonal."""
+    return {'Out': [torch.diag(ins['Diagonal'][0])]}
+
+
+def _axes(a):
+    return (a,) if isinstance(a, int) else tuple(a)
+
+
+@register('flip')
+def flip(ctx, ins, attrs):
+    return {'Out': [torch.flip(_x(ins), _axes(attrs['axis']))]}
+
+
+@register('reverse')
+def reverse(ctx, ins, attrs):
+    """X flipped along each axis of `axis` (default [0])."""
+    return {'Out': [torch.flip(_x(ins), _axes(attrs.get('axis', [0])))]}
+
+
+@register('roll')
+def roll(ctx, ins, attrs):
+    """X rolled by `shifts` along `axis` (the flattened X without
+    one)."""
+    axis = attrs.get('axis')
+    shifts = attrs['shifts']
+    if not axis:
+        x = _x(ins)
+        shift = shifts if isinstance(shifts, int) else sum(shifts)
+        return {'Out': [torch.roll(x.reshape(-1), shift).reshape(x.shape)]}
+    return {'Out': [torch.roll(_x(ins), _axes(shifts), _axes(axis))]}
+
+
+@register('tril_triu')
+def tril_triu(ctx, ins, attrs):
+    x = _x(ins)
+    d = attrs.get('diagonal', 0)
+    return {'Out': [torch.tril(x, d) if attrs.get('lower', True)
+                    else torch.triu(x, d)]}
+
+
+@register('index_select')
+def index_select(ctx, ins, attrs):
+    """X's slices at Index along `dim` (jnp.take, as the gather op)."""
+    return gather(ctx, {'X': ins['X'], 'Index': ins['Index']},
+                  {'axis': attrs.get('dim', 0)})
+
+
+@register('minus')
+def minus(ctx, ins, attrs):
+    return {'Out': [ins['X'][0] - ins['Y'][0]]}
+
+
+register('share_data')(assign)
+register('split_byref')(split)
+
+
+@register('coalesce_tensor', no_grad_out_slots=('FusedOutput',))
+def coalesce_tensor(ctx, ins, attrs):
+    """The inputs as they are (Output) and their flattened values end to
+    end (FusedOutput), as the JAX package renders the reference's fused
+    gradient buffer."""
+    xs = ins['Input']
+    return {'Output': list(xs),
+            'FusedOutput': [torch.cat([v.reshape(-1) for v in xs])]}
+
+
+# Draws of the ops below come from the dropout op's counter hash
+# (kernels.dropout.hash_bits) under LowerCtx.sample_seed, the device step
+# mixed in, so a CUDA graph replays each step's own draws; jax threefry's
+# bits are not reproduced, and the tests hold the draws by statistics.
+
+def _unit(ctx, attrs, shape, device, salt):
+    """f32 draws in (0, 1) of `shape`: (24 hash bits + 0.5) / 2^24."""
+    from .kernels import dropout as _hash
+    seed = ctx.sample_seed(salt + int(attrs.get('seed', 0) or 0))
+    bits = _hash.hash_bits(seed, shape, device)
+    return (bits.to(torch.float32) + 0.5) * (2.0 ** -24)
+
+
+def normal_draws(ctx, attrs, shape, device, salt, lo=None, hi=None):
+    """f32 standard normal draws of `shape` by the inverse CDF of
+    ``_unit``'s, truncated to [lo, hi] where both are given (the CDF's
+    interval mapped onto (0, 1) first, as jax.random.truncated_normal
+    draws them)."""
+    u = _unit(ctx, attrs, shape, device, salt)
+    if lo is not None:
+        a, b = (0.5 * (1.0 + math.erf(v / math.sqrt(2.0))) for v in (lo, hi))
+        u = a + u * (b - a)
+    return math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+
+
+@register('truncated_gaussian_random')
+def truncated_gaussian_random(ctx, ins, attrs):
+    """mean + std * a standard normal truncated to [-2, 2]."""
+    shape = tuple(int(s) for s in attrs['shape'])
+    out = normal_draws(ctx, attrs, shape, ctx.device, 0x7A11, -2.0, 2.0)
+    return {'Out': [(attrs.get('mean', 0.0) + attrs.get('std', 1.0) * out)
+                    .to(core.convert_dtype(attrs.get('dtype', 'float32')))]}
+
+
+@register('uniform_random_batch_size_like')
+def uniform_random_batch_size_like(ctx, ins, attrs):
+    """Uniform in [min, max) of `shape` whose dim output_dim_idx is
+    Input's dim input_dim_idx."""
+    ref = ins['Input'][0]
+    shape = list(attrs['shape'])
+    shape[attrs.get('output_dim_idx', 0)] = \
+        ref.shape[attrs.get('input_dim_idx', 0)]
+    lo, hi = attrs.get('min', -1.0), attrs.get('max', 1.0)
+    u = _unit(ctx, attrs, tuple(shape), ref.device, 0x0B5)
+    return {'Out': [(lo + (hi - lo) * u).to(
+        core.convert_dtype(attrs.get('dtype', 'float32')))]}
+
+
+@register('shuffle_batch', no_grad_out_slots=('ShuffleIdx', 'SeedOut'))
+def shuffle_batch(ctx, ins, attrs):
+    """X's rows in a random order (ShuffleIdx, int64): a stable sort of
+    one hash draw per row; SeedOut is the op's seed, as in the JAX
+    package."""
+    from .kernels import dropout as _hash
+    x = _x(ins)
+    seed = ctx.sample_seed(0x5B + int(attrs.get('startup_seed', 0) or 0))
+    keys = _hash.hash_bits(seed, (x.shape[0],), x.device)
+    idx = torch.sort(keys, stable=True)[1]
+    return {'Out': [x.index_select(0, idx)], 'ShuffleIdx': [idx],
+            'SeedOut': [torch.full((1,), ctx.op_seed, dtype=torch.int32,
+                                   device=x.device)]}

@@ -245,8 +245,14 @@ def _srl_feeds(n, seed=0, boundary=16):
 def test_srl_tiny_serializes_and_trains_like_jax():
     progs = build_both(_srl_train, seed=7)
     same_program(progs['jax'][0], progs['torch'][0])
-    evals = {k: srl.build_eval(f, srl.TINY, progs[k][0], progs[k][2][1])
-             for k, f in (('jax', jfluid), ('torch', tfluid))}
+    # each clone is built under a fresh unique_name generator: outside a
+    # guard its chunk_eval names would carry whatever count an earlier
+    # test left in that package's global generator
+    evals = {}
+    for k, f in (('jax', jfluid), ('torch', tfluid)):
+        with f.unique_name.guard():
+            evals[k] = srl.build_eval(f, srl.TINY, progs[k][0],
+                                      progs[k][2][1])
     same_program(evals['jax'][0], evals['torch'][0])
     types = [op.type for op in progs['torch'][0].global_block().ops]
     assert types.count('lookup_table_v2') == 8 and \

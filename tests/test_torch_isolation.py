@@ -104,7 +104,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
                  'paddle_tpu_torch.fluid.device_worker',
                  'paddle_tpu_torch.fluid.layers.io',
                  'paddle_tpu_torch.reader',
-                 'paddle_tpu_torch.runtime'):
+                 'paddle_tpu_torch.runtime',
+                 'paddle_tpu_torch.models.mobilenet_v3',
+                 'paddle_tpu_torch.fluid.layers.more_layers',
+                 'paddle_tpu_torch.fluid.layers.ops',
+                 'paddle_tpu_torch.fluid.initializer',
+                 'paddle_tpu_torch.fluid.framework'):
         assert name in res['imported']
 
 

@@ -87,8 +87,8 @@ def cotangents(op, outs, seed):
     carries a gradient."""
     rng = np.random.RandomState(seed)
     skip = treg.get(op).no_grad_out_slots
-    return {'GRAD::' + s: [rng.randn(*np.shape(a)).astype(a.dtype)
-                           for a in v]
+    return {'GRAD::' + s: [np.asarray(rng.randn(*np.shape(a))).astype(
+        a.dtype) for a in v]
             for s, v in outs.items()
             if s not in skip and all(np.issubdtype(np.asarray(a).dtype,
                                                    np.floating) for a in v)}
