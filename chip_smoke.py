@@ -440,6 +440,30 @@ Phases, each of which fails the run (non-zero exit) on error:
      noise by its moments; (c) every op type of the
      slice at a size its users run, twice bitwise and against the CPU
      (integers exact, floats within 1e-5 of the largest magnitude).
+ 18. the observability plane, outside the kernels line's counts: (a)
+     phase 5's BERT-base Adam step, 3 cached eager steps under
+     fluid.profiler 'Default' (torch.profiler, CUPTI): the per-op
+     device table, whose rows (unattributed included) must sum to the
+     profiled device time within 1%, K1's kernels under
+     fused_multihead_attention and K2's under its grad, no more than
+     5% unattributed, opprof's worklist naming K1 and K2 as the cover
+     of those runs; then one 'Serial' step (op by op); (b) FLAGS_trace
+     off against on over replayed and cached eager steps, the tracer
+     switched at every step, step_report's phases; the capturing step
+     must record the replay's spans only; (c) phase 14's Wide&Deep
+     through train_from_dataset beside staged device tensors, timed as
+     phase 14 times them, one traced epoch each: reader_wait's share,
+     the queue depth, the consumer's waits; (d) SE-ResNeXt-50's
+     replayed step under the profiler: its device union over the
+     streams must not pass the step's wall; (e) phase 15's two decodes
+     traced and profiled: wall against device time; (f) MobileNetV3-
+     Large's first run under FLAGS_memviz: memviz.peak_bytes against
+     torch.cuda.max_memory_allocated (within 1%), the row's parts
+     summing to it, live_census against memory_allocated; (g) the
+     status server on port 0 read from a thread during replayed steps:
+     /healthz ready, /metrics clean under prom_lint, /statusz naming
+     the card; (h) self CPU of an AMP BERT-base and a LeNet-5 step,
+     uncached and cached eager, in both orders.
 The line before the last is a JSON object {"kernels": [...]}.  Each
 row's "launches" are those the wrappers made on the main path (every
 counted step and request: the counters set to 0 just before each and
@@ -957,12 +981,15 @@ def ran_by_row():
 
 
 def eager_run(exe, program, feed=None, fetch_list=None, return_numpy=True,
-              scope=None):
-    """Executor.run's path without its CUDA graph: the cached plan run
-    op by op (Executor._run_graphed with graphs=False)."""
+              scope=None, use_cache=True):
+    """Executor.run's path without its CUDA graph: the cached plan (a
+    plan built for the call with use_cache=False) run op by op
+    (Executor._run_graphed with graphs=False).  Both sides of a cached
+    against uncached comparison come through here, so that they do the
+    same step records (none of Executor.run's)."""
     feed = feed or {}
     fetch = [getattr(f, 'name', f) for f in fetch_list or []]
-    plan = exe._get_plan(program, feed, fetch)
+    plan = exe._get_plan(program, feed, fetch, use_cache=use_cache)
     return exe._run_graphed(plan, program, feed, fetch,
                             scope or fluid.global_scope(), return_numpy,
                             graphs=False)
@@ -2531,8 +2558,9 @@ def plan_cache_steps(run, required=True):
     torch.backends.cudnn.deterministic = True
 
     def one(cache, graphs):
-        if cache and not graphs:
-            return eager_run(exe, main, path['batch'], [path['loss']])[0]
+        if not graphs:
+            return eager_run(exe, main, path['batch'], [path['loss']],
+                             use_cache=cache)[0]
         return exe.run(main, feed=path['batch'], fetch_list=[path['loss']],
                        use_program_cache=cache)[0]
 
@@ -6670,6 +6698,534 @@ def core_phase(seed, dev):
     log('  (c): %.1f s' % (time.perf_counter() - t0))
 
 
+# ----------------------------------------------------------- phase 18
+OBS_EAGER_STEPS = 3   # (a) Default-profiled eager BERT-base steps
+OBS_TRACE_STEPS = 16  # (b) steps a side with the tracer off and on
+OBS_CPU_REPEATS = 9   # (h) profiled steps a side and order
+OBS_UNATTRIBUTED_MAX = 0.05  # (a) the eager steps' unattributed share
+OBS_MEM_SLACK = 1 << 20  # (f) census against memory_allocated, read apart
+
+
+def fresh_run(path):
+    """A path's startup program run on a new executor and scope (not
+    counted): the run dict the phase's helpers take."""
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(path['startup'])
+    return {'path': path, 'exe': exe, 'scope': scope}
+
+
+def free_run(run):
+    drop_graphs(run['path']['main'], run['scope'])
+    run.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def quiet_profile(tracer_option, fn):
+    """fn() under fluid.profiler.profiler(tracer_option); the table it
+    prints is kept, not printed (the phase logs its own rows)."""
+    with quiet_steps():
+        with fluid.profiler.profiler('All', tracer_option=tracer_option):
+            fn()
+            torch.cuda.synchronize()
+    return fluid.profiler.summary_records()
+
+
+def log_rows(rows, n, unit_steps=1, unit='calls'):
+    for t, r in sorted(rows.items(), key=lambda kv: -kv[1]['total'])[:n]:
+        log('    %-44s %6d %s %10.3f ms' % (
+            t[:44], r['calls'] // unit_steps, unit,
+            r['total'] * 1e3 / unit_steps))
+
+
+def obs_profile(seed, card):
+    """(a) BERT-base Adam (seq 512, batch 8): OBS_EAGER_STEPS cached eager
+    steps under the 'Default' profiler (torch.profiler, CUPTI), the
+    per-op device table whose rows, unattributed included, sum to the
+    profiled device time; K1's and K2's kernels under
+    fused_multihead_attention and its grad; the op-cost worklist naming
+    K1 as the cover of the attention runs; then one 'Serial' step."""
+    run = fresh_run(pretrain_program(seed, 'adam'))
+    path, exe, scope = run['path'], run['exe'], run['scope']
+    main, feed, fetch = path['main'], path['batch'], [path['loss']]
+    with fluid.scope_guard(scope):
+        eager_run(exe, main, feed, fetch)
+        rows = quiet_profile('Default', lambda: [
+            eager_run(exe, main, feed, fetch)
+            for _ in range(OBS_EAGER_STEPS)])
+        last = fluid.profiler.last_profile()
+        events = fluid.profiler.last_events()
+        serial = quiet_profile('Serial', lambda: exe.run(
+            main, feed=feed, fetch_list=fetch))
+    dev = last['device']
+    total = sum(r['total'] for r in rows.values()) * 1e3
+    unattr = sum(r['total'] for t, r in rows.items()
+                 if t.startswith('unattributed/')) * 1e3
+    log('  (a) %d cached eager steps under profiler(\'All\', '
+        'tracer_option=\'Default\') (%s | %s): %d device events on %d '
+        'streams, summed %.3f ms a step, union over the streams %.3f ms a '
+        'step; the table\'s %d rows sum to %.3f ms a step (%.4f%% off the '
+        'device sum), unattributed %.3f ms a step (%.2f%%); the rows by '
+        'total device time a step:' % (
+            OBS_EAGER_STEPS, torch.cuda.get_device_name(0), card,
+            dev['events'], dev['streams'], dev['sum_ms'] / OBS_EAGER_STEPS,
+            dev['union_ms'] / OBS_EAGER_STEPS, len(rows),
+            total / OBS_EAGER_STEPS,
+            100 * abs(total - dev['sum_ms']) / dev['sum_ms'],
+            unattr / OBS_EAGER_STEPS, 100 * unattr / total))
+    log_rows(rows, 20, OBS_EAGER_STEPS, 'kernels')
+    kern = last['kernels']
+    fa = kern.get('fused_multihead_attention', [])
+    fa_grad = kern.get('fused_multihead_attention_grad', [])
+    log('    fused_multihead_attention holds %s; its grad holds %s' % (
+        sorted({fluid.profiler._kernel_label(k) for k in fa}),
+        sorted({fluid.profiler._kernel_label(k) for k in fa_grad})))
+    if abs(total - dev['sum_ms']) > 0.01 * dev['sum_ms']:
+        raise AssertionError('the profiler rows sum to %.3f ms, the device '
+                             'events to %.3f ms' % (total, dev['sum_ms']))
+    if not any('flash_fwd' in k for k in fa) or \
+            not any('flash_bwd' in k for k in fa_grad):
+        raise AssertionError('K1/K2 not under fused_multihead_attention '
+                             '/ _grad: %s / %s' % (fa, fa_grad))
+    if unattr > OBS_UNATTRIBUTED_MAX * total:
+        raise AssertionError('%.1f%% of the eager steps\' device time is '
+                             'unattributed' % (100 * unattr / total))
+    fluid.opprof.reset()
+    fluid.opprof.record_capture(events, program='bert512',
+                                steps=OBS_EAGER_STEPS)
+    worklist = fluid.opprof.kernel_worklist(limit=64)
+    covers = {r['op_type']: r['covered_by'] for r in worklist
+              if r['covered_by']}
+    log('  (a) opprof.kernel_worklist over the capture, the first 8 of %d '
+        'runs (ms a step, covering kernel):' % len(worklist))
+    for r in worklist[:8]:
+        log('    #%d %-34s %4d ops %9.3f ms  %s' % (
+            r['rank'], r['op_type'][:34], len(r['ops']), r['ms_per_step'],
+            r['covered_by']))
+    log('    runs a hand-written kernel covers: %s' % covers)
+    if covers.get('fused_multihead_attention') != 'flash_attention' or \
+            covers.get('fused_multihead_attention_grad') != \
+            'flash_attention_bwd':
+        raise AssertionError('the worklist does not name K1/K2: %s' % covers)
+    fluid.opprof.reset()
+    log('  (a) one \'Serial\' step (op by op, the card synchronized around '
+        'each op; every grad op replays its forward op), host ms by op '
+        'type:')
+    log_rows(serial, 12)
+    if serial.get('fused_multihead_attention', {}).get('calls') != \
+            serial.get('fused_multihead_attention_grad', {}).get('calls'):
+        raise AssertionError('Serial table: %s' % sorted(serial))
+    return run
+
+
+def timed_steps(fn, n):
+    secs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def obs_trace(run, card, health_checks):
+    """(b) FLAGS_trace off against on over the same replayed and cached
+    eager BERT-base steps (the loss fetched to numpy, so each ends after
+    its last kernel), the tracer switched at every step; the replayed
+    step's capture records no span and counts once.  Then the status
+    plane is read from another thread while replayed steps run (g)."""
+    path, exe, scope = run['path'], run['exe'], run['scope']
+    main, feed, fetch = path['main'], path['batch'], [path['loss']]
+    trace, monitor = fluid.trace, fluid.monitor
+    with fluid.scope_guard(scope):
+        drop_graphs(main, scope)
+        trace.reset()
+        trace.enable(buffer_steps=64)
+        calls = monitor.counter_value('executor/run_calls')
+        for _ in range(2):   # the first run eager, the second captured
+            exe.run(main, feed=feed, fetch_list=fetch)
+        recs = trace.steps()
+        capture = [s[0] for s in recs[-1]['spans']]
+        trace.disable()
+        if len(recs) != 2 or \
+                monitor.counter_value('executor/run_calls') != calls + 2 or \
+                'bind' in capture or capture.count('dispatch') != 1:
+            raise AssertionError('the capturing step recorded %s (%d step '
+                                 'records)' % (capture, len(recs)))
+
+        def eager_step():
+            # the cached plan run eagerly is the executor's inner entry:
+            # the step span Executor.run would open is opened here
+            with trace.step_span(exe._step + 1):
+                return eager_run(exe, main, feed, fetch)
+        sides = (('replayed', lambda: exe.run(main, feed=feed,
+                                              fetch_list=fetch)),
+                 ('cached eager', eager_step))
+        out = {}
+        for label, fn in sides:
+            fn()
+            trace.reset()
+            secs = {'off': [], 'on': []}
+            for i in range(2 * OBS_TRACE_STEPS):
+                state = ('off', 'on')[i % 2]
+                if state == 'on':
+                    trace.enable(buffer_steps=2 * OBS_TRACE_STEPS)
+                else:
+                    trace.disable()
+                secs[state] += timed_steps(fn, 1)
+            trace.disable()
+            rep = trace.step_report()
+            med = {k: statistics.median(v) * 1e3 for k, v in secs.items()}
+            n = rep['rollup']['count']
+            phases = {k: v / n for k, v in rep['rollup']['phases_ms'].items()}
+            cover = statistics.median(s['coverage'] for s in rep['steps'])
+            out[label] = med
+            log('  (b) BERT-base %s step (%s | %s): median %.3f ms with '
+                'FLAGS_trace off, %.3f ms on (%+.3f ms) over %d steps each, '
+                'the tracer switched at every step; step_report phases (ms '
+                'a step): %s; spans cover %.1f%% of the step wall' % (
+                    label, torch.cuda.get_device_name(0), card, med['off'],
+                    med['on'], med['on'] - med['off'], len(secs['on']),
+                    ', '.join('%s %.3f' % kv for kv in sorted(
+                        phases.items(), key=lambda kv: -kv[1])),
+                    100 * cover))
+        # (g) on its own replayed steps: a reader thread would take the
+        # host from the timed eager steps above
+        stop = health_checks()
+        for _ in range(OBS_TRACE_STEPS):
+            exe.run(main, feed=feed, fetch_list=fetch)
+        stop()
+    trace.reset()
+    return out
+
+
+def obs_reader(seed, card):
+    """(c) Wide&Deep from phase 14's MultiSlot files (8 full batches and
+    one of WD_PARTIAL rows) through train_from_dataset (InMemoryDataset,
+    thread 4, every signature captured) beside the same steps fed from
+    staged device tensors: 3 epochs each way, twice, as phase 14 times
+    them, then one epoch each way with the reader's spans and
+    counters."""
+    path = wide_deep_program(seed)
+    lines = WD_FULL_BATCHES * WD_BATCH + WD_PARTIAL
+    trace, monitor = fluid.trace, fluid.monitor
+    run = fresh_run(path)
+    exe, scope, main = run['exe'], run['scope'], path['main']
+    base = os.path.join(ROOT, 'build', 'chip_smoke')
+    with tempfile.TemporaryDirectory(dir=base) as d:
+        files = write_criteo_files(d, seed, lines)
+        mem = wd_dataset('InMemoryDataset', path, files, 4)
+        mem.load_into_memory()
+        batches = list(mem.batches())
+    staged = [{n: v.to('cuda') for n, v in b.items()} for b in batches]
+    ways = (('train_from_dataset', lambda: exe.train_from_dataset(
+                main, mem, thread=4)),
+            ('staged device tensors', lambda: [
+                exe.run(main, feed=b) for b in staged]))
+    secs = {}
+    with fluid.scope_guard(scope):
+        for _ in range(2):   # every signature's first run and capture
+            for _, fn in ways:
+                fn()
+        for label, fn in ways * 2:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                secs.setdefault(label, []).append(time.perf_counter() - t0)
+        for label, fn in ways:
+            waits = monitor.histogram_value('reader/consume_blocked_seconds')
+            n0 = waits['count'] if waits else 0
+            s0 = waits['sum'] if waits else 0.0
+            trace.reset()
+            trace.enable(buffer_steps=64)
+            fn()
+            torch.cuda.synchronize()
+            rep = trace.step_report()
+            trace.disable()
+            waits = monitor.histogram_value('reader/consume_blocked_seconds')
+            roll = rep['rollup']
+            walls = sum(s['wall_ms'] for s in rep['steps'])
+            share = roll['phases_ms'].get('reader_wait', 0.0) / walls \
+                if walls else 0.0
+            best = min(secs[label][-3:])
+            log('  (c) Wide&Deep, %s (%s | %s): %.0f examples/s (%d examples '
+                'an epoch, best of the last 3 epochs: %.3f ms; all %s); one '
+                'traced epoch: %d steps, their wall %.3f ms, reader_wait '
+                '%.1f%% of it; phases (ms an epoch): %s; queue depth %d at '
+                'the last batch; the consumer waited %d times, %.3f ms in '
+                'all' % (
+                    label, torch.cuda.get_device_name(0), card,
+                    lines / best, lines, best * 1e3,
+                    ['%.2f' % (x * 1e3) for x in secs[label]],
+                    roll['count'], walls, 100 * share, ', '.join(
+                        '%s %.3f' % kv for kv in sorted(
+                            roll['phases_ms'].items(),
+                            key=lambda kv: -kv[1])),
+                    monitor.gauge_value('reader/queue_depth'),
+                    (waits['count'] if waits else 0) - n0,
+                    ((waits['sum'] if waits else 0.0) - s0) * 1e3))
+        produced = monitor.counter_value('reader/batches_produced')
+        consumed = monitor.counter_value('reader/batches_consumed')
+    if not produced or consumed < 9 * len(batches):
+        raise AssertionError('reader counters: produced %s consumed %s'
+                             % (produced, consumed))
+    trace.reset()
+    free_run(run)
+
+
+def profiled_step(fn):
+    """(host wall ms of fn() under the 'Default' profiler, its device
+    time: fluid.profiler.last_profile()['device'])."""
+    holder = {}
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        holder['wall'] = (time.perf_counter() - t0) * 1e3
+    quiet_profile('Default', step)
+    return holder['wall'], fluid.profiler.last_profile()['device']
+
+
+def obs_union(seed, dev, card):
+    """(d) SE-ResNeXt-50 (batch 32): one replayed step under the
+    profiler, its device union over the streams at most the step's wall
+    time, beside the summed device time."""
+    run = fresh_run(image_path(seed, 'se_resnext', SE_BATCH, dev))
+    path, exe, scope = run['path'], run['exe'], run['scope']
+    step = lambda: exe.run(path['main'], feed=path['batch'],  # noqa: E731
+                           fetch_list=[path['loss']])
+    with fluid.scope_guard(scope):
+        for _ in range(3):   # eager, captured, replayed
+            step()
+        replays = compile_cache.counter_value('executor/graph_replays')
+        wall, devt = profiled_step(step)
+        replayed = compile_cache.counter_value('executor/graph_replays') > \
+            replays
+    log('  (d) SE-ResNeXt-50 batch %d, one %s step under the profiler (%s | '
+        '%s): wall %.3f ms; device events %d on %d streams: summed %.3f ms, '
+        'union over the streams %.3f ms (%.1f%% of the wall)' % (
+            SE_BATCH, 'replayed' if replayed else 'eager',
+            torch.cuda.get_device_name(0), card, wall, devt['events'],
+            devt['streams'], devt['sum_ms'], devt['union_ms'],
+            100 * devt['union_ms'] / wall))
+    if devt['union_ms'] > wall or not devt['events']:
+        raise AssertionError('device union %.3f ms over the step wall %.3f '
+                             'ms' % (devt['union_ms'], wall))
+    free_run(run)
+
+
+def obs_decodes(seed, card):
+    """(e) phase 15's two decodes (the LSTM seq2seq after 3 training
+    steps): dynamic_decode (replayed) and the book's While (eager), each
+    3 traced runs with step_report's phases, and one profiled run's
+    device time against its wall."""
+    run = fresh_run(seq2seq_path(seed))
+    path, exe, scope = run['path'], run['exe'], run['scope']
+    trace = fluid.trace
+    feed = {k: path['batch'][k] for k in ('src', 'src_len')}
+    with fluid.scope_guard(scope):
+        for _ in range(3):
+            exe.run(path['main'], feed=path['batch'],
+                    fetch_list=[path['loss']])
+        for label, build in (
+                ('dynamic_decode', seq2seq.build_beam_decode),
+                ('While + beam_search', seq2seq.build_while_decode)):
+            main, fetch = decode_program(seed, build)
+            for _ in range(3):   # eager, captured, replayed where it may
+                exe.run(main, feed=feed, fetch_list=fetch)
+            trace.reset()
+            trace.enable(buffer_steps=16)
+            for _ in range(3):
+                exe.run(main, feed=feed, fetch_list=fetch)
+            rep = trace.step_report()
+            trace.disable()
+            wall, devt = profiled_step(
+                lambda: exe.run(main, feed=feed, fetch_list=fetch))
+            roll = rep['rollup']
+            n = roll['count']
+            why = exe._get_plan(main, feed, fetch).no_graph
+            log('  (e) %s (%s, %s | %s): median wall %.3f ms over %d runs; '
+                'phases (ms a run): %s; one profiled run: wall %.3f ms, '
+                'device summed %.3f ms, union %.3f ms, %d events' % (
+                    label, 'replayed' if why is None else 'eager',
+                    torch.cuda.get_device_name(0), card, roll['wall_p50_ms'],
+                    n, ', '.join('%s %.3f' % (k, v / n) for k, v in sorted(
+                        roll['phases_ms'].items(), key=lambda kv: -kv[1])),
+                    wall, devt['sum_ms'], devt['union_ms'], devt['events']))
+    trace.reset()
+    free_run(run)
+
+
+def obs_memory(seed, card):
+    """(f) MobileNetV3-Large (batch 128): the program's first run under
+    FLAGS_memviz, memviz.peak_bytes against torch.cuda.max_memory_allocated
+    of the same run and the row's decomposition; live_census against
+    torch.cuda.memory_allocated."""
+    memviz = fluid.memviz
+    path = mobilenet_path(seed)
+    run = fresh_run(path)
+    exe, scope, main = run['exe'], run['scope'], path['main']
+    flags.set_flags({'FLAGS_memviz': True})
+    try:
+        with fluid.scope_guard(scope):
+            memviz.note_params(p.name for p in main.all_parameters())
+            exe.run(main, feed=path['batch'], fetch_list=[path['loss']])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            label = memviz.program_label(main)
+            mv_peak = memviz.peak_bytes(label)
+            row = [r for r in memviz.report() if r['program'] == label][0]
+            census = memviz.live_census(scope)
+            alloc = torch.cuda.memory_allocated()
+    finally:
+        flags.set_flags({'FLAGS_memviz': False})
+    gib = 2.0 ** 30
+    parts = dict(row['classes'], output=row['output_bytes'],
+                 temp=row['temp_bytes'], other=row['other_bytes'])
+    log('  (f) MobileNetV3-Large batch %d, its first run (%s | %s): '
+        'memviz.peak_bytes %.4f GiB, torch.cuda.max_memory_allocated %.4f '
+        'GiB; the row: %s (sum %.4f GiB); live_census %.4f GiB (%s) '
+        'against torch.cuda.memory_allocated %.4f GiB' % (
+            mobilenet_v3.BASE.batch, torch.cuda.get_device_name(0), card,
+            mv_peak / gib, peak / gib, ', '.join(
+                '%s %.4f' % (k, v / gib) for k, v in parts.items()),
+            sum(parts.values()) / gib, census['total_bytes'] / gib,
+            ', '.join('%s %.4f' % (k, v / gib)
+                      for k, v in census['classes'].items() if v),
+            alloc / gib))
+    if row.get('estimated') or abs(mv_peak - peak) > 0.01 * peak or \
+            abs(sum(parts.values()) - mv_peak) > 1.0 or \
+            abs(census['total_bytes'] - alloc) > OBS_MEM_SLACK:
+        raise AssertionError('memviz peak %s / torch %s; row sums %s; census '
+                             '%s / allocated %s' % (
+                                 mv_peak, peak, sum(parts.values()),
+                                 census['total_bytes'], alloc))
+    free_run(run)
+
+
+def obs_cached_cpu(seed, card):
+    """(h) ROADMAP Queue 3's to-do: self CPU of one AMP BERT-base step and
+    one LeNet-5 step, uncached (a plan built for the call) and cached,
+    both eager through eager_run, both orders in one process,
+    OBS_CPU_REPEATS profiled steps a side and order (the device waits
+    left out); the gap is held against the steps' spread."""
+    out = {}
+    for path in (amp_bert_path(seed, SEQ, TRAIN_BATCH),
+                 lenet_path(seed, 'adam')):
+        run = fresh_run(path)
+        exe, scope, main = run['exe'], run['scope'], path['main']
+        feed, fetch = path['batch'], [path['loss']]
+        sides = {
+            'uncached': lambda: eager_run(exe, main, feed, fetch,
+                                          use_cache=False),
+            'cached': lambda: eager_run(exe, main, feed, fetch)}
+        res = {}
+        with fluid.scope_guard(scope):
+            for fn in sides.values():
+                fn()
+            for order in (('uncached', 'cached'), ('cached', 'uncached')):
+                for side in order:
+                    res[(order[0], side)] = [host_ms(profile_run(
+                        '', sides[side], quiet=True, pad=True), waits=False)
+                        for _ in range(OBS_CPU_REPEATS)]
+        med = {k: statistics.median(v) for k, v in res.items()}
+        # the cached side's median less the uncached side's, in each
+        # order, against the widest interquartile range of a side: a
+        # cost only where both orders show a gap of one sign wider than
+        # the step-to-step spread
+        gaps = [med[(first, 'cached')] - med[(first, 'uncached')]
+                for first in ('uncached', 'cached')]
+        spread = max(q[2] - q[0] for q in (
+            statistics.quantiles(v, n=4) for v in res.values()))
+        verdict = 'a cost of the cached path' if min(gaps) > spread \
+            else 'a cost of the uncached path' if max(gaps) < -spread \
+            else 'noise: the gap is within the step-to-step spread'
+        out[path['name']] = (med, verdict)
+        log('  (h) %s (%s | %s), self CPU outside the waits, median of %d '
+            'profiled steps: uncached first: uncached %.3f ms, cached %.3f '
+            'ms; cached first: cached %.3f ms, uncached %.3f ms (all runs: '
+            '%s): cached less uncached %+.3f / %+.3f ms, widest '
+            'interquartile range %.3f ms: %s' % (
+                path['name'], torch.cuda.get_device_name(0), card,
+                OBS_CPU_REPEATS, med[('uncached', 'uncached')],
+                med[('uncached', 'cached')], med[('cached', 'cached')],
+                med[('cached', 'uncached')],
+                {'%s first, %s' % k: ['%.3f' % x for x in v]
+                 for k, v in res.items()}, gaps[0], gaps[1], spread,
+                verdict))
+        free_run(run)
+    return out
+
+
+def health_poller(srv):
+    """(g) A thread GETting /healthz, /metrics and /statusz while the
+    steps run: returns stop(), which joins it and checks what it read
+    (prom_lint finds nothing, /healthz ready, /statusz names the card)."""
+    import threading
+    import urllib.request
+    got, errors = [], []
+    done = threading.Event()
+
+    def poll():
+        while not done.is_set():
+            for p in ('/healthz', '/metrics', '/statusz'):
+                try:
+                    with urllib.request.urlopen(srv.url + p,
+                                                timeout=30) as r:
+                        got.append((p, r.status, r.read().decode()))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append('%s: %s' % (p, e))
+            done.wait(0.05)
+    t = threading.Thread(target=poll, daemon=True)
+    t.start()
+
+    def stop():
+        done.set()
+        t.join(60)
+        kinds = {p: [x for x in got if x[0] == p]
+                 for p in ('/healthz', '/metrics', '/statusz')}
+        lint = [fluid.health.prom_lint(x[2]) for x in kinds['/metrics']]
+        ready = [json.loads(x[2])['ready'] for x in kinds['/healthz']]
+        statusz = [json.loads(x[2]) for x in kinds['/statusz']]
+        bad = errors + [p for p in lint if p] + \
+            [x[1] for x in got if x[1] != 200]
+        log('  (g) the status plane on port %d while the steps ran: %s; '
+            'prom_lint problems %d; /healthz ready %s; /statusz versions %s'
+            % (srv.port, {p: len(v) for p, v in kinds.items()},
+               sum(len(p) for p in lint), sorted(set(ready)),
+               statusz[-1]['versions'] if statusz else None))
+        if bad or not all(kinds.values()) or not all(ready) or \
+                statusz[-1]['versions'].get('device') != \
+                torch.cuda.get_device_name(0):
+            raise AssertionError('status plane: %s' % bad[:4])
+    return stop
+
+
+def observability_phase(seed, dev):
+    """Phase 18: the observability plane on the card."""
+    card = card_line()
+    log('[18] the observability plane (%s | %s): (a) profiler and worklist '
+        'on BERT-base' % (torch.cuda.get_device_name(0), card))
+    srv = fluid.health.serve(port=0)
+    try:
+        run = obs_profile(seed, card)
+        obs_trace(run, card, lambda: health_poller(srv))
+        free_run(run)
+        obs_reader(seed, card)
+        obs_union(seed, dev, card)
+        obs_decodes(seed, card)
+        obs_memory(seed, card)
+        obs_cached_cpu(seed, card)
+    finally:
+        srv.stop()
+        fluid.trace.disable()
+        fluid.trace.reset()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -6817,6 +7373,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     core_phase(args.seed, dev)
     log('  phase 17: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    without_counting(lambda: observability_phase(args.seed, dev))
+    log('  phase 18: %.1f s' % (time.perf_counter() - t0))
     # each row's launches at the wrappers and replayed from CUDA graphs'
     # manifests on the main path, as counted() read them in this
     # process; the data-parallel rows, as the ranks of phases 9 and 12

@@ -12,9 +12,15 @@ native MultiSlot feeder, the trainer and device-worker configs),
 collective data parallelism (the transpilers, the collective fleet, the
 comms planner), data-parallel training through
 CompiledProgram.with_data_parallel and ParallelExecutor, and mixed
-precision (contrib.mixed_precision.decorate).
+precision (contrib.mixed_precision.decorate), and the observability
+plane (monitor, trace, faultinject, health, profiler, memviz, opprof,
+timeseries, with slo and progcheck beside them).
 """
 
+from . import monitor  # noqa: F401  (no dependencies: first)
+from . import trace  # noqa: F401  (monitor + flags)
+from . import faultinject  # noqa: F401  (monitor + flags)
+from . import health  # noqa: F401  (monitor + trace)
 from . import core  # noqa: F401  (before framework: ops import it)
 from . import framework  # noqa: F401
 from . import unique_name  # noqa: F401
@@ -40,6 +46,10 @@ from . import compiler  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .parallel_executor import ParallelExecutor  # noqa: F401
+from . import profiler  # noqa: F401
+from . import memviz  # noqa: F401
+from . import opprof  # noqa: F401
+from . import timeseries  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .backward import append_backward, gradients  # noqa: F401
 from .framework import (Program, Variable, Parameter,  # noqa: F401

@@ -45,9 +45,9 @@ def _unported_gates():
             '(ROADMAP Queue 1 item 12, "comms records and the cost model")')
     if float(get_flag('FLAGS_comms_hbm_budget_bytes', 0) or 0) > 0:
         raise NotImplementedError(
-            'FLAGS_comms_hbm_budget_bytes: the HBM-budget gate needs '
-            "memviz's per-program peak, which is not ported (ROADMAP "
-            'Queue 1 item 12, "the HBM-budget gate")')
+            'FLAGS_comms_hbm_budget_bytes: the HBM-budget gate over '
+            "memviz's per-program peak is not ported (ROADMAP Queue 1 "
+            'item 12, "the HBM-budget gate")')
 
 
 def reset():
@@ -166,25 +166,41 @@ def bucket_grads(grads, cap_bytes=None, fuse_cutoff=None):
 def verify_buckets(block, buckets):
     """Legality of a bucket rewrite before the collective ops land:
     every bucketed gradient is a declared variable, a fused bucket's
-    gradients share its dtype, and no gradient is in two buckets.
-    Raises ValueError naming every defect; returns `buckets`."""
+    gradients share its dtype, and no gradient is in two buckets.  The
+    findings are recorded as a fluid.progcheck report (its counters and
+    /statusz trail, JAX: fluid/comms_plan.py:602); a defect raises
+    ValueError naming every one.  Returns `buckets`."""
+    import time
+    from . import progcheck
+    t0 = time.perf_counter()
+    rep = progcheck.Report('comms_plan', 'transpile:bucket')
     defects = []
+
+    def defect(cls, msg, name):
+        defects.append(msg)
+        rep.add(progcheck.Diagnostic(cls, msg, var=name))
+
     seen = {}
     for bi, b in enumerate(buckets):
         for name in b['names']:
             if name in seen:
-                defects.append('grad %r appears in buckets %d and %d: it '
-                               'would reduce twice' % (name, seen[name], bi))
+                defect('shard_conflict',
+                       'grad %r appears in buckets %d and %d: it would '
+                       'reduce twice' % (name, seen[name], bi), name)
             seen[name] = bi
             v = block._find_var_recursive(name)
             if v is None:
-                defects.append('bucket %d names grad %r which no block '
-                               'declares' % (bi, name))
+                defect('undefined_read', 'bucket %d names grad %r which no '
+                       'block declares' % (bi, name), name)
                 continue
             if len(b['names']) > 1 and v.dtype != b['dtype']:
-                defects.append('grad %r is %s but joined a %s fused bucket: '
-                               'the concat would cast it'
-                               % (name, v.dtype, b['dtype']))
+                defect('dtype_mismatch',
+                       'grad %r is %s but joined a %s fused bucket: the '
+                       'concat would cast it' % (name, v.dtype, b['dtype']),
+                       name)
+    rep.ops_checked = len(buckets)
+    rep.seconds = time.perf_counter() - t0
+    progcheck._record(rep)
     if defects:
         raise ValueError('comms_plan bucket rewrite: ' + '; '.join(defects))
     return buckets

@@ -43,20 +43,22 @@ import hashlib
 import threading
 import weakref
 
+from . import monitor
+
 # bump when the fingerprint recipe changes
 FORMAT_VERSION = 1
 
-# process-wide counters of the plan cache and the graphs (the JAX
-# package keeps those it shares in fluid.monitor under the same names)
-_COUNTERS = {}
-
 
 def count(name, n=1):
-    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+    """Count the plan cache's and the graphs' events in fluid.monitor,
+    under the JAX package's names where it has them
+    ('executor/plan_cache_hit'), so one ``monitor.snapshot()`` carries
+    them."""
+    monitor.add(name, n)
 
 
 def counter_value(name):
-    return _COUNTERS.get(name, 0)
+    return int(monitor.counter_value(name))
 
 
 class LRUCache(object):
@@ -281,6 +283,8 @@ class CompilePlane(object):
     def __init__(self):
         self._lock = threading.Lock()
         self._graphs = weakref.WeakSet()
+        # set by Executor.warmup (fluid/health.py readiness)
+        self._warmed = False
 
     def register(self, graph):
         with self._lock:

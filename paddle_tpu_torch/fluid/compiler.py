@@ -94,6 +94,8 @@ class CompiledProgram(object):
         share_vars_from are accepted as the reference's: the loss is
         the backward's, a rank runs its ops in order, and programs
         share variables through the scope they run in."""
+        from . import monitor
+        monitor.add('compiler/data_parallel_programs_built')
         bs = build_strategy or self._build_strategy
         if bs.gradient_scale_strategy != \
                 BuildStrategy.GradientScaleStrategy.CoeffNumDevice:

@@ -57,11 +57,19 @@ launches made during the capture are recorded in the graph's manifest
 launches (``common.add_replays``), apart from the launches the
 wrappers count.
 
+A replayed step records its phases around the replay: ``feed_h2d``
+(the static inputs filled), ``dispatch`` (``graph.replay()``, after
+the ``executor.dispatch`` fault-injection site) and ``fetch_d2h``; a
+capture records no span and no step (the executor's ``_run_plan``
+records nothing while ``exe._reads`` is set), so a captured-and-
+replayed step counts once, as the replay.
+
 ``warm`` (``Executor.warmup``) of a training step runs its first step
 from zero feeds and puts the state it wrote back as it was, in place,
 before it captures; the capture itself runs nothing.
 """
 
+import time
 import weakref
 
 import numpy as np
@@ -69,6 +77,8 @@ import torch
 
 from . import compile_cache
 from . import core
+from . import faultinject as _finject
+from . import trace as _trace
 from .flags import get_flag
 from ..ops.kernels import common
 
@@ -173,7 +183,13 @@ class CapturedStep(object):
 
     def feed(self, feed, step):
         """Copy the feeds and the step into the static inputs: host
-        values through the pinned buffers, device tensors directly."""
+        values through the pinned buffers, device tensors directly (the
+        replayed step's 'feed_h2d' phase)."""
+        t0 = time.perf_counter()
+        self._feed(feed, step)
+        _trace.record('feed_h2d', t0, time.perf_counter())
+
+    def _feed(self, feed, step):
         if self.h2d is not None:
             self.h2d.synchronize()  # the pinned buffers are free again
         for name, (static, pinned, view) in self.inputs.items():
@@ -189,15 +205,25 @@ class CapturedStep(object):
         self.h2d = torch.cuda.Event()
         self.h2d.record(torch.cuda.current_stream(self.device))
 
-    def replay(self, return_numpy):
+    def replay(self, return_numpy, step=None):
+        """One replay of the graph: the replayed step's 'dispatch' phase
+        (the executor.dispatch fault site before it) and its fetches
+        ('fetch_d2h' where they come back to the host)."""
+        if _finject.armed():
+            _finject.check('executor.dispatch', step=step)
+        t0 = time.perf_counter()
         self.graph.replay()
         common.add_replays(self.manifest)
         compile_cache.count('executor/graph_replays')
+        t1 = time.perf_counter()
+        _trace.record('dispatch', t0, t1)
         if return_numpy is True:
             for host, out in zip(self.host_out, self.outputs):
                 host.copy_(out, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
-            return [host.numpy().copy() for host in self.host_out]
+            out = [host.numpy().copy() for host in self.host_out]
+            _trace.record('fetch_d2h', t1, time.perf_counter())
+            return out
         with torch.inference_mode():
             outs = [o.clone() for o in self.outputs]
         if return_numpy == 'async':
@@ -227,7 +253,7 @@ def _capture(exe, plan, program, feed, fetch_names, scope):
         view = None if dtype == torch.bfloat16 else pinned.numpy()
         cap.inputs[name] = (static, pinned, view)
     cap.h2d = None
-    cap.feed(feed, exe._step)
+    cap._feed(feed, exe._step)
     main = torch.cuda.current_stream(dev)
     main.synchronize()
     cap.graph = torch.cuda.CUDAGraph()
@@ -316,7 +342,7 @@ def _run(exe, plan, program, feed, fetch_names, scope, return_numpy):
         if entry.valid(scope):
             exe._step += 1
             entry.feed(feed, exe._step)
-            return entry.replay(return_numpy)
+            return entry.replay(return_numpy, exe._step)
         compile_cache.count('executor/graph_stale')
         entry = None
     if entry is None:
@@ -330,7 +356,7 @@ def _run(exe, plan, program, feed, fetch_names, scope, return_numpy):
                              graphs, sig)
     if isinstance(entry, str):
         return None
-    return entry.replay(return_numpy)
+    return entry.replay(return_numpy, exe._step)
 
 
 def _written_state(plan, scope):

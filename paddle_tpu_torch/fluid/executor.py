@@ -111,9 +111,37 @@ scope and the fetches, so an overflow that the loss scaling absorbs
 passes and a non-finite fetched loss raises.
 ``return_numpy='async'`` returns a ``FetchHandle`` per fetch (JAX:
 :267).
+
+The observability plane (JAX: fluid/executor.py:206-338, :1308-1321,
+:1740-1756, :1836-1886, :2123-2238, :2553-2628) records at step, plan
+and op-range level, never per op unless a profile asked for it.  Each
+``run`` (and each data-parallel step) is one ``trace.step_span`` and
+counts ``executor/run_calls``, ``run_seconds``, the feed and fetch
+vars and bytes, and ``last_step_unix_ts``; the ``executor.step``
+fault-injection site and the windowed-history sample sit at its
+boundary.  Inside, an eager run records the phases ``bind``,
+``feed_h2d``, ``dispatch``, ``fetch_d2h`` and ``state_release`` (the
+step's values released) and each host op as ``host_op``; a replayed
+step records ``feed_h2d``, ``dispatch`` (``graph.replay()``) and
+``fetch_d2h`` around the replay (fluid/cuda_graph.py), and nothing is
+recorded while a graph is captured.  ``FLAGS_check_nan_inf``'s error
+carries the first op that went non-finite (``health.nan_provenance``,
+from copies of the state the step read, under ``FLAGS_nan_replay``)
+and the flight recorder's dump; a failed dispatch dumps it too, with
+memviz's OOM note where the allocator failed.  Under
+``profiler.is_enabled()`` ('Serial') a step runs op by op from a plan
+built for the call, each op timed to completion; while a profile or a
+capture runs (``profiler.op_ranges``) each op runs in a
+``record_function`` range named by its type (``type#index`` under
+FLAGS_opprof) inside the program's range.  Under ``FLAGS_memviz`` a
+plan's first run files its memory row (fluid/memviz.py
+``record_run``), a plan build may run
+the static verifier (fluid/progcheck.py) and the
+``progcheck.mutate`` site.
 """
 
 import collections
+import time
 import weakref
 
 import numpy as np
@@ -123,7 +151,14 @@ import torch.distributed as dist
 from . import backward
 from . import compile_cache
 from . import core
+from . import faultinject as _finject
 from . import framework
+from . import memviz as _memviz
+from . import monitor
+from . import opprof as _opprof
+from . import profiler as _profiler
+from . import timeseries as _tseries
+from . import trace as _trace
 from .flags import get_flag
 from ..ops import registry
 
@@ -184,6 +219,17 @@ def _program_group(program):
 
 def _role(op):
     return op.attrs.get('__op_role__', 'forward')
+
+
+def _stat_nbytes(v):
+    """Byte count of a feed or fetch value for the monitor counters, O(1)
+    (JAX: fluid/executor.py:39): tensors and arrays count their bytes,
+    anything else (lists, scalars) 0."""
+    v = core.as_array(v)
+    if isinstance(v, torch.Tensor):
+        return float(v.numel() * v.element_size())
+    n = getattr(v, 'nbytes', None)
+    return float(n) if n is not None else 0.0
 
 
 def _fetch_names(fetch_list):
@@ -411,6 +457,53 @@ def _wpg_partition(ops, program, fetch_names):
             'spans': spans}
 
 
+def replay_ops(env, ops, step, device=None, program=None, timed=False):
+    """Run `ops` one by one on `env` (name -> value, updated with each
+    op's outputs) as executor step `step` on `device`, without autograd
+    outside the grad ops' own replays: the walk of the NaN provenance
+    (fluid/health.py) and the op-cost replay (fluid/opprof.py).  Host
+    ops are left out (their side effects ran with the step).  Yields,
+    after each op, {'index', 'op', 'reads' (its inputs), 'writes' (its
+    outputs), 'seconds'}; with `timed` on a CUDA device the card is
+    synchronized around each op."""
+    device = torch.device(device or 'cpu')
+    exe = Executor(core.CUDAPlace(device.index or 0)
+                   if device.type == 'cuda' else core.CPUPlace())
+    exe._step = int(step)
+    scope = core.Scope()
+    if program is None and ops:
+        program = ops[0].block.program
+    exe._sub_steps = {
+        op.attrs['sub_block']: [_OpStep(o) for o in
+                                program.blocks[op.attrs['sub_block']].ops]
+        for op in _with_sub_blocks(ops) if op.type in _CONTROL_FLOW}
+    sync = timed and device.type == 'cuda'
+    with torch.no_grad():
+        for i, op in enumerate(ops):
+            od = registry._REGISTRY.get(op.type)
+            if od is not None and od.host:
+                continue
+            reads = {n: env[n] for n in dict.fromkeys(_op_reads(op))
+                     if n in env}
+            if sync:
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            if op.type in _CONTROL_FLOW:
+                writes = exe._control_flow(op, env, scope, program)
+            else:
+                st = _OpStep(op)
+                outs, _ = exe._run_op(st, env, scope, program)
+                writes = {}
+                for slot, names, _ in st.outs:
+                    writes.update(zip(names, outs.get(slot, [])))
+            if sync:
+                torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
+            env.update(writes)
+            yield {'index': i, 'op': op, 'reads': reads, 'writes': writes,
+                   'seconds': seconds}
+
+
 class FetchHandle(object):
     """A fetch resolving asynchronously (``return_numpy='async'``): the
     device-to-host copy is queued on the current stream, into pinned
@@ -539,12 +632,12 @@ class _Step(object):
         self.drops = drops
 
 
-def _steps(ops, keep):
+def _steps(ops, keep, fuse=True):
     drops = _drop_plan(ops, keep)
     out = []
     i = 0
     while i < len(ops):
-        run = _fused_opt_run(ops, i)
+        run = _fused_opt_run(ops, i) if fuse else None
         members = run or [ops[i]]
         out.append(_Step(i, [_OpStep(op, unread=drops[i + k])
                              for k, op in enumerate(members)],
@@ -610,23 +703,44 @@ class _Plan(object):
     be); ``graphs`` holds its CUDA graphs, weakly keyed by scope, and
     ``scope_reads`` (built with the first capture) the names its ops
     read before writing them (fluid/cuda_graph.py).  ``sub_steps`` maps
-    each sub-block a control-flow op runs to its ops' ``_OpStep``s."""
+    each sub-block a control-flow op runs to its ops' ``_OpStep``s.
+
+    ``serial``: a 'Serial' profile's plan (every op in order, no fused
+    runs, each op timed); ``mem_row``: the memviz row its first run
+    under FLAGS_memviz filed (None before that run, False where none
+    was filed);
+    ``verify_items``: its segments for fluid/progcheck.py."""
 
     __slots__ = ('ops', 'keep', 'checked_only', 'kind', 'writes_state',
                  'steps', 'post_grads', 'var_of', 'wpg', 'pre', 'pre_drops',
                  'post', 'no_graph', 'graphs', 'binder', 'scope_reads',
-                 'sub_steps', 'spans')
+                 'sub_steps', 'spans', 'serial', 'mem_row', 'verify_items')
 
 
-def _build_plan(program, fetch_names):
+def _health_grads(program):
+    """The parameters' gradients a step keeps for the tensor-health
+    summaries (FLAGS_health_summaries, read at plan build, as the JAX
+    package surfaces them at its segment boundary)."""
+    if not get_flag('FLAGS_health_summaries', False):
+        return frozenset()
+    gmap = getattr(program, '_grad_name_map', {})
+    return frozenset(gmap[p.name] for p in program.all_parameters()
+                     if p.name in gmap)
+
+
+def _build_plan(program, fetch_names, serial=False):
     block = program.global_block()
     ops = _defer_readonly_host_ops(
         [op for op in block.ops
          if not registry.skipped_by_executor(op.type)])
     plan = _Plan()
     plan.ops = ops
-    plan.keep = keep = frozenset(fetch_names)
-    plan.checked_only = keep if any(
+    plan.serial = serial
+    plan.mem_row = None
+    plan.verify_items = None
+    fetched = frozenset(fetch_names)
+    plan.keep = keep = fetched | _health_grads(program)
+    plan.checked_only = fetched if any(
         op.type == 'check_finite_and_unscale' for op in ops) else None
     plan.writes_state = True
     plan.graphs = weakref.WeakKeyDictionary()
@@ -638,7 +752,7 @@ def _build_plan(program, fetch_names):
         for op in _with_sub_blocks(ops) if op.type in _CONTROL_FLOW}
     plan.wpg = None
     plan.spans = {}
-    if any(_role(op) == 'backward' for op in ops):
+    if any(_role(op) == 'backward' for op in ops) and not serial:
         plan.wpg = _wpg_partition(ops, program, fetch_names)
     if plan.wpg is not None:
         plan.kind = 'wpg'
@@ -654,7 +768,7 @@ def _build_plan(program, fetch_names):
     else:
         plan.kind = 'per_op' if any(_role(op) == 'backward'
                                     for op in ops) else 'forward'
-        plan.steps = _steps(ops, keep)
+        plan.steps = _steps(ops, keep, fuse=not serial)
         if plan.kind == 'per_op':
             plan.post_grads = _post_grads(ops, fetch_names)
             plan.var_of = {g: p for p, g in
@@ -807,6 +921,14 @@ class Executor(object):
         # {storage pointer: name} of the scope's tensors, made at a run's
         # first new persistable entry (_write_state)
         self._held = None
+        # the running step's profiler state: op by op and timed
+        # ('Serial'), each op in a record_function range
+        self._serial = False
+        self._ranges = False
+        # FLAGS_status_port: the status plane starts with the first
+        # executor (a no-op when the flag is 0 or a server is up)
+        from . import health
+        health.ensure_serving()
 
     def _to_device(self, value):
         value = core.as_array(value)
@@ -924,17 +1046,43 @@ class Executor(object):
         feed = feed or {}
         fetch_names = _fetch_names(fetch_list)
         scope = scope or core.global_scope()
-        plan = self._get_plan(program, feed, fetch_names,
-                              use_cache=use_program_cache)
-        return self._run_graphed(plan, program, feed, fetch_names, scope,
-                                 return_numpy, use_program_cache)
+        if _finject.armed():
+            # chaos hook: 'executor.step:die@N' is worker death mid-run
+            _finject.check('executor.step', step=self._step + 1)
+        t0 = time.perf_counter()
+        with _trace.step_span(self._step + 1):
+            plan = self._get_plan(program, feed, fetch_names,
+                                  use_cache=use_program_cache)
+            out = self._run_graphed(plan, program, feed, fetch_names,
+                                    scope, return_numpy, use_program_cache)
+        self._step_done(t0, feed, out)
+        return out
+
+    def _step_done(self, t0, feed, results):
+        """The per-step records of a finished step (JAX:
+        fluid/executor.py:1740-1756, :2123-2140, :2223-2238): run calls
+        and seconds, feed and fetch vars and bytes, the last step's
+        time, and the windowed-history sample."""
+        monitor.add('executor/run_calls')
+        monitor.observe('executor/run_seconds', time.perf_counter() - t0)
+        if feed:
+            monitor.add('executor/feed_vars', float(len(feed)))
+            monitor.add('executor/feed_bytes',
+                        sum(_stat_nbytes(v) for v in feed.values()))
+        if results:
+            monitor.add('executor/fetch_vars', float(len(results)))
+            monitor.add('executor/fetch_bytes',
+                        sum(_stat_nbytes(v) for v in results))
+        monitor.set_gauge('executor/last_step_unix_ts', time.time())
+        _tseries.maybe_sample(self._step)
 
     def _run_graphed(self, plan, program, feed, fetch_names, scope,
                      return_numpy, graphs=True):
         """One step of `plan`: through its CUDA graph where it has one
-        (`graphs`, a CUDA place and a plan that may be captured), else
-        eagerly."""
-        if graphs and plan.no_graph is None and self.device.type == 'cuda':
+        (`graphs`, a CUDA place, a plan that may be captured and no
+        'Serial' profile), else eagerly."""
+        if graphs and plan.no_graph is None and \
+                self.device.type == 'cuda' and not plan.serial:
             from . import cuda_graph
             out = cuda_graph.run(self, plan, program, feed, fetch_names,
                                  scope, return_numpy)
@@ -949,7 +1097,13 @@ class Executor(object):
         if return_numpy == 'async':
             return [FetchHandle(r) for r in results]
         if return_numpy:
-            return [core.to_numpy(r) for r in results]
+            t0 = time.perf_counter()
+            out = [core.to_numpy(r) for r in results]
+            if results:
+                t1 = time.perf_counter()
+                monitor.observe('executor/fetch_blocked_seconds', t1 - t0)
+                _trace.record('fetch_d2h', t0, t1)
+            return out
         return [r.detach() if isinstance(r, torch.Tensor) else r
                 for r in results]
 
@@ -972,10 +1126,15 @@ class Executor(object):
         """The program's run plan from its ``_exec_cache`` (which every
         rewrite clears: ``Program._bump_version``), built on a miss;
         use_cache=False builds one for this call and leaves the cache
-        as it is (JAX: fluid/executor.py:1830)."""
-        if not use_cache:
+        as it is (JAX: fluid/executor.py:1830).  Under a 'Serial'
+        profile every call builds a per-op plan of its own
+        (``executor/plan_cache_bypass``)."""
+        serial = _profiler.is_enabled()
+        if not use_cache or serial:
             compile_cache.count('executor/plan_cache_bypass')
-            return _build_plan(program, fetch_names)
+            plan = _build_plan(program, fetch_names, serial=serial)
+            self._verify_plan_build(program, plan, feed, fetch_names)
+            return plan
         key = self._plan_key(program, feed, fetch_names, replica, shard_opt)
         plan = program._exec_cache.get(key)
         if plan is not None:
@@ -983,8 +1142,25 @@ class Executor(object):
             return plan
         compile_cache.count('executor/plan_cache_miss')
         plan = _build_plan(program, fetch_names)
+        self._verify_plan_build(program, plan, feed, fetch_names)
         program._exec_cache[key] = plan
         return plan
+
+    def _verify_plan_build(self, program, plan, feed, fetch_names):
+        """The static-verification hook of a plan BUILD (JAX:
+        fluid/executor.py:1870): the 'progcheck.mutate' chaos site, then
+        the fluid.progcheck pass when FLAGS_program_verify is on;
+        error-class findings raise ProgramVerifyError before the run."""
+        if _finject.armed():
+            c = _finject.check('progcheck.mutate')
+            if c is not None and c['action'] == 'mutate':
+                from . import progcheck
+                progcheck.mutate(program, c['arg'] or 1, plan=plan)
+        if get_flag('FLAGS_program_verify', False):
+            from . import progcheck
+            progcheck.verify_program(program, feed_names=list(feed),
+                                     fetch_names=fetch_names, plan=plan,
+                                     origin='run')
 
     def _run_program(self, program, feed, fetch_names, scope, replica=None,
                      shard_opt=False, batch_feeds=(), use_cache=True):
@@ -1004,7 +1180,10 @@ class Executor(object):
                   step_t=None):
         """Run `plan` as step ``self._step``: the fetched values, a
         persistable one as a copy.  `env` (name -> device tensor) stands
-        in for the feed when given, `step_t` for the device step."""
+        in for the feed when given, `step_t` for the device step.  While
+        a CUDA graph is captured (``self._reads`` set) nothing is
+        recorded: the replays record the step."""
+        t0 = time.perf_counter()
         self._step_t, self._step_mixes = step_t, None
         data_parallel = replica is not None and replica.world > 1
         self._replica = replica
@@ -1019,12 +1198,127 @@ class Executor(object):
             for name, value in feed.items():
                 if isinstance(value, core.LoDTensor) and len(value.lod) > 1:
                     _reject_multilevel_lod(program, name, len(value.lod))
-            env = {name: self._to_device(value)
-                   for name, value in feed.items()}
+            t1 = time.perf_counter()
+            env = self._stage_feeds(feed)
+        else:
+            t1 = time.perf_counter()
         self._verdicts = [] if get_flag('FLAGS_check_nan_inf', False) \
             else None
         self._checked_only = plan.checked_only
         self._sub_steps = plan.sub_steps
+        self._serial = plan.serial
+        body = (plan, env, scope, program, fetch_names, replica,
+                data_parallel)
+        capturing = self._reads is not None
+        if capturing:
+            self._ranges, snap = False, None
+            results = self._step_body(*body)
+        else:
+            results, snap = self._recorded_step(body, t0, t1)
+        self._owners = {}
+        self._step_t = self._step_mixes = self._held = None
+        if self._verdicts:
+            self._raise_non_finite(plan, snap, program)
+        if not capturing:
+            t0 = time.perf_counter()
+            env.clear()
+            t1 = time.perf_counter()
+            monitor.observe('executor/state_release_seconds', t1 - t0)
+            _trace.record('state_release', t0, t1)
+            _memviz.maybe_sample(self._step, scope)
+        return results
+
+    def _recorded_step(self, body, t0, t1):
+        """``_step_body(*body)`` with the records of a step that is not
+        captured: the bind and dispatch phases, the executor.dispatch
+        fault site, the profiler's program range, the inputs the NaN
+        provenance and op-cost replays read, the health summaries and,
+        under FLAGS_memviz, the plan's memory row.  Each costs a flag
+        read when off.  Returns (results, the snapshot of the inputs or
+        None)."""
+        plan, env, scope, program = body[:4]
+        monitor.observe('executor/bind_seconds', t1 - t0)
+        _trace.record('bind', t0, t1)
+        self._ranges = _profiler.op_ranges()
+        snap = None
+        opprof_step = _opprof.want_snapshot(self._step)
+        if opprof_step or (self._verdicts is not None and
+                           get_flag('FLAGS_nan_replay', True)):
+            snap = self._snapshot_inputs(plan, env, scope)
+        health = plan.kind != 'forward' and \
+            get_flag('FLAGS_health_summaries', False)
+        prev = self._param_copies(program, scope) if health else None
+        mem = None
+        if plan.mem_row is None and get_flag('FLAGS_memviz', False):
+            mem = (_memviz.run_begin(self.device),
+                   self._read_values(plan, env, scope))
+        if _finject.armed():
+            # chaos hook: 'executor.dispatch:stall:<s>' is a hung step
+            _finject.check('executor.dispatch', step=self._step)
+        td = time.perf_counter()
+        try:
+            if self._ranges:
+                with torch.profiler.record_function(
+                        _memviz.program_label(program)):
+                    results = self._step_body(*body)
+            else:
+                results = self._step_body(*body)
+        except Exception as e:
+            if not isinstance(e, FloatingPointError):
+                self._dispatch_failed(e, scope)
+            raise
+        _trace.record('dispatch', td, time.perf_counter())
+        if opprof_step:
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+            _opprof.note_segment(
+                _memviz.program_label(program), 'step', plan.ops,
+                snap[0], snap[1], self._step,
+                measured_s=time.perf_counter() - td, device=self.device,
+                program_obj=program)
+        if mem is not None:
+            (state, data), fetch_names = mem[1], body[4]
+            plan.mem_row = _memviz.record_run(
+                program, self.device, mem[0], state, data,
+                dict(zip(fetch_names, results)), plan.ops) or False
+        if health:
+            self._summarize(program, env, scope, prev)
+        return results, snap
+
+    def _step_body(self, plan, env, scope, program, fetch_names, replica,
+                   data_parallel):
+        """The plan's ops on `env` (the step's dispatch), then its
+        fetches."""
+        self._dispatch(plan, env, scope, program, data_parallel)
+        if self._row_updates:
+            from .parallel_executor import gather_rows
+            gather_rows(self._row_updates, scope, replica)
+            self._row_updates = []
+        results = [self._read(n, env, scope) for n in fetch_names]
+        return [r.clone() if n not in env and isinstance(r, torch.Tensor)
+                else r for n, r in zip(fetch_names, results)]
+
+    def _stage_feeds(self, feed):
+        """The feeds on the device: host values move in one span
+        ('feed_h2d'); device tensors pass as they are."""
+        env, host = {}, None
+        for name, value in feed.items():
+            value = core.as_array(value)
+            if isinstance(value, torch.Tensor) and \
+                    value.device == self.device:
+                env[name] = value
+            else:
+                if host is None:
+                    host = []
+                host.append((name, value))
+        if host:
+            with _trace.span('feed_h2d', vars=len(host)):
+                for name, value in host:
+                    env[name] = self._to_device(value)
+        return env
+
+    def _dispatch(self, plan, env, scope, program, data_parallel):
+        """The plan's ops on `env` (the step's dispatch)."""
         if plan.kind == 'wpg':
             self._run_whole_program_grad(plan, env, scope, program)
         elif plan.kind == 'per_op':
@@ -1041,18 +1335,68 @@ class Executor(object):
                 torch.inference_mode()
             with mode:
                 self._run_steps(plan.steps, env, scope, program)
-        if self._row_updates:
-            from .parallel_executor import gather_rows
-            gather_rows(self._row_updates, scope, replica)
-            self._row_updates = []
-        results = [self._read(n, env, scope) for n in fetch_names]
-        results = [r.clone() if n not in env and isinstance(r, torch.Tensor)
-                   else r for n, r in zip(fetch_names, results)]
-        self._owners = {}
-        self._step_t = self._step_mixes = self._held = None
-        if self._verdicts:
-            self._raise_non_finite()
-        return results
+
+    def _dispatch_failed(self, e, scope):
+        """A failed dispatch (JAX: fluid/executor.py:2536-2558): memviz's
+        OOM note (with its own flight dump) where the allocator failed,
+        else the flight recorder's dump, named in the error's notes."""
+        oom_note = None
+        if _memviz.is_oom_error(e):
+            oom_note = _memviz.oom_incident(e, step=self._step, scope=scope)
+            if oom_note:
+                e.add_note(oom_note)
+        if not (oom_note and 'flight dump' in oom_note):
+            dump = _trace.dump_on_error('segfail_step%d' % self._step)
+            if dump:
+                e.add_note('trace flight recorder (last %d steps) dumped '
+                           'to %s' % (len(_trace.steps()), dump))
+
+    def _read_values(self, plan, env, scope):
+        """({name: value} of the scope values the plan reads first,
+        {name: value} of the feeds): what a run reads."""
+        from .cuda_graph import _scope_reads
+        state = {}
+        for n in _scope_reads(plan):
+            if n in env:
+                continue
+            vars_ = scope._owner_vars(n)
+            v = None if vars_ is None else vars_[n]
+            if v is not None:
+                state[n] = v
+        return state, dict(env)
+
+    def _snapshot_inputs(self, plan, env, scope):
+        """Copies of what the step reads (the scope values before the
+        step writes them in place, and the feeds): the inputs of a
+        post-mortem or op-cost replay."""
+        state, data = self._read_values(plan, env, scope)
+        copy = lambda v: v.detach().clone() if isinstance(  # noqa: E731
+            v, torch.Tensor) else v
+        return ({n: copy(v) for n, v in state.items()},
+                {n: copy(v) for n, v in data.items()})
+
+    def _param_copies(self, program, scope):
+        out = {}
+        for p in program.all_parameters():
+            v = scope.find_var(p.name)
+            if isinstance(v, torch.Tensor):
+                out[p.name] = v.detach().clone()
+        return out
+
+    def _summarize(self, program, env, scope, prev):
+        """FLAGS_health_summaries: the step's tensor-health summaries
+        (fluid/health.py summarize_step) over its parameters and their
+        gradients."""
+        from . import health
+        gmap = getattr(program, '_grad_name_map', {})
+        names = [p.name for p in program.all_parameters()]
+        out = {}
+        for n in names:
+            out[n] = scope.find_var(n)
+            g = gmap.get(n)
+            if g is not None and g in env:
+                out[g] = env[g]
+        health.summarize_step(self._step, out, prev, names, gmap)
 
     def _global_grads(self, grads, var_of):
         """{gradient name: tensor} -> the gradients of the global loss:
@@ -1090,9 +1434,18 @@ class Executor(object):
         sigs = feed_shapes if isinstance(feed_shapes, (list, tuple)) \
             else [feed_shapes or {}]
         captured, skipped = [], []
-        for shapes in sigs:
+        for k, shapes in enumerate(sigs):
             specs = {n: _spec(v) for n, v in shapes.items()}
             plan = self._get_plan(program, specs, fetch_names)
+            if k == 0:
+                # forced static verification (JAX: fluid/executor.py:1533):
+                # the fast families always, the shape walk under
+                # FLAGS_program_verify
+                from . import progcheck
+                progcheck.verify_program(
+                    program, feed_names=list(specs), fetch_names=fetch_names,
+                    feed_specs=specs, plan=plan, origin='warmup',
+                    level='full' if progcheck.enabled() else 'fast')
             row = tuple(sorted((n, s, core.dtype_name(d))
                                for n, (s, d) in specs.items()))
             why = plan.no_graph or self._no_graph(program)
@@ -1113,6 +1466,9 @@ class Executor(object):
                 skipped.append((row, why))
             else:
                 captured.append(row)
+        # /healthz readiness: a warmed process is ready before its first
+        # step
+        compile_cache.plane()._warmed = True
         return WarmupResult(captured, skipped)
 
     def _no_graph(self, program):
@@ -1272,8 +1628,22 @@ class Executor(object):
         else:
             batches = dataset.batches()
         step = 0
+        batches = iter(batches)
         try:
-            for feed in batches:
+            while True:
+                # the synchronous feeder's batch is made here: its time
+                # is the loop's wait for input (the staged pipeline
+                # records its own reader_wait)
+                t0 = time.perf_counter()
+                try:
+                    feed = next(batches)
+                except StopIteration:
+                    break
+                if thread <= 1:
+                    t1 = time.perf_counter()
+                    monitor.observe('reader/consume_blocked_seconds',
+                                    t1 - t0)
+                    _trace.record('reader_wait', t0, t1)
                 fetches = fetch_names if (fetch_names and print_period and
                                           step % print_period == 0) else []
                 out = self.run(program, feed=feed, fetch_list=fetches,
@@ -1308,21 +1678,41 @@ class Executor(object):
             return
         self._verdicts.append((name, torch.isfinite(val.detach()).all()))
 
-    def _raise_non_finite(self):
+    def _raise_non_finite(self, plan=None, snap=None, program=None):
         """Reference CheckVarHasNanOrInf (framework/details/
         nan_inf_utils.h:28), per value written: every verdict of the
         step crosses to the host in one copy, and the error names every
-        non-finite variable, not just the first."""
+        non-finite variable, not just the first.  Its notes carry the
+        first op that went non-finite (``health.nan_provenance``, a
+        replay from `snap`, the copies of what the step read) and the
+        flight recorder's dump (JAX: fluid/executor.py:2578-2628)."""
         ok = torch.stack([v for _, v in self._verdicts]).cpu().tolist()
         bad = []
         for (name, _), good in zip(self._verdicts, ok):
             if not good and name not in bad:
                 bad.append(name)
         self._verdicts = None
-        if bad:
-            raise FloatingPointError(
-                'nan/inf detected in %d var(s) [%s] (step %d)'
-                % (len(bad), ', '.join(bad), self._step))
+        if not bad:
+            return
+        monitor.add('health/nan_trips')
+        err = FloatingPointError(
+            'nan/inf detected in %d var(s) [%s] (step %d)'
+            % (len(bad), ', '.join(bad), self._step))
+        report = None
+        if snap is not None and plan is not None:
+            from . import health
+            with _trace.span('nan_replay', ops=len(plan.ops)):
+                report = health.nan_provenance(
+                    plan.ops, snap[0], snap[1], self._step, self.device,
+                    program)
+            err.add_note(health.format_provenance(report))
+        dump = _trace.dump_on_error('nan_step%d' % self._step,
+                                    extra={'nan_provenance': report}
+                                    if report else None)
+        if dump:
+            err.add_note('trace flight recorder (last %d steps) dumped to '
+                         '%s' % (len(_trace.steps()), dump))
+        raise err
 
     def _write(self, names, persistable, vals, env, scope):
         for n, p, val in zip(names, persistable, vals):
@@ -1333,6 +1723,15 @@ class Executor(object):
                 env[n] = val
 
     def _lower_op(self, st, env, scope, program):
+        if self._ranges:
+            # a profile runs: the op in a range named as opprof names it
+            name = _opprof.op_scope(st.op) if _opprof.instancing() \
+                else st.op.type
+            with torch.profiler.record_function(name):
+                return self._lower_op_inner(st, env, scope, program)
+        return self._lower_op_inner(st, env, scope, program)
+
+    def _lower_op_inner(self, st, env, scope, program):
         op = st.op
         if op.type in _CONTROL_FLOW:
             block = op.block
@@ -1354,7 +1753,8 @@ class Executor(object):
         ins = {slot: [read(n, env, scope) for n in names]
                for slot, names in st.ins}
         if opdef.host:
-            with torch.no_grad():
+            monitor.add('executor/host_ops_run')
+            with _trace.span('host_op', op=op.type), torch.no_grad():
                 return opdef.fn(self._ctx(st.seed, program), op, ins), None
         rows = self._shard_rows(op, ins, 0, scope) if self._shard_opt \
             else None
@@ -1643,19 +2043,44 @@ class Executor(object):
 
     def _run_steps(self, steps, env, scope, program, hook=None):
         """Run a plan's steps in order; `hook` = (k, fn) calls fn(env)
-        before the step at op index k."""
+        before the step at op index k.  A 'Serial' profile times each
+        op to completion (profiler.record_op)."""
         for st in steps:
             if hook is not None and st.index == hook[0]:
                 hook, fn = None, hook[1]
                 fn(env)
-            if st.fused:
-                self._lower_fused_run(st.members, env, scope, program)
+            if self._serial:
+                self._timed_op(st.members[0], env, scope, program)
+            elif st.fused:
+                if self._ranges:
+                    first = st.members[0].op
+                    fused = _FUSABLE_OPT[first.type]
+                    name = _opprof.op_scope(first, fused) \
+                        if _opprof.instancing() else fused
+                    with torch.profiler.record_function(name):
+                        self._lower_fused_run(st.members, env, scope,
+                                              program)
+                else:
+                    self._lower_fused_run(st.members, env, scope, program)
             else:
                 self._lower_op(st.members[0], env, scope, program)
             for n in st.drops:
                 env.pop(n, None)
         if hook is not None:
             hook[1](env)
+
+    def _timed_op(self, st, env, scope, program):
+        """One op of a 'Serial' profile, host-timed to completion: the
+        card is synchronized before and after it (the reference's
+        RecordEvent)."""
+        cuda = self.device.type == 'cuda'
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        self._lower_op(st, env, scope, program)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        _profiler.record_op(st.op.type, time.perf_counter() - t0)
 
     def _run_whole_program_grad(self, plan, env, scope, program):
         """The forward region with autograd recording, one autograd pass

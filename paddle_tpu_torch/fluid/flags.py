@@ -56,6 +56,66 @@ _DEFAULTS = {
     # run plans a Program keeps (fluid/executor.py _get_plan; 0:
     # unbounded), as in the JAX package
     'FLAGS_plan_cache_capacity': 64,
+    # ---- the observability plane (ROADMAP item 10), with the JAX
+    # package's defaults (JAX: fluid/flags.py).  Span tracer + flight
+    # recorder (fluid/trace.py): on at import when set; off, a span
+    # site costs one call and one global load.  The recorder keeps the
+    # last FLAGS_trace_buffer_steps steps.
+    'FLAGS_trace': False,
+    'FLAGS_trace_buffer_steps': 16,
+    # status plane (fluid/health.py): a nonzero port starts the HTTP
+    # server (/metrics, /healthz, /statusz, /trace/dump, /timeseries,
+    # /alertz, /opprof) at the first Executor; 0 leaves it off
+    'FLAGS_status_port': 0,
+    # /healthz readiness: the last step at most this old (0: no bound)
+    'FLAGS_status_ready_max_step_age': 0.0,
+    # the rank-0 aggregator's probe cadence and per-worker timeout
+    'FLAGS_health_heartbeat_seconds': 2.0,
+    # consecutive missed scrapes before the aggregator calls a worker
+    # down
+    'FLAGS_heartbeat_misses': 3,
+    # per-step tensor-health summaries (weight / grad / update norms,
+    # one device-to-host copy a step) with the spike and zero-update
+    # detectors
+    'FLAGS_health_summaries': False,
+    'FLAGS_health_spike_factor': 10.0,
+    'FLAGS_health_zero_update_steps': 3,
+    # the aggregator's straggler detector (0 disables)
+    'FLAGS_straggler_factor': 2.0,
+    # FLAGS_check_nan_inf's error names the first op that wrote a
+    # non-finite value, by replaying the step op by op from copies of
+    # the state it read (fluid/health.py nan_provenance)
+    'FLAGS_nan_replay': True,
+    # device-memory plane (fluid/memviz.py): the per-step census and
+    # the measured peak of each program's first run; budget (0: the
+    # card's memory), watermark and spike detectors, dump intervals
+    'FLAGS_memviz': False,
+    'FLAGS_memviz_sample_steps': 1,
+    'FLAGS_memviz_budget_bytes': 0,
+    'FLAGS_memviz_watermark': 0.9,
+    'FLAGS_memviz_spike_factor': 2.0,
+    'FLAGS_memviz_dump_interval_s': 60.0,
+    'FLAGS_memviz_oom_interval_s': 30.0,
+    # op-cost plane (fluid/opprof.py): instance names ('type#index') on
+    # the profiler's op ranges, and a replay snapshot every
+    # FLAGS_opprof_snapshot_steps steps
+    'FLAGS_opprof': False,
+    'FLAGS_opprof_snapshot_steps': 16,
+    # static Program verifier (fluid/progcheck.py) at every plan build;
+    # forced ('fast') in Executor.warmup and on the port's rewrites
+    'FLAGS_program_verify': False,
+    # fault-injection clauses '<site>:<action>[:<arg>][@n[+]]'
+    # (fluid/faultinject.py); empty disarms
+    'FLAGS_faultinject': '',
+    # windowed history (fluid/timeseries.py) and SLOs (fluid/slo.py)
+    'FLAGS_timeseries': False,
+    'FLAGS_timeseries_window': 512,
+    'FLAGS_timeseries_sample_steps': 1,
+    'FLAGS_slo': '',
+    'FLAGS_slo_fast_points': 12,
+    'FLAGS_slo_slow_points': 96,
+    'FLAGS_slo_hysteresis': 3,
+    'FLAGS_slo_dump_interval_s': 60.0,
 }
 
 _flags = {}

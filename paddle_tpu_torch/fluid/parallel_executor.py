@@ -40,13 +40,25 @@ the JAX package's numbers:
 Ranks that share a card cannot use NCCL (it refuses two ranks on one
 device): their collectives go through gloo and host memory
 (distributed/wire.py).  A process with no group runs ``Executor.run``.
+
+Observability (JAX: fluid/parallel_executor.py:62-84, 293-299,
+427-459, 530-636): a data-parallel step is one ``trace.step_span`` with
+the executor's per-step records (``Executor._step_done``), sets the
+``parallel/device_count`` and ``parallel/process_count`` gauges, and
+each gradient all-reduce bucket is the ``collective.dispatch``
+fault-injection site, run in an ``allreduce`` span.
 """
+
+import time
 
 import torch
 import torch.distributed as dist
 
 from . import core
+from . import faultinject as _finject
 from . import framework
+from . import monitor
+from . import trace as _trace
 from ..distributed import launch, wire
 from ..ops.registry import Replica
 
@@ -164,7 +176,12 @@ def average(tensors, rep):
     out = [None] * len(tensors)
     for idx in _buckets(tensors):
         flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        if _finject.armed():
+            # chaos hook: 'collective.dispatch:stall:<s>' is a straggler
+            _finject.check('collective.dispatch')
+        t0 = time.perf_counter()
         wire.all_reduce_(flat, rep.group)
+        _trace.record('allreduce', t0, time.perf_counter())
         flat.div_(rep.world)
         parts = flat.split([tensors[i].numel() for i in idx])
         for i, part in zip(idx, parts):
@@ -236,16 +253,24 @@ def run_parallel(executor, compiled, feed, fetch_list, scope, return_numpy,
     scope = scope or core.global_scope()
     names = _fetch_names(fetch_list)
     _check_program(compiled, program)
-    local_batch = _local_batch(program, feed, rep, executor.device)
-    results = executor._run_program(
-        program, feed, names, scope, rep,
-        compiled._shard_opt_states_axis is not None,
-        _batch_feed_names(program, feed), use_program_cache)
-    block = program.global_block()
-    results = [_global_fetch(n, v, block, rep, local_batch,
-                             executor._averaged)
-               for n, v in zip(names, results)]
-    return executor._return(results, return_numpy)
+    monitor.set_gauge('parallel/device_count', rep.world)
+    monitor.set_gauge('parallel/process_count', rep.world)
+    if _finject.armed():
+        _finject.check('executor.step', step=executor._step + 1)
+    t0 = time.perf_counter()
+    with _trace.step_span(executor._step + 1):
+        local_batch = _local_batch(program, feed, rep, executor.device)
+        results = executor._run_program(
+            program, feed, names, scope, rep,
+            compiled._shard_opt_states_axis is not None,
+            _batch_feed_names(program, feed), use_program_cache)
+        block = program.global_block()
+        results = [_global_fetch(n, v, block, rep, local_batch,
+                                 executor._averaged)
+                   for n, v in zip(names, results)]
+        out = executor._return(results, return_numpy)
+    executor._step_done(t0, feed, out)
+    return out
 
 
 class ParallelExecutor(object):

@@ -15,7 +15,12 @@ event (``wait_event``: no host synchronize) and ``record_stream`` keeps
 its memory alive for the work queued there.  So the next batches' copies
 overlap the current step, as buffered_reader.cc's double buffer.  Every
 blocking put and get waits with a timeout and looks again, so a stopped
-pipeline is never waited on for ever.
+pipeline is never waited on for ever.  The pipeline counts
+``reader/batches_produced`` and ``batches_consumed``, the host queue's
+depth (``reader/queue_depth``), ``reader/bytes_staged``, and the
+consumer's wait on an empty window (``reader/consume_blocked_seconds``
+and the ``reader_wait`` span), as the JAX package's does
+(fluid/reader.py:80-158).
 
 The LoD-replacement front end lives here too: BucketedGeneratorLoader
 groups genuinely ragged samples into a small set of padded shapes
@@ -25,11 +30,14 @@ CUDA graph, per bucket; the serving plane shares the bucket ladder.
 
 import queue as _queue
 import threading
+import time
 
 import numpy as np
 import torch
 
 from . import core
+from . import monitor
+from . import trace as _trace
 
 _WAIT_S = 0.05  # a blocking put/get looks at the stop flag this often
 
@@ -82,6 +90,11 @@ class _AsyncBatchIterator(object):
             for batch in gen():
                 if not self._put(batch):
                     return
+                # producer-side accounting (LoDTensorBlockingQueue stats;
+                # JAX: fluid/reader.py:80): batches entering the host
+                # queue, and its depth right after the put
+                monitor.add('reader/batches_produced')
+                monitor.set_gauge('reader/queue_depth', self._q.qsize())
         except BaseException as e:  # noqa: B036 — must cross threads
             self._exc = e
         finally:
@@ -107,6 +120,8 @@ class _AsyncBatchIterator(object):
         if self._device is None:
             return batch, None
         out = {}
+        nbytes = 0.0
+        t0 = time.perf_counter()
         with torch.cuda.stream(self._stream):
             for k, v in batch.items():
                 v = core.as_array(v)
@@ -118,16 +133,31 @@ class _AsyncBatchIterator(object):
                     v = torch.from_numpy(np.ascontiguousarray(v))
                 if not v.is_pinned():
                     v = v.contiguous().pin_memory()
+                nbytes += float(v.numel() * v.element_size())
                 out[k] = v.to(self._device, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
+        if nbytes:
+            # the copies are queued, not waited for: the span is their
+            # host cost (pinning, submission)
+            monitor.add('reader/bytes_staged', nbytes)
+            _trace.record('reader_h2d', t0, time.perf_counter(),
+                          {'nbytes': nbytes})
         return out, event
 
     def _fill_window(self):
         while not self._done and len(self._staged) < self._stage_depth:
-            # an empty window waits for the producer; a non-empty one
-            # only tops up what is already queued
-            item = self._get(block=not self._staged)
+            # an empty window waits for the producer (the time the step
+            # loop loses to input: reader_wait); a non-empty one only
+            # tops up what is already queued
+            if self._staged:
+                item = self._get(block=False)
+            else:
+                t0 = time.perf_counter()
+                item = self._get(block=True)
+                t1 = time.perf_counter()
+                monitor.observe('reader/consume_blocked_seconds', t1 - t0)
+                _trace.record('reader_wait', t0, t1)
             if item is None:
                 return
             if item is self._END:
@@ -147,6 +177,8 @@ class _AsyncBatchIterator(object):
                 raise exc
             raise StopIteration
         batch, event = self._staged.pop(0)
+        monitor.add('reader/batches_consumed')
+        monitor.set_gauge('reader/queue_depth', self._q.qsize())
         if event is not None:
             current = torch.cuda.current_stream(self._device)
             current.wait_event(event)

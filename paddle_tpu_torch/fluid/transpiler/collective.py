@@ -53,9 +53,17 @@ class Collective(object):
         if len(self.endpoints) > 1:
             launch.init_distributed()
         self.nranks = max(len(self.endpoints), launch.world_size())
+        from .. import monitor, progcheck
+        monitor.add('collective/transpile_calls')
         self._transpile_main_program()
         main_program._collective_dp = True
         main_program._bump_version()
+        # forced static verification of the rewrite (JAX:
+        # fluid/transpiler/collective.py:64): a collective insertion
+        # that dangles a grad name fails here, named
+        progcheck.verify_program(
+            main_program, origin='transpile:%s' % type(self).__name__,
+            level='full' if progcheck.enabled() else 'fast')
 
     def _transpile_main_program(self):
         raise NotImplementedError

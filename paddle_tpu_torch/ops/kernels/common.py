@@ -83,6 +83,25 @@ def kernels():
     return {k: dict(v) for k, v in KERNELS.items()}
 
 
+def covering_kernel(op_types):
+    """Name of the registered kernel whose declared ``op_types``
+    coverage subsumes every type in `op_types`, or None: fluid.opprof's
+    'already served by a kernel' cross-reference (JAX:
+    ops/pallas/common.py:70).  Deterministic: first match in sorted
+    registry order.  Each kernel declares only the op types whose runs
+    it launches for in this package: a run the port serves with torch
+    ops (the unfused attention chain, a lone optimizer op) stays
+    uncovered, where the JAX package may name a kernel."""
+    ts = set(op_types)
+    if not ts:
+        return None
+    for name in sorted(KERNELS):
+        cover = set(KERNELS[name].get('op_types') or ())
+        if cover and ts <= cover:
+            return name
+    return None
+
+
 class Recording(object):
     """What the capture of a CUDA graph recorded: ``launches``, its
     launch manifest {kernel: launches} (a launch into a capturing stream

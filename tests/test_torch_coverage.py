@@ -148,9 +148,7 @@ FLUID_NAME_ITEM = {
     'DistributeTranspiler': '14', 'DistributeTranspilerConfig': '14',
     'SelectedRows': '14', 'dygraph': '15', 'enable_dygraph': '15',
     'disable_dygraph': '15', 'in_dygraph_mode': '15', 'elastic': '17',
-    'supervisor': '17', 'faultinject': '10', 'health': '10',
-    'memviz': '10', 'monitor': '10', 'opprof': '10', 'profiler': '10',
-    'timeseries': '10', 'trace': '10',
+    'supervisor': '17',
     # the TPU place and its device list: the port's place is CUDAPlace
     'XLAPlace': 'tpu-only', 'xla_places': 'tpu-only',
 }
