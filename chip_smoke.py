@@ -379,8 +379,9 @@ Phases, each of which fails the run (non-zero exit) on error:
      51 embedding_lookup launches a run) and the book's decode, a
      forward-only While over layers.beam_search, array_write and
      gather_tree that stops when every beam has ended or at 50 steps
-     (refused capture with the reason its plan names, run eagerly,
-     bitwise the plain path, 1 + trips embedding_lookup launches), each
+     (captured with a CUDA graph WHILE node, its replays bitwise the
+     plain path, 1 + trips embedding_lookup launches a run and, in a
+     graph's run, 1 + trips graph_cond launches), each
      with its live steps (the While's trips; the last step at which
      dynamic_decode's ids hold a beam that has not ended), which must
      reach S2S_MIN_LIVE, its ms a batch and a profiled run's device
@@ -400,8 +401,9 @@ Phases, each of which fails the run (non-zero exit) on error:
      bucket's own graph bitwise its eager step; per bucket the
      replayed and eager ms, a profiled replay's device ms, peak memory
      and tokens/s; then the eval clone (crf_decoding + chunk_eval IOB,
-     29 types) on held-out batches: refused capture by name, bitwise
-     the plain path, chunk counts equal to numpy's, precision, recall
+     29 types) on held-out batches: a pipeline whose device units replay
+     around the chunk_eval host op, bitwise the plain path, chunk
+     counts equal to numpy's, precision, recall
      and F1; (b) BERT-base at seq 512 batch 8 with
      RecomputeOptimizer(Adam), a checkpoint at each encoder layer's
      output, 3 steps from the same start as the same steps without
@@ -464,6 +466,37 @@ Phases, each of which fails the run (non-zero exit) on error:
      /healthz ready, /metrics clean under prom_lint, /statusz naming
      the card; (h) self CPU of an AMP BERT-base and a LeNet-5 step,
      uncached and cached eager, in both orders.
+ 19. the rest of the compile plane (phase 1 prints the CUDA driver and
+     runtime versions; conditional nodes need 12.3): (a) phase 15's
+     book decode (batch 128, beam 10, a beam live for 50 steps) after 3
+     training steps: 5 runs through Executor.run (eager, captured with
+     a WHILE node, 3 replays), each bitwise the eager host loop
+     (sequences, ids, parents, scores, trips), graph_cond and K6
+     launches exact; a profiled replay with no device-to-host copy
+     before its last kernel; the replayed, eager and device ms;
+     (b) BERT-base pretraining with Adam (seq 512, batch 8) whose rate
+     is PaddlePaddle LARK's linear_warmup_decay written with
+     fluid.layers.Switch (warmup over 3 steps, then polynomial_decay to
+     0 at step 5): 5 steps through Executor.run, each step's rate the
+     numpy formula, steps 2-5 from the graph (its two IF nodes) and the
+     whole state after each bitwise the same step run eagerly in
+     lockstep; (c) the same program with layers.Print(loss): one device
+     unit replayed and a host tail, through Executor.run and through
+     compile(allow_host=True), one printed line a step, bitwise (b)'s
+     eager steps, the replayed ms beside the cached eager ms; (d) a
+     save and a load between two device units (4096 x 1024): the
+     saved file is the unit's output, a load of new weights in place
+     is honoured by the next replay, bitwise eager; (e) (b)'s step as
+     a training CompiledStep: 4 calls (3 replayed) bitwise (b)'s eager
+     steps, the caller's state bitwise untouched, the ms and the pool's
+     growth; (f) (b)'s step under FLAGS_check_nan_inf: finite_check
+     launched once a step, no trip over 4 healthy steps, then a
+     parameter set to inf through the scope: the replayed step raises
+     FloatingPointError naming the eager step's variables, with
+     provenance; the step ms with the check on and off, replayed and
+     eager, and the pool growth of the check's input copies.  The
+     kernels line gains finite_check, timed at (f)'s checked set, and
+     graph_cond, whose launches all run in graph replays ((a), (b)).
 The line before the last is a JSON object {"kernels": [...]}.  Each
 row's "launches" are those the wrappers made on the main path (every
 counted step and request: the counters set to 0 just before each and
@@ -532,8 +565,10 @@ from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.ops.kernels import common
 from paddle_tpu_torch.ops.kernels import dropout as drop_k
 from paddle_tpu_torch.ops.kernels import embedding as emb_k
+from paddle_tpu_torch.ops.kernels import finite_check as fin_k
 from paddle_tpu_torch.ops.kernels import flash_attention as fa_k
 from paddle_tpu_torch.ops.kernels import fused_optimizer as opt_k
+from paddle_tpu_torch.ops.kernels import graph_cond
 from paddle_tpu_torch.ops.kernels import quant_collective as qc_k
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2508,9 +2543,12 @@ def graph_stats():
 def graph_refusals(program, scope):
     """The reasons kept for the signatures of `program` whose capture
     failed on `scope`."""
-    return [g for plan in program._exec_cache.values()
-            for g in plan.graphs.get(scope, {}).values()
-            if isinstance(g, str)]
+    out = []
+    for plan in program._exec_cache.values():
+        for g in plan.graphs.get(scope, {}).values():
+            units = getattr(g, 'units', None)   # a pipeline's
+            out.extend(u for u in (units or [g]) if isinstance(u, str))
+    return out
 
 
 def drop_graphs(program, scope):
@@ -5579,17 +5617,18 @@ def live_steps(ids):
     return int(live[-1]) + 1 if live.size else 0
 
 
-def seq2seq_decode(run, seed, label, build, graphed):
+def seq2seq_decode(run, seed, label, build, while_loop):
     """A decode program on the trained scope: once with the plain
     versions (eagerly), then S2S_DECODE_RUNS times through Executor.run
-    (counted; a program that may be captured runs its first run eager,
-    the second captured with one replay, the rest replayed), each run's
-    fetches bitwise the plain run's and its launches exact.  `graphed`
-    says whether the plan may be captured; a plan that may not must
-    name why.  The decode must keep a beam live for S2S_MIN_LIVE steps:
-    the While's trips, dynamic_decode's ``live_steps``.  Returns the ms
-    of each counted run (host clock, fetches to numpy) and a profiled
-    run's device ms."""
+    (counted; its first run eager, the second captured with one replay,
+    the rest replayed), each run's fetches bitwise the plain run's and
+    its launches exact.  Both decodes may be captured: the book's
+    (`while_loop`) with its forward-only While as a CUDA graph WHILE
+    node, whose handle graph_cond sets before the node and at the end
+    of each trip.  The decode must keep a beam live for S2S_MIN_LIVE
+    steps: the While's trips, dynamic_decode's ``live_steps``.  Returns
+    the ms of each counted run (host clock, fetches to numpy) and a
+    profiled run's device ms."""
     main, fetch = decode_program(seed, build)
     exe, scope = run['exe'], run['scope']
     feed = {k: run['path']['batch'][k] for k in ('src', 'src_len')}
@@ -5602,11 +5641,11 @@ def seq2seq_decode(run, seed, label, build, graphed):
             flags.set_flags({'FLAGS_torch_kernels_plain': False})
         plan = exe._get_plan(main, feed, fetch)
         why = plan.no_graph
-        if graphed != (why is None):
+        if why is not None:
             raise AssertionError('%s: capture refusal %r' % (label, why))
-        steps = int(np.asarray(plain[-1]).ravel()[0]) if not graphed \
+        steps = int(np.asarray(plain[-1]).ravel()[0]) if while_loop \
             else S2S_LEN
-        live = live_steps(np.asarray(plain[0])) if graphed else steps
+        live = steps if while_loop else live_steps(np.asarray(plain[0]))
         if live < S2S_MIN_LIVE:
             raise AssertionError(
                 '%s: a beam stays live for %d of its %d steps, fewer than '
@@ -5615,6 +5654,8 @@ def seq2seq_decode(run, seed, label, build, graphed):
         expected['embedding_lookup'] = 1 + steps
         secs = []
         for i in range(S2S_DECODE_RUNS):
+            # the first run is eager; a graph's sets the WHILE's handle
+            expected['graph_cond'] = (1 + steps) if while_loop and i else 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out, counts = counted(lambda: exe.run(main, feed=feed,
@@ -5638,12 +5679,12 @@ def seq2seq_decode(run, seed, label, build, graphed):
         '%s; ms a batch of %d at %d steps %s, a profiled run\'s device '
         '%.2f ms' % (
             label, sum(len(b.ops) for b in main.blocks), steps, live,
-            tuple(ids.shape), bool(np.isfinite(np.asarray(out[3 if not
-                                                         graphed else 1])
+            tuple(ids.shape), bool(np.isfinite(np.asarray(out[3 if while_loop
+                                                         else 1])
                                               ).all()),
             S2S_DECODE_RUNS, {k: c for k, c in expected.items() if c},
-            'captured and replayed' if graphed else
-            'eager, capture refused: %s' % why, S2S_BATCH, steps,
+            'captured and replayed' + (' (a WHILE node)' if while_loop
+                                       else ''), S2S_BATCH, steps,
             ['%.2f' % (x * 1e3) for x in secs], device_ms(events)))
     return secs, device_ms(events)
 
@@ -5666,9 +5707,9 @@ def seq2seq_phase(seed):
                                   path['tokens'] / med * 1e3))
     without_counting(lambda: plan_cache_steps(run))
     seq2seq_decode(run, seed, 'BeamSearchDecoder + dynamic_decode',
-                   seq2seq.build_beam_decode, True)
+                   seq2seq.build_beam_decode, False)
     seq2seq_decode(run, seed, 'While + beam_search + gather_tree',
-                   seq2seq.build_while_decode, False)
+                   seq2seq.build_while_decode, True)
     del run
     torch.cuda.empty_cache()
 
@@ -5844,11 +5885,15 @@ def srl_phase(seed):
         fetch = [decode] + chunk
         held_out = [f for _, f in srl_batches(srl.synthetic_samples(
             cfg, seed + 1000, SRL_SAMPLES), cfg.batch)][:SRL_EVAL_BATCHES]
-        why = exe._get_plan(test, held_out[0],
-                            [getattr(v, 'name', v) for v in fetch]).no_graph
-        if why is None or 'chunk_eval' not in why:
-            raise AssertionError('the eval program\'s capture refusal: %r'
-                                 % why)
+        plan = exe._get_plan(test, held_out[0],
+                             [getattr(v, 'name', v) for v in fetch])
+        host = [u.steps[0].members[0].op.type for u in plan.units
+                if u.host]
+        if plan.no_graph is not None or 'chunk_eval' not in host:
+            raise AssertionError('the eval program: refusal %r, host units '
+                                 '%s' % (plan.no_graph, host))
+        why = 'a pipeline: its device units replayed around host op %s' % (
+            ', '.join(host))
         totals = np.zeros(3, np.int64)
         test_expected = {k: 0 for k in common.KERNELS}
         test_expected['embedding_lookup'] = expected['embedding_lookup']
@@ -5879,7 +5924,7 @@ def srl_phase(seed):
         p = totals[2] / max(totals[0], 1)
         r = totals[2] / max(totals[1], 1)
         log('  eval clone (crf_decoding + chunk_eval IOB, %d types) on %d '
-            'held-out batches, eager (capture refused: %s): paths and chunk '
+            'held-out batches (%s): paths and chunk '
             'outputs bitwise the plain path, counts equal numpy\'s; chunks '
             'inferred %d, labelled %d, correct %d: precision %.4f, recall '
             '%.4f, F1 %.4f' % (
@@ -7020,7 +7065,8 @@ def obs_union(seed, dev, card):
 
 def obs_decodes(seed, card):
     """(e) phase 15's two decodes (the LSTM seq2seq after 3 training
-    steps): dynamic_decode (replayed) and the book's While (eager), each
+    steps): dynamic_decode and the book's While (a WHILE node), both
+    replayed, each
     3 traced runs with step_report's phases, and one profiled run's
     device time against its wall."""
     run = fresh_run(seq2seq_path(seed))
@@ -7226,6 +7272,642 @@ def observability_phase(seed, dev):
         fluid.trace.reset()
 
 
+# ----------------------------------------------------------- phase 19
+P19_STEPS = 5         # LARK's schedule crosses its warmup after step 3
+P19_WARMUP = 3
+P19_PEAK = 1e-4
+P19_TOTAL = 5         # polynomial_decay reaches 0 at step 6
+P19_CALLS = 4         # training CompiledStep calls: eager, then 3 graphed
+P19_DECODE_RUNS = 5   # eager, captured, 3 replays
+P19_ROWS, P19_COLS = 4096, 1024   # (d)'s activations
+
+
+def lark_warmup_decay(learning_rate, warmup_steps, num_train_steps):
+    """PaddlePaddle LARK BERT's optimization.py ``linear_warmup_decay``:
+    a persistable rate that fluid.layers.Switch sets from the global
+    step, linear warmup then polynomial_decay to 0."""
+    layers = fluid.layers
+    lr = layers.create_global_var(shape=[1], value=0.0, dtype='float32',
+                                  persistable=True,
+                                  name='scheduled_learning_rate')
+    global_step = layers.learning_rate_scheduler._global_step_counter()
+    switch = layers.Switch()
+    with switch.case(global_step < warmup_steps):
+        layers.assign(learning_rate * (global_step / warmup_steps), lr)
+    with switch.default():
+        layers.assign(layers.polynomial_decay(
+            learning_rate=learning_rate, decay_steps=num_train_steps,
+            end_learning_rate=0.0, power=1.0, cycle=False), lr)
+    return lr
+
+
+def lark_rate(step):
+    """The rate of 1-based step `step` (global step step - 1) in float32,
+    each op of the schedule rounded as its lowering rounds it: the scale
+    ops x * s + b, polynomial_decay's min, scales and pow(x, 1)."""
+    f = np.float32
+    gs = f(step - 1)
+    if gs < P19_WARMUP:
+        return f(f(gs * f(1.0 / P19_WARMUP)) * f(P19_PEAK))
+    frac = f(f(min(gs, f(P19_TOTAL))) * f(1.0 / P19_TOTAL))
+    one_minus = f(f(frac * f(-1.0)) + f(1.0))
+    return f(f(one_minus * f(P19_PEAK - 0.0)) + f(0.0))
+
+
+def p19_bert(seed, with_print=False):
+    """Phase 5's BERT-base pretraining program (seq 512, batch 8) with
+    Adam on LARK's schedule; with_print adds layers.Print(loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, loss = bert.build_pretrain(bert.BASE, seq_len=SEQ)
+        if with_print:
+            fluid.layers.Print(loss, message='loss')
+        lr = lark_warmup_decay(P19_PEAK, P19_WARMUP, P19_TOTAL)
+        fluid.optimizer.Adam(learning_rate=lr, epsilon=EPSILON).minimize(loss)
+    return main, startup, loss, lr
+
+
+def p19_scope(startup, start):
+    """A new executor and scope holding `start` (the startup state)."""
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        without_counting(lambda: exe.run(startup))
+        for n, v in start.items():
+            scope.find_var(n).copy_(v)
+    return exe, scope
+
+
+def differs_from(scope, want):
+    """The names whose tensor in `scope` is not bitwise `want`'s."""
+    return [n for n, v in want.items() if not torch.equal(scope.find_var(n),
+                                                          v)]
+
+
+def p19_decode(seed, card):
+    """(a) The book's While decode captured with a WHILE node."""
+    run = fresh_run(seq2seq_path(seed))
+    path, exe, scope = run['path'], run['exe'], run['scope']
+    feed = {k: path['batch'][k] for k in ('src', 'src_len')}
+    main, fetch = decode_program(seed, seq2seq.build_while_decode)
+    with fluid.scope_guard(scope):
+        for _ in range(TRAIN_STEPS):
+            without_counting(lambda: exe.run(path['main'], feed=path['batch'],
+                                             fetch_list=[path['loss']]))
+        eager, eager_s = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager = without_counting(lambda: eager_run(exe, main, feed,
+                                                       fetch))
+            eager_s.append(time.perf_counter() - t0)
+        trips = int(np.asarray(eager[-1]).ravel()[0])
+        if trips < S2S_MIN_LIVE:
+            raise AssertionError('(a) a beam stays live for %d steps, fewer '
+                                 'than %d' % (trips, S2S_MIN_LIVE))
+        before = graph_stats()
+        secs = []
+        for i in range(P19_DECODE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: exe.run(main, feed=feed,
+                                                  fetch_list=fetch))
+            secs.append(time.perf_counter() - t0)
+            want = {k: 0 for k in common.KERNELS}
+            want['embedding_lookup'] = 1 + trips
+            want['graph_cond'] = 1 + trips if i else 0
+            differ = [n for n, a, b in zip(fetch, out, eager)
+                      if not np.array_equal(a, b)]
+            if differ or counts != want:
+                raise AssertionError(
+                    '(a) run %d: differs from the eager host loop in %s; '
+                    'launched %s, expected %s; refusals %s' % (
+                        i + 1, differ, counts, want,
+                        graph_refusals(main, scope)))
+        moved = {k: v - before[k] for k, v in graph_stats().items()}
+        if moved['graph_captures'] != 1 or \
+                moved['graph_replays'] != P19_DECODE_RUNS - 1:
+            raise AssertionError('(a) graphs: %s' % moved)
+        early, d2h, kernels, prof_ms = without_counting(
+            lambda: d2h_before_last_kernel(
+                lambda: exe.run(main, feed=feed, fetch_list=fetch)))
+        dev_ms = without_counting(lambda: events_ms(
+            lambda: exe.run(main, feed=feed, fetch_list=fetch)))
+    if early or not d2h:
+        raise AssertionError('(a) a profiled replay copies to the host '
+                             'before its last kernel: %s' % early)
+    replay_ms = statistics.median(secs[2:]) * 1e3
+    eager_ms = statistics.median(eager_s) * 1e3
+    log('  (a) While decode (batch %d, beam %d, %d trips; %s | %s): %d runs '
+        'bitwise the eager host loop (sequences, ids, parents, scores, '
+        'trips), one capture with a WHILE node, %d replays, graph_cond %d '
+        'and embedding_lookup %d launches a replay; a profiled replay: %d '
+        'kernels, %d device-to-host copies, all after its last kernel; ms '
+        'a decode: replayed %.2f (runs 3-5: %s), eager %.2f, device %.2f '
+        'summed by the profiler, %.2f between CUDA events around a '
+        'replayed run' % (
+            S2S_BATCH, seq2seq.BASE.beam, trips,
+            torch.cuda.get_device_name(0), card, P19_DECODE_RUNS,
+            P19_DECODE_RUNS - 1, 1 + trips, 1 + trips, kernels, len(d2h),
+            replay_ms, ['%.2f' % (x * 1e3) for x in secs[2:]], eager_ms,
+            prof_ms, dev_ms))
+    free_run(run)
+    return {'replay_ms': replay_ms, 'eager_ms': eager_ms, 'device_ms': dev_ms}
+
+
+def events_ms(fn):
+    """The device time between CUDA events recorded on the current
+    stream before and after fn() (ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def d2h_before_last_kernel(fn):
+    """One profiled call of fn: (the device-to-host copies that start
+    before its last kernel ends, every such copy, the kernel count, the
+    summed device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    d2h = [e for e in evs if 'DtoH' in e.name]
+    kernels = [e for e in evs if 'Memcpy' not in e.name and
+               'Memset' not in e.name]
+    last = max(e.time_range.end for e in kernels)
+    early = [(e.name, e.time_range.start) for e in d2h
+             if e.time_range.start < last]
+    return (early, d2h, len(kernels),
+            sum(e.time_range.elapsed_us() for e in evs) / 1e3)
+
+
+def p19_switch(seed, card):
+    """(b) LARK's Switch schedule: 5 steps replayed in lockstep with the
+    same steps run eagerly.  Returns what (c), (e) and (f) reuse."""
+    main, startup, loss, lr = p19_bert(seed)
+    names = weights.startup_names(startup)
+    exe_g, scope_g = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope_g):
+        without_counting(lambda: exe_g.run(startup))
+        start = snapshot(scope_g, names)
+    exe_e, scope_e = p19_scope(startup, start)
+    batch = bert.synthetic_batch(bert.BASE, TRAIN_BATCH, SEQ,
+                                 np.random.RandomState(seed))
+    want = pretrain_program(seed, 'adam')['expected']
+    n_cond = sum(op.type == 'conditional_block'
+                 for op in main.global_block().ops)
+    before = graph_stats()
+    losses, rates, states, eager_steps = [], [], [], []
+    for k in range(P19_STEPS):
+        with fluid.scope_guard(scope_g):
+            out, counts = counted(lambda: exe_g.run(
+                main, feed=batch, fetch_list=[loss, lr]))
+        with fluid.scope_guard(scope_e):
+            step = exe_e._step
+            ref = without_counting(lambda: eager_run(exe_e, main, batch,
+                                                     [loss, lr]))
+        eager_steps.append(step)
+        states.append(snapshot(scope_e, names))
+        bad = differs_from(scope_g, states[-1])
+        rate = np.asarray(out[1]).ravel()[0]
+        expected = dict(want, graph_cond=n_cond if k else 0)
+        if bad or not all(np.array_equal(a, b) for a, b in zip(out, ref)) \
+                or rate != lark_rate(k + 1) or counts != expected:
+            raise AssertionError(
+                '(b) step %d: state differs from the eager step in %s; '
+                'loss %s / %s; rate %r, the formula %r; launched %s, '
+                'expected %s' % (k + 1, bad[:5], out[0], ref[0], rate,
+                                 lark_rate(k + 1), counts, expected))
+        losses.append(float(np.asarray(out[0]).ravel()[0]))
+        rates.append(float(rate))
+    moved = {k: v - before[k] for k, v in graph_stats().items()}
+    if moved['graph_captures'] != 1 or moved['graph_replays'] != \
+            P19_STEPS - 1 or moved['graph_refused']:
+        raise AssertionError('(b) graphs: %s' % moved)
+    log('  (b) BERT-base Adam on LARK\'s linear_warmup_decay (Switch: %d '
+        'conditional_blocks, IF nodes in the graph; %s | %s): rates %s, '
+        'each the numpy formula; losses %s; steps 2-%d from one graph, '
+        'each step\'s whole state (%d tensors) bitwise the same step run '
+        'eagerly; graph_cond %d launches a replayed step' % (
+            n_cond, torch.cuda.get_device_name(0), card,
+            ['%.4g' % r for r in rates], ['%.6f' % x for x in losses],
+            P19_STEPS, len(names), n_cond))
+    drop_graphs(main, scope_g)
+    del exe_g, scope_g
+    return {'main': main, 'startup': startup, 'loss': loss, 'lr': lr,
+            'batch': batch, 'start': start, 'states': states,
+            'losses': losses, 'steps': eager_steps, 'names': names,
+            'exe_e': exe_e, 'scope_e': scope_e, 'expected': want,
+            'n_cond': n_cond}
+
+
+def p19_print(seed, card, b):
+    """(c) The same step with layers.Print(loss): a device unit replayed
+    and a host tail, through Executor.run and compile(allow_host=True)."""
+    main, startup, loss, lr = p19_bert(seed, with_print=True)
+    plan = fluid.Executor(fluid.CUDAPlace(0))._get_plan(
+        main, b['batch'], [loss.name])
+    kinds = ['host:' + u.steps[0].members[0].op.type if u.host else 'device'
+             for u in plan.units]
+    if kinds != ['device', 'host:print'] or plan.no_graph is not None:
+        raise AssertionError('(c) pipeline units %s, refusal %r'
+                             % (kinds, plan.no_graph))
+    ms = {}
+    for how in ('run', 'compile'):
+        exe, scope = p19_scope(startup, b['start'])
+        before = graph_stats()
+        secs, printed = [], []
+        with fluid.scope_guard(scope):
+            if how == 'compile':
+                pipe = exe.compile(main, feed_names=list(b['batch']),
+                                   fetch_names=[loss], allow_host=True)
+                step = lambda: pipe(b['batch'])  # noqa: E731
+            else:
+                step = lambda: exe.run(  # noqa: E731
+                    main, feed=b['batch'], fetch_list=[loss])
+            for k in range(P19_STEPS):
+                buf = io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    out, _ = counted(step)
+                secs.append(time.perf_counter() - t0)
+                printed.append(sum(line.startswith('loss ')
+                                   for line in buf.getvalue().splitlines()))
+                if float(np.asarray(out[0]).ravel()[0]) != b['losses'][k]:
+                    raise AssertionError('(c) %s step %d: loss %s, the eager '
+                                         'step\'s %s' % (how, k + 1, out[0],
+                                                         b['losses'][k]))
+            bad = differs_from(scope, b['states'][-1])
+        moved = {k: v - before[k] for k, v in graph_stats().items()}
+        if bad or printed != [1] * P19_STEPS or \
+                moved['graph_captures'] != 1 or \
+                moved['graph_replays'] != P19_STEPS - 1:
+            raise AssertionError('(c) %s: state differs in %s; printed %s; '
+                                 'graphs %s' % (how, bad[:5], printed, moved))
+        ms[how] = statistics.median(secs[2:]) * 1e3
+        drop_graphs(main, scope)
+        del exe, scope
+    exe, scope = p19_scope(startup, b['start'])
+    eager_s = []
+    with fluid.scope_guard(scope), quiet_steps():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            without_counting(lambda: eager_run(exe, main, b['batch'], [loss]))
+            torch.cuda.synchronize()
+            eager_s.append(time.perf_counter() - t0)
+    del exe, scope
+    log('  (c) the step with layers.Print(loss) (%s | %s): units %s, one '
+        'line printed a step, %d steps bitwise (b)\'s eager steps through '
+        'Executor.run and through compile(allow_host=True); ms a step '
+        'replayed %.2f (run) / %.2f (CompiledPipeline), cached eager %.2f'
+        % (torch.cuda.get_device_name(0), card, kinds, P19_STEPS,
+           ms['run'], ms['compile'], statistics.median(eager_s) * 1e3))
+
+
+def p19_save_load(seed, card):
+    """(d) A save and a load between two device units: the first unit's
+    activations saved, then a load of new values into them (the load
+    rewrites what the save read, so the save runs first), which the
+    second unit reads."""
+    d = os.path.join(ROOT, 'build', 'chip_smoke', 'p19_saveload')
+    os.makedirs(d, exist_ok=True)
+    h_path, in_path = os.path.join(d, 'h'), os.path.join(d, 'h_in')
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data('x', shape=[P19_COLS], dtype='float32')
+        h = fluid.layers.fc(x, P19_COLS, act='relu')
+        block = main.global_block()
+        block.append_op('save', inputs={'X': [h]}, outputs={},
+                        attrs={'file_path': h_path})
+        block.append_op('load', inputs={}, outputs={'Out': [h]},
+                        attrs={'file_path': in_path})
+        w2 = fluid.layers.create_parameter([P19_COLS, P19_COLS], 'float32',
+                                           name='w2_unit2')
+        out = fluid.layers.reduce_mean(fluid.layers.matmul(h, w2), dim=1)
+    rng = np.random.RandomState(seed)
+    xv = rng.randn(P19_ROWS, P19_COLS).astype('float32')
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe_e, scope_e = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    for e, sc in ((exe, scope), (exe_e, scope_e)):
+        with fluid.scope_guard(sc):
+            without_counting(lambda: e.run(startup))
+    for p in main.all_parameters():
+        scope_e.find_var(p.name).copy_(scope.find_var(p.name))
+    plan = exe._get_plan(main, {'x': xv}, [out.name])
+    kinds = ['host:' + u.steps[0].members[0].op.type if u.host else 'device'
+             for u in plan.units]
+    before = graph_stats()
+    for k in range(4):
+        hin = np.abs(rng.randn(P19_ROWS, P19_COLS)).astype('float32')
+        np.save(in_path + '.npy', hin)
+        with fluid.scope_guard(scope):
+            got = without_counting(lambda: exe.run(
+                main, feed={'x': xv}, fetch_list=[out]))[0]
+            saved = np.load(h_path + '.npy')
+        with fluid.scope_guard(scope_e):
+            ref = without_counting(lambda: eager_run(
+                exe_e, main, {'x': xv}, [out]))[0]
+            saved_e = np.load(h_path + '.npy')
+        if not (np.array_equal(got, ref) and np.array_equal(saved, saved_e)):
+            raise AssertionError('(d) step %d: not bitwise the eager step, '
+                                 'or another saved file' % (k + 1))
+        w = scope.find_var('w2_unit2')
+        direct = (torch.from_numpy(hin).cuda() @ w).mean(1).cpu().numpy()
+        if not np.allclose(got, direct, rtol=1e-5, atol=1e-6):
+            raise AssertionError('(d) step %d: the replay did not read the '
+                                 'loaded values' % (k + 1))
+    moved = {k: v - before[k] for k, v in graph_stats().items()}
+    if kinds != ['device', 'host:save', 'host:load', 'device'] or \
+            moved['graph_captures'] != 2 or moved['graph_stale'] or \
+            moved['graph_refused']:
+        raise AssertionError('(d) units %s, graphs %s' % (kinds, moved))
+    log('  (d) a save and a load between two device units (%d x %d; %s | '
+        '%s): units %s; 4 steps bitwise eager (the output and the saved '
+        'file), each loading new values in place (no stale graph) that the '
+        'second unit\'s replay reads; graphs %s' % (
+            P19_ROWS, P19_COLS, torch.cuda.get_device_name(0), card, kinds,
+            {k: v for k, v in moved.items() if v}))
+    drop_graphs(main, scope)
+
+
+def p19_compiled_step(seed, card, b):
+    """(e) (b)'s step as a training CompiledStep."""
+    main, loss = b['main'], b['loss']
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    step = exe.compile(main, feed_names=list(b['batch']),
+                       fetch_names=[loss])
+    state = {n: b['start'][n].clone() for n in step.state_names}
+    held = {n: v.clone() for n, v in state.items()}
+    data = {n: b['start'][n] if n in b['start'] else
+            b['scope_e'].find_var(n)
+            for n in step.input_names if n not in b['batch']}
+    data.update(b['batch'])
+    torch.cuda.synchronize()
+    pool0 = torch.cuda.memory_reserved()
+    before = graph_stats()
+    secs = []
+    for k in range(P19_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = counted(lambda: step(b['steps'][k] + 1, state, data))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if float(out[loss.name].reshape(-1)[0]) != b['losses'][k]:
+            raise AssertionError('(e) call %d: loss %s, the eager step\'s %s'
+                                 % (k + 1, out[loss.name], b['losses'][k]))
+        bad = [n for n in step.state_names if n in out and
+               n in b['states'][k] and
+               not torch.equal(out[n], b['states'][k][n])]
+        untouched = [n for n in state if torch.equal(state[n], held[n])]
+        if bad or len(untouched) != len(state):
+            raise AssertionError('(e) call %d: outputs differ from the '
+                                 'eager step in %s; the caller\'s state '
+                                 'changed' % (k + 1, bad[:5]))
+        state = {n: out.get(n, v) for n, v in state.items()}
+        held = {n: v.clone() for n, v in state.items()}
+    pool = torch.cuda.memory_reserved() - pool0
+    moved = {k: v - before[k] for k, v in graph_stats().items()}
+    if moved['graph_captures'] != 1 or \
+            moved['graph_replays'] != P19_CALLS - 1:
+        raise AssertionError('(e) graphs: %s' % moved)
+    log('  (e) training CompiledStep of (b)\'s step (%s | %s): %d calls '
+        'bitwise (b)\'s eager steps (loss and every output), %d from the '
+        'graph, the caller\'s %d state tensors bitwise untouched; ms a call '
+        '%s (the last %d replayed); the pool grew %.3f GiB (the graph\'s '
+        'state buffers and its memory)' % (
+            torch.cuda.get_device_name(0), card, P19_CALLS, P19_CALLS - 1,
+            len(state), ['%.2f' % (x * 1e3) for x in secs], P19_CALLS - 1,
+            pool / 2 ** 30))
+
+
+def p19_nan_check(seed, card, b, timer):
+    """(f) (b)'s step under FLAGS_check_nan_inf; returns the finite_check
+    row of the kernels line, timed at the step's checked set."""
+    main, startup, loss = b['main'], b['startup'], b['loss']
+    checked = []
+    real = fluid.executor.Executor._verdict_launch
+
+    def keep(self, entries):
+        if not checked:
+            checked.extend(v for n, v in entries
+                           if not isinstance(n, tuple))
+        return real(self, entries)
+    ms = {}
+    flags.set_flags({'FLAGS_check_nan_inf': True})
+    try:
+        exe, scope = p19_scope(startup, b['start'])
+        torch.cuda.synchronize()
+        pool0 = torch.cuda.memory_reserved()
+        before = graph_stats()
+        secs = []
+        with fluid.scope_guard(scope):
+            for k in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, counts = counted(lambda: exe.run(
+                    main, feed=b['batch'], fetch_list=[loss]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                expected = dict(b['expected'], finite_check=1,
+                                graph_cond=b['n_cond'] if k else 0)
+                if counts != expected or \
+                        float(np.asarray(out[0]).ravel()[0]) != \
+                        b['losses'][k]:
+                    raise AssertionError(
+                        '(f) healthy step %d: launched %s, expected %s; '
+                        'loss %s, the eager step\'s %s' % (
+                            k + 1, counts, expected, out[0],
+                            b['losses'][k]))
+            pool = torch.cuda.memory_reserved() - pool0
+            moved = {k: v - before[k] for k, v in graph_stats().items()}
+            ms['replayed, check on'] = statistics.median(secs[2:]) * 1e3
+            w = 'fc_0.w_0'
+            held = snapshot(scope, b['names'])
+            scope.find_var(w).fill_(float('inf'))
+            errs = []
+            try:
+                without_counting(lambda: exe.run(main, feed=b['batch'],
+                                                 fetch_list=[loss]))
+            except FloatingPointError as e:
+                errs.append(e)
+            for n, v in held.items():
+                scope.find_var(n).copy_(v)
+        exe_e, scope_e = p19_scope(startup, held)
+        scope_e.find_var(w).fill_(float('inf'))
+        exe_e._step = exe._step - 1
+        fluid.executor.Executor._verdict_launch = keep
+        try:
+            with fluid.scope_guard(scope_e):
+                without_counting(lambda: eager_run(exe_e, main, b['batch'],
+                                                   [loss]))
+        except FloatingPointError as e:
+            errs.append(e)
+        finally:
+            fluid.executor.Executor._verdict_launch = real
+        if len(errs) != 2 or moved['graph_captures'] != 1:
+            raise AssertionError('(f) the inf step raised %d of 2 times; '
+                                 'graphs %s' % (len(errs), moved))
+        bad = [str(e).splitlines()[0].split(' (step')[0] for e in errs]
+        notes = ['\n'.join(getattr(e, '__notes__', [])) for e in errs]
+        if bad[0] != bad[1] or not all('op' in n for n in notes):
+            raise AssertionError('(f) the replayed step named %r, the eager '
+                                 '%r; notes %r' % (bad[0], bad[1], notes))
+        for n, v in held.items():
+            scope_e.find_var(n).copy_(v)
+        with fluid.scope_guard(scope_e):
+            ms['eager, check on'] = p19_step_ms(
+                lambda: eager_run(exe_e, main, b['batch'], [loss]))
+    finally:
+        flags.set_flags({'FLAGS_check_nan_inf': False})
+    with fluid.scope_guard(scope):
+        for _ in range(2):
+            without_counting(lambda: exe.run(main, feed=b['batch'],
+                                             fetch_list=[loss]))
+        ms['replayed, check off'] = p19_step_ms(
+            lambda: exe.run(main, feed=b['batch'], fetch_list=[loss]))
+    with fluid.scope_guard(scope_e):
+        ms['eager, check off'] = p19_step_ms(
+            lambda: eager_run(exe_e, main, b['batch'], [loss]))
+    drop_graphs(main, scope)
+    del exe, scope, exe_e, scope_e
+    nbytes = sum(t.numel() * t.element_size() for t in checked)
+    log('  (f) FLAGS_check_nan_inf on (b)\'s step (%s | %s): finite_check '
+        'launched once a step over %d values (%.3f GiB), no trip over 4 '
+        'healthy steps; with %s set to inf through the scope the replayed '
+        'step raised FloatingPointError naming the eager step\'s %d '
+        'variables (%s, ...), with provenance; ms a step %s; the pool grew '
+        '%.3f GiB under the check (its input copies and the checked values '
+        'kept to the step\'s end)' % (
+            torch.cuda.get_device_name(0), card, len(checked),
+            nbytes / 2 ** 30, w, bad[0].count(',') + 1,
+            bad[0].split('[')[1][:60],
+            ', '.join('%s %.2f' % kv for kv in ms.items()), pool / 2 ** 30))
+    got = fin_k.finite_check(checked)
+    plain = fin_k.finite_check_plain(checked)
+    torch.cuda.synchronize()
+    if not torch.equal(got.cpu(), plain.cpu()):
+        raise AssertionError('(f) finite_check differs from its plain '
+                             'version at the checked set')
+    found = torch.zeros(1, device=checked[0].device)
+    one = torch.ones(1, device=checked[0].device)
+    f32 = [t for t in checked if t.dtype == torch.float32]
+    row = {'name': 'finite_check', 'route': 'cuda',
+           'source': 'paddle_tpu_torch/ops/kernels/csrc/finite_check.cu',
+           'replaces': common.KERNELS['finite_check']['replaces'].split(
+               ' ')[0],
+           'launches': 0, 'max_abs_err': 0.0,
+           'ms': timer.ms(lambda: fin_k.finite_check(checked)),
+           'plain_ms': timer.ms(lambda: fin_k.finite_check_plain(checked)),
+           'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
+           'library_ms': timer.ms(
+               lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                   f32, found, one))}
+    log('  %-28s cold L2, (f)\'s %d values: kernel %.4f ms  plain %.4f ms  '
+        'library %.4f ms (_amp_foreach_non_finite_check_and_unscale_, '
+        'the %d f32 ones, one flag)  bound %.4f ms (bytes)' % (
+            'finite_check', len(checked), row['ms'], row['plain_ms'],
+            row['library_ms'], len(f32), row['bound_ms']))
+    return row
+
+
+def p19_step_ms(fn, steps=3):
+    secs = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        without_counting(fn)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs) * 1e3
+
+
+def graph_cond_row(dev, decode):
+    """graph_cond's row: the kernel timed in a graph of 100 launches on a
+    handle of an IF node with an empty body, beside the host read of a
+    condition (the plain version's cost: a device-to-host copy)."""
+    pred = torch.ones((), dtype=torch.bool, device=dev)
+    scratch = torch.zeros((), device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    reps = 100
+
+    def capture():
+        with torch.cuda.graph(graph, stream=side):
+            handle = graph_cond.create_handle(torch.cuda.current_stream(dev))
+            for _ in range(reps):
+                graph_cond.set_cond(handle, pred)
+            body = torch.cuda.Stream(dev)
+            graph_cond.begin_body(torch.cuda.current_stream(dev), handle,
+                                  False, body)
+            with torch.cuda.stream(body):
+                scratch.add_(1.0)
+            graph_cond.end_body(body)
+    without_counting(capture)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (10 * reps)
+    secs = []
+    for _ in range(100):
+        t0 = time.perf_counter()
+        bool(pred)
+        secs.append(time.perf_counter() - t0)
+    plain_ms = statistics.median(secs) * 1e3
+    row = {'name': 'graph_cond', 'route': 'cuda',
+           'source': 'paddle_tpu_torch/ops/kernels/csrc/graph_cond.cu',
+           'replaces': common.KERNELS['graph_cond']['replaces'].split(' ')[0],
+           'launches': 0, 'max_abs_err': 0.0, 'ms': ms, 'plain_ms': plain_ms,
+           'bound_ms': 1.0 / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
+           'library_ms': None}
+    log('  %-28s warm: kernel %.4f ms a launch (100 in a graph), the plain '
+        'version\'s host read of the condition %.4f ms (host clock), library '
+        'none; the (a) decode replayed %.2f ms against %.2f eager (device '
+        '%.2f)' % ('graph_cond', ms, plain_ms, decode['replay_ms'],
+                   decode['eager_ms'], decode['device_ms']))
+    return row
+
+
+def compile_plane_phase(seed, dev, timer):
+    """Phase 19: the rest of the compile plane.  Returns the kernels
+    line's rows of finite_check and graph_cond."""
+    card = card_line()
+    log('[19] the compile plane: conditional nodes, pipelines, the '
+        'training CompiledStep, the in-graph finite check (%s | %s)' % (
+            torch.cuda.get_device_name(0), card))
+    decode = p19_decode(seed, card)
+    torch.cuda.empty_cache()
+    b = p19_switch(seed, card)
+    p19_print(seed, card, b)
+    torch.cuda.empty_cache()
+    p19_compiled_step(seed, card, b)
+    torch.cuda.empty_cache()
+    fin_row = p19_nan_check(seed, card, b, timer)
+    b.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    p19_save_load(seed, card)
+    torch.cuda.empty_cache()
+    return [fin_row, graph_cond_row(dev, decode)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -7250,6 +7932,10 @@ def main(argv=None):
     t_start = time.perf_counter()
     log('[1] torch %s, CUDA %s, python %s' % (
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
+    drv, rt = graph_cond.versions()
+    log('    CUDA driver %d, runtime %d (cudaDriverGetVersion / '
+        'cudaRuntimeGetVersion)' % (drv, rt))
+    graph_cond.require_conditional_nodes()
     log('    card: %s | %s (count %d)' % (
         torch.cuda.get_device_name(0), card, torch.cuda.device_count()))
 
@@ -7376,6 +8062,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     without_counting(lambda: observability_phase(args.seed, dev))
     log('  phase 18: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    rows += compile_plane_phase(args.seed, dev, Timer(dev))
+    log('  phase 19: %.1f s' % (time.perf_counter() - t0))
     # each row's launches at the wrappers and replayed from CUDA graphs'
     # manifests on the main path, as counted() read them in this
     # process; the data-parallel rows, as the ranks of phases 9 and 12
@@ -7392,6 +8081,10 @@ def main(argv=None):
                 'fused_adam']
         elif name == 'fused_adam[lenet]':
             row['launches'], row['replayed_launches'] = lenet_k4
+        elif name == 'graph_cond':
+            # the kernel runs only inside graphs: its launches are the
+            # replays' (each body's manifest times the trips counted)
+            row['launches'] = row['replayed_launches']
     log('  launches by row of the kernels line (%s | %s): at the wrappers '
         '%s; replayed from CUDA graphs %s' % (
             torch.cuda.get_device_name(0), card,

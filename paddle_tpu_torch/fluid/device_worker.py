@@ -11,7 +11,8 @@ carry configuration only; what remains of each worker's semantics:
 - Hogwild -> Executor.train_from_dataset, whose thread=N stages N
   batches ahead onto the card (fluid/reader.py _AsyncBatchIterator);
 - DownpourSGD -> the parameter server (ROADMAP Queue 1 item 14);
-- Section -> the pipeline trainer (ROADMAP Queue 1 item 9's list).
+- Section -> the pipeline trainer, PipelineOptimizer over the program
+  pipeline (ROADMAP Queue 1 item 13).
 
 They validate and carry the same knobs, so reference training scripts
 and fleet descriptors keep working.
@@ -63,8 +64,9 @@ class DownpourSGD(DeviceWorker):
 
 
 class Section(DeviceWorker):
-    """Pipeline section worker (section_worker.cc): the pipeline trainer
-    of ROADMAP Queue 1 item 9's list."""
+    """Pipeline section worker (section_worker.cc): the pipeline trainer,
+    PipelineOptimizer over the program pipeline (ROADMAP Queue 1 item
+    13)."""
 
     def __init__(self, section_config=None):
         super(Section, self).__init__()

@@ -39,8 +39,13 @@ A while or conditional_block op runs its sub-block here
 while reads its condition on the host before each trip, one that
 carries gradients (``__needs_grad__``) runs ``max_trip_count`` masked
 trips with no host read, which the whole-program grad differentiates as
-they ran, and a conditional_block reads its condition on the host.  A
-plan holding a host read is never captured (``_host_control``).
+they ran, and a conditional_block reads its condition on the host.
+While a CUDA graph is captured none of them reads the host: a
+forward-only while is a WHILE node, a conditional_block an IF node, and
+an auto-bucketed while's trips are counted on the device before the
+step (fluid/cuda_graph.py).  A host op inside a loop body and a
+conditional_block that carries gradients keep their unit eager
+(``_host_control``).
 
 A ``CompiledProgram`` made ``with_data_parallel`` goes to
 fluid/parallel_executor.py, which runs the program here as one
@@ -68,7 +73,9 @@ empties (``Program._bump_version``); scope names resolve through
 builds the plan for the call alone.  On a CUDA place a program whose
 plan may be captured (``_graph_refusal``: serving, ``for_test`` clones
 and the training steps) is replayed from a CUDA graph per scope and
-feed signature, which its plan keeps (fluid/cuda_graph.py).  The JAX
+feed signature, which its plan keeps (fluid/cuda_graph.py); a plan
+that host ops split (``_Plan.units``) replays each device unit from a
+graph of its own, the host ops running between them.  The JAX
 package jits each segment with its state donated
 (fluid/executor.py:1089); the port's counterpart is that a step writes
 every persistable variable into the tensor the scope holds
@@ -78,8 +85,9 @@ every replay, and that the step reaches the device as a tensor
 masks are drawn.  A fetched persistable is returned as a copy, which
 the next step does not change.  ``warmup`` builds plans and captures
 ahead of the first run; ``compile`` gives a ``CompiledStep``, which
-replays a program's graph on a scope of its own where the program
-writes no persistable variable.
+replays a program's graph on a scope of its own, or, with
+allow_host=True, a ``CompiledPipeline`` of a program that host ops
+split into segments.
 
 Host ops (ops/host_ops.py: print, save, load, save_combine,
 load_combine, py_func) run on the host between the device ops, as the
@@ -87,8 +95,11 @@ JAX package runs them between its segments; the read-only ones (print,
 save, save_combine) are deferred past the device ops after them that
 do not rewrite what they read (``_defer_readonly_host_ops``, JAX:
 fluid/executor.py:1893), so the whole-program grad still sees the
-forward region whole.  A plan holding a host op is never captured in
-a CUDA graph.  ``train_from_dataset`` / ``infer_from_dataset`` drive
+forward region whole.  The device ops between host ops form the
+plan's units (``_Unit``), each captured in a CUDA graph of its own; a
+device unit after the first reads the fed names from the feed again
+(the JAX package's segment binding).  ``train_from_dataset`` /
+``infer_from_dataset`` drive
 ``run`` over a fluid.dataset's batches (JAX: fluid/executor.py:2642).
 
 A program ``contrib.mixed_precision.decorate`` rewrote (AMP) runs the
@@ -103,9 +114,10 @@ the parameters as they are, Adam decays its moments, advances its beta
 powers and moves its parameters.
 
 ``FLAGS_check_nan_inf`` checks every floating value a step writes (op
-outputs, and the gradients of the whole-program grad) on the device
-and raises FloatingPointError naming each non-finite one (JAX:
-fluid/executor.py:2578).  On an AMP program it checks what the JAX
+outputs, and the gradients of the whole-program grad) on the device,
+in one finite_check launch at the end of the step (inside the step's
+CUDA graph where it replays), and raises FloatingPointError naming each
+non-finite one (JAX: fluid/executor.py:2578).  On an AMP program it checks what the JAX
 package checks there, its segments' outputs: the values written to the
 scope and the fetches, so an overflow that the loss scaling absorbs
 passes and a non-finite fetched loss raises.
@@ -574,12 +586,40 @@ def _defer_readonly_host_ops(ops):
     return out
 
 
+def _is_host(op):
+    return getattr(registry._REGISTRY.get(op.type), 'host', False)
+
+
 def _host_ops(ops):
     """The types of the host ops the executor runs among `ops` and their
     sub-blocks."""
     return sorted(set(op.type for op in _with_sub_blocks(ops)
-                      if getattr(registry._REGISTRY.get(op.type), 'host',
-                                 False)))
+                      if _is_host(op)))
+
+
+def _plan_items(ops):
+    """A plan's ops split as the JAX package splits them into segments
+    (JAX: fluid/executor.py:1926 ``_build_plan``): ('segment', [op
+    indices]) of device ops, ('host', i) for each host op, and
+    ('bucket', i) before an auto-bucketed while, whose trips are
+    counted there; the while begins the next segment."""
+    items, cur = [], []
+    for i, op in enumerate(ops):
+        bucket = op.type == 'while' and op.attrs.get('__auto_bucket__')
+        if bucket or _is_host(op):
+            if cur:
+                items.append(('segment', cur))
+                cur = []
+            if bucket:
+                items.append(('bucket', i))
+                cur.append(i)
+                continue
+            items.append(('host', i))
+        else:
+            cur.append(i)
+    if cur:
+        items.append(('segment', cur))
+    return items
 
 
 def _is_persistable(block, name):
@@ -709,12 +749,46 @@ class _Plan(object):
     runs, each op timed); ``mem_row``: the memviz row its first run
     under FLAGS_memviz filed (None before that run, False where none
     was filed);
-    ``verify_items``: its segments for fluid/progcheck.py."""
+    ``verify_items``: its segments for fluid/progcheck.py.
+
+    ``items`` splits the ops as the JAX package splits them into
+    segments (``_plan_items``); ``units`` is the run's pipeline
+    (``_Unit``): the device ops between host ops, each replayed from a
+    CUDA graph of its own, and the host ops between them.  An
+    auto-bucketed while splits ``items`` but not ``units``: its trips
+    are counted on the device before the step (fluid/cuda_graph.py
+    ``count_buckets``), which then replays the graph of their bucket.
+    ``buckets`` lists the ops of the plan's auto-bucketed whiles."""
 
     __slots__ = ('ops', 'keep', 'checked_only', 'kind', 'writes_state',
                  'steps', 'post_grads', 'var_of', 'wpg', 'pre', 'pre_drops',
                  'post', 'no_graph', 'graphs', 'binder', 'scope_reads',
-                 'sub_steps', 'spans', 'serial', 'mem_row', 'verify_items')
+                 'sub_steps', 'spans', 'serial', 'mem_row', 'verify_items',
+                 'items', 'units', 'buckets')
+
+
+class _Unit(object):
+    """One item of a plan's pipeline: a host op (``host``, its one
+    ``_Step`` in ``steps``), or the device ops between host ops: their
+    ``steps``, or, on the whole-program grad, the forward, backward and
+    optimizer regions (``wpg``).  ``ops`` are its ops, ``reads`` the
+    names they read before writing them, ``no_graph`` why the unit is
+    never captured in a CUDA graph (None: it may be)."""
+
+    __slots__ = ('host', 'steps', 'wpg', 'ops', 'reads', 'no_graph')
+
+    def __init__(self, host, steps, ops, wpg=False):
+        self.host = host
+        self.steps = steps
+        self.wpg = wpg
+        self.ops = ops
+        written, reads = set(), {}
+        for op in ops:
+            reads.update((n, None) for n in _op_reads(op)
+                         if n not in written)
+            written.update(op.output_arg_names)
+        self.reads = tuple(reads)
+        self.no_graph = None if host else _unit_refusal(ops)
 
 
 def _health_grads(program):
@@ -752,19 +826,46 @@ def _build_plan(program, fetch_names, serial=False):
         for op in _with_sub_blocks(ops) if op.type in _CONTROL_FLOW}
     plan.wpg = None
     plan.spans = {}
+    plan.items = _plan_items(ops)
+    plan.buckets = [op for op in ops if op.type == 'while' and
+                    op.attrs.get('__auto_bucket__')]
+    # the whole-program grad runs on the device ops between the leading
+    # and the trailing host ops, which run before and after it; a host
+    # op among those ops keeps the step on the whole-program grad as one
+    # unit that no graph captures
+    device = [i for i, op in enumerate(ops) if not _is_host(op)]
+    lo, hi = (device[0], device[-1] + 1) if device else (0, 0)
+    inner = ops[lo:hi]
+    mixed = _host_ops(inner) if any(_is_host(op) for op in inner) else None
+    edge_reads = set(n for op in ops[:lo] + ops[hi:]
+                     for n in op.input_arg_names)
     if any(_role(op) == 'backward' for op in ops) and not serial:
-        plan.wpg = _wpg_partition(ops, program, fetch_names)
+        plan.wpg = _wpg_partition(ops if mixed else inner, program,
+                                  list(fetch_names) + sorted(edge_reads))
     if plan.wpg is not None:
         plan.kind = 'wpg'
         wpg = plan.wpg
         later = set(n for op in wpg['post'] for n in op.input_arg_names)
-        plan.pre_drops = _drop_plan(wpg['pre'],
-                                    keep | later | {wpg['loss']})
+        plan.pre_drops = _drop_plan(wpg['pre'], keep | later | edge_reads |
+                                    {wpg['loss']})
         plan.pre = [_OpStep(op, wpg['stop'], drop)
                     for op, drop in zip(wpg['pre'], plan.pre_drops)]
         plan.spans = {a: _Span(plan.pre[a:b], plan.pre_drops[a:b])
                       for a, b in wpg['spans']}
-        plan.post = _steps(wpg['post'], keep)
+        plan.post = _steps(wpg['post'], keep | edge_reads)
+        if mixed:
+            unit = _Unit(False, None, ops, wpg=True)
+            unit.no_graph = (
+                'host op %s runs between the whole-program grad\'s forward '
+                'and optimizer ops, which one autograd pass spans'
+                % ', '.join(mixed))
+            plan.units = [unit]
+        else:
+            host = lambda i: _Unit(True, [_Step(i, [_OpStep(ops[i])],  # noqa
+                                                 False, [])], [ops[i]])
+            plan.units = [host(i) for i in range(lo)] + \
+                [_Unit(False, None, inner, wpg=True)] + \
+                [host(i) for i in range(hi, len(ops))]
     else:
         plan.kind = 'per_op' if any(_role(op) == 'backward'
                                     for op in ops) else 'forward'
@@ -777,8 +878,28 @@ def _build_plan(program, fetch_names, serial=False):
             plan.writes_state = any(
                 _is_persistable(block, n)
                 for op in ops for n in op.output_arg_names)
-    plan.no_graph = _graph_refusal(plan, ops)
+        plan.units = _step_units(plan.steps)
+    plan.no_graph = _graph_refusal(plan)
     return plan
+
+
+def _step_units(steps):
+    """The pipeline of a plan that runs its steps in order: each host
+    op a unit, the steps between them a device unit each."""
+    units, cur = [], []
+    for st in steps:
+        if not st.fused and _is_host(st.members[0].op):
+            if cur:
+                units.append(_Unit(False, cur, [m.op for s in cur
+                                                for m in s.members]))
+                cur = []
+            units.append(_Unit(True, [st], [st.members[0].op]))
+        else:
+            cur.append(st)
+    if cur:
+        units.append(_Unit(False, cur, [m.op for s in cur
+                                        for m in s.members]))
+    return units
 
 
 def _segment_names(plan):
@@ -789,28 +910,36 @@ def _segment_names(plan):
     block = plan.ops[0].block if plan.ops else None
     written, reads = set(), set()
     for op in plan.ops:
-        reads.update(n for n in op.input_arg_names if n not in written)
+        reads.update(n for n in _op_reads(op) if n not in written)
         written.update(op.output_arg_names)
     outputs = sorted(n for n in written
                      if n in plan.keep or _is_persistable(block, n))
     return sorted(reads - written), sorted(reads & written), outputs
 
 
-def _graph_refusal(plan, ops):
-    """Why a plan's program is never captured in a CUDA graph, or None.
-    The run-time reasons (the place, collective programs,
-    FLAGS_check_nan_inf) are ``Executor._no_graph``'s."""
-    host = _host_ops(ops)
-    if host:
-        return ('host op %s runs on the host between the device ops '
-                '(files, stdout, Python), which a graph cannot replay'
-                % ', '.join(host))
+def _graph_refusal(plan):
+    """Why no part of a plan's program is captured in a CUDA graph, or
+    None: the reason of its one device unit, or of every device unit
+    where each is refused (a plan of host ops alone has nothing to
+    capture).  The run-time reasons (the place, collective programs)
+    are ``Executor._no_graph``'s."""
+    device = [u for u in plan.units if not u.host]
+    if not device:
+        return 'the program runs host ops only (%s)' % ', '.join(
+            _host_ops(plan.ops))
+    why = [u.no_graph for u in device if u.no_graph is not None]
+    return why[0] if len(why) == len(device) else None
+
+
+def _unit_refusal(ops):
+    """Why a pipeline unit of `ops` (device ops) is never captured."""
     for op in _with_sub_blocks(ops):
         od = registry._REGISTRY.get(op.type)
         if od is not None and od.host_random:
             return ('op %s draws from a host generator (a startup '
                     'program\'s initializer), which a graph would freeze'
                     % op.type)
+    for op in ops:
         why = _host_control(op)
         if why is not None:
             return why
@@ -818,21 +947,31 @@ def _graph_refusal(plan, ops):
 
 
 def _host_control(op):
-    """Why a control-flow op reads a value on the host, or None: a graph
-    replays one fixed sequence of launches."""
-    if op.type == 'while' and not op.attrs.get('__needs_grad__'):
-        return ('op while (sub-block %d) reads its condition on the host '
-                'at every trip: a forward-only loop stops when its '
-                'condition does, which a graph cannot replay'
-                % op.attrs['sub_block'])
-    if op.type == 'while' and op.attrs.get('__auto_bucket__'):
-        return ('op while (sub-block %d) has no max_trip_count: its '
-                'trips are counted on the host before each step (the '
-                'auto-bucket)' % op.attrs['sub_block'])
-    if op.type == 'conditional_block':
-        return ('op conditional_block (sub-block %d) reads its condition '
-                'on the host to choose whether its branch runs'
-                % op.attrs['sub_block'])
+    """Why a control-flow op must read on the host, or None (the
+    conditions of while and conditional_block are read on the device,
+    by the WHILE and IF nodes of fluid/cuda_graph.py): a host op in its
+    sub-block (a graph replays one fixed sequence of launches), or a
+    conditional_block that carries gradients.  Autograd records such a
+    branch as it ran, and in a graph it would run whether taken or not,
+    its values masked: the eager step and the JAX package's lax.cond
+    never run an untaken branch, whose non-finite values (a log or a
+    division guarded by the condition) would make NaN gradients."""
+    if op.type not in _CONTROL_FLOW or \
+            not isinstance(op.attrs.get('sub_block'), int):
+        return None
+    inner = op.block.program.blocks[op.attrs['sub_block']].ops
+    host = _host_ops(inner)
+    if host:
+        return ('op %s (sub-block %d) runs host op %s inside its body, '
+                'which a graph cannot replay' % (
+                    op.type, op.attrs['sub_block'], ', '.join(host)))
+    if op.type == 'conditional_block_grad' or (
+            op.type == 'conditional_block' and
+            op.attrs.get('__needs_grad__')):
+        return ('op %s (sub-block %d) carries gradients: a graph would '
+                'run its branch whether or not the condition holds, which '
+                'the eager step never does' % (op.type,
+                                               op.attrs['sub_block']))
     return None
 
 
@@ -842,15 +981,16 @@ class CompiledStep(object):
     names the program updates (parameters, optimizer slots), ``data``
     the pure inputs (feeds, and an inference program's parameters); the
     outputs are the fetches and the persistable variables written.  The
-    caller's tensors are left as they were.  On a CUDA place a program
-    that writes no persistable variable and may be captured
-    (fluid/cuda_graph.py) runs on a scope the step keeps, into which
-    each call copies ``state`` and ``data`` in place (a new shape or
-    dtype takes a new tensor), and so replays its CUDA graph as
-    ``Executor.run`` does: the first call eager, the second
-    captures.  Any other program (a training step among them: ROADMAP
-    Queue 1 item 9) runs its cached plan eagerly as executor step
-    `step` on a new scope, from copies of ``state``."""
+    caller's tensors are left as they were (no donation, as in the JAX
+    package).  On a CUDA place a program that may be captured
+    (fluid/cuda_graph.py), a training step among them, runs on a scope
+    the step keeps, into which each call copies ``state`` and ``data``
+    in place (the graph's own state buffers; a new shape or dtype takes
+    a new tensor), and so replays its CUDA graph as ``Executor.run``
+    does: the first call eager, the second captures; the persistable
+    outputs come back as new tensors.  On the CPU the cached plan runs
+    eagerly as executor step `step` on a new scope, from copies of
+    ``state``."""
 
     __slots__ = ('fn', 'input_names', 'state_names', 'output_names')
 
@@ -862,6 +1002,36 @@ class CompiledStep(object):
 
     def __call__(self, step, state, data):
         return self.fn(step, state, data)
+
+
+class CompiledPipeline(object):
+    """A program that host ops (save, load, print, py_func) or an
+    auto-bucketed while split into segments, compiled to its run plan
+    (JAX: fluid/executor.py:1277): each device unit replays from a CUDA
+    graph of its own on a card (fluid/cuda_graph.py ``Pipeline``), the
+    host ops run between them through the scope.  Not a pure function:
+    host ops may touch files and stdout.
+
+    ``__call__(feed=None, scope=None, return_numpy=True)`` runs one step
+    against `scope` (default: the global scope, where the startup
+    program put the parameters), as ``Executor.run`` does, and returns
+    the fetches in order."""
+
+    __slots__ = ('_exe', '_program', 'input_names', 'fetch_names',
+                 'host_op_types')
+
+    def __init__(self, executor, program, plan, feed_names, fetch_names):
+        self._exe = executor
+        self._program = program
+        self.input_names = list(feed_names)
+        self.fetch_names = list(fetch_names)
+        self.host_op_types = [plan.ops[i].type for kind, i in plan.items
+                              if kind == 'host']
+
+    def __call__(self, feed=None, scope=None, return_numpy=True):
+        return self._exe.run(self._program, feed=feed,
+                             fetch_list=self.fetch_names, scope=scope,
+                             return_numpy=return_numpy)
 
 
 class WarmupResult(object):
@@ -903,6 +1073,27 @@ class Executor(object):
         # on an AMP program the step's fetch names: only they and the
         # persistables are checked (None: every value)
         self._checked_only = None
+        # while a CUDA graph is captured under FLAGS_check_nan_inf: (the
+        # checked names, their verdict buffer, the snapshot of the step's
+        # inputs) of the captured step
+        self._captured_nan = None
+        # a multi-unit step's staged feeds, which each device unit reads
+        # again (feed precedence), and the Pipeline replaying its units
+        self._fed = None
+        self._unit_graphs = None
+        # while a CUDA graph is captured on a card: its conditional nodes
+        # (fluid/cuda_graph.py Nodes), and the streams their bodies are
+        # captured on, one a nesting depth
+        self._nodes = None
+        self._body_streams = []
+        self._body_pool = None
+        # the first run of a graph's signature builds the conditional_block
+        # branches it does not take (fluid/cuda_graph.py warm_branch), so
+        # nothing in them is first built inside a capture
+        self._warm_branches = False
+        # the auto-bucket's count runs the ops before the loop without
+        # writing the scope (fluid/cuda_graph.py count_buckets)
+        self._counting = False
         # the running plan's sub_steps
         self._sub_steps = {}
         # the running plan's owner dicts of the scope's names, and,
@@ -1202,6 +1393,7 @@ class Executor(object):
             env = self._stage_feeds(feed)
         else:
             t1 = time.perf_counter()
+        self._fed = dict(env) if len(plan.units) > 1 else None
         self._verdicts = [] if get_flag('FLAGS_check_nan_inf', False) \
             else None
         self._checked_only = plan.checked_only
@@ -1212,13 +1404,24 @@ class Executor(object):
         capturing = self._reads is not None
         if capturing:
             self._ranges, snap = False, None
+            if self._verdicts is not None and \
+                    get_flag('FLAGS_nan_replay', True):
+                # the graph keeps device copies of what the step reads
+                snap = self._snapshot_inputs(plan, env, scope)
             results = self._step_body(*body)
         else:
             results, snap = self._recorded_step(body, t0, t1)
         self._owners = {}
         self._step_t = self._step_mixes = self._held = None
-        if self._verdicts:
-            self._raise_non_finite(plan, snap, program)
+        self._fed = None
+        if self._verdicts is not None:
+            if capturing:
+                # checked inside the graph; the replays read the verdicts
+                self._captured_nan = self._verdict_launch(self._verdicts) \
+                    + (snap,)
+                self._verdicts = None
+            elif self._verdicts:
+                self._raise_non_finite(plan, snap, program)
         if not capturing:
             t0 = time.perf_counter()
             env.clear()
@@ -1318,23 +1521,53 @@ class Executor(object):
         return env
 
     def _dispatch(self, plan, env, scope, program, data_parallel):
-        """The plan's ops on `env` (the step's dispatch)."""
-        if plan.kind == 'wpg':
+        """The plan's ops on `env` (the step's dispatch): its pipeline's
+        units in order (``_run_unit``)."""
+        for k in range(len(plan.units)):
+            self._run_unit(plan, k, env, scope, program, data_parallel)
+
+    def _run_unit(self, plan, k, env, scope, program, data_parallel):
+        """Pipeline unit k of the plan: a host op, or device ops, which
+        a pipeline step replays from the unit's CUDA graph where it can
+        (``self._unit_graphs``, fluid/cuda_graph.py ``Pipeline``).  A
+        device unit after the first reads each fed name from the feed,
+        as the JAX package's segments bind them (a fed name an earlier
+        segment rewrote is fed again)."""
+        unit = plan.units[k]
+        if unit.host:
+            self._run_steps(unit.steps, env, scope, program)
+            return
+        if k and self._fed:
+            env.update((n, self._fed[n]) for n in unit.reads
+                       if n in self._fed)
+        graphs = self._unit_graphs
+        if graphs is not None and unit.no_graph is None and \
+                graphs.run(self, plan, k, env, scope, program):
+            return
+        self._run_device_unit(plan, unit, env, scope, program,
+                              data_parallel)
+
+    def _run_device_unit(self, plan, unit, env, scope, program,
+                         data_parallel):
+        if unit.wpg:
             self._run_whole_program_grad(plan, env, scope, program)
         elif plan.kind == 'per_op':
             hook = None
-            if data_parallel:
-                k, names = plan.post_grads
+            k, names = plan.post_grads if data_parallel else (None, ())
+            last = [u for u in plan.units if not u.host][-1] is unit
+            if data_parallel and (
+                    unit.steps[0].index <= k <= unit.steps[-1].index or
+                    (last and k > unit.steps[-1].index)):
                 hook = (k, lambda env: env.update(self._global_grads(
                     {n: env[n] for n in names
                      if isinstance(env.get(n), torch.Tensor)}, plan.var_of)))
             with torch.no_grad():
-                self._run_steps(plan.steps, env, scope, program, hook)
+                self._run_steps(unit.steps, env, scope, program, hook)
         else:
             mode = torch.no_grad() if plan.writes_state else \
                 torch.inference_mode()
             with mode:
-                self._run_steps(plan.steps, env, scope, program)
+                self._run_steps(unit.steps, env, scope, program)
 
     def _dispatch_failed(self, e, scope):
         """A failed dispatch (JAX: fluid/executor.py:2536-2558): memviz's
@@ -1371,7 +1604,7 @@ class Executor(object):
         post-mortem or op-cost replay."""
         state, data = self._read_values(plan, env, scope)
         copy = lambda v: v.detach().clone() if isinstance(  # noqa: E731
-            v, torch.Tensor) else v
+            v, torch.Tensor) else self._to_device(v)
         return ({n: copy(v) for n, v in state.items()},
                 {n: copy(v) for n, v in data.items()})
 
@@ -1449,6 +1682,10 @@ class Executor(object):
             row = tuple(sorted((n, s, core.dtype_name(d))
                                for n, (s, d) in specs.items()))
             why = plan.no_graph or self._no_graph(program)
+            if why is None and (len(plan.units) > 1 or plan.buckets):
+                why = ('a pipeline of %d units or an auto-bucketed while: '
+                       'captured at its second run, unit by unit or bucket '
+                       'by bucket' % len(plan.units))
             if why is not None:
                 skipped.append((row, why))
                 continue
@@ -1477,33 +1714,39 @@ class Executor(object):
             return '%r: CUDA graphs need a CUDA place' % (self.place,)
         if getattr(program, '_collective_dp', False):
             return 'a collective program (its ops reduce over the group)'
-        if get_flag('FLAGS_check_nan_inf', False):
-            return 'FLAGS_check_nan_inf reads its verdicts on the host'
         return None
 
     def compile(self, program, feed_names=(), fetch_names=(),
                 allow_host=False):
         """The program as one function, a CompiledStep (JAX:
-        fluid/executor.py:1341).  A program with host ops cannot be one
-        function: the JAX package's allow_host=True gives a
-        CompiledPipeline there, which waits with ROADMAP Queue 1 item
-        9's list; Executor.run runs such a program."""
+        fluid/executor.py:1341), where it is one segment; with
+        allow_host=True a program that host ops or an auto-bucketed
+        while split into segments gives a CompiledPipeline, whose device
+        units replay from CUDA graphs with the host ops between them."""
         feed_names = _fetch_names(feed_names)
         fetch_names = _fetch_names(fetch_names)
-        host = _host_ops(program.global_block().ops)
-        if host:
-            if allow_host:
-                raise NotImplementedError(
-                    'Executor.compile(allow_host=True): CompiledPipeline '
-                    '(device segments around host ops %r) waits with '
-                    'ROADMAP Queue 1 item 9\'s list; Executor.run runs '
-                    'this program' % (host,))
-            raise ValueError(
-                'Executor.compile needs a program without host ops for '
-                'one function; this one holds %r (allow_host=True gives '
-                'a CompiledPipeline in the JAX package)' % (host,))
+        monitor.add('executor/programs_compiled')
         plan = self._get_plan(program, dict.fromkeys(feed_names),
                               fetch_names)
+        if len(plan.items) != 1 or plan.items[0][0] != 'segment':
+            if allow_host:
+                return self._pipeline(program, plan, feed_names,
+                                      fetch_names)
+            why = []
+            host = [plan.ops[i].type for kind, i in plan.items
+                    if kind == 'host']
+            if host:
+                why.append('host ops %r' % (host,))
+            if any(kind == 'bucket' for kind, _ in plan.items):
+                why.append('auto-bucketed unbounded while loops (pass '
+                           'max_trip_count to bound them)')
+            raise ValueError(
+                'Executor.compile needs a single-segment program for one '
+                'step function; this one splits into %d segments around '
+                '%s: pass allow_host=True for a CompiledPipeline, or run '
+                'it with Executor.run' % (
+                    sum(kind == 'segment' for kind, _ in plan.items),
+                    ' and '.join(why) or 'program cuts'))
         written = set(n for op in plan.ops for n in op.output_arg_names)
         missing = [n for n in fetch_names if n not in written]
         if missing:
@@ -1518,9 +1761,9 @@ class Executor(object):
             raise ValueError('feed names %r are not read by the program '
                              '(inputs: %r)' % (bogus, sorted(known)))
 
-        # a training CompiledStep runs eagerly (ROADMAP Queue 1 item 9)
-        graphed = plan.no_graph is None and not plan.writes_state and \
-            self.device.type == 'cuda'
+        # on a card the step replays a CUDA graph on a scope of its own,
+        # the caller's state copied into that scope's tensors
+        graphed = plan.no_graph is None and self.device.type == 'cuda'
         kept = core.Scope() if graphed else None
 
         def fn(step, state, data):
@@ -1547,10 +1790,37 @@ class Executor(object):
             out = dict(zip(fetch_names, results))
             for n in outputs:
                 if n not in out:
-                    out[n] = scope.find_var(n)
+                    v = scope.find_var(n)
+                    out[n] = v.clone() if graphed and isinstance(
+                        v, torch.Tensor) else v
             return out
 
         return CompiledStep(fn, inputs, state, outputs)
+
+    def _pipeline(self, program, plan, feed_names, fetch_names):
+        """compile(allow_host=True)'s CompiledPipeline, after the JAX
+        package's checks: every fetch is written by the program, every
+        feed read by a segment before it writes it or by a host op."""
+        known_out, known_in = set(), set()
+        for kind, idx in plan.items:
+            ops = [plan.ops[i] for i in idx] if kind == 'segment' else \
+                [plan.ops[idx]]
+            written = set()
+            for op in ops:
+                known_in.update(n for n in _op_reads(op)
+                                if n not in written)
+                written.update(op.output_arg_names)
+            known_out |= written
+        missing = [n for n in fetch_names if n not in known_out]
+        if missing:
+            raise ValueError('fetch vars %r are not produced by the '
+                             'program' % (missing,))
+        bogus = [n for n in feed_names if n not in known_in]
+        if bogus:
+            raise ValueError('feed names %r are not read by the program'
+                             % (bogus,))
+        return CompiledPipeline(self, program, plan, feed_names,
+                                fetch_names)
 
     def _assign(self, scope, name, value):
         """Write `value` into `scope`'s tensor `name` in place where its
@@ -1667,31 +1937,56 @@ class Executor(object):
             replica=self._replica, step_mix=self._step_mix, unread=unread)
 
     def _check_finite(self, name, val, persistable=False):
-        """Queue the on-device verdict isfinite(val).all() of a floating
-        value the step writes (FLAGS_check_nan_inf); on an AMP program
-        only of a persistable or fetched one."""
+        """Queue a floating value the step writes for the step's finite
+        check (FLAGS_check_nan_inf); on an AMP program only a persistable
+        or fetched one."""
         if self._verdicts is None or not isinstance(val, torch.Tensor) \
                 or not val.is_floating_point():
             return
         if self._checked_only is not None and not persistable and \
                 name not in self._checked_only:
             return
-        self._verdicts.append((name, torch.isfinite(val.detach()).all()))
+        self._verdicts.append((name, val.detach()))
+
+    def _verdict_launch(self, entries):
+        """(names, uint8 verdicts) of the queued (name, value) `entries`
+        and of the (names, verdicts) of replayed graphs among them, in
+        their order: the values checked in one finite_check launch."""
+        from ..ops.kernels import finite_check
+        vals = [v for n, v in entries if not isinstance(n, tuple)]
+        checked = finite_check.finite_check(vals, self.device)
+        names, parts, k = [], [], 0
+        for n, v in entries:
+            if isinstance(n, tuple):
+                names.extend(n)
+                parts.append(v)
+            else:
+                names.append(n)
+                parts.append(checked[k:k + 1])
+                k += 1
+        return tuple(names), torch.cat(parts) if len(parts) > 1 else \
+            (parts[0] if parts else checked)
 
     def _raise_non_finite(self, plan=None, snap=None, program=None):
         """Reference CheckVarHasNanOrInf (framework/details/
-        nan_inf_utils.h:28), per value written: every verdict of the
-        step crosses to the host in one copy, and the error names every
-        non-finite variable, not just the first.  Its notes carry the
-        first op that went non-finite (``health.nan_provenance``, a
-        replay from `snap`, the copies of what the step read) and the
-        flight recorder's dump (JAX: fluid/executor.py:2578-2628)."""
-        ok = torch.stack([v for _, v in self._verdicts]).cpu().tolist()
+        nan_inf_utils.h:28), per value written: every value of the step
+        is checked in one finite_check launch, its verdicts cross to the
+        host in one copy, and the error names every non-finite variable,
+        not just the first."""
+        names, verdicts = self._verdict_launch(self._verdicts)
+        self._verdicts = None
+        self._raise_bad(names, verdicts.cpu().tolist(), plan, snap, program)
+
+    def _raise_bad(self, names, ok, plan=None, snap=None, program=None):
+        """Raise FloatingPointError naming each of `names` whose verdict
+        in `ok` is 0.  Its notes carry the first op that went non-finite
+        (``health.nan_provenance``, a replay from `snap`, the copies of
+        what the step read) and the flight recorder's dump (JAX:
+        fluid/executor.py:2578-2628)."""
         bad = []
-        for (name, _), good in zip(self._verdicts, ok):
+        for name, good in zip(names, ok):
             if not good and name not in bad:
                 bad.append(name)
-        self._verdicts = None
         if not bad:
             return
         monitor.add('health/nan_trips')
@@ -1717,7 +2012,7 @@ class Executor(object):
     def _write(self, names, persistable, vals, env, scope):
         for n, p, val in zip(names, persistable, vals):
             self._check_finite(n, val, p)
-            if p:
+            if p and not self._counting:
                 self._write_state(scope, n, val)
             else:
                 env[n] = val
@@ -1741,7 +2036,24 @@ class Executor(object):
                             scope)
             return
         outs, rows = self._run_op(st, env, scope, program)
+        if st.opdef is not None and st.opdef.host:
+            self._write_host(st, outs, env, scope)
+            return
         self._write_op(st, outs, {}, rows, env, scope)
+
+    def _write_host(self, st, outs, env, scope):
+        """A host op's outputs: into the scope where the name is
+        persistable or the scope holds it (and no feed or earlier op of
+        the step gave it), as the JAX package's host ops write the scope
+        (a load into a parameter of another program), else into the
+        env."""
+        for slot, names, persistable in st.outs:
+            for n, p, val in zip(names, persistable, outs.get(slot, [])):
+                self._check_finite(n, val, p)
+                if p or (n not in env and scope.find_var(n) is not None):
+                    self._write_state(scope, n, val)
+                else:
+                    env[n] = val
 
     def _run_op(self, st, env, scope, program):
         """Read an op's inputs and run its lowering (a host op's without
@@ -1896,7 +2208,9 @@ class Executor(object):
         cond_name = op.input('Condition')[0]
         if op.attrs.get('__needs_grad__'):
             carry, out = self._entries(op, env, scope)
-            if op.attrs.get('__auto_bucket__'):
+            if op.attrs.get('__auto_bucket__') and self._nodes is None:
+                # (a capture's bucket was counted before the step:
+                # fluid/cuda_graph.py count_buckets)
                 self._bucket_trips(op, sub, dict(carry), cond_name, env,
                                    scope, program)
             out.update(self._while_scan(
@@ -1904,6 +2218,11 @@ class Executor(object):
                 scope, program))
             return out
         carry = self._carry(op, env, scope, cond_name)
+        if self._nodes is not None:
+            from . import cuda_graph
+            return cuda_graph.while_node(
+                self, carry, cond_name,
+                lambda c: self._body(sub, c, env, scope, program))
         while bool(carry[cond_name].reshape(())):
             carry = self._body(sub, carry, env, scope, program)
         return carry
@@ -1952,18 +2271,83 @@ class Executor(object):
             if o.attrs.get('__bucket_group__') == gid:
                 o.attrs['max_trip_count'] = bucket
 
+    def _count_trips(self, plan, program, feed, scope, step, env=None,
+                     step_t=None):
+        """The trips of the plan's auto-bucketed whiles at executor step
+        `step` (fluid/cuda_graph.py ``count_buckets``): the device ops
+        before the last of them run forward-only, their persistable
+        writes kept in the run's env, and each of them to its end from
+        its entries.  The trips as counted on the host, or, in a
+        capture, the counter index of each one's WHILE node."""
+        last = max(i for i, op in enumerate(plan.ops)
+                   if any(op is b for b in plan.buckets))
+        saved = (self._step, self._verdicts)
+        self._step, self._verdicts = step, None
+        self._step_t, self._step_mixes = step_t, None
+        self._owners = plan.binder.owners(scope)
+        self._sub_steps = plan.sub_steps
+        self._counting = True
+        trips = []
+        try:
+            if env is None:
+                env = self._stage_feeds(feed)
+            with torch.no_grad():
+                for op in plan.ops[:last + 1]:
+                    if any(op is b for b in plan.buckets):
+                        trips.append(self._while_trips(op, env, scope,
+                                                       program))
+                    elif not _is_host(op):
+                        self._lower_op(_OpStep(op), env, scope, program)
+        finally:
+            self._counting = False
+            self._step, self._verdicts = saved
+            self._owners = {}
+            self._step_t = self._step_mixes = None
+        return trips
+
+    def _while_trips(self, op, env, scope, program):
+        sub = self._sub_steps[op.attrs['sub_block']]
+        cond = op.input('Condition')[0]
+        carry, _ = self._entries(op, env, scope)
+        if cond not in carry:
+            carry[cond] = self._read(cond, env, scope)
+        run = lambda c: self._body(sub, c, env, scope, program)  # noqa
+        if self._nodes is not None:
+            from . import cuda_graph
+            k = len(self._nodes.manifests)
+            cuda_graph.while_node(self, carry, cond, run)
+            return k
+        trips = 0
+        while bool(carry[cond].reshape(())):
+            carry = run(carry)
+            trips += 1
+        return trips
+
     def _lower_conditional_block(self, op, sub, env, scope, program):
         """A conditional_block: its sub-block runs when Cond holds (read
         on the host, the JAX package's lax.cond), else its outputs keep
-        their values.  With __needs_grad__ it also writes the entries."""
+        their values.  With __needs_grad__ it also writes the entries.
+        In a capture the condition stays on the device: an IF node
+        (fluid/cuda_graph.py; a branch that carries gradients is never
+        captured, ``_host_control``).  The first run of a signature
+        builds an untaken branch's kernels without running them
+        (``cuda_graph.warm_branch``)."""
         out = {}
-        if op.attrs.get('__needs_grad__'):
+        needs_grad = op.attrs.get('__needs_grad__')
+        if needs_grad:
             carry, out = self._entries(op, env, scope)
         else:
             carry = self._carry(op, env, scope)
         pred = self._read(op.input('Cond')[0], env, scope)
-        if bool(pred.reshape(())):
-            carry = self._body(sub, carry, env, scope, program)
+        run = lambda c: self._body(sub, c, env, scope, program)  # noqa
+        if self._nodes is not None and not needs_grad:
+            from . import cuda_graph
+            carry = cuda_graph.if_node(self, carry, pred, run)
+        elif bool(pred.reshape(())):
+            carry = run(carry)
+        elif self._warm_branches:
+            from . import cuda_graph
+            cuda_graph.warm_branch(self, op, carry, run)
         out.update(carry)
         return out
 
@@ -1990,11 +2374,14 @@ class Executor(object):
                 final = self._while_scan(
                     sub, entry, op.input('Condition')[0], local,
                     int(op.attrs['max_trip_count']), scope, program)
-            elif bool(self._read(op.input('Cond')[0], env,
-                                 scope).reshape(())):
-                final = self._body(sub, entry, local, scope, program)
             else:
-                final = entry
+                pred = self._read(op.input('Cond')[0], env, scope)
+                run = lambda c: self._body(sub, c, local, scope,  # noqa
+                                           program)
+                if bool(pred.reshape(())):
+                    final = run(entry)
+                else:
+                    final = entry
             xs = [entry[n] for n in floats] + [shadow[n] for n in closure]
             ys, cts = [], []
             for n, g in zip(floats, op.input('GRAD::Out')):

@@ -96,8 +96,9 @@ class DistMultiTrainer(TrainerDesc):
 
 
 class PipelineTrainer(TrainerDesc):
-    """Pipeline trainer (framework/pipeline_trainer.cc); its schedule
-    waits with ROADMAP Queue 1 item 9's list."""
+    """Pipeline trainer (framework/pipeline_trainer.cc); its schedule,
+    PipelineOptimizer over the program pipeline, waits with ROADMAP
+    Queue 1 item 13."""
 
     def __init__(self):
         super(PipelineTrainer, self).__init__()

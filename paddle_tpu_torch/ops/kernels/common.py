@@ -142,6 +142,22 @@ def recording_launches(stream=None):
         _recording = saved
 
 
+@contextlib.contextmanager
+def sub_recording():
+    """Inside, launches go into the yielded Recording of their own (the
+    body of a conditional node, which runs a number of times a replay
+    that only the replay knows); uploads go where the enclosing
+    capture's go."""
+    global _recording
+    parent = _recording
+    _recording = Recording(parent.stream)
+    _recording.uploads = parent.uploads
+    try:
+        yield _recording
+    finally:
+        _recording = parent
+
+
 def recording():
     """The Recording of the CUDA graph being captured, or None."""
     return _recording

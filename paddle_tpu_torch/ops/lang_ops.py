@@ -64,7 +64,9 @@ def beam_search(ctx, ins, attrs):
     finished = (pre_ids == end_id)[..., None]  # [B, K, 1]
     frozen = torch.full((v,), -1e9, dtype=scores.dtype,
                         device=scores.device)
-    frozen[end_id] = 0.0
+    # a fill, not an item assignment: that copies a host scalar, which a
+    # CUDA graph capture refuses
+    frozen.narrow(0, end_id, 1).fill_(0.0)
     total = pre_scores[..., None] + torch.where(finished, frozen, scores)
     sel_scores, flat_idx = _top_k(total.reshape(b, k * v), k)
     return {'SelectedIds': [flat_idx % v], 'SelectedScores': [sel_scores],

@@ -319,9 +319,8 @@ def test_compile_with_host_ops_names_item_7():
     main.global_block().append_op('print', inputs={'In': y},
                                   outputs={'Out': y}, infer_shape=False)
     exe = tfluid.Executor(tfluid.CPUPlace())
-    # the host ops are ported (ROADMAP item 7); CompiledPipeline waits
-    # with item 9's list
-    with pytest.raises(NotImplementedError, match="item 9's list"):
-        exe.compile(main, ['x'], [y], allow_host=True)
+    # allow_host=True compiles the pipeline around the host op
+    pipe = exe.compile(main, ['x'], [y], allow_host=True)
+    assert pipe.host_op_types == ['print']
     with pytest.raises(ValueError, match='host ops'):
         exe.compile(main, ['x'], [y])

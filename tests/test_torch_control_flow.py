@@ -314,8 +314,8 @@ def test_while_forward_nested_and_arrays():
 
     progs = build_both(build)
     same_program(progs['jax'][0], progs['torch'][0])
-    assert 'reads its condition on the host' in _plan(
-        progs['torch'][0], progs['torch'][2]).no_graph
+    # the forward-only whiles become WHILE nodes in a capture
+    assert _plan(progs['torch'][0], progs['torch'][2]).no_graph is None
     out = run_both(progs, [{'x': np.array([1., -2., 8.], 'float32')}])
     assert_runs_close(out, TOL)
     acc, row2, arr, i = out['torch'][0]
@@ -324,15 +324,34 @@ def test_while_forward_nested_and_arrays():
 
 
 def test_capture_plans_name_what_reads_the_host():
-    """A training step whose whiles are all bounded may be captured; a
-    forward-only while, an auto-bucketed one and a conditional_block
-    each keep their plan off CUDA graphs with a named reason."""
+    """A bounded while and an auto-bucketed one (counted on the device
+    before the step) may be captured; a conditional_block that carries
+    gradients (a graph would run its untaken branch) and a host op in a
+    loop body keep their unit off CUDA graphs, named."""
     bounded = build_both(lambda f: _while_prog(f, 4))['torch']
     assert _plan(bounded[0], bounded[2]).no_graph is None
     bucket = build_both(lambda f: _while_prog(f, None))['torch']
-    assert 'auto-bucket' in _plan(bucket[0], bucket[2]).no_graph
+    plan = _plan(bucket[0], bucket[2])
+    assert plan.no_graph is None and len(plan.buckets) == 1
+    assert [k for k, _ in plan.items] == ['segment', 'bucket', 'segment']
     cond = build_both(lambda f: _cond_prog(f, True))['torch']
-    assert 'conditional_block' in _plan(cond[0], cond[2]).no_graph
+    why = _plan(cond[0], cond[2]).no_graph
+    assert 'conditional_block' in why and 'carries gradients' in why
+
+    def printing(fluid):
+        layers = fluid.layers
+        i = layers.fill_constant([1], 'int64', 0)
+        n = layers.fill_constant([1], 'int64', 3)
+        c = layers.less_than(i, n)
+        wh = layers.While(c)
+        with wh.block():
+            layers.Print(i, message='trip')
+            layers.increment(i)
+            layers.assign(layers.less_than(i, n), c)
+        return [i]
+    main, _, fetch = build_both(printing)['torch']
+    why = _plan(main, fetch).no_graph
+    assert 'host op print inside its body' in why and 'while' in why
 
 
 def test_case_and_switch_case():

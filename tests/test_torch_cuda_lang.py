@@ -10,7 +10,7 @@ RecomputeOptimizer):
 - label_semantic_roles at TINY fed by the bucketed loader on
   CUDAPlace(0): each bucket's steps replay from its own CUDA graph
   bitwise its eager steps, and the eval clone (chunk_eval, a host op)
-  is refused capture by name;
+  runs as a pipeline around its host unit;
 - BERT-tiny under RecomputeOptimizer: 3 steps bitwise the same steps
   without recompute, the step captured and replayed.
 
@@ -182,9 +182,11 @@ def test_srl_buckets_replay_bitwise_eager(dev):
             assert all(torch.equal(after[n], held[n]) for n in names)
         assert max(seen.values()) >= 3
         feed = srl.pad_batch(samples[:cfg.batch], 32)
-        why = exe._get_plan(test, feed, [decode.name] +
-                            [v.name for v in chunk]).no_graph
-        assert 'chunk_eval' in why
+        plan = exe._get_plan(test, feed, [decode.name] +
+                             [v.name for v in chunk])
+        assert plan.no_graph is None
+        assert 'chunk_eval' in [u.steps[0].members[0].op.type
+                                for u in plan.units if u.host]
         exe.run(test, feed=feed, fetch_list=[decode] + chunk)
 
 

@@ -80,7 +80,7 @@ def test_kernel_registry_and_report():
                          'embedding_update', 'flash_attention',
                          'flash_attention_bwd', 'fused_adam', 'fused_lamb',
                          'quant_quantize', 'quant_reduce', 'dropout',
-                         'dropout_grad'}
+                         'dropout_grad', 'graph_cond', 'finite_check'}
     assert info['embedding_lookup']['op_types'] == ('lookup_table',
                                                     'lookup_table_v2')
     assert info['embedding_scatter_add']['replaces'].startswith(

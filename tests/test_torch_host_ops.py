@@ -174,7 +174,9 @@ def test_deferral_is_the_jax_executors_and_keeps_the_whole_program_grad(
     exe = tfluid.Executor(tfluid.CPUPlace())
     plan = exe._get_plan(tmain, {'x': X}, [tloss.name] + grads)
     assert plan.kind == 'wpg'
-    assert 'host op print' in plan.no_graph
+    # the deferred print is a host unit after the whole-program grad's
+    assert plan.no_graph is None
+    assert [u.host for u in plan.units] == [False, True]
     outs = []
     for main, start, loss in ((tmain, tstart, tloss), _train(tfluid, False)):
         assert [p.name for p in main.all_parameters()] == \
@@ -206,9 +208,11 @@ def test_compile_refuses_host_ops_naming_where_the_pipeline_waits():
     main, startup, y = _program(tfluid, lambda f, b, x: f.layers.Print(
         f.layers.scale(x, scale=2.0)))
     exe = tfluid.Executor(tfluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="item 9's list"):
-        exe.compile(main, ['x'], [y], allow_host=True)
-    with pytest.raises(ValueError, match='print'):
+    pipe = exe.compile(main, ['x'], [y], allow_host=True)
+    assert isinstance(pipe, texecutor.CompiledPipeline)
+    assert pipe.host_op_types == ['print']
+    with pytest.raises(ValueError, match='single-segment.*print'):
         exe.compile(main, ['x'], [y])
     plan = exe._get_plan(main, {'x': X}, [y.name])
-    assert plan.kind == 'forward' and 'print' in plan.no_graph
+    assert plan.kind == 'forward' and plan.no_graph is None
+    assert [u.host for u in plan.units] == [False, True]
