@@ -497,6 +497,35 @@ Phases, each of which fails the run (non-zero exit) on error:
      eager, and the pool growth of the check's input copies.  The
      kernels line gains finite_check, timed at (f)'s checked set, and
      graph_cond, whose launches all run in graph replays ((a), (b)).
+ 20. the dataset loaders, the rest of the core and the nn ops, under
+     cuDNN's deterministic algorithms: (a) the book's image classifier,
+     the JAX package's resnet18_cifar (ResNet-18 at 3 x 32 x 32, 10
+     classes) with Adam(0.001) at batch 128 (Fluid 1.6's book
+     test_image_classification.py), fed from dataset.cifar.train10()
+     through reader.shuffle, reader.batch and a DataLoader staging onto
+     the card: 20 steps through Executor.run (step 1 eager, step 2
+     captured, the rest replayed), one K4 launch each; the losses and
+     the final state bitwise a second, eager-only run on the same
+     batches; step 1 bitwise its plain-kernel step; the loss falling;
+     the for_test clone over test10()'s batches (no kernel launched);
+     the replayed, cached eager and device ms and the peak; (b) phase
+     7's Wide&Deep with fluid.layers.auc(num_thresholds=4095) on its
+     [1 - p, p] predictions, 10 steps (2 K6 and 2 K7 launches each,
+     replayed from step 2): StatPos / StatNeg and the outputs bitwise
+     an eager-only run after every step, step 10's AUC within 1e-6 of
+     the auc op's CPU lowering on that step's predictions and
+     statistics (which it reproduces bitwise); the replayed step beside
+     Wide&Deep without auc; (c) every op type of the nn slice (item
+     11b's nn_ops, size, rank, soft_relu,
+     gaussian_random_batch_size_like) at a size its users run, forward
+     and gradient, against the CPU lowering (floats within 1e-5 of the
+     largest magnitude, integers exact) and twice bitwise, but
+     grid_sampler's X gradient (F.grid_sample adds it with atomics);
+     (d) a denoising step drawing gaussian_random_batch_size_like,
+     gaussian_random and uniform_random (10^6 values each) in a main
+     program: 6 steps, 5 replayed, each bitwise the eager step of the
+     same number, each drawing anew, step 1's means and standard
+     deviations within 3 sigma of their sampling error.
 The line before the last is a JSON object {"kernels": [...]}.  Each
 row's "launches" are those the wrappers made on the main path (every
 counted step and request: the counters set to 0 just before each and
@@ -529,9 +558,11 @@ import contextlib
 import ctypes
 import gc
 import io
+import itertools
 import json
 import math
 import os
+import random
 import socket
 import statistics
 import subprocess
@@ -546,8 +577,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch import reader as rdr
 from paddle_tpu_torch import runtime, weights
-from paddle_tpu_torch.dataset import mnist
+from paddle_tpu_torch.dataset import cifar, mnist
 from paddle_tpu_torch.fluid import compile_cache, core, flags, metrics
 from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
 from paddle_tpu_torch.models import bert
@@ -7908,6 +7940,531 @@ def compile_plane_phase(seed, dev, timer):
     return [fin_row, graph_cond_row(dev, decode)]
 
 
+# ----------------------------------------------------------- phase 20
+CIFAR_BATCH = 128   # Fluid 1.6 book test_image_classification.py
+CIFAR_LR = 0.001    # its Adam(learning_rate=0.001)
+CIFAR_STEPS = 20
+WD_AUC_STEPS = 10
+WD_AUC_THRESHOLDS = 4095
+WD_AUC_TOL = 1e-6
+NN_TOL = 1e-5       # (c): floats within 1e-5 of the largest magnitude
+DRAW_BATCH = 1024   # (d): 1024 x 1024 = 10^6 draws of each op a step
+DRAW_DIM = 1024
+DRAW_STEPS = 6
+DRAW_STD = 0.1
+DRAW_SIGMAS = 3.0
+
+
+def cifar_path(seed):
+    """The book's image classifier: the JAX package's resnet18_cifar
+    (models.resnet.build(image_shape=(3, 32, 32), class_dim=10,
+    depth=18)) trained by Fluid 1.6's book recipe, Adam(0.001) at batch
+    128, with its for_test clone."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feeds, _, loss, acc = resnet.build(image_shape=(3, 32, 32),
+                                           class_dim=10, depth=18)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=CIFAR_LR).minimize(loss)
+    expected = {k: 0 for k in common.KERNELS}
+    expected['fused_adam'] = 1
+    return {'name': 'ResNet-18 CIFAR-10 Adam', 'main': main,
+            'startup': startup, 'test': test, 'feeds': feeds, 'loss': loss,
+            'acc': acc, 'expected': expected, 'bitwise': True,
+            'batch': None}
+
+
+def cifar_reader(train):
+    """cifar's samples as [3, 32, 32] images and int64 labels."""
+    return rdr.map_readers(lambda s: (s[0].reshape(3, 32, 32), s[1]),
+                           train)
+
+
+def cifar_loader(path, seed):
+    """dataset.cifar.train10() through reader.shuffle and reader.batch
+    (drop_last) into a DataLoader staging onto the card, for as many
+    epochs as CIFAR_STEPS takes."""
+    batches = rdr.batch(rdr.shuffle(cifar_reader(cifar.train10()), 1024),
+                        CIFAR_BATCH, drop_last=True)
+
+    def epochs():
+        for _ in range(-(-CIFAR_STEPS * CIFAR_BATCH // 1024)):
+            yield from batches()
+    random.seed(seed)
+    loader = fluid.io.DataLoader.from_generator(
+        feed_list=[path['feeds']['image'], path['feeds']['label']],
+        capacity=4)
+    return loader.set_sample_list_generator(epochs, fluid.CUDAPlace(0))
+
+
+def p20_steps(path, feeds, fetch, start=None, eager=False, watch=()):
+    """`feeds` (an iterable of feed dicts) as steps of path['main'] on a
+    new executor and scope after path['startup'], from `start` where
+    given (else the startup state, returned): through Executor.run,
+    counted (step 1 eager, step 2 captured, later steps replayed), or
+    with `eager` through eager_run, uncounted.  Returns {'steps': [{'out'
+    (fetched tensors), 'counts', 'replayed' (by kernel), 'secs',
+    'before' / 'after' (copies of the `watch` variables)}], 'feeds' (a
+    copy of each), 'start', 'refused' (capture refusals), 'exe',
+    'scope'}."""
+    main = path['main']
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    res = {'steps': [], 'feeds': [], 'exe': exe, 'scope': scope}
+    with fluid.scope_guard(scope):
+        without_counting(lambda: exe.run(path['startup']))
+        if start is None:
+            start = snapshot(scope, weights.startup_names(path['startup']))
+        else:
+            for n, v in start.items():
+                scope.set_var(n, v.clone())
+        for feed in feeds:
+            res['feeds'].append({k: torch.as_tensor(v).clone()
+                                 for k, v in feed.items()})
+            step = {'before': snapshot(scope, watch)}
+            t0 = time.perf_counter()
+            if eager:
+                out = without_counting(lambda: eager_run(
+                    exe, main, feed, fetch, return_numpy=False))
+            else:
+                out, step['counts'] = counted(lambda: exe.run(
+                    main, feed=feed, fetch_list=fetch, return_numpy=False))
+                step['replayed'] = {k: common.replayed(k)
+                                    for k in common.KERNELS}
+            torch.cuda.synchronize()
+            step['secs'] = time.perf_counter() - t0
+            step['out'] = [v.clone() for v in out]
+            step['after'] = snapshot(scope, watch)
+            res['steps'].append(step)
+        res['refused'] = graph_refusals(main, scope)
+    res['start'] = start
+    return res
+
+
+def check_replayed(label, res, expected, kernel):
+    """Every step launched `expected`, every step after the first was
+    replayed from a CUDA graph (its `kernel` launches all replayed), and
+    no capture was refused."""
+    for k, step in enumerate(res['steps']):
+        if step['counts'] != expected:
+            raise AssertionError('%s step %d launched %s, expected %s' % (
+                label, k + 1, step['counts'], expected))
+    replayed = sum(s['replayed'][kernel] for s in res['steps'])
+    if res['refused'] or replayed != \
+            (len(res['steps']) - 1) * expected[kernel]:
+        raise AssertionError('%s: %d %s launches replayed; refused: %s' % (
+            label, replayed, kernel, res['refused']))
+    return replayed
+
+
+def same_steps(label, res, eager, names=()):
+    """Each step's outputs and `names`' values after it bitwise the eager
+    run's."""
+    for k, (a, b) in enumerate(zip(res['steps'], eager['steps'])):
+        bad = [n for n in names if not torch.equal(a['after'][n],
+                                                   b['after'][n])]
+        if bad or not all(torch.equal(x, y) for x, y in zip(a['out'],
+                                                            b['out'])):
+            raise AssertionError('%s step %d: the replayed outputs or %s '
+                                 'differ from the eager run' % (
+                                     label, k + 1, bad))
+
+
+def step_ms(res, skip):
+    return statistics.median(s['secs'] for s in res['steps'][skip:]) * 1e3
+
+
+def cifar_phase(seed, card):
+    """Phase 20 (a): CIFAR_STEPS steps of the book's image classifier fed
+    by the CIFAR reader through Executor.run (step 1 eager, step 2
+    captured, the rest replayed), each launching K4 once; the losses and
+    the whole state bitwise a second, eager-only run on the same
+    batches; step 1 bitwise its plain-kernel step; the loss falling;
+    the test clone over test10()."""
+    path = cifar_path(seed)
+    loss = path['loss']
+    names = weights.startup_names(path['startup'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batches = iter(cifar_loader(path, seed))
+    res = p20_steps(path, itertools.islice(batches, CIFAR_STEPS), [loss])
+    batches.close()
+    peak = torch.cuda.max_memory_allocated()
+    replayed = check_replayed('(a)', res, path['expected'], 'fused_adam')
+    eager = p20_steps(path, res['feeds'], [loss], res['start'], eager=True)
+    same_steps('(a)', res, eager)
+    with fluid.scope_guard(res['scope']):
+        end = snapshot(res['scope'], names)
+        dev_ms = without_counting(lambda: device_ms(profile_run(
+            '', lambda: res['exe'].run(path['main'], feed=res['feeds'][-1],
+                                       fetch_list=[loss]), quiet=True)))
+    differ = [n for n in names
+              if not torch.equal(eager['scope'].find_var(n), end[n])]
+    if differ:
+        raise AssertionError('(a) the state after the replayed steps '
+                             'differs from the eager run in %s' % differ[:5])
+    losses = [float(s['out'][0]) for s in res['steps']]
+    after1 = p20_steps(path, res['feeds'][:1], [loss], res['start'],
+                       eager=True, watch=names)['steps'][0]['after']
+    check_plain_step(path, [loss.name], res['start'], after1, losses[0], [],
+                     CIFAR_LR, batch=res['feeds'][0])
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError('(a) losses not finite or not falling: %s'
+                             % losses)
+    # the for_test clone over test10()'s batches
+    feeder = fluid.DataFeeder([path['feeds']['image'],
+                               path['feeds']['label']], fluid.CUDAPlace(0),
+                              program=path['test'])
+    evals = []
+    with fluid.scope_guard(res['scope']):
+        for batch in rdr.batch(cifar_reader(cifar.test10()), CIFAR_BATCH)():
+            (l, a), counts = counted(lambda: res['exe'].run(
+                path['test'], feed=feeder.feed(batch),
+                fetch_list=[path['loss'], path['acc']]))
+            evals.append((float(l), float(a), len(batch)))
+            if any(counts.values()):
+                raise AssertionError('(a) the test clone launched %s'
+                                     % counts)
+    if len(evals) != 2 or not np.isfinite([e[:2] for e in evals]).all():
+        raise AssertionError('(a) test clone: %s' % evals)
+    rep_ms, eager_ms = step_ms(res, 2), step_ms(eager, 1)
+    log('  (a) %d steps at batch %d from the CIFAR reader (DataLoader, '
+        'reader.shuffle + batch): losses %s; K4 launched %d times (%d '
+        'replayed); replayed bitwise the eager-only run, step 1 bitwise '
+        'its plain-kernel step' % (
+            CIFAR_STEPS, CIFAR_BATCH, ['%.4f' % x for x in losses[::4]] +
+            ['%.4f' % losses[-1]], CIFAR_STEPS, replayed))
+    log('  (a) replayed %.3f ms a step (%.0f images/s), cached eager %.3f '
+        'ms, device %.3f ms (one profiled replay), peak %.3f GiB; test '
+        'clone over %d images: loss %.4f, accuracy %.4f (%s | %s)' % (
+            rep_ms, CIFAR_BATCH / rep_ms * 1e3, eager_ms, dev_ms,
+            peak / 2 ** 30, sum(e[2] for e in evals),
+            np.mean([e[0] for e in evals]), np.mean([e[1] for e in evals]),
+            torch.cuda.get_device_name(0), card))
+
+
+def wide_deep_auc_program(seed):
+    """wide_deep_program's Wide&Deep (its batch and launches) with the
+    PaddleRec CTR recipe's streaming AUC on its [1 - p, p]
+    predictions."""
+    path = wide_deep_program(seed)
+    cfg = wide_deep.WideDeepConfig(sparse_feature_dim=WD_ROWS)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feeds, preds, loss = wide_deep.build(cfg)
+        auc, _, stats = fluid.layers.auc(preds, feeds['label'],
+                                         num_thresholds=WD_AUC_THRESHOLDS)
+        fluid.optimizer.Adagrad(WD_LR, epsilon=1e-6).minimize(loss)
+    path.update(name='Wide&Deep Adagrad + auc', main=main, startup=startup,
+                loss=loss, preds=preds, auc=auc,
+                stats=[v.name for v in stats])
+    return path
+
+
+def wd_auc_phase(seed, card):
+    """Phase 20 (b): Wide&Deep with auc, WD_AUC_STEPS steps replayed from
+    a CUDA graph after the first two, K6 and K7 launched and counted
+    each step; StatPos / StatNeg and the outputs bitwise an eager-only
+    run's after every step, the AUC of step WD_AUC_STEPS within
+    WD_AUC_TOL of the auc op's CPU lowering on that step's predictions
+    and statistics (which it must reproduce bitwise); the replayed step
+    against Wide&Deep without auc."""
+    path = wide_deep_auc_program(seed)
+    feeds = [path['batch']] * WD_AUC_STEPS
+    fetch = [path['loss'], path['auc'], path['preds']]
+    res = p20_steps(path, feeds, fetch, watch=path['stats'])
+    check_replayed('(b)', res, path['expected'], 'embedding_update')
+    eager = p20_steps(path, feeds, fetch, res['start'], eager=True,
+                      watch=path['stats'])
+    same_steps('(b)', res, eager, path['stats'])
+    last = res['steps'][-1]
+    stat_pos, stat_neg = path['stats']
+    cpu = registry.get('auc').run(registry.LowerCtx(step=0, device='cpu'), {
+        'Predict': [last['out'][2].cpu()],
+        'Label': [torch.as_tensor(path['batch']['label'])],
+        'StatPos': [last['before'][stat_pos].cpu()],
+        'StatNeg': [last['before'][stat_neg].cpu()]},
+        {'num_thresholds': WD_AUC_THRESHOLDS})
+    err = abs(float(cpu['AUC'][0]) - float(last['out'][1]))
+    if err > WD_AUC_TOL or not (
+            torch.equal(cpu['StatPosOut'][0], last['after'][stat_pos].cpu())
+            and torch.equal(cpu['StatNegOut'][0],
+                            last['after'][stat_neg].cpu())):
+        raise AssertionError('(b) step %d: AUC %.9f against the CPU '
+                             'lowering\'s %.9f, or its statistics differ'
+                             % (WD_AUC_STEPS, float(last['out'][1]),
+                                float(cpu['AUC'][0])))
+    plain = wide_deep_program(seed)
+    plain = without_counting(lambda: p20_steps(plain, feeds, [plain['loss']],
+                                               res['start']))
+    log('  (b) Wide&Deep (%d-row tables, batch %d) with auc(num_thresholds='
+        '%d): losses %.6f -> %.6f, AUC %s; StatPos + StatNeg count %d '
+        'examples, bitwise the eager-only run after every step; step %d\'s '
+        'AUC %.9f, the CPU lowering %.9f (|diff| %.1e); K6 and K7 launched '
+        'and replayed each step (%s)' % (
+            WD_ROWS, WD_BATCH, WD_AUC_THRESHOLDS,
+            float(res['steps'][0]['out'][0]), float(last['out'][0]),
+            ['%.5f' % float(s['out'][1]) for s in res['steps']],
+            sum(float(v.sum()) for v in last['after'].values()),
+            WD_AUC_STEPS, float(last['out'][1]), float(cpu['AUC'][0]), err,
+            {k: n for k, n in path['expected'].items() if n}))
+    log('  (b) replayed step with auc %.4f ms, without %.4f ms, cached '
+        'eager with auc %.4f ms (%s | %s)' % (
+            step_ms(res, 2), step_ms(plain, 2), step_ms(eager, 1),
+            torch.cuda.get_device_name(0), card))
+
+
+def nn_op_cases(rng):
+    """Every op type of the nn slice at a size its users run: (op,
+    make_inputs, attrs), the inputs made when make_inputs() is called.
+    tests/test_torch_coverage.py holds the list of those op types and
+    checks that each has a case here."""
+    f = lambda *s: rng.randn(*s).astype('float32')  # noqa: E731
+    prob = lambda *s: rng.uniform(0.02, 0.98, s).astype('float32')  # noqa
+
+    def pooled(x):
+        """(max, flat h * w index) of x's 2 x 2 windows, for unpool."""
+        n, c, h, w = x.shape
+        win = x.reshape(n, c, h // 2, 2, w // 2, 2).transpose(
+            0, 1, 2, 4, 3, 5).reshape(n, c, h // 2, w // 2, 4)
+        am = win.argmax(-1)
+        rows = np.arange(h // 2)[:, None] * 2 + am // 2
+        cols = np.arange(w // 2)[None, :] * 2 + am % 2
+        return win.max(-1), (rows * w + cols).astype('int32')
+
+    def unpool_ins():
+        vals, idx = pooled(f(8, 64, 112, 112))
+        return {'X': [vals], 'Indices': [idx]}
+
+    def auc_ins():
+        p = prob(4096)
+        return {'Predict': [np.stack([1 - p, p], 1)],
+                'Label': [(rng.rand(4096, 1) < p[:, None]).astype('int64')],
+                'StatPos': [rng.randint(0, 50, 4096).astype('float32')],
+                'StatNeg': [rng.randint(0, 50, 4096).astype('float32')]}
+
+    fpn = lambda: f(8, 256, 64, 64)  # noqa: E731  an FPN level at batch 8
+    return [
+        # a DCGAN / FPN decoder stage; grouped and dilated, asymmetric
+        ('conv2d_transpose', lambda: {'Input': [f(8, 256, 32, 32)],
+                                      'Filter': [f(256, 128, 4, 4) * 0.02]},
+         {'strides': [2, 2], 'paddings': [1, 1]}),
+        ('conv2d_transpose', lambda: {'Input': [f(8, 64, 28, 28)],
+                                      'Filter': [f(64, 16, 3, 3) * 0.05]},
+         {'strides': [2, 2], 'paddings': [0, 1, 1, 0], 'groups': 4,
+          'dilations': [2, 1]}),
+        ('depthwise_conv2d_transpose',
+         lambda: {'Input': [f(8, 128, 32, 32)],
+                  'Filter': [f(128, 1, 3, 3) * 0.1]},
+         {'strides': [2, 2], 'paddings': [1, 1], 'groups': 128}),
+        # style transfer's instance norm, ResNet-50 group norm (32 groups)
+        ('instance_norm', lambda: {'X': [f(4, 128, 128, 128)],
+                                   'Scale': [f(128)], 'Bias': [f(128)]},
+         {'epsilon': 1e-5}),
+        ('group_norm', lambda: {'X': [f(32, 256, 56, 56)],
+                                'Scale': [f(256)], 'Bias': [f(256)]},
+         {'groups': 32, 'epsilon': 1e-5}),
+        # detection box regression, CTR, distillation, regression
+        ('huber_loss', lambda: {'X': [f(8192, 4)], 'Y': [f(8192, 4)]},
+         {'delta': 1.0}),
+        ('smooth_l1_loss', lambda: {'X': [f(8192, 4)], 'Y': [f(8192, 4)]},
+         {'sigma': 3.0}),
+        ('log_loss', lambda: {'Predicted': [prob(4096, 1)],
+                              'Labels': [(rng.rand(4096, 1) > 0.5).astype(
+                                  'float32')]}, {'epsilon': 1e-4}),
+        ('kldiv_loss', lambda: {'X': [np.log(prob(256, 1000))],
+                                'Target': [prob(256, 1000) / 500.0]},
+         {'reduction': 'batchmean'}),
+        ('mse_loss', lambda: {'X': [f(128, 1000)], 'Y': [f(128, 1000)]}, {}),
+        ('auc', auc_ins, {'num_thresholds': 4095}),
+        # FPN's 2x top-down up-sampling, and a non-integer down-sampling
+        ('bilinear_interp', lambda: {'X': [fpn()]}, {'out_h': 128,
+                                                     'out_w': 128}),
+        ('bilinear_interp', lambda: {'X': [fpn()]}, {'out_h': 40,
+                                                     'out_w': 40}),
+        ('nearest_interp', lambda: {'X': [fpn()]}, {'scale': 2.0}),
+        ('interp_nearest', lambda: {'X': [fpn()]}, {'out_h': 45,
+                                                    'out_w': 90}),
+        # a spatial transformer's sampler
+        ('grid_sampler', lambda: {'X': [f(32, 64, 56, 56)],
+                                  'Grid': [rng.uniform(-1.05, 1.05, (
+                                      32, 56, 56, 2)).astype('float32')]},
+         {}),
+        # TSM on a ResNet-50 stage: 8 clips of 8 segments
+        ('temporal_shift', lambda: {'X': [f(64, 64, 56, 56)]},
+         {'seg_num': 8, 'shift_ratio': 0.125}),
+        # AlexNet's first lrn
+        ('lrn', lambda: {'X': [f(32, 96, 55, 55)]},
+         {'n': 5, 'k': 2.0, 'alpha': 1e-4, 'beta': 0.75}),
+        # a SegNet encoder stage; a C3D / 3-D U-Net pool
+        ('max_pool2d_with_index', lambda: {'X': [f(8, 64, 112, 112)]},
+         {'ksize': [2, 2], 'strides': [2, 2]}),
+        ('max_pool2d_with_index', lambda: {'X': [np.round(f(
+            8, 64, 56, 56))]},
+         {'ksize': [3, 3], 'strides': [2, 2], 'paddings': [1, 1]}),
+        ('max_pool3d_with_index', lambda: {'X': [f(4, 64, 16, 56, 56)]},
+         {'ksize': [2, 2, 2], 'strides': [2, 2, 2]}),
+        ('unpool', unpool_ins, {'ksize': [2, 2], 'strides': [2, 2]}),
+        # an NTM's shift weighting
+        ('conv_shift', lambda: {'X': [f(32, 128)], 'Y': [f(32, 3)]}, {}),
+        ('size', lambda: {'Input': [f(8, 256, 64, 64)]}, {}),
+        ('rank', lambda: {'Input': [f(8, 256, 64, 64)]}, {}),
+        ('soft_relu', lambda: {'X': [f(128, 1000) * 30]},
+         {'threshold': 40.0}),
+        ('gaussian_random_batch_size_like',
+         lambda: {'Input': [f(4096, 8)]},
+         {'shape': [-1, 1024], 'mean': 0.0, 'std': 0.1, 'seed': 0,
+          'dtype': 'float32'}),
+    ]
+
+
+# (c): the gradient that F.grid_sample adds into X with atomics on the
+# card, in an order that varies from launch to launch
+NN_NOT_TWICE = {('grid_sampler', 'grad 0')}
+
+
+def nn_ops_phase(seed, dev):
+    """Phase 20 (c): every op type of the nn slice on the card, forward
+    and gradient, against the same lowering on the CPU (floats within
+    NN_TOL of the largest magnitude, integers exact), and twice bitwise
+    but NN_NOT_TWICE, cuDNN deterministic."""
+    rng = np.random.RandomState(seed + 20)
+    cases = nn_op_cases(rng)
+    worst_all, n_out = 0.0, 0
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for op, make, attrs in cases:
+            ins = make()
+            first = lang_op_run(op, ins, attrs, dev, seed)
+            second = lang_op_run(op, ins, attrs, dev, seed)
+            cpu = lang_op_run(op, ins, attrs, 'cpu', seed)
+            outs = [(s, a, b, c) for s in sorted(first[0]) for a, b, c in
+                    zip(first[0][s], second[0][s], cpu[0][s])]
+            outs += [('grad %d' % k, a, b, c) for k, (a, b, c) in enumerate(
+                zip(first[1], second[1], cpu[1])) if a is not None]
+            twice = [s for s, a, b, _ in outs if not torch.equal(a, b) and
+                     (op, s) not in NN_NOT_TWICE]
+            bad = []
+            for s, a, _, c in outs:
+                n_out += 1
+                if a.is_floating_point():
+                    err = max_abs(a, c) / max(c.abs().max().item(), 1e-30)
+                    worst_all = max(worst_all, err)
+                    if err > NN_TOL:
+                        bad.append('%s %.2e' % (s, err))
+                elif not torch.equal(a, c):
+                    bad.append(s)
+            if twice or bad:
+                raise AssertionError(
+                    '%s on the card: second launch differs in %s; against '
+                    'the CPU: %s' % (op, twice, bad))
+            del ins, first, second, cpu, outs
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    log('  (c) %d op types (%d cases, %d outputs and gradients) on the card '
+        'against the CPU (integers exact, floats within %g of the largest '
+        'magnitude; worst %.1e), twice bitwise but %s' % (
+            len({op for op, _, _ in cases}), len(cases), n_out, NN_TOL,
+            worst_all, sorted(NN_NOT_TWICE)))
+
+
+def draws_path(seed):
+    """A denoising step: x + gaussian_random_batch_size_like(x, std 0.1)
+    + gaussian_random, times a uniform_random keep mask at 0.9, through
+    an fc, against x (square error), Adam."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    L = fluid.layers
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = L.data('x', [DRAW_BATCH, DRAW_DIM], dtype='float32',
+                   append_batch_size=False)
+        like = L.gaussian_random_batch_size_like(x, [-1, DRAW_DIM],
+                                                 std=DRAW_STD)
+        gauss = L.gaussian_random([DRAW_BATCH, DRAW_DIM], std=DRAW_STD)
+        unif = L.uniform_random([DRAW_BATCH, DRAW_DIM], min=0.0, max=1.0)
+        keep = L.cast(L.greater_equal(unif, L.fill_constant(
+            [1], 'float32', 0.1)), 'float32')
+        noisy = L.elementwise_mul(L.elementwise_add(
+            L.elementwise_add(x, like), gauss), keep)
+        loss = L.mean(L.square_error_cost(L.fc(noisy, DRAW_DIM), x))
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    expected = {k: 0 for k in common.KERNELS}
+    expected['fused_adam'] = 1
+    return {'main': main, 'startup': startup, 'expected': expected,
+            'fetch': [loss, like, gauss, unif]}
+
+
+def draws_phase(seed, card):
+    """Phase 20 (d): the device draws of a main program replayed from a
+    CUDA graph: each step draws anew, each replay bitwise the eager step
+    of the same number, and 10^6 draws of each op with the mean and the
+    standard deviation within DRAW_SIGMAS of their sampling error."""
+    path = draws_path(seed)
+    feeds = [{'x': torch.as_tensor(np.random.RandomState(seed).rand(
+        DRAW_BATCH, DRAW_DIM).astype('float32'), device='cuda')}] * \
+        DRAW_STEPS
+    res = p20_steps(path, feeds, path['fetch'])
+    replayed = check_replayed('(d)', res, path['expected'], 'fused_adam')
+    eager = p20_steps(path, feeds, path['fetch'], res['start'], eager=True)
+    same_steps('(d)', res, eager)
+    draws = [s['out'][1:] for s in res['steps']]
+    for k in range(1, DRAW_STEPS):
+        if any(torch.equal(a, b) for a, b in zip(draws[k], draws[k - 1])):
+            raise AssertionError('(d) step %d drew what step %d drew' % (
+                k + 1, k))
+    n = DRAW_BATCH * DRAW_DIM
+    stats = []
+    for (name, mean, std, std_err), v in zip((
+            ('gaussian_random_batch_size_like', 0.0, DRAW_STD,
+             DRAW_STD / math.sqrt(2 * n)),
+            ('gaussian_random', 0.0, DRAW_STD, DRAW_STD / math.sqrt(2 * n)),
+            ('uniform_random', 0.5, math.sqrt(1 / 12.0),
+             math.sqrt(1 / 80.0 - 1 / 144.0) / (2 * math.sqrt(1 / 12.0)) /
+             math.sqrt(n))), draws[0]):
+        m, s = v.double().mean().item(), v.double().std().item()
+        dm, ds = (m - mean) / (std / math.sqrt(n)), (s - std) / std_err
+        stats.append('%s mean %.3g sd, std %.3g sd' % (name, dm, ds))
+        if abs(dm) > DRAW_SIGMAS or abs(ds) > DRAW_SIGMAS:
+            raise AssertionError('(d) %s: mean %.6f, std %.6f over %d draws '
+                                 '(%.2f and %.2f sigma)' % (name, m, s, n,
+                                                            dm, ds))
+    log('  (d) a denoising step drawing 3 x 10^6 values a step on the card: '
+        '%d steps, %d replayed, each bitwise the eager step of the same '
+        'number, each drawing anew; step 1 against the expected moments: '
+        '%s; replayed %.3f ms a step, eager %.3f ms (%s | %s)' % (
+            DRAW_STEPS, replayed, '; '.join(stats), step_ms(res, 2),
+            step_ms(eager, 1), torch.cuda.get_device_name(0), card))
+
+
+def nn_slice_phase(seed, dev):
+    """Phase 20: the loaders, the rest of the core and the nn ops."""
+    card = card_line()
+    log('[20] the dataset loaders, the rest of the core, the nn ops (%s | '
+        '%s)' % (torch.cuda.get_device_name(0), card))
+    saved = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    try:
+        for key, fn in (('a', lambda: cifar_phase(seed, card)),
+                        ('b', lambda: wd_auc_phase(seed, card)),
+                        ('c', lambda: without_counting(
+                            lambda: nn_ops_phase(seed, dev))),
+                        ('d', lambda: draws_phase(seed, card))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            gc.collect()
+            torch.cuda.empty_cache()
+            log('  (%s): %.1f s' % (key, time.perf_counter() - t0))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -8065,6 +8622,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     rows += compile_plane_phase(args.seed, dev, Timer(dev))
     log('  phase 19: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    nn_slice_phase(args.seed, dev)
+    log('  phase 20: %.1f s' % (time.perf_counter() - t0))
     # each row's launches at the wrappers and replayed from CUDA graphs'
     # manifests on the main path, as counted() read them in this
     # process; the data-parallel rows, as the ranks of phases 9 and 12

@@ -932,10 +932,14 @@ def _graph_refusal(plan):
 
 
 def _unit_refusal(ops):
-    """Why a pipeline unit of `ops` (device ops) is never captured."""
+    """Why a pipeline unit of `ops` (device ops) is never captured.  The
+    random ops of a startup program draw from the host generator
+    (``LowerCtx.host_draws``): startup programs stay eager; elsewhere
+    they draw on the device and are captured."""
     for op in _with_sub_blocks(ops):
         od = registry._REGISTRY.get(op.type)
-        if od is not None and od.host_random:
+        if od is not None and od.host_random and \
+                op.block.program._is_start_up_program_:
             return ('op %s draws from a host generator (a startup '
                     'program\'s initializer), which a graph would freeze'
                     % op.type)
@@ -1934,7 +1938,8 @@ class Executor(object):
         return registry.LowerCtx(
             self._step, seed, device=self.device,
             random_seed=program.random_seed, group=self._group,
-            replica=self._replica, step_mix=self._step_mix, unread=unread)
+            replica=self._replica, step_mix=self._step_mix, unread=unread,
+            host_draws=program._is_start_up_program_)
 
     def _check_finite(self, name, val, persistable=False):
         """Queue a floating value the step writes for the step's finite

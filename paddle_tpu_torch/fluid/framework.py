@@ -384,6 +384,9 @@ class Program(object):
         self._seed_base = np.random.randint(0, 2 ** 31 - 1)
         self._exec_cache = _new_exec_cache()
         self._current_role = 'forward'
+        # a startup program (reference framework.py: program_guard sets
+        # it): its random initializers draw from the host generator
+        self._is_start_up_program_ = False
 
     @contextlib.contextmanager
     def _role_guard(self, role):
@@ -458,6 +461,7 @@ class Program(object):
         p._seed_base = self._seed_base
         p._exec_cache = _new_exec_cache()
         p._current_role = 'forward'
+        p._is_start_up_program_ = self._is_start_up_program_
         p.current_block_idx = self.current_block_idx
         p.blocks = [Block(p, b.idx, b.parent_idx) for b in self.blocks]
         for b, nb in zip(self.blocks, p.blocks):
@@ -526,6 +530,7 @@ class Program(object):
 
 _main_program_ = Program()
 _startup_program_ = Program()
+_startup_program_._is_start_up_program_ = True
 
 
 def default_main_program():
@@ -545,6 +550,7 @@ def switch_main_program(program):
 
 def switch_startup_program(program):
     global _startup_program_
+    program._is_start_up_program_ = True
     old = _startup_program_
     _startup_program_ = program
     return old

@@ -3,11 +3,15 @@ lowers: elementwise_mod and elementwise_floordiv (which
 BeamSearchDecoder.step builds), im2sequence, row_conv, sum,
 filter_by_instag, lod_append, sampled_softmax_with_cross_entropy,
 reduce_all / reduce_any, the random layers, strided_slice, expand_as,
-pad2d, maxout and autoincreased_step_counter; and brelu, selu and stanh
-of its layers/extras.py.
+pad2d, maxout, autoincreased_step_counter, instance_norm, group_norm,
+temporal_shift, grid_sampler, the losses log_loss, huber_loss,
+kldiv_loss and mse_loss, rank, size, gaussian_random_batch_size_like,
+soft_relu and image_resize_short; and brelu, selu and stanh of its
+layers/extras.py.
 Each appends the ops the JAX package's layer appends (reference
 python/paddle/fluid/layers/nn.py and loss.py)."""
 
+from .. import initializer as init
 from ..layer_helper import LayerHelper
 
 __all__ = ['elementwise_mod', 'elementwise_floordiv', 'im2sequence',
@@ -16,7 +20,10 @@ __all__ = ['elementwise_mod', 'elementwise_floordiv', 'im2sequence',
            'reduce_any', 'uniform_random', 'uniform_random_batch_size_like',
            'gaussian_random', 'strided_slice', 'expand_as', 'pad2d',
            'maxout', 'autoincreased_step_counter', 'brelu', 'selu',
-           'stanh']
+           'stanh', 'instance_norm', 'group_norm', 'temporal_shift',
+           'grid_sampler', 'log_loss', 'huber_loss', 'kldiv_loss',
+           'mse_loss', 'rank', 'size', 'gaussian_random_batch_size_like',
+           'soft_relu', 'image_resize_short']
 
 
 def _simple(op_type, inputs, attrs=None, dtype=None, out_slot='Out',
@@ -152,9 +159,10 @@ def _random(op_type, shape, dtype, attrs, name):
 
 def uniform_random(shape, dtype='float32', min=-1.0, max=1.0, seed=0,
                    name=None):
-    """Drawn from the host generator (ops/tensor_ops.py registers the
-    op host_random): a main program holding one runs eagerly, never
-    from a CUDA graph."""
+    """In a main program drawn on the device from the counter hash under
+    the device step (ops/tensor_ops.py), so a CUDA graph replays each
+    step's own draws; in a startup program from the host generator, as
+    the initializers draw."""
     return _random('uniform_random', shape, dtype,
                    {'min': float(min), 'max': float(max), 'seed': seed},
                    name)
@@ -162,7 +170,8 @@ def uniform_random(shape, dtype='float32', min=-1.0, max=1.0, seed=0,
 
 def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype='float32',
                     name=None):
-    """Drawn from the host generator, as uniform_random."""
+    """Drawn as uniform_random: on the device in a main program, from the
+    host generator in a startup program."""
     return _random('gaussian_random', shape, dtype,
                    {'mean': float(mean), 'std': float(std), 'seed': seed},
                    name)
@@ -245,3 +254,112 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
                           attrs={'step': float(step)})
         counter.stop_gradient = True
     return counter
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper('instance_norm', name=name)
+    c = input.shape[1]
+    scale = helper.create_parameter(param_attr, [c], input.dtype,
+                                    default_initializer=init.Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], input.dtype,
+                                   is_bias=True)
+    out, saved_mean, saved_var = (
+        helper.create_variable_for_type_inference(input.dtype)
+        for _ in range(3))
+    helper.append_op('instance_norm',
+                     inputs={'X': input, 'Scale': scale, 'Bias': bias},
+                     outputs={'Y': out, 'SavedMean': saved_mean,
+                              'SavedVariance': saved_var},
+                     attrs={'epsilon': epsilon})
+    return out
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None,
+               bias_attr=None, act=None, data_layout='NCHW', name=None):
+    helper = LayerHelper('group_norm', name=name)
+    c = input.shape[1 if data_layout == 'NCHW' else -1]
+    scale = helper.create_parameter(param_attr, [c], input.dtype,
+                                    default_initializer=init.Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], input.dtype,
+                                   is_bias=True)
+    out, mean, var = (helper.create_variable_for_type_inference(input.dtype)
+                      for _ in range(3))
+    helper.append_op('group_norm',
+                     inputs={'X': input, 'Scale': scale, 'Bias': bias},
+                     outputs={'Y': out, 'Mean': mean, 'Variance': var},
+                     attrs={'epsilon': epsilon, 'groups': groups,
+                            'data_layout': data_layout})
+    return helper.append_activation(out, act)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    # no shape inference: the dummy batch does not divide seg_num
+    return _simple('temporal_shift', {'X': x},
+                   {'seg_num': seg_num, 'shift_ratio': shift_ratio},
+                   name=name, shape=x.shape)
+
+
+def grid_sampler(x, grid, name=None):
+    return _simple('grid_sampler', {'X': x, 'Grid': grid}, name=name)
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return _simple('log_loss', {'Predicted': input, 'Labels': label},
+                   {'epsilon': epsilon}, out_slot='Loss', name=name)
+
+
+def huber_loss(input, label, delta, name=None):
+    helper = LayerHelper('huber_loss', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    resid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('huber_loss', inputs={'X': input, 'Y': label},
+                     outputs={'Out': out, 'Residual': resid},
+                     attrs={'delta': delta})
+    return out
+
+
+def kldiv_loss(x, target, reduction='mean', name=None):
+    return _simple('kldiv_loss', {'X': x, 'Target': target},
+                   {'reduction': reduction}, out_slot='Loss', name=name)
+
+
+def mse_loss(input, label, name=None):
+    return _simple('mse_loss', {'X': input, 'Y': label}, name=name)
+
+
+def rank(input, name=None):
+    return _simple('rank', {'Input': input}, dtype='int32', name=name)
+
+
+def size(input, name=None):
+    return _simple('size', {'Input': input}, dtype='int64', name=name)
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype='float32'):
+    """Drawn on the device from the counter hash under the device step,
+    in any program (ops/misc_ops.py)."""
+    return _simple('gaussian_random_batch_size_like', {'Input': input},
+                   {'shape': list(shape), 'dtype': dtype,
+                    'input_dim_idx': input_dim_idx,
+                    'output_dim_idx': output_dim_idx,
+                    'mean': float(mean), 'std': float(std), 'seed': seed},
+                   dtype=dtype)
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    return _simple('soft_relu', {'X': x}, {'threshold': threshold},
+                   name=name)
+
+
+def image_resize_short(input, out_short_len, resample='BILINEAR'):
+    """image_resize with the shorter of H and W brought to
+    out_short_len, the other scaled alike and rounded."""
+    from . import nn as _nn
+    h, w = input.shape[2], input.shape[3]
+    scale = float(out_short_len) / float(min(h, w))
+    return _nn.image_resize(input, out_shape=[int(round(h * scale)),
+                                              int(round(w * scale))],
+                            resample=resample)

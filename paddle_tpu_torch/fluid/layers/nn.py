@@ -29,7 +29,9 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm',
            'edit_distance', 'reduce_mean', 'reduce_max', 'reduce_min',
            'reduce_prod', 'elementwise_pow', 'mul', 'clip', 'clip_by_norm',
            'l2_normalize', 'flatten', 'where', 'cond_select', 'leaky_relu',
-           'prelu', 'pad', 'gather_nd', 'scatter', 'unstack', 'dice_loss']
+           'prelu', 'pad', 'gather_nd', 'scatter', 'unstack', 'dice_loss',
+           'conv2d_transpose', 'adaptive_pool2d', 'auc', 'smooth_l1', 'lrn',
+           'image_resize', 'resize_bilinear', 'resize_nearest']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -118,6 +120,32 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
     return helper.append_activation(pre_act, act)
 
 
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """Reference layers/nn.py conv2d_transpose: a [in_c, num_filters /
+    groups, kh, kw] filter, the bias over the channel axis, then act.
+    As in the JAX package, output_size is not read: filter_size must be
+    given."""
+    helper = LayerHelper('conv2d_transpose', act=act, name=name)
+    groups = groups or 1
+    filter_shape = [input.shape[1], num_filters // groups] + \
+        _pair_list(filter_size)
+    w = helper.create_parameter(param_attr, shape=filter_shape,
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        'conv2d_transpose',
+        inputs={'Input': input, 'Filter': w}, outputs={'Output': out},
+        attrs={'strides': _pair_list(stride),
+               'paddings': _pair_list(padding),
+               'dilations': _pair_list(dilation), 'groups': groups})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2,
+                                    bias_attr=bias_attr)
+    return helper.append_activation(pre_act, act)
+
+
 def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
            pool_padding=0, global_pooling=False, use_cudnn=True,
            ceil_mode=False, exclusive=True, name=None, data_format='NCHW'):
@@ -130,6 +158,24 @@ def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
                'paddings': _pair_list(pool_padding),
                'global_pooling': global_pooling, 'ceil_mode': ceil_mode,
                'exclusive': exclusive, 'data_format': data_format})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type='max', name=None):
+    """Pooling to a pool_size grid (reference operators/pool_op adaptive
+    mode: window i spans [floor(i H / oh), ceil((i + 1) H / oh))); a
+    [1, 1] grid is global pooling."""
+    if list(pool_size) == [1, 1]:
+        return pool2d(input, pool_type=pool_type, global_pooling=True,
+                      name=name)
+    helper = LayerHelper('pool2d', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('pool2d', inputs={'X': input}, outputs={'Out': out},
+                     attrs={'pooling_type': pool_type,
+                            'ksize': list(pool_size), 'adaptive': True},
+                     infer_shape=False)
+    if len(input.shape) == 4:
+        out.shape = tuple(input.shape[:2]) + tuple(pool_size)
     return out
 
 
@@ -488,6 +534,35 @@ def accuracy(input, label, k=1, correct=None, total=None):
     return acc_out
 
 
+def auc(input, label, curve='ROC', num_thresholds=4095, topk=1,
+        slide_steps=1):
+    """Streaming ROC AUC of input [N, 2] (the positive class's column 1)
+    against label: its float32 [num_thresholds + 1] bucket counts
+    <name>_stat_pos / <name>_stat_neg are persistables the startup
+    program fills with zeros and every step adds to.  Returns (auc, None,
+    [stat_pos, stat_neg]), as the JAX layer does (no batch AUC)."""
+    helper = LayerHelper('auc')
+    stats = [helper.create_global_variable(
+        persistable=True, dtype='float32', shape=[num_thresholds + 1],
+        name=helper.name + suffix) for suffix in ('_stat_pos', '_stat_neg')]
+    startup = helper.startup_program.global_block()
+    for var in stats:
+        sv = startup.create_var(name=var.name, shape=var.shape,
+                                dtype=var.dtype, persistable=True)
+        startup.append_op('fill_constant', outputs={'Out': sv},
+                          attrs={'shape': list(var.shape), 'dtype': var.dtype,
+                                 'value': 0.0})
+    auc_out = helper.create_variable_for_type_inference(
+        'float32', stop_gradient=True)
+    helper.append_op('auc',
+                     inputs={'Predict': input, 'Label': label,
+                             'StatPos': stats[0], 'StatNeg': stats[1]},
+                     outputs={'AUC': auc_out, 'StatPosOut': stats[0],
+                              'StatNegOut': stats[1]},
+                     attrs={'num_thresholds': num_thresholds})
+    return auc_out, None, stats
+
+
 def one_hot(input, depth, allow_out_of_range=False):
     """f32 one-hot rows of `depth`; a trailing axis of size 1 on the ids
     is dropped first (the JAX package's rule), so [B, T] ids give
@@ -811,6 +886,57 @@ def unstack(x, axis=0, num=None):
     helper.append_op('unstack', inputs={'X': x}, outputs={'Y': outs},
                      attrs={'axis': axis, 'num': num})
     return outs
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    """The smooth_l1_loss op's per-sample sum (its weights not read, as
+    in the JAX package)."""
+    helper = LayerHelper('smooth_l1_loss')
+    out = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op('smooth_l1_loss', inputs={'X': x, 'Y': y},
+                     outputs={'Out': out, 'Diff': diff},
+                     attrs={'sigma': sigma or 1.0})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Cross-channel local response norm (reference layers/nn.py lrn
+    over operators/lrn_op.cc)."""
+    helper = LayerHelper('lrn', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('lrn', inputs={'X': input},
+                     outputs={'Out': out, 'MidOut': mid},
+                     attrs={'n': n, 'k': k, 'alpha': alpha, 'beta': beta})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample='BILINEAR'):
+    """bilinear_interp or nearest_interp to out_shape (or by scale); the
+    op sets no align_corners, as in the JAX package."""
+    helper = LayerHelper('interpolate', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {}
+    if out_shape is not None:
+        attrs['out_h'], attrs['out_w'] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs['scale'] = scale
+    op = 'bilinear_interp' if resample.upper() == 'BILINEAR' \
+        else 'nearest_interp'
+    helper.append_op(op, inputs={'X': input}, outputs={'Out': out},
+                     attrs=attrs)
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, 'BILINEAR')
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, 'NEAREST')
 
 
 def dice_loss(input, label, epsilon=1e-5):

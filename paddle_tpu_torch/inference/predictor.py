@@ -58,6 +58,9 @@ class PaddleTensor(object):
         self.name = name
         self.shape = tuple(self.data.shape) if data is not None else ()
 
+    def as_ndarray(self):
+        return self.data
+
 
 class AnalysisPredictor(object):
     """Reference: inference/api/analysis_predictor.h:47."""

@@ -3,7 +3,8 @@ Transformer's sinusoidal position encoding and the additive causal
 bias (the JAX package's ops/misc_ops.py).  One Program then serves
 every length bucket of a padded batch.  Beside them, two of the JAX
 module's control-flow helpers (is_empty and reorder_lod_tensor_by_rank),
-eye and tensor_array_to_tensor (decayed_adagrad is with the other
+eye, tensor_array_to_tensor, rank, soft_relu and
+gaussian_random_batch_size_like (decayed_adagrad is with the other
 updates in ops/optimizer_ops.py).
 
 Reference: operators/add_position_encoding_op.cc computed the encoding
@@ -13,6 +14,7 @@ per LoD batch on the host.
 import torch
 
 from ..fluid import core
+from . import tensor_ops
 from .registry import register
 
 
@@ -84,3 +86,34 @@ def tensor_array_to_tensor(ctx, ins, attrs):
         torch.cat(list(arr.unbind(0)), dim=attrs.get('axis', 0))
     return {'Out': [out], 'OutIndex': [torch.ones(
         (length,), dtype=torch.int32, device=arr.device)]}
+
+
+@register('rank')
+def rank(ctx, ins, attrs):
+    """Input's number of dims, a 0-d int32 (JAX misc_ops.py:27)."""
+    return {'Out': [torch.full((), ins['Input'][0].ndim, dtype=torch.int32,
+                               device=ctx.device)]}
+
+
+@register('soft_relu')
+def soft_relu(ctx, ins, attrs):
+    """log(1 + exp(clip(X, -threshold, threshold))) (reference
+    activation_op.h SoftReluFunctor; JAX misc_ops.py:52)."""
+    t = attrs.get('threshold', 40.0)
+    return {'Out': [torch.log1p(torch.exp(torch.clamp(ins['X'][0], -t, t)))]}
+
+
+@register('gaussian_random_batch_size_like')
+def gaussian_random_batch_size_like(ctx, ins, attrs):
+    """mean + std * a standard normal of `shape` whose dim
+    output_dim_idx is Input's dim input_dim_idx (JAX misc_ops.py:59),
+    drawn on the device from the counter hash under the device step
+    (tensor_ops.normal_draws), as uniform_random_batch_size_like draws:
+    a CUDA graph replays each step's own draws."""
+    ref = ins['Input'][0]
+    shape = [int(s) for s in attrs['shape']]
+    shape[attrs.get('output_dim_idx', 0)] = \
+        ref.shape[attrs.get('input_dim_idx', 0)]
+    z = tensor_ops.normal_draws(ctx, attrs, tuple(shape), ref.device, 0x6B5)
+    return {'Out': [(attrs.get('mean', 0.0) + attrs.get('std', 1.0) * z).to(
+        core.convert_dtype(attrs.get('dtype', 'float32')))]}

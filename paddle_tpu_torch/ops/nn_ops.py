@@ -1,9 +1,12 @@
-"""Convolution, pooling, normalization, dropout, loss and metric
-lowerings.
+"""Convolution, pooling, normalization, dropout, loss, metric,
+resizing and sampling lowerings: the JAX package's ops/nn_ops.py.
 
-Reference: operators/{conv_cudnn,pool,batch_norm,layer_norm,dropout,
+Reference: operators/{conv_cudnn,conv_transpose,pool,pool_with_index,
+unpool,batch_norm,layer_norm,instance_norm,group_norm,lrn,dropout,
 softmax_with_cross_entropy,cross_entropy,label_smooth,
-sigmoid_cross_entropy_with_logits}_op.*, operators/metrics/accuracy_op.*.
+sigmoid_cross_entropy_with_logits,huber_loss,smooth_l1_loss,log_loss,
+kldiv_loss,interpolate,grid_sampler,temporal_shift,conv_shift}_op.*,
+operators/metrics/{accuracy,auc}_op.*.
 Convolutions go to cuDNN in full f32 (the JAX package's
 FLAGS_conv_precision 'highest' default), as the JAX package left them
 to XLA's conv_general_dilated; under AMP (the ``__amp__`` mark) in bf16,
@@ -21,7 +24,7 @@ import torch.nn.functional as F
 
 from ..distributed import wire
 from .kernels import dropout as dropout_k
-from .registry import register
+from .registry import device_constant, register
 
 
 def _pair(v):
@@ -73,30 +76,34 @@ def _f32_convs(x):
 
 
 class _Conv2d(torch.autograd.Function):
-    """F.conv2d on NCHW x and OIHW w, unpadded, whose backward also runs
-    without TF32 (autograd's own convolution backward reads the global
-    flag when it runs, after the forward's context has closed).  The
-    weight gradient comes back contiguous, as the fused optimizer
-    kernels take it."""
+    """F.conv2d on NCHW x and OIHW w, unpadded (with `transposed`, the
+    transposed convolution of a [in_c, out_c / groups, kh, kw] w),
+    whose backward also runs without TF32 (autograd's own convolution
+    backward reads the global flag when it runs, after the forward's
+    context has closed).  The weight gradient comes back contiguous, as
+    the fused optimizer kernels take it."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, dilation, groups):
+    def forward(ctx, x, w, stride, dilation, groups, transposed=False):
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, dilation, groups)
+        ctx.conf = (stride, dilation, groups, transposed)
         with _f32_convs(x):
+            if transposed:
+                return F.conv_transpose2d(x, w, None, stride, 0, 0, groups,
+                                          dilation)
             return F.conv2d(x, w, None, stride, 0, dilation, groups)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        stride, dilation, groups = ctx.conf
+        stride, dilation, groups, transposed = ctx.conf
         with _f32_convs(x):
             gx, gw, _ = torch.ops.aten.convolution_backward(
-                g, x, w, None, stride, [0, 0], dilation, False, [0, 0],
-                groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
-                         False])
+                g, x, w, None, stride, [0, 0], dilation, transposed,
+                [0, 0], groups, [ctx.needs_input_grad[0],
+                                 ctx.needs_input_grad[1], False])
         return (gx, None if gw is None else gw.contiguous(), None, None,
-                None)
+                None, None)
 
 
 @register('conv2d')
@@ -134,6 +141,46 @@ def conv2d(ctx, ins, attrs):
 @register('depthwise_conv2d')
 def depthwise_conv2d(ctx, ins, attrs):
     return conv2d(ctx, ins, attrs)
+
+
+def _conv_transpose(x, w, strides, dilations, groups, pads):
+    """The transposed convolution of NCHW x by w [in_c, out_c / groups,
+    kh, kw] (the gradient of conv2d with respect to its input), its
+    full output cropped by pads [(top, bottom), (left, right)]: the JAX
+    package's lhs-dilated convolution by the flipped kernel, padded by
+    k_eff - 1 - pad on each side.  No output padding (the JAX op ignores
+    output_size)."""
+    out = _Conv2d.apply(x, w.to(x.dtype), strides, dilations, groups, True)
+    (t, b), (l, r) = pads
+    return out[:, :, t:out.shape[2] - b, l:out.shape[3] - r]
+
+
+@register('conv2d_transpose')
+def conv2d_transpose(ctx, ins, attrs):
+    """Reference operators/conv_transpose_op.cc, as the JAX package
+    computes it (ops/nn_ops.py:99-135): strides, dilations, groups, 2
+    symmetric or 4 asymmetric paddings (cropped after a transposed
+    convolution, which takes symmetric padding only)."""
+    return {'Output': [_conv_transpose(
+        ins['Input'][0], ins['Filter'][0],
+        _pair(attrs.get('strides', [1, 1])),
+        _pair(attrs.get('dilations', [1, 1])),
+        int(attrs.get('groups', 1) or 1),
+        _explicit_pads(attrs.get('paddings', [0, 0])))]}
+
+
+@register('depthwise_conv2d_transpose')
+def depthwise_conv2d_transpose(ctx, ins, attrs):
+    """A transposed convolution of one group a channel (Filter [in_c, 1,
+    kh, kw]); the JAX lowering (:957) pads by the first two paddings
+    symmetrically."""
+    x = ins['Input'][0]
+    p = _pair(attrs.get('paddings', [0, 0]))
+    groups = int(attrs.get('groups', x.shape[1]) or x.shape[1])
+    return {'Output': [_conv_transpose(
+        x, ins['Filter'][0], _pair(attrs.get('strides', [1, 1])),
+        _pair(attrs.get('dilations', [1, 1])), groups,
+        [(p[0], p[0]), (p[1], p[1])])]}
 
 
 def _max_pool_slices(x, k, s, pads):
@@ -504,3 +551,390 @@ def row_conv(ctx, ins, attrs):
     t = x.shape[1]
     xp = F.pad(x, (0, 0, 0, w.shape[0] - 1))
     return {'Out': [sum(xp[:, j:j + t] * w[j] for j in range(w.shape[0]))]}
+
+
+# ---------------------------------------------------------------------------
+# The rest of the JAX package's ops/nn_ops.py: the per-sample norms, the
+# regression and divergence losses, auc, resizing and sampling, lrn, the
+# indexed max pools and unpool, conv_shift.
+# ---------------------------------------------------------------------------
+
+
+def _f32(x):
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _channel_shape(x):
+    return (1, x.shape[1]) + (1,) * (x.ndim - 2)
+
+
+@register('instance_norm', no_grad_out_slots=('SavedMean', 'SavedVariance'))
+def instance_norm(ctx, ins, attrs):
+    """Each sample's channels normalized over their spatial dims
+    (reference operators/instance_norm_op.cc; JAX :417): statistics in
+    f32, Y in the input dtype; SavedMean and SavedVariance [N, C] are
+    the mean and the (biased) variance, as the JAX op gives them."""
+    x = ins['X'][0]
+    eps = attrs.get('epsilon', 1e-5)
+    xf = _f32(x)
+    var, mean = torch.var_mean(xf, dim=tuple(range(2, x.ndim)),
+                               correction=0, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if ins.get('Scale'):
+        y = y * ins['Scale'][0].to(xf.dtype).reshape(_channel_shape(x))
+        y = y + ins['Bias'][0].to(xf.dtype).reshape(_channel_shape(x))
+    n, c = x.shape[0], x.shape[1]
+    return {'Y': [y.to(x.dtype)], 'SavedMean': [mean.reshape(n, c)],
+            'SavedVariance': [var.reshape(n, c)]}
+
+
+@register('group_norm', no_grad_out_slots=('Mean', 'Variance'))
+def group_norm(ctx, ins, attrs):
+    """Channels split into `groups`, each sample's group normalized over
+    its channels and spatial dims (reference operators/group_norm_op.cc;
+    JAX :441; channels on axis 1 whatever data_layout says, as there):
+    Mean and Variance [N, groups], the mean and the biased variance."""
+    x = ins['X'][0]
+    g = int(attrs['groups'])
+    eps = attrs.get('epsilon', 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xs = _f32(x).reshape((n, g, c // g) + tuple(x.shape[2:]))
+    var, mean = torch.var_mean(xs, dim=tuple(range(2, xs.ndim)),
+                               correction=0, keepdim=True)
+    y = ((xs - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    if ins.get('Scale'):
+        y = y * ins['Scale'][0].to(y.dtype).reshape(_channel_shape(x))
+    if ins.get('Bias'):
+        y = y + ins['Bias'][0].to(y.dtype).reshape(_channel_shape(x))
+    return {'Y': [y.to(x.dtype)], 'Mean': [mean.reshape(n, g)],
+            'Variance': [var.reshape(n, g)]}
+
+
+@register('huber_loss', no_grad_out_slots=('Residual',))
+def huber_loss(ctx, ins, attrs):
+    """0.5 r^2 where |r| <= delta, else delta (|r| - delta / 2), with
+    the residual r = Y - X."""
+    x, y = ins['X'][0], ins['Y'][0]
+    delta = attrs.get('delta', 1.0)
+    r = y - x
+    a = torch.abs(r)
+    loss = torch.where(a <= delta, 0.5 * r * r, delta * (a - 0.5 * delta))
+    return {'Out': [loss], 'Residual': [r]}
+
+
+@register('smooth_l1_loss', no_grad_out_slots=('Diff',))
+def smooth_l1_loss(ctx, ins, attrs):
+    """Per sample, the sum over the other dims of 0.5 (sigma d)^2 where
+    |d| < 1 / sigma^2, else |d| - 0.5 / sigma^2, d = X - Y (the JAX op
+    reads no InsideWeight / OutsideWeight)."""
+    x, y = ins['X'][0], ins['Y'][0]
+    s2 = attrs.get('sigma', 1.0) ** 2
+    d = x - y
+    a = torch.abs(d)
+    loss = torch.where(a < 1.0 / s2, 0.5 * d * d * s2, a - 0.5 / s2)
+    return {'Out': [torch.sum(loss, dim=tuple(range(1, x.ndim)),
+                              keepdim=True)], 'Diff': [d]}
+
+
+@register('log_loss')
+def log_loss(ctx, ins, attrs):
+    p, label = ins['Predicted'][0], ins['Labels'][0]
+    eps = attrs.get('epsilon', 1e-4)
+    return {'Loss': [-label * torch.log(p + eps) -
+                     (1 - label) * torch.log(1 - p + eps)]}
+
+
+@register('kldiv_loss')
+def kldiv_loss(ctx, ins, attrs):
+    """target (log target - X) where target > 0, else 0; reduced by
+    'mean' (the default), 'sum', 'batchmean' or 'none'."""
+    x, target = ins['X'][0], ins['Target'][0]
+    out = target * (torch.log(torch.clamp(target, min=1e-20)) - x)
+    out = torch.where(target > 0, out, torch.zeros_like(out))
+    red = attrs.get('reduction', 'mean')
+    if red == 'mean':
+        out = torch.mean(out)
+    elif red == 'sum':
+        out = torch.sum(out)
+    elif red == 'batchmean':
+        out = torch.sum(out) / x.shape[0]
+    return {'Loss': [out]}
+
+
+@register('mse_loss')
+def mse_loss(ctx, ins, attrs):
+    d = ins['X'][0] - ins['Y'][0]
+    return {'Out': [torch.mean(d * d)]}
+
+
+@register('auc', no_grad_out_slots=('AUC', 'StatPosOut', 'StatNegOut'))
+def auc(ctx, ins, attrs):
+    """Streaming ROC AUC over threshold buckets (reference
+    operators/metrics/auc_op.h; JAX :703): the positive probability
+    Predict[:, 1] falls in bucket clip(int(p T), 0, T); StatPos /
+    StatNeg (float32 [T + 1], the program's persistables, written in
+    place, so they accumulate across steps and CUDA-graph replays) count
+    the positive and negative labels a bucket.  Each step adds whole
+    numbers: while a bucket's count is below 2^24 every partial sum is
+    exact in float32, so the index_add (atomic adds on the card, in any
+    order) is bitwise the JAX package's scatter-add.  AUC is the
+    trapezoid area over the reversed cumulative sums (exact as well),
+    the rates divided by max(total, 1)."""
+    preds = ins['Predict'][0]
+    label = ins['Label'][0].reshape(-1)
+    stat_pos, stat_neg = ins['StatPos'][0], ins['StatNeg'][0]
+    t = int(attrs.get('num_thresholds', 4095))
+    bucket = torch.clamp((preds[:, 1] * t).to(torch.int32), 0, t).long()
+    pos = (label > 0).to(stat_pos.dtype)
+    stat_pos = stat_pos.index_add(0, bucket, pos)
+    stat_neg = stat_neg.index_add(0, bucket, 1 - pos)
+    tp = torch.cumsum(stat_pos.flip(0), 0)
+    fp = torch.cumsum(stat_neg.flip(0), 0)
+    tpr = tp / torch.clamp(tp[-1], min=1)
+    fpr = fp / torch.clamp(fp[-1], min=1)
+    area = torch.sum((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1]) * 0.5)
+    return {'AUC': [area], 'StatPosOut': [stat_pos],
+            'StatNegOut': [stat_neg]}
+
+
+def _resize_hw(x, attrs):
+    h, w = x.shape[2], x.shape[3]
+    oh, ow = attrs.get('out_h', h), attrs.get('out_w', w)
+    scale = attrs.get('scale', 0)
+    if scale:
+        oh, ow = int(h * scale), int(w * scale)
+    return int(oh), int(ow)
+
+
+def _bilinear_weights(m, n):
+    """[m, n] float32: jax.image.scale_and_translate's weights of a
+    bilinear resize of an axis from m to n samples (jax.image.resize,
+    antialias on): sample j sits at (j + 0.5) m / n - 0.5 and takes the
+    triangle kernel, widened by m / n when that is above 1 (down-sampling
+    low-passes), each column normalized to sum 1 and zeroed where the
+    sample lies outside the input.  Computed in float32 in JAX's order;
+    for up-sampling it is plain half-pixel bilinear with the edges
+    clamped."""
+    f32 = np.float32
+    inv = f32(1.0 / (n / m))
+    sample = (np.arange(n, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(m, dtype=f32)[:, None]) / \
+        np.maximum(inv, f32(1.0))
+    w = np.maximum(f32(0.0), f32(1.0) - x)
+    total = np.sum(w, axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def _axis_matrix(values, x):
+    if x.device.type == 'meta':
+        return torch.empty(values.shape, dtype=x.dtype, device='meta')
+    return device_constant(values, x.device).to(x.dtype)
+
+
+@register('bilinear_interp')
+def bilinear_interp(ctx, ins, attrs):
+    """NCHW X resized to (out_h, out_w) (or by `scale`) as
+    jax.image.resize(method='bilinear') computes it (JAX :760): half-pixel
+    centres, antialiased when down-sampling, align_corners and
+    align_mode ignored (as in the JAX package; Fluid 1.6 defaults to
+    align_corners=True).  Each resized axis is a product with its weight
+    matrix (``_bilinear_weights``), so the gradient is two products too
+    (no scatter); an axis of unchanged size is left as it is."""
+    x = ins['X'][0]
+    oh, ow = _resize_hw(x, attrs)
+    out = x
+    if oh != x.shape[2]:
+        wh = _axis_matrix(_bilinear_weights(x.shape[2], oh), x)
+        out = torch.matmul(out.transpose(2, 3), wh).transpose(2, 3)
+    if ow != x.shape[3]:
+        out = torch.matmul(out, _axis_matrix(
+            _bilinear_weights(x.shape[3], ow), x))
+    return {'Out': [out]}
+
+
+def _nearest_index(m, n, device):
+    """The source index of each of n samples resized from m, as
+    jax.image.resize(method='nearest') computes it in float32:
+    floor((j + 0.5) m / n)."""
+    j = torch.arange(n, dtype=torch.float32, device=device)
+    return torch.clamp(torch.floor((j + 0.5) * m / n), max=m - 1).long()
+
+
+class _NearestResize(torch.autograd.Function):
+    """Rows `ih` and columns `iw` of NCHW x; the gradient sums the
+    cotangent into each source pixel by two products with the one-hot
+    selection matrices (deterministic, where index_select's backward
+    adds with atomics on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, ih, iw):
+        ctx.save_for_backward(ih, iw)
+        ctx.hw = x.shape[2], x.shape[3]
+        return x.index_select(2, ih).index_select(3, iw)
+
+    @staticmethod
+    def backward(ctx, g):
+        ih, iw = ctx.saved_tensors
+        h, w = ctx.hw
+        sh = F.one_hot(ih, h).to(g.dtype)   # [oh, h]
+        sw = F.one_hot(iw, w).to(g.dtype)   # [ow, w]
+        gx = torch.matmul(torch.matmul(g, sw).transpose(2, 3), sh)
+        return gx.transpose(2, 3), None, None
+
+
+@register('interp_nearest')
+@register('nearest_interp')
+def nearest_interp(ctx, ins, attrs):
+    """NCHW X resized to (out_h, out_w) (or by `scale`) by nearest
+    neighbour with jax.image.resize's half-pixel rounding (JAX
+    :746-747; F.interpolate's 'nearest' floors j m / n instead, its
+    'nearest-exact' multiplies by a rounded m / n), align_corners
+    ignored."""
+    x = ins['X'][0]
+    oh, ow = _resize_hw(x, attrs)
+    if x.device.type == 'meta':
+        return {'Out': [x.new_empty(x.shape[:2] + (oh, ow))]}
+    ih = _nearest_index(x.shape[2], oh, x.device)
+    iw = _nearest_index(x.shape[3], ow, x.device)
+    return {'Out': [_NearestResize.apply(x, ih, iw)]}
+
+
+@register('grid_sampler')
+def grid_sampler(ctx, ins, attrs):
+    """Bilinear sampling of X [N, C, H, W] at Grid [N, Hg, Wg, 2]
+    (x, y in [-1, 1], corners aligned: -1 and 1 are the outer pixels'
+    centres), neighbours outside the image contributing zero
+    (reference operators/grid_sampler_op.cc; JAX :773): F.grid_sample
+    with align_corners=True and zero padding, gradients to X and Grid.
+    Output and Out are the same tensor, as in the JAX op."""
+    out = F.grid_sample(ins['X'][0], ins['Grid'][0], mode='bilinear',
+                        padding_mode='zeros', align_corners=True)
+    return {'Output': [out], 'Out': [out]}
+
+
+@register('temporal_shift')
+def temporal_shift(ctx, ins, attrs):
+    """TSM's shift of X [N * seg_num, C, H, W] along the segments: the
+    first C * shift_ratio channels from the previous segment, the next
+    as many from the following one, zeros at the ends."""
+    x = ins['X'][0]
+    seg = int(attrs['seg_num'])
+    ratio = attrs.get('shift_ratio', 0.25)
+    nt, c, h, w = x.shape
+    xr = x.reshape(nt // seg, seg, c, h, w)
+    c1, c2 = int(c * ratio), int(c * 2 * ratio)
+    pre = torch.cat([torch.zeros_like(xr[:, :1, :c1]), xr[:, :-1, :c1]], 1)
+    post = torch.cat([xr[:, 1:, c1:c2], torch.zeros_like(xr[:, :1, c1:c2])],
+                     1)
+    return {'Out': [torch.cat([pre, post, xr[:, :, c2:]], 2).reshape(
+        nt, c, h, w)]}
+
+
+@register('lrn', no_grad_out_slots=('MidOut',))
+def lrn(ctx, ins, attrs):
+    """Cross-channel local response norm (reference operators/lrn_op.cc;
+    JAX :834): MidOut = k + alpha * (the sum of squares over n channels
+    about each one), Out = X * MidOut^-beta.  alpha multiplies the sum
+    itself (F.local_response_norm divides it by n)."""
+    x = ins['X'][0]
+    n = int(attrs.get('n', 5))
+    k, alpha = attrs.get('k', 1.0), attrs.get('alpha', 1e-4)
+    beta = attrs.get('beta', 0.75)
+    half = n // 2
+    pad = F.pad(x * x, (0, 0, 0, 0, half, half))
+    acc = sum(pad[:, i:i + x.shape[1]] for i in range(n))
+    mid = k + alpha * acc
+    return {'Out': [x * torch.pow(mid, -beta)], 'MidOut': [mid]}
+
+
+def _indexed_max_pool(x, ksize, strides, pads):
+    """Max pooling of x [N, C, *spatial] over windows `ksize` at `strides`
+    (1 to 3 spatial dims, padded by `pads` with the dtype's finfo.min):
+    (Out, Mask), Mask the int32 flat index over the unpadded spatial
+    dims of each window's first maximum (the JAX package's
+    _pool_patches + argmax).  The window is taken by unfold, so Out's
+    gradient splits evenly among a window's ties (amax), as jnp.max's
+    does, and overlapping windows add up."""
+    nd = len(ksize)
+    spatial = tuple(x.shape[2:])
+    neg = torch.finfo(x.dtype).min
+    flat = []
+    for p in reversed(pads):
+        flat += [p, p]
+    xp = F.pad(x, flat, value=neg) if any(pads) else x
+    for d in range(nd):
+        xp = xp.unfold(2 + d, ksize[d], strides[d])
+    outs = tuple(xp.shape[2:2 + nd])
+    patches = xp.reshape(tuple(xp.shape[:2 + nd]) + (-1,))
+    out = torch.amax(patches, dim=-1)
+    am = torch.argmax(patches, dim=-1)
+    # the tap's offset in each window dim, then its unpadded coordinate
+    index = torch.zeros_like(am)
+    rem = am
+    for d in reversed(range(nd)):
+        tap = rem % ksize[d]
+        rem = rem // ksize[d]
+        shape = [1] * nd
+        shape[d] = outs[d]
+        base = torch.arange(outs[d], device=x.device).reshape(shape) * \
+            strides[d] - pads[d]
+        stride = int(np.prod(spatial[d + 1:]))
+        index = index + (base + tap) * stride
+    return out, index.to(torch.int32)
+
+
+@register('max_pool2d_with_index', no_grad_out_slots=('Mask',))
+def max_pool2d_with_index(ctx, ins, attrs):
+    """Reference operators/pool_with_index_op.cc (JAX :877): max pooling
+    and the flat h * w index of each window's first maximum (Mask, int32),
+    which unpool reads."""
+    ksize = _pair(attrs.get('ksize', [2, 2]))
+    out, mask = _indexed_max_pool(
+        ins['X'][0], ksize, _pair(attrs.get('strides', ksize)),
+        _pair(attrs.get('paddings', [0, 0])))
+    return {'Out': [out], 'Mask': [mask]}
+
+
+@register('max_pool3d_with_index', no_grad_out_slots=('Mask',))
+def max_pool3d_with_index(ctx, ins, attrs):
+    """The NCDHW form (JAX :895): Mask the flat d * h * w index."""
+    ksize = [int(k) for k in attrs.get('ksize', [2, 2, 2])]
+    out, mask = _indexed_max_pool(
+        ins['X'][0], ksize,
+        [int(s) for s in attrs.get('strides', ksize)],
+        [int(p) for p in attrs.get('paddings', [0, 0, 0])])
+    return {'Out': [out], 'Mask': [mask]}
+
+
+@register('unpool')
+def unpool(ctx, ins, attrs):
+    """Reference operators/unpool_op.cc (JAX :934): X's values put back
+    at the flat positions Indices names (max_pool2d_with_index's Mask)
+    of a zero map of unpooled_size, or of (in - 1) * stride - 2 * pad +
+    ksize."""
+    x = ins['X'][0]
+    if attrs.get('unpooled_size'):
+        oh, ow = (int(v) for v in attrs['unpooled_size'])
+    else:
+        kh, kw = _pair(attrs.get('ksize', [2, 2]))
+        sh, sw = _pair(attrs.get('strides', [kh, kw]))
+        ph, pw = _pair(attrs.get('paddings', [0, 0]))
+        oh = (x.shape[2] - 1) * sh - 2 * ph + kh
+        ow = (x.shape[3] - 1) * sw - 2 * pw + kw
+    n, c = x.shape[:2]
+    idx = ins['Indices'][0].reshape(n, c, -1).long()
+    out = x.new_zeros((n, c, oh * ow)).scatter(2, idx, x.reshape(n, c, -1))
+    return {'Out': [out.reshape(n, c, oh, ow)]}
+
+
+@register('conv_shift')
+def conv_shift(ctx, ins, attrs):
+    """Circular convolution (reference operators/conv_shift_op.cc; JAX
+    :1034): out[b, i] = sum_j X[b, (i + j - M // 2) mod N] Y[b, j]."""
+    x, y = ins['X'][0], ins['Y'][0]
+    half = y.shape[1] // 2
+    return {'Out': [sum(torch.roll(x, half - j, 1) * y[:, j:j + 1]
+                        for j in range(y.shape[1]))]}

@@ -83,10 +83,15 @@ class LowerCtx(object):
     a value on the device (``step_mix``: the executor's, made once a
     run from its device step, a CUDA graph's static input while one is
     captured), as the JAX package feeds the step as a traced scalar: a
-    replayed graph draws the masks of the step it replays.  Random initializers draw on the host from
+    replayed graph draws the masks of the step it replays.  The random
+    initializers of a startup program (``host_draws``: the executor sets
+    it for a program that ``program_guard`` or
+    ``default_startup_program`` made one) draw on the host from
     ``rng()``, an explicit ``torch.Generator`` seeded from the
-    program's ``random_seed``, the op's seed and the step; neither
-    reproduces the JAX package's threefry bits.
+    program's ``random_seed``, the op's seed and the step; in any other
+    program uniform_random and gaussian_random draw on the device from
+    the counter hash under ``sample_seed``, as the other sampling ops
+    do.  Neither reproduces the JAX package's threefry bits.
 
     ``unread`` names the op's output slots that nothing reads (no later
     op, no fetch, not persistable: the executor's run plan says so), which
@@ -96,8 +101,9 @@ class LowerCtx(object):
 
     def __init__(self, step, op_seed=0, prefer_test=False, device=None,
                  random_seed=0, group=None, replica=None, step_mix=None,
-                 unread=frozenset()):
+                 unread=frozenset(), host_draws=False):
         self.step = step
+        self.host_draws = host_draws
         self.unread = frozenset(unread)
         self.group = group
         self.replica = replica
@@ -133,7 +139,8 @@ class LowerCtx(object):
 
     def rng(self):
         """A host generator for the random initializers (startup
-        programs; a CUDA graph never captures an op that draws here)."""
+        programs, ``host_draws``; a CUDA graph never captures an op that
+        draws here)."""
         g = torch.Generator(device=self.device)
         seed = (self.random_seed * 1000003 + self.op_seed) * 1000033 + \
             int(self.step)
@@ -205,8 +212,9 @@ class OpDef(object):
         # (for_test=True) stamps is_test on these so eval is
         # deterministic (framework.Program.clone)
         self.stochastic = stochastic
-        # draws from the host generator LowerCtx.rng(), which a CUDA
-        # graph would freeze: a program holding it is never captured
+        # draws from the host generator LowerCtx.rng() in a startup
+        # program (LowerCtx.host_draws), which a CUDA graph would freeze:
+        # a startup program holding it is never captured
         self.host_random = host_random
 
     def run(self, ctx, ins, attrs):

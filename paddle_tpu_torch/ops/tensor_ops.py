@@ -72,21 +72,34 @@ def _random_f32(ctx, shape, draw):
 
 @register('uniform_random', host_random=True)
 def uniform_random(ctx, ins, attrs):
+    """Uniform in [min, max): in a startup program from the host
+    generator (``LowerCtx.host_draws``: the initializers' values), in
+    any other program from the counter hash on the device (``_unit``),
+    which a CUDA graph replays with each step's own draws."""
     shape = tuple(int(s) for s in attrs['shape'])
     lo = attrs.get('min', -1.0)
     hi = attrs.get('max', 1.0)
-    out = _random_f32(ctx, shape, lambda t, g: t.uniform_(lo, hi, generator=g))
+    if ctx.host_draws:
+        out = _random_f32(ctx, shape,
+                          lambda t, g: t.uniform_(lo, hi, generator=g))
+    else:
+        out = lo + (hi - lo) * _unit(ctx, attrs, shape, ctx.device, 0x0A1)
     return {'Out': [out.to(core.convert_dtype(attrs.get('dtype',
                                                          'float32')))]}
 
 
 @register('gaussian_random', host_random=True)
 def gaussian_random(ctx, ins, attrs):
+    """mean + std * a standard normal, drawn as uniform_random's."""
     shape = tuple(int(s) for s in attrs['shape'])
     mean = attrs.get('mean', 0.0)
     std = attrs.get('std', 1.0)
-    out = _random_f32(ctx, shape,
-                      lambda t, g: t.normal_(mean, std, generator=g))
+    if ctx.host_draws:
+        out = _random_f32(ctx, shape,
+                          lambda t, g: t.normal_(mean, std, generator=g))
+    else:
+        out = mean + std * normal_draws(ctx, attrs, shape, ctx.device,
+                                        0x6A1)
     return {'Out': [out.to(core.convert_dtype(attrs.get('dtype',
                                                          'float32')))]}
 
@@ -715,11 +728,13 @@ def coalesce_tensor(ctx, ins, attrs):
 # bits are not reproduced, and the tests hold the draws by statistics.
 
 def _unit(ctx, attrs, shape, device, salt):
-    """f32 draws in (0, 1) of `shape`: (24 hash bits + 0.5) / 2^24."""
+    """f32 draws in (0, 1) of `shape`: (the top 23 of the 24 hash bits +
+    0.5) / 2^23, each exact in f32 and below 1 (with 24 bits, 2^24 - 0.5
+    rounds to 2^24: a draw of 1, whose inverse normal CDF is inf)."""
     from .kernels import dropout as _hash
     seed = ctx.sample_seed(salt + int(attrs.get('seed', 0) or 0))
-    bits = _hash.hash_bits(seed, shape, device)
-    return (bits.to(torch.float32) + 0.5) * (2.0 ** -24)
+    bits = _hash.hash_bits(seed, shape, device) >> 1
+    return (bits.to(torch.float32) + 0.5) * (2.0 ** -23)
 
 
 def normal_draws(ctx, attrs, shape, device, salt, lo=None, hi=None):

@@ -10,7 +10,9 @@ package lacks (the three `fluid` names of its own are listed), and it
 lists what is still missing by ROADMAP Queue 1 item: each missing name
 is assigned to an item here, and each item's count of missing names may
 shrink but not grow.  It also checks that chip_smoke.py's phase 17 (c)
-runs every op type of the slice on the card.
+runs every op type of the core slice on the card, and phase 20 (c)
+every op type of the nn slice (NN_SLICE_OPS: item 11b's nn_ops group
+and the four op types item 11a's layers emit).
 """
 
 import collections
@@ -98,6 +100,19 @@ SLICE_OPS = {
     'tensor_array_to_tensor',
 }
 
+# the nn slice: the JAX package's ops/nn_ops.py beyond the port's first
+# ops, and size (ops/loss_ops.py), rank, soft_relu and
+# gaussian_random_batch_size_like (ops/misc_ops.py)
+NN_SLICE_OPS = {
+    'conv2d_transpose', 'depthwise_conv2d_transpose', 'instance_norm',
+    'group_norm', 'huber_loss', 'smooth_l1_loss', 'log_loss', 'kldiv_loss',
+    'mse_loss', 'auc', 'nearest_interp', 'interp_nearest',
+    'bilinear_interp', 'grid_sampler', 'temporal_shift', 'lrn',
+    'max_pool2d_with_index', 'max_pool3d_with_index', 'unpool',
+    'conv_shift', 'size', 'rank', 'soft_relu',
+    'gaussian_random_batch_size_like',
+}
+
 SLICE_LAYERS = {
     'mul', 'elementwise_pow', 'reduce_mean', 'reduce_max', 'reduce_min',
     'reduce_prod', 'reduce_all', 'reduce_any', 'clip', 'clip_by_norm',
@@ -135,14 +150,14 @@ OP_MODULE_ITEM = {
 }
 
 # the most that may be missing, by item: the counts at this slice
-MISSING_OPS = {'11b': 112, '13': 7, '14': 10}
+MISSING_OPS = {'11b': 88, '13': 7, '14': 10}
 
 # the JAX layers module of a missing layer -> its item
 LAYER_MODULE_ITEM = {
     'detection': '11b', 'distributions': '11b', 'extras': '11b',
     'more_layers': '11b', 'nn': '11b', 'parallel_layers': '13',
 }
-MISSING_LAYERS = {'11b': 101, '13': 2}  # the most, as MISSING_OPS
+MISSING_LAYERS = {'11b': 80, '13': 2}  # the most, as MISSING_OPS
 
 FLUID_NAME_ITEM = {
     'DistributeTranspiler': '14', 'DistributeTranspilerConfig': '14',
@@ -195,13 +210,30 @@ def test_layers_of_the_slice_and_none_of_the_port_alone():
                                  MISSING_LAYERS)
 
 
-def test_chip_smoke_runs_every_op_type_of_the_slice():
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         'chip_smoke', os.path.join(ROOT, 'chip_smoke.py'))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_runs_every_op_type_of_the_slice():
+    mod = _chip_smoke()
     cases = {op for op, _, _ in mod.core_op_cases(np.random.RandomState(0))}
     assert SLICE_OPS <= cases, sorted(SLICE_OPS - cases)
+
+
+def test_nn_slice_ops_in_the_port_and_on_the_card():
+    assert len(NN_SLICE_OPS) == 24
+    tt = set(exports()['torch']['ops'])
+    assert NN_SLICE_OPS <= tt, sorted(NN_SLICE_OPS - tt)
+    assert all(exports()['jax']['ops'][t] in ('nn_ops', 'loss_ops',
+                                              'misc_ops')
+               for t in NN_SLICE_OPS)
+    cases = {op for op, _, _ in _chip_smoke().nn_op_cases(
+        np.random.RandomState(0))}
+    assert NN_SLICE_OPS <= cases, sorted(NN_SLICE_OPS - cases)
 
 
 def test_optimizer_classes():

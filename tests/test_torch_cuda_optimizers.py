@@ -178,7 +178,8 @@ def test_small_lamb_training_step_launches_one_run(dev):
                 'quant_quantize': 0, 'quant_reduce': 0,
                 # the 2 layers' 2 hidden dropouts and the embeddings' one,
                 # forward and gradient
-                'dropout': 5, 'dropout_grad': 5}
+                'dropout': 5, 'dropout_grad': 5,
+                'finite_check': 0, 'graph_cond': 0}
 
 
 def test_small_wide_deep_step_launches_the_row_update(dev):
@@ -204,5 +205,5 @@ def test_small_wide_deep_step_launches_the_row_update(dev):
                 'embedding_lookup': 2, 'embedding_scatter_add': 0,
                 'fused_adam': 0, 'fused_lamb': 0, 'embedding_update': 2,
                 'quant_quantize': 0, 'quant_reduce': 0, 'dropout': 0,
-                'dropout_grad': 0}
+                'dropout_grad': 0, 'finite_check': 0, 'graph_cond': 0}
     assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -179,4 +179,4 @@ def test_small_training_step_launches_every_kernel(dev):
         'quant_reduce': 0,
         # the 2 layers' 2 hidden dropouts and the embeddings' one, forward
         # and gradient
-        'dropout': 5, 'dropout_grad': 5}
+        'dropout': 5, 'dropout_grad': 5, 'finite_check': 0, 'graph_cond': 0}
