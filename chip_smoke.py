@@ -525,7 +525,35 @@ Phases, each of which fails the run (non-zero exit) on error:
      gaussian_random and uniform_random (10^6 values each) in a main
      program: 6 steps, 5 replayed, each bitwise the eager step of the
      same number, each drawing anew, step 1's means and standard
-     deviations within 3 sigma of their sampling error.
+     deviations within 3 sigma of their sampling error;
+ 21. dense vision, losses and misc (ROADMAP item 11b's groups A and B),
+     under cuDNN's deterministic algorithms: (a) C3D at the paper's
+     widths (Tran et al. 2015: eight 3x3x3 conv3d of 64 to 512, five
+     max pool3d, pool5 padded (0, 1, 1), fc6 / fc7 of 4096 with dropout
+     0.5, fc8 over 487 classes; ~80M parameters) on 3 x 16 x 112 x 112
+     clips drawn on the card from the seed, batch 30, SGD at 0.003, 6
+     steps (step 1 eager, step 2 captured, the rest replayed; the
+     dropout kernels launched each step), the losses and the whole
+     state bitwise an eager-only run; the replayed, cached eager and
+     device ms, the convolution kernels' share of an eager step's
+     device time and the peak over the resident bytes; (b) the CTR-DNN
+     of PaddleRec's ctr/dnn (26 slots hashed into a 1,000,001 x 10
+     table, each slot's pooled row with its show and click through
+     continuous_value_model, 13 dense features through data_norm, fc
+     400 x 3, softmax over 2, auc) at batch 4096 with sparse Adagrad,
+     10 steps (one K6 and one K7 launch each, replayed from step 2):
+     the outputs, the auc statistics and data_norm's parameters bitwise
+     an eager-only run after every step, the last AUC within 1e-6 of
+     the auc op's CPU lowering; (c) every op type of groups A and B at
+     a size its users run (deformable_conv at DCNv2's ResNet-50 res5,
+     conv3d and pool3d at C3D's layers), forward and gradient, against
+     the CPU lowering (floats within 1e-5 of the largest magnitude,
+     integers exact) and twice bitwise, none exempt (the host ops
+     unique and unique_with_counts through a program); (d) a program
+     with two losses on the whole-program grad (2 seeds) against the
+     per-op grad path (rtol 1e-5, atol 1e-6) and
+     nets.scaled_dot_product_attention in a step replayed bitwise its
+     eager step.
 The line before the last is a JSON object {"kernels": [...]}.  Each
 row's "launches" are those the wrappers made on the main path (every
 counted step and request: the counters set to 0 just before each and
@@ -8086,10 +8114,13 @@ def cifar_phase(seed, card):
     names = weights.startup_names(path['startup'])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # earlier phases' tensors still resident: the phase's own peak is
+    # what it allocated above them
+    resting = torch.cuda.memory_allocated()
     batches = iter(cifar_loader(path, seed))
     res = p20_steps(path, itertools.islice(batches, CIFAR_STEPS), [loss])
     batches.close()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - resting
     replayed = check_replayed('(a)', res, path['expected'], 'fused_adam')
     eager = p20_steps(path, res['feeds'], [loss], res['start'], eager=True)
     same_steps('(a)', res, eager)
@@ -8135,10 +8166,11 @@ def cifar_phase(seed, card):
             CIFAR_STEPS, CIFAR_BATCH, ['%.4f' % x for x in losses[::4]] +
             ['%.4f' % losses[-1]], CIFAR_STEPS, replayed))
     log('  (a) replayed %.3f ms a step (%.0f images/s), cached eager %.3f '
-        'ms, device %.3f ms (one profiled replay), peak %.3f GiB; test '
-        'clone over %d images: loss %.4f, accuracy %.4f (%s | %s)' % (
+        'ms, device %.3f ms (one profiled replay), peak %.3f GiB over the '
+        'resident %.3f; test clone over %d images: loss %.4f, accuracy '
+        '%.4f (%s | %s)' % (
             rep_ms, CIFAR_BATCH / rep_ms * 1e3, eager_ms, dev_ms,
-            peak / 2 ** 30, sum(e[2] for e in evals),
+            peak / 2 ** 30, resting / 2 ** 30, sum(e[2] for e in evals),
             np.mean([e[0] for e in evals]), np.mean([e[1] for e in evals]),
             torch.cuda.get_device_name(0), card))
 
@@ -8324,50 +8356,69 @@ def nn_op_cases(rng):
 NN_NOT_TWICE = {('grid_sampler', 'grad 0')}
 
 
+def ops_against_cpu(cases, dev, seed, tol, not_twice=frozenset()):
+    """Each case's op on the card, forward and gradient, twice, against
+    the same lowering on the CPU: floats within `tol` of the largest
+    magnitude, integers, shapes and dtypes exact, and the second launch
+    bitwise the first but for the (op, output) pairs in `not_twice`; a
+    host op runs through a one-op program (host_op_run).  Returns (the
+    worst float error, the outputs and gradients compared)."""
+    worst, n_out = 0.0, 0
+    for op, make, attrs in cases:
+        ins = make()
+        if registry.get(op).host:
+            run = lambda place: host_op_run(op, ins, place)  # noqa: E731
+            first, second = run(fluid.CUDAPlace(0)), run(fluid.CUDAPlace(0))
+            cpu = run(fluid.CPUPlace())
+        else:
+            first = lang_op_run(op, ins, attrs, dev, seed)
+            second = lang_op_run(op, ins, attrs, dev, seed)
+            cpu = lang_op_run(op, ins, attrs, 'cpu', seed)
+        outs = [(s, a, b, c) for s in sorted(first[0]) for a, b, c in
+                zip(first[0][s], second[0][s], cpu[0][s])]
+        outs += [('grad %d' % k, a, b, c) for k, (a, b, c) in enumerate(
+            zip(first[1], second[1], cpu[1])) if a is not None]
+        twice = [s for s, a, b, _ in outs if not torch.equal(a, b) and
+                 (op, s) not in not_twice]
+        bad = []
+        for s, a, _, c in outs:
+            n_out += 1
+            if a.shape != c.shape or a.dtype != c.dtype:
+                bad.append('%s %s %s against %s %s' % (
+                    s, tuple(a.shape), a.dtype, tuple(c.shape), c.dtype))
+            elif a.is_floating_point():
+                err = max_abs(a, c) / max(c.abs().max().item(), 1e-30)
+                worst = max(worst, err)
+                if err > tol:
+                    bad.append('%s %.2e' % (s, err))
+            elif not torch.equal(a, c):
+                bad.append(s)
+        if twice or bad:
+            raise AssertionError(
+                '%s on the card: second launch differs in %s; against the '
+                'CPU: %s' % (op, twice, bad))
+        del ins, first, second, cpu, outs
+    return worst, n_out
+
+
 def nn_ops_phase(seed, dev):
     """Phase 20 (c): every op type of the nn slice on the card, forward
     and gradient, against the same lowering on the CPU (floats within
     NN_TOL of the largest magnitude, integers exact), and twice bitwise
     but NN_NOT_TWICE, cuDNN deterministic."""
-    rng = np.random.RandomState(seed + 20)
-    cases = nn_op_cases(rng)
-    worst_all, n_out = 0.0, 0
+    cases = nn_op_cases(np.random.RandomState(seed + 20))
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        for op, make, attrs in cases:
-            ins = make()
-            first = lang_op_run(op, ins, attrs, dev, seed)
-            second = lang_op_run(op, ins, attrs, dev, seed)
-            cpu = lang_op_run(op, ins, attrs, 'cpu', seed)
-            outs = [(s, a, b, c) for s in sorted(first[0]) for a, b, c in
-                    zip(first[0][s], second[0][s], cpu[0][s])]
-            outs += [('grad %d' % k, a, b, c) for k, (a, b, c) in enumerate(
-                zip(first[1], second[1], cpu[1])) if a is not None]
-            twice = [s for s, a, b, _ in outs if not torch.equal(a, b) and
-                     (op, s) not in NN_NOT_TWICE]
-            bad = []
-            for s, a, _, c in outs:
-                n_out += 1
-                if a.is_floating_point():
-                    err = max_abs(a, c) / max(c.abs().max().item(), 1e-30)
-                    worst_all = max(worst_all, err)
-                    if err > NN_TOL:
-                        bad.append('%s %.2e' % (s, err))
-                elif not torch.equal(a, c):
-                    bad.append(s)
-            if twice or bad:
-                raise AssertionError(
-                    '%s on the card: second launch differs in %s; against '
-                    'the CPU: %s' % (op, twice, bad))
-            del ins, first, second, cpu, outs
+        worst, n_out = ops_against_cpu(cases, dev, seed, NN_TOL,
+                                       NN_NOT_TWICE)
     finally:
         torch.backends.cudnn.deterministic = saved
     log('  (c) %d op types (%d cases, %d outputs and gradients) on the card '
         'against the CPU (integers exact, floats within %g of the largest '
         'magnitude; worst %.1e), twice bitwise but %s' % (
             len({op for op, _, _ in cases}), len(cases), n_out, NN_TOL,
-            worst_all, sorted(NN_NOT_TWICE)))
+            worst, sorted(NN_NOT_TWICE)))
 
 
 def draws_path(seed):
@@ -8463,6 +8514,646 @@ def nn_slice_phase(seed, dev):
         torch.backends.cudnn.deterministic, \
             torch.backends.cudnn.benchmark = saved
     return out
+
+
+# ----------------------------------------------------------- phase 21
+# (a) C3D (Tran et al., "Learning Spatiotemporal Features with 3D
+# Convolutional Networks", ICCV 2015, Fig. 3 and section 3.3): eight
+# 3x3x3 convolutions in five blocks, five max pools (pool1 1x2x2, pool5
+# padded (0, 1, 1): 512 x 1 x 4 x 4 = 8192), fc6 and fc7 of 4096 with
+# dropout 0.5, fc8 over Sports-1M's 487 classes; 16-frame 112 x 112
+# clips at batch 30, SGD at 0.003
+C3D = {'widths': ((64,), (128,), (256, 256), (512, 512), (512, 512)),
+       'pools': ((1, 2, 2), (2, 2, 2), (2, 2, 2), (2, 2, 2), (2, 2, 2)),
+       'pads': ((0, 0, 0),) * 4 + ((0, 1, 1),),
+       'clip': (16, 112, 112), 'fc': 4096, 'classes': 487, 'dropout': 0.5}
+C3D_BATCH = 30
+C3D_LR = 0.003
+C3D_STEPS = 6
+# (b) the CTR-DNN of PaddlePaddle/models PaddleRec/ctr/dnn
+# (network_conf.py ctr_dnn_model at its train.py defaults): 13 dense
+# features, 26 sparse slots in one 1,000,001-row table of width 10,
+# three fc layers of 400, softmax over 2, auc over 2^12 thresholds; its
+# dense features through data_norm, each slot's pooled row with the
+# instance's show and click in front through continuous_value_model
+CTR = {'dense': 13, 'slots': 26, 'rows': 1000001, 'emb': 10,
+       'num_hash': 2, 'hidden': (400, 400, 400), 'thresholds': 2 ** 12}
+CTR_BATCH = 4096
+CTR_LR = WD_LR      # Wide&Deep's sparse Adagrad (phase 7)
+CTR_STEPS = 10
+AB_TOL = 1e-5       # (c): floats within 1e-5 of the largest magnitude
+TWO_LOSS_STEPS = 6  # (d)
+TWO_LOSS_RTOL, TWO_LOSS_ATOL = 1e-5, 1e-6
+SDPA_STEPS = 4
+
+
+def c3d_build(fluid, cfg):
+    """C3D from `fluid`'s layers (either package's): conv3d (3x3x3,
+    stride 1, padding 1, relu) blocks, each closed by a max pool3d,
+    then fc6 / fc7 (relu, dropout) and fc8 with softmax cross
+    entropy.  Returns (feeds, logits, loss)."""
+    L = fluid.layers
+    clip = L.data('clip', [3] + list(cfg['clip']), dtype='float32')
+    label = L.data('label', [1], dtype='int64')
+    h = clip
+    for widths, pool, pad in zip(cfg['widths'], cfg['pools'], cfg['pads']):
+        for w in widths:
+            h = L.conv3d(h, w, 3, stride=1, padding=1, act='relu')
+        h = L.pool3d(h, pool_size=list(pool), pool_type='max',
+                     pool_stride=list(pool), pool_padding=list(pad))
+    for _ in range(2):
+        h = L.fc(h, cfg['fc'], act='relu')
+        if cfg['dropout']:
+            h = L.dropout(h, dropout_prob=cfg['dropout'])
+    logits = L.fc(h, cfg['classes'])
+    loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+    return {'clip': clip, 'label': label}, logits, loss
+
+
+def ctr_build(fluid, cfg, cvm_layer='continuous_value_model'):
+    """The CTR-DNN from `fluid`'s layers: the raw ids of each slot
+    hashed num_hash times into the table (hash), looked up (is_sparse,
+    so Adagrad updates the rows with fused_emb_update) and sum-pooled a
+    slot; [show, click] in front of each slot's row through
+    continuous_value_model (use_cvm; `cvm_layer` 'cvm' takes the cvm
+    layer, the same op under its own name, as the JAX package runs it:
+    its continuous_value_model layer's program has no value for its
+    output); the dense features through data_norm; three relu fc
+    layers, softmax over 2, cross entropy, and auc.  Returns (feeds,
+    predict, loss, auc, auc statistics)."""
+    L = fluid.layers
+    s, e = cfg['slots'], cfg['emb']
+    dense = L.data('dense_input', [cfg['dense']], dtype='float32')
+    ids = L.data('slot_ids', [s], dtype='int64')
+    show_click = L.data('show_click', [2], dtype='float32')
+    label = L.data('label', [1], dtype='int64')
+    rows = L.hash(ids, hash_size=cfg['rows'], num_hash=cfg['num_hash'])
+    emb = L.embedding(rows, size=[cfg['rows'], e], is_sparse=True,
+                      param_attr=fluid.ParamAttr(
+                          name='SparseFeatFactors',
+                          initializer=fluid.initializer.Uniform()))
+    pooled = L.reduce_sum(L.reshape(emb, [0, s, cfg['num_hash'], e]), dim=2)
+    sc = L.expand(L.unsqueeze(show_click, [1]), [1, s, 1])
+    rows_in = L.reshape(L.concat([sc, pooled], axis=2), [-1, e + 2])
+    if cvm_layer == 'cvm':
+        cvm = L.cvm(rows_in, use_cvm=True)
+    else:
+        cvm = L.continuous_value_model(rows_in, L.reshape(sc, [-1, 2]),
+                                       use_cvm=True)
+    h = L.concat([L.reshape(cvm, [-1, s * (e + 2)]), L.data_norm(dense)],
+                 axis=1)
+    for w in cfg['hidden']:
+        h = L.fc(h, w, act='relu', param_attr=fluid.ParamAttr(
+            initializer=fluid.initializer.Normal(
+                scale=1.0 / math.sqrt(h.shape[1]))))
+    predict = L.fc(h, 2, act='softmax', param_attr=fluid.ParamAttr(
+        initializer=fluid.initializer.Normal(
+            scale=1.0 / math.sqrt(h.shape[1]))))
+    loss = L.mean(L.cross_entropy(predict, label))
+    auc, _, stats = L.auc(predict, label, num_thresholds=cfg['thresholds'])
+    feeds = {'dense_input': dense, 'slot_ids': ids,
+             'show_click': show_click, 'label': label}
+    return feeds, predict, loss, auc, stats
+
+
+def ctr_batch(cfg, batch, rng):
+    """A synthetic Criteo-like batch: 13 non-negative dense counts, a
+    raw 31-bit id a slot, show counts from 1 and clicks at most the
+    shows, and a label that follows the dense features and the clicks."""
+    dense = np.floor(rng.exponential(3.0, (batch, cfg['dense']))).astype(
+        'float32')
+    ids = rng.randint(0, 2 ** 31 - 1, (batch, cfg['slots'])).astype('int64')
+    show = 1.0 + rng.poisson(3.0, batch)
+    click = np.minimum(rng.poisson(0.5, batch), show)
+    score = dense.mean(1) / 3.0 + click / show + rng.rand(batch) * 0.5
+    label = (score > np.median(score)).astype('int64')[:, None]
+    return {'dense_input': dense, 'slot_ids': ids,
+            'show_click': np.stack([show, click], 1).astype('float32'),
+            'label': label}
+
+
+def c3d_path(seed):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feeds, _, loss = c3d_build(fluid, C3D)
+        fluid.optimizer.SGD(C3D_LR).minimize(loss)
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update(dropout_launches(main))
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    return {'main': main, 'startup': startup, 'feeds': feeds, 'loss': loss,
+            'expected': expected, 'params': n_params}
+
+
+def conv_share(events):
+    """(the share of device time in convolution kernels, the five
+    longest kernels with their ms) of a profile: cuDNN's kernels name
+    their pass (fprop / dgrad / wgrad) or convolution."""
+    from torch.autograd import DeviceType
+    cuda = [e for e in events if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in cuda) or 1.0
+    conv = sum(e.self_device_time_total for e in cuda if any(
+        k in e.key.lower() for k in ('conv', 'fprop', 'dgrad', 'wgrad')))
+    top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:5]
+    return conv / total, [(e.key[:60], e.self_device_time_total / 1e3)
+                          for e in top]
+
+
+def c3d_phase(seed, card):
+    """Phase 21 (a): C3D at the paper's widths, C3D_STEPS SGD steps at
+    batch C3D_BATCH on clips drawn on the card from the seed (step 1
+    eager, step 2 captured, the rest replayed), the dropout kernels
+    launched and counted each step; losses and the whole state bitwise
+    a second, eager-only run on the same batches."""
+    path = c3d_path(seed)
+    loss = path['loss']
+    names = weights.startup_names(path['startup'])
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 21)
+    feeds = [{'clip': torch.randn((C3D_BATCH, 3) + C3D['clip'],
+                                  generator=gen, device='cuda'),
+              'label': torch.randint(0, C3D['classes'], (C3D_BATCH, 1),
+                                     generator=gen, device='cuda')}
+             for _ in range(C3D_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resting = torch.cuda.memory_allocated()
+    res = p20_steps(path, feeds, [loss])
+    peak = torch.cuda.max_memory_allocated() - resting
+    check_replayed('(a)', res, path['expected'], 'dropout')
+    eager = p20_steps(path, res['feeds'], [loss], res['start'], eager=True)
+    same_steps('(a)', res, eager)
+    differ = [n for n in names if not torch.equal(
+        eager['scope'].find_var(n), res['scope'].find_var(n))]
+    if differ:
+        raise AssertionError('(a) the state after the replayed steps '
+                             'differs from the eager run in %s' % differ[:5])
+    # one more step each way, profiled (padded: late in a run the
+    # profiler drops the first device ops it sees): a replay, and an
+    # eager step
+    with fluid.scope_guard(res['scope']):
+        dev_ms = without_counting(lambda: device_ms(profile_run(
+            '', lambda: res['exe'].run(path['main'], feed=res['feeds'][-1],
+                                       fetch_list=[loss]), quiet=True,
+            pad=True)))
+    with fluid.scope_guard(eager['scope']):
+        share, top = conv_share(without_counting(lambda: profile_run(
+            '', lambda: eager_run(eager['exe'], path['main'],
+                                  eager['feeds'][-1], [loss]), quiet=True,
+            pad=True)))
+    losses = [float(s['out'][0]) for s in res['steps']]
+    if not np.isfinite(losses).all():
+        raise AssertionError('(a) losses not finite: %s' % losses)
+    rep_ms, eager_ms = step_ms(res, 2), step_ms(eager, 1)
+    log('  (a) C3D (%d parameters) at batch %d of 3 x %d x %d x %d clips, '
+        '%d SGD steps: losses %s; dropout + dropout_grad launched %d + %d '
+        'a step; replayed bitwise the eager-only run' % (
+            path['params'], C3D_BATCH, *C3D['clip'], C3D_STEPS,
+            ['%.4f' % x for x in losses], path['expected']['dropout'],
+            path['expected']['dropout_grad']))
+    log('  (a) replayed %.3f ms a step (%.1f clips/s), cached eager %.3f '
+        'ms, device %.3f ms (one profiled replay), %.1f%% of an eager '
+        'step\'s device time in convolution kernels, peak %.3f GiB over '
+        'the resident %.3f (%s | %s)' % (
+            rep_ms, C3D_BATCH / rep_ms * 1e3, eager_ms, dev_ms, 100 * share,
+            peak / 2 ** 30, resting / 2 ** 30,
+            torch.cuda.get_device_name(0), card))
+    log('  (a) longest kernels of the eager step: %s' % '; '.join(
+        '%s %.2f ms' % kv for kv in top))
+    drop_graphs(path['main'], res['scope'])
+
+
+def ctr_path(seed):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feeds, predict, loss, auc, stats = ctr_build(fluid, CTR)
+        fluid.optimizer.Adagrad(CTR_LR, epsilon=1e-6).minimize(loss)
+    n_update = sum(op.type == 'fused_emb_update'
+                   for op in main.global_block().ops)
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update({'embedding_lookup': 1, 'embedding_update': n_update})
+    norm = [p.name for p in main.all_parameters()
+            if p.name.startswith('data_norm')]
+    return {'main': main, 'startup': startup, 'loss': loss,
+            'predict': predict, 'auc': auc, 'stats': [v.name for v in stats],
+            'norm': norm, 'expected': expected,
+            'batch': ctr_batch(CTR, CTR_BATCH, np.random.RandomState(seed))}
+
+
+def ctr_phase(seed, card):
+    """Phase 21 (b): the CTR-DNN at batch CTR_BATCH for CTR_STEPS steps
+    (step 1 eager, step 2 captured, the rest replayed), K6 and K7
+    launched and counted each step; the outputs, the auc statistics and
+    data_norm's parameters bitwise an eager-only run's after every step;
+    the AUC of the last step within WD_AUC_TOL of the auc op's CPU
+    lowering on that step's predictions and statistics."""
+    path = ctr_path(seed)
+    feeds = [path['batch']] * CTR_STEPS
+    fetch = [path['loss'], path['auc'], path['predict']]
+    watch = path['stats'] + path['norm']
+    res = p20_steps(path, feeds, fetch, watch=watch)
+    check_replayed('(b)', res, path['expected'], 'embedding_update')
+    eager = p20_steps(path, feeds, fetch, res['start'], eager=True,
+                      watch=watch)
+    same_steps('(b)', res, eager, watch)
+    first, last = res['steps'][0], res['steps'][-1]
+    moved = [n for n in path['norm'] if torch.equal(
+        first['before'][n], last['after'][n])]
+    if len(path['norm']) != 3 or moved:
+        raise AssertionError('(b) data_norm parameters %s, unmoved %s' % (
+            path['norm'], moved))
+    stat_pos, stat_neg = path['stats']
+    cpu = registry.get('auc').run(registry.LowerCtx(step=0, device='cpu'), {
+        'Predict': [last['out'][2].cpu()],
+        'Label': [torch.as_tensor(path['batch']['label'])],
+        'StatPos': [last['before'][stat_pos].cpu()],
+        'StatNeg': [last['before'][stat_neg].cpu()]},
+        {'num_thresholds': CTR['thresholds']})
+    err = abs(float(cpu['AUC'][0]) - float(last['out'][1]))
+    losses = [float(s['out'][0]) for s in res['steps']]
+    if err > WD_AUC_TOL or not np.isfinite(losses).all() or \
+            losses[-1] >= losses[0]:
+        raise AssertionError('(b) losses %s; AUC %.9f against the CPU '
+                             'lowering\'s %.9f' % (
+                                 losses, float(last['out'][1]),
+                                 float(cpu['AUC'][0])))
+    log('  (b) CTR-DNN (%d-row table, %d slots x %d hashes, width %d, '
+        'batch %d, sparse Adagrad): losses %.6f -> %.6f, AUC %s; the auc '
+        'statistics and data_norm\'s parameters bitwise the eager-only run '
+        'after every step; step %d\'s AUC %.9f, the CPU lowering %.9f '
+        '(|diff| %.1e); launched and replayed each step: %s' % (
+            CTR['rows'], CTR['slots'], CTR['num_hash'], CTR['emb'],
+            CTR_BATCH, losses[0], losses[-1],
+            ['%.5f' % float(s['out'][1]) for s in res['steps']], CTR_STEPS,
+            float(last['out'][1]), float(cpu['AUC'][0]), err,
+            {k: n for k, n in path['expected'].items() if n}))
+    log('  (b) replayed %.4f ms a step, cached eager %.4f ms (%s | %s)' % (
+        step_ms(res, 2), step_ms(eager, 1), torch.cuda.get_device_name(0),
+        card))
+
+
+def vision_op_cases(rng):
+    """Every op type of item 11b-A at a size its users run: (op,
+    make_inputs, attrs).  tests/test_torch_coverage.py checks that each
+    has a case here."""
+    f = lambda *s: rng.randn(*s).astype('float32')  # noqa: E731
+
+    def deform(modulated):
+        ins = {'Input': [f(8, 512, 7, 7)], 'Filter': [f(512, 512, 3, 3) *
+                                                      0.02],
+               'Offset': [rng.uniform(-2.0, 2.0, (8, 18, 7, 7)).astype(
+                   'float32')]}
+        if modulated:
+            ins['Mask'] = [rng.rand(8, 9, 7, 7).astype('float32')]
+        return ins
+
+    return [
+        # C3D's conv5a at batch 4; a 3-D U-Net encoder step (SAME, 2)
+        ('conv3d', lambda: {'Input': [f(4, 512, 2, 7, 7)],
+                            'Filter': [f(512, 512, 3, 3, 3) * 0.02]},
+         {'strides': [1, 1, 1], 'paddings': [1, 1, 1]}),
+        ('conv3d', lambda: {'Input': [f(2, 32, 16, 32, 32)],
+                            'Filter': [f(64, 32, 3, 3, 3) * 0.05]},
+         {'strides': [2, 2, 2], 'padding_algorithm': 'SAME'}),
+        # a 3-D U-Net decoder's up-convolution
+        ('conv3d_transpose', lambda: {'Input': [f(2, 64, 8, 16, 16)],
+                                      'Filter': [f(64, 32, 2, 2, 2) * 0.1]},
+         {'strides': [2, 2, 2], 'paddings': [0, 0, 0]}),
+        # C3D's pool1 (batch 2) and its padded pool5 (batch 30); an
+        # average
+        ('pool3d', lambda: {'X': [f(2, 64, 16, 112, 112)]},
+         {'pooling_type': 'max', 'ksize': [1, 2, 2], 'strides': [1, 2, 2]}),
+        ('pool3d', lambda: {'X': [f(30, 512, 2, 7, 7)]},
+         {'pooling_type': 'max', 'ksize': [2, 2, 2], 'strides': [2, 2, 2],
+          'paddings': [0, 1, 1]}),
+        ('pool3d', lambda: {'X': [f(4, 256, 8, 28, 28)]},
+         {'pooling_type': 'avg', 'ksize': [2, 2, 2], 'strides': [2, 2, 2]}),
+        # a V-Net decoder's 2x up-sampling, both corner rules
+        ('trilinear_interp', lambda: {'X': [f(2, 32, 8, 32, 32)]},
+         {'out_d': 16, 'out_h': 64, 'out_w': 64, 'align_corners': True}),
+        ('trilinear_interp', lambda: {'X': [f(2, 32, 8, 32, 32)]},
+         {'out_d': 16, 'out_h': 64, 'out_w': 64, 'align_corners': False}),
+        # ESPCN's x3 sub-pixel layer, ShuffleNet's shuffle, YOLOv2's
+        # passthrough
+        ('pixel_shuffle', lambda: {'X': [f(16, 576, 32, 32)]},
+         {'upscale_factor': 3}),
+        ('shuffle_channel', lambda: {'X': [f(32, 240, 28, 28)]},
+         {'group': 3}),
+        ('space_to_depth', lambda: {'X': [f(16, 64, 26, 26)]},
+         {'blocksize': 2}),
+        # Detectron's frozen batch norm, a spatial transformer's grid
+        ('affine_channel', lambda: {'X': [f(8, 256, 56, 56)],
+                                    'Scale': [f(256)], 'Bias': [f(256)]},
+         {'data_layout': 'NCHW'}),
+        ('affine_grid', lambda: {'Theta': [f(32, 2, 3)]},
+         {'output_shape': [32, 3, 64, 64]}),
+        ('unfold', lambda: {'X': [f(8, 64, 56, 56)]},
+         {'kernel_sizes': [3, 3], 'paddings': [1, 1]}),
+        # FCN's score crop
+        ('crop_tensor', lambda: {'X': [f(8, 21, 128, 128)]},
+         {'shape': [-1, 21, 112, 112], 'offsets': [0, 0, 8, 8]}),
+        ('crop', lambda: {'X': [f(8, 21, 128, 128)]},
+         {'shape': [8, 21, 100, 120], 'offsets': [0, 0, 19, 0]}),
+        # SPP-net's pyramid over conv5
+        ('spp', lambda: {'X': [f(16, 256, 13, 13)]},
+         {'pyramid_height': 3, 'pooling_type': 'max'}),
+        ('spp', lambda: {'X': [f(16, 256, 13, 13)]},
+         {'pyramid_height': 3, 'pooling_type': 'avg'}),
+        # DCNv2 on ResNet-50's res5 3x3 convolution
+        ('deformable_conv', lambda: deform(True),
+         {'strides': [1, 1], 'paddings': [1, 1], 'dilations': [1, 1],
+          'groups': 1, 'deformable_groups': 1, 'im2col_step': 1}),
+        ('deformable_conv_v1', lambda: deform(False),
+         {'strides': [1, 1], 'paddings': [1, 1], 'dilations': [1, 1],
+          'groups': 1, 'deformable_groups': 1, 'im2col_step': 1}),
+    ]
+
+
+def loss_op_cases(rng):
+    """Every op type of item 11b-B at a size its users run, as
+    vision_op_cases; unique and unique_with_counts are host ops, run
+    through a program (host_op_run)."""
+    f = lambda *s: rng.randn(*s).astype('float32')  # noqa: E731
+    col = lambda: f(4096, 1)  # noqa: E731  a CTR batch's scores
+    ints = lambda hi, *s: rng.randint(0, hi, s).astype('int64')  # noqa
+
+    def cvm_ins(with_cvm):
+        x = np.abs(f(4096 * 26, 12)) * 3
+        ins = {'X': [x]}
+        if with_cvm:
+            ins['CVM'] = [x[:, :2].copy()]
+        return ins
+
+    def data_norm_ins():
+        return {'X': [np.abs(f(4096, 13)) * 4],
+                'BatchSize': [np.full(13, 1e4, 'float32')],
+                'BatchSum': [f(13) * 100],
+                'BatchSquareSum': [np.full(13, 1e4, 'float32') +
+                                   np.abs(f(13)) * 1e3]}
+
+    probs = lambda: np.exp(f(1024, 1000)).astype('float32')  # noqa: E731
+    return [
+        ('rank_loss', lambda: {'Label': [rng.rand(4096, 1).astype('float32')],
+                               'Left': [col()], 'Right': [col()]}, {}),
+        ('margin_rank_loss',
+         lambda: {'Label': [np.sign(col())], 'X1': [col()], 'X2': [col()]},
+         {'margin': 0.1}),
+        ('hinge_loss', lambda: {'Logits': [col()],
+                                'Labels': [(col() > 0).astype('float32')]},
+         {}),
+        ('bpr_loss', lambda: {'X': [f(1024, 100)],
+                              'Label': [ints(100, 1024, 1)]}, {}),
+        ('modified_huber_loss', lambda: {'X': [col() * 2],
+                                         'Y': [(col() > 0).astype(
+                                             'float32')]}, {}),
+        ('teacher_student_sigmoid_loss',
+         lambda: {'X': [col()], 'Label': [rng.uniform(
+             -2.0, 2.0, (4096, 1)).astype('float32')]}, {}),
+        # face recognition's center loss over 1000 identities
+        ('center_loss', lambda: {'X': [f(512, 512)],
+                                 'Label': [ints(1000, 512, 1)],
+                                 'Centers': [f(1000, 512)]},
+         {'alpha': 0.5, 'need_update': True}),
+        ('cvm', lambda: cvm_ins(False), {'use_cvm': True}),
+        ('continuous_value_model', lambda: cvm_ins(True), {'use_cvm': True}),
+        # FSP distillation between two ResNet stages
+        ('fsp', lambda: {'X': [f(32, 64, 28, 28)], 'Y': [f(32, 128, 28, 28)]},
+         {}),
+        ('l1_norm', lambda: {'X': [f(1000, 1000)]}, {}),
+        # VOC segmentation at 512 x 512
+        ('mean_iou', lambda: {'Predictions': [ints(21, 8, 512 * 512)],
+                              'Labels': [ints(21, 8, 512 * 512)]},
+         {'num_classes': 21}),
+        ('shard_index', lambda: {'X': [ints(1000001, 4096, 1)]},
+         {'index_num': 1000001, 'nshards': 8, 'shard_id': 3,
+          'ignore_value': -1}),
+        ('multiplex', lambda: {'Ids': [ints(4, 4096, 1).astype('int32')],
+                               'X': [f(4096, 64) for _ in range(4)]}, {}),
+        ('bilinear_tensor_product',
+         lambda: {'X': [f(1024, 128)], 'Y': [f(1024, 128)],
+                  'Weight': [f(64, 128, 128) * 0.05],
+                  'Bias': [f(1, 64)]}, {}),
+        ('sampling_id', lambda: {'X': [probs()]}, {'seed': 0}),
+        ('scatter_nd_add', lambda: {'X': [f(10000, 64)],
+                                    'Index': [ints(10000, 4096, 1)],
+                                    'Updates': [f(4096, 64)]}, {}),
+        ('pad_constant_like', lambda: {'X': [f(32, 3, 224, 224)],
+                                       'Y': [f(32, 3, 200, 200)]},
+         {'pad_value': 0.0}),
+        # SN-GAN's discriminator convolution
+        ('spectral_norm', lambda: {'Weight': [f(512, 256, 4, 4)],
+                                   'U': [f(512)], 'V': [f(4096)]},
+         {'dim': 0, 'power_iters': 1, 'eps': 1e-12}),
+        ('data_norm', data_norm_ins, {'epsilon': 1e-5}),
+        ('random_crop', lambda: {'X': [f(64, 3, 256, 256)]},
+         {'shape': [224, 224]}),
+        ('unique_with_counts', lambda: {'X': [ints(100000, 4096 * 26)]}, {}),
+        ('add_position_encoding', lambda: {'X': [f(64, 128, 512)]},
+         {'alpha': 1.0, 'beta': 1.0}),
+        ('hash', lambda: {'X': [rng.randint(0, 2 ** 31 - 1, (4096, 26))
+                                .astype('int64')]},
+         {'num_hash': 2, 'mod_by': 1000001}),
+        ('scatter_nd', lambda: {'Index': [ints(512, 4096, 2)],
+                                'Updates': [f(4096)]}, {'shape': [512, 512]}),
+        ('similarity_focus', lambda: {'X': [f(32, 64, 28, 28)]},
+         {'axis': 1, 'indexes': [0, 5]}),
+        ('unique', lambda: {'X': [ints(100000, 4096 * 26)]}, {}),
+    ]
+
+
+def host_op_run(op, ins, place):
+    """A host op (unique, unique_with_counts) through a one-op program
+    on `place`: its outputs as CPU tensors."""
+    main = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main,
+                                                        fluid.Program()):
+        x = ins['X'][0]
+        xv = fluid.layers.data('x', list(x.shape), dtype=str(x.dtype),
+                               append_batch_size=False)
+        outs = getattr(fluid.layers, op)(xv)
+    with fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(place)
+        got = exe.run(main, feed={'x': x}, fetch_list=list(outs),
+                      return_numpy=False)
+    return ({'Out': [torch.as_tensor(v).cpu() for v in got]}, [])
+
+
+def ab_ops_phase(seed, dev):
+    """Phase 21 (c): every op type of item 11b's groups A and B on the
+    card against the CPU, as ops_against_cpu holds them (floats within
+    AB_TOL), under the phase's deterministic cuDNN; no gradient adds
+    with float atomics, so none is exempt from the second launch."""
+    cases = vision_op_cases(np.random.RandomState(seed + 21)) + \
+        loss_op_cases(np.random.RandomState(seed + 22))
+    worst, n_out = ops_against_cpu(cases, dev, seed, AB_TOL)
+    log('  (c) %d op types (%d cases, %d outputs and gradients) on the card '
+        'against the CPU (integers exact, floats within %g of the largest '
+        'magnitude; worst %.1e), every one twice bitwise' % (
+            len({op for op, _, _ in cases}), len(cases), n_out, AB_TOL,
+            worst))
+
+
+def two_loss_build(fluid):
+    """The JAX package's multi-loss oracle
+    (tests/test_wpg_default.py::test_multi_loss_takes_wpg_and_matches_per_op)
+    at a size: a two-layer regressor with a square loss and an absolute
+    auxiliary loss, one append_backward each, SGD applying the last
+    walk's gradients."""
+    L = fluid.layers
+    x = L.data('x', shape=[256], dtype='float32')
+    y = L.data('y', shape=[1], dtype='float32')
+    pred = L.fc(L.fc(x, 512, act='relu'), 1)
+    loss = L.mean(L.square(pred - y))
+    aux = L.mean(L.abs(pred))
+    pgs = fluid.backward.append_backward(loss) + \
+        fluid.backward.append_backward(aux)
+    merged = {}
+    for p, g in pgs:
+        merged.setdefault(p.name, (p, []))[1].append(g)
+    fluid.optimizer.SGD(0.05).apply_gradients(
+        [(p, gs[-1]) for p, gs in merged.values()])
+    return loss, aux
+
+
+@contextlib.contextmanager
+def per_op_grads():
+    """The executor's per-op grad path: no program takes the
+    whole-program grad while this is open."""
+    from paddle_tpu_torch.fluid import executor as texec
+    saved = texec._wpg_partition
+    texec._wpg_partition = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        texec._wpg_partition = saved
+
+
+def two_loss_phase(seed, card):
+    """Phase 21 (d), first half: the two-loss program on the card, on
+    the whole-program grad (its plan with 2 seeds) against the per-op
+    grad path, TWO_LOSS_STEPS steps from one startup state: losses and
+    parameters within rtol TWO_LOSS_RTOL / atol TWO_LOSS_ATOL."""
+    from paddle_tpu_torch.fluid import executor as texec
+
+    def program():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = seed + 1
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            return (main, startup) + two_loss_build(fluid)
+    main, _, loss, aux = program()
+    part = texec._wpg_partition(main.global_block().ops, main,
+                                [loss.name, aux.name])
+    if part is None or len(part['seeds']) != 2:
+        raise AssertionError('(d) the two-loss program does not take the '
+                             'whole-program grad with 2 seeds')
+    rng = np.random.RandomState(seed + 4)
+    feeds = []
+    for _ in range(TWO_LOSS_STEPS):
+        xb = rng.randn(512, 256).astype('float32')
+        feeds.append({'x': xb, 'y': xb[:, :8].sum(1, keepdims=True)})
+
+    def run(per_op):
+        """Losses and parameters of the steps on a program of its own (a
+        plan is cached on its program)."""
+        main, startup, loss, aux = program()
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(scope), (per_op_grads() if per_op else
+                                        contextlib.nullcontext()):
+            exe.run(startup)
+            losses = [[float(v) for v in exe.run(
+                main, feed=f, fetch_list=[loss, aux])] for f in feeds]
+            return np.array(losses), {
+                p.name: scope.find_var(p.name).cpu().numpy()
+                for p in main.all_parameters()}
+    got, got_p = without_counting(lambda: run(False))
+    want, want_p = without_counting(lambda: run(True))
+    np.testing.assert_allclose(got, want, rtol=TWO_LOSS_RTOL,
+                               atol=TWO_LOSS_ATOL)
+    worst = 0.0
+    for n in sorted(want_p):
+        np.testing.assert_allclose(got_p[n], want_p[n], rtol=TWO_LOSS_RTOL,
+                                   atol=TWO_LOSS_ATOL, err_msg=n)
+        worst = max(worst, float(np.abs(got_p[n] - want_p[n]).max()))
+    log('  (d) two losses, one append_backward each: the whole-program grad '
+        '(2 seeds) against the per-op grad path over %d SGD steps: losses '
+        '%s against %s, parameters within %.1e (%s | %s)' % (
+            TWO_LOSS_STEPS, ['%.5f' % v for v in got[:, 0]],
+            ['%.5f' % v for v in want[:, 0]], worst,
+            torch.cuda.get_device_name(0), card))
+
+
+def sdpa_path(seed):
+    """nets.scaled_dot_product_attention over Transformer-base's widths
+    (8 heads of 64) on projections of a [64, 64, 512] input, attention
+    dropout 0.1, a square error against the input, SGD.  Its result is
+    the JAX package's [B, H, T D] view of the [B, T, H, D] context
+    (ROADMAP Queue 3), so the step reshapes it back to [B, T, H D]."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    L = fluid.layers
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = L.data('x', [64, 512], dtype='float32')
+        q, k, v = (L.fc(x, 512, num_flatten_dims=2) for _ in range(3))
+        ctx = L.reshape(fluid.nets.scaled_dot_product_attention(
+            q, k, v, num_heads=8, dropout_rate=0.1), [0, 64, 512])
+        loss = L.mean(L.square_error_cost(L.fc(ctx, 512,
+                                               num_flatten_dims=2), x))
+        fluid.optimizer.SGD(0.01).minimize(loss)
+    expected = {k: 0 for k in common.KERNELS}
+    expected.update(dropout_launches(main))
+    return {'main': main, 'startup': startup, 'loss': loss,
+            'expected': expected}
+
+
+def sdpa_phase(seed, card):
+    """Phase 21 (d), second half: SDPA_STEPS steps of sdpa_path replayed
+    from a CUDA graph after the first two, each bitwise the eager-only
+    step of the same number, the loss falling."""
+    path = sdpa_path(seed)
+    feeds = [{'x': torch.as_tensor(np.random.RandomState(seed + k).randn(
+        64, 64, 512).astype('float32'), device='cuda')}
+        for k in range(SDPA_STEPS)]
+    res = p20_steps(path, feeds, [path['loss']])
+    check_replayed('(d)', res, path['expected'], 'dropout')
+    eager = p20_steps(path, res['feeds'], [path['loss']], res['start'],
+                      eager=True)
+    same_steps('(d)', res, eager)
+    losses = [float(s['out'][0]) for s in res['steps']]
+    if not np.isfinite(losses).all():
+        raise AssertionError('(d) attention losses %s' % losses)
+    log('  (d) nets.scaled_dot_product_attention (8 heads, dropout 0.1) at '
+        '[64, 64, 512]: %d SGD steps, losses %s, replayed bitwise the '
+        'eager-only steps; replayed %.3f ms, eager %.3f ms (%s | %s)' % (
+            SDPA_STEPS, ['%.5f' % x for x in losses], step_ms(res, 2),
+            step_ms(eager, 1), torch.cuda.get_device_name(0), card))
+
+
+def vision_loss_phase(seed, dev):
+    """Phase 21: item 11b's groups A and B."""
+    card = card_line()
+    log('[21] dense vision, losses and misc: C3D, the CTR-DNN, the op '
+        'types of 11b-A and 11b-B (%s | %s)' % (
+            torch.cuda.get_device_name(0), card))
+    saved = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for key, fn in (('a', lambda: c3d_phase(seed, card)),
+                        ('b', lambda: ctr_phase(seed, card)),
+                        ('c', lambda: without_counting(
+                            lambda: ab_ops_phase(seed, dev))),
+                        ('d', lambda: (two_loss_phase(seed, card),
+                                       sdpa_phase(seed, card)))):
+            t0 = time.perf_counter()
+            fn()
+            gc.collect()
+            torch.cuda.empty_cache()
+            log('  (%s): %.1f s' % (key, time.perf_counter() - t0))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
 
 
 def main(argv=None):
@@ -8625,6 +9316,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     nn_slice_phase(args.seed, dev)
     log('  phase 20: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    vision_loss_phase(args.seed, dev)
+    log('  phase 21: %.1f s' % (time.perf_counter() - t0))
     # each row's launches at the wrappers and replayed from CUDA graphs'
     # manifests on the main path, as counted() read them in this
     # process; the data-parallel rows, as the ranks of phases 9 and 12

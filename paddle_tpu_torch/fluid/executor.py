@@ -395,9 +395,17 @@ def _wpg_partition(ops, program, fetch_names):
     differentiates.  Returns None where one autograd pass over the
     forward cannot stand in for the backward region: no backward-role
     op, a backward-role op other than the synthesized grad ops, seed
-    fills, zero placeholders, aggregation sums and recompute spans, not
-    exactly one loss, or a needed gradient of a value the forward
-    region writes (an intermediate) or never reads.
+    fills, zero placeholders, aggregation sums and recompute spans, no
+    loss, two seeds of one loss, a loss the forward region does not
+    write, or a needed gradient of a value the forward region writes
+    (an intermediate) or never reads.
+
+    Each loss has its seed fill (one ``append_backward`` each, JAX
+    fluid/executor.py:889-906): ``seeds`` lists (loss, its @GRAD, the
+    seed value) in program order, and ``regions`` maps each needed
+    gradient to the seed whose backward walk last writes it, so the
+    gradient is that loss's alone, as on the per-op path.  A program
+    with recompute spans takes exactly one loss.
 
     A RecomputeOptimizer program's re-emitted forward ops and their
     ``recompute_barrier`` ops do not run: each span they re-emit
@@ -431,25 +439,33 @@ def _wpg_partition(ops, program, fetch_names):
                           float(op.attrs.get('value', 1.0))))
             continue
         return None
-    if len(seeds) != 1:
+    if not seeds or len(set(p for p, _, _ in seeds)) != len(seeds) or \
+            (twins and len(seeds) != 1):
         return None
-    loss, seed_grad, seed_value = seeds[0]
     pre_writes, pre_reads = set(), set()
     for op in pre:
         pre_writes.update(op.output_arg_names)
         pre_reads.update(op.input_arg_names)
-    if loss not in pre_writes:
+    if any(p not in pre_writes for p, _, _ in seeds):
         return None
-    bwd_writes = set(n for op in bwd for n in op.output_arg_names)
+    seed_grads = set(g for _, g, _ in seeds)
+    region_of, region = {}, -1
+    for op in bwd:
+        ws = op.output_arg_names
+        if op.type in ('fill_constant', 'fill_any_like') and ws and \
+                ws[0] in seed_grads:
+            region += 1
+        for n in ws:
+            region_of[n] = max(region, 0)
     later_reads = set(n for op in post for n in op.input_arg_names)
-    grads = {}
-    for g in sorted(bwd_writes & (later_reads | set(fetch_names))):
-        if g == seed_grad:
+    grads, regions = {}, {}
+    for g in sorted(set(region_of) & (later_reads | set(fetch_names))):
+        if g in seed_grads:
             continue
         p = rev.get(g)
         if p is None or p in pre_writes or p not in pre_reads:
             return None
-        grads[g] = p
+        grads[g], regions[g] = p, region_of[g]
     # variables append_backward treated as constants: cut from the
     # autograd graph where the forward writes them
     block = ops[0].block
@@ -458,15 +474,14 @@ def _wpg_partition(ops, program, fetch_names):
     for op in pre:
         for n in op.output_arg_names:
             v = block._find_var_recursive(n)
-            if n in no_grad or (n != loss and v is not None and
-                                v.stop_gradient):
+            if n in no_grad or (v is not None and v.stop_gradient and
+                                all(n != p for p, _, _ in seeds)):
                 stop.add(n)
     spans = _recompute_spans(pre, twins)
     if spans is None:
         return None
-    return {'pre': pre, 'post': post, 'loss': loss, 'seed_grad': seed_grad,
-            'seed_value': seed_value, 'grads': grads, 'stop': stop,
-            'spans': spans}
+    return {'pre': pre, 'post': post, 'seeds': seeds, 'grads': grads,
+            'regions': regions, 'stop': stop, 'spans': spans}
 
 
 def replay_ops(env, ops, step, device=None, program=None, timed=False):
@@ -847,7 +862,7 @@ def _build_plan(program, fetch_names, serial=False):
         wpg = plan.wpg
         later = set(n for op in wpg['post'] for n in op.input_arg_names)
         plan.pre_drops = _drop_plan(wpg['pre'], keep | later | edge_reads |
-                                    {wpg['loss']})
+                                    {p for p, _, _ in wpg['seeds']})
         plan.pre = [_OpStep(op, wpg['stop'], drop)
                     for op, drop in zip(wpg['pre'], plan.pre_drops)]
         plan.spans = {a: _Span(plan.pre[a:b], plan.pre_drops[a:b])
@@ -2476,8 +2491,9 @@ class Executor(object):
 
     def _run_whole_program_grad(self, plan, env, scope, program):
         """The forward region with autograd recording, one autograd pass
-        from the loss to every variable whose gradient is read, then the
-        remaining (optimizer) ops without it."""
+        from each loss whose gradients are read (usually one) to the
+        variables whose gradients that loss's backward walk gives, then
+        the remaining (optimizer) ops without it."""
         wpg = plan.wpg
         wrt = sorted(set(wpg['grads'].values()))
         fed = {n: env[n] for n in wrt if n in env}
@@ -2497,17 +2513,25 @@ class Executor(object):
                 self._run_pre_step(plan.pre[i], plan.pre_drops[i], env,
                                    scope, program)
                 i += 1
-            loss = env[wpg['loss']]
-            seed = torch.full_like(loss, wpg['seed_value'])
-            if loss.requires_grad and leaves:
-                grads = torch.autograd.grad([loss], leaves, [seed],
-                                            allow_unused=True)
-            else:
-                grads = [None] * len(leaves)
-        by_name = {n: (torch.zeros_like(x).detach() if g is None else g)
-                   for n, x, g in zip(wrt, leaves, grads)}
-        del leaves, grads
-        grads = {g: by_name[p] for g, p in wpg['grads'].items()}
+            losses = [env[p] for p, _, _ in wpg['seeds']]
+            seeds = [torch.full_like(v, value)
+                     for v, (_, _, value) in zip(losses, wpg['seeds'])]
+            used = sorted(set(wpg['regions'].values()))
+            by_region = {}
+            for k, r in enumerate(used):
+                if losses[r].requires_grad and leaves:
+                    row = torch.autograd.grad(
+                        [losses[r]], leaves, [seeds[r]], allow_unused=True,
+                        retain_graph=k + 1 < len(used))
+                else:
+                    row = [None] * len(leaves)
+                by_region[r] = {
+                    n: (torch.zeros_like(x).detach() if g is None else g)
+                    for n, x, g in zip(wrt, leaves, row)}
+        del leaves
+        grads = {g: by_region[wpg['regions'][g]][p]
+                 for g, p in wpg['grads'].items()}
+        del by_region
         if self._replica is not None and self._replica.world > 1:
             # CoeffNumDevice: the gradients of the global loss
             grads = self._global_grads(grads, wpg['grads'])
@@ -2515,12 +2539,13 @@ class Executor(object):
         for n in wrt:
             env.pop(n, None)
         env.update(fed)
-        env[wpg['loss']] = loss.detach()
+        for (p, g, _), v, seed in zip(wpg['seeds'], losses, seeds):
+            env[p] = v.detach()
+            if g in plan.keep:
+                env[g] = seed
         for g, v in grads.items():
             env[g] = v
             self._check_finite(g, v)
-        if wpg['seed_grad'] in plan.keep:
-            env[wpg['seed_grad']] = seed
         with torch.no_grad():
             self._run_steps(plan.post, env, scope, program)
 

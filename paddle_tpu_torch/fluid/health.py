@@ -137,9 +137,9 @@ def _serving_module():
 # yet, and the ROADMAP item of the port that brings each
 _UNPORTED_SECTIONS = {
     'auto_shard': 'ROADMAP Queue 1 item 13 (the auto-shard planner)',
-    'supervisor': 'ROADMAP Queue 1 item 16 (the self-healing supervisor)',
+    'supervisor': 'ROADMAP Queue 1 item 17 (the self-healing supervisor)',
     'autopilot': 'ROADMAP Queue 1 item 17 (the autopilot)',
-    'fleet': 'ROADMAP Queue 1 item 17 (the serving fleet)',
+    'fleet': 'ROADMAP Queue 1 item 16 (the serving fleet)',
 }
 
 
@@ -205,7 +205,7 @@ def statusz():
     except Exception:
         pass
     # fault injection (fluid.faultinject); the JAX package shows it in
-    # its elastic section (ROADMAP item 16 of the port)
+    # its elastic section (ROADMAP item 17 of the port)
     faultinject_section = None
     try:
         from . import faultinject

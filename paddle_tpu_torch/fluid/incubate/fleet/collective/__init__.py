@@ -6,8 +6,9 @@ Reference: python/paddle/fluid/incubate/fleet/collective/__init__.py
 ``c_allreduce_sum`` (not planned: one all-reduce, no K8) and a
 ``scale(1/nranks)`` on every gradient, nranks the process group's size;
 the program runs on each rank's card with the group
-(fluid/executor.py).  ``fleet.init`` joins the launcher's group.  AMP,
-recompute and LocalSGD are not ported and raise.
+(fluid/executor.py).  ``fleet.init`` joins the launcher's group.  AMP
+and recompute run; LocalSGD is not ported and raises (ROADMAP Queue 1
+item 12).
 """
 
 from ..base.fleet_base import Fleet, DistributedOptimizer, Mode

@@ -1,7 +1,8 @@
-"""fluid.layers: the subset the BERT, CTR, image, recurrent and
+"""fluid.layers: the subset the BERT, CTR, image, video, recurrent and
 structured-prediction models, the learning-rate schedules, gradient
-clipping, control flow, beam-search decoding and ordinary Fluid scripts
-(the core math, activation and tensor layers) use (reference:
+clipping, control flow, beam-search decoding, the distributions and
+ordinary Fluid scripts (the core math, activation, tensor, dense
+vision and loss layers) use (reference:
 python/paddle/fluid/layers/)."""
 
 from . import nn  # noqa: F401
@@ -13,7 +14,9 @@ from . import learning_rate_scheduler  # noqa: F401
 from . import control_flow  # noqa: F401
 from . import sequence_lod  # noqa: F401
 from . import rnn  # noqa: F401
+from . import extras  # noqa: F401
 from . import more_layers  # noqa: F401
+from . import distributions  # noqa: F401
 
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
@@ -37,4 +40,7 @@ from .sequence_lod import (  # noqa: F401
     sequence_pad, sequence_unpad, sequence_concat, sequence_slice,
     sequence_erase, sequence_enumerate, sequence_reverse,
     sequence_expand_as, sequence_scatter, lod_reset, sequence_mask)
+from .extras import *  # noqa: F401,F403
 from .more_layers import *  # noqa: F401,F403
+from .distributions import (Uniform, Normal, Categorical,  # noqa: F401
+                            MultivariateNormalDiag)

@@ -6,13 +6,20 @@ reduce_all / reduce_any, the random layers, strided_slice, expand_as,
 pad2d, maxout, autoincreased_step_counter, instance_norm, group_norm,
 temporal_shift, grid_sampler, the losses log_loss, huber_loss,
 kldiv_loss and mse_loss, rank, size, gaussian_random_batch_size_like,
-soft_relu and image_resize_short; and brelu, selu and stanh of its
+soft_relu and image_resize_short; adaptive_pool3d, crop, crop_tensor
+and deformable_conv (ROADMAP Queue 1 item 11b-A);
+add_position_encoding, continuous_value_model, data_norm, hash,
+scatter_nd, similarity_focus, spectral_norm, unique and
+unique_with_counts (item 11b-B); and brelu, selu and stanh of its
 layers/extras.py.
 Each appends the ops the JAX package's layer appends (reference
 python/paddle/fluid/layers/nn.py and loss.py)."""
 
+import numpy as np
+
 from .. import initializer as init
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 __all__ = ['elementwise_mod', 'elementwise_floordiv', 'im2sequence',
            'row_conv', 'sum', 'filter_by_instag', 'lod_append',
@@ -23,7 +30,11 @@ __all__ = ['elementwise_mod', 'elementwise_floordiv', 'im2sequence',
            'stanh', 'instance_norm', 'group_norm', 'temporal_shift',
            'grid_sampler', 'log_loss', 'huber_loss', 'kldiv_loss',
            'mse_loss', 'rank', 'size', 'gaussian_random_batch_size_like',
-           'soft_relu', 'image_resize_short']
+           'soft_relu', 'image_resize_short', 'adaptive_pool3d', 'crop',
+           'crop_tensor', 'deformable_conv', 'add_position_encoding',
+           'continuous_value_model', 'data_norm', 'hash', 'scatter_nd',
+           'similarity_focus', 'spectral_norm', 'unique',
+           'unique_with_counts']
 
 
 def _simple(op_type, inputs, attrs=None, dtype=None, out_slot='Out',
@@ -363,3 +374,164 @@ def image_resize_short(input, out_short_len, resample='BILINEAR'):
     return _nn.image_resize(input, out_shape=[int(round(h * scale)),
                                               int(round(w * scale))],
                             resample=resample)
+
+
+def adaptive_pool3d(input, pool_size, pool_type='max',
+                    require_index=False, name=None):
+    return _simple('pool3d', {'X': input},
+                   {'pooling_type': pool_type,
+                    'ksize': list(pool_size) if isinstance(
+                        pool_size, (list, tuple)) else [pool_size] * 3,
+                    'adaptive': True}, name=name)
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    attrs = {}
+    if isinstance(shape, (list, tuple)):
+        attrs['shape'] = list(shape)
+    if isinstance(offsets, (list, tuple)):
+        attrs['offsets'] = list(offsets)
+    return _simple('crop', {'X': x}, attrs, name=name)
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    ins = {'X': x}
+    attrs = {}
+    from ..framework import Variable
+    if isinstance(shape, Variable):
+        ins['Shape'] = shape
+    elif shape is not None:
+        attrs['shape'] = list(shape)
+    if isinstance(offsets, Variable):
+        ins['Offsets'] = offsets
+    elif offsets is not None:
+        attrs['offsets'] = list(offsets)
+    return _simple('crop_tensor', ins, attrs, name=name)
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size,
+                    stride=1, padding=0, dilation=1, groups=1,
+                    deformable_groups=1, im2col_step=1, param_attr=None,
+                    bias_attr=None, modulated=True, name=None):
+    helper = LayerHelper('deformable_conv', name=name)
+
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+    c_in = input.shape[1]
+    fs = _pair(filter_size)
+    w = helper.create_parameter(
+        param_attr, [num_filters, c_in // groups] + fs, input.dtype)
+    ins = {'Input': input, 'Offset': offset, 'Filter': w}
+    if modulated and mask is not None:
+        ins['Mask'] = mask
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('deformable_conv' if modulated else
+                     'deformable_conv_v1', inputs=ins,
+                     outputs={'Output': out},
+                     attrs={'strides': _pair(stride),
+                            'paddings': _pair(padding),
+                            'dilations': _pair(dilation),
+                            'groups': groups,
+                            'deformable_groups': deformable_groups,
+                            'im2col_step': im2col_step},
+                     infer_shape=False)
+    if bias_attr is not False:
+        out = helper.append_bias_op(out, dim_start=1, dim_end=2,
+                                    bias_attr=bias_attr)
+    return out
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    return _simple('add_position_encoding', {'X': input},
+                   {'alpha': alpha, 'beta': beta}, name=name)
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    return _simple('continuous_value_model',
+                   {'X': input, 'CVM': cvm}, {'use_cvm': use_cvm})
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None,
+              data_layout='NCHW', in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=False):
+    helper = LayerHelper('data_norm', name=name)
+    c = input.shape[-1]
+    batch_size = helper.create_parameter(
+        ParamAttr(name=name + '.batch_size' if name else None), [c],
+        input.dtype, default_initializer=init.Constant(1e4))
+    batch_sum = helper.create_parameter(
+        ParamAttr(name=name + '.batch_sum' if name else None), [c],
+        input.dtype, default_initializer=init.Constant(0.0))
+    batch_square = helper.create_parameter(
+        ParamAttr(name=name + '.batch_square_sum' if name else None),
+        [c], input.dtype, default_initializer=init.Constant(1e4))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    means = helper.create_variable_for_type_inference(input.dtype)
+    scales = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op('data_norm',
+                     inputs={'X': input, 'BatchSize': batch_size,
+                             'BatchSum': batch_sum,
+                             'BatchSquareSum': batch_square},
+                     outputs={'Y': out, 'Means': means,
+                              'Scales': scales},
+                     attrs={'epsilon': epsilon})
+    return helper.append_activation(out, act)
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    return _simple('hash', {'X': input},
+                   {'mod_by': hash_size, 'num_hash': num_hash},
+                   dtype='int32', name=name)
+
+
+def scatter_nd(index, updates, shape, name=None):
+    return _simple('scatter_nd', {'Index': index, 'Updates': updates},
+                   {'shape': list(shape)}, dtype=updates.dtype,
+                   name=name)
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    return _simple('similarity_focus', {'X': input},
+                   {'axis': axis, 'indexes': list(indexes)}, name=name)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    helper = LayerHelper('spectral_norm', name=name)
+    h = weight.shape[dim]
+    w = int(np.prod(weight.shape)) // h
+    u = helper.create_parameter(
+        ParamAttr(trainable=False), [h], weight.dtype,
+        default_initializer=init.Normal(0.0, 1.0))
+    v = helper.create_parameter(
+        ParamAttr(trainable=False), [w], weight.dtype,
+        default_initializer=init.Normal(0.0, 1.0))
+    out = helper.create_variable_for_type_inference(weight.dtype)
+    helper.append_op('spectral_norm',
+                     inputs={'Weight': weight, 'U': u, 'V': v},
+                     outputs={'Out': out},
+                     attrs={'dim': dim, 'power_iters': power_iters,
+                            'eps': eps})
+    return out
+
+
+def unique(x, dtype='int32'):
+    helper = LayerHelper('unique')
+    out = helper.create_variable_for_type_inference(x.dtype)
+    index = helper.create_variable_for_type_inference(dtype)
+    helper.append_op('unique', inputs={'X': x},
+                     outputs={'Out': out, 'Index': index},
+                     infer_shape=False)
+    return out, index
+
+
+def unique_with_counts(x, dtype='int32'):
+    helper = LayerHelper('unique_with_counts')
+    out = helper.create_variable_for_type_inference(x.dtype)
+    index = helper.create_variable_for_type_inference(dtype)
+    count = helper.create_variable_for_type_inference(dtype)
+    helper.append_op('unique_with_counts', inputs={'X': x},
+                     outputs={'Out': out, 'Index': index,
+                              'Count': count},
+                     infer_shape=False)
+    return out, index, count

@@ -1,6 +1,5 @@
 """Composite networks.  Reference: python/paddle/fluid/nets.py; each
-appends the layers the JAX package's fluid/nets.py appends.
-``scaled_dot_product_attention`` is not ported yet."""
+appends the layers the JAX package's fluid/nets.py appends."""
 
 from . import layers
 
@@ -60,3 +59,35 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                                 param_attr=param_attr, act=act,
                                 mask=mask)
     return layers.sequence_pool(conv, pool_type, mask=mask)
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Multi-head attention as the naive chain (reference nets.py
+    scaled_dot_product_attention): the heads split by reshape and
+    transpose, Q K^T scaled by d_key^-0.5 in one matmul, softmax, the
+    optional dropout, the product with V and the heads merged back.
+    As in the JAX package, the merge names the [B, T, H, D] context's
+    dims (b, h, t, d), so the result is [B, H, T D] holding the
+    context's elements in the order of [B, T, H D] (the reference's
+    shape where T equals H): reshape it to [0, T, H D] for the
+    reference's."""
+    d_key = queries.shape[-1] // num_heads
+
+    def _split_heads(x):
+        b, t, c = x.shape
+        x = layers.reshape(x, [0, 0, num_heads, c // num_heads])
+        return layers.transpose(x, perm=[0, 2, 1, 3])
+
+    q = _split_heads(queries)
+    k = _split_heads(keys)
+    v = _split_heads(values)
+    product = layers.matmul(q, k, transpose_y=True,
+                            alpha=d_key ** -0.5)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    ctx = layers.matmul(weights, v)
+    ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    b, h, t, d = ctx.shape
+    return layers.reshape(ctx, [0, t if t > 0 else 0, h * d])

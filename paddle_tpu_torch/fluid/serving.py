@@ -1,6 +1,6 @@
 """Serving-plane row padding and slicing.  Reference: the JAX package's
-fluid/serving.py; the batching ServingExecutor comes with a later
-slice."""
+fluid/serving.py; the batching ServingExecutor comes with ROADMAP
+Queue 1 item 16."""
 
 import numpy as np
 

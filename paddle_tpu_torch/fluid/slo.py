@@ -34,7 +34,7 @@ back to ``ok`` — a series oscillating across its threshold neither
 fires nor resolves per sample.  Transitions count
 ``slo/alerts_fired``/``slo/alerts_resolved`` and leave a rate-limited
 flight-recorder dump (the JAX package also logs them in its
-supervisor's decision trail: ROADMAP item 16 of the port).  ``alertz()`` is the
+supervisor's decision trail: ROADMAP item 17 of the port).  ``alertz()`` is the
 ``/alertz`` body: firing/pending/resolved plus the full per-objective
 evaluation.
 

@@ -17,3 +17,4 @@ from . import amp_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import rnn_ops  # noqa: F401
 from . import lang_ops  # noqa: F401
+from . import vision_ops  # noqa: F401

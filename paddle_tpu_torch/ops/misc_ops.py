@@ -3,19 +3,24 @@ Transformer's sinusoidal position encoding and the additive causal
 bias (the JAX package's ops/misc_ops.py).  One Program then serves
 every length bucket of a padded batch.  Beside them, two of the JAX
 module's control-flow helpers (is_empty and reorder_lod_tensor_by_rank),
-eye, tensor_array_to_tensor, rank, soft_relu and
-gaussian_random_batch_size_like (decayed_adagrad is with the other
-updates in ops/optimizer_ops.py).
+eye, tensor_array_to_tensor, rank, soft_relu,
+gaussian_random_batch_size_like, add_position_encoding,
+continuous_value_model, hash, scatter_nd, similarity_focus and the host
+op unique (decayed_adagrad is with the other updates in
+ops/optimizer_ops.py; the module's detection ops come with ROADMAP
+Queue 1 item 11b-C).
 
 Reference: operators/add_position_encoding_op.cc computed the encoding
 per LoD batch on the host.
 """
 
+import numpy as np
 import torch
 
 from ..fluid import core
-from . import tensor_ops
-from .registry import register
+from . import loss_ops, tensor_ops
+from .kernels.flash_attention import mul32
+from .registry import _M32, register, register_host
 
 
 @register('position_encoding')
@@ -117,3 +122,93 @@ def gaussian_random_batch_size_like(ctx, ins, attrs):
     z = tensor_ops.normal_draws(ctx, attrs, tuple(shape), ref.device, 0x6B5)
     return {'Out': [(attrs.get('mean', 0.0) + attrs.get('std', 1.0) * z).to(
         core.convert_dtype(attrs.get('dtype', 'float32')))]}
+
+
+@register('add_position_encoding')
+def add_position_encoding(ctx, ins, attrs):
+    """alpha X + beta enc for X [B, T, D] (D even): enc[t] the sines of
+    t / 10000^(i / (D / 2)) then their cosines, in f32 in the JAX op's
+    order of operations."""
+    x = ins['X'][0]
+    t, d = x.shape[1], x.shape[2]
+    half = d // 2
+    dev = x.device
+    pos = torch.arange(t, dtype=torch.float32, device=dev)[:, None]
+    div = torch.pow(10000.0, torch.arange(half, dtype=torch.float32,
+                                          device=dev) / half)
+    enc = torch.cat([torch.sin(pos / div), torch.cos(pos / div)], 1)
+    return {'Out': [attrs.get('alpha', 1.0) * x +
+                    attrs.get('beta', 1.0) * enc[None, :, :d].to(x.dtype)]}
+
+
+@register('continuous_value_model')
+def continuous_value_model(ctx, ins, attrs):
+    """The name the layer emits for cvm (ops/loss_ops.py); its CVM input
+    is not read, as in the JAX op.  The result goes to both Y (cvm's
+    slot) and Out, the slot the layer names (the JAX op writes Y alone,
+    so its layer's program has no value for its output)."""
+    y = loss_ops.cvm(ctx, ins, attrs)['Y'][0]
+    return {'Y': [y], 'Out': [y]}
+
+
+
+@register('hash')
+def hash_op(ctx, ins, attrs):
+    """num_hash hashes of each id into [0, mod_by): the JAX package's
+    multiply-xorshift mix of the id's low 32 bits (not the reference's
+    xxhash), bit for bit: the uint32 products wrap at 2^32, taken in
+    int64 halves (mul32).  Int32 [..., num_hash] a last-axis id, the
+    last axis then flattened."""
+    x = ins['X'][0].to(torch.int64) & _M32
+    outs = []
+    for i in range(int(attrs.get('num_hash', 1))):
+        h = mul32(x, 2654435761 + 40503 * (i + 1))
+        h = h ^ (h >> 16)
+        h = mul32(h, 2246822519)
+        h = h ^ (h >> 13)
+        outs.append((h % int(attrs.get('mod_by', 1))).to(torch.int32))
+    out = torch.stack(outs, -1)
+    if x.dim() > 1:
+        out = out.reshape(tuple(x.shape[:-1]) + (-1,))
+    return {'Out': [out]}
+
+
+@register('scatter_nd')
+def scatter_nd(ctx, ins, attrs):
+    """Zeros of `shape` with Updates added at Index's coordinates, as
+    scatter_nd_add adds them."""
+    upd = ins['Updates'][0]
+    zeros = torch.zeros([int(s) for s in attrs['shape']], dtype=upd.dtype,
+                        device=upd.device)
+    return {'Out': [loss_ops._scatter_nd_add(zeros, ins['Index'][0], upd)]}
+
+
+@register('similarity_focus')
+def similarity_focus(ctx, ins, attrs):
+    """X [B, C, H, W], axis 1: for each of `indexes`, 1 on the rows and
+    columns of that channel's map holding its row or column maximum, the
+    masks of the indexes merged by max and broadcast over C."""
+    x = ins['X'][0]
+    if attrs.get('axis', 1) != 1:
+        raise ValueError('similarity_focus: axis=1 (channel) only, as in '
+                         'the JAX op')
+    mask = torch.zeros_like(x)
+    for idx in attrs['indexes']:
+        ch = x[:, idx].detach()
+        m = (ch == ch.amax(2, keepdim=True)) | \
+            (ch == ch.amax(1, keepdim=True))
+        mask = torch.maximum(mask, m.to(x.dtype)[:, None].expand_as(x))
+    return {'Out': [mask]}
+
+
+@register_host('unique', runs=True)
+def unique(ctx, op, ins):
+    """A host op (the output's length depends on the data): X's sorted
+    distinct values and each element's int32 position among them."""
+    x = core.to_numpy(ins['X'][0]).reshape(-1)
+    uniq, index = np.unique(x, return_inverse=True)
+    outs = {'Out': [torch.as_tensor(uniq, device=ctx.device)]}
+    if op.output('Index'):
+        outs['Index'] = [torch.as_tensor(index.astype(np.int32),
+                                         device=ctx.device)]
+    return outs

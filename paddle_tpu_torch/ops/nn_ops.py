@@ -75,35 +75,40 @@ def _f32_convs(x):
         torch.backends.cudnn.allow_tf32 = prev
 
 
-class _Conv2d(torch.autograd.Function):
-    """F.conv2d on NCHW x and OIHW w, unpadded (with `transposed`, the
-    transposed convolution of a [in_c, out_c / groups, kh, kw] w),
-    whose backward also runs without TF32 (autograd's own convolution
+class _Conv(torch.autograd.Function):
+    """F.conv2d / F.conv3d on NC(D)HW x and OI(D)HW w with symmetric
+    `padding` a spatial dim (with `transposed`, the transposed
+    convolution of a [in_c, out_c / groups, *k] w, unpadded), whose
+    backward also runs without TF32 (autograd's own convolution
     backward reads the global flag when it runs, after the forward's
     context has closed).  The weight gradient comes back contiguous, as
     the fused optimizer kernels take it."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, dilation, groups, transposed=False):
+    def forward(ctx, x, w, stride, dilation, groups, transposed=False,
+                padding=None):
+        nd = w.dim() - 2
+        padding = list(padding or [0] * nd)
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, dilation, groups, transposed)
+        ctx.conf = (stride, dilation, groups, transposed, padding)
         with _f32_convs(x):
             if transposed:
-                return F.conv_transpose2d(x, w, None, stride, 0, 0, groups,
-                                          dilation)
-            return F.conv2d(x, w, None, stride, 0, dilation, groups)
+                fn = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+                return fn(x, w, None, stride, 0, 0, groups, dilation)
+            fn = F.conv2d if nd == 2 else F.conv3d
+            return fn(x, w, None, stride, padding, dilation, groups)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        stride, dilation, groups, transposed = ctx.conf
+        stride, dilation, groups, transposed, padding = ctx.conf
         with _f32_convs(x):
             gx, gw, _ = torch.ops.aten.convolution_backward(
-                g, x, w, None, stride, [0, 0], dilation, transposed,
-                [0, 0], groups, [ctx.needs_input_grad[0],
-                                 ctx.needs_input_grad[1], False])
+                g, x, w, None, stride, padding, dilation, transposed,
+                [0] * len(padding), groups, [ctx.needs_input_grad[0],
+                                             ctx.needs_input_grad[1], False])
         return (gx, None if gw is None else gw.contiguous(), None, None,
-                None, None)
+                None, None, None)
 
 
 @register('conv2d')
@@ -133,7 +138,7 @@ def conv2d(ctx, ins, attrs):
                            dilations[i]) for i in range(2)]
     else:
         pads = _explicit_pads(attrs.get('paddings', [0, 0]))
-    out = _Conv2d.apply(_pad_hw(xc, pads), w.to(x.dtype), strides,
+    out = _Conv.apply(_pad_hw(xc, pads), w.to(x.dtype), strides,
                         dilations, groups)
     return {'Output': [out.permute(0, 2, 3, 1) if nhwc else out]}
 
@@ -144,15 +149,15 @@ def depthwise_conv2d(ctx, ins, attrs):
 
 
 def _conv_transpose(x, w, strides, dilations, groups, pads):
-    """The transposed convolution of NCHW x by w [in_c, out_c / groups,
-    kh, kw] (the gradient of conv2d with respect to its input), its
-    full output cropped by pads [(top, bottom), (left, right)]: the JAX
-    package's lhs-dilated convolution by the flipped kernel, padded by
-    k_eff - 1 - pad on each side.  No output padding (the JAX op ignores
-    output_size)."""
-    out = _Conv2d.apply(x, w.to(x.dtype), strides, dilations, groups, True)
-    (t, b), (l, r) = pads
-    return out[:, :, t:out.shape[2] - b, l:out.shape[3] - r]
+    """The transposed convolution of NC(D)HW x by w [in_c, out_c /
+    groups, *k] (the gradient of the convolution with respect to its
+    input), its full output cropped by pads [(before, after)] a spatial
+    dim: the JAX package's lhs-dilated convolution by the flipped
+    kernel, padded by k_eff - 1 - pad on each side.  No output padding
+    (the JAX op ignores output_size)."""
+    out = _Conv.apply(x, w.to(x.dtype), strides, dilations, groups, True)
+    return out[(slice(None), slice(None)) + tuple(
+        slice(a, out.shape[2 + i] - b) for i, (a, b) in enumerate(pads))]
 
 
 @register('conv2d_transpose')

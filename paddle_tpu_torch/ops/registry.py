@@ -44,8 +44,10 @@ def device_constant(values, device):
     """A tensor of the numpy array `values` on `device`.  On a CUDA
     device the values are uploaded once (the first, eager run of a
     program) and each call returns a copy made on the device, which a
-    CUDA graph can capture: a capture cannot copy from host memory."""
-    values = np.ascontiguousarray(values)
+    CUDA graph can capture: a capture cannot copy from host memory.  A
+    0-d value stays 0-d (np.ascontiguousarray alone gives it a dim of
+    1)."""
+    values = np.ascontiguousarray(values).reshape(np.shape(values))
     device = torch.device(device)
     if device.type != 'cuda':
         return torch.as_tensor(values, device=device)

@@ -10,9 +10,11 @@ package lacks (the three `fluid` names of its own are listed), and it
 lists what is still missing by ROADMAP Queue 1 item: each missing name
 is assigned to an item here, and each item's count of missing names may
 shrink but not grow.  It also checks that chip_smoke.py's phase 17 (c)
-runs every op type of the core slice on the card, and phase 20 (c)
-every op type of the nn slice (NN_SLICE_OPS: item 11b's nn_ops group
-and the four op types item 11a's layers emit).
+runs every op type of the core slice on the card, phase 20 (c) every
+op type of the nn slice (NN_SLICE_OPS: item 11b's nn_ops group and the
+four op types item 11a's layers emit), and phase 21 (c) every op type
+of item 11b's groups A (VISION_OPS) and B (LOSS_MISC_OPS), whose
+layers (VISION_LAYERS, LOSS_MISC_LAYERS) the port has too.
 """
 
 import collections
@@ -113,6 +115,45 @@ NN_SLICE_OPS = {
     'gaussian_random_batch_size_like',
 }
 
+# item 11b-A, dense vision: JAX ops/vision_ops.py but its ROI and anchor
+# ops, and their layers of layers/extras.py and more_layers.py
+VISION_OPS = {
+    'conv3d', 'conv3d_transpose', 'pool3d', 'trilinear_interp',
+    'pixel_shuffle', 'shuffle_channel', 'space_to_depth', 'affine_channel',
+    'affine_grid', 'unfold', 'crop_tensor', 'crop', 'spp',
+    'deformable_conv', 'deformable_conv_v1',
+}
+VISION_LAYERS = {
+    'conv3d', 'conv3d_transpose', 'pool3d', 'resize_trilinear',
+    'pixel_shuffle', 'shuffle_channel', 'space_to_depth', 'unfold', 'spp',
+    'affine_channel', 'affine_grid', 'adaptive_pool3d', 'crop',
+    'crop_tensor', 'deformable_conv',
+}
+
+# item 11b-B, losses and misc: JAX ops/loss_ops.py (but size) and six
+# op types of ops/misc_ops.py, with their layers and the distributions
+LOSS_MISC_OPS = {
+    'bilinear_tensor_product', 'bpr_loss', 'center_loss', 'cvm',
+    'data_norm', 'fsp', 'hinge_loss', 'l1_norm', 'margin_rank_loss',
+    'mean_iou', 'modified_huber_loss', 'multiplex', 'pad_constant_like',
+    'random_crop', 'rank_loss', 'sampling_id', 'scatter_nd_add',
+    'shard_index', 'spectral_norm', 'teacher_student_sigmoid_loss',
+    'unique_with_counts', 'add_position_encoding',
+    'continuous_value_model', 'hash', 'scatter_nd', 'similarity_focus',
+    'unique',
+}
+LOSS_MISC_LAYERS = {
+    'rank_loss', 'margin_rank_loss', 'hinge_loss', 'bpr_loss',
+    'modified_huber_loss', 'teacher_student_sigmoid_loss', 'center_loss',
+    'cvm', 'npair_loss', 'mean_iou', 'shard_index', 'multiplex',
+    'bilinear_tensor_product', 'sampling_id', 'random_crop',
+    'scatter_nd_add', 'pad_constant_like', 'fsp_matrix',
+    'add_position_encoding', 'continuous_value_model', 'data_norm', 'hash',
+    'scatter_nd', 'similarity_focus', 'spectral_norm', 'unique',
+    'unique_with_counts', 'Uniform', 'Normal', 'Categorical',
+    'MultivariateNormalDiag',
+}
+
 SLICE_LAYERS = {
     'mul', 'elementwise_pow', 'reduce_mean', 'reduce_max', 'reduce_min',
     'reduce_prod', 'reduce_all', 'reduce_any', 'clip', 'clip_by_norm',
@@ -150,14 +191,14 @@ OP_MODULE_ITEM = {
 }
 
 # the most that may be missing, by item: the counts at this slice
-MISSING_OPS = {'11b': 88, '13': 7, '14': 10}
+MISSING_OPS = {'11b': 46, '13': 7, '14': 10}
 
 # the JAX layers module of a missing layer -> its item
 LAYER_MODULE_ITEM = {
     'detection': '11b', 'distributions': '11b', 'extras': '11b',
     'more_layers': '11b', 'nn': '11b', 'parallel_layers': '13',
 }
-MISSING_LAYERS = {'11b': 80, '13': 2}  # the most, as MISSING_OPS
+MISSING_LAYERS = {'11b': 34, '13': 2}  # the most, as MISSING_OPS
 
 FLUID_NAME_ITEM = {
     'DistributeTranspiler': '14', 'DistributeTranspilerConfig': '14',
@@ -234,6 +275,32 @@ def test_nn_slice_ops_in_the_port_and_on_the_card():
     cases = {op for op, _, _ in _chip_smoke().nn_op_cases(
         np.random.RandomState(0))}
     assert NN_SLICE_OPS <= cases, sorted(NN_SLICE_OPS - cases)
+
+
+def test_vision_and_loss_groups_in_the_port_and_on_the_card():
+    """Item 11b's groups A and B: every op type has a case in
+    chip_smoke.py's vision_op_cases or loss_op_cases (the two host ops
+    among them run through a program), and the port has the groups'
+    layers and nets.scaled_dot_product_attention."""
+    assert (len(VISION_OPS), len(VISION_LAYERS)) == (15, 15)
+    assert (len(LOSS_MISC_OPS), len(LOSS_MISC_LAYERS)) == (27, 31)
+    jops = exports()['jax']['ops']
+    assert {jops[t] for t in VISION_OPS} == {'vision_ops'}
+    assert {jops[t] for t in LOSS_MISC_OPS} == {'loss_ops', 'misc_ops'}
+    tt = set(exports()['torch']['ops'])
+    assert VISION_OPS | LOSS_MISC_OPS <= tt, sorted(
+        (VISION_OPS | LOSS_MISC_OPS) - tt)
+    tl = set(exports()['torch']['layers'])
+    assert VISION_LAYERS | LOSS_MISC_LAYERS <= tl, sorted(
+        (VISION_LAYERS | LOSS_MISC_LAYERS) - tl)
+    mod = _chip_smoke()
+    rng = np.random.RandomState(0)
+    cases = {op for op, _, _ in mod.vision_op_cases(rng)}
+    assert VISION_OPS <= cases, sorted(VISION_OPS - cases)
+    cases = {op for op, _, _ in mod.loss_op_cases(rng)}
+    assert LOSS_MISC_OPS <= cases, sorted(LOSS_MISC_OPS - cases)
+    from paddle_tpu_torch.fluid import nets
+    assert callable(nets.scaled_dot_product_attention)
 
 
 def test_optimizer_classes():

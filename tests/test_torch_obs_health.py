@@ -203,7 +203,8 @@ def test_status_server_endpoints():
     doc = json.loads(body)
     assert code == 200 and doc['versions']['torch'] == torch.__version__
     assert doc['caches']['plan_cache_miss'] == 2.0
-    assert 'item 16' in doc['supervisor']['todo']
+    assert 'item 17' in doc['supervisor']['todo']
+    assert 'item 16' in doc['fleet']['todo']
     assert 'item 13' in doc['auto_shard']['todo']
     for path in ('/metrics.json', '/trace/dump', '/alertz', '/opprof',
                  '/timeseries?name=executor/run_calls'):
