@@ -553,7 +553,34 @@ Phases, each of which fails the run (non-zero exit) on error:
      with two losses on the whole-program grad (2 seeds) against the
      per-op grad path (rtol 1e-5, atol 1e-6) and
      nets.scaled_dot_product_attention in a step replayed bitwise its
-     eager step.
+     eager step;
+ 22. detection (ROADMAP item 11b's group C), under cuDNN's deterministic
+     algorithms: (a) MobileNet-SSD (PaddleCV ssd/mobilenet_ssd.py:
+     MobileNet-v1 at scale 1.0, multi_box_head over the 19^2 to 1^2
+     maps, 1,917 priors, 21 classes) on 300 x 300 images of the VOC2012
+     loader's synthetic stand-in, batch 64, the summed ssd_loss, RMSProp
+     at 0.001 with L2Decay 5e-5, 6 steps (step 1 eager, step 2
+     captured, the rest replayed; K6 each step, for ssd_loss's matched
+     gt rows), the losses and the whole state bitwise an eager-only
+     run; the replayed and cached eager ms, images/s, the three largest
+     kernels' share of an eager step's device time, the peak; the
+     for_test clone with detection_output over softmaxed confidences,
+     replayed bitwise its eager run, detection_output alone timed
+     replayed and eager with its launches a call, and the mAP
+     (DetectionMAP) of its rows; (b) the Faster R-CNN RPN and RoI head
+     at Detectron's shapes (PaddleCV rcnn's C4 defaults at 800 x 1333:
+     a fed res4 map [1, 1024, 50, 84] through a trainable 1 x 1
+     convolution, 15 anchors a cell, 12,000 / 2,000 proposals at NMS
+     0.7, 256 RPN samples, 512 rois at 14 x 14 roi_align, fc 81 and
+     324; res5 left out), 3 momentum steps twice from one start,
+     bitwise; the step's ms, generate_proposals' alone, the peak, and
+     roi_align, roi_pool, psroi_pool, prroi_pool and
+     deformable_roi_pooling on the step's 512 rois, forward and
+     backward, twice bitwise and timed; (c) every op type of group C
+     at a size its users run (SSD's, YOLOv3's, RetinaNet's, the R-CNN
+     head's), forward and gradient, against the CPU lowering (floats
+     within 1e-5 of the largest magnitude, integers exact) and twice
+     bitwise, none exempt (the host ops through a program).
 The line before the last is a JSON object {"kernels": [...]}.  Each
 row's "launches" are those the wrappers made on the main path (every
 counted step and request: the counters set to 0 just before each and
@@ -8367,7 +8394,7 @@ def ops_against_cpu(cases, dev, seed, tol, not_twice=frozenset()):
     for op, make, attrs in cases:
         ins = make()
         if registry.get(op).host:
-            run = lambda place: host_op_run(op, ins, place)  # noqa: E731
+            run = lambda place: host_op_run(op, ins, place, attrs)  # noqa
             first, second = run(fluid.CUDAPlace(0)), run(fluid.CUDAPlace(0))
             cpu = run(fluid.CPUPlace())
         else:
@@ -8386,7 +8413,7 @@ def ops_against_cpu(cases, dev, seed, tol, not_twice=frozenset()):
             if a.shape != c.shape or a.dtype != c.dtype:
                 bad.append('%s %s %s against %s %s' % (
                     s, tuple(a.shape), a.dtype, tuple(c.shape), c.dtype))
-            elif a.is_floating_point():
+            elif a.is_floating_point() and a.numel():
                 err = max_abs(a, c) / max(c.abs().max().item(), 1e-30)
                 worst = max(worst, err)
                 if err > tol:
@@ -8962,21 +8989,61 @@ def loss_op_cases(rng):
     ]
 
 
-def host_op_run(op, ins, place):
-    """A host op (unique, unique_with_counts) through a one-op program
-    on `place`: its outputs as CPU tensors."""
+def host_outputs(op, attrs):
+    """{slot: count} of a host op's outputs."""
+    if op == 'distribute_fpn_proposals':
+        return {'MultiFpnRois': attrs['max_level'] - attrs['min_level'] + 1,
+                'RestoreIndex': 1}
+    slots = {
+        'unique': ('Out', 'Index'),
+        'unique_with_counts': ('Out', 'Index', 'Count'),
+        'rpn_target_assign': ('LocationIndex', 'ScoreIndex', 'TargetLabel',
+                              'TargetBBox', 'BBoxInsideWeight'),
+        'generate_proposal_labels': ('Rois', 'LabelsInt32', 'BboxTargets',
+                                     'BboxInsideWeights',
+                                     'BboxOutsideWeights'),
+        'generate_mask_labels': ('MaskRois', 'RoiHasMaskInt32', 'MaskInt32'),
+        'collect_fpn_proposals': ('FpnRois',),
+        'locality_aware_nms': ('Out',),
+        'roi_perspective_transform': ('Out',),
+        'bipartite_match': ('ColToRowMatchIndices', 'ColToRowMatchDist'),
+    }
+    slots['retinanet_target_assign'] = slots['rpn_target_assign']
+    return {s: 1 for s in slots[op]}
+
+
+def host_op_run(op, ins, place, attrs=None):
+    """A host op through a one-op program on `place`, fed `ins` (a data
+    variable for each array): its outputs by slot as CPU tensors."""
+    attrs = dict(attrs or {})
     main = fluid.Program()
+    feed, inputs = {}, {}
     with fluid.unique_name.guard(), fluid.program_guard(main,
                                                         fluid.Program()):
-        x = ins['X'][0]
-        xv = fluid.layers.data('x', list(x.shape), dtype=str(x.dtype),
-                               append_batch_size=False)
-        outs = getattr(fluid.layers, op)(xv)
+        block = main.global_block()
+        for slot, vals in sorted(ins.items()):
+            inputs[slot] = []
+            for i, a in enumerate(vals):
+                a = np.asarray(a)
+                name = '%s_%d' % (slot.lower(), i)
+                inputs[slot].append(fluid.layers.data(
+                    name, list(a.shape), dtype=str(a.dtype),
+                    append_batch_size=False))
+                feed[name] = a
+        outputs = {slot: [block.create_var(
+            name='%s_out_%d' % (slot.lower(), i), dtype='float32')
+            for i in range(n)] for slot, n in host_outputs(op, attrs).items()}
+        block.append_op(type=op, inputs=inputs, outputs=outputs, attrs=attrs)
+    fetch = [v for slot in sorted(outputs) for v in outputs[slot]]
     with fluid.scope_guard(fluid.Scope()):
         exe = fluid.Executor(place)
-        got = exe.run(main, feed={'x': x}, fetch_list=list(outs),
-                      return_numpy=False)
-    return ({'Out': [torch.as_tensor(v).cpu() for v in got]}, [])
+        got = exe.run(main, feed=feed, fetch_list=fetch, return_numpy=False)
+    out, k = {}, 0
+    for slot in sorted(outputs):
+        n = len(outputs[slot])
+        out[slot] = [torch.as_tensor(v).cpu() for v in got[k:k + n]]
+        k += n
+    return out, []
 
 
 def ab_ops_phase(seed, dev):
@@ -9156,6 +9223,840 @@ def vision_loss_phase(seed, dev):
             torch.backends.cudnn.benchmark = saved
 
 
+# ---------------------------------------------------------------- phase 22
+
+# MobileNet-SSD (PaddlePaddle/models PaddleCV/ssd/mobilenet_ssd.py):
+# MobileNet-v1 at scale 1.0 on 300 x 300 images, its head on the maps of
+# 19^2, 10^2, 5^2, 3^2, 2^2 and 1^2 cells, 21 VOC classes
+MOBILENET_SSD = {
+    'image': 300, 'classes': 21, 'gts': 1, 'first': 32,
+    # depthwise-separable blocks: (depthwise channels, pointwise
+    # channels, stride); the first head map follows `blocks`, the
+    # second `blocks2`
+    'blocks': ((32, 64, 1), (64, 128, 2), (128, 128, 1), (128, 256, 2),
+               (256, 256, 1), (256, 512, 2)) + ((512, 512, 1),) * 5,
+    'blocks2': ((512, 1024, 2), (1024, 1024, 1)),
+    'extras': ((256, 512), (128, 256), (128, 256), (64, 128)),
+    'min_sizes': [60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+    'max_sizes': [[], 150.0, 195.0, 240.0, 285.0, 300.0],
+    'aspect_ratios': [[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0],
+                      [2.0, 3.0]],
+    'steps': [8, 16, 32, 64, 100, 300], 'priors': 1917}
+SSD_BATCH = 64
+SSD_LR = 0.001        # RMSProp, L2Decay 5e-5, as PaddleCV's ssd/train.py
+SSD_DECAY = 5e-5
+SSD_STEPS = 6
+SSD_NMS = 0.45
+
+# The Faster R-CNN RPN and RoI head at Detectron's shapes (the defaults
+# of PaddlePaddle/models PaddleCV/rcnn, C4 model, 800 x 1333 input): the
+# res4 map is fed; one trainable 1 x 1 convolution stands in for the
+# backbone's last layer; the res5 stage of the head is left out
+RCNN = {
+    'channels': 1024, 'map': (50, 84), 'image': (800, 1333), 'gts': 7,
+    'classes': 81, 'anchor_sizes': [32.0, 64.0, 128.0, 256.0, 512.0],
+    'ratios': [0.5, 1.0, 2.0], 'stride': 16.0, 'pre_nms': 12000,
+    'post_nms': 2000, 'nms': 0.7, 'rpn_batch': 256, 'rpn_fg': 0.5,
+    'rois': 512, 'roi_fg': 0.25, 'pool': 14, 'rpn_channels': 1024}
+RCNN_LR = 0.01        # momentum 0.9, L2Decay 1e-4
+RCNN_DECAY = 1e-4
+RCNN_STEPS = 3
+ROI_POOL = 7          # (b): roi_pool, psroi_pool, prroi_pool and
+#                       deformable_roi_pooling at 7 x 7 on the head's rois
+DET_TOL = 1e-5        # (c): floats within 1e-5 of the largest magnitude
+
+
+def ssd_build(fluid, cfg):
+    """MobileNet-SSD from `fluid`'s layers: conv_bn (convolution without
+    bias, learning rate 0.1, batch norm and relu) blocks, the head's
+    multi_box_head over six maps, the summed ssd_loss.  Returns (feeds,
+    mbox_locs, mbox_confs, priors, prior variances, loss)."""
+    L = fluid.layers
+    size = cfg['image']
+    image = L.data('image', [3, size, size], dtype='float32')
+    gt_box = L.data('gt_box', [cfg['gts'], 4], dtype='float32')
+    gt_label = L.data('gt_label', [cfg['gts']], dtype='int32')
+
+    def conv_bn(x, k, ch, stride, pad, groups=1):
+        conv = L.conv2d(x, ch, k, stride=stride, padding=pad, groups=groups,
+                        bias_attr=False,
+                        param_attr=fluid.ParamAttr(learning_rate=0.1))
+        return L.batch_norm(conv, act='relu')
+
+    def separable(x, dw, pw, stride):
+        return conv_bn(conv_bn(x, 3, dw, stride, 1, groups=dw), 1, pw, 1, 0)
+
+    h = conv_bn(image, 3, cfg['first'], 2, 1)
+    for dw, pw, stride in cfg['blocks']:
+        h = separable(h, dw, pw, stride)
+    maps = [h]
+    for dw, pw, stride in cfg['blocks2']:
+        h = separable(h, dw, pw, stride)
+    maps.append(h)
+    for a, b in cfg['extras']:
+        h = conv_bn(conv_bn(h, 1, a, 1, 0), 3, b, 2, 1)
+        maps.append(h)
+    locs, confs, box, var = L.multi_box_head(
+        inputs=maps, image=image, base_size=size, num_classes=cfg['classes'],
+        aspect_ratios=cfg['aspect_ratios'], min_ratio=20, max_ratio=90,
+        min_sizes=cfg['min_sizes'], max_sizes=cfg['max_sizes'],
+        steps=cfg['steps'], offset=0.5, flip=True)
+    loss = L.reduce_sum(L.ssd_loss(locs, confs, gt_box, gt_label, box, var))
+    feeds = {'image': image, 'gt_box': gt_box, 'gt_label': gt_label}
+    return feeds, locs, confs, box, var, loss
+
+
+def ssd_detect(fluid, locs, confs, box, var, nms=SSD_NMS):
+    """SSD's inference head: detection_output over the softmax of the
+    confidences (the layer applies none, as the JAX package's)."""
+    return fluid.layers.detection_output(
+        locs, fluid.layers.softmax(confs), box, var, nms_threshold=nms)
+
+
+def voc_ssd_batches(cfg, batch, n):
+    """n batches of dataset.voc2012.train()'s synthetic stand-in, each
+    image scaled from 128 to cfg['image'] (nearest pixels) and its blob
+    the one gt box (normalized xyxy; unchanged by the scale) of its
+    class, the reader cycled."""
+    from paddle_tpu_torch.dataset import voc2012
+    samples = list(voc2012.train()())
+    size = cfg['image']
+    pick = (np.arange(size) * 128) // size
+    out = []
+    for k in range(n):
+        imgs, boxes, labels = [], [], []
+        for j in range(batch):
+            img, mask = samples[(k * batch + j) % len(samples)]
+            ys, xs = np.nonzero(mask)
+            imgs.append(img[:, pick][:, :, pick] / 255.0)
+            boxes.append([[xs.min() / 128.0, ys.min() / 128.0,
+                           (xs.max() + 1) / 128.0, (ys.max() + 1) / 128.0]])
+            labels.append([int(mask[ys[0], xs[0]])])
+        out.append({'image': np.stack(imgs).astype('float32'),
+                    'gt_box': np.asarray(boxes, 'float32'),
+                    'gt_label': np.asarray(labels, 'int32')})
+    return out
+
+
+def rcnn_build(fluid, cfg):
+    """The Faster R-CNN RPN and RoI head from `fluid`'s layers: a fed
+    res4 map through a 1 x 1 convolution (the backbone's stand-in), the
+    RPN (3 x 3 conv and relu, 1 x 1 heads of A and 4 A), its anchors,
+    rpn_target_assign and the sigmoid cross entropy and smooth L1 of the
+    sampled rows, generate_proposals, generate_proposal_labels, roi_align
+    (sampling ratio 0), a global average pool and fc heads of `classes`
+    and 4 `classes`, softmax cross entropy and the smooth L1 of the
+    foreground rows' class slots.  The box targets (the matched gt boxes,
+    as the JAX package's ops give them) are encoded with box_coder on
+    the anchors and on the rois with a pixel added to their far sides;
+    box_coder declares no shape (as in the JAX package), so this
+    declares its rows [-1, 4].  Returns (feeds, losses, the proposals,
+    the sampled rois)."""
+    L = fluid.layers
+    c, (h, w) = cfg['channels'], cfg['map']
+    g, classes = cfg['gts'], cfg['classes']
+    a = len(cfg['anchor_sizes']) * len(cfg['ratios'])
+    feat = L.data('res4', [1, c, h, w], dtype='float32',
+                  append_batch_size=False)
+    gt_box = L.data('gt_box', [1, g, 4], dtype='float32',
+                    append_batch_size=False)
+    gt_class = L.data('gt_class', [1, g, 1], dtype='int32',
+                      append_batch_size=False)
+    im_info = L.data('im_info', [1, 3], dtype='float32',
+                     append_batch_size=False)
+    x = L.conv2d(feat, c, 1)
+    rpn = L.conv2d(x, cfg['rpn_channels'], 3, padding=1, act='relu')
+    cls = L.conv2d(rpn, a, 1)
+    bbox = L.conv2d(rpn, 4 * a, 1)
+    anchors, var = L.anchor_generator(
+        x, cfg['anchor_sizes'], cfg['ratios'], [cfg['stride']] * 2,
+        variance=[1.0, 1.0, 1.0, 1.0])
+    loc_idx, score_idx, tgt_label, tgt_box, _ = L.rpn_target_assign(
+        bbox, cls, anchors, var, gt_box,
+        rpn_batch_size_per_im=cfg['rpn_batch'],
+        rpn_fg_fraction=cfg['rpn_fg'], rpn_positive_overlap=0.7,
+        rpn_negative_overlap=0.3)
+    cls_rows = L.reshape(L.transpose(cls, [0, 2, 3, 1]), [-1, 1])
+    box_rows = L.reshape(L.transpose(bbox, [0, 2, 3, 1]), [-1, 4])
+    score_pred = L.gather(cls_rows, score_idx)
+    loc_pred = L.gather(box_rows, loc_idx)
+    loc_tgt = L.box_coder(L.gather(L.reshape(anchors, [-1, 4]), loc_idx),
+                          None, tgt_box, code_type='encode_center_size')
+    loc_tgt.shape = (-1, 4)
+    rpn_cls = L.mean(L.sigmoid_cross_entropy_with_logits(
+        score_pred, L.cast(tgt_label, 'float32')))
+    rpn_reg = L.mean(L.smooth_l1(loc_pred, loc_tgt, sigma=3.0))
+    rois, _ = L.generate_proposals(
+        L.sigmoid(cls), bbox, im_info, anchors, var,
+        pre_nms_top_n=cfg['pre_nms'], post_nms_top_n=cfg['post_nms'],
+        nms_thresh=cfg['nms'], min_size=0.0)
+    s_rois, labels, tgts, _, _ = L.generate_proposal_labels(
+        rois, gt_class, None, gt_box, im_info,
+        batch_size_per_im=cfg['rois'], fg_fraction=cfg['roi_fg'],
+        fg_thresh=0.5, bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+        class_nums=classes)
+    pooled = L.roi_align(x, s_rois, cfg['pool'], cfg['pool'],
+                         1.0 / cfg['stride'], sampling_ratio=0)
+    pooled = L.pool2d(pooled, pool_type='avg', global_pooling=True)
+    cls_score = L.fc(pooled, classes)
+    bbox_pred = L.fc(pooled, 4 * classes)
+    head_cls = L.mean(L.softmax_with_cross_entropy(cls_score,
+                                                   L.cast(labels, 'int64')))
+    px = L.assign(np.array([0.0, 0.0, 1.0, 1.0], 'float32'))
+    deltas = L.box_coder(L.elementwise_add(s_rois, px), None,
+                         L.elementwise_add(tgts, px),
+                         code_type='encode_center_size')
+    deltas.shape = (-1, 4)
+    # each roi's deltas in its class's 4 slots; background's left out
+    tgt = L.reshape(L.expand(L.reshape(deltas, [-1, 1, 4]),
+                             [1, classes, 1]), [-1, 4 * classes])
+    slot = L.reshape(L.expand(L.reshape(L.one_hot(labels, classes),
+                                        [-1, classes, 1]), [1, 1, 4]),
+                     [-1, 4 * classes])
+    fg = lambda v: L.slice(L.elementwise_mul(v, slot), axes=[1],  # noqa
+                           starts=[4], ends=[4 * classes])
+    head_reg = L.mean(L.smooth_l1(fg(bbox_pred), fg(tgt)))
+    loss = L.sums([rpn_cls, rpn_reg, head_cls, head_reg])
+    feeds = {'res4': feat, 'gt_box': gt_box, 'gt_class': gt_class,
+             'im_info': im_info}
+    return feeds, [loss, rpn_cls, rpn_reg, head_cls, head_reg], rois, s_rois
+
+
+def rcnn_inputs(cfg, rng):
+    """A res4 map (relu'd normal values) and `gts` gt boxes inside the
+    image with sides from 32 pixels to a quarter of its shorter side
+    plus 32, their classes in [1, classes)."""
+    c, (h, w) = cfg['channels'], cfg['map']
+    ih, iw = cfg['image']
+    hi = min(ih, iw) // 4 + 33
+    bw, bh = rng.uniform(32, hi, cfg['gts']), rng.uniform(32, hi, cfg['gts'])
+    x1 = rng.uniform(0, 1, cfg['gts']) * (iw - bw)
+    y1 = rng.uniform(0, 1, cfg['gts']) * (ih - bh)
+    boxes = np.stack([x1, y1, x1 + bw, y1 + bh], 1)[None].astype('float32')
+    return {'res4': np.maximum(rng.randn(1, c, h, w), 0).astype('float32'),
+            'gt_box': boxes,
+            'gt_class': rng.randint(1, cfg['classes'],
+                                    (1, cfg['gts'], 1)).astype('int32'),
+            'im_info': np.array([[ih, iw, 1.0]], 'float32')}
+
+
+def ssd_path(seed):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feeds, locs, confs, box, var, loss = ssd_build(fluid, MOBILENET_SSD)
+        test = main.clone(for_test=True)
+        fluid.optimizer.RMSProp(SSD_LR, regularization=fluid.regularizer
+                                .L2Decay(SSD_DECAY)).minimize(loss)
+    with fluid.program_guard(test, fluid.Program()):
+        with fluid.unique_name.guard('infer'):
+            det = ssd_detect(fluid, locs, confs, box, var)
+    if box.shape[0] != MOBILENET_SSD['priors']:
+        raise AssertionError('(a) %d priors, MobileNet-SSD has %d' % (
+            box.shape[0], MOBILENET_SSD['priors']))
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    # ssd_loss gathers the matched gt rows (K6); the fed boxes take no
+    # gradient, so no K6b
+    expected = {k: 0 for k in common.KERNELS}
+    expected['embedding_lookup'] = 1
+    return {'main': main, 'startup': startup, 'loss': loss, 'test': test,
+            'det': det, 'locs': locs, 'confs': confs, 'box': box, 'var': var,
+            'params': n_params, 'expected': expected,
+            'feeds': voc_ssd_batches(MOBILENET_SSD, SSD_BATCH, SSD_STEPS)}
+
+
+def top_share(events, k=3):
+    """The k kernels of a profile with the most device time: [(name,
+    ms, share of the device time)]."""
+    from torch.autograd import DeviceType
+    cuda = [e for e in events if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in cuda) or 1.0
+    top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:k]
+    return [(e.key[:60], e.self_device_time_total / 1e3,
+             e.self_device_time_total / total) for e in top]
+
+
+def ssd_detect_phase(path, scope, exe, card):
+    """(a)'s inference: the for_test clone with detection_output on the
+    last batch, run eagerly (eager_run) and through Executor.run (the
+    second run captured, the third replayed), the replay bitwise the
+    eager rows; a program of detection_output alone on the same
+    locations and confidences timed replayed and eager, its kernel
+    launches a call from a profiled eager call (medians of 5 calls
+    between CUDA events, host gaps included); the detections' mAP
+    (DetectionMAP over the 20 object classes at IoU 0.5)."""
+    test, det = path['test'], path['det']
+    feed = path['staged'][-1]
+    with fluid.scope_guard(scope):
+        ref = eager_run(exe, test, feed, [det], return_numpy=False)[0].clone()
+        for _ in range(3):
+            got = exe.run(test, feed=feed, fetch_list=[det],
+                          return_numpy=False)[0]
+        if not torch.equal(got, ref):
+            raise AssertionError('(a) detection_output replayed differs from '
+                                 'its eager run')
+        refused = graph_refusals(test, scope)
+        if refused:
+            raise AssertionError('(a) inference capture refused: %s' % refused)
+        outs = eager_run(exe, test, feed, [path[k].name for k in (
+            'locs', 'confs', 'box', 'var')], return_numpy=False)
+    # detection_output alone, fed the network's outputs
+    locs, confs, box, var = [v.clone() for v in outs]
+    prog = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, fluid.Program()):
+        L = fluid.layers
+        lv = L.data('locs', list(locs.shape), append_batch_size=False)
+        cv = L.data('confs', list(confs.shape), append_batch_size=False)
+        bv = L.data('box', [MOBILENET_SSD['priors'], 4],
+                    append_batch_size=False)
+        vv = L.data('var', [MOBILENET_SSD['priors'], 4],
+                    append_batch_size=False)
+        only = ssd_detect(fluid, lv, cv, bv, vv)
+    dfeed = {'locs': locs, 'confs': confs, 'box': box, 'var': var}
+    dscope, dexe = fluid.Scope(), fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(dscope):
+        first = eager_run(dexe, prog, dfeed, [only], return_numpy=False)[0]
+        if not torch.equal(first, ref):
+            raise AssertionError('(a) detection_output alone differs from the '
+                                 'inference program\'s rows')
+        ev = profile_run('', lambda: eager_run(dexe, prog, dfeed, [only],
+                                                return_numpy=False),
+                         quiet=True, pad=True)
+        launches = device_ops(ev)
+        eager_ms = statistics.median(events_ms(lambda: eager_run(
+            dexe, prog, dfeed, [only], return_numpy=False))
+            for _ in range(5))
+        for _ in range(3):
+            again = dexe.run(prog, feed=dfeed, fetch_list=[only],
+                             return_numpy=False)[0]
+        if not torch.equal(again, ref) or graph_refusals(prog, dscope):
+            raise AssertionError('(a) detection_output alone not replayed '
+                                 'bitwise')
+        rep_ms = statistics.median(events_ms(lambda: dexe.run(
+            prog, feed=dfeed, fetch_list=[only], return_numpy=False))
+            for _ in range(5))
+        drop_graphs(prog, dscope)
+    mapm = metrics.DetectionMAP(class_num=MOBILENET_SSD['classes'],
+                                overlap_threshold=0.5)
+    rows = ref.cpu().numpy()
+    gts = path['feeds'][-1]
+    for i in range(rows.shape[0]):
+        keep = rows[i][rows[i][:, 0] >= 0]
+        mapm.update(keep, gts['gt_box'][i], gts['gt_label'][i])
+    drop_graphs(test, scope)
+    return {'rows': int((rows[..., 0] >= 0).sum()), 'map': mapm.eval(),
+            'launches': launches, 'eager_ms': eager_ms, 'rep_ms': rep_ms}
+
+
+def ssd_phase(seed, card):
+    """Phase 22 (a): MobileNet-SSD at 300 x 300, SSD_STEPS RMSProp steps
+    at batch SSD_BATCH of the VOC2012 stand-in (step 1 eager, step 2
+    captured, the rest replayed), the losses and the whole state bitwise
+    an eager-only run; then the inference clone (ssd_detect_phase)."""
+    path = ssd_path(seed)
+    loss = path['loss']
+    names = weights.startup_names(path['startup'])
+    # the batches staged on the card before the steps, as a loader
+    # overlapping the copies would have them
+    path['staged'] = [{k: torch.as_tensor(v, device='cuda')
+                       for k, v in b.items()} for b in path['feeds']]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resting = torch.cuda.memory_allocated()
+    res = p20_steps(path, path['staged'], [loss])
+    peak = torch.cuda.max_memory_allocated() - resting
+    check_replayed('(a)', res, path['expected'], 'embedding_lookup')
+    eager = p20_steps(path, res['feeds'], [loss], res['start'], eager=True)
+    same_steps('(a)', res, eager)
+    differ = [n for n in names if not torch.equal(
+        eager['scope'].find_var(n), res['scope'].find_var(n))]
+    if differ:
+        raise AssertionError('(a) the state after the replayed steps '
+                             'differs from the eager run in %s' % differ[:5])
+    with fluid.scope_guard(eager['scope']):
+        top = top_share(without_counting(lambda: profile_run(
+            '', lambda: eager_run(eager['exe'], path['main'],
+                                  eager['feeds'][-1], [loss]), quiet=True,
+            pad=True)))
+    losses = [float(s['out'][0]) for s in res['steps']]
+    if not np.isfinite(losses).all():
+        raise AssertionError('(a) losses not finite: %s' % losses)
+    rep_ms, eager_ms = step_ms(res, 2), step_ms(eager, 1)
+    log('  (a) MobileNet-SSD (%d parameters, %d priors) at batch %d of 3 x '
+        '%d x %d images, %d RMSProp steps: losses %s; launched a step %s; '
+        'replayed bitwise the eager-only run' % (
+            path['params'], path['box'].shape[0], SSD_BATCH,
+            MOBILENET_SSD['image'], MOBILENET_SSD['image'], SSD_STEPS,
+            ['%.3f' % x for x in losses],
+            {k: n for k, n in path['expected'].items() if n}))
+    log('  (a) replayed %.3f ms a step (%.1f images/s), cached eager %.3f ms, '
+        'peak %.3f GiB over the resident %.3f (%s | %s)' % (
+            rep_ms, SSD_BATCH / rep_ms * 1e3, eager_ms, peak / 2 ** 30,
+            resting / 2 ** 30, torch.cuda.get_device_name(0), card))
+    log('  (a) three largest kernels of an eager step: %s' % '; '.join(
+        '%s %.2f ms (%.1f%%)' % (k, ms, 100 * sh) for k, ms, sh in top))
+    drop_graphs(path['main'], res['scope'])
+    det = ssd_detect_phase(path, res['scope'], res['exe'], card)
+    log('  (a) inference clone at batch %d: detection_output (softmax, box '
+        'decode, NMS 0.45 over 400 a class, 200 kept) bitwise replayed and '
+        'eager; %d rows kept; alone: replayed %.3f ms, eager %.3f ms, %d '
+        'kernel launches an eager call; mAP %.4f (synthetic data: it shows '
+        'the path, not the model) (%s | %s)' % (
+            SSD_BATCH, det['rows'], det['rep_ms'], det['eager_ms'],
+            det['launches'], det['map'], torch.cuda.get_device_name(0),
+            card))
+
+
+def rcnn_path(seed):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed + 1
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feeds, losses, rois, s_rois = rcnn_build(fluid, RCNN)
+        fluid.optimizer.Momentum(RCNN_LR, 0.9, regularization=fluid.regularizer
+                                 .L2Decay(RCNN_DECAY)).minimize(losses[0])
+    gp = [op for op in main.global_block().ops
+          if op.type == 'generate_proposals'][0]
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    return {'main': main, 'startup': startup, 'losses': losses,
+            'rois': rois, 's_rois': s_rois, 'gp': gp, 'params': n_params,
+            'feed': rcnn_inputs(RCNN, np.random.RandomState(seed + 22))}
+
+
+def rcnn_steps(path, start=None):
+    """RCNN_STEPS steps of path['main'] through Executor.run (eager: its
+    host ops' outputs change shape every step) on a new scope from
+    `start` (else the startup state), counted: (per step the losses, the
+    sampled rois and the seconds, the state after, the start, the
+    launches, the executor and the scope)."""
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    names = weights.startup_names(path['startup'])
+    feed = {k: torch.as_tensor(v, device='cuda') for k, v in
+            path['feed'].items()}
+    steps, ran = [], []
+    with fluid.scope_guard(scope):
+        without_counting(lambda: exe.run(path['startup']))
+        if start is None:
+            start = snapshot(scope, names)
+        else:
+            for n, v in start.items():
+                scope.set_var(n, v.clone())
+        for _ in range(RCNN_STEPS):
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: exe.run(
+                path['main'], feed=feed,
+                fetch_list=path['losses'] + [path['s_rois']],
+                return_numpy=False))
+            torch.cuda.synchronize()
+            steps.append({'out': [v.clone() for v in out],
+                          'secs': time.perf_counter() - t0})
+            ran.append({k: n for k, n in counts.items() if n})
+        state = snapshot(scope, names)
+    return {'steps': steps, 'state': state, 'start': start, 'ran': ran,
+            'exe': exe, 'scope': scope, 'feed': feed}
+
+
+def roi_op_cases(x, rois, rng):
+    """The RoI ops at the head's shape: X the res4 map, the step's
+    sampled rois (image scale, 1 / 16 to the map)."""
+    dev = x.device
+    r = rois.shape[0]
+    scale = 1.0 / RCNN['stride']
+    cls = RCNN['classes'] // 4 + 1          # R-FCN's 21 VOC classes
+    ps_x = torch.as_tensor(rng.randn(1, cls * ROI_POOL ** 2, *RCNN['map'])
+                           .astype('float32'), device=dev)
+    trans = torch.as_tensor(rng.randn(r, 2, ROI_POOL, ROI_POOL).astype(
+        'float32') * 0.1, device=dev)
+    pooled = {'pooled_height': ROI_POOL, 'pooled_width': ROI_POOL,
+              'spatial_scale': scale}
+    return [
+        ('roi_align', {'X': [x], 'ROIs': [rois]},
+         {'pooled_height': RCNN['pool'], 'pooled_width': RCNN['pool'],
+          'spatial_scale': scale, 'sampling_ratio': 0}),
+        ('roi_pool', {'X': [x], 'ROIs': [rois]}, pooled),
+        ('psroi_pool', {'X': [ps_x], 'ROIs': [rois]},
+         dict(pooled, output_channels=cls)),
+        ('prroi_pool', {'X': [x], 'ROIs': [rois]}, pooled),
+        ('deformable_roi_pooling', {'X': [x], 'ROIs': [rois],
+                                    'Trans': [trans]},
+         dict(pooled, trans_std=0.1)),
+    ]
+
+
+def op_fwd_bwd(op, ins, attrs, seed):
+    """The op's outputs and the gradients of its float inputs (tensors
+    on the card) under cotangents drawn on the card from the seed, all
+    left on the card: a flat list."""
+    dev = torch.device('cuda', 0)
+    ctx = registry.LowerCtx(step=3, op_seed=7, device=dev)
+    opdef = registry.get(op)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    with torch.enable_grad():
+        tins = {s: [t.detach().requires_grad_() if t.is_floating_point()
+                    else t for t in v] for s, v in ins.items()}
+        outs = opdef.run(ctx, tins, attrs)
+        ys = [y for s, v in sorted(outs.items()) for y in v
+              if s not in opdef.no_grad_out_slots and y.requires_grad]
+        cts = [torch.randn(y.shape, generator=gen, device=dev) for y in ys]
+        xs = [x for v in tins.values() for x in v if x.requires_grad]
+        grads = torch.autograd.grad(ys, xs, cts, allow_unused=True)
+    torch.cuda.synchronize()
+    return [y.detach() for s in sorted(outs) for y in outs[s]] + \
+        [g for g in grads if g is not None]
+
+
+def rcnn_phase(seed, card):
+    """Phase 22 (b): the Faster R-CNN RPN and RoI head at Detectron's
+    shapes, RCNN_STEPS momentum steps twice from the same start, the
+    losses and the whole state bitwise; generate_proposals timed alone
+    on the last step's inputs; then each RoI op at the head's shape,
+    forward and backward, twice bitwise, timed."""
+    path = rcnn_path(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resting = torch.cuda.memory_allocated()
+    first = rcnn_steps(path)
+    peak = torch.cuda.max_memory_allocated() - resting
+    second = without_counting(lambda: rcnn_steps(path, first['start']))
+    for k, (a, b) in enumerate(zip(first['steps'], second['steps'])):
+        if not all(torch.equal(x, y) for x, y in zip(a['out'], b['out'])):
+            raise AssertionError('(b) step %d differs between the two runs'
+                                 % (k + 1))
+    differ = [n for n in first['state'] if not torch.equal(
+        first['state'][n], second['state'][n])]
+    if differ:
+        raise AssertionError('(b) the state after the two runs differs in '
+                             '%s' % differ[:5])
+    if not first['ran'][0].get('embedding_lookup'):
+        raise AssertionError('(b) no embedding_lookup launch: %s'
+                             % first['ran'])
+    losses = [[float(v) for v in st['out'][:5]] for st in first['steps']]
+    if not np.isfinite(losses).all():
+        raise AssertionError('(b) losses not finite: %s' % losses)
+    n_rois = [int(st['out'][5].shape[0]) for st in first['steps']]
+    # generate_proposals alone on the inputs of a step
+    gp = path['gp']
+    scope, exe = first['scope'], first['exe']
+    with fluid.scope_guard(scope):
+        names = [gp.input(s)[0] for s in ('Scores', 'BboxDeltas', 'ImInfo',
+                                           'Anchors', 'Variances')]
+        vals = without_counting(lambda: eager_run(
+            exe, path['main'], first['feed'], names, return_numpy=False))
+    gp_ins = dict(zip(('Scores', 'BboxDeltas', 'ImInfo', 'Anchors',
+                       'Variances'), ([v] for v in vals)))
+    ctx = registry.LowerCtx(step=0, device=torch.device('cuda', 0))
+    opdef = registry.get('generate_proposals')
+    gp_ms = statistics.median(without_counting(lambda: events_ms(
+        lambda: opdef.run(ctx, gp_ins, gp.attrs))) for _ in range(3))
+    rois = first['steps'][-1]['out'][5]
+    log('  (b) Faster R-CNN RPN + RoI head (%d parameters; res4 [1, %d, %d, '
+        '%d], %d gt boxes, %d classes; the res5 stage left out), %d steps of '
+        'momentum SGD twice from one start, bitwise: losses (sum, rpn cls, '
+        'rpn box, head cls, head box) %s; %s sampled rois a step; launched '
+        'a step %s' % (
+            path['params'], RCNN['channels'], *RCNN['map'], RCNN['gts'],
+            RCNN['classes'], RCNN_STEPS, [['%.4f' % v for v in row]
+                                          for row in losses],
+            n_rois, first['ran'][0]))
+    log('  (b) step %.1f ms (median, eager), generate_proposals alone %.1f ms '
+        '(%d anchors, %d pre-NMS, %d NMS steps), peak %.3f GiB over the '
+        'resident %.3f (%s | %s)' % (
+            statistics.median(st['secs'] for st in first['steps']) * 1e3,
+            gp_ms, vals[3].numel() // 4, RCNN['pre_nms'], RCNN['post_nms'],
+            peak / 2 ** 30, resting / 2 ** 30, torch.cuda.get_device_name(0),
+            card))
+    rng = np.random.RandomState(seed + 23)
+    times = []
+    for op, ins, attrs in roi_op_cases(first['feed']['res4'], rois, rng):
+        def run():
+            return without_counting(lambda: op_fwd_bwd(op, ins, attrs, seed))
+        a, b = run(), run()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError('(b) %s at the head\'s shape: second run '
+                                 'differs' % op)
+        del a, b
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = statistics.median(events_ms(run) for _ in range(3))
+        times.append('%s %.2f ms (peak %.2f GiB)' % (
+            op, ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 30))
+    log('  (b) the RoI ops on the %d rois of step %d, forward and backward, '
+        'twice bitwise: %s (%s | %s)' % (
+            rois.shape[0], RCNN_STEPS, '; '.join(times),
+            torch.cuda.get_device_name(0), card))
+    drop_graphs(path['main'], scope)
+
+
+def iou_far_from(boxes, thr, rng, redraw, margin=1e-6):
+    """boxes [M, 4] with every pair's IoU (float64) at least `margin`
+    from thr: the boxes of a pair too near are redrawn (redraw(rng, k)
+    -> [k, 4]) until none is."""
+    boxes = boxes.copy()
+    while True:
+        b = boxes.astype('float64')
+        lt = np.maximum(b[:, None, :2], b[None, :, :2])
+        rb = np.minimum(b[:, None, 2:], b[None, :, 2:])
+        inter = np.prod(np.maximum(rb - lt, 0), -1)
+        area = np.prod(b[:, 2:] - b[:, :2], -1)
+        iou = inter / np.maximum(area[:, None] + area[None] - inter, 1e-30)
+        near = np.abs(iou - thr) < margin
+        np.fill_diagonal(near, False)
+        bad = np.unique(np.nonzero(near)[0])
+        if not len(bad):
+            return boxes
+        boxes[bad] = redraw(rng, len(bad))
+
+
+def draw_boxes(rng, n, h, w, lo, hi):
+    """[n, 4] xyxy boxes with sides in [lo, hi) inside an h x w image."""
+    bw = rng.uniform(lo, hi, n)
+    bh = rng.uniform(lo, hi, n)
+    x1 = rng.uniform(0, 1, n) * (w - bw)
+    y1 = rng.uniform(0, 1, n) * (h - bh)
+    return np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype('float32')
+
+
+def detection_op_cases(rng):
+    """Every op type of item 11b's group C (detection) at a size its
+    users run, as vision_op_cases; the host ops run through a program
+    (host_op_run).  The boxes multiclass_nms gets have no pair at an IoU
+    within 1e-6 of its threshold; generate_proposals' width and height
+    deltas are 0, so its boxes (and so every NMS decision) come out of
+    the same IEEE operations on the card and on the CPU."""
+    f = lambda *s: rng.randn(*s).astype('float32')  # noqa: E731
+    ints = lambda lo, hi, *s: rng.randint(lo, hi, s).astype('int32')  # noqa
+    ssd = MOBILENET_SSD
+    img = np.zeros((1, 3, ssd['image'], ssd['image']), 'float32')
+    priors = np.concatenate([
+        registry.get('prior_box').run(registry.LowerCtx(step=0, device='cpu'), {
+            'Input': [torch.zeros(1, 1, m, m)], 'Image': [torch.as_tensor(img)]},
+            {'min_sizes': [mn], 'max_sizes': [mx] if mx else [],
+             'aspect_ratios': ar, 'flip': True, 'step_w': float(st),
+             'step_h': float(st)})['Boxes'][0].reshape(-1, 4).numpy()
+        for m, mn, mx, ar, st in zip((19, 10, 5, 3, 2, 1), ssd['min_sizes'],
+                                     ssd['max_sizes'], ssd['aspect_ratios'],
+                                     ssd['steps'])])
+    p = len(priors)
+    rh, rw = RCNN['map']
+    ih, iw = RCNN['image']
+    scale = 1.0 / RCNN['stride']
+    head = lambda n: draw_boxes(rng, n, ih, iw, 16, 400)  # noqa: E731
+    unit = lambda rg, n: draw_boxes(rg, n, 1.0, 1.0, 0.02, 0.6)  # noqa
+
+    def nms_ins():
+        boxes = np.stack([iou_far_from(unit(rng, p), SSD_NMS, rng, unit)
+                          for _ in range(8)])
+        logits = f(8, p, ssd['classes'])
+        scores = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+        return {'BBoxes': [boxes],
+                'Scores': [scores.transpose(0, 2, 1).astype('float32')]}
+
+    def anchors():
+        return registry.get('anchor_generator').run(
+            registry.LowerCtx(step=0, device='cpu'),
+            {'Input': [torch.zeros(1, 1, rh, rw)]},
+            {'anchor_sizes': RCNN['anchor_sizes'],
+             'aspect_ratios': RCNN['ratios'], 'stride': [RCNN['stride']] * 2,
+             'variances': [1.0] * 4})['Anchors'][0].numpy()
+
+    def proposals_ins():
+        a = len(RCNN['anchor_sizes']) * len(RCNN['ratios'])
+        deltas = f(1, a, 4, rh, rw) * 0.2
+        deltas[:, :, 2:] = 0.0
+        return {'Scores': [rng.rand(1, a, rh, rw).astype('float32')],
+                'BboxDeltas': [deltas.reshape(1, 4 * a, rh, rw)],
+                'ImInfo': [np.array([[ih, iw, 1.0]], 'float32')],
+                'Anchors': [anchors()],
+                'Variances': [np.ones((rh, rw, a, 4), 'float32')]}
+
+    def yolo_gt():
+        gt = np.zeros((8, 50, 4), 'float32')
+        for i in range(8):
+            k = rng.randint(1, 20)
+            gt[i, :k, :2] = rng.uniform(0.05, 0.95, (k, 2))
+            gt[i, :k, 2:] = rng.uniform(0.02, 0.6, (k, 2))
+        return gt
+
+    def ssd_gt():
+        gt = np.zeros((8, 10, 4), 'float32')
+        for i in range(8):
+            k = rng.randint(1, 10)
+            gt[i, :k] = unit(rng, k)
+        return gt
+
+    def quads(n):
+        b = head(n)
+        return np.stack([b[:, 0], b[:, 1], b[:, 2], b[:, 1], b[:, 2],
+                         b[:, 3], b[:, 0], b[:, 3]], 1) * np.float32(0.1)
+
+    fmap = lambda c: f(2, c, rh, rw)  # noqa: E731  two images' res4
+    batch = lambda n: ints(0, 2, n)  # noqa: E731
+    pooled = {'pooled_height': 7, 'pooled_width': 7, 'spatial_scale': scale}
+    rpn = {'rpn_batch_size_per_im': 256, 'rpn_fg_fraction': 0.5,
+           'rpn_positive_overlap': 0.7, 'rpn_negative_overlap': 0.3}
+    gts = lambda: head(7)[None]  # noqa: E731
+    yolo_anchors = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                    156, 198, 373, 326]
+    return [
+        # SSD's priors on MobileNet-SSD's second map, clipped and not
+        ('prior_box', lambda: {'Input': [np.zeros((1, 1, 10, 10), 'float32')],
+                               'Image': [img]},
+         {'min_sizes': [105.0], 'max_sizes': [150.0],
+          'aspect_ratios': [2.0, 3.0], 'flip': True, 'clip': False,
+          'step_w': 16.0, 'step_h': 16.0, 'offset': 0.5}),
+        ('prior_box', lambda: {'Input': [np.zeros((1, 1, 19, 19), 'float32')],
+                               'Image': [img]},
+         {'min_sizes': [60.0], 'aspect_ratios': [2.0], 'flip': True,
+          'clip': True}),
+        # SSD's decode of batch 8 and its encode of matched boxes
+        ('box_coder', lambda: {'PriorBox': [priors],
+                               'PriorBoxVar': [np.tile(np.float32(
+                                   [0.1, 0.1, 0.2, 0.2]), (p, 1))],
+                               'TargetBox': [f(8, p, 4)]},
+         {'code_type': 'decode_center_size'}),
+        ('box_coder', lambda: {'PriorBox': [priors], 'TargetBox': [unit(
+            rng, p)]}, {'code_type': 'encode_center_size'}),
+        ('iou_similarity', lambda: {'X': [unit(rng, 64)], 'Y': [priors]}, {}),
+        # YOLOv3's 13 x 13 head at 416 x 416, COCO's 80 classes
+        ('yolo_box', lambda: {'X': [f(8, 255, 13, 13)],
+                              'ImgSize': [np.full((8, 2), 416, 'int32')]},
+         {'anchors': yolo_anchors[12:], 'class_num': 80, 'conf_thresh': 0.01,
+          'downsample_ratio': 32}),
+        ('yolov3_loss', lambda: {'X': [f(8, 255, 13, 13)],
+                                 'GTBox': [yolo_gt()],
+                                 'GTLabel': [ints(0, 80, 8, 50)]},
+         {'anchors': yolo_anchors, 'anchor_mask': [6, 7, 8], 'class_num': 80,
+          'ignore_thresh': 0.7, 'downsample_ratio': 32}),
+        # SSD's detection_output NMS at batch 8
+        ('multiclass_nms', nms_ins,
+         {'score_threshold': 0.01, 'nms_top_k': 400, 'keep_top_k': 200,
+          'nms_threshold': SSD_NMS}),
+        ('ssd_loss', lambda: {'Location': [f(8, p, 4)],
+                              'Confidence': [f(8, p, ssd['classes'])],
+                              'GtBox': [ssd_gt()],
+                              'GtLabel': [ints(1, 21, 8, 10)],
+                              'PriorBox': [priors]},
+         {'overlap_threshold': 0.5, 'neg_pos_ratio': 3.0}),
+        # RetinaNet's classification loss over 20,000 anchors
+        ('sigmoid_focal_loss', lambda: {'X': [f(20000, 80)],
+                                        'Label': [ints(0, 81, 20000, 1)],
+                                        'FgNum': [np.array([150], 'int32')]},
+         {'gamma': 2.0, 'alpha': 0.25}),
+        # the R-CNN head's proposals, rois and boxes
+        ('generate_proposals', proposals_ins,
+         {'pre_nms_topN': RCNN['pre_nms'], 'post_nms_topN': RCNN['post_nms'],
+          'nms_thresh': RCNN['nms'], 'min_size': 0.0}),
+        ('roi_align', lambda: {'X': [fmap(256)], 'ROIs': [head(256)],
+                               'RoisBatch': [batch(256)]},
+         dict(pooled, sampling_ratio=2)),
+        ('roi_pool', lambda: {'X': [fmap(256)], 'ROIs': [head(128)],
+                              'RoisBatch': [batch(128)]}, pooled),
+        ('psroi_pool', lambda: {'X': [f(1, 21 * 49, rh, rw)],
+                                'ROIs': [head(300)]},
+         dict(pooled, output_channels=21)),
+        ('prroi_pool', lambda: {'X': [fmap(256)], 'ROIs': [head(128)],
+                                'BatchRoINums': [batch(128)]}, pooled),
+        ('deformable_roi_pooling',
+         lambda: {'X': [fmap(256)], 'ROIs': [head(128)],
+                  'RoisBatch': [batch(128)],
+                  'Trans': [f(128, 2, 7, 7) * 0.1]},
+         dict(pooled, trans_std=0.1)),
+        ('anchor_generator', lambda: {'Input': [np.zeros((1, 1, rh, rw),
+                                                         'float32')]},
+         {'anchor_sizes': RCNN['anchor_sizes'],
+          'aspect_ratios': RCNN['ratios'], 'stride': [RCNN['stride']] * 2,
+          'variances': [0.1, 0.1, 0.2, 0.2], 'offset': 0.5}),
+        # FaceBoxes' densified anchors on its 32 x 32 map at 1024
+        ('density_prior_box',
+         lambda: {'Input': [np.zeros((1, 1, 32, 32), 'float32')],
+                  'Image': [np.zeros((1, 3, 1024, 1024), 'float32')]},
+         {'fixed_sizes': [32.0, 64.0, 128.0], 'fixed_ratios': [1.0],
+          'densities': [4, 2, 1], 'variances': [0.1, 0.1, 0.2, 0.2]}),
+        ('box_clip', lambda: {'Input': [head(2000) * np.float32(1.2) - 50],
+                              'ImInfo': [np.array([[ih, iw, 1.0]],
+                                                  'float32')]}, {}),
+        ('box_decoder_and_assign',
+         lambda: {'PriorBox': [head(512)], 'TargetBox': [f(512, 324) * 0.1],
+                  'BoxScore': [f(512, 81)]}, {'box_clip': 4.135}),
+        # EAST's geometry map; SSD's targets of batch 8
+        ('polygon_box_transform', lambda: {'Input': [f(8, 8, 128, 128)]}, {}),
+        ('target_assign', lambda: {'X': [ssd_gt()],
+                                   'MatchIndices': [ints(-1, 10, 8, p)]},
+         {'mismatch_value': 0}),
+        # the host ops
+        ('rpn_target_assign', lambda: {'Anchor': [anchors()],
+                                       'GtBoxes': [gts()]}, rpn),
+        ('retinanet_target_assign', lambda: {'Anchor': [anchors()],
+                                             'GtBoxes': [gts()]},
+         dict(rpn, rpn_positive_overlap=0.5, rpn_negative_overlap=0.4)),
+        ('generate_proposal_labels',
+         lambda: {'RpnRois': [head(RCNN['post_nms'])],
+                  'GtClasses': [ints(1, 81, 7, 1)], 'GtBoxes': [head(7)]},
+         {'batch_size_per_im': 512, 'fg_fraction': 0.25, 'fg_thresh': 0.5,
+          'bg_thresh_hi': 0.5, 'bg_thresh_lo': 0.0}),
+        ('generate_mask_labels', lambda: {'Rois': [head(128)]},
+         {'resolution': 14}),
+        ('distribute_fpn_proposals',
+         lambda: {'FpnRois': [draw_boxes(rng, 2000, ih, iw, 16, 790)]},
+         {'min_level': 2, 'max_level': 5, 'refer_level': 4,
+          'refer_scale': 224}),
+        ('collect_fpn_proposals',
+         lambda: {'MultiLevelRois': [head(500) for _ in range(4)],
+                  'MultiLevelScores': [rng.rand(500, 1).astype('float32')
+                                       for _ in range(4)]},
+         {'post_nms_topN': 2000}),
+        ('locality_aware_nms', lambda: {'BBoxes': [quads(1000)[None]],
+                                        'Scores': [rng.rand(1, 1, 1000)
+                                                   .astype('float32')]},
+         {'nms_threshold': 0.3, 'keep_top_k': 200}),
+        ('roi_perspective_transform',
+         lambda: {'X': [f(1, 64, 128, 128)], 'ROIs': [quads(100)]},
+         {'transformed_height': 8, 'transformed_width': 64,
+          'spatial_scale': 1.0}),
+        ('bipartite_match', lambda: {'DistMat': [rng.rand(10, p).astype(
+            'float32')]}, {'match_type': 'per_prediction',
+                           'dist_threshold': 0.5}),
+    ]
+
+
+def detection_ops_phase(seed, dev):
+    """Phase 22 (c): every op type of item 11b's group C on the card
+    against the CPU, as ops_against_cpu holds them (floats within
+    DET_TOL), twice bitwise, none exempt."""
+    cases = detection_op_cases(np.random.RandomState(seed + 24))
+    worst, n_out = ops_against_cpu(cases, dev, seed, DET_TOL)
+    log('  (c) %d op types (%d cases, %d outputs and gradients) on the card '
+        'against the CPU (integers exact, floats within %g of the largest '
+        'magnitude; worst %.1e), every one twice bitwise' % (
+            len({op for op, _, _ in cases}), len(cases), n_out, DET_TOL,
+            worst))
+
+
+def detection_phase(seed, dev):
+    """Phase 22: item 11b's group C."""
+    card = card_line()
+    log('[22] detection: MobileNet-SSD, the Faster R-CNN RPN and RoI head, '
+        'the op types of 11b-C (%s | %s)' % (
+            torch.cuda.get_device_name(0), card))
+    saved = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for key, fn in (('a', lambda: ssd_phase(seed, card)),
+                        ('b', lambda: rcnn_phase(seed, card)),
+                        ('c', lambda: without_counting(
+                            lambda: detection_ops_phase(seed, dev)))):
+            t0 = time.perf_counter()
+            fn()
+            gc.collect()
+            torch.cuda.empty_cache()
+            log('  (%s): %.1f s' % (key, time.perf_counter() - t0))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -9319,6 +10220,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     vision_loss_phase(args.seed, dev)
     log('  phase 21: %.1f s' % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    detection_phase(args.seed, dev)
+    log('  phase 22: %.1f s' % (time.perf_counter() - t0))
     # each row's launches at the wrappers and replayed from CUDA graphs'
     # manifests on the main path, as counted() read them in this
     # process; the data-parallel rows, as the ranks of phases 9 and 12

@@ -2,7 +2,7 @@
 structured-prediction models, the learning-rate schedules, gradient
 clipping, control flow, beam-search decoding, the distributions and
 ordinary Fluid scripts (the core math, activation, tensor, dense
-vision and loss layers) use (reference:
+vision, loss and detection layers) use (reference:
 python/paddle/fluid/layers/)."""
 
 from . import nn  # noqa: F401
@@ -17,6 +17,7 @@ from . import rnn  # noqa: F401
 from . import extras  # noqa: F401
 from . import more_layers  # noqa: F401
 from . import distributions  # noqa: F401
+from . import detection  # noqa: F401
 
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
@@ -42,5 +43,6 @@ from .sequence_lod import (  # noqa: F401
     sequence_expand_as, sequence_scatter, lod_reset, sequence_mask)
 from .extras import *  # noqa: F401,F403
 from .more_layers import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
 from .distributions import (Uniform, Normal, Categorical,  # noqa: F401
                             MultivariateNormalDiag)

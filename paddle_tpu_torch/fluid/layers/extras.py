@@ -1,8 +1,8 @@
 """Layers of the JAX package's layers/extras.py that the port lowers:
 the 3-D convolution and pooling, trilinear resize and pixel layers
-(ROADMAP Queue 1 item 11b-A) and the ranking, distillation and misc
-losses and helpers (item 11b-B).  Its ROI and detection-anchor layers
-come with the detection group (item 11b-C); its brelu, selu and stanh
+(ROADMAP Queue 1 item 11b-A), the ranking, distillation and misc
+losses and helpers (item 11b-B), and the RoI pools and detection
+anchors (item 11b-C); its brelu, selu and stanh
 are in layers/more_layers.py, and crop_tensor is more_layers.py's, as
 in the JAX package's namespace.  Each appends the ops the JAX package's
 layer appends (reference python/paddle/fluid/layers/nn.py, detection.py
@@ -18,7 +18,8 @@ __all__ = ['conv3d', 'conv3d_transpose', 'pool3d', 'resize_trilinear',
            'center_loss', 'cvm', 'npair_loss', 'mean_iou', 'shard_index',
            'multiplex', 'bilinear_tensor_product', 'sampling_id',
            'random_crop', 'scatter_nd_add', 'pad_constant_like',
-           'fsp_matrix']
+           'fsp_matrix', 'roi_pool', 'psroi_pool', 'anchor_generator',
+           'density_prior_box', 'box_clip', 'bipartite_match']
 
 
 def _simple(op_type, inputs, outputs_spec, attrs=None, dtype=None,
@@ -163,6 +164,73 @@ def spp(input, pyramid_height=3, pool_type='max', name=None):
     return _simple('spp', {'X': input}, [('Out', input.dtype)],
                    {'pyramid_height': pyramid_height,
                     'pooling_type': pool_type}, name=name)
+
+
+# ------------------------------------------------------ RoI pools
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0, rois_batch=None, name=None):
+    inputs = {'X': input, 'ROIs': rois}
+    if rois_batch is not None:
+        inputs['RoisBatch'] = rois_batch
+    out, argmax = _simple('roi_pool', inputs,
+                          [('Out', input.dtype), ('Argmax', 'int64')],
+                          {'pooled_height': pooled_height,
+                           'pooled_width': pooled_width,
+                           'spatial_scale': spatial_scale}, name=name)
+    return out
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale,
+               pooled_height, pooled_width, rois_batch=None, name=None):
+    inputs = {'X': input, 'ROIs': rois}
+    if rois_batch is not None:
+        inputs['RoisBatch'] = rois_batch
+    return _simple('psroi_pool', inputs, [('Out', input.dtype)],
+                   {'output_channels': output_channels,
+                    'spatial_scale': spatial_scale,
+                    'pooled_height': pooled_height,
+                    'pooled_width': pooled_width}, name=name)
+
+
+# -------------------------------------------------------------- detection
+
+def anchor_generator(input, anchor_sizes, aspect_ratios, stride,
+                     variance=(0.1, 0.1, 0.2, 0.2), offset=0.5,
+                     name=None):
+    return _simple('anchor_generator', {'Input': input},
+                   [('Anchors', input.dtype), ('Variances', input.dtype)],
+                   {'anchor_sizes': list(anchor_sizes),
+                    'aspect_ratios': list(aspect_ratios),
+                    'stride': list(stride), 'variances': list(variance),
+                    'offset': offset}, name=name)
+
+
+def density_prior_box(input, image, fixed_sizes, fixed_ratios, densities,
+                      variance=(0.1, 0.1, 0.2, 0.2), offset=0.5,
+                      name=None):
+    return _simple('density_prior_box', {'Input': input, 'Image': image},
+                   [('Boxes', input.dtype), ('Variances', input.dtype)],
+                   {'fixed_sizes': list(fixed_sizes),
+                    'fixed_ratios': list(fixed_ratios),
+                    'densities': list(densities),
+                    'variances': list(variance), 'offset': offset},
+                   name=name)
+
+
+def box_clip(input, im_info, name=None):
+    return _simple('box_clip', {'Input': input, 'ImInfo': im_info},
+                   [('Output', input.dtype)], name=name)
+
+
+def bipartite_match(dist_matrix, match_type='bipartite',
+                    dist_threshold=0.5, name=None):
+    return _simple('bipartite_match', {'DistMat': dist_matrix},
+                   [('ColToRowMatchIndices', 'int32'),
+                    ('ColToRowMatchDist', 'float32')],
+                   {'match_type': match_type,
+                    'dist_threshold': dist_threshold}, name=name,
+                   infer_shape=False)
 
 
 # ---------------------------------------------------------------- losses

@@ -10,7 +10,8 @@ soft_relu and image_resize_short; adaptive_pool3d, crop, crop_tensor
 and deformable_conv (ROADMAP Queue 1 item 11b-A);
 add_position_encoding, continuous_value_model, data_norm, hash,
 scatter_nd, similarity_focus, spectral_norm, unique and
-unique_with_counts (item 11b-B); and brelu, selu and stanh of its
+unique_with_counts (item 11b-B); roi_align, prroi_pool and
+deformable_roi_pooling (item 11b-C); and brelu, selu and stanh of its
 layers/extras.py.
 Each appends the ops the JAX package's layer appends (reference
 python/paddle/fluid/layers/nn.py and loss.py)."""
@@ -34,7 +35,8 @@ __all__ = ['elementwise_mod', 'elementwise_floordiv', 'im2sequence',
            'crop_tensor', 'deformable_conv', 'add_position_encoding',
            'continuous_value_model', 'data_norm', 'hash', 'scatter_nd',
            'similarity_focus', 'spectral_norm', 'unique',
-           'unique_with_counts']
+           'unique_with_counts', 'roi_align', 'prroi_pool',
+           'deformable_roi_pooling']
 
 
 def _simple(op_type, inputs, attrs=None, dtype=None, out_slot='Out',
@@ -535,3 +537,49 @@ def unique_with_counts(x, dtype='int32'):
                               'Count': count},
                      infer_shape=False)
     return out, index, count
+
+
+def roi_align(input, rois, pooled_height=1, pooled_width=1,
+              spatial_scale=1.0, sampling_ratio=-1, name=None,
+              rois_num=None):
+    ins = {'X': input, 'ROIs': rois}
+    if rois_num is not None:
+        ins['RoisBatch'] = rois_num
+    return _simple('roi_align', ins,
+                   {'pooled_height': pooled_height,
+                    'pooled_width': pooled_width,
+                    'spatial_scale': spatial_scale,
+                    'sampling_ratio': sampling_ratio}, name=name)
+
+
+def prroi_pool(input, rois, spatial_scale=1.0, pooled_height=1,
+               pooled_width=1, batch_roi_nums=None, name=None):
+    ins = {'X': input, 'ROIs': rois}
+    if batch_roi_nums is not None:
+        ins['BatchRoINums'] = batch_roi_nums
+    return _simple('prroi_pool', ins,
+                   {'spatial_scale': spatial_scale,
+                    'pooled_height': pooled_height,
+                    'pooled_width': pooled_width}, name=name)
+
+
+def deformable_roi_pooling(input, rois, trans, no_trans=False,
+                           spatial_scale=1.0, group_size=(1, 1),
+                           pooled_height=1, pooled_width=1,
+                           part_size=None, sample_per_part=1,
+                           trans_std=0.1, position_sensitive=False,
+                           name=None):
+    helper = LayerHelper('deformable_roi_pooling', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    top = helper.create_variable_for_type_inference(input.dtype)
+    ins = {'X': input, 'ROIs': rois}
+    if not no_trans and trans is not None:
+        ins['Trans'] = trans
+    helper.append_op('deformable_roi_pooling', inputs=ins,
+                     outputs={'Output': out, 'TopCount': top},
+                     attrs={'spatial_scale': spatial_scale,
+                            'pooled_height': pooled_height,
+                            'pooled_width': pooled_width,
+                            'trans_std': trans_std},
+                     infer_shape=False)
+    return out

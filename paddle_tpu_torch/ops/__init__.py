@@ -18,3 +18,5 @@ from . import sequence_ops  # noqa: F401
 from . import rnn_ops  # noqa: F401
 from . import lang_ops  # noqa: F401
 from . import vision_ops  # noqa: F401
+from . import detection_ops  # noqa: F401
+from . import detection_host_ops  # noqa: F401

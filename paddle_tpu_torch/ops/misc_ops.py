@@ -5,10 +5,10 @@ every length bucket of a padded batch.  Beside them, two of the JAX
 module's control-flow helpers (is_empty and reorder_lod_tensor_by_rank),
 eye, tensor_array_to_tensor, rank, soft_relu,
 gaussian_random_batch_size_like, add_position_encoding,
-continuous_value_model, hash, scatter_nd, similarity_focus and the host
-op unique (decayed_adagrad is with the other updates in
-ops/optimizer_ops.py; the module's detection ops come with ROADMAP
-Queue 1 item 11b-C).
+continuous_value_model, hash, scatter_nd, similarity_focus, the host
+op unique and the detection helpers polygon_box_transform,
+target_assign and deformable_roi_pooling (decayed_adagrad is with the
+other updates in ops/optimizer_ops.py).
 
 Reference: operators/add_position_encoding_op.cc computed the encoding
 per LoD batch on the host.
@@ -19,6 +19,8 @@ import torch
 
 from ..fluid import core
 from . import loss_ops, tensor_ops
+from .detection_ops import _div, _full, _maximum, _roi_batch
+from .kernels.embedding import embedding_lookup
 from .kernels.flash_attention import mul32
 from .registry import _M32, register, register_host
 
@@ -212,3 +214,90 @@ def unique(ctx, op, ins):
         outs['Index'] = [torch.as_tensor(index.astype(np.int32),
                                          device=ctx.device)]
     return outs
+
+
+@register('polygon_box_transform')
+def polygon_box_transform(ctx, ins, attrs):
+    """EAST's quad offsets [B, G, H, W] to coordinates: 4 times the
+    pixel's x (even channels) or y (odd channels) minus the input."""
+    x = ins['Input'][0]
+    b, g, h, w = x.shape
+    xs = torch.arange(w, dtype=x.dtype, device=x.device).expand(b, g, h, w)
+    ys = torch.arange(h, dtype=x.dtype, device=x.device)[:, None].expand(
+        b, g, h, w)
+    even = (torch.arange(g, device=x.device) % 2 == 0)[None, :, None, None]
+    return {'Out': [4 * torch.where(even, xs, ys) - x]}
+
+
+@register('target_assign')
+def target_assign(ctx, ins, attrs):
+    """Out [N, P, K]: row MatchIndices[n, p] of X [N, M, K] where that
+    index is >= 0, mismatch_value elsewhere; OutWeight 1 at the matched
+    rows, 0 elsewhere.  A floating X's rows come through the embedding
+    gather (two priors may take one row), so its gradient adds by the
+    sorted scatter-add."""
+    x = ins['X'][0]
+    match = ins['MatchIndices'][0]
+    n, m, k = x.shape
+    idx = match.long().clamp_min(0)
+    if x.is_floating_point():
+        ids = torch.arange(n, device=x.device)[:, None] * m + idx
+        got = embedding_lookup(x.reshape(n * m, k), ids)
+    else:
+        got = x.gather(1, idx[..., None].expand(n, idx.shape[1], k))
+    matched = (match >= 0)[..., None]
+    out = torch.where(matched, got, _full(x, attrs.get('mismatch_value', 0)))
+    return {'Out': [out], 'OutWeight': [matched.to(x.dtype)]}
+
+
+@register('deformable_roi_pooling')
+def deformable_roi_pooling(ctx, ins, attrs):
+    """Deformable RoI pooling as the JAX lowering renders it: bin (i, j)
+    of roi k (xyxy times spatial_scale, bins at least 1 / pooled) one
+    bilinear sample of X at the bin's centre moved by Trans[k mod T, :,
+    i, j] times trans_std and the bin size, clipped into the map;
+    TopCount ones.  The taps (rows of X channels-last) and each roi's
+    offsets (rows of Trans) come through the embedding gather, so both
+    gradients add by the sorted scatter-add."""
+    x, rois = ins['X'][0], ins['ROIs'][0].reshape(-1, 4)
+    bi = _roi_batch(ins, 'RoisBatch', rois)
+    offs = ins.get('Trans', [None])[0]
+    scale = attrs.get('spatial_scale', 1.0)
+    size = attrs.get('pooled_size')
+    ph = attrs.get('pooled_height', size[0] if isinstance(
+        size, (list, tuple)) else 7)
+    pw = attrs.get('pooled_width', ph)
+    std = attrs.get('trans_std', 0.1)
+    n, c, h, w = x.shape
+    r = rois.shape[0]
+    q = rois * scale
+    x1, y1, x2, y2 = (q[:, i, None, None] for i in range(4))
+    bw = _div(_maximum(x2 - x1, 1.0), pw)
+    bh = _div(_maximum(y2 - y1, 1.0), ph)
+    ar = lambda k: torch.arange(k, dtype=x.dtype, device=x.device)  # noqa
+    ys = y1 + (ar(ph)[:, None] + 0.5) * bh                    # [R, PH, 1]
+    xs = x1 + (ar(pw)[None, :] + 0.5) * bw                    # [R, 1, PW]
+    if offs is not None and offs.dim() >= 4:
+        t = offs.shape[0]
+        rows = offs[:, :2, :ph, :pw].reshape(t, 2 * ph * pw)
+        own = embedding_lookup(rows, torch.arange(r, device=x.device) % t)
+        own = own.reshape(r, 2, ph, pw)
+        ys = ys + own[:, 0] * std * bh
+        xs = xs + own[:, 1] * std * bw
+    else:
+        ys, xs = ys.expand(r, ph, pw), xs.expand(r, ph, pw)
+    yy = torch.minimum(_maximum(ys, 0.0), _full(ys, h - 1))
+    xx = torch.minimum(_maximum(xs, 0.0), _full(xs, w - 1))
+    y0, x0 = torch.floor(yy).long(), torch.floor(xx).long()
+    y1i, x1i = (y0 + 1).clamp_max(h - 1), (x0 + 1).clamp_max(w - 1)
+    wy, wx = yy - y0.to(x.dtype), xx - x0.to(x.dtype)
+    base = bi.reshape(-1, 1, 1) * h
+    ids = torch.stack([(base + a) * w + b for a, b in
+                       ((y0, x0), (y1i, x0), (y0, x1i), (y1i, x1i))], -1)
+    vals = embedding_lookup(x.permute(0, 2, 3, 1).reshape(n * h * w, c), ids)
+    out = (vals[..., 0, :] * ((1 - wy) * (1 - wx))[..., None] +
+           vals[..., 1, :] * (wy * (1 - wx))[..., None] +
+           vals[..., 2, :] * ((1 - wy) * wx)[..., None] +
+           vals[..., 3, :] * (wy * wx)[..., None])           # [R, PH, PW, C]
+    out = out.permute(0, 3, 1, 2)
+    return {'Output': [out], 'TopCount': [torch.ones_like(out).detach()]}

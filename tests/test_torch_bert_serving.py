@@ -216,9 +216,9 @@ def test_naive_attention_program_raises_in_executor():
         out, = exe.run(main, feed=_requests((1,))[0], fetch_list=[enc])
         assert out.shape == (1, SEQ, 64) and np.isfinite(out).all()
         block = main.global_block()
-        boxes = block.create_var(name='boxes', shape=(), dtype='float32')
-        block.append_op('prior_box', inputs={'Input': [enc.name]},
-                        outputs={'Boxes': [boxes.name]},
+        hidden = block.create_var(name='hidden', shape=(), dtype='float32')
+        block.append_op('fusion_gru', inputs={'X': [enc.name]},
+                        outputs={'Hidden': [hidden.name]},
                         infer_shape=False)
-        with pytest.raises(NotImplementedError, match="'prior_box'"):
+        with pytest.raises(NotImplementedError, match="'fusion_gru'"):
             exe.run(main, feed=_requests((1,))[0], fetch_list=[enc])

@@ -14,7 +14,8 @@ runs every op type of the core slice on the card, phase 20 (c) every
 op type of the nn slice (NN_SLICE_OPS: item 11b's nn_ops group and the
 four op types item 11a's layers emit), and phase 21 (c) every op type
 of item 11b's groups A (VISION_OPS) and B (LOSS_MISC_OPS), whose
-layers (VISION_LAYERS, LOSS_MISC_LAYERS) the port has too.
+layers (VISION_LAYERS, LOSS_MISC_LAYERS) the port has too, and phase
+22 (c) every op type of group C (DETECTION_OPS, with DETECTION_LAYERS).
 """
 
 import collections
@@ -154,6 +155,33 @@ LOSS_MISC_LAYERS = {
     'MultivariateNormalDiag',
 }
 
+# item 11b-C, detection: JAX ops/detection_ops.py and
+# ops/detection_host_ops.py, the ROI and anchor ops of ops/vision_ops.py
+# and three of ops/misc_ops.py, with their layers
+DETECTION_OPS = {
+    'prior_box', 'box_coder', 'iou_similarity', 'yolo_box', 'multiclass_nms',
+    'roi_align', 'generate_proposals', 'sigmoid_focal_loss', 'yolov3_loss',
+    'ssd_loss', 'rpn_target_assign', 'retinanet_target_assign',
+    'generate_proposal_labels', 'generate_mask_labels',
+    'distribute_fpn_proposals', 'collect_fpn_proposals',
+    'locality_aware_nms', 'roi_perspective_transform',
+    'box_decoder_and_assign', 'roi_pool', 'psroi_pool', 'anchor_generator',
+    'density_prior_box', 'box_clip', 'bipartite_match', 'prroi_pool',
+    'polygon_box_transform', 'target_assign', 'deformable_roi_pooling',
+}
+DETECTION_LAYERS = {
+    'prior_box', 'box_coder', 'iou_similarity', 'yolo_box', 'yolov3_loss',
+    'multiclass_nms', 'sigmoid_focal_loss', 'generate_proposals',
+    'detection_output', 'multi_box_head', 'ssd_loss', 'target_assign',
+    'polygon_box_transform', 'rpn_target_assign', 'retinanet_target_assign',
+    'retinanet_detection_output', 'generate_proposal_labels',
+    'generate_mask_labels', 'distribute_fpn_proposals',
+    'collect_fpn_proposals', 'locality_aware_nms',
+    'roi_perspective_transform', 'box_decoder_and_assign', 'roi_pool',
+    'psroi_pool', 'anchor_generator', 'density_prior_box', 'box_clip',
+    'bipartite_match', 'roi_align', 'prroi_pool', 'deformable_roi_pooling',
+}
+
 SLICE_LAYERS = {
     'mul', 'elementwise_pow', 'reduce_mean', 'reduce_max', 'reduce_min',
     'reduce_prod', 'reduce_all', 'reduce_any', 'clip', 'clip_by_norm',
@@ -191,14 +219,14 @@ OP_MODULE_ITEM = {
 }
 
 # the most that may be missing, by item: the counts at this slice
-MISSING_OPS = {'11b': 46, '13': 7, '14': 10}
+MISSING_OPS = {'11b': 17, '13': 7, '14': 10}
 
 # the JAX layers module of a missing layer -> its item
 LAYER_MODULE_ITEM = {
     'detection': '11b', 'distributions': '11b', 'extras': '11b',
     'more_layers': '11b', 'nn': '11b', 'parallel_layers': '13',
 }
-MISSING_LAYERS = {'11b': 34, '13': 2}  # the most, as MISSING_OPS
+MISSING_LAYERS = {'11b': 2, '13': 2}  # the most, as MISSING_OPS
 
 FLUID_NAME_ITEM = {
     'DistributeTranspiler': '14', 'DistributeTranspilerConfig': '14',
@@ -301,6 +329,26 @@ def test_vision_and_loss_groups_in_the_port_and_on_the_card():
     assert LOSS_MISC_OPS <= cases, sorted(LOSS_MISC_OPS - cases)
     from paddle_tpu_torch.fluid import nets
     assert callable(nets.scaled_dot_product_attention)
+
+
+def test_detection_group_in_the_port_and_on_the_card():
+    """Item 11b's group C: the port has its op types and layers, and
+    chip_smoke.py's detection_op_cases has a case of every op type (the
+    host ops among them run through a program)."""
+    assert (len(DETECTION_OPS), len(DETECTION_LAYERS)) == (29, 32)
+    jops = exports()['jax']['ops']
+    assert {jops[t] for t in DETECTION_OPS} == {
+        'detection_ops', 'detection_host_ops', 'vision_ops', 'misc_ops'}
+    tt = set(exports()['torch']['ops'])
+    assert DETECTION_OPS <= tt, sorted(DETECTION_OPS - tt)
+    jl = exports()['jax']['layers']
+    assert {jl[n] for n in DETECTION_LAYERS} == {'detection', 'extras',
+                                                  'more_layers'}
+    tl = set(exports()['torch']['layers'])
+    assert DETECTION_LAYERS <= tl, sorted(DETECTION_LAYERS - tl)
+    cases = {op for op, _, _ in _chip_smoke().detection_op_cases(
+        np.random.RandomState(0))}
+    assert DETECTION_OPS <= cases, sorted(DETECTION_OPS - cases)
 
 
 def test_optimizer_classes():

@@ -32,7 +32,7 @@ def test_lowering_matches_jax(case):
 def test_unlowered_op_raises_not_implemented():
     # softmax has a lowering since the image slice, matmul since the
     # attention chain below seq 512, sequence_pool since the sequence
-    # ops, linear_chain_crf since the rest of lang_ops; prior_box waits
-    # for the detection ops
-    with pytest.raises(NotImplementedError, match="'prior_box'"):
-        treg.get('prior_box')
+    # ops, linear_chain_crf since the rest of lang_ops, prior_box since
+    # the detection ops; fusion_gru waits for the fused ops
+    with pytest.raises(NotImplementedError, match="'fusion_gru'"):
+        treg.get('fusion_gru')
